@@ -4,7 +4,9 @@ Both packages keep the same trees: nested dicts with the same keys, the
 stacked ``[n_blocks, ...]`` block axis on parameters and ``[n_blocks,
 batch, ...]`` on caches. A tree crosses as numpy arrays (``jax.tree.map
 (np.asarray, tree)`` on the JAX side), leaf for leaf; dtypes are kept,
-bf16 included, and cache positions stay int32.
+bf16 included, and cache positions and block tables stay int32. The
+mapping is generic over the tree, so contiguous and paged caches cross
+the same way.
 """
 from __future__ import annotations
 
@@ -68,8 +70,12 @@ def params_to_numpy(params) -> Dict[str, Any]:
 
 
 def cache_from_jax(tree, device=None) -> Dict[str, Any]:
-    """The port's stacked cache from a JAX cache tree of numpy arrays
-    (``k``, ``v``, ``pos`` int32, ``step`` int32 per sub-cache)."""
+    """The port's stacked cache from a JAX cache tree of numpy arrays:
+    contiguous (``k``, ``v``, ``pos`` int32, ``step`` int32 per
+    sub-cache) or paged (``kp``, ``vp``, ``bt`` int32, ``pos``,
+    ``step``). Leaves may be read-only or broadcast views (a JAX engine's
+    pushed block tables are ``np.broadcast_to`` views): each is copied
+    into a tensor of its own."""
     device = resolve_device(device)
     return _map(tree, lambda a: _to_torch(a, device))
 

@@ -1,8 +1,23 @@
-// Decode attention over a contiguous KV ring, hand-written for Hopper.
+// Decode attention over a contiguous KV ring or a paged KV pool,
+// hand-written for Hopper.
 //
 // Replaces: src/repro/kernels/decode_attention/kernel.py,
 //   decode_attention_pallas (body _decode_kernel), the Pallas TPU kernel
-//   behind every cached decode step and every chunked-prefill extend.
+//   behind every cached decode step and every chunked-prefill extend, and
+//   paged_decode_attention_pallas (body _paged_decode_kernel), the same
+//   work over a paged cache (Engine(paged=True)).
+//
+// Paged layout: K/V live in a pool (P+1, ps, Hkv, hd) whose last page is
+// the trash page; logical row s of sequence b is pool page
+// bt[b, s / ps] at offset s % ps. The paged kernel is the same template
+// instantiated with PAGED = true: only the address of a K/V row differs,
+// so masks, tile order and the online softmax are untouched and the
+// paged kernel gives exactly the contiguous kernel's output on the same
+// logical data (S = NB * ps). Any page size whose rows keep 16-byte
+// alignment works, independent of the tile BK: a tile may span pages.
+// Where the Pallas kernel fetches a page per grid step through a
+// scalar-prefetch index map, each thread here reads the block-table
+// entry of the row it loads.
 //
 // What it computes (exactly decode_attention_reference): T query rows of
 // each sequence attend, with an online softmax in f32, over its cache of
@@ -110,9 +125,14 @@ struct Args {
   long long v_sb, v_ss, v_sh;
   long long pos_sb;
   float scale;
+  // paged only: block table (B, NB) int32 contiguous, page size, and the
+  // pool's page strides (k_sb/v_sb are unused)
+  const int* bt;
+  int NB, ps;
+  long long k_sp, v_sp;
 };
 
-template <typename T, int HD, int BK>
+template <typename T, int HD, int BK, bool PAGED>
 __global__ void __launch_bounds__(THREADS) decode_attention_kernel(Args a) {
   constexpr int NK = BK / 32;  // slots a lane scores per tile
   constexpr int ND = HD / 32;  // output dimensions a lane accumulates
@@ -134,8 +154,14 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(Args a) {
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const T* q = static_cast<const T*>(a.q);
-  const T* kc = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const T* vc = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  // K/V row s of this (sequence, head): kc + row offset, 64-bit
+  const T* kc = static_cast<const T*>(a.k) + kvh * a.k_sh;
+  const T* vc = static_cast<const T*>(a.v) + kvh * a.v_sh;
+  if constexpr (!PAGED) {
+    kc += b * a.k_sb;
+    vc += b * a.v_sb;
+  }
+  const int* btr = PAGED ? a.bt + static_cast<long long>(b) * a.NB : nullptr;
   const int* pos = a.pos + b * a.pos_sb;
 
   // sQ row i holds tile row i; warp w owns tile rows w, w + WARPS, ...
@@ -173,8 +199,18 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(Args a) {
       const int s = k0 + i / VPR, c = (i % VPR) * VN;
       kreg[j] = vreg[j] = make_uint4(0u, 0u, 0u, 0u);
       if (s < a.S) {
-        kreg[j] = *reinterpret_cast<const uint4*>(kc + s * a.k_ss + c);
-        vreg[j] = *reinterpret_cast<const uint4*>(vc + s * a.v_ss + c);
+        long long ko, vo;
+        if constexpr (PAGED) {
+          const long long page = btr[s / a.ps];
+          const long long off = s % a.ps;
+          ko = page * a.k_sp + off * a.k_ss;
+          vo = page * a.v_sp + off * a.v_ss;
+        } else {
+          ko = s * a.k_ss;
+          vo = s * a.v_ss;
+        }
+        kreg[j] = *reinterpret_cast<const uint4*>(kc + ko + c);
+        vreg[j] = *reinterpret_cast<const uint4*>(vc + vo + c);
       }
     }
     preg = tid < BK && k0 + tid < a.S ? pos[k0 + tid] : -1;
@@ -269,22 +305,30 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(Args a) {
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool PAGED>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr int BK = HD <= 64 ? 64 : 32;  // keeps shared memory < 48 KB
   const dim3 grid(a.B * a.Hkv, (a.R + ROWS - 1) / ROWS);
-  decode_attention_kernel<T, HD, BK><<<grid, THREADS, 0, stream>>>(a);
+  decode_attention_kernel<T, HD, BK, PAGED><<<grid, THREADS, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool PAGED>
 int launch_hd(const Args& a, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<T, 32>(a, stream);
-    case 64: return launch<T, 64>(a, stream);
-    case 128: return launch<T, 128>(a, stream);
+    case 32: return launch<T, 32, PAGED>(a, stream);
+    case 64: return launch<T, 64, PAGED>(a, stream);
+    case 128: return launch<T, 128, PAGED>(a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <bool PAGED>
+int launch_dtype(const Args& a, int hd, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_hd<float, PAGED>(a, hd, st);
+  if (dtype == 1) return launch_hd<__nv_bfloat16, PAGED>(a, hd, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -326,8 +370,55 @@ extern "C" int decode_attention_launch(
   a.v_sh = v_sh;
   a.pos_sb = pos_sb;
   a.scale = 1.0f / sqrtf(static_cast<float>(hd));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_hd<float>(a, hd, st);
-  if (dtype == 1) return launch_hd<__nv_bfloat16>(a, hd, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  a.bt = nullptr;
+  a.NB = a.ps = 0;
+  a.k_sp = a.v_sp = 0;
+  return launch_dtype<false>(a, hd, dtype, stream);
+}
+
+// The paged entry point. kp, vp: pools (P+1, ps, Hkv, hd) with strides
+// k_sp/v_sp (page), k_ss/v_ss (row in page), k_sh/v_sh (head); bt: (B,
+// NB) int32 contiguous, every entry in [0, P]; pos: (B, NB*ps) int32
+// with row stride pos_sb. Other arguments as above.
+extern "C" int paged_decode_attention_launch(
+    const void* q, const void* kp, const void* vp, const void* bt,
+    const void* pos, const void* qpos, void* out, int B, int T, int Hq,
+    int Hkv, int NB, int ps, int hd, long long q_sb, long long q_st,
+    long long q_sh, long long k_sp, long long k_ss, long long k_sh,
+    long long v_sp, long long v_ss, long long v_sh, long long pos_sb,
+    int window, int dtype, void* stream) {
+  if (B <= 0 || T <= 0 || NB <= 0 || ps <= 0 || Hkv <= 0 || Hq % Hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  a.q = q;
+  a.k = kp;
+  a.v = vp;
+  a.pos = static_cast<const int*>(pos);
+  a.qpos = static_cast<const int*>(qpos);
+  a.out = out;
+  a.B = B;
+  a.T = T;
+  a.Hq = Hq;
+  a.Hkv = Hkv;
+  a.S = NB * ps;
+  a.G = Hq / Hkv;
+  a.R = T * a.G;
+  a.window = window;
+  a.q_sb = q_sb;
+  a.q_st = q_st;
+  a.q_sh = q_sh;
+  a.k_sb = 0;
+  a.k_ss = k_ss;
+  a.k_sh = k_sh;
+  a.v_sb = 0;
+  a.v_ss = v_ss;
+  a.v_sh = v_sh;
+  a.pos_sb = pos_sb;
+  a.scale = 1.0f / sqrtf(static_cast<float>(hd));
+  a.bt = static_cast<const int*>(bt);
+  a.NB = NB;
+  a.ps = ps;
+  a.k_sp = k_sp;
+  a.v_sp = v_sp;
+  return launch_dtype<true>(a, hd, dtype, stream);
 }

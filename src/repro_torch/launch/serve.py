@@ -2,7 +2,8 @@
 one engine on one device.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
-      --variant reduced --device cpu --requests 8 --max-new 12
+      --variant reduced --device cpu --requests 8 --max-new 12 \\
+      [--paged --page-size 8]
 
 The device is CUDA unless ``--device cpu`` is given; without a CUDA
 device the CLI exits with an error instead of running on the CPU.
@@ -41,6 +42,12 @@ def main(argv=None):
                          "chunk, -1 keeps cfg.prefill_chunk)")
     ap.add_argument("--sync-every", type=int, default=8,
                     help="decode steps between host polls")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache: a page pool with per-slot block "
+                         "tables instead of per-slot rings")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="pool size in pages (0 = default sizing)")
     ap.add_argument("--temperature", type=float, default=0.8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", default="",
@@ -62,7 +69,9 @@ def main(argv=None):
                     sampler=Sampler(temperature=args.temperature, top_k=32),
                     seed=args.seed, sync_every=args.sync_every,
                     prefill_chunk=None if args.prefill_chunk < 0
-                    else args.prefill_chunk)
+                    else args.prefill_chunk,
+                    paged=args.paged, page_size=args.page_size,
+                    num_pages=args.num_pages or None)
 
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
@@ -92,6 +101,12 @@ def main(argv=None):
     n_ok = sum(1 for r in responses.values() if r.ok)
     print(f"ok={n_ok}/{len(responses)} chunk={stats['prefill_chunk']} "
           f"chunked admissions={stats['chunked_admissions']}")
+    if args.paged:
+        print(f"kv pages: total={stats['kv_pages_total']} "
+              f"live={stats['kv_pages_live']} "
+              f"released={stats['kv_pages_released']} "
+              f"cow splits={stats['kv_cow_splits']} "
+              f"preemptions={stats['preemptions']}")
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"arch": cfg.name, "device": str(device),

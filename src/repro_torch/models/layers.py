@@ -12,16 +12,22 @@ Two things differ from the JAX layers on purpose:
   per-layer views ``cache["k"][i]`` of the stacked cache, or a slot's
   view ``[:, slot:slot+1]``), and the functions return the same dict.
 * **Masked writes never leave the cache.** Where JAX sends a row past
-  its length to slot S and relies on a dropping scatter, each entry here
-  keeps its own ring slot ``(step + t) % S`` (distinct for T <= S): the
-  old value is gathered there and ``where(valid, new, old)`` is written
-  back, so nothing is out of bounds and nothing needs a host sync.
+  its length to slot S and relies on a dropping scatter (an
+  out-of-bounds index is a device assert in torch), each entry of a
+  contiguous ring keeps its own slot ``(step + t) % S`` (distinct for
+  T <= S): the old value is gathered there and ``where(valid, new,
+  old)`` is written back. On a paged cache a masked entry's K/V goes to
+  the trash page instead (as JAX's ``_paged_attend`` sends it), and its
+  ``pos`` write keeps the old value: rewriting old K/V through the
+  block table would write into pages a later prefix alias may share.
+  Nothing is out of bounds and nothing needs a host sync.
 
-Cached attention (decode and extend) always goes through the
-``decode_attention`` op: the CUDA kernel on the card, its plain version
-on the CPU (the JAX model's ``use_decode_kernel=True`` route). The
-cache-free forward keeps plain ``gqa_attention``, which JAX also runs
-outside any kernel.
+Cached attention (decode and extend) always goes through a decode-
+attention op: ``cached_decode_attention`` on a contiguous ring,
+``paged_decode_attention`` on a paged pool; the CUDA kernel on the card,
+its plain version on the CPU (the JAX model's ``use_decode_kernel=True``
+route). The cache-free forward keeps plain ``gqa_attention``, which JAX
+also runs outside any kernel.
 """
 from __future__ import annotations
 
@@ -31,7 +37,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.decode_attention.ops import cached_decode_attention
+from repro_torch.kernels.decode_attention.ops import (
+    cached_decode_attention, paged_decode_attention)
+from repro_torch.kernels.decode_attention.ref import paged_kv_gather
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm
 
 NEG_INF = -1e30
@@ -182,6 +190,73 @@ def make_kv_cache(batch, length, n_kv_heads, hd, dtype, device,
     }
 
 
+def _int8_kv_not_ported():
+    return NotImplementedError(
+        "int8 KV caches are not ported yet: ROADMAP section 1, item 8")
+
+
+def make_paged_kv_cache(batch, length, n_kv_heads, hd, dtype, device, *,
+                        page_size, num_pages, quant=False):
+    """Paged cache dict (see ``serving/paged_kv.py``): K/V live in pools
+    ``kp``/``vp`` (num_pages + 1, page_size, Hkv, hd) shared by all
+    slots; each slot maps logical blocks to pool pages through its row of
+    ``bt`` (B, NB) int32. Pool index ``num_pages`` is the trash page:
+    unallocated entries point at it, so reads stay in bounds (junk
+    masked by ``pos == -1``) and masked-off writes land there. ``pos``
+    (B, S = NB * page_size) and ``step`` (B,) keep the contiguous
+    layout's dense per-slot shape."""
+    if quant:
+        raise _int8_kv_not_ported()
+    nb = -(-int(length) // int(page_size))
+    pool = (num_pages + 1, page_size, n_kv_heads, hd)
+    return {
+        "kp": torch.zeros(pool, dtype=dtype, device=device),
+        "vp": torch.zeros(pool, dtype=dtype, device=device),
+        "bt": torch.full((batch, nb), num_pages, dtype=torch.int32,
+                         device=device),
+        "pos": torch.full((batch, nb * int(page_size)), -1,
+                          dtype=torch.int32, device=device),
+        "step": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def paged_kv_view(cache):
+    """The contiguous logical view ``(B, S, Hkv, hd)`` of a paged cache's
+    pools through its block table (a gathered copy). Positions backed by
+    the trash page hold junk; callers mask with ``pos == -1``."""
+    if "kp_scale" in cache:
+        raise _int8_kv_not_ported()
+    return paged_kv_gather(cache["kp"], cache["vp"], cache["bt"])
+
+
+def _paged_attend(q, k, v, cache, pos, slots, valid, window):
+    """Write the new K/V through the block table, then attend against the
+    updated cache through the paged decode-attention op. ``pos``/
+    ``slots`` (B, T): absolute positions and their ring slots; ``valid``
+    (B, T) bool or None (all valid). A masked entry's K/V goes to the
+    trash page (duplicate trash indices are harmless: junk that
+    ``pos == -1`` masks) and its ``pos`` keeps the old value. The engine
+    guarantees every targeted page is allocated and unshared before the
+    step is dispatched. Writes land in ``cache`` in place."""
+    if "kp_scale" in cache:
+        raise _int8_kv_not_ported()
+    B = q.shape[0]
+    ps = cache["kp"].shape[1]
+    trash = cache["kp"].shape[0] - 1
+    page = torch.take_along_dim(cache["bt"], slots // ps, dim=1).long()
+    off = slots % ps
+    new_pos = pos
+    if valid is not None:
+        page = torch.where(valid, page, trash)
+        bidx = torch.arange(B, device=q.device)[:, None]
+        new_pos = torch.where(valid, pos, cache["pos"][bidx, slots])
+    cache["kp"][page, off] = k
+    cache["vp"][page, off] = v
+    cache["pos"].scatter_(1, slots, new_pos.to(torch.int32))
+    return paged_decode_attention(q, cache["kp"], cache["vp"], cache["bt"],
+                                  cache["pos"], pos, window=window)
+
+
 def _qkv(p, x, hd):
     B, L, _ = x.shape
     return (linear(p["wq"], x).reshape(B, L, -1, hd),
@@ -195,7 +270,8 @@ def attention_block(p, x, cfg: ModelConfig, *, cache=None, positions=None,
 
     * cache=None: full-sequence causal attention (train).
     * cache given, L == 1: one decode step; writes slot ``step % S`` of
-      every row in place and attends through the decode-attention op.
+      every row in place (through the block table on a paged cache) and
+      attends through the decode-attention op.
     Returns (y, cache)."""
     B, L, _ = x.shape
     hd = cfg.hd
@@ -216,8 +292,12 @@ def attention_block(p, x, cfg: ModelConfig, *, cache=None, positions=None,
     if cfg.rope:
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-    bidx = torch.arange(B, device=x.device)
     slot = (step % S).long()
+    if "bt" in cache:                                      # paged layout
+        y = _paged_attend(q, k, v, cache, pos, slot[:, None], None, window)
+        cache["step"] += 1
+        return linear(p["wo"], y.reshape(B, L, -1)), cache
+    bidx = torch.arange(B, device=x.device)
     cache["k"][bidx, slot] = k[:, 0]
     cache["v"][bidx, slot] = v[:, 0]
     cache["pos"][bidx, slot] = step
@@ -234,8 +314,9 @@ def extend_into_cache(p, x, cfg: ModelConfig, cache, *, lengths=None,
     d); row b advances by ``lengths[b] <= T`` tokens (None = all by T).
     K/V and positions of the first ``lengths[b]`` tokens are written at
     ring slots ``(step + t) % S``; the other entries of those slots are
-    rewritten with their old values, so the masked tail of every row is
-    left as it was. Attention runs with query positions ``step + t``
+    rewritten with their old values (on a paged cache their K/V goes to
+    the trash page), so the masked tail of every row is left as it was.
+    Attention runs with query positions ``step + t``
     against the updated cache; outputs past a row's length are garbage
     that callers discard (``transformer.last_valid``). Returns (y, cache)
     with ``step`` advanced by ``lengths``."""
@@ -253,12 +334,17 @@ def extend_into_cache(p, x, cfg: ModelConfig, cache, *, lengths=None,
     if T > S:
         raise ValueError(f"extend window T={T} exceeds cache length S={S}")
     slots = (pos % S).long()                               # (B, T) distinct
+    valid = None if lengths is None else \
+        torch.arange(T, device=x.device)[None, :] < lengths[:, None]
+    inc = T if lengths is None else lengths.to(step.dtype)
+    if "bt" in cache:                                      # paged layout
+        y = _paged_attend(q, k, v, cache, pos, slots, valid, window)
+        cache["step"] += inc
+        return linear(p["wo"], y.reshape(B, T, -1)), cache
     bidx = torch.arange(B, device=x.device)[:, None]
-    if lengths is None:
+    if valid is None:
         new_pos = pos
     else:
-        valid = torch.arange(T, device=x.device)[None, :] \
-            < lengths[:, None]                             # (B, T)
         vm = valid[:, :, None, None]
         k = torch.where(vm, k, cache["k"][bidx, slots])
         v = torch.where(vm, v, cache["v"][bidx, slots])
@@ -268,7 +354,7 @@ def extend_into_cache(p, x, cfg: ModelConfig, cache, *, lengths=None,
     cache["pos"][bidx, slots] = new_pos
     y = cached_decode_attention(q, cache["k"], cache["v"], cache["pos"],
                                 pos, window=window)
-    cache["step"] += T if lengths is None else lengths.to(step.dtype)
+    cache["step"] += inc
     return linear(p["wo"], y.reshape(B, T, -1)), cache
 
 

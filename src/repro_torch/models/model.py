@@ -34,6 +34,9 @@ class Model:
       token; ``extend_into_cache(params, tokens, cache, lengths,
       last_only)`` advances row b by ``lengths[b]`` tokens (0 = row
       untouched). Both update ``cache`` in place and return it.
+    * ``make_paged_cache(batch, cache_len, page_size=, num_pages=)``
+      builds the paged layout the same two methods take (page pools
+      shared by all slots, a block table per slot).
     """
 
     cfg: ModelConfig
@@ -62,6 +65,18 @@ class Model:
 
     def make_cache(self, batch: int, cache_len: int, dtype=None):
         return T.make_cache(self.cfg, batch, cache_len, dtype, self.device)
+
+    def make_paged_cache(self, batch: int, cache_len: int, *,
+                         page_size: int, num_pages: int, dtype=None):
+        return T.make_paged_cache(self.cfg, batch, cache_len,
+                                  page_size=page_size, num_pages=num_pages,
+                                  dtype=dtype, device=self.device)
+
+    @property
+    def supports_paged(self) -> bool:
+        """Paged KV pools are attention-only (every family the port
+        builds so far is)."""
+        return all(mixer == "attn" for mixer, _ in T.block_spec(self.cfg))
 
 
 def build(cfg: ModelConfig, device: Optional[Any] = None) -> Model:

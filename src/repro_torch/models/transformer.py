@@ -123,9 +123,37 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
     for i in range(len(block_spec(cfg))):
         one = L.make_kv_cache(batch, S, cfg.n_kv_heads, cfg.hd, dtype,
                               device)
-        c[f"sub{i}"] = {k: v[None].repeat((nb,) + (1,) * v.dim())
-                        for k, v in one.items()}
+        c[f"sub{i}"] = _stacked(one, nb)
     return c
+
+
+def _stacked(one, nb):
+    return {k: v[None].repeat((nb,) + (1,) * v.dim())
+            for k, v in one.items()}
+
+
+def make_paged_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
+                     page_size: int, num_pages: int, dtype=None,
+                     device="cpu"):
+    """Paged decode cache (``layers.make_paged_kv_cache``,
+    ``serving/paged_kv.py``) with the same ``[n_blocks, ...]`` stacking
+    as ``make_cache``: pool leaves ``kp``/``vp`` are ``[n_blocks,
+    num_pages + 1, page_size, Hkv, hd]`` (the pool replaces the batch
+    axis as the storage axis), ``bt``/``pos``/``step`` are ``[n_blocks,
+    batch, ...]``. Attention-only stacks."""
+    if any(mixer != "attn" for mixer, _ in block_spec(cfg)):
+        raise NotImplementedError(
+            f"paged KV caches require attention-only stacks; family "
+            f"{cfg.family!r} has other mixers")
+    dtype = dtype or cfg.act_dtype
+    S = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
+        else cache_len
+    nb = n_blocks(cfg)
+    return {f"sub{i}": _stacked(L.make_paged_kv_cache(
+                batch, S, cfg.n_kv_heads, cfg.hd, dtype, device,
+                page_size=page_size, num_pages=num_pages,
+                quant=cfg.kv_quant), nb)
+            for i in range(len(block_spec(cfg)))}
 
 
 def cache_steps(cache):

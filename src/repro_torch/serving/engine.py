@@ -25,10 +25,24 @@ stop condition the device applied. An on-device guard turns a row with
 non-finite logits into :data:`ERR_TOKEN` and a ``finish_reason="error"``
 finish while the rest of the batch continues.
 
+With ``paged=True`` the per-slot rings are replaced by a pool of
+``num_pages`` pages of ``page_size`` tokens (``serving/paged_kv.py``):
+the host allocator provisions the pages every dispatched step will
+write (an upper bound on each slot's depth, ``_depth_ub``, corrected by
+a shrink at every poll), pushes the block tables to the device, and
+admits a request only when the pool can hold its prompt and first decode
+write (backpressure: the head of the queue waits). Plain steps then
+decode through a masked T=1 ``extend_into_cache``, so rows the device
+already finished write nothing. When the pool runs out mid-decode,
+provisioning polls (a finished slot may hold pages), then preempts the
+lowest resumable slot and requeues it at the front; it resumes by
+replaying its prompt plus the tokens it had generated through chunked
+admission, and only a pool that cannot hold the live set raises.
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item when asked for: paged KV caches, speculative decoding, the prefix
-cache, tensor-parallel meshes, int8 KV, fault injection, lifecycle
-tracing and profiling, deadlines, priorities and cancellation.
+item when asked for: speculative decoding, the prefix cache,
+tensor-parallel meshes, int8 KV, fault injection, lifecycle tracing and
+profiling, deadlines, priorities and cancellation.
 """
 from __future__ import annotations
 
@@ -41,7 +55,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import Model
-from repro_torch.serving import telemetry
+from repro_torch.serving import paged_kv, telemetry
 from repro_torch.serving.request import Request, Response
 from repro_torch.serving.sampler import Sampler
 
@@ -66,21 +80,30 @@ def _guarded_sample(sampler, generator, logits):
     return torch.where(bad, torch.full_like(nxt, ERR_TOKEN), nxt), bad
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+def _slot_view(cache, slot: int):
+    """Slot ``slot``'s batch-1 view of the stacked cache: every per-slot
+    leaf sliced ``[:, slot:slot+1]``; page pools (``paged_kv.POOL_KEYS``)
+    pass through whole, since slicing them would cut the page axis. The
+    view's writes land in the batched cache."""
+    return {name: {k: v if k in paged_kv.POOL_KEYS
+                   else v[:, slot:slot + 1] for k, v in sub.items()}
+            for name, sub in cache.items()}
 
 
 @dataclasses.dataclass
 class _Admission:
     """One in-flight chunked admission: ``tokens`` enter the slot
-    ``prefill_chunk`` per mixed step, ``base`` of them so far."""
+    ``prefill_chunk`` per mixed step, ``base`` of them so far. ``tokens``
+    is the prompt plus, when resuming a preempted request, the ``n_done``
+    tokens it had already generated: replaying them through the same
+    extend path makes the resumed stream's next tokens those of an
+    unpreempted run (greedy)."""
     req: Request
     slot: int
     base: int
     length: int
     tokens: np.ndarray
+    n_done: int = 0
 
 
 class Engine:
@@ -90,21 +113,24 @@ class Engine:
                  kv_cache_dtype: str = "", draft: Any = None,
                  spec_gamma: int = 0, prefill_chunk: Optional[int] = None,
                  prefix_cache_tokens: Optional[int] = None,
-                 mesh: Any = None, paged: bool = False,
+                 mesh: Any = None, paged: bool = False, page_size: int = 16,
+                 num_pages: Optional[int] = None,
                  faults: Any = None, recorder: Any = None,
                  trace_dir: str = ""):
         """Arguments as in the JAX engine. ``params`` and the cache live
         on ``model.device``. ``prefill_chunk`` sizes chunked admission
         (None follows ``cfg.prefill_chunk``; 0 = the whole prompt in one
-        chunk). The arguments of features not ported yet raise."""
+        chunk). ``paged=True`` serves from a pool of ``num_pages`` pages
+        of ``page_size`` tokens (None sizes it for the contiguous
+        layout's capacity plus two pages of provisioning headroom per
+        slot); the pool must hold one full-length stream. The arguments
+        of features not ported yet raise."""
         cfg = model.cfg
         if kv_cache_dtype not in ("", "int8"):
             raise ValueError(f"unsupported kv_cache_dtype "
                              f"{kv_cache_dtype!r} (use '' or 'int8')")
         if kv_cache_dtype == "int8" or cfg.kv_quant:
             raise _not_ported("int8 KV cache", "8 (quantization)")
-        if paged:
-            raise _not_ported("paged=True", "4 (paged KV)")
         if draft is not None or spec_gamma or cfg.draft or cfg.spec_gamma:
             raise _not_ported("speculative decoding (draft/spec_gamma)",
                               "9 (speculative decoding)")
@@ -143,6 +169,7 @@ class Engine:
         self._kind_series = self.metrics.get_series("step_kind")
         self._c_admissions = self.metrics.counter("chunked_admissions")
         self._c_errors = self.metrics.counter("slot_errors")
+        self._c_preempt = self.metrics.counter("preemptions")
         self._h_ttft = self.metrics.histogram("ttft_s")
         self._h_itl = self.metrics.histogram("itl_s")
 
@@ -166,7 +193,40 @@ class Engine:
         self._rows = torch.arange(max_batch, device=dev)
         self._ones = torch.ones((max_batch,), dtype=torch.int32,
                                 device=dev)
-        self.cache = model.make_cache(max_batch, cache_len)
+
+        # --- paged KV cache ------------------------------------------- #
+        self.paged = bool(paged)
+        self.page_size = int(page_size)
+        self._paged: Optional[paged_kv.PagedKVState] = None
+        # per-slot provisioned depth: an upper bound on the device's
+        # committed depth, advanced ahead of each dispatched step and
+        # corrected at every poll
+        self._depth_ub = [0] * max_batch
+        if self.paged:
+            if not model.supports_paged:
+                raise ValueError(
+                    "paged KV requires attention-only stacks; family "
+                    f"{cfg.family!r} has other mixers")
+            n_blk = paged_kv.num_blocks(self.kv_len, self.page_size)
+            # default: capacity parity with the contiguous layout, plus
+            # headroom for provisioning drift (depth upper bounds run
+            # ahead of the harvested truth between polls)
+            self.num_pages = int(num_pages) if num_pages \
+                else max_batch * n_blk + 2 * max_batch
+            if self.num_pages < n_blk:
+                # one full-length stream must always fit once the pool
+                # drains, else admission backpressure can never clear
+                raise ValueError(
+                    f"num_pages={self.num_pages} cannot hold one full "
+                    f"stream ({n_blk} blocks of {self.page_size} tokens)")
+            self._paged = paged_kv.PagedKVState(
+                max_batch, self.kv_len, self.page_size, self.num_pages)
+            self.cache = model.make_paged_cache(
+                max_batch, cache_len, page_size=self.page_size,
+                num_pages=self.num_pages)
+        else:
+            self.num_pages = 0
+            self.cache = model.make_cache(max_batch, cache_len)
 
         # per-step token trace on device: (tokens (B, 1), emit count (B,))
         # per step, harvested at the next poll
@@ -205,12 +265,21 @@ class Engine:
     # ------------------------------------------------------------ #
     def _decode(self) -> torch.Tensor:
         """Plain step: decode + sample + slot bookkeeping on device.
-        Returns the sampled tokens (B,) for the trace."""
-        logits, _ = self.model.decode_step(self.params, self.tokens,
-                                           self.cache)
+        Returns the sampled tokens (B,) for the trace. A paged engine
+        decodes through a masked T=1 extend (per row the same arithmetic
+        as ``decode_step``), so rows the device already finished neither
+        write into pages nor advance: provisioning stays an upper bound
+        on real writes."""
+        active, remaining = self.active, self.remaining
+        if self.paged:
+            logits, _ = self.model.extend_into_cache(
+                self.params, self.tokens, self.cache, active.to(torch.int32),
+                last_only=True)
+        else:
+            logits, _ = self.model.decode_step(self.params, self.tokens,
+                                               self.cache)
         nxt, bad = _guarded_sample(self.sampler, self.generator,
                                    logits[:, -1].float())
-        active, remaining = self.active, self.remaining
         done = active & (bad | (remaining <= 1) | (nxt == self.eos))
         self.active = active & ~done
         self.remaining = torch.where(active, remaining - 1, remaining)
@@ -222,9 +291,10 @@ class Engine:
     def _slot_extend(self, slot: int, chunk: np.ndarray, n: int):
         """Advance the admitting slot by the first ``n`` of the chunk's C
         tokens at batch 1, through the view ``cache[:, slot:slot+1]``
-        (the writes land in the batched cache). Returns (1, 1, V)
-        last-valid logits."""
-        view = _tree_map(lambda t: t[:, slot:slot + 1], self.cache)
+        (the writes land in the batched cache; page pools pass whole and
+        the chunk's K/V goes through the slot's block-table row).
+        Returns (1, 1, V) last-valid logits."""
+        view = _slot_view(self.cache, slot)
         toks = torch.from_numpy(chunk).to(self.device)[None]
         lengths = torch.full((1,), n, dtype=torch.int32, device=self.device)
         logits, _ = self.model.extend_into_cache(self.params, toks, view,
@@ -247,7 +317,7 @@ class Engine:
                              dec_logits[:, 0])
         nxt, bad = _guarded_sample(self.sampler, self.generator,
                                    logits.float())
-        a_rem = req.max_new_tokens
+        a_rem = req.max_new_tokens - adm.n_done
         a_eos = -1 if req.eos_id is None else int(req.eos_id)
         arm = is_admit & last
         emit = active | arm
@@ -302,9 +372,11 @@ class Engine:
         old = self.responses.get(req.uid)
         if old is not None and not old.finished:
             raise ValueError(f"request uid {req.uid} is already in flight")
-        if prompt.size > self.kv_len and not self.model.cfg.sliding_window:
+        if prompt.size > self.kv_len and (
+                self.paged or not self.model.cfg.sliding_window):
             # a sliding-window ring serves longer prompts (the window
-            # mask hides overwritten context); full attention cannot
+            # mask hides overwritten context); full attention and paged
+            # caches cannot: the overwrite would drop attended positions
             raise ValueError(
                 f"request {req.uid}: prompt of {prompt.size} tokens "
                 f"exceeds the KV capacity of {self.kv_len} (cache_len="
@@ -317,21 +389,174 @@ class Engine:
                 return b
         return None
 
+    def _eff_len(self, req: Request) -> int:
+        """Length of the request's effective token stream: the prompt plus
+        any tokens generated before a preemption (replayed on resume)."""
+        resp = self.responses.get(req.uid)
+        if resp is None or resp.finished:
+            return len(req.prompt)
+        return len(req.prompt) + len(resp.tokens)
+
+    def _admit_fits(self, req: Request) -> bool:
+        """Paged admission backpressure: admit only when the pool can
+        hold the whole effective stream plus the first decode write;
+        otherwise the head of the queue waits (and nothing behind it is
+        admitted either)."""
+        return not self.paged or self._paged.can_admit(self._eff_len(req))
+
     def _fill_free_slots(self) -> None:
         """FIFO admission: the head of the queue starts a chunked
-        admission when a slot is free (at most one in flight)."""
+        admission when a slot is free (at most one in flight) and, when
+        paged, the pool can hold it."""
         while self.queue and self._admit is None:
             b = self._free_slot()
-            if b is None:
+            if b is None or not self._admit_fits(self.queue[0]):
                 return
             self._start_chunked(self.queue.popleft(), b)
 
     def _start_chunked(self, req: Request, b: int) -> None:
+        """Begin a chunked admission into slot ``b``. A preempted request
+        re-admits through this same path: its effective stream is the
+        prompt plus the tokens it had already generated, replayed chunk
+        by chunk, and it is armed with the budget it has left."""
         req.started_s = req.started_s or time.perf_counter()
+        resp = self.responses.get(req.uid)
+        done = resp.tokens if resp is not None else []
         toks = np.asarray(req.prompt, np.int64)
+        if done:
+            toks = np.concatenate([toks, np.asarray(done, np.int64)])
         self._reset_slot(b)
+        if self.paged:
+            self._paged.release_slot(b)
+            self._depth_ub[b] = 0
         self._admit = _Admission(req=req, slot=b, base=0,
-                                 length=len(toks), tokens=toks)
+                                 length=len(toks), tokens=toks,
+                                 n_done=len(done))
+
+    # ------------------------------------------------------------ #
+    # preempt-and-requeue (paged pool pressure)
+    # ------------------------------------------------------------ #
+    def _release_active_slot(self, b: int) -> None:
+        """Tear down an occupied slot, keeping its harvested tokens:
+        deactivate the device row (masked steps then neither write KV nor
+        advance it), detach the request and, when paged, return its
+        pages to the pool."""
+        self.active[b] = False
+        self.slots[b] = None
+        self._slot_start[b] = self._steps
+        if self.paged:
+            self._paged.release_slot(b)
+            self._depth_ub[b] = 0
+
+    def _select_victim(self, exclude=()) -> Optional[int]:
+        """The slot to preempt: the lowest slot index whose stream can
+        resume (its effective stream plus one decode write still fits the
+        KV ring). Priorities and deadlines, which rank victims in the
+        JAX engine, are not ported; with none set its order is this."""
+        for b, r in enumerate(self.slots):
+            if r is None or b in exclude:
+                continue
+            if self._eff_len(r) + 1 <= self.kv_len:
+                return b
+        return None
+
+    def _preempt_one(self, exclude=()) -> bool:
+        """Preempt-and-requeue one victim stream: poll first so every
+        token the device already produced is committed, release the
+        victim's slot and pages, and requeue it at the front of the
+        queue. Returns False when no resumable victim exists."""
+        self._poll()
+        b = self._select_victim(exclude=exclude)
+        if b is None:
+            return False
+        req = self.slots[b]
+        self._release_active_slot(b)
+        req.preemptions += 1
+        self._c_preempt.inc()
+        self.queue.appendleft(req)
+        return True
+
+    # ------------------------------------------------------------ #
+    # paged provisioning (host allocator <-> device page pools)
+    # ------------------------------------------------------------ #
+    def _provision(self, slot: int, start: int, n: int) -> bool:
+        """Make the pages behind positions [start, start+n) of ``slot``
+        privately writable before a dispatched step (allocate missing
+        pages, copy-on-write split shared ones). Exhaustion degrades:
+        poll (a finished slot may hold pages), then preempt-and-requeue
+        a victim; only a pool that cannot hold the live set raises.
+        Returns False when it polled or preempted: the poll's shrink may
+        have reclaimed headroom provisioned for other slots this round,
+        so callers rebuild their provisioning pass. A poll may also have
+        finished ``slot`` itself; then nothing is allocated for it (the
+        JAX engine allocates the pages anyway and holds them until the
+        slot is reused)."""
+        clean, polled = True, False
+        while True:
+            if not clean and self.slots[slot] is None and (
+                    self._admit is None or self._admit.slot != slot):
+                return False
+            try:
+                copies = self._paged.prepare_write(slot, start, n)
+                break
+            except paged_kv.PagePoolExhausted:
+                pass
+            clean = False
+            if not polled:
+                polled = True
+                self._poll()
+                continue
+            if self._preempt_one(exclude={slot}):
+                continue
+            raise RuntimeError(
+                f"KV page pool exhausted mid-decode (slot {slot}, "
+                f"positions [{start}, {start + n})) with no resumable "
+                f"victim to preempt")
+        if copies:
+            self._copy_pages(copies)
+        return clean
+
+    def _copy_pages(self, copies) -> None:
+        """Copy-on-write splits: duplicate the shared pool pages on the
+        device before the write that would have mutated them through an
+        alias (an index copy on every pool leaf)."""
+        dev = self.device
+        src = torch.tensor([s for s, _ in copies], dtype=torch.long,
+                           device=dev)
+        dst = torch.tensor([d for _, d in copies], dtype=torch.long,
+                           device=dev)
+        for sub in self.cache.values():
+            for k in paged_kv.POOL_KEYS:
+                if k in sub:
+                    sub[k][:, dst] = sub[k][:, src]
+
+    def _push_block_tables(self) -> None:
+        """Copy the host-authoritative block tables into every attention
+        sub-cache's ``bt`` leaf when they changed. The allocator mutates
+        its table in place at the next provisioning, so the upload takes
+        a fresh pinned copy each time and stays asynchronous: no host
+        sync between polls."""
+        if not self._paged.dirty:
+            return
+        bt = torch.from_numpy(self._paged.block_tables.copy())
+        if self.device.type == "cuda":
+            bt = bt.pin_memory().to(self.device, non_blocking=True)
+        for sub in self.cache.values():
+            sub["bt"].copy_(bt[None].expand_as(sub["bt"]))
+        self._paged.dirty = False
+
+    def _provision_decode_rows(self, per_row: int) -> bool:
+        """Provision ``per_row`` decode writes for every occupied slot
+        (an upper bound: rows the device already finished write nothing;
+        the poll's shrink reclaims the overshoot). One degraded
+        ``_provision`` aborts the round; callers loop until a round runs
+        clean."""
+        for b, r in enumerate(self.slots):
+            if r is not None:
+                if not self._provision(b, self._depth_ub[b], per_row):
+                    return False
+                self._depth_ub[b] += per_row
+        return True
 
     # ------------------------------------------------------------ #
     # decode
@@ -344,7 +569,7 @@ class Engine:
         if self._admit is None and self.queue:
             # pipeline the next admission mid-burst
             b = self._free_slot()
-            if b is not None:
+            if b is not None and self._admit_fits(self.queue[0]):
                 self._start_chunked(self.queue.popleft(), b)
         if self._admit is not None:
             self._step_mixed(self._admit)
@@ -356,6 +581,10 @@ class Engine:
             self.step_times.append(dt)
 
     def _step_plain(self) -> None:
+        if self.paged:
+            while not self._provision_decode_rows(1):
+                pass
+            self._push_block_tables()
         self._trace.append((self._decode()[:, None], self._ones))
         self._record_step("plain")
 
@@ -368,6 +597,14 @@ class Engine:
 
     def _step_mixed(self, adm: _Admission) -> None:
         chunk, n, last = self._chunk_args(adm)
+        if self.paged:
+            while True:
+                if not self._provision_decode_rows(1):
+                    continue
+                if self._provision(adm.slot, adm.base, n):
+                    break
+            self._depth_ub[adm.slot] = adm.base + n
+            self._push_block_tables()
         self._trace.append(self._mixed(adm, chunk, n, last))
         adm.base += n
         if last:
@@ -439,6 +676,19 @@ class Engine:
         if wdrop > 0:
             del self._step_wall[:wdrop]
             self._step_wall_base = keep_from - 1
+        if self.paged:
+            # the harvested trace reveals each live slot's true committed
+            # depth (prompt + generated - 1 pending): release the pages
+            # the provisioning upper bound ran ahead by
+            for b, r in enumerate(self.slots):
+                if r is not None:
+                    nt = len(self.responses[r.uid].tokens)
+                    if nt:
+                        depth = len(r.prompt) + nt - 1
+                        self._paged.shrink(b, depth)
+                        self._depth_ub[b] = depth
+            if __debug__:
+                self._paged.check_invariants()
 
     def _harvest(self, b: int, col: List[int],
                  gaps: List[Optional[float]]) -> None:
@@ -469,6 +719,10 @@ class Engine:
             resp.finished = True
             req.finished_s = time.perf_counter()
             self.slots[b] = None
+            if self.paged:
+                # the stream's pages return to the free list
+                self._paged.release_slot(b)
+                self._depth_ub[b] = 0
         else:
             self._slot_start[b] = self._steps              # all consumed
 
@@ -544,11 +798,14 @@ class Engine:
         self._drop_compile_step = False
         for uid in [u for u, r in self.responses.items() if r.finished]:
             del self.responses[uid]
+        if self.paged:
+            pk = self._paged
+            pk.alias_pages = pk.cow_splits = pk.pages_released = 0
 
     def latency_stats(self) -> Dict[str, float]:
         """Latency summary. The ``decode_ms_*`` / ``ttft_ms_*`` /
         ``itl_ms_*`` keys are present only when their stream has at least
-        one sample."""
+        one sample; the ``kv_*`` pool keys only on a paged engine."""
         drop = 1 if self._drop_compile_step else 0
         finished = [r for r in self.responses.values() if r.finished]
         stats: Dict[str, float] = {
@@ -557,6 +814,7 @@ class Engine:
             "decode_steps": self._steps,
             "prefill_chunk": self.prefill_chunk,
             "chunked_admissions": self._c_admissions.value,
+            "preemptions": self._c_preempt.value,
             "slot_errors": self._c_errors.value,
         }
         telemetry.pct_stats(stats, "decode_ms", self.step_times[drop:],
@@ -565,4 +823,6 @@ class Engine:
                             (50, 95, 99))
         telemetry.pct_stats(stats, "itl_ms", self._h_itl.values,
                             (50, 95, 99))
+        if self.paged:
+            stats.update(self._paged.stats())
         return stats

@@ -60,10 +60,41 @@ def test_every_port_module_imports_with_jax_blocked():
         "    importlib.import_module(n)\n"
         "assert not any(k == 'repro' or k.startswith('repro.')\n"
         "               for k in sys.modules)\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     r = _run(code)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 20
+    names = r.stdout.split()
+    assert len(names) >= 20
+    assert {"repro_torch.serving.paged_kv", "repro_torch.serving.engine",
+            "repro_torch.kernels.decode_attention.kernel"} <= set(names)
+
+
+def test_paged_allocator_is_host_only():
+    """``serving/paged_kv.py`` is the host page allocator: it imports
+    numpy and the standard library only (no torch), so provisioning never
+    touches the device."""
+    mods = {m.split(".")[0] for m in
+            _imports(PORT / "serving" / "paged_kv.py")}
+    assert mods <= {"__future__", "typing", "numpy"}, mods
+    assert "numpy" in mods
+
+
+def test_paged_kernel_entry_point_raises_without_a_gpu():
+    """Handed CPU tensors, the paged kernel's wrapper raises before it
+    builds anything; the op routes them to the plain version."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.decode_attention import kernel, ops
+    q = torch.zeros(1, 1, 2, 32)
+    pool = torch.zeros(3, 8, 1, 32)
+    bt = torch.full((1, 2), 2, dtype=torch.int32)
+    pos = torch.full((1, 16), -1, dtype=torch.int32)
+    q_pos = torch.zeros((1, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.paged_decode_attention_cuda(q, pool, pool, bt, pos, q_pos)
+    before = launch_counts()["paged_decode_attention"]
+    out = ops.paged_decode_attention(q, pool, pool, bt, pos, q_pos)
+    assert out.shape == q.shape and out.device.type == "cpu"
+    assert launch_counts()["paged_decode_attention"] == before
 
 
 def test_cuda_entry_points_raise_without_a_gpu():

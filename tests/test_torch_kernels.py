@@ -35,15 +35,16 @@ HD = 16
 HKV = 2
 
 
-def _decode_inputs(B, T, G, *, seed, masked_row=False, dtype=np.float32):
+def _decode_inputs(B, T, G, *, seed, masked_row=False, dtype=np.float32,
+                   hd=HD):
     """q (B, T, Hq, hd), cache-layout k/v (B, S, Hkv, hd), pos (B, S) and
     q_pos (B, T) as int32: row b sits at a random depth, holds positions
     0..depth+T-1 in their slots and -1 past them."""
     rng = np.random.default_rng(seed)
     Hq = G * HKV
-    q = rng.normal(size=(B, T, Hq, HD)).astype(dtype)
-    k = rng.normal(size=(B, S, HKV, HD)).astype(dtype)
-    v = rng.normal(size=(B, S, HKV, HD)).astype(dtype)
+    q = rng.normal(size=(B, T, Hq, hd)).astype(dtype)
+    k = rng.normal(size=(B, S, HKV, hd)).astype(dtype)
+    v = rng.normal(size=(B, S, HKV, hd)).astype(dtype)
     depth = rng.integers(0, S - T + 1, B)
     slots = np.arange(S)[None]
     pos = np.where(slots < (depth + T)[:, None], slots, -1).astype(np.int32)
@@ -51,6 +52,24 @@ def _decode_inputs(B, T, G, *, seed, masked_row=False, dtype=np.float32):
         pos[0] = -1
     q_pos = (depth[:, None] + np.arange(T)[None]).astype(np.int32)
     return q, k, v, pos, q_pos
+
+
+def _paged_from_contiguous(k, v, ps, *, seed):
+    """Scatter cache-layout k/v (B, S, Hkv, hd) into page pools (P + 1,
+    ps, Hkv, hd) through a seeded permutation of the pages: returns the
+    pools and the (B, S // ps) int32 block table whose gathered view is
+    k/v again. The spare pages and the trash page (the last) hold junk."""
+    B, S = k.shape[:2]
+    nb = S // ps
+    P = B * nb + 2
+    g = torch.Generator().manual_seed(seed)
+    bt = torch.randperm(P, generator=g)[:B * nb].reshape(B, nb)
+    kp = torch.randn((P + 1, ps) + tuple(k.shape[2:]), generator=g).to(
+        device=k.device, dtype=k.dtype)
+    vp = torch.randn_like(kp)
+    kp[bt.to(k.device)] = k.reshape(B, nb, ps, *k.shape[2:])
+    vp[bt.to(k.device)] = v.reshape(B, nb, ps, *v.shape[2:])
+    return kp, vp, bt.to(device=k.device, dtype=torch.int32)
 
 
 def _jax_heads(x):
@@ -173,6 +192,19 @@ def test_rmsnorm_leading_axes_and_no_residual_passthrough():
 # --------------------------------------------------------------------- #
 # dispatch: CUDA -> kernel, CPU -> plain version, nothing else
 # --------------------------------------------------------------------- #
+@pytest.mark.parametrize("ps", [8, 16])
+def test_paged_plain_equals_contiguous_plain(ps):
+    """The same logical K/V scattered over permuted pages gives exactly
+    the contiguous op's output (the paged op gathers, then defers)."""
+    q, k, v, pos, q_pos = (torch.from_numpy(a) for a in
+                           _decode_inputs(3, 4, 4, seed=ps, masked_row=True))
+    kp, vp, bt = _paged_from_contiguous(k, v, ps, seed=ps)
+    got = dec_ops.paged_decode_attention(q, kp, vp, bt, pos, q_pos,
+                                         window=16)
+    want = dec_ops.cached_decode_attention(q, k, v, pos, q_pos, window=16)
+    assert torch.equal(got, want)
+
+
 def test_cpu_tensors_take_the_plain_version(monkeypatch):
     def boom(*a, **k):
         raise AssertionError("kernel launched for CPU tensors")
@@ -217,13 +249,24 @@ def test_kernels_match_plain_on_card():
         for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             q, k, v, pos, q_pos = (torch.from_numpy(a).to(dev) for a in
                                    _decode_inputs(3, T, G, seed=T,
-                                                  masked_row=masked))
+                                                  masked_row=masked, hd=64))
             q, k, v = q.to(dt), k.to(dt), v.to(dt)
             got = dec_kernel.decode_attention_cuda(q, k, v, pos, q_pos,
                                                    window=window)
             want = dec_ref.decode_attention_reference(q, k, v, pos, q_pos,
                                                       window=window)
             assert (got.float() - want.float()).abs().max().item() <= tol
+            # the paged kernel on the same logical data, pages permuted:
+            # within tol of its plain version, equal to the contiguous one
+            for ps in (8, 16):
+                kp, vp, bt = _paged_from_contiguous(k, v, ps, seed=ps)
+                pgot = dec_kernel.paged_decode_attention_cuda(
+                    q, kp, vp, bt, pos, q_pos, window=window)
+                pwant = dec_ref.paged_decode_attention_reference(
+                    q, kp, vp, bt, pos, q_pos, window=window)
+                assert (pgot.float() - pwant.float()).abs().max().item() \
+                    <= tol
+                assert torch.equal(pgot, got)
     for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         x = torch.randn(16, 2048, device=dev).to(dt)
         r = torch.randn(16, 2048, device=dev).to(dt)
