@@ -5,18 +5,25 @@
 Builds the port's kernels from this checkout and holds each against its
 plain PyTorch version on the card (the paged decode-attention kernel
 also against the contiguous one on the gathered view, which it must
-equal exactly); checks a 2-layer full-width llama3.2-1b on the card
-against the same model on the CPU; serves the full 16-layer bf16
+equal exactly; the int8 and int4 dequantize-matmuls at every projection
+shape of the model, ragged M and N and an odd int4 group); checks a
+2-layer full-width llama3.2-1b on the card against the same model on the
+CPU in fp32, dense and quantized (the edge profile: int4 weights and
+int8 KV; int8 weights with fp32 KV); serves the full 16-layer bf16
 llama3.2-1b (weights from a seed) through
 ``repro_torch.serving.engine.Engine`` on contiguous KV rings, checking
 that the kernels ran on that path as often as its step trace implies,
 and profiles a second batch through the same engine (device busy share,
 kernel time by kernel); serves the same requests on a paged KV pool
 (greedy tokens equal to the contiguous run's, the paged kernel counted,
-the pool drained) and profiles a second batch there too; and serves four streams on a pool too small for
-their growth, which must preempt, resume by replay and drain. Every
-phase prints one JSON line; any failure raises and the script exits
-non-zero without the final line. The second-to-last lines are the
+the pool drained) and profiles a second batch there too; serves four
+streams on a pool too small for their growth, which must preempt, resume
+by replay and drain; and serves the same 16 requests quantized: int8
+weights on bf16 rings (``serve_int8``), the edge profile on int8 rings
+(``serve_edge``) and on an int8 pool (``serve_edge_paged``, tokens equal
+to ``serve_edge``'s), with a profiled second batch through the edge
+engine. Every phase prints one JSON line; any failure raises and the
+script exits non-zero without the final line. The second-to-last lines are the
 kernel summary (JSON) and the card's name and power limit as
 ``nvidia-smi`` reports them; the last line is ``{"ok": true, "device":
 {...}}``. Exits non-zero without a CUDA device, and when the port's
@@ -24,6 +31,7 @@ package is not beside it.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -40,6 +48,12 @@ DECODE_ATTN_TPU = "src/repro/kernels/decode_attention/kernel.py:157"
 PAGED_ATTN_TPU = "src/repro/kernels/decode_attention/kernel.py:90"
 RMSNORM_SRC = "src/repro_torch/kernels/rmsnorm/kernel.py"
 RMSNORM_TPU = "src/repro/kernels/rmsnorm/kernel.py:30"
+QMM_SRC = "src/repro_torch/csrc/quant_matmul.cu"
+QMM_TPU = {8: "src/repro/kernels/quant_matmul/kernel.py:45",
+           4: "src/repro/kernels/quant_matmul/kernel.py:66"}
+#: llama3.2-1b's projection shapes (K, N): wi/wg, wk/wv, wq/wo, mlp wo;
+#: the first one's decode row heads the kernel summary
+QMM_SHAPES = ((2048, 8192), (2048, 512), (2048, 2048), (8192, 2048))
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
@@ -347,22 +361,158 @@ def rmsnorm_cases(torch, flush):
     return out, max(errs)
 
 
+def _int4pack_call(torch, x, qt):
+    """``torch._weight_int4pack_mm`` set up for a symmetric int4 QTensor:
+    the nibbles as unsigned ``q + 8`` (even rows in the high nibble, the
+    layout ``_convert_weight_to_int4pack`` takes), zero points 0, so its
+    ``(u - 8) * scale + zero`` is ``q * scale``. Returns the call."""
+    from repro_torch.quant import unpack_int4
+    K = x.shape[1]
+    ng = qt["scale"].shape[0]
+    u = (unpack_int4(qt["q4"]).T + 8).contiguous()          # (N, K)
+    packed = ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8)
+    w = torch._convert_weight_to_int4pack(packed, 8)
+    sz = torch.stack([qt["scale"], torch.zeros_like(qt["scale"])], -1) \
+        .to(torch.bfloat16).contiguous()                      # (ng, N, 2)
+    return lambda: torch._weight_int4pack_mm(x, w, K // ng, sz)
+
+
+def _int8pack_call(torch, x, qt):
+    """``torch._weight_int8pack_mm``: x (M, K), weight (N, K) int8, one
+    scale per output channel in x's dtype."""
+    w = qt["q"].T.contiguous()
+    s = qt["scale"].to(x.dtype)
+    return lambda: torch._weight_int8pack_mm(x, w, s)
+
+
+def quant_matmul_cases(torch, flush):
+    """Both dequantize-matmuls against their plain versions at every
+    projection shape of llama3.2-1b, M in {1, 8, 37, 128} (decode, a
+    ragged chunk tail, a full chunk), fp32 and bf16, plus a ragged N (200)
+    and, for int4, an odd group (K 34, gs 17). Tolerance: max|kernel -
+    plain| <= tol * max|plain| (the sums run in another order; bf16
+    rounds the output). bf16 times at M 8 and 128 for (2048, 8192) and
+    (2048, 512), beside the plain version, a bf16 matmul on the
+    dequantized weight (what quantization buys) and PyTorch's own
+    weight-only call where the card's PyTorch runs it."""
+    from repro_torch.kernels.quant_matmul import kernel as K_
+    from repro_torch.kernels.quant_matmul import ref as R_
+    from repro_torch.quant import dequantize_tensor, quantize_tensor
+
+    dev = torch.device("cuda")
+    out = {8: [], 4: []}
+    errs = {8: [], 4: []}
+    library_note = {}
+    timed = {(2048, 8192), (2048, 512)}
+    for bits in (8, 4):
+        name = f"quant_matmul_int{bits}"
+        kern = K_.quant_matmul_int8_cuda if bits == 8 \
+            else K_.quant_matmul_int4_cuda
+        plain = R_.quant_matmul_int8_reference if bits == 8 \
+            else R_.quant_matmul_int4_reference
+        lib = _int8pack_call if bits == 8 else _int4pack_call
+        qkey = "q" if bits == 8 else "q4"
+        cases = [(K, N, M, 32) for K, N in QMM_SHAPES
+                 for M in (1, 8, 37, 128)]
+        cases += [(2048, 200, 8, 32), (2048, 200, 37, 32)]
+        if bits == 4:
+            cases += [(34, 48, 1, 32), (34, 48, 37, 32)]
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        weights = {}
+        for K, N, M, gs in cases:
+            if (K, N) not in weights:
+                w = 0.02 * torch.randn((K, N), generator=g, device=dev)
+                weights[K, N] = quantize_tensor(w, bits=bits, group_size=gs)
+            qt = weights[K, N]
+            q, sc = qt[qkey], qt["scale"]
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype).split(".")[1]
+                x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+                got = kern(x, q, sc)
+                want = plain(x, q, sc)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                ref_max = want.float().abs().max().item()
+                ok = bool(torch.isfinite(got).all().item()) \
+                    and got.dtype == dtype and got.shape == (M, N) \
+                    and err <= TOL[dname] * ref_max
+                blocks, splits, kper = K_.plan(M, N, K)
+                rec = {"phase": "kernels", "kernel": name,
+                       "case": f"K{K}_N{N}_M{M}", "dtype": dname, "M": M,
+                       "K": K, "N": N, "group": K // sc.shape[0]
+                       if bits == 4 else None,
+                       "blocks": blocks, "splits": splits,
+                       "max_abs_err": err, "max_abs_plain": ref_max,
+                       "tol_rel": TOL[dname], "ok": ok}
+                if (K, N) in timed and M in (8, 128) \
+                        and dtype == torch.bfloat16:
+                    elt = x.element_size()
+                    nbytes = M * K * elt + q.numel() + 4 * sc.numel() \
+                        + M * N * elt
+                    flops = 2 * M * K * N
+                    bms, by = bound_ms(nbytes, flops, dname)
+                    w_bf16 = dequantize_tensor(qt, torch.bfloat16)
+                    rec.update(
+                        kernel_ms=median_ms(torch, lambda: kern(x, q, sc),
+                                            flush),
+                        plain_ms=median_ms(torch, lambda: plain(x, q, sc),
+                                           flush),
+                        dense_bf16_ms=median_ms(
+                            torch, lambda: torch.matmul(x, w_bf16), flush),
+                        bound_ms=bms, bound_us=bms * 1e3, bound_by=by,
+                        bytes=nbytes, flops=flops, library_ms=None)
+                    try:
+                        call = lib(torch, x, qt)
+                        lerr = (call().float() - want.float()).abs().max() \
+                            .item()
+                        rec["library_max_abs_err"] = lerr
+                        if lerr <= TOL[dname] * ref_max:
+                            rec["library_ms"] = median_ms(torch, call, flush)
+                        else:
+                            library_note[bits] = (
+                                f"the library call disagrees with the "
+                                f"plain version: {lerr}")
+                    except Exception as e:          # noqa: BLE001
+                        library_note[bits] = \
+                            f"{type(e).__name__}: {str(e)[:200]}"
+                    if library_note.get(bits):
+                        rec["library_note"] = library_note[bits]
+                emit(rec)
+                out[bits].append(rec)
+                errs[bits].append(err)
+                if not ok:
+                    raise AssertionError(f"{name} {rec['case']} {dname}: "
+                                         f"kernel disagrees with the plain "
+                                         f"version: {rec}")
+    return out, {b: max(e) for b, e in errs.items()}
+
+
 # --------------------------------------------------------------------- #
 # phase 4: 2-layer full-width model, card against CPU
 # --------------------------------------------------------------------- #
-def model_check(torch):
+def model_check(torch, variant="", quant="", phase="model"):
+    """The 2-layer full-width fp32 model on the card against the same
+    model on the CPU: a 128-token extend and 8 greedy decode steps, logits
+    within 2e-3 and tokens identical. ``variant``/``quant`` as in the
+    serve CLI (the weights, from one seed, quantized on the CPU and
+    copied to the card)."""
     import numpy as np
 
+    from repro_torch import kernels
     from repro_torch.configs import get_arch
     from repro_torch.models.model import build
+    from repro_torch.quant import quantize_for_cfg
 
-    cfg = get_arch("llama3.2-1b").replace(n_layers=2, dtype="float32",
-                                          param_dtype="float32")
+    cfg = get_arch("llama3.2-1b", variant=variant).replace(
+        n_layers=2, dtype="float32", param_dtype="float32")
+    if quant:
+        cfg = cfg.replace(quant=quant)
     t0 = time.perf_counter()
     cpu = build(cfg, "cpu")
     gpu = build(cfg, "cuda")
-    p_cpu = cpu.init(SEED)
+    p_cpu = quantize_for_cfg(cpu.init(SEED), cfg)
     p_gpu = _tree_to(p_cpu, gpu.device)
+    kernels.reset_launch_counts()
     tokens = np.random.default_rng(SEED).integers(0, cfg.vocab, 128)
     tol = 2e-3
     runs = {}
@@ -379,12 +529,18 @@ def model_check(torch):
         runs[name] = (seq, steps)
     err = max((a - b).abs().max().item()
               for a, b in zip(runs["cpu"][1], runs["gpu"][1]))
-    rec = {"phase": "model", "arch": cfg.name, "n_layers": cfg.n_layers,
+    rec = {"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "dtype": cfg.dtype, "extend_T": 128,
            "decode_steps": 8, "logits_max_abs_err": err, "tol": tol,
            "tokens_gpu": runs["gpu"][0], "tokens_cpu": runs["cpu"][0],
            "seconds": time.perf_counter() - t0}
+    if quant or variant:
+        rec.update(quant=cfg.quant, kv_quant=cfg.kv_quant,
+                   launches_gpu=kernels.launch_counts())
     rec["ok"] = err <= tol and runs["gpu"][0] == runs["cpu"][0]
+    if cfg.quant:                  # the card's run went through the kernel
+        rec["ok"] = rec["ok"] and \
+            rec["launches_gpu"][f"quant_matmul_{cfg.quant}"] > 0
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"card and CPU disagree: {rec}")
@@ -409,31 +565,48 @@ def served_model():
     return model, model.init(SEED)
 
 
+_KV_KEYS = ("k", "v", "kp", "vp", "k_scale", "v_scale", "kp_scale",
+            "vp_scale")
+
+
 def _kv_bytes(engine):
+    """K/V storage of the cache, int8 scales included."""
     return sum(t.nbytes for sub in engine.cache.values()
-               for key, t in sub.items() if key in ("k", "v", "kp", "vp"))
+               for key, t in sub.items() if key in _KV_KEYS)
 
 
 def _expected_launches(cfg, engine, paged):
+    """Kernel launches the step trace implies: per forward, one
+    attention launch a layer (none on an int8 cache, which plain
+    attention reads, as in the JAX model), 2 * n_layers + 1 norms, and 7
+    projections a layer through the dequantize-matmul of ``cfg.quant``
+    (the tied LM head is the bf16 embedding table)."""
     n_plain = engine.step_kinds.count("plain")
     n_mixed = engine.step_kinds.count("mixed")
     forwards = n_plain + 2 * n_mixed       # a mixed step runs two forwards
-    attn = cfg.n_layers * forwards
+    attn = 0 if cfg.kv_quant else cfg.n_layers * forwards
+    proj = 7 * cfg.n_layers * forwards
     return {"decode_attention": 0 if paged else attn,
             "paged_decode_attention": attn if paged else 0,
+            "quant_matmul_int8": proj if cfg.quant == "int8" else 0,
+            "quant_matmul_int4": proj if cfg.quant == "int4" else 0,
             "rmsnorm": (2 * cfg.n_layers + 1) * forwards}
 
 
-def serve(torch, model, params, *, paged=False, base=None, phase=None):
+def serve(torch, model, params, *, paged=False, base=None, phase=None,
+          bf16=None):
     """16 requests (prompts of 64-512 tokens from the seed, 32 new each)
     through the engine; every kernel count set to 0 just before and read
     just after. Paged (``base``: the contiguous phase's record and
     tokens): the same requests on a pool of 288 pages of 16, which
     holds all 8 streams at once, so the schedule and the greedy tokens
-    are the contiguous run's; the pool drains."""
+    are the contiguous run's; the pool drains. ``bf16``: the bf16 serve
+    phase's tokens, whose share a quantized run reproduces is printed
+    (information, not a gate: quantization changes tokens)."""
     import numpy as np
 
     from repro_torch import kernels
+    from repro_torch.quant import quantized_stats
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import Request
     from repro_torch.serving.sampler import Sampler
@@ -477,10 +650,17 @@ def serve(torch, model, params, *, paged=False, base=None, phase=None):
            "itl_ms_p99": stats.get("itl_ms_p99"),
            "decode_ms_p50": stats.get("decode_ms_p50"),
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "quant": cfg.quant, "kv_quant": cfg.kv_quant,
+           "weight_bytes": quantized_stats(params)["weight_bytes"],
+           "table_bytes": params["embed"]["table"].nbytes,
            "kv_bytes": _kv_bytes(engine), "bad_requests": bad}
     rec["ok"] = not bad and counts == want
     # a snapshot: the profile phase serves more requests on this engine
     tokens = {uid: list(r.tokens) for uid, r in responses.items()}
+    if bf16 is not None:
+        same = sum(a == b for uid in tokens
+                   for a, b in zip(tokens[uid], bf16[uid]))
+        rec["token_share_equal_bf16"] = same / sum(map(len, bf16.values()))
     if paged:
         ref_rec, ref_tokens = base
         same = [uid for uid in tokens if tokens[uid] == ref_tokens.get(uid)]
@@ -563,6 +743,41 @@ def pool_pressure(torch, model, params):
     if not rec["ok"]:
         raise AssertionError(f"pool-pressure phase failed: {rec}")
     return rec
+
+
+def serve_quantized(torch, model, cpu_params, bf16_tokens):
+    """The serve phase's requests on the seed-0 bf16 weights quantized:
+    int8 weights on bf16 rings (``serve_int8``), then the edge profile,
+    int4 weights (group 32) on int8 rings (``serve_edge``) and on an int8
+    pool (``serve_edge_paged``: tokens equal to ``serve_edge``'s, the pool
+    drained), and a profiled second batch through the edge engine.
+    ``cpu_params``: the bf16 tree on the host. Each configuration copies
+    it to the card, quantizes it there and frees the bf16 projections
+    before it serves, so the card holds only what a quantized deployment
+    holds and ``peak_mem_gib`` reads that. Returns the int8 and the edge
+    phase's launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build
+    from repro_torch.quant import quantize_for_cfg
+
+    out = []
+    for cfg in (model.cfg.replace(quant="int8"),
+                get_arch("llama3.2-1b", variant="edge")):
+        qmodel = build(cfg)
+        dense = _tree_to(cpu_params, "cuda")
+        qparams = quantize_for_cfg(dense, cfg)
+        del dense
+        phase = "serve_edge" if cfg.kv_quant else "serve_int8"
+        counts, engine, rec, tokens = serve(torch, qmodel, qparams,
+                                            phase=phase, bf16=bf16_tokens)
+        out.append(counts)
+        if cfg.kv_quant:
+            profile(torch, engine, "profile_edge")
+        del engine
+        if cfg.kv_quant:
+            serve(torch, qmodel, qparams, paged=True, base=(rec, tokens),
+                  phase="serve_edge_paged", bf16=bf16_tokens)
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -665,8 +880,11 @@ def main() -> int:
     attn, attn_err = decode_attention_cases(torch, flush)
     paged, paged_err = paged_decode_attention_cases(torch, flush)
     norm, norm_err = rmsnorm_cases(torch, flush)
+    qmm, qmm_err = quant_matmul_cases(torch, flush)
     del flush
     model_check(torch)
+    model_check(torch, variant="edge", phase="model_quant")
+    model_check(torch, quant="int8", phase="model_quant")
     model, params = served_model()
     counts, engine, rec, tokens = serve(torch, model, params)
     profile(torch, engine)
@@ -682,6 +900,11 @@ def main() -> int:
           phase="serve_paged_turn2")
     serve(torch, model, params, phase="serve_turn2")
     pool_pressure(torch, model, params)
+    # the bf16 tree leaves the card, so the quantized phases' peak memory
+    # counts only their own weights
+    params = _tree_to(params, "cpu")
+    gc.collect()
+    int8_counts, edge_counts = serve_quantized(torch, model, params, tokens)
 
     def entry(name, route, src, tpu, err, rows, launches, extra=()):
         head = rows[0]
@@ -705,7 +928,13 @@ def main() -> int:
               timed(norm), counts),
         entry("paged_decode_attention", "cuda", DECODE_ATTN_SRC,
               PAGED_ATTN_TPU, paged_err, timed(paged), paged_counts,
-              extra=("contiguous_kernel_ms", "gather_plus_sdpa_ms"))]})
+              extra=("contiguous_kernel_ms", "gather_plus_sdpa_ms")),
+        entry("quant_matmul_int8", "cuda", QMM_SRC, QMM_TPU[8], qmm_err[8],
+              timed(qmm[8]), int8_counts,
+              extra=("dense_bf16_ms", "blocks", "splits")),
+        entry("quant_matmul_int4", "cuda", QMM_SRC, QMM_TPU[4], qmm_err[4],
+              timed(qmm[4]), edge_counts,
+              extra=("dense_bf16_ms", "blocks", "splits"))]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

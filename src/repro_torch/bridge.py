@@ -6,7 +6,9 @@ batch, ...]`` on caches. A tree crosses as numpy arrays (``jax.tree.map
 (np.asarray, tree)`` on the JAX side), leaf for leaf; dtypes are kept,
 bf16 included, and cache positions and block tables stay int32. The
 mapping is generic over the tree, so contiguous and paged caches cross
-the same way.
+the same way, int8 KV caches (``k_scale``/``v_scale``,
+``kp_scale``/``vp_scale`` leaves) included. A quantized parameter tree
+(``quant.quantize_for_cfg``) crosses as its QTensor leaves.
 """
 from __future__ import annotations
 
@@ -18,6 +20,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models.transformer import param_shapes
+from repro_torch.quant.params import quantized_shapes
+
+_NP_DTYPES = {torch.int8: np.int8, torch.float32: np.float32}
 
 
 def _map(tree, fn: Callable):
@@ -45,12 +50,24 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def params_from_jax(tree, cfg: ModelConfig, device=None) -> Dict[str, Any]:
     """The port's parameters from a JAX parameter tree of numpy arrays.
-    Raises when a key or a shape differs from what ``cfg`` builds."""
+    Under ``cfg.quant`` the tree is the JAX package's ``quantize_for_cfg``
+    of it: every projection weight a QTensor (``q`` (nb, K, N) or ``q4``
+    (nb, K/2, N) int8, ``scale`` (nb, N) or (nb, K/gs, N) f32). Raises
+    when a key or a shape differs from what ``cfg`` builds, or a
+    quantized leaf's dtype from the QTensor format."""
     device = resolve_device(device)
-    want = param_shapes(cfg)
+    want = quantized_shapes(param_shapes(cfg), cfg)
 
     def check(node, ref, path):
-        if isinstance(ref, dict):
+        if isinstance(ref, tuple) and len(ref) == 2 \
+                and isinstance(ref[1], torch.dtype):      # a QTensor leaf
+            shape, dtype = ref
+            check(node, shape, path)
+            if np.asarray(node).dtype != _NP_DTYPES[dtype]:
+                raise ValueError(f"params{list(path)}: dtype "
+                                 f"{np.asarray(node).dtype} != "
+                                 f"{np.dtype(_NP_DTYPES[dtype])}")
+        elif isinstance(ref, dict):
             if not isinstance(node, dict) or set(node) != set(ref):
                 got = sorted(node) if isinstance(node, dict) else node
                 raise ValueError(f"params{list(path)}: keys {got} != "

@@ -26,7 +26,6 @@ NOT_PORTED = {
 
 #: variants of the JAX registry the port does not build yet
 _VARIANT_ITEMS = {
-    "edge": "item 8 of section 1 (int4 weights + int8 KV)",
     "spec": "item 9 of section 1 (speculative decoding)",
     "continuous": "item 6 of section 1 (prefix cache)",
     "sharded": "item 13 of section 1 (distribution)",
@@ -35,8 +34,10 @@ _VARIANT_ITEMS = {
 
 def get_arch(name: str, *, variant: str = "") -> ModelConfig:
     """Resolve an architecture id with optional "+"-composed variants
-    (applied left to right): "reduced" (smoke config) and "swa"
-    (sliding-window attention, window 4096)."""
+    (applied left to right): "reduced" (smoke config), "swa"
+    (sliding-window attention, window 4096) and "edge" (the edge
+    deployment profile: int4 weight-only quantization and an int8 KV
+    cache), e.g. "reduced+edge"."""
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"{name!r} is not ported yet: ROADMAP {NOT_PORTED[name]}")
@@ -49,6 +50,9 @@ def get_arch(name: str, *, variant: str = "") -> ModelConfig:
             cfg = cfg.replace(name=cfg.name + "-swa", sliding_window=4096)
         elif v == "reduced":
             cfg = cfg.reduced()
+        elif v == "edge":
+            cfg = cfg.replace(name=cfg.name + "-edge", quant="int4",
+                              kv_quant=True)
         elif v in _VARIANT_ITEMS:
             raise NotImplementedError(
                 f"variant {v!r} is not ported yet: ROADMAP "

@@ -35,7 +35,11 @@ class ModelConfig:
     sliding_window: int = 0         # 0 = full attention
     attn_block: int = 0             # >0: chunked causal attention in the
                                     # cache-free forward
-    kv_quant: bool = False          # int8 KV cache (not ported yet)
+    kv_quant: bool = False          # int8 KV cache (per slot-head scales)
+    quant: str = ""                 # weight-only PTQ: "" | "int8" | "int4"
+                                    # (the knob quantize_for_cfg and the
+                                    # edge variant key off)
+    quant_group: int = 32           # int4 group size along d_in
     prefill_chunk: int = 0          # engine chunked-admission default
     prefix_cache_tokens: int = 0    # shared-prefix KV reuse (not ported)
     mesh: str = ""                  # tensor-parallel serving (not ported)

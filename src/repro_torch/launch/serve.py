@@ -3,11 +3,13 @@ one engine on one device.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --variant reduced --device cpu --requests 8 --max-new 12 \\
-      [--paged --page-size 8]
+      [--paged --page-size 8] [--quant int8|int4] [--kv-cache-dtype int8]
 
-The device is CUDA unless ``--device cpu`` is given; without a CUDA
-device the CLI exits with an error instead of running on the CPU.
-Weights are made from ``--seed``.
+``--variant reduced+edge`` (or ``edge`` at full width) serves the edge
+profile: int4 weights and an int8 KV cache. The device is CUDA unless
+``--device cpu`` is given; without a CUDA device the CLI exits with an
+error instead of running on the CPU. Weights are made from ``--seed``
+and quantized after they are made, as ``cfg.quant`` says.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import numpy as np
 from repro_torch.configs import ARCHS, get_arch
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models.model import build
+from repro_torch.quant import quantize_for_cfg, quantized_stats
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.request import Request
 from repro_torch.serving.sampler import Sampler
@@ -48,6 +51,14 @@ def main(argv=None):
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=0,
                     help="pool size in pages (0 = default sizing)")
+    ap.add_argument("--quant", choices=["", "none", "int8", "int4"],
+                    default="",
+                    help="weight-only quantization of the served params: "
+                         "int8/int4 override the config's cfg.quant, "
+                         "'none' forces full precision even for quantized "
+                         "variants (edge), '' keeps the config's setting")
+    ap.add_argument("--kv-cache-dtype", choices=["", "int8"], default="",
+                    help="int8 = quantized KV cache (edge memory profile)")
     ap.add_argument("--temperature", type=float, default=0.8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", default="",
@@ -62,8 +73,10 @@ def main(argv=None):
     except RuntimeError as err:
         raise SystemExit(f"error: {err}")
     cfg = get_arch(args.arch, variant=args.variant)
+    if args.quant:
+        cfg = cfg.replace(quant="" if args.quant == "none" else args.quant)
     model = build(cfg, device)
-    params = model.init(args.seed)
+    params = quantize_for_cfg(model.init(args.seed), cfg)
     engine = Engine(model, params, max_batch=args.max_batch,
                     cache_len=args.cache_len,
                     sampler=Sampler(temperature=args.temperature, top_k=32),
@@ -71,7 +84,8 @@ def main(argv=None):
                     prefill_chunk=None if args.prefill_chunk < 0
                     else args.prefill_chunk,
                     paged=args.paged, page_size=args.page_size,
-                    num_pages=args.num_pages or None)
+                    num_pages=args.num_pages or None,
+                    kv_cache_dtype=args.kv_cache_dtype)
 
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
@@ -83,8 +97,11 @@ def main(argv=None):
     responses = engine.run()
     wall = time.perf_counter() - t0
     stats = engine.latency_stats()
+    kv_quant = engine.model.cfg.kv_quant
     print(f"arch={cfg.name} device={device} requests={args.requests} "
-          f"batch={args.max_batch}")
+          f"batch={args.max_batch} weights={cfg.quant or cfg.param_dtype} "
+          f"kv={'int8' if kv_quant else cfg.dtype} "
+          f"weight_bytes={quantized_stats(params)['weight_bytes']}")
     print(f"finished={stats['n_finished']} "
           f"tokens={stats['tokens_generated']} wall={wall:.2f}s "
           f"({stats['tokens_generated'] / wall:,.1f} tok/s)")

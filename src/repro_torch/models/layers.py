@@ -22,12 +22,19 @@ Two things differ from the JAX layers on purpose:
   block table would write into pages a later prefix alias may share.
   Nothing is out of bounds and nothing needs a host sync.
 
-Cached attention (decode and extend) always goes through a decode-
-attention op: ``cached_decode_attention`` on a contiguous ring,
-``paged_decode_attention`` on a paged pool; the CUDA kernel on the card,
-its plain version on the CPU (the JAX model's ``use_decode_kernel=True``
-route). The cache-free forward keeps plain ``gqa_attention``, which JAX
-also runs outside any kernel.
+Cached attention (decode and extend) on a model-dtype cache goes
+through a decode-attention op: ``cached_decode_attention`` on a
+contiguous ring, ``paged_decode_attention`` on a paged pool; the CUDA
+kernel on the card, its plain version on the CPU (the JAX model's
+``use_decode_kernel=True`` route). An int8 KV cache (``quant=True``:
+int8 K/V with one f32 scale per slot and head) is dequantized and read
+by plain ``gqa_attention``, as the JAX model always does for it: the
+JAX package has no kernel there. The cache-free forward keeps plain
+``gqa_attention``, which JAX also runs outside any kernel.
+
+Quantized projections are structural, as in JAX: a QTensor dict
+(``{"q"|"q4", "scale"}``, ``repro_torch.quant``) where ``p["w"]`` was a
+tensor routes ``linear`` through the dequantize-matmul op.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import (
     cached_decode_attention, paged_decode_attention)
 from repro_torch.kernels.decode_attention.ref import paged_kv_gather
+from repro_torch.kernels.quant_matmul.ops import quant_matmul
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm
 
 NEG_INF = -1e30
@@ -49,9 +57,11 @@ NEG_INF = -1e30
 # projections, norms, embeddings
 # --------------------------------------------------------------------- #
 def linear(p, x):
-    """Dense projection ``x @ w (+ b)``; quantized weights arrive with
-    the quantization slice (ROADMAP section 1, item 8)."""
-    y = x @ p["w"]
+    """Dense or quantized projection ``x @ w (+ b)``: a QTensor dict
+    ``w`` goes through the fused dequantize-matmul op (the CUDA kernel
+    on the card, its plain version on the CPU)."""
+    w = p["w"]
+    y = quant_matmul(x, w) if isinstance(w, dict) else x @ w
     if "b" in p:
         y = y + p["b"]
     return y
@@ -175,24 +185,24 @@ def make_kv_cache(batch, length, n_kv_heads, hd, dtype, device,
                   quant=False):
     """Cache dict: ``k``/``v`` (B, S, Hkv, hd), ``pos`` (B, S) int32 (the
     absolute position in each slot, -1 = empty) and ``step`` (B,) int32
-    (each row's token count)."""
-    if quant:
-        raise NotImplementedError(
-            "int8 KV caches are not ported yet: ROADMAP section 1, item 8")
-    return {
-        "k": torch.zeros((batch, length, n_kv_heads, hd), dtype=dtype,
+    (each row's token count). ``quant=True`` stores K/V as int8 with
+    f32 scales ``k_scale``/``v_scale`` (B, S, Hkv), one per slot and
+    head."""
+    kv_dtype = torch.int8 if quant else dtype
+    c = {
+        "k": torch.zeros((batch, length, n_kv_heads, hd), dtype=kv_dtype,
                          device=device),
-        "v": torch.zeros((batch, length, n_kv_heads, hd), dtype=dtype,
+        "v": torch.zeros((batch, length, n_kv_heads, hd), dtype=kv_dtype,
                          device=device),
         "pos": torch.full((batch, length), -1, dtype=torch.int32,
                           device=device),
         "step": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
-
-
-def _int8_kv_not_ported():
-    return NotImplementedError(
-        "int8 KV caches are not ported yet: ROADMAP section 1, item 8")
+    if quant:
+        for key in ("k_scale", "v_scale"):
+            c[key] = torch.zeros((batch, length, n_kv_heads),
+                                 dtype=torch.float32, device=device)
+    return c
 
 
 def make_paged_kv_cache(batch, length, n_kv_heads, hd, dtype, device, *,
@@ -204,42 +214,110 @@ def make_paged_kv_cache(batch, length, n_kv_heads, hd, dtype, device, *,
     unallocated entries point at it, so reads stay in bounds (junk
     masked by ``pos == -1``) and masked-off writes land there. ``pos``
     (B, S = NB * page_size) and ``step`` (B,) keep the contiguous
-    layout's dense per-slot shape."""
-    if quant:
-        raise _int8_kv_not_ported()
+    layout's dense per-slot shape. ``quant=True`` stores the pools as
+    int8 with f32 scale pools ``kp_scale``/``vp_scale`` (num_pages + 1,
+    page_size, Hkv)."""
     nb = -(-int(length) // int(page_size))
     pool = (num_pages + 1, page_size, n_kv_heads, hd)
-    return {
-        "kp": torch.zeros(pool, dtype=dtype, device=device),
-        "vp": torch.zeros(pool, dtype=dtype, device=device),
+    kv_dtype = torch.int8 if quant else dtype
+    c = {
+        "kp": torch.zeros(pool, dtype=kv_dtype, device=device),
+        "vp": torch.zeros(pool, dtype=kv_dtype, device=device),
         "bt": torch.full((batch, nb), num_pages, dtype=torch.int32,
                          device=device),
         "pos": torch.full((batch, nb * int(page_size)), -1,
                           dtype=torch.int32, device=device),
         "step": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
+    if quant:
+        for key in ("kp_scale", "vp_scale"):
+            c[key] = torch.zeros(pool[:3], dtype=torch.float32,
+                                 device=device)
+    return c
 
 
-def paged_kv_view(cache):
+def _quantize_kv(x):
+    """x: (..., hd) -> (int8 values, f32 scale per vector), in f32 from
+    the model-dtype K/V, as the JAX layer does. The scale is ``max|x| *
+    (1/127)``: the compiled JAX program (XLA turns the division by the
+    constant into that product) computes it so, and the caches are
+    bit-equal to its caches."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) * (1.0 / 127.0), min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequantize_kv(q, scale, dtype):
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def _write_kv(cache, idx, k, v, valid=None):
+    """Store K and V (model dtype, ``(..., Hkv, hd)``) at index ``idx`` of
+    the cache's K/V leaves: ``k``/``v`` on a ring, ``kp``/``vp`` on a
+    pool. An int8 cache stores them quantized, with their scales at the
+    same index of ``<leaf>_scale``. ``valid`` (bool, ``k``'s shape
+    without its last two dims) or None: where False, the old values and
+    scales at ``idx`` stay."""
+    names = ("kp", "vp") if "bt" in cache else ("k", "v")
+    for name, x in zip(names, (k, v)):
+        scale_key = name + "_scale"
+        if scale_key in cache:
+            x, sc = _quantize_kv(x)
+            if valid is not None:
+                sc = torch.where(valid[..., None], sc, cache[scale_key][idx])
+            cache[scale_key][idx] = sc
+        if valid is not None:
+            x = torch.where(valid[..., None, None], x, cache[name][idx])
+        cache[name][idx] = x
+
+
+def paged_kv_view(cache, dtype=None):
     """The contiguous logical view ``(B, S, Hkv, hd)`` of a paged cache's
-    pools through its block table (a gathered copy). Positions backed by
-    the trash page hold junk; callers mask with ``pos == -1``."""
+    pools through its block table (a gathered copy), dequantized to
+    ``dtype`` when the pools are int8: gather-then-dequantize is
+    elementwise the contiguous layout's dequantize, so the view is
+    bit-equal to what a contiguous cache holds at the same positions.
+    Positions backed by the trash page hold junk; callers mask with
+    ``pos == -1``."""
+    k, v = paged_kv_gather(cache["kp"], cache["vp"], cache["bt"])
     if "kp_scale" in cache:
-        raise _int8_kv_not_ported()
-    return paged_kv_gather(cache["kp"], cache["vp"], cache["bt"])
+        ks, vs = paged_kv_gather(cache["kp_scale"], cache["vp_scale"],
+                                 cache["bt"])
+        k, v = _dequantize_kv(k, ks, dtype), _dequantize_kv(v, vs, dtype)
+    return k, v
+
+
+def _is_int8(cache):
+    return "k_scale" in cache or "kp_scale" in cache
+
+
+def _int8_attend(q, cache, q_pos, window):
+    """Attention over an int8 cache (ring or pool) dequantized to
+    ``q.dtype``: plain ``gqa_attention`` with slot validity ``pos >= 0``,
+    the JAX layer's route for int8 KV (its decode kernel never takes a
+    quantized cache)."""
+    if "bt" in cache:
+        k_read, v_read = paged_kv_view(cache, q.dtype)
+    else:
+        k_read = _dequantize_kv(cache["k"], cache["k_scale"], q.dtype)
+        v_read = _dequantize_kv(cache["v"], cache["v_scale"], q.dtype)
+    pos = cache["pos"]
+    return gqa_attention(q, k_read, v_read, q_positions=q_pos,
+                         k_positions=pos, causal=True, window=window,
+                         k_valid=pos >= 0)
 
 
 def _paged_attend(q, k, v, cache, pos, slots, valid, window):
     """Write the new K/V through the block table, then attend against the
-    updated cache through the paged decode-attention op. ``pos``/
-    ``slots`` (B, T): absolute positions and their ring slots; ``valid``
-    (B, T) bool or None (all valid). A masked entry's K/V goes to the
-    trash page (duplicate trash indices are harmless: junk that
-    ``pos == -1`` masks) and its ``pos`` keeps the old value. The engine
+    updated cache through the paged decode-attention op (int8 pools: the
+    dequantized view through ``gqa_attention``). ``pos``/``slots`` (B,
+    T): absolute positions and their ring slots; ``valid`` (B, T) bool or
+    None (all valid). A masked entry's K/V (and its scales) goes to the
+    trash page (duplicate trash indices are harmless: junk that ``pos ==
+    -1`` masks) and its ``pos`` keeps the old value. The engine
     guarantees every targeted page is allocated and unshared before the
     step is dispatched. Writes land in ``cache`` in place."""
-    if "kp_scale" in cache:
-        raise _int8_kv_not_ported()
     B = q.shape[0]
     ps = cache["kp"].shape[1]
     trash = cache["kp"].shape[0] - 1
@@ -250,9 +328,10 @@ def _paged_attend(q, k, v, cache, pos, slots, valid, window):
         page = torch.where(valid, page, trash)
         bidx = torch.arange(B, device=q.device)[:, None]
         new_pos = torch.where(valid, pos, cache["pos"][bidx, slots])
-    cache["kp"][page, off] = k
-    cache["vp"][page, off] = v
+    _write_kv(cache, (page, off), k, v)
     cache["pos"].scatter_(1, slots, new_pos.to(torch.int32))
+    if _is_int8(cache):
+        return _int8_attend(q, cache, pos, window)
     return paged_decode_attention(q, cache["kp"], cache["vp"], cache["bt"],
                                   cache["pos"], pos, window=window)
 
@@ -271,7 +350,8 @@ def attention_block(p, x, cfg: ModelConfig, *, cache=None, positions=None,
     * cache=None: full-sequence causal attention (train).
     * cache given, L == 1: one decode step; writes slot ``step % S`` of
       every row in place (through the block table on a paged cache) and
-      attends through the decode-attention op.
+      attends through the decode-attention op (an int8 cache: plain
+      attention on its dequantized copy).
     Returns (y, cache)."""
     B, L, _ = x.shape
     hd = cfg.hd
@@ -298,11 +378,13 @@ def attention_block(p, x, cfg: ModelConfig, *, cache=None, positions=None,
         cache["step"] += 1
         return linear(p["wo"], y.reshape(B, L, -1)), cache
     bidx = torch.arange(B, device=x.device)
-    cache["k"][bidx, slot] = k[:, 0]
-    cache["v"][bidx, slot] = v[:, 0]
+    _write_kv(cache, (bidx, slot), k[:, 0], v[:, 0])
     cache["pos"][bidx, slot] = step
-    y = cached_decode_attention(q, cache["k"], cache["v"], cache["pos"],
-                                step, window=window)
+    if _is_int8(cache):
+        y = _int8_attend(q, cache, pos, window)
+    else:
+        y = cached_decode_attention(q, cache["k"], cache["v"],
+                                    cache["pos"], step, window=window)
     cache["step"] += 1
     return linear(p["wo"], y.reshape(B, L, -1)), cache
 
@@ -342,18 +424,15 @@ def extend_into_cache(p, x, cfg: ModelConfig, cache, *, lengths=None,
         cache["step"] += inc
         return linear(p["wo"], y.reshape(B, T, -1)), cache
     bidx = torch.arange(B, device=x.device)[:, None]
-    if valid is None:
-        new_pos = pos
-    else:
-        vm = valid[:, :, None, None]
-        k = torch.where(vm, k, cache["k"][bidx, slots])
-        v = torch.where(vm, v, cache["v"][bidx, slots])
-        new_pos = torch.where(valid, pos, cache["pos"][bidx, slots])
-    cache["k"][bidx, slots] = k
-    cache["v"][bidx, slots] = v
+    new_pos = pos if valid is None else \
+        torch.where(valid, pos, cache["pos"][bidx, slots])
+    _write_kv(cache, (bidx, slots), k, v, valid)
     cache["pos"][bidx, slots] = new_pos
-    y = cached_decode_attention(q, cache["k"], cache["v"], cache["pos"],
-                                pos, window=window)
+    if _is_int8(cache):
+        y = _int8_attend(q, cache, pos, window)
+    else:
+        y = cached_decode_attention(q, cache["k"], cache["v"],
+                                    cache["pos"], pos, window=window)
     cache["step"] += inc
     return linear(p["wo"], y.reshape(B, T, -1)), cache
 
@@ -379,8 +458,7 @@ def prefill_into_cache(p, x, cfg: ModelConfig, cache, *, window=None,
             "length-masked prefill requires cache length >= padded length "
             f"(got S={S} < L={L})")
     if S >= L:
-        cache["k"][:, :L] = k
-        cache["v"][:, :L] = v
+        _write_kv(cache, (slice(None), slice(None, L)), k, v)
         if length is not None:
             slot_ids = torch.arange(S, dtype=torch.int32,
                                     device=x.device)[None]
@@ -392,8 +470,7 @@ def prefill_into_cache(p, x, cfg: ModelConfig, cache, *, window=None,
     else:  # keep the last S tokens, aligned to their ring slots
         tail = positions[L - S:]
         slots = tail % S
-        cache["k"][:, slots] = k[:, L - S:]
-        cache["v"][:, slots] = v[:, L - S:]
+        _write_kv(cache, (slice(None), slots), k[:, L - S:], v[:, L - S:])
         cache["pos"][:, slots] = tail.to(torch.int32)[None]
     cache["step"].copy_(length if length is not None else
                         torch.full((B,), L, dtype=torch.int32,

@@ -111,10 +111,8 @@ def init_transformer(cfg: ModelConfig, seed: int, device) -> Dict[str, Any]:
 def make_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
                device="cpu"):
     """Stacked decode cache: every leaf ``[n_blocks, batch, ...]``; the
-    ring is ``min(cache_len, sliding_window)`` long under a window."""
-    if cfg.kv_quant:
-        raise NotImplementedError(
-            "int8 KV caches are not ported yet: ROADMAP section 1, item 8")
+    ring is ``min(cache_len, sliding_window)`` long under a window.
+    ``cfg.kv_quant``: int8 K/V with per-(slot, head) f32 scales."""
     dtype = dtype or cfg.act_dtype
     S = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
         else cache_len
@@ -122,7 +120,7 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
     c = {}
     for i in range(len(block_spec(cfg))):
         one = L.make_kv_cache(batch, S, cfg.n_kv_heads, cfg.hd, dtype,
-                              device)
+                              device, quant=cfg.kv_quant)
         c[f"sub{i}"] = _stacked(one, nb)
     return c
 

@@ -39,9 +39,14 @@ lowest resumable slot and requeues it at the front; it resumes by
 replaying its prompt plus the tokens it had generated through chunked
 admission, and only a pool that cannot hold the live set raises.
 
+With ``kv_cache_dtype="int8"`` (or a config with ``kv_quant``, such as
+the ``edge`` variant) the cache holds int8 K/V with per-(slot, head)
+scales, on rings or in the pool; the parameters may be quantized
+(``repro_torch.quant``), which the model routes by their structure.
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
 item when asked for: speculative decoding, the prefix cache,
-tensor-parallel meshes, int8 KV, fault injection, lifecycle tracing and
+tensor-parallel meshes, fault injection, lifecycle tracing and
 profiling, deadlines, priorities and cancellation.
 """
 from __future__ import annotations
@@ -54,7 +59,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, build
 from repro_torch.serving import paged_kv, telemetry
 from repro_torch.serving.request import Request, Response
 from repro_torch.serving.sampler import Sampler
@@ -123,14 +128,16 @@ class Engine:
         chunk). ``paged=True`` serves from a pool of ``num_pages`` pages
         of ``page_size`` tokens (None sizes it for the contiguous
         layout's capacity plus two pages of provisioning headroom per
-        slot); the pool must hold one full-length stream. The arguments
-        of features not ported yet raise."""
-        cfg = model.cfg
+        slot); the pool must hold one full-length stream.
+        ``kv_cache_dtype="int8"`` rebuilds the model with ``kv_quant``,
+        as the JAX engine does. The arguments of features not ported yet
+        raise."""
         if kv_cache_dtype not in ("", "int8"):
             raise ValueError(f"unsupported kv_cache_dtype "
                              f"{kv_cache_dtype!r} (use '' or 'int8')")
-        if kv_cache_dtype == "int8" or cfg.kv_quant:
-            raise _not_ported("int8 KV cache", "8 (quantization)")
+        if kv_cache_dtype == "int8" and not model.cfg.kv_quant:
+            model = build(model.cfg.replace(kv_quant=True), model.device)
+        cfg = model.cfg
         if draft is not None or spec_gamma or cfg.draft or cfg.spec_gamma:
             raise _not_ported("speculative decoding (draft/spec_gamma)",
                               "9 (speculative decoding)")

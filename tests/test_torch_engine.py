@@ -111,7 +111,7 @@ def test_slot_reset_leaves_no_stale_keys():
 @pytest.mark.parametrize("kw", [
     {"draft": "ngram"}, {"spec_gamma": 2},
     {"prefix_cache_tokens": 64}, {"mesh": "auto"},
-    {"kv_cache_dtype": "int8"}, {"faults": "nan_logits@3"},
+    {"faults": "nan_logits@3"},
     {"recorder": True}, {"trace_dir": "/nonexistent"},
 ])
 def test_out_of_slice_arguments_raise(kw):

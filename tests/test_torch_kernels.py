@@ -3,7 +3,8 @@
 On the CPU each op runs its plain PyTorch version; it is held against the
 JAX oracle (``ref.py``) and the Pallas kernel in interpret mode on the
 same inputs, made with numpy from a seed. The CUDA/Triton kernels run
-only on a card: ``test_kernels_match_plain_on_card`` carries the
+only on a card: ``test_kernels_match_plain_on_card`` (decode attention,
+both layouts, RMSNorm and the dequantize-matmuls) carries the
 ``cuda`` marker and skips without one (``python3 chip_smoke.py`` holds
 them at full width).
 """
@@ -26,6 +27,8 @@ from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as dec_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as dec_ref  # noqa: E402
+from repro_torch.kernels.quant_matmul import kernel as qmm_kernel  # noqa: E402
+from repro_torch.kernels.quant_matmul import ref as qmm_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel as norm_kernel  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as norm_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as norm_ref  # noqa: E402
@@ -276,3 +279,27 @@ def test_kernels_match_plain_on_card():
             y0, t0 = norm_ref.fused_rmsnorm_reference(x, res, s)
             assert (y.float() - y0.float()).abs().max().item() <= tol
             assert (t.float() - t0.float()).abs().max().item() <= tol
+    # the dequantize-matmuls: ragged M and N, K split or not, an odd int4
+    # group (K 34, gs 17); max|kernel - plain| <= tol * max|plain|
+    from repro_torch.quant import quantize_tensor
+    g = torch.Generator(device=dev).manual_seed(0)
+    for M, K, N, gs in ((1, 2048, 512, 32), (37, 256, 200, 32),
+                        (8, 34, 48, 32), (128, 512, 384, 64)):
+        w = 0.05 * torch.randn((K, N), generator=g, device=dev)
+        for bits in (8, 4):
+            qt = quantize_tensor(w, bits=bits, group_size=gs)
+            for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+                x = torch.randn((M, K), generator=g, device=dev).to(dt)
+                if bits == 8:
+                    got = qmm_kernel.quant_matmul_int8_cuda(x, qt["q"],
+                                                            qt["scale"])
+                    want = qmm_ref.quant_matmul_int8_reference(
+                        x, qt["q"], qt["scale"])
+                else:
+                    got = qmm_kernel.quant_matmul_int4_cuda(x, qt["q4"],
+                                                            qt["scale"])
+                    want = qmm_ref.quant_matmul_int4_reference(
+                        x, qt["q4"], qt["scale"])
+                err = (got.float() - want.float()).abs().max().item()
+                assert got.dtype == dt and got.shape == (M, N)
+                assert err <= tol * want.float().abs().max().item()

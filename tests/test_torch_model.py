@@ -279,9 +279,6 @@ def test_unported_configs_raise():
         get_arch("llama3.2-1b", variant="reduced+spec")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build(get_arch("llama3.2-1b").replace(family="ssm"), device="cpu")
-    quant = get_arch("llama3.2-1b", variant="reduced").replace(kv_quant=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(quant, device="cpu").make_cache(1, 8)
     assert get_arch("llama3.2-1b", variant="reduced+swa").sliding_window \
         == 4096
 

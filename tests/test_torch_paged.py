@@ -393,16 +393,30 @@ def test_paged_view_bit_equality_after_admission():
 
 
 def test_paged_cache_unported_layouts_raise():
+    """The int8 pool is ported: its leaves have JAX's keys, shapes and
+    dtypes (int8 pools, f32 scale pools of one scale per slot and head).
+    A paged cache of a stack with other mixers still raises."""
+    from repro.models import transformer as JT
+    from repro_torch.models import transformer as TT
     _, _, tm, _ = _pair(False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.make_paged_kv_cache(1, 16, 2, 8, torch.float32, "cpu",
-                               page_size=8, num_pages=4, quant=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.paged_kv_view({"kp_scale": None})
+    jcfg = jax_get_arch("llama3.2-1b", variant="reduced").replace(
+        n_kv_heads=2, kv_quant=True)
     quant = build(tm.cfg.replace(kv_quant=True), device="cpu")
+    got = quant.make_paged_cache(2, 20, page_size=8, num_pages=5)
+    want = jax.tree.map(np.asarray, JT.make_paged_cache(
+        jcfg, 2, 20, page_size=8, num_pages=5))
+    assert set(got["sub0"]) == set(want["sub0"]) == {
+        "kp", "vp", "kp_scale", "vp_scale", "bt", "pos", "step"}
+    for key, leaf in want["sub0"].items():
+        t = bridge.cache_to_numpy({"x": got["sub0"][key]})["x"]
+        assert t.shape == leaf.shape and t.dtype == leaf.dtype, key
+        np.testing.assert_array_equal(t, leaf)
+    assert got["sub0"]["kp_scale"].shape == (tm.cfg.n_layers, 6, 8, 2)
+    assert got["sub0"]["kp"].dtype == torch.int8
+    assert tm.supports_paged and quant.supports_paged
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quant.make_paged_cache(1, 16, page_size=8, num_pages=4)
-    assert tm.supports_paged
+        TT.make_paged_cache(tm.cfg.replace(family="ssm"), 1, 16,
+                            page_size=8, num_pages=4)
 
 
 def test_bridge_crosses_a_jax_paged_cache():
