@@ -22,7 +22,16 @@ by replay and drain; and serves the same 16 requests quantized: int8
 weights on bf16 rings (``serve_int8``), the edge profile on int8 rings
 (``serve_edge``) and on an int8 pool (``serve_edge_paged``, tokens equal
 to ``serve_edge``'s), with a profiled second batch through the edge
-engine. Every phase prints one JSON line; any failure raises and the
+engine. Then the SSM family (mamba2-780m): both SSD kernels against
+their plain versions in the ``kernels`` phase (the recurrence kernel
+also bitwise compositional over a split, an identity step at dt = 0 and
+``ssd_step``'s T = 1 launch); a 2-layer full-width fp32 mamba2 on the
+card against the CPU through ``prefill`` (the chunked kernel) and
+through an extend (``model_ssm``) and through ``Engine``
+(``serve_ssm_check``, tokens identical); the full 48-layer bf16 model
+served with the same schedule (``serve_ssm``, launch counts equal to the
+trace) and a profiled second batch (``profile_ssm``). Every phase prints
+one JSON line; any failure raises and the
 script exits non-zero without the final line. The second-to-last lines are the
 kernel summary (JSON) and the card's name and power limit as
 ``nvidia-smi`` reports them; the last line is ``{"ok": true, "device":
@@ -51,6 +60,14 @@ RMSNORM_TPU = "src/repro/kernels/rmsnorm/kernel.py:30"
 QMM_SRC = "src/repro_torch/csrc/quant_matmul.cu"
 QMM_TPU = {8: "src/repro/kernels/quant_matmul/kernel.py:45",
            4: "src/repro/kernels/quant_matmul/kernel.py:66"}
+SSD_SRC = "src/repro_torch/csrc/ssd_scan.cu"
+SSD_TPU = "src/repro/kernels/ssd_scan/kernel.py:156"
+SSD_EXT_TPU = "src/repro/kernels/ssd_scan/kernel.py:109"
+#: mamba2-780m's SSD dims (h, p, g, n) and the reduced variant's with 2
+#: groups
+SSD_FULL = (48, 64, 1, 128)
+SSD_REDUCED_G2 = (16, 32, 2, 32)
+SSD_TOL_REL = 1e-4
 #: llama3.2-1b's projection shapes (K, N): wi/wg, wk/wv, wq/wo, mlp wo;
 #: the first one's decode row heads the kernel summary
 QMM_SHAPES = ((2048, 8192), (2048, 512), (2048, 2048), (8192, 2048))
@@ -487,6 +504,179 @@ def quant_matmul_cases(torch, flush):
     return out, {b: max(e) for b, e in errs.items()}
 
 
+def _ssd_inputs(torch, g, b, l, h, p, groups, n, dtype):
+    """x, dt, A, B, C, D and a state (b, h, p, n) from the generator:
+    x, B, C ~ N(0, 1) in ``dtype``, dt in [0.001, 0.101), A in (-2, -0.5],
+    D ~ N(0, 1), the state ~ N(0, 1); all but x, B, C in f32."""
+    dev = torch.device("cuda")
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa
+    return (rnd(b, l, h, p).to(dtype),
+            0.001 + 0.1 * torch.rand((b, l, h), generator=g, device=dev),
+            -0.5 - 1.5 * torch.rand((h,), generator=g, device=dev),
+            rnd(b, l, groups, n).to(dtype), rnd(b, l, groups, n).to(dtype),
+            rnd(h), rnd(b, h, p, n))
+
+
+def _rel_err(pairs):
+    """max |kernel - plain| over the pairs, over max |plain|."""
+    err = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+    scale = max(b.float().abs().max().item() for _, b in pairs)
+    return err / scale
+
+
+def ssd_extend_cases(torch, flush):
+    """The recurrence kernel against its plain version (a loop of plain
+    steps) at mamba2's decode (B 8, T 1) and chunk (B 1, T 128) shapes
+    and at the reduced dims with 2 groups and a ragged T 5, in the form
+    the model calls it (new state in place, the incoming one to the
+    checkpoint): max|kernel - plain| <= 1e-4 * max|plain| in f32. Exact
+    gates: extending by T // 2 then the rest (37 + 91 at T 128) gives
+    the bits of extending by T; a row with dt = 0 keeps its state bit for
+    bit; ``ssd_step`` on CUDA equals the T = 1 launch; the checkpoint
+    equals the incoming state."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_extend_cuda
+    from repro_torch.kernels.ssd_scan.ops import ssd_step
+    from repro_torch.kernels.ssd_scan.ref import ssd_extend_reference
+
+    cases = [("decode", 8, 1, SSD_FULL), ("chunk", 1, 128, SSD_FULL),
+             ("reduced_g2_T5", 2, 5, SSD_REDUCED_G2)]
+    out, errs = [], []
+    for name, b, T, (h, p, groups, n) in cases:
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        x, dt, A, B, C, D, s0 = _ssd_inputs(torch, g, b, T, h, p, groups,
+                                            n, torch.float32)
+        state, ckpt = s0.clone(), torch.empty_like(s0)
+        y, s = ssd_extend_cuda(state, x, dt, A, B, C, D, out=state,
+                               ckpt=ckpt)
+        y0, s1 = ssd_extend_reference(s0, x, dt, A, B, C, D)
+        t1 = 37 if T == 128 else T // 2
+        split_equal = True
+        if t1:
+            ya, sa = ssd_extend_cuda(s0, x[:, :t1], dt[:, :t1], A,
+                                     B[:, :t1], C[:, :t1], D)
+            yb, sb = ssd_extend_cuda(sa, x[:, t1:], dt[:, t1:], A,
+                                     B[:, t1:], C[:, t1:], D)
+            split_equal = torch.equal(torch.cat([ya, yb], 1), y) \
+                and torch.equal(sb, s)
+        dt0 = dt.clone()
+        dt0[0] = 0.0
+        _, sz = ssd_extend_cuda(s0, x, dt0, A, B, C, D)
+        y_step, s_step = ssd_step(s0, x[:, 0], dt[:, 0], A, B[:, 0],
+                                  C[:, 0], D)
+        y_k1, s_k1 = ssd_extend_cuda(s0, x[:, :1], dt[:, :1], A, B[:, :1],
+                                     C[:, :1], D)
+        torch.cuda.synchronize()
+        rel = _rel_err([(y, y0), (s, s1)])
+        rec = {"phase": "kernels", "kernel": "ssd_extend", "case": name,
+               "dtype": "float32", "B": b, "T": T, "h": h, "p": p,
+               "g": groups, "n": n, "max_rel_err": rel,
+               "max_abs_err": max((y - y0).abs().max().item(),
+                                  (s - s1).abs().max().item()),
+               "tol_rel": SSD_TOL_REL,
+               "split_at": t1, "split_bitwise_equal": split_equal,
+               "dt0_row_unchanged": torch.equal(sz[0], s0[0]),
+               "ssd_step_equals_T1_kernel": torch.equal(y_step, y_k1[:, 0])
+               and torch.equal(s_step, s_k1),
+               "ckpt_equals_incoming": torch.equal(ckpt, s0)}
+        rec["ok"] = bool(torch.isfinite(y).all().item()) \
+            and rel <= SSD_TOL_REL and split_equal \
+            and rec["dt0_row_unchanged"] \
+            and rec["ssd_step_equals_T1_kernel"] \
+            and rec["ckpt_equals_incoming"]
+        if name in ("decode", "chunk"):
+            # each input read once (state, x, dt, B, C, A, D), each output
+            # written once (y, the new state, the checkpoint); per token
+            # and head 5 p n operations (decay, update, readout) + 3 p
+            nbytes = 4 * (3 * s0.numel() + x.numel() + dt.numel()
+                          + B.numel() + C.numel() + 2 * h + y.numel())
+            flops = b * T * h * (5 * p * n + 3 * p)
+            bms, by = bound_ms(nbytes, flops, "float32")
+            sbuf, cbuf = torch.empty_like(s0), torch.empty_like(s0)
+            rec.update(
+                kernel_ms=median_ms(torch, lambda: ssd_extend_cuda(
+                    s0, x, dt, A, B, C, D, out=sbuf, ckpt=cbuf), flush),
+                plain_ms=median_ms(torch, lambda: ssd_extend_reference(
+                    s0, x, dt, A, B, C, D), flush),
+                library_ms=None, bound_ms=bms, bound_us=bms * 1e3,
+                bound_by=by, bytes=nbytes, flops=flops)
+        emit(rec)
+        out.append(rec)
+        errs.append(rec["max_abs_err"])
+        if not rec["ok"]:
+            raise AssertionError(f"ssd_extend {name}: kernel disagrees "
+                                 f"with the plain version or an exact gate "
+                                 f"failed: {rec}")
+    return out, max(errs)
+
+
+def ssd_cases(torch, flush):
+    """The chunked kernel against its plain version at mamba2's full dims
+    (b 1, l 1024 and b 2, l 512 at chunk 256), and at the reduced dims
+    with 2 groups at chunk 32 (from zero and from a given state), with
+    f32 and bf16 x, B, C: max|kernel - plain| <= 1e-4 * max|plain| over
+    y and the final state (both compute in f32 from the same inputs)."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_reference
+
+    cases = [("b1_l1024", 1, 1024, SSD_FULL, 256, False),
+             ("b2_l512", 2, 512, SSD_FULL, 256, False),
+             ("reduced_g2_l64", 2, 64, SSD_REDUCED_G2, 32, False),
+             ("reduced_g2_l64_init", 2, 64, SSD_REDUCED_G2, 32, True)]
+    out, errs = [], []
+    for name, b, l, (h, p, groups, n), chunk, init in cases:
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            x, dt, A, B, C, D, s0 = _ssd_inputs(torch, g, b, l, h, p,
+                                                groups, n, dtype)
+            s0 = s0 if init else None
+            y, s = ssd_cuda(x, dt, A, B, C, D, chunk=chunk,
+                            initial_state=s0)
+            y0, s1 = ssd_reference(x, dt, A, B, C, D, chunk=chunk,
+                                   initial_state=s0)
+            torch.cuda.synchronize()
+            rel = _rel_err([(y, y0), (s, s1)])
+            rec = {"phase": "kernels", "kernel": "ssd", "case": name,
+                   "dtype": dname, "b": b, "l": l, "h": h, "p": p,
+                   "g": groups, "n": n, "chunk": chunk,
+                   "initial_state": init, "max_rel_err": rel,
+                   "max_abs_err": max((y - y0).abs().max().item(),
+                                      (s - s1).abs().max().item()),
+                   "tol_rel": SSD_TOL_REL}
+            rec["ok"] = bool(torch.isfinite(y).all().item()) \
+                and rel <= SSD_TOL_REL
+            if b * l == 1024 and dtype == torch.bfloat16:
+                # bytes: x, B, C in their dtype, dt, A, D, y and the final
+                # state in f32; operations of the unmasked (i, j <= i)
+                # pairs only: scores 2n, weight 3, product with x 2p; per
+                # position the carried state's readout and update 4 p n
+                # and D*x 2p (the masked half of each diagonal tile,
+                # which the kernel computes and zeroes, is not counted)
+                Q = chunk
+                per_chunk = Q * (Q + 1) // 2 * (2 * n + 2 * p + 3) \
+                    + Q * (4 * p * n + 2 * p)
+                flops = b * h * (l // Q) * per_chunk
+                nbytes = x.element_size() * (x.numel() + B.numel()
+                                             + C.numel()) \
+                    + 4 * (dt.numel() + 2 * h + y.numel() + b * h * p * n)
+                bms, by = bound_ms(nbytes, flops, "float32")
+                rec.update(
+                    kernel_ms=median_ms(torch, lambda: ssd_cuda(
+                        x, dt, A, B, C, D, chunk=chunk), flush),
+                    plain_ms=median_ms(torch, lambda: ssd_reference(
+                        x, dt, A, B, C, D, chunk=chunk), flush),
+                    library_ms=None, bound_ms=bms, bound_us=bms * 1e3,
+                    bound_by=by, bytes=nbytes, flops=flops)
+            emit(rec)
+            out.append(rec)
+            errs.append(rec["max_abs_err"])
+            if not rec["ok"]:
+                raise AssertionError(f"ssd {name} {dname}: kernel "
+                                     f"disagrees with the plain version: "
+                                     f"{rec}")
+    return out, max(errs)
+
+
 # --------------------------------------------------------------------- #
 # phase 4: 2-layer full-width model, card against CPU
 # --------------------------------------------------------------------- #
@@ -546,6 +736,112 @@ def model_check(torch, variant="", quant="", phase="model"):
         raise AssertionError(f"card and CPU disagree: {rec}")
 
 
+def _ssm_pair():
+    """A 2-layer full-width mamba2-780m in fp32 on the CPU and on the card,
+    the same seed-0 weights on both."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build
+
+    cfg = get_arch("mamba2-780m").replace(n_layers=2, dtype="float32",
+                                          param_dtype="float32")
+    cpu, gpu = build(cfg, "cpu"), build(cfg, "cuda")
+    p_cpu = cpu.init(SEED)
+    return cfg, (("cpu", cpu, p_cpu), ("gpu", gpu, _tree_to(p_cpu, "cuda")))
+
+
+def model_ssm(torch, pair):
+    """The 2-layer full-width fp32 mamba2 on the card against the CPU: a
+    128-token ``prefill`` (the chunked kernel, cache returned) then 8
+    greedy decode steps, and a 128-token extend on a fresh cache (the
+    recurrence kernel) then 8 decode steps. Logits within 2e-3, greedy
+    tokens identical, both SSD kernels launched on the card. Returns the
+    card run's launch counts."""
+    import numpy as np
+
+    from repro_torch import kernels
+
+    cfg, runs_on = pair
+    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab, 128)
+    tol = 2e-3
+    t0 = time.perf_counter()
+    runs = {}
+    kernels.reset_launch_counts()
+    for name, model, params in runs_on:
+        toks = torch.from_numpy(tokens).to(model.device)[None]
+        out = {}
+        for path in ("prefill", "extend"):
+            cache = model.make_cache(1, 256)
+            if path == "prefill":
+                logits, _ = model.prefill(params, {"tokens": toks}, cache)
+            else:
+                logits, _ = model.extend_into_cache(params, toks, cache)
+            seq, steps = [int(logits[0, -1].argmax())], [logits[0].cpu()]
+            for _ in range(8):
+                tok = torch.tensor([[seq[-1]]], device=model.device)
+                logits, _ = model.decode_step(params, tok, cache)
+                steps.append(logits[0].cpu())
+                seq.append(int(logits[0, -1].argmax()))
+            out[path] = (seq, steps)
+        runs[name] = out
+    counts = kernels.launch_counts()
+    rec = {"phase": "model_ssm", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype, "prompt": 128,
+           "decode_steps": 8, "tol": tol, "launches_gpu": counts,
+           "seconds": time.perf_counter() - t0}
+    ok = counts["ssd"] > 0 and counts["ssd_extend"] > 0
+    for path in ("prefill", "extend"):
+        err = max((a - b).abs().max().item() for a, b in
+                  zip(runs["cpu"][path][1], runs["gpu"][path][1]))
+        rec[f"{path}_logits_max_abs_err"] = err
+        rec[f"{path}_tokens_gpu"] = runs["gpu"][path][0]
+        rec[f"{path}_tokens_cpu"] = runs["cpu"][path][0]
+        ok = ok and err <= tol \
+            and runs["gpu"][path][0] == runs["cpu"][path][0]
+    rec["ok"] = ok
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"card and CPU disagree: {rec}")
+    return counts
+
+
+def serve_ssm_check(torch, pair):
+    """The 2-layer fp32 mamba2 through ``Engine`` on the card and on the
+    CPU: 4 requests of 16-96 tokens, 8 new each, 2 slots, chunks of 32,
+    so slots are reused and steps mix decode rows with a chunk. Greedy
+    tokens identical."""
+    import numpy as np
+
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.sampler import Sampler
+
+    cfg, runs_on = pair
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [rng.integers(0, cfg.vocab, int(L))
+               for L in rng.integers(16, 97, 4)]
+    got = {}
+    for name, model, params in runs_on:
+        engine = Engine(model, params, max_batch=2, cache_len=128,
+                        prefill_chunk=32, sampler=Sampler(), seed=SEED)
+        for uid, prompt in enumerate(prompts):
+            engine.submit(Request(uid=uid, prompt=prompt, max_new_tokens=8))
+        got[name] = ({u: r.tokens for u, r in engine.run().items()},
+                     engine.step_kinds)
+    same = [u for u in got["cpu"][0] if got["cpu"][0][u] == got["gpu"][0][u]]
+    rec = {"phase": "serve_ssm_check", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "prompt_lens": [len(x) for x in prompts], "max_new_tokens": 8,
+           "max_batch": 2, "prefill_chunk": 32,
+           "mixed_steps": got["gpu"][1].count("mixed"),
+           "plain_steps": got["gpu"][1].count("plain"),
+           "requests_equal": len(same), "tokens_gpu": got["gpu"][0]}
+    rec["ok"] = len(same) == len(prompts) == len(got["gpu"][0]) \
+        and all(len(t) == 8 for t in got["gpu"][0].values())
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"serve_ssm_check failed: {rec}")
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -575,29 +871,44 @@ def _kv_bytes(engine):
                for key, t in sub.items() if key in _KV_KEYS)
 
 
+def _state_bytes(engine):
+    """SSM state of the cache: conv tails and states, checkpoints
+    included."""
+    return sum(t.nbytes for sub in engine.cache.values()
+               for key, t in sub.items()
+               if key in ("conv", "ssm", "conv_ckpt", "ssm_ckpt"))
+
+
 def _expected_launches(cfg, engine, paged):
     """Kernel launches the step trace implies: per forward, one
     attention launch a layer (none on an int8 cache, which plain
     attention reads, as in the JAX model), 2 * n_layers + 1 norms, and 7
     projections a layer through the dequantize-matmul of ``cfg.quant``
-    (the tied LM head is the bf16 embedding table)."""
+    (the tied LM head is the bf16 embedding table); an SSM stack instead
+    makes one recurrence launch a layer (a plain step's decode is its
+    T = 1 launch) and no attention, and its norms are ``ln1`` and the
+    gated norm of each layer and ``ln_f``."""
     n_plain = engine.step_kinds.count("plain")
     n_mixed = engine.step_kinds.count("mixed")
     forwards = n_plain + 2 * n_mixed       # a mixed step runs two forwards
-    attn = 0 if cfg.kv_quant else cfg.n_layers * forwards
+    ssm = cfg.ssm is not None
+    attn = 0 if (cfg.kv_quant or ssm) else cfg.n_layers * forwards
     proj = 7 * cfg.n_layers * forwards
     return {"decode_attention": 0 if paged else attn,
             "paged_decode_attention": attn if paged else 0,
             "quant_matmul_int8": proj if cfg.quant == "int8" else 0,
             "quant_matmul_int4": proj if cfg.quant == "int4" else 0,
-            "rmsnorm": (2 * cfg.n_layers + 1) * forwards}
+            "rmsnorm": (2 * cfg.n_layers + 1) * forwards,
+            "ssd": 0,
+            "ssd_extend": cfg.n_layers * forwards if ssm else 0}
 
 
 def serve(torch, model, params, *, paged=False, base=None, phase=None,
           bf16=None):
-    """16 requests (prompts of 64-512 tokens from the seed, 32 new each)
-    through the engine; every kernel count set to 0 just before and read
-    just after. Paged (``base``: the contiguous phase's record and
+    """16 requests (prompts of 64-512 tokens from the seed in the model's
+    vocab, 32 new each) through the engine; every kernel count set to 0
+    just before and read just after, and equal to what the step trace
+    implies. Paged (``base``: the contiguous phase's record and
     tokens): the same requests on a pool of 288 pages of 16, which
     holds all 8 streams at once, so the schedule and the greedy tokens
     are the contiguous run's; the pool drains. ``bf16``: the bf16 serve
@@ -653,7 +964,8 @@ def serve(torch, model, params, *, paged=False, base=None, phase=None,
            "quant": cfg.quant, "kv_quant": cfg.kv_quant,
            "weight_bytes": quantized_stats(params)["weight_bytes"],
            "table_bytes": params["embed"]["table"].nbytes,
-           "kv_bytes": _kv_bytes(engine), "bad_requests": bad}
+           "kv_bytes": _kv_bytes(engine),
+           "state_bytes": _state_bytes(engine), "bad_requests": bad}
     rec["ok"] = not bad and counts == want
     # a snapshot: the profile phase serves more requests on this engine
     tokens = {uid: list(r.tokens) for uid, r in responses.items()}
@@ -848,8 +1160,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
     from repro_torch.kernels.rmsnorm.kernel import fused_rmsnorm_triton
+    from repro_torch.models.model import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -881,6 +1195,8 @@ def main() -> int:
     paged, paged_err = paged_decode_attention_cases(torch, flush)
     norm, norm_err = rmsnorm_cases(torch, flush)
     qmm, qmm_err = quant_matmul_cases(torch, flush)
+    ext, ext_err = ssd_extend_cases(torch, flush)
+    ssd, ssd_err = ssd_cases(torch, flush)
     del flush
     model_check(torch)
     model_check(torch, variant="edge", phase="model_quant")
@@ -905,6 +1221,19 @@ def main() -> int:
     params = _tree_to(params, "cpu")
     gc.collect()
     int8_counts, edge_counts = serve_quantized(torch, model, params, tokens)
+    del model, params
+    gc.collect()
+    # the SSM family: mamba2-780m, 2 layers card against CPU, then the
+    # full 48-layer bf16 model through the engine
+    pair = _ssm_pair()
+    ssd_counts = model_ssm(torch, pair)
+    serve_ssm_check(torch, pair)
+    del pair
+    ssm_model = build(get_arch("mamba2-780m"))
+    ext_counts, engine, _, _ = serve(torch, ssm_model,
+                                     ssm_model.init(SEED), phase="serve_ssm")
+    profile(torch, engine, "profile_ssm")
+    del engine
 
     def entry(name, route, src, tpu, err, rows, launches, extra=()):
         head = rows[0]
@@ -934,7 +1263,11 @@ def main() -> int:
               extra=("dense_bf16_ms", "blocks", "splits")),
         entry("quant_matmul_int4", "cuda", QMM_SRC, QMM_TPU[4], qmm_err[4],
               timed(qmm[4]), edge_counts,
-              extra=("dense_bf16_ms", "blocks", "splits"))]})
+              extra=("dense_bf16_ms", "blocks", "splits")),
+        entry("ssd_extend", "cuda", SSD_SRC, SSD_EXT_TPU, ext_err,
+              timed(ext), ext_counts, extra=("bound_by",)),
+        entry("ssd", "cuda", SSD_SRC, SSD_TPU, ssd_err, timed(ssd),
+              ssd_counts, extra=("bound_by",))]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

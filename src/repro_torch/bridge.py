@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.models.ssm import F32_LEAVES
 from repro_torch.models.transformer import param_shapes
 from repro_torch.quant.params import quantized_shapes
 
@@ -53,30 +54,34 @@ def params_from_jax(tree, cfg: ModelConfig, device=None) -> Dict[str, Any]:
     Under ``cfg.quant`` the tree is the JAX package's ``quantize_for_cfg``
     of it: every projection weight a QTensor (``q`` (nb, K, N) or ``q4``
     (nb, K/2, N) int8, ``scale`` (nb, N) or (nb, K/gs, N) f32). Raises
-    when a key or a shape differs from what ``cfg`` builds, or a
-    quantized leaf's dtype from the QTensor format."""
+    when a key or a shape differs from what ``cfg`` builds, or a leaf's
+    dtype from ``cfg.param_dtype`` (float32 for an SSM mixer's
+    ``A_log``/``D``/``dt_bias``, the QTensor format's for a quantized
+    leaf)."""
     device = resolve_device(device)
     want = quantized_shapes(param_shapes(cfg), cfg)
 
     def check(node, ref, path):
-        if isinstance(ref, tuple) and len(ref) == 2 \
-                and isinstance(ref[1], torch.dtype):      # a QTensor leaf
-            shape, dtype = ref
-            check(node, shape, path)
-            if np.asarray(node).dtype != _NP_DTYPES[dtype]:
-                raise ValueError(f"params{list(path)}: dtype "
-                                 f"{np.asarray(node).dtype} != "
-                                 f"{np.dtype(_NP_DTYPES[dtype])}")
-        elif isinstance(ref, dict):
+        if isinstance(ref, dict):
             if not isinstance(node, dict) or set(node) != set(ref):
                 got = sorted(node) if isinstance(node, dict) else node
                 raise ValueError(f"params{list(path)}: keys {got} != "
                                  f"{sorted(ref)}")
             for k in ref:
                 check(node[k], ref[k], path + (k,))
-        elif tuple(np.shape(node)) != tuple(ref):
+            return
+        if isinstance(ref[-1], torch.dtype):              # a QTensor leaf
+            shape, want_dt = ref[0], np.dtype(_NP_DTYPES[ref[1]]).name
+        else:
+            shape = ref
+            want_dt = "float32" if path[-1] in F32_LEAVES \
+                else cfg.param_dtype
+        if tuple(np.shape(node)) != tuple(shape):
             raise ValueError(f"params{list(path)}: shape "
-                             f"{np.shape(node)} != {ref}")
+                             f"{np.shape(node)} != {shape}")
+        if np.asarray(node).dtype.name != want_dt:
+            raise ValueError(f"params{list(path)}: dtype "
+                             f"{np.asarray(node).dtype} != {want_dt}")
 
     check(tree, want, ())
     return _map(tree, lambda a: _to_torch(a, device))
@@ -89,8 +94,9 @@ def params_to_numpy(params) -> Dict[str, Any]:
 def cache_from_jax(tree, device=None) -> Dict[str, Any]:
     """The port's stacked cache from a JAX cache tree of numpy arrays:
     contiguous (``k``, ``v``, ``pos`` int32, ``step`` int32 per
-    sub-cache) or paged (``kp``, ``vp``, ``bt`` int32, ``pos``,
-    ``step``). Leaves may be read-only or broadcast views (a JAX engine's
+    sub-cache), paged (``kp``, ``vp``, ``bt`` int32, ``pos``, ``step``)
+    or an SSM mixer's (``conv``, ``ssm`` f32, ``step`` int32 and their
+    ``*_ckpt`` copies). Leaves may be read-only or broadcast views (a JAX engine's
     pushed block tables are ``np.broadcast_to`` views): each is copied
     into a tensor of its own."""
     device = resolve_device(device)

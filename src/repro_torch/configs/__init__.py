@@ -5,8 +5,9 @@ the JAX package's other ids raise ``NotImplementedError`` naming the
 ROADMAP item that ports their family."""
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.configs.llama3_2_1b import CONFIG as _llama32
+from repro_torch.configs.mamba2_780m import CONFIG as _mamba2
 
-ARCHS = {c.name: c for c in [_llama32]}
+ARCHS = {c.name: c for c in [_llama32, _mamba2]}
 
 #: architecture ids of the JAX package the port cannot build yet, with
 #: the ROADMAP item (section 1) that brings their family over
@@ -16,7 +17,6 @@ NOT_PORTED = {
     "starcoder2-15b": "item 10 of section 1 (other architectures)",
     "qwen2-moe-a2.7b": "item 10 of section 1 (MoE family)",
     "granite-moe-3b-a800m": "item 10 of section 1 (MoE family)",
-    "mamba2-780m": "item 10 of section 1 (SSM family)",
     "jamba-1.5-large-398b": "item 10 of section 1 (hybrid family)",
     "pixtral-12b": "item 10 of section 1 (VLM embedding chunk)",
     "seamless-m4t-medium": "item 10 of section 1 (encoder-decoder)",

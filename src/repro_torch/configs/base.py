@@ -4,22 +4,43 @@ The port's own copy of the JAX package's ``configs/base.py``: a frozen
 ``ModelConfig`` per architecture and ``ShapeConfig`` for input shapes.
 Dtypes are kept as names (``"bfloat16"``, ``"float32"``) so a config
 reads the same in both packages; ``act_dtype`` / ``p_dtype`` resolve
-them to ``torch`` dtypes. Only the fields the dense decoder reads are
-carried: the MoE, SSM, encoder and frontend sub-configs arrive with the
-families that need them (ROADMAP section 1, item 10).
+them to ``torch`` dtypes. Only the fields the ported families read
+are carried: the dense decoder's and the Mamba-2 mixer's (``SSMConfig``);
+the MoE, encoder and frontend sub-configs arrive with the families that
+need them (ROADMAP section 1, item 10).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 (SSD) mixer configuration."""
+
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk: int = 256                # SSD chunk length (dual form)
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | vlm (the families ported so far)
+    family: str                     # dense | vlm | ssm (the families
+                                    # ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -45,6 +66,7 @@ class ModelConfig:
     mesh: str = ""                  # tensor-parallel serving (not ported)
     draft: str = ""                 # speculative draft (not ported)
     spec_gamma: int = 0
+    ssm: Optional[SSMConfig] = None
     dtype: str = "bfloat16"         # activation dtype
     param_dtype: str = "bfloat16"
     source: str = ""                # citation for the architecture
@@ -67,24 +89,33 @@ class ModelConfig:
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: 2 layers, d_model <= 256, <= 4 heads, fp32.
         The same rule as the JAX package, so both packages build the same
-        shapes from one variant name."""
+        shapes from one variant name; an attention-free config keeps no
+        heads (head_dim 1, no FFN) and a smaller SSM (d_state 32,
+        head_dim 32, chunk 32)."""
         d_model = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
-        n_kv = max(1, min(self.n_kv_heads, n_heads))
-        while n_heads % n_kv:
-            n_kv -= 1
-        return self.replace(
+        if n_heads:
+            n_kv = max(1, min(self.n_kv_heads, n_heads))
+            while n_heads % n_kv:
+                n_kv -= 1
+        else:
+            n_kv = 0                # attention-free (ssm)
+        kw = dict(
             name=self.name + "-reduced",
             n_layers=2,
             d_model=d_model,
             n_heads=n_heads,
             n_kv_heads=n_kv,
-            d_ff=min(self.d_ff, 512),
+            d_ff=min(self.d_ff, 512) or 0,
             vocab=min(self.vocab, 1024),
-            head_dim=d_model // n_heads,
+            head_dim=(d_model // n_heads) if n_heads else 1,
             dtype="float32",
             param_dtype="float32",
         )
+        if self.ssm is not None:
+            kw["ssm"] = dataclasses.replace(self.ssm, d_state=32,
+                                            head_dim=32, chunk=32)
+        return self.replace(**kw)
 
 
 @dataclass(frozen=True)

@@ -1,0 +1,171 @@
+"""ctypes bindings of the CUDA SSD kernels (``csrc/ssd_scan.cu``):
+``ssd_extend_cuda``, the sequential recurrence from an explicit state (it
+replaces the JAX package's ``ssd_extend_pallas``), and ``ssd_cuda``, the
+chunked dual form (``ssd_pallas``). Both entry points live in one
+library, built with ``nvcc`` on first use (``kernels/_build.py``).
+
+The wrappers check devices, dtypes, shapes and strides and raise on what
+the kernels do not take; they pass strides, so the x/B/C slices of the
+model's conv output go to the kernels uncopied (an input whose last
+dimension is not contiguous is copied first). States are never copied:
+a state output must have contiguous (h, p, n) dimensions. Outputs are allocated
+here; the extend kernel writes its new state into ``out`` when given (the
+cache's own leaf, in place) and the incoming state into ``ckpt``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64)              # p the kernels are instantiated for
+STATE_DIMS = (32, 64, 128)        # n
+MAX_CHUNK = 256
+_FNS = {}
+
+
+def _launcher(name):
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(_build.load("ssd_scan"), name)
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        if name == "ssd_extend_launch":
+            fn.argtypes = [p] * 10 + [i] * 6 + [ll] * 14 + [p]
+        else:
+            fn.argtypes = [p] * 9 + [i] * 8 + [ll] * 11 + [p]
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return fn
+
+
+def _rows(*ts):
+    """The inputs with their last dimension made contiguous (copied only
+    where it is not)."""
+    return [t if t.stride(-1) == 1 else t.contiguous() for t in ts]
+
+
+def _check_dims(name, x, dt, A, B, C, D):
+    """The checks both wrappers share; returns (b, T, h, p, g, n)."""
+    b, T, h, p = x.shape
+    if B.dim() != 4 or C.shape != B.shape or B.shape[:2] != (b, T):
+        raise ValueError(f"{name}: want B, C (b, T, g, n) matching x "
+                         f"{tuple(x.shape)}; got {tuple(B.shape)}, "
+                         f"{tuple(C.shape)}")
+    g, n = B.shape[2], B.shape[3]
+    if dt.shape != (b, T, h) or A.shape != (h,) or D.shape != (h,):
+        raise ValueError(f"{name}: want dt (b, T, h), A and D (h,); got "
+                         f"{tuple(dt.shape)}, {tuple(A.shape)}, "
+                         f"{tuple(D.shape)}")
+    if h % g:
+        raise ValueError(f"{name}: {h} heads do not split into {g} groups")
+    if p not in HEAD_DIMS or n not in STATE_DIMS:
+        raise ValueError(f"{name}: head dim {p} / state dim {n} not "
+                         f"supported (want p in {HEAD_DIMS}, n in "
+                         f"{STATE_DIMS})")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32 \
+            or D.dtype != torch.float32:
+        raise TypeError(f"{name}: dt, A and D must be float32")
+    if not A.is_contiguous() or not D.is_contiguous():
+        raise ValueError(f"{name}: A and D must be contiguous")
+    return b, T, h, p, g, n
+
+
+def _check_state(name, t, b, h, p, n):
+    if t.shape != (b, h, p, n) or t.dtype != torch.float32:
+        raise ValueError(f"{name}: want a (b, h, p, n) = {(b, h, p, n)} "
+                         f"float32 state; got {tuple(t.shape)} {t.dtype}")
+    if t.stride()[1:] != (p * n, n, 1):
+        raise ValueError(f"{name}: a state's (h, p, n) dimensions must be "
+                         f"contiguous (any batch stride); strides "
+                         f"{t.stride()}")
+
+
+def ssd_extend_cuda(state, x, dt, A, B, C, D=None, *, out=None, ckpt=None):
+    """T recurrence steps from ``state`` (b, h, p, n) f32: x (b, T, h, p),
+    dt (b, T, h), B/C (b, T, g, n), all f32; A, D (h,) f32. Returns (y (b,
+    T, h, p) f32, new state). The new state is written into ``out`` when
+    given (it may be ``state`` itself), else into a new tensor; ``ckpt``,
+    when given, receives the incoming state. Raises on any input the
+    kernel does not take, and when the launch is refused."""
+    if D is None:
+        D = torch.zeros_like(A)
+    ts = [t for t in (state, x, dt, A, B, C, D, out, ckpt) if t is not None]
+    if not all(t.is_cuda and t.device == x.device for t in ts):
+        raise ValueError("ssd_extend_cuda takes CUDA tensors on one device")
+    if x.dim() != 4 or any(t.dtype != torch.float32 for t in (x, B, C)):
+        raise TypeError(f"ssd_extend_cuda: want 4-D float32 x, B, C; got "
+                        f"{tuple(x.shape)} {x.dtype}, {B.dtype}, {C.dtype}")
+    x, dt, B, C = _rows(x, dt, B, C)
+    b, T, h, p, g, n = _check_dims("ssd_extend_cuda", x, dt, A, B, C, D)
+    if out is None:
+        out = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    for t in (state, out) + (() if ckpt is None else (ckpt,)):
+        _check_state("ssd_extend_cuda", t, b, h, p, n)
+    y = torch.empty((b, T, h, p), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _launcher("ssd_extend_launch")(
+        state.data_ptr(), out.data_ptr(),
+        None if ckpt is None else ckpt.data_ptr(), x.data_ptr(),
+        dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+        D.data_ptr(), y.data_ptr(), b, T, h, g, p, n,
+        state.stride(0), out.stride(0),
+        0 if ckpt is None else ckpt.stride(0),
+        x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1),
+        B.stride(0), B.stride(1), B.stride(2),
+        C.stride(0), C.stride(1), C.stride(2), stream)
+    ssd_extend_cuda.launches += 1
+    if err != 0:
+        raise RuntimeError(f"ssd_extend kernel launch failed: CUDA error "
+                           f"{err}")
+    return y, out
+
+
+ssd_extend_cuda.launches = 0
+
+
+def ssd_cuda(x, dt, A, B, C, D=None, *, chunk=64, initial_state=None):
+    """The chunked scan: x, B, C (b, l, h, p) / (b, l, g, n) in one of
+    float32 or bfloat16, dt (b, l, h), A and D (h,) f32; l % chunk == 0,
+    chunk <= 256. ``initial_state`` (b, h, p, n) f32 seeds the carried
+    state (zero when None). Returns (y (b, l, h, p) f32, final state (b,
+    h, p, n) f32). Raises on any input the kernel does not take, and when
+    the launch is refused."""
+    if D is None:
+        D = torch.zeros_like(A)
+    ts = [t for t in (x, dt, A, B, C, D, initial_state) if t is not None]
+    if not all(t.is_cuda and t.device == x.device for t in ts):
+        raise ValueError("ssd_cuda takes CUDA tensors on one device")
+    if x.dim() != 4 or x.dtype not in _DTYPES or B.dtype != x.dtype \
+            or C.dtype != x.dtype:
+        raise TypeError(f"ssd_cuda: want 4-D x, B, C of one dtype of "
+                        f"{list(_DTYPES)}; got {tuple(x.shape)} {x.dtype}, "
+                        f"{B.dtype}, {C.dtype}")
+    x, dt, B, C = _rows(x, dt, B, C)
+    b, l, h, p, g, n = _check_dims("ssd_cuda", x, dt, A, B, C, D)
+    if not 1 <= chunk <= MAX_CHUNK or l % chunk:
+        raise ValueError(f"ssd_cuda: want 1 <= chunk <= {MAX_CHUNK} "
+                         f"dividing l = {l}; got chunk {chunk}")
+    if initial_state is not None:
+        _check_state("ssd_cuda", initial_state, b, h, p, n)
+        initial_state = initial_state.contiguous()
+    y = torch.empty((b, l, h, p), dtype=torch.float32, device=x.device)
+    final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _launcher("ssd_chunk_launch")(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+        C.data_ptr(), D.data_ptr(),
+        None if initial_state is None else initial_state.data_ptr(),
+        y.data_ptr(), final.data_ptr(), b, l, chunk, h, g, p, n,
+        _DTYPES[x.dtype], x.stride(0), x.stride(1), x.stride(2),
+        dt.stride(0), dt.stride(1), B.stride(0), B.stride(1), B.stride(2),
+        C.stride(0), C.stride(1), C.stride(2), stream)
+    ssd_cuda.launches += 1
+    if err != 0:
+        raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
+    return y, final
+
+
+ssd_cuda.launches = 0

@@ -6,7 +6,9 @@ one engine on one device.
       [--paged --page-size 8] [--quant int8|int4] [--kv-cache-dtype int8]
 
 ``--variant reduced+edge`` (or ``edge`` at full width) serves the edge
-profile: int4 weights and an int8 KV cache. The device is CUDA unless
+profile: int4 weights and an int8 KV cache. ``--arch mamba2-780m``
+serves the attention-free SSM family (contiguous state only: no
+``--paged``, and no quantization yet). The device is CUDA unless
 ``--device cpu`` is given; without a CUDA device the CLI exits with an
 error instead of running on the CPU. Weights are made from ``--seed``
 and quantized after they are made, as ``cfg.quant`` says.

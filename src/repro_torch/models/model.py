@@ -1,6 +1,6 @@
 """Model facade: ``build(cfg, device)`` returns a ``Model`` with the
 methods the serving engine and the tests call, for the decoder families
-the port can build (dense so far)."""
+the port can build (dense and SSM so far)."""
 from __future__ import annotations
 
 import dataclasses
@@ -74,8 +74,8 @@ class Model:
 
     @property
     def supports_paged(self) -> bool:
-        """Paged KV pools are attention-only (every family the port
-        builds so far is)."""
+        """Paged KV pools are attention-only: SSM recurrent state has no
+        per-position storage to page."""
         return all(mixer == "attn" for mixer, _ in T.block_spec(self.cfg))
 
 
@@ -83,4 +83,8 @@ def build(cfg: ModelConfig, device: Optional[Any] = None) -> Model:
     """The model on ``device`` (CUDA unless the caller names another;
     raises when CUDA is asked for and absent)."""
     T.block_spec(cfg)              # raises for families not ported yet
+    if cfg.ssm is not None and cfg.quant:
+        raise NotImplementedError(
+            "quantized SSM stacks are not ported yet: ROADMAP section 1, "
+            "item 10 (quantized SSM stacks)")
     return Model(cfg=cfg, device=resolve_device(device))

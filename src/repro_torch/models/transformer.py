@@ -1,5 +1,6 @@
-"""The dense decoder stack: parameters, the stacked cache and the layer
-loop behind every forward mode.
+"""The decoder stacks (dense GQA and the Mamba-2 SSM family):
+parameters, the stacked cache and the layer loop behind every forward
+mode.
 
 Parameters and caches keep the JAX package's tree layout: block leaves
 carry the stacked block axis first (``[n_blocks, ...]``), cache leaves
@@ -13,9 +14,12 @@ as ``x + res`` (``res`` is the previous sublayer's output, still to be
 added; None before the first block), ``ln1`` adds and normalises in one
 call, the attention output is added in the same call that computes
 ``ln2``, and the MLP output is left pending for the next block's ``ln1``
-or for ``ln_f``. That is 2 * n_layers + 1 norm calls per forward. In
-fp32 this is the JAX stack's arithmetic; in bf16 each norm reads the f32
-sum where the JAX stack rounds ``x + y`` to bf16 first (see
+or for ``ln_f``. That is 2 * n_layers + 1 norm calls per forward. An
+SSM sublayer has no FFN: ``ln1`` adds and normalises, and the mixer's
+output is the pending ``res`` (its gated norm is the second norm call of
+the layer, so an SSM stack also makes 2 * n_layers + 1). In fp32 this is
+the JAX stack's arithmetic; in bf16 each norm reads the f32 sum where
+the JAX stack rounds ``x + y`` to bf16 first (see
 ``kernels/rmsnorm/ref.py``).
 """
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 
 # --------------------------------------------------------------------- #
@@ -35,6 +40,8 @@ def block_spec(cfg: ModelConfig) -> List[Tuple[str, Optional[str]]]:
     """[(mixer, ffn)] per sublayer of the scan unit."""
     if cfg.family in ("dense", "vlm"):
         return [("attn", "mlp")]
+    if cfg.family == "ssm":
+        return [("ssm", None)]
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet: ROADMAP section 1, "
         f"item 10")
@@ -62,18 +69,24 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
             p["b"] = (nb, d_out)
         return p
 
-    sub = {
-        "ln1": {"scale": (nb, d)},
-        "attn": {"wq": lin(d, cfg.n_heads * hd, cfg.qkv_bias),
-                 "wk": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
-                 "wv": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
-                 "wo": lin(cfg.n_heads * hd, d)},
-        "ln2": {"scale": (nb, d)},
-        "mlp": {"wi": lin(d, cfg.d_ff), "wg": lin(d, cfg.d_ff),
-                "wo": lin(cfg.d_ff, d)},
-    }
+    def sub(mixer, ffn):
+        out = {"ln1": {"scale": (nb, d)}}
+        if mixer == "attn":
+            out["attn"] = {"wq": lin(d, cfg.n_heads * hd, cfg.qkv_bias),
+                           "wk": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+                           "wv": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+                           "wo": lin(cfg.n_heads * hd, d)}
+        else:
+            out["ssm"] = S.ssm_param_shapes(cfg, nb)
+        if ffn == "mlp":
+            out["ln2"] = {"scale": (nb, d)}
+            out["mlp"] = {"wi": lin(d, cfg.d_ff), "wg": lin(d, cfg.d_ff),
+                          "wo": lin(cfg.d_ff, d)}
+        return out
+
     p = {"embed": {"table": (cfg.vocab, d)},
-         "blocks": {f"sub{i}": sub for i in range(len(block_spec(cfg)))},
+         "blocks": {f"sub{i}": sub(*ms)
+                    for i, ms in enumerate(block_spec(cfg))},
          "ln_f": {"scale": (d,)}}
     if not cfg.tie_embeddings:
         p["lm_head"] = {"w": (d, cfg.vocab)}
@@ -82,13 +95,18 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
 
 def init_transformer(cfg: ModelConfig, seed: int, device) -> Dict[str, Any]:
     """Weights from a seed, made on ``device`` with a ``torch.Generator``:
-    N(0, 0.02) projections and embeddings, unit norm scales, zero biases
-    (the JAX package's scheme; the numbers are not JAX's)."""
+    N(0, 0.02) projections and embeddings, unit norm scales, zero biases,
+    and the SSM mixer's own leaves (``ssm.init_ssm_leaf``; the JAX
+    package's scheme; the random numbers are not JAX's)."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def make(path, shape):
         leaf = path[-1]
+        if "ssm" in path:
+            t = S.init_ssm_leaf(cfg, leaf, shape, gen, device)
+            if t is not None:
+                return t
         if leaf == "scale":
             return torch.ones(shape, dtype=cfg.p_dtype, device=device)
         if leaf == "b":
@@ -112,15 +130,20 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
                device="cpu"):
     """Stacked decode cache: every leaf ``[n_blocks, batch, ...]``; the
     ring is ``min(cache_len, sliding_window)`` long under a window.
-    ``cfg.kv_quant``: int8 K/V with per-(slot, head) f32 scales."""
+    ``cfg.kv_quant``: int8 K/V with per-(slot, head) f32 scales. An SSM
+    mixer's sub-cache is ``ssm.make_ssm_cache`` (conv tail, f32 state,
+    depth and their checkpoints), whatever ``cache_len`` is."""
     dtype = dtype or cfg.act_dtype
-    S = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
+    S_len = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
         else cache_len
     nb = n_blocks(cfg)
     c = {}
-    for i in range(len(block_spec(cfg))):
-        one = L.make_kv_cache(batch, S, cfg.n_kv_heads, cfg.hd, dtype,
-                              device, quant=cfg.kv_quant)
+    for i, (mixer, _) in enumerate(block_spec(cfg)):
+        if mixer == "attn":
+            one = L.make_kv_cache(batch, S_len, cfg.n_kv_heads, cfg.hd,
+                                  dtype, device, quant=cfg.kv_quant)
+        else:
+            one = S.make_ssm_cache(batch, cfg, dtype, device)
         c[f"sub{i}"] = _stacked(one, nb)
     return c
 
@@ -138,24 +161,26 @@ def make_paged_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
     as ``make_cache``: pool leaves ``kp``/``vp`` are ``[n_blocks,
     num_pages + 1, page_size, Hkv, hd]`` (the pool replaces the batch
     axis as the storage axis), ``bt``/``pos``/``step`` are ``[n_blocks,
-    batch, ...]``. Attention-only stacks."""
+    batch, ...]``. Attention-only stacks (SSM recurrent state has no
+    paged analogue)."""
     if any(mixer != "attn" for mixer, _ in block_spec(cfg)):
         raise NotImplementedError(
             f"paged KV caches require attention-only stacks; family "
-            f"{cfg.family!r} has other mixers")
+            f"{cfg.family!r} has SSM mixers")
     dtype = dtype or cfg.act_dtype
-    S = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
+    S_len = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
         else cache_len
     nb = n_blocks(cfg)
     return {f"sub{i}": _stacked(L.make_paged_kv_cache(
-                batch, S, cfg.n_kv_heads, cfg.hd, dtype, device,
+                batch, S_len, cfg.n_kv_heads, cfg.hd, dtype, device,
                 page_size=page_size, num_pages=num_pages,
                 quant=cfg.kv_quant), nb)
             for i in range(len(block_spec(cfg)))}
 
 
 def cache_steps(cache):
-    """Per-slot sequence depth (B,) of the first attention sub-cache."""
+    """Per-slot sequence depth (B,) from the first sub-cache that tracks
+    one (attention rings and SSM state both carry a per-row ``step``)."""
     for sub in cache.values():
         if isinstance(sub, dict) and "step" in sub:
             return sub["step"][0]
@@ -163,12 +188,29 @@ def cache_steps(cache):
 
 
 def set_cache_steps(cache, steps):
-    """Rewind every attention sub-cache to depth ``steps`` (B,) in place.
-    ``pos`` entries beyond the new depth stay: causal masking hides them
-    until the decode step that overwrites their slot."""
+    """Per-row rollback to depth ``steps`` (B,), in place, family-aware.
+
+    * Attention sub-caches: ``step`` is rewritten; ``pos`` entries beyond
+      the new depth stay, hidden by causal masking until the decode step
+      that overwrites their slot.
+    * SSM sub-caches: recurrent state cannot be rewound by masking, so
+      rows with ``steps < step`` restore the ``*_ckpt`` snapshot taken
+      before the most recent advance (the caller targets that snapshot's
+      depth); the checkpoints themselves stay.
+
+    Rows whose ``steps`` equals their depth are untouched bit for bit."""
     steps = steps.to(torch.int32)
     for sub in cache.values():
-        sub["step"].copy_(steps[None].expand_as(sub["step"]))
+        tgt = steps[None].expand_as(sub["step"])
+        if "ssm" in sub:
+            back = tgt < sub["step"]                      # (n_blocks, B)
+            for key in ("conv", "ssm"):
+                cur, ck = sub[key], sub[key + "_ckpt"]
+                m = back.reshape(back.shape + (1,) * (cur.dim() - 2))
+                cur.copy_(torch.where(m, ck, cur))
+            sub["step"].copy_(torch.where(back, tgt, sub["step"]))
+        else:
+            sub["step"].copy_(tgt)
     return cache
 
 
@@ -186,15 +228,18 @@ def apply_block(bp, x, res, cfg: ModelConfig, *, mode: str, cache=None,
                 length=None):
     """One block. The residual stream arrives as ``x + res`` (``res`` None
     before the first block) and leaves the same way: returns (x, res)
-    with the MLP output as the pending ``res``. mode: 'train' | 'prefill'
+    with the MLP output (an SSM sublayer: the mixer output) as the
+    pending ``res``. mode: 'train' | 'prefill'
     | 'decode' | 'extend'; ``length`` is the valid count (prefill) or the
     per-row advance (extend). Cache writes go into ``cache`` in place."""
     eps = cfg.norm_eps
-    for i in range(len(block_spec(cfg))):
+    for i, (mixer, ffn) in enumerate(block_spec(cfg)):
         sp = bp[f"sub{i}"]
         h, x = L.rms_norm(sp["ln1"], x, eps, residual=res)
         c = None if cache is None else cache[f"sub{i}"]
-        if mode == "train":
+        if mixer == "ssm":
+            y = _ssm_mixer(sp["ssm"], h, cfg, mode, c, length)
+        elif mode == "train":
             y, _ = L.attention_block(sp["attn"], h, cfg)
         elif mode == "prefill":
             y, _ = L.prefill_into_cache(sp["attn"], h, cfg, c,
@@ -206,9 +251,30 @@ def apply_block(bp, x, res, cfg: ModelConfig, *, mode: str, cache=None,
             y, _ = L.attention_block(sp["attn"], h, cfg, cache=c)
         else:
             raise ValueError(f"unknown mode {mode!r}")
+        if ffn is None:
+            res = y          # no FFN: the mixer output is the pending add
+            continue
         h, x = L.rms_norm(sp["ln2"], y, eps, residual=x)
         res = L.mlp(sp["mlp"], h)
     return x, res
+
+
+def _ssm_mixer(p, h, cfg: ModelConfig, mode: str, cache, length):
+    """The SSM mixer in ``mode``; cached modes write into ``cache``."""
+    if mode == "train":
+        y, _ = S.ssm_block(p, h, cfg)
+    elif mode == "prefill":
+        y, nc = S.ssm_block(p, h, cfg, return_cache=True, length=length)
+        for key in S.CACHE_KEYS:
+            cache[key].copy_(nc[key])
+    elif mode == "extend":
+        y, _ = S.ssm_block(p, h, cfg, cache=cache, length=length,
+                           mode="extend")
+    elif mode == "decode":
+        y, _ = S.ssm_block(p, h, cfg, cache=cache)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    return y
 
 
 def _run_blocks(params, x, cfg: ModelConfig, *, mode: str, cache=None,

@@ -340,10 +340,16 @@ class Engine:
 
     def _reset_slot(self, b: int) -> None:
         """Erase slot ``b``: every position empty, depth 0, so a recycled
-        slot keeps no stale keys from its previous occupant."""
+        slot keeps no stale keys from its previous occupant. An SSM
+        sub-cache has no positions to mask a previous occupant behind:
+        its state, conv tail, depth and checkpoints are zeroed."""
         for sub in self.cache.values():
-            sub["pos"][:, b] = -1
-            sub["step"][:, b] = 0
+            if "pos" in sub:
+                sub["pos"][:, b] = -1
+                sub["step"][:, b] = 0
+            else:
+                for leaf in sub.values():
+                    leaf[:, b] = 0
 
     # ------------------------------------------------------------ #
     # scheduling

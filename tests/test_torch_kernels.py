@@ -303,3 +303,62 @@ def test_kernels_match_plain_on_card():
                 err = (got.float() - want.float()).abs().max().item()
                 assert got.dtype == dt and got.shape == (M, N)
                 assert err <= tol * want.float().abs().max().item()
+    # the SSD kernels: max|kernel - plain| <= 1e-4 * max|plain| (f32
+    # arithmetic, sums in another order); the extend kernel bitwise
+    # compositional, identity at dt = 0, and ssd_step its T = 1 launch
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+
+    def ssd_inputs(b, l, h, p, g, n, dtype=torch.float32):
+        return (torch.randn((b, l, h, p), generator=g_, device=dev).to(dtype),
+                0.001 + 0.1 * torch.rand((b, l, h), generator=g_, device=dev),
+                -0.5 - 1.5 * torch.rand((h,), generator=g_, device=dev),
+                torch.randn((b, l, g, n), generator=g_, device=dev).to(dtype),
+                torch.randn((b, l, g, n), generator=g_, device=dev).to(dtype),
+                torch.randn((h,), generator=g_, device=dev))
+
+    def rel(got, want):
+        return (got - want).abs().max().item() / want.abs().max().item()
+
+    g_ = torch.Generator(device=dev).manual_seed(1)
+    for b, T, h, p, g, n in ((8, 1, 48, 64, 1, 128), (1, 37, 48, 64, 1, 128),
+                             (2, 5, 16, 32, 2, 32)):
+        x, dt_, A, Bm, Cm, D = ssd_inputs(b, T, h, p, g, n)
+        s0 = torch.randn((b, h, p, n), generator=g_, device=dev)
+        y, s = ssd_kernel.ssd_extend_cuda(s0, x, dt_, A, Bm, Cm, D)
+        y0, s1 = ssd_ref.ssd_extend_reference(s0, x, dt_, A, Bm, Cm, D)
+        assert rel(y, y0) <= 1e-4 and rel(s, s1) <= 1e-4
+        t1 = T // 2
+        if t1:
+            ya, sa = ssd_kernel.ssd_extend_cuda(
+                s0, x[:, :t1], dt_[:, :t1], A, Bm[:, :t1], Cm[:, :t1], D)
+            yb, sb = ssd_kernel.ssd_extend_cuda(
+                sa, x[:, t1:], dt_[:, t1:], A, Bm[:, t1:], Cm[:, t1:], D)
+            assert torch.equal(torch.cat([ya, yb], 1), y)
+            assert torch.equal(sb, s)
+        # x whose last dimension is not contiguous (as an einsum may
+        # leave the conv output) is copied by the wrapper
+        xt = x[:, 0].transpose(1, 2).contiguous().transpose(1, 2)
+        ys, ss = ssd_ops.ssd_step(s0, xt, dt_[:, 0], A, Bm[:, 0],
+                                  Cm[:, 0], D)
+        yk, sk = ssd_kernel.ssd_extend_cuda(s0, x[:, :1], dt_[:, :1], A,
+                                            Bm[:, :1], Cm[:, :1], D)
+        assert torch.equal(ys, yk[:, 0]) and torch.equal(ss, sk)
+        state, ckpt = s0.clone(), torch.empty_like(s0)
+        ssd_kernel.ssd_extend_cuda(state, x, torch.zeros_like(dt_), A, Bm,
+                                   Cm, D, out=state, ckpt=ckpt)
+        assert torch.equal(state, s0) and torch.equal(ckpt, s0)
+    for b, l, h, p, g, n, chunk in ((1, 512, 48, 64, 1, 128, 256),
+                                    (2, 64, 16, 32, 2, 32, 32),
+                                    (1, 48, 6, 32, 3, 64, 16)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dt_, A, Bm, Cm, D = ssd_inputs(b, l, h, p, g, n, dtype)
+            s0 = torch.randn((b, h, p, n), generator=g_, device=dev)
+            for init in (None, s0):
+                y, s = ssd_kernel.ssd_cuda(x, dt_, A, Bm, Cm, D, chunk=chunk,
+                                           initial_state=init)
+                y0, s1 = ssd_ref.ssd_reference(x, dt_, A, Bm, Cm, D,
+                                               chunk=chunk,
+                                               initial_state=init)
+                assert rel(y, y0) <= 1e-4 and rel(s, s1) <= 1e-4

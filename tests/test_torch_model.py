@@ -274,11 +274,11 @@ def test_set_cache_steps_rewinds_steps_only():
 
 def test_unported_configs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch("mamba2-780m")
+        get_arch("qwen2-moe-a2.7b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_arch("llama3.2-1b", variant="reduced+spec")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(get_arch("llama3.2-1b").replace(family="ssm"), device="cpu")
+        build(get_arch("llama3.2-1b").replace(family="moe"), device="cpu")
     assert get_arch("llama3.2-1b", variant="reduced+swa").sliding_window \
         == 4096
 

@@ -395,7 +395,7 @@ def test_paged_view_bit_equality_after_admission():
 def test_paged_cache_unported_layouts_raise():
     """The int8 pool is ported: its leaves have JAX's keys, shapes and
     dtypes (int8 pools, f32 scale pools of one scale per slot and head).
-    A paged cache of a stack with other mixers still raises."""
+    A paged cache of an SSM stack (mamba2-780m) raises as JAX's does."""
     from repro.models import transformer as JT
     from repro_torch.models import transformer as TT
     _, _, tm, _ = _pair(False)
@@ -414,9 +414,13 @@ def test_paged_cache_unported_layouts_raise():
     assert got["sub0"]["kp_scale"].shape == (tm.cfg.n_layers, 6, 8, 2)
     assert got["sub0"]["kp"].dtype == torch.int8
     assert tm.supports_paged and quant.supports_paged
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.make_paged_cache(tm.cfg.replace(family="ssm"), 1, 16,
-                            page_size=8, num_pages=4)
+    ssm_cfg = get_arch("mamba2-780m", variant="reduced")
+    with pytest.raises(NotImplementedError, match="attention-only"):
+        JT.make_paged_cache(jax_get_arch("mamba2-780m", variant="reduced"),
+                            1, 16, page_size=8, num_pages=4)
+    with pytest.raises(NotImplementedError, match="attention-only"):
+        TT.make_paged_cache(ssm_cfg, 1, 16, page_size=8, num_pages=4)
+    assert not build(ssm_cfg, device="cpu").supports_paged
 
 
 def test_bridge_crosses_a_jax_paged_cache():

@@ -1,0 +1,528 @@
+"""The PyTorch port's SSM family (Mamba-2, ``mamba2-780m``) against the JAX
+package's.
+
+Inputs are made with numpy from a seed; weights are JAX's, crossed over
+with ``repro_torch.bridge`` (the f32 ``A_log``/``D``/``dt_bias`` and the
+conv bias perturbed from their constant init so every leaf matters). On
+the CPU every SSD op runs its plain version, which is held against JAX's
+``ref.py`` oracle and against the Pallas kernels in interpret mode; the
+mixer, the reduced model in every mode (every cache leaf, checkpoints
+included), rollback and the ``Engine`` are held against the JAX
+package's, which runs its default route and its Pallas route
+(``REPRO_FORCE_PALLAS=1``). Tolerances: 1e-4 absolute between the port
+and JAX's oracle (the same f32 algorithm, sums in another order), 1e-3
+against the Pallas kernels (the tolerance of JAX's own kernel test),
+exact for depths, for bitwise compositionality and for untouched rows.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_arch as jax_get_arch  # noqa: E402
+from repro.configs import param_count  # noqa: E402
+from repro.kernels.ssd_scan import kernel as jkernel  # noqa: E402
+from repro.kernels.ssd_scan import ref as jref  # noqa: E402
+from repro.models import ssm as JS  # noqa: E402
+from repro.models import transformer as JT  # noqa: E402
+from repro.models.model import build as jax_build  # noqa: E402
+from repro.serving.engine import Engine as JaxEngine  # noqa: E402
+from repro.serving.request import Request as JaxRequest  # noqa: E402
+from repro.serving.sampler import Sampler as JaxSampler  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.kernels import launch_counts  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel as tkernel  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops  # noqa: E402
+from repro_torch.models import ssm as TS  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
+from repro_torch.models.model import build  # noqa: E402
+from repro_torch.serving.engine import Engine  # noqa: E402
+from repro_torch.serving.request import Request  # noqa: E402
+
+TOL = 1e-4                 # port vs JAX's oracle (same f32 algorithm)
+PALLAS_TOL = 1e-3          # vs the Pallas kernels (JAX's own tolerance)
+ARCH = "mamba2-780m"
+SSD_CASES = [(2, 128, 4, 32, 1, 32, 32), (1, 256, 8, 64, 2, 128, 64),
+             (2, 64, 2, 16, 2, 16, 16), (1, 128, 6, 32, 3, 64, 64)]
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=tol,
+                               rtol=0)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _ssd_inputs(b, l, h, p, g, n, seed):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    return (rng.standard_normal((b, l, h, p)).astype(f),
+            rng.uniform(1e-3, 0.1, (b, l, h)).astype(f),
+            -rng.uniform(0.5, 2.0, (h,)).astype(f),
+            rng.standard_normal((b, l, g, n)).astype(f),
+            rng.standard_normal((b, l, g, n)).astype(f),
+            rng.standard_normal((h,)).astype(f))
+
+
+# --------------------------------------------------------------------- #
+# the SSD ops: plain versions against JAX's oracle and Pallas kernels
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_plain_matches_jax(case):
+    *dims, chunk = case
+    args = _ssd_inputs(*dims, seed=sum(dims))
+    y, s = ops.ssd(*map(_t, args), chunk=chunk)
+    yr, sr = jref.ssd_reference(*map(jnp.asarray, args), chunk=chunk)
+    yp, sp = jkernel.ssd_pallas(*map(jnp.asarray, args), chunk=chunk,
+                                interpret=True)
+    assert y.dtype == s.dtype == torch.float32
+    _close(y, yr)
+    _close(s, sr)
+    _close(y, yp, PALLAS_TOL)
+    _close(s, sp, PALLAS_TOL)
+
+
+def test_ssd_initial_state_matches_jax():
+    b, l, h, p, g, n = 2, 64, 4, 32, 2, 32
+    args = _ssd_inputs(b, l, h, p, g, n, seed=3)
+    s0 = np.random.default_rng(4).standard_normal((b, h, p, n)).astype(
+        np.float32)
+    y, s = ops.ssd(*map(_t, args), chunk=16, initial_state=_t(s0))
+    yr, sr = jref.ssd_reference(*map(jnp.asarray, args), chunk=16,
+                                initial_state=jnp.asarray(s0))
+    _close(y, yr)
+    _close(s, sr)
+    # chunking changes only the rounding
+    y2, s2 = ops.ssd(*map(_t, args), chunk=64, initial_state=_t(s0))
+    _close(y2, y)
+    _close(s2, s)
+
+
+@pytest.mark.parametrize("T,g", [(1, 1), (5, 1), (1, 2), (5, 2)])
+def test_ssd_extend_plain_matches_jax(T, g):
+    b, h, p, n = 2, 4, 32, 32
+    x, dt, A, B, C, D = _ssd_inputs(b, T, h, p, g, n, seed=T + 10 * g)
+    s0 = np.random.default_rng(T).standard_normal((b, h, p, n)).astype(
+        np.float32)
+    y, s = ops.ssd_extend(_t(s0), *map(_t, (x, dt, A, B, C, D)))
+    yr, sr = jref.ssd_extend_reference(*map(jnp.asarray,
+                                            (s0, x, dt, A, B, C, D)))
+    yp, sp = jkernel.ssd_extend_pallas(
+        *map(jnp.asarray, (s0, x, dt, A, B, C, D)), interpret=True)
+    _close(y, yr)
+    _close(s, sr)
+    _close(y, yp, PALLAS_TOL)
+    _close(s, sp, PALLAS_TOL)
+    # the single step, through the op the decode path calls
+    y1, s1 = ops.ssd_step(_t(s0), *map(_t, (x[:, 0], dt[:, 0], A, B[:, 0],
+                                            C[:, 0], D)))
+    yr1, sr1 = jref.ssd_decode_step(*map(jnp.asarray, (
+        s0, x[:, 0], dt[:, 0], A, B[:, 0], C[:, 0], D)))
+    _close(y1, yr1)
+    _close(s1, sr1)
+
+
+def test_ssd_extend_is_bitwise_compositional():
+    """[t1] + [t2] == [t1 + t2] == T single steps, bit for bit; a row
+    whose dt is 0 comes out with its state unchanged; ``out`` may be the
+    state itself and ``ckpt`` receives the incoming state."""
+    b, T, h, p, g, n = 3, 9, 4, 32, 2, 32
+    x, dt, A, B, C, D = map(_t, _ssd_inputs(b, T, h, p, g, n, seed=5))
+    s0 = _t(np.random.default_rng(6).standard_normal((b, h, p, n)).astype(
+        np.float32))
+    y, s = ops.ssd_extend(s0, x, dt, A, B, C, D)
+    for t1 in (1, 4):
+        ya, sa = ops.ssd_extend(s0, x[:, :t1], dt[:, :t1], A, B[:, :t1],
+                                C[:, :t1], D)
+        yb, sb = ops.ssd_extend(sa, x[:, t1:], dt[:, t1:], A, B[:, t1:],
+                                C[:, t1:], D)
+        assert torch.equal(torch.cat([ya, yb], 1), y)
+        assert torch.equal(sb, s)
+    st, ys = s0, []
+    for t in range(T):
+        yt, st = ops.ssd_step(st, x[:, t], dt[:, t], A, B[:, t], C[:, t], D)
+        ys.append(yt)
+    assert torch.equal(torch.stack(ys, 1), y) and torch.equal(st, s)
+    dt0 = dt.clone()
+    dt0[1] = 0
+    state, ckpt = s0.clone(), torch.zeros_like(s0)
+    _, out = ops.ssd_extend(state, x, dt0, A, B, C, D, out=state, ckpt=ckpt)
+    assert out is state
+    assert torch.equal(ckpt, s0)
+    assert torch.equal(state[1], s0[1])
+    assert not torch.equal(state[0], s0[0])
+
+
+def test_ssd_cpu_tensors_take_the_plain_version():
+    """The ops route CPU tensors to the plain versions (no launch
+    counted); the kernel wrappers refuse them."""
+    before = launch_counts()
+    args = [_t(a) for a in _ssd_inputs(1, 16, 2, 32, 1, 32, seed=7)]
+    y, s = ops.ssd(*args, chunk=16)
+    assert y.device.type == "cpu" and launch_counts() == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tkernel.ssd_cuda(*args, chunk=16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tkernel.ssd_extend_cuda(s, *args)
+    assert launch_counts() == before
+
+
+# --------------------------------------------------------------------- #
+# the mixer block in every mode
+# --------------------------------------------------------------------- #
+def _perturbed(tree, seed):
+    """JAX params as numpy with the constant-init SSM leaves made random
+    (D around 1, dt_bias and conv_b around 0), so each one is tested."""
+    rng = np.random.default_rng(seed)
+
+    def walk(node):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+                continue
+            v = np.asarray(v)
+            if k in ("D", "dt_bias", "conv_b"):
+                v = (v + 0.5 * rng.standard_normal(v.shape)).astype(v.dtype)
+            out[k] = v
+        return out
+    return walk(tree)
+
+
+def _cfgs():
+    return (jax_get_arch(ARCH, variant="reduced"),
+            get_arch(ARCH, variant="reduced"))
+
+
+def _block_pair():
+    jc, tc = _cfgs()
+    jp = _perturbed(JS.init_ssm(jax.random.PRNGKey(1), jc), seed=1)
+    tp = jax.tree.map(_t, jp)
+    return jc, tc, jax.tree.map(jnp.asarray, jp), tp
+
+
+def _same_ssm_cache(tc_, jc_, tol=TOL):
+    """Every leaf of an SSM (sub-)cache: floats within tol, depths
+    exactly, dtypes equal."""
+    t_np = bridge.cache_to_numpy(tc_)
+    j_np = jax.tree.map(np.asarray, jc_)
+    assert set(t_np) == set(j_np) == set(TS.CACHE_KEYS)
+    for k in TS.CACHE_KEYS:
+        assert t_np[k].dtype == j_np[k].dtype, k
+        assert t_np[k].shape == j_np[k].shape, k
+        if k.startswith("step"):
+            np.testing.assert_array_equal(t_np[k], j_np[k])
+        else:
+            _close(t_np[k], j_np[k], tol)
+
+
+def test_ssm_block_matches_jax_in_every_mode():
+    jc, tc, jp, tp = _block_pair()
+    rng = np.random.default_rng(2)
+    B, L, d = 3, 12, tc.d_model
+    u = rng.standard_normal((B, L, d)).astype(np.float32)
+    # cache-free, whole rows
+    yj, _ = JS.ssm_block(jp, jnp.asarray(u), jc)
+    yt, nc = TS.ssm_block(tp, _t(u), tc)
+    assert nc is None
+    _close(yt, yj)
+    # cache-free, right-padded rows with return_cache
+    length = np.array([12, 5, 2], np.int32)
+    yj, cj = JS.ssm_block(jp, jnp.asarray(u), jc, return_cache=True,
+                          length=jnp.asarray(length))
+    yt, ct = TS.ssm_block(tp, _t(u), tc, return_cache=True,
+                          length=_t(length))
+    for b, n in enumerate(length):
+        _close(yt[b, :n], yj[b, :n])
+    _same_ssm_cache(ct, cj)
+    # one decode step from that cache, in place
+    u1 = rng.standard_normal((B, 1, d)).astype(np.float32)
+    yj, cj = JS.ssm_block(jp, jnp.asarray(u1), jc, cache=cj)
+    yt, ct2 = TS.ssm_block(tp, _t(u1), tc, cache=ct)
+    assert ct2 is ct
+    _close(yt, yj)
+    _same_ssm_cache(ct, cj)
+    # extend at per-row lengths, one of them 0
+    u5 = rng.standard_normal((B, 5, d)).astype(np.float32)
+    lens = np.array([5, 0, 3], np.int32)
+    before = {k: v.clone() for k, v in ct.items()}
+    yj, cj = JS.ssm_block(jp, jnp.asarray(u5), jc, cache=cj,
+                          length=jnp.asarray(lens), mode="extend")
+    yt, _ = TS.ssm_block(tp, _t(u5), tc, cache=ct, length=_t(lens),
+                         mode="extend")
+    for b, n in enumerate(lens):
+        _close(yt[b, :n], yj[b, :n])
+    _same_ssm_cache(ct, cj)
+    for k in ("conv", "ssm", "step"):
+        assert torch.equal(ct[k][1], before[k][1]), k
+        assert torch.equal(ct[k + "_ckpt"], before[k]), k
+    assert int(ct["step"][0]) == int(before["step"][0]) + 5
+
+
+@pytest.mark.parametrize("L", [1, 40])
+def test_ssm_block_cache_free_pads_to_a_chunk(L):
+    """Lengths that are not a chunk multiple (chunk 16 at L 1, 32 at
+    L 40 with 24 padded positions) give JAX's outputs and states."""
+    jc, tc, jp, tp = _block_pair()
+    u = np.random.default_rng(L).standard_normal((2, L, tc.d_model)).astype(
+        np.float32)
+    yj, cj = JS.ssm_block(jp, jnp.asarray(u), jc, return_cache=True)
+    yt, ct = TS.ssm_block(tp, _t(u), tc, return_cache=True)
+    _close(yt, yj)
+    _same_ssm_cache(ct, cj)
+
+
+# --------------------------------------------------------------------- #
+# the reduced model in every mode
+# --------------------------------------------------------------------- #
+def _model_pair():
+    jc, tc = _cfgs()
+    jm, tm = jax_build(jc), build(tc, device="cpu")
+    jp_np = _perturbed(jax.tree.map(np.asarray,
+                                    jm.init(jax.random.PRNGKey(0))), seed=0)
+    tp = bridge.params_from_jax(jp_np, tc, "cpu")
+    return jm, jax.tree.map(jnp.asarray, jp_np), tm, tp
+
+
+_PAIR = []
+
+
+def _models():
+    if not _PAIR:
+        _PAIR.append(_model_pair())
+    return _PAIR[0]
+
+
+def _tokens(shape, seed):
+    return np.random.default_rng(seed).integers(0, 1024, shape).astype(
+        np.int32)
+
+
+def _same_cache(tcache, jcache, tol=TOL):
+    assert set(tcache) == set(jcache)
+    for sub in jcache:
+        _same_ssm_cache(tcache[sub], jcache[sub], tol)
+
+
+def _jitted(jm):
+    """Fresh jitted step functions: a new function object each call, so
+    an environment set before the call decides the route they trace."""
+    return (jax.jit(lambda p, b, c: jm.prefill(p, b, c)),
+            jax.jit(lambda p, t, c: jm.decode_step(p, t, c)),
+            jax.jit(lambda p, t, c, n: jm.extend_into_cache(p, t, c, n)),
+            jax.jit(lambda p, t: JT.forward_train(p, jm.cfg, t)[0]))
+
+
+@pytest.mark.parametrize("route", ["default", "pallas"])
+def test_model_matches_jax_in_every_mode(route, monkeypatch):
+    traced = []
+    if route == "pallas":
+        monkeypatch.setenv("REPRO_FORCE_PALLAS", "1")
+        for name in ("ssd_pallas", "ssd_extend_pallas"):
+            fn = getattr(jkernel, name)
+            monkeypatch.setattr(jkernel, name, lambda *a, _f=fn, _n=name,
+                                **k: traced.append(_n) or _f(*a, **k))
+    jm, jp, tm, tp = _models()
+    j_prefill, j_decode, j_extend, j_train = _jitted(jm)
+    tol = TOL if route == "default" else PALLAS_TOL
+    # forward_train
+    toks = _tokens((2, 12), seed=0)
+    lj = j_train(jp, jnp.asarray(toks))
+    lt, _ = TT.forward_train(tp, tm.cfg, _t(toks).long())
+    _close(lt, lj, tol)
+    # prefill (right-padded rows) then decode
+    length = np.array([12, 7], np.int32)
+    jcache = jm.make_cache(2, 32)
+    lj, jcache = j_prefill(jp, {"tokens": jnp.asarray(toks),
+                                "length": jnp.asarray(length)}, jcache)
+    tcache = tm.make_cache(2, 32)
+    lt, _ = tm.prefill(tp, {"tokens": _t(toks).long(),
+                            "length": _t(length)}, tcache)
+    _close(lt, lj, tol)
+    _same_cache(tcache, jcache, tol)
+    nxt = _tokens((2, 1), seed=1)
+    lj, jcache = j_decode(jp, jnp.asarray(nxt), jcache)
+    lt, _ = tm.decode_step(tp, _t(nxt).long(), tcache)
+    _close(lt, lj, tol)
+    _same_cache(tcache, jcache, tol)
+    # extend at per-row lengths (one 0) on that cache
+    ext = _tokens((2, 6), seed=2)
+    lens = np.array([6, 0], np.int32)
+    lj, jcache = j_extend(jp, jnp.asarray(ext), jcache, jnp.asarray(lens))
+    lt, _ = tm.extend_into_cache(tp, _t(ext).long(), tcache, _t(lens))
+    _close(lt[0], lj[0], tol)
+    _same_cache(tcache, jcache, tol)
+    if route == "pallas":        # JAX's traces went through both kernels
+        assert {"ssd_pallas", "ssd_extend_pallas"} <= set(traced)
+
+
+def test_extend_from_a_jax_cache_and_rollback_match_jax():
+    """A JAX cache crosses the bridge leaf for leaf; after an extend the
+    rollback of ``set_cache_steps`` restores the checkpoints on the rows
+    it moves back and leaves the others, as JAX's does."""
+    jm, jp, tm, tp = _models()
+    toks = _tokens((2, 9), seed=3)
+    _, jcache = jm.extend_into_cache(jp, jnp.asarray(toks),
+                                     jm.make_cache(2, 32))
+    tcache = bridge.cache_from_jax(jax.tree.map(np.asarray, jcache), "cpu")
+    _same_cache(tcache, jcache, 0.0)
+    ext = _tokens((2, 4), seed=4)
+    lens = np.array([4, 2], np.int32)
+    _, jcache = jm.extend_into_cache(jp, jnp.asarray(ext), jcache,
+                                     jnp.asarray(lens))
+    tm.extend_into_cache(tp, _t(ext).long(), tcache, _t(lens))
+    _same_cache(tcache, jcache)
+    steps = np.array([9, 11], np.int32)          # row 0 back, row 1 stays
+    jback = JT.set_cache_steps(jcache, jnp.asarray(steps))
+    kept = bridge.cache_to_numpy(tcache)
+    TT.set_cache_steps(tcache, _t(steps))
+    _same_cache(tcache, jback)
+    assert TT.cache_steps(tcache).tolist() == [9, 11]
+    got = bridge.cache_to_numpy(tcache)
+    for k in ("conv", "ssm"):
+        np.testing.assert_array_equal(got["sub0"][k][:, 0],
+                                      kept["sub0"][k + "_ckpt"][:, 0])
+        np.testing.assert_array_equal(got["sub0"][k][:, 1],
+                                      kept["sub0"][k][:, 1])
+
+
+def test_param_tree_and_init():
+    """The full-width tree counts JAX's ``param_count`` plus what its
+    analytic count leaves out (the conv bias of each layer and the final
+    norm), equals JAX's tree in shapes, and the port's own init keeps
+    ``A_log``/``D``/``dt_bias`` in f32 with A = -exp(A_log) < 0."""
+    cfg, jcfg = get_arch(ARCH), jax_get_arch(ARCH)
+    shapes = TT.param_shapes(cfg)
+    n = sum(int(np.prod(s)) for s in jax.tree.leaves(
+        shapes, is_leaf=lambda x: isinstance(x, tuple)))
+    assert param_count(jcfg) == 857_217_792
+    assert n == param_count(jcfg) + 48 * 3328 + 1536
+    jshapes = jax.eval_shape(lambda: JT.init_transformer(
+        jax.random.PRNGKey(0), jcfg))
+    want = jax.tree.map(lambda a: tuple(a.shape), jshapes)
+    assert jax.tree.map(tuple, shapes, is_leaf=lambda x: isinstance(
+        x, tuple)) == want
+    tc = get_arch(ARCH, variant="reduced").replace(param_dtype="bfloat16",
+                                                   dtype="bfloat16")
+    p = build(tc, "cpu").init(0)
+    blk = p["blocks"]["sub0"]["ssm"]
+    for k in TS.F32_LEAVES:
+        assert blk[k].dtype == torch.float32, k
+    assert blk["in_proj"]["w"].dtype == torch.bfloat16
+    assert (-torch.exp(blk["A_log"]) < 0).all()
+    assert set(p["blocks"]["sub0"]) == {"ln1", "ssm"}
+
+
+def test_bridge_checks_ssm_dtypes():
+    jc = jax_get_arch(ARCH, variant="reduced").replace(
+        param_dtype="bfloat16", dtype="bfloat16")
+    tc = get_arch(ARCH, variant="reduced").replace(param_dtype="bfloat16",
+                                                   dtype="bfloat16")
+    tree = jax.tree.map(np.asarray,
+                        jax_build(jc).init(jax.random.PRNGKey(0)))
+    tp = bridge.params_from_jax(tree, tc, "cpu")
+    assert tp["blocks"]["sub0"]["ssm"]["A_log"].dtype == torch.float32
+    tree["blocks"]["sub0"]["ssm"]["D"] = \
+        tree["blocks"]["sub0"]["ssm"]["D"].astype(tree["ln_f"]["scale"].dtype)
+    with pytest.raises(ValueError, match="dtype"):
+        bridge.params_from_jax(tree, tc, "cpu")
+
+
+def test_unported_ssm_options_raise():
+    """The edge profile and weight quantization on an SSM stack raise,
+    naming their ROADMAP item."""
+    for cfg in (get_arch(ARCH, variant="reduced+edge"),
+                get_arch(ARCH, variant="reduced").replace(quant="int8")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build(cfg, "cpu")
+
+
+# --------------------------------------------------------------------- #
+# the engine
+# --------------------------------------------------------------------- #
+def _requests():
+    rng = np.random.default_rng(1)
+    return [(uid, rng.integers(0, 1024, L)) for uid, L in
+            enumerate((3, 11, 17))]
+
+
+@pytest.mark.parametrize("chunk", [0, 8])
+def test_engine_matches_jax_engine(chunk):
+    """Three requests on two slots (the third reuses a slot, so the reset
+    of its SSM state is exercised), greedy tokens identical."""
+    jm, jp, tm, tp = _models()
+    je = JaxEngine(jm, jp, max_batch=2, cache_len=64, sampler=JaxSampler(),
+                   prefill_chunk=chunk)
+    te = Engine(tm, tp, max_batch=2, cache_len=64, prefill_chunk=chunk)
+    for uid, prompt in _requests():
+        je.submit(JaxRequest(uid=uid, prompt=prompt, max_new_tokens=6))
+        te.submit(Request(uid=uid, prompt=prompt, max_new_tokens=6))
+    jr, tr = je.run(), te.run()
+    assert sorted(tr) == sorted(jr) == [0, 1, 2]
+    for uid in jr:
+        assert tr[uid].tokens == jr[uid].tokens, uid
+        assert tr[uid].finish_reason == jr[uid].finish_reason == "length"
+    assert len({t for r in tr.values() for t in r.tokens}) > 1
+    assert {"plain", "mixed"} <= set(te.step_kinds)
+
+
+def test_engine_slot_reset_zeroes_ssm_state():
+    _, _, tm, tp = _models()
+    te = Engine(tm, tp, max_batch=2, cache_len=64, prefill_chunk=8)
+    te.submit(Request(uid=0, prompt=np.arange(5), max_new_tokens=3))
+    te.run()
+    sub = te.cache["sub0"]
+    assert int(sub["step"][0, 0]) > 0 and sub["ssm"][:, 0].abs().sum() > 0
+    te._reset_slot(0)
+    for k, leaf in sub.items():
+        assert not leaf[:, 0].any(), k
+
+
+def test_engine_paged_and_long_prompts_raise_as_jax():
+    jm, jp, tm, tp = _models()
+    with pytest.raises(ValueError, match="paged"):
+        JaxEngine(jm, jp, max_batch=2, cache_len=64, paged=True)
+    with pytest.raises(ValueError, match="paged"):
+        Engine(tm, tp, max_batch=2, cache_len=64, paged=True)
+    je = JaxEngine(jm, jp, max_batch=2, cache_len=16)
+    te = Engine(tm, tp, max_batch=2, cache_len=16)
+    with pytest.raises(ValueError, match="exceeds"):
+        je.submit(JaxRequest(uid=0, prompt=np.arange(17), max_new_tokens=2))
+    with pytest.raises(ValueError, match="exceeds"):
+        te.submit(Request(uid=0, prompt=np.arange(17), max_new_tokens=2))
+    with pytest.raises(NotImplementedError, match="attention-only"):
+        TT.make_paged_cache(tm.cfg, 2, 16, page_size=8, num_pages=4)
+
+
+def test_serve_cli_on_cpu(capsys):
+    from repro_torch.launch import serve
+    responses, stats = serve.main([
+        "--arch", ARCH, "--variant", "reduced", "--device", "cpu",
+        "--requests", "6", "--max-new", "8", "--max-batch", "2",
+        "--cache-len", "64", "--prefill-chunk", "8", "--temperature", "0"])
+    out = capsys.readouterr().out
+    assert "arch=mamba2-780m-reduced" in out and "tokens=48" in out
+    assert stats["n_finished"] == 6
+    assert all(r.finish_reason == "length" and len(r.tokens) == 8
+               for r in responses.values())
+
+
+def test_reduced_rule_and_ssm_config_match_jax():
+    """The port's SSMConfig and the attention-free ``reduced`` rule give
+    the JAX package's fields."""
+    jc, tc = _cfgs()
+    assert dataclasses.asdict(tc.ssm) == dataclasses.asdict(jc.ssm)
+    for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
+              "vocab", "head_dim", "dtype", "param_dtype"):
+        assert getattr(tc, f) == getattr(jc, f), f
+    full = get_arch(ARCH)
+    assert dataclasses.asdict(full.ssm) == dataclasses.asdict(
+        jax_get_arch(ARCH).ssm)
