@@ -30,8 +30,17 @@ card against the CPU through ``prefill`` (the chunked kernel) and
 through an extend (``model_ssm``) and through ``Engine``
 (``serve_ssm_check``, tokens identical); the full 48-layer bf16 model
 served with the same schedule (``serve_ssm``, launch counts equal to the
-trace) and a profiled second batch (``profile_ssm``). Every phase prints
-one JSON line; any failure raises and the
+trace) and a profiled second batch (``profile_ssm``). Then the Zoo
+compose layer: the flash-attention kernel against its plain version in
+the ``kernels`` phase (pixtral-12b's hd 160 and llama3.2-1b's hd 64 at
+G 4, G 1, a window, non-causal, a ragged length, fp32); the Zoo's model
+services at full width cut to 2 layers, fp32, card against CPU
+(``model_vlm``: the pixtral-12b classifier and ``model.lm``); and the
+paper's deployment example at full width (``zoo``: the 40-layer bf16
+pixtral-12b classifier ``>> label_decoder`` deployed local, remote and
+split, identical outputs, exactly 40 flash and 81 norm launches a
+forward; ``model.lm`` on llama3.2-1b; a registry round trip on the
+card). Every phase prints one JSON line; any failure raises and the
 script exits non-zero without the final line. The second-to-last lines are the
 kernel summary (JSON) and the card's name and power limit as
 ``nvidia-smi`` reports them; the last line is ``{"ok": true, "device":
@@ -63,6 +72,9 @@ QMM_TPU = {8: "src/repro/kernels/quant_matmul/kernel.py:45",
 SSD_SRC = "src/repro_torch/csrc/ssd_scan.cu"
 SSD_TPU = "src/repro/kernels/ssd_scan/kernel.py:156"
 SSD_EXT_TPU = "src/repro/kernels/ssd_scan/kernel.py:109"
+FLASH_SRC = "src/repro_torch/csrc/flash_attention.cu"
+FLASH_TPU = ("src/repro/kernels/flash_attention/kernel.py:153, "
+             "src/repro/kernels/flash_attention/kernel.py:191")
 #: mamba2-780m's SSD dims (h, p, g, n) and the reduced variant's with 2
 #: groups
 SSD_FULL = (48, 64, 1, 128)
@@ -327,17 +339,25 @@ def paged_decode_attention_cases(torch, flush):
 
 
 def rmsnorm_cases(torch, flush):
+    """The Triton norm against its plain version at the shapes its paths
+    give it: llama3.2-1b's d 2048 at a decode batch (N 8), a chunk
+    (N 128) and ``model.lm``'s forward (B 2 x L 1024 = N 2048), and
+    pixtral-12b's d 5120 in the Zoo's classifier forward (N 2048; a
+    non-power-of-two d, so a BLOCK 8192 launch with a masked tail); fp32
+    and bf16, timed against its bound wherever it adds a residual."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.rmsnorm.kernel import fused_rmsnorm_triton
     from repro_torch.kernels.rmsnorm.ref import fused_rmsnorm_reference
 
     dev = torch.device("cuda")
-    d, eps = 2048, 1e-5
+    eps = 1e-5
     out, errs = [], []
-    for N, with_res in ((8, True), (128, True), (8, False)):
+    for N, d, with_res in ((8, 2048, True), (128, 2048, True),
+                           (8, 2048, False), (2048, 2048, True),
+                           (2048, 5120, True)):
         g = torch.Generator(device=dev).manual_seed(SEED)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             x = torch.randn((N, d), generator=g, device=dev).to(dtype)
             r = torch.randn((N, d), generator=g, device=dev).to(dtype) \
@@ -351,10 +371,11 @@ def rmsnorm_cases(torch, flush):
                       (t.float() - t0.float()).abs().max().item())
             ok = bool(torch.isfinite(y).all().item()) and err <= TOL[dname]
             rec = {"phase": "kernels", "kernel": "rmsnorm",
-                   "case": f"N{N}" + ("" if with_res else "_no_residual"),
+                   "case": f"N{N}_d{d}" + ("" if with_res
+                                           else "_no_residual"),
                    "dtype": dname, "N": N, "d": d, "max_abs_err": err,
                    "tol": TOL[dname], "ok": ok}
-            if with_res and dtype == torch.bfloat16:
+            if with_res:
                 elt = x.element_size()
                 nbytes = elt * (4 * N * d + d)
                 flops = 5 * N * d
@@ -677,6 +698,99 @@ def ssd_cases(torch, flush):
     return out, max(errs)
 
 
+def flash_attention_cases(torch, flush):
+    """The flash kernel against its plain version (the port of
+    ``ref.attention_reference``, GQA heads expanded) at the shapes of the
+    Zoo's services: pixtral-12b's attention (hd 160, G 4) and
+    llama3.2-1b's (hd 64, G 4) at B 2, L 1024 in bf16, a G = 1 case at
+    hd 128, a window of 256 (whose first live tile is wholly masked for
+    some rows: the finite NEG_INF case), ``causal=False``, a ragged L of
+    1000 and an fp32 case. Every case is timed beside the plain version
+    and SDPA (an explicit mask for the window, a yardstick only); the
+    bound counts q, k, v and o once and 4 B Hq hd operations per live
+    query-key pair. The backward raises."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+
+    dev = torch.device("cuda")
+    # (name, B, L, Hq, Hkv, hd, dtype, causal, window)
+    cases = [
+        ("pixtral12b", 2, 1024, 32, 8, 160, "bfloat16", True, 0),
+        ("llama1b", 2, 1024, 32, 8, 64, "bfloat16", True, 0),
+        ("g1_hd128", 2, 1024, 8, 8, 128, "bfloat16", True, 0),
+        ("window256", 2, 1024, 32, 8, 64, "bfloat16", True, 256),
+        ("non_causal", 2, 1024, 32, 8, 64, "bfloat16", False, 0),
+        ("ragged_L1000", 2, 1000, 32, 8, 160, "bfloat16", True, 0),
+        ("fp32", 2, 1024, 32, 8, 64, "float32", True, 0),
+    ]
+    out, errs = [], []
+    for name, B, L, Hq, Hkv, hd, dname, causal, window in cases:
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        dtype = getattr(torch, dname)
+        q = torch.randn((B, L, Hq, hd), generator=g, device=dev).to(dtype)
+        k = torch.randn((B, L, Hkv, hd), generator=g, device=dev).to(dtype)
+        v = torch.randn((B, L, Hkv, hd), generator=g, device=dev).to(dtype)
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+        def plain():     # what ops.mha_attention runs for CPU tensors
+            rep = Hq // Hkv
+            return attention_reference(
+                qh, kh.repeat_interleave(rep, dim=1),
+                vh.repeat_interleave(rep, dim=1), causal=causal,
+                window=window)
+
+        got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        want = plain().transpose(1, 2)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = bool(torch.isfinite(got).all().item()) and err <= TOL[dname]
+        pos = torch.arange(L, device=dev)
+        mask = torch.ones((L, L), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= pos[None] <= pos[:, None]
+        if window:
+            mask &= pos[None] > pos[:, None] - window
+        pairs = int(mask.sum().item())
+        nbytes = q.element_size() * 2 * (q.numel() + k.numel())
+        flops = 4 * B * Hq * hd * pairs
+        bms, by = bound_ms(nbytes, flops, dname)
+        if window:
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qh, kh, vh, attn_mask=mask, enable_gqa=True)
+        else:
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qh, kh, vh, is_causal=causal, enable_gqa=True)
+        rec = {"phase": "kernels", "kernel": "flash_attention",
+               "case": name, "dtype": dname, "B": B, "L": L, "Hq": Hq,
+               "Hkv": Hkv, "hd": hd, "causal": causal, "window": window,
+               "live_pairs": pairs, "max_abs_err": err, "tol": TOL[dname],
+               "ok": ok,
+               "kernel_ms": median_ms(torch, lambda: flash_attention_cuda(
+                   q, k, v, causal=causal, window=window), flush),
+               "plain_ms": median_ms(torch, plain, flush),
+               "library_ms": median_ms(torch, sdpa, flush),
+               "bound_ms": bms, "bound_us": bms * 1e3, "bound_by": by,
+               "bytes": nbytes, "flops": flops}
+        emit(rec)
+        out.append(rec)
+        errs.append(err)
+        if not ok:
+            raise AssertionError(f"flash_attention {name}: kernel "
+                                 f"disagrees with the plain version: {rec}")
+    # the launch sits in an autograd Function whose backward raises
+    qg = q.detach().requires_grad_()
+    try:
+        flash_attention_cuda(qg, k, v).float().sum().backward()
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("flash_attention: backward did not raise")
+    return out, max(errs)
+
+
 # --------------------------------------------------------------------- #
 # phase 4: 2-layer full-width model, card against CPU
 # --------------------------------------------------------------------- #
@@ -849,6 +963,268 @@ def _tree_to(tree, device):
 
 
 # --------------------------------------------------------------------- #
+# the Zoo: model services card against CPU, then the paper's deployment
+# example at full width
+# --------------------------------------------------------------------- #
+def _launch_delta(before, after):
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _profile_call(torch, fn):
+    """One warm call of ``fn`` under the profiler: device kernel time by
+    kernel and its share of the call's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((getattr(e, "device_time_total",
+                            getattr(e, "cuda_time_total", 0.0)) / 1e3,
+                    e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy = sum(ms for ms, _, _ in rows)
+    return {"wall_ms_profiled": wall_ms, "device_kernel_ms": busy,
+            "device_busy_share": busy / wall_ms if busy else None,
+            "kernel_launches": sum(c for _, c, _ in rows),
+            "top": [{"kernel": k[:90], "ms": ms, "calls": c}
+                    for ms, c, k in rows[:8]]}
+
+
+def model_vlm(torch):
+    """The Zoo's model services at full width, depth cut to 2 layers,
+    fp32, card against CPU (weights from seed 0 made on the CPU and
+    copied to the card): the pixtral-12b classifier (d 5120, hd 160, G 4)
+    built with ``n_tokens=256`` (the ``classifier_service`` argument: 256
+    frontend tokens of 1024 dims, B 2), logits within 2e-3 and class ids
+    identical through the label decoder; and ``model.lm`` on a 2-layer
+    llama3.2-1b (B 2, L 256), logits within 2e-3. The card's runs launch
+    one flash attention a layer and 2 * n_layers + 1 norms."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.core import zoo_builders as zb
+    from repro_torch.models.transformer import init_transformer
+
+    tol, t0 = 2e-3, time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    fp32 = dict(n_layers=2, dtype="float32", param_dtype="float32")
+    cfg = get_arch("pixtral-12b").replace(**fp32)
+    clf = zb.classifier_service_for(cfg, 1000, arch="pixtral-12b",
+                                    n_tokens=256)
+    dec = zb.label_decoder(1000)
+    p_cpu = clf.metadata["init_params"](SEED, "cpu")
+    p_gpu = _tree_to(p_cpu, "cuda")
+    emb = torch.from_numpy(rng.normal(0, 1, (2, 256, 1024)).astype(
+        np.float32))
+    runs = {}
+    for name, p, x in (("cpu", p_cpu, emb), ("gpu", p_gpu, emb.cuda())):
+        before = kernels.launch_counts()
+        logits = clf.fn(p, {"embeddings": x})
+        out = dec(logits)
+        runs[name] = (logits.cpu(), out["class_id"].cpu(),
+                      _launch_delta(before, kernels.launch_counts()))
+    err = (runs["cpu"][0] - runs["gpu"][0]).abs().max().item()
+    want = {"flash_attention": 2, "rmsnorm": 5}
+    rec = {"phase": "model_vlm", "arch": cfg.name, "n_layers": 2,
+           "d_model": cfg.d_model, "hd": cfg.hd, "dtype": cfg.dtype,
+           "batch": 2, "n_tokens": 256, "n_classes": 1000,
+           "logits_max_abs_err": err, "tol": tol,
+           "class_ids_gpu": runs["gpu"][1].tolist(),
+           "class_ids_cpu": runs["cpu"][1].tolist(),
+           "launches_gpu": runs["gpu"][2], "launches_expected": want}
+    ok = err <= tol and torch.equal(runs["cpu"][1], runs["gpu"][1]) \
+        and runs["gpu"][2] == want and not runs["cpu"][2]
+    del p_cpu, p_gpu
+    gc.collect()
+
+    lcfg = get_arch("llama3.2-1b").replace(**fp32)
+    lm = zb.lm_service_for(lcfg, arch="llama3.2-1b")
+    p_cpu = init_transformer(lcfg, SEED, "cpu")
+    p_gpu = _tree_to(p_cpu, "cuda")
+    toks = torch.from_numpy(rng.integers(0, lcfg.vocab, (2, 256)).astype(
+        np.int32))
+    before = kernels.launch_counts()
+    lg = lm.fn(p_gpu, {"tokens": toks.cuda()})
+    lm_launches = _launch_delta(before, kernels.launch_counts())
+    lm_err = (lm.fn(p_cpu, {"tokens": toks}) - lg.cpu()).abs().max().item()
+    lm_want = {"flash_attention": 2, "rmsnorm": 5}
+    rec.update(lm_arch=lcfg.name, lm_seq=256, lm_logits_max_abs_err=lm_err,
+               lm_launches_gpu=lm_launches, lm_launches_expected=lm_want,
+               seconds=time.perf_counter() - t0)
+    rec["ok"] = ok and lm_err <= tol and lm_launches == lm_want
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"model_vlm: card and CPU disagree: {rec}")
+
+
+def zoo(torch):
+    """The paper's deployment example at full width: the pixtral-12b
+    classifier (40 layers, bf16, weights made on the card from seed 0)
+    ``>> label_decoder(1000)`` on frontend embeddings (B 2, 1024 tokens of
+    1024 dims, bf16, seed 0), deployed all local, all remote and split
+    after the classifier. Class ids and confidences must be identical
+    across the three, and every forward must launch exactly 40 flash
+    attentions and 81 norms and nothing else of ours. Then ``model.lm``
+    on the full llama3.2-1b (B 2, L 1024: 16 flash launches a forward),
+    and a registry round trip on the card: the reduced classifier (25 GB
+    of npz is not a smoke step) published from the card, pulled back
+    through a transport onto the card with its hash checked, composed
+    with the decoder, giving equal outputs. Returns the launch counts of
+    the phase."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.core import zoo_builders as zb
+    from repro_torch.core.deploy import DeploymentPlan, deploy
+    from repro_torch.core.netmodel import NetworkModel
+    from repro_torch.core.profile import profile_stages
+    from repro_torch.core.registry import Registry
+    from repro_torch.core.transport import RepoTransport, SyncedRegistry
+    from repro_torch.models.transformer import init_transformer
+    from repro_torch.training.checkpoints import tree_hash
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    clf = zb.classifier_service("pixtral-12b", n_classes=1000, variant="")
+    clf = clf.with_params(clf.metadata["init_params"](SEED, "cuda"))
+    dec = zb.label_decoder(1000)
+    svc = clf >> dec
+    x = {"embeddings": torch.from_numpy(rng.normal(
+        0, 1, (2, 1024, 1024)).astype(np.float32)).to("cuda",
+                                                      torch.bfloat16)}
+    clf.check_input(x)
+    want = {"flash_attention": 40, "rmsnorm": 81}
+    plans = {"local": DeploymentPlan.all_local(svc),
+             "remote": DeploymentPlan.all_remote(svc, NetworkModel(seed=1)),
+             "split": DeploymentPlan.split(svc, 1, NetworkModel(seed=2))}
+    outs, recs, bad = {}, {}, []
+    for name, plan in plans.items():
+        dep = deploy(svc, plan, stages=[clf, dec])
+        walls = []
+        for i in range(4):               # the first call warms up
+            before = kernels.launch_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            y, tel = dep.call(x)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+            delta = _launch_delta(before, kernels.launch_counts())
+            if delta != want:
+                bad.append((name, i, delta))
+        outs[name] = y
+        recs[name] = {
+            "wall_ms_median": statistics.median(walls[1:]),
+            "wall_ms_first": walls[0],
+            "stages": [{"stage": s.stage, "endpoint": s.endpoint,
+                        "compute_ms": s.compute_s * 1e3,
+                        "modelled_network_ms": s.transfer_s * 1e3}
+                       for s in tel.stages]}
+    prof = profile_stages([clf, dec], x, iters=3)
+    device_profile = _profile_call(torch, lambda: svc(x))
+    ref = outs["local"]
+    same = {name: torch.equal(o["class_id"], ref["class_id"])
+            and torch.equal(o["confidence"], ref["confidence"])
+            for name, o in outs.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = clf.n_params
+    del clf, svc, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lcfg = get_arch("llama3.2-1b")
+    lm = zb.lm_service("llama3.2-1b")
+    lp = init_transformer(lcfg, SEED, "cuda")
+    toks = torch.from_numpy(rng.integers(0, lcfg.vocab, (2, 1024)).astype(
+        np.int32)).cuda()
+    lm_walls, lm_bad = [], []
+    for i in range(3):
+        before = kernels.launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits = lm.fn(lp, {"tokens": toks})
+        torch.cuda.synchronize()
+        lm_walls.append((time.perf_counter() - t1) * 1e3)
+        delta = _launch_delta(before, kernels.launch_counts())
+        if delta != {"flash_attention": 16, "rmsnorm": 33}:
+            lm_bad.append((i, delta))
+    lm_ok = tuple(logits.shape) == (2, 1024, lcfg.vocab) \
+        and bool(torch.isfinite(logits).all().item())
+    del lp, logits
+    gc.collect()
+
+    # the registry round trip on the card (reduced classifier)
+    root = Path(__file__).resolve().parent / "build" / "zoo_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    small = zb.classifier_service("pixtral-12b", n_classes=10)
+    small = small.with_params(small.metadata["init_params"](SEED, "cuda"))
+    small_dec = zb.label_decoder(10)
+    remote = Registry(root / "remote", device="cuda")
+    man = remote.publish(small, builder="model.classifier",
+                         config={"arch": "pixtral-12b", "n_classes": 10})
+    remote.publish(small_dec, builder="adapter.label_decoder",
+                   config={"n_classes": 10})
+    remote.publish_composed(small >> small_dec, [small, small_dec])
+    sreg = SyncedRegistry(root / "cache", [RepoTransport(root / "remote")],
+                          device="cuda")
+    pulled, _ = sreg.pull(f"{small.name}_then_{small_dec.name}")
+    pulled_bytes = sum(f.stat().st_size for f in (root / "cache").rglob("*")
+                       if f.is_file())
+    xs = {"embeddings": torch.from_numpy(rng.normal(
+        0, 1, (2, 16, 64)).astype(np.float32)).cuda()}
+    a, b = (small >> small_dec)(xs), pulled(xs)
+    hashes = (tree_hash(small.params), man["params_hash"],
+              tree_hash(pulled.params["stage0"]))
+    reg_ok = len(set(hashes)) == 1 \
+        and pulled.params["stage0"]["head"]["w"].is_cuda \
+        and torch.equal(a["class_id"], b["class_id"]) \
+        and torch.equal(a["confidence"], b["confidence"])
+    shutil.rmtree(root, ignore_errors=True)
+
+    counts = kernels.launch_counts()
+    rec = {"phase": "zoo", "service": "classify_pixtral-12b >> "
+           "label_decoder", "n_layers": 40, "dtype": "bfloat16",
+           "n_params": n_params, "batch": 2, "n_tokens": 1024,
+           "d_embed": 1024, "n_classes": 1000,
+           "class_ids": ref["class_id"].tolist(),
+           "confidence": ref["confidence"].tolist(),
+           "placements_identical": same, "placements": recs,
+           "profile": [{"stage": p.stage, "compute_ms": p.compute_ms,
+                        "first_call_excess_ms": p.compile_ms,
+                        "output_bytes": p.output_bytes,
+                        "n_params": p.n_params} for p in prof],
+           "device_profile": device_profile,
+           "launches_per_forward_expected": want,
+           "bad_launch_counts": bad, "peak_mem_gib": peak,
+           "lm_arch": lcfg.name, "lm_batch": 2, "lm_seq": 1024,
+           "lm_wall_ms_median": statistics.median(lm_walls[1:]),
+           "lm_bad_launch_counts": lm_bad,
+           "registry": {"hashes_equal": len(set(hashes)) == 1,
+                        "pulled_bytes": pulled_bytes, "ok": reg_ok},
+           "launches": counts, "seconds": time.perf_counter() - t0}
+    rec["ok"] = all(same.values()) and not bad and not lm_bad and lm_ok \
+        and reg_ok and counts["flash_attention"] > 0 \
+        and all(v == 0 for k, v in counts.items()
+                if k not in ("flash_attention", "rmsnorm"))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"zoo phase failed: {rec}")
+    return counts
+
+
+# --------------------------------------------------------------------- #
 # phases 5, 7 and 8: serve the full model through the engine, on
 # contiguous rings, on a paged pool, and on a pool under pressure
 # --------------------------------------------------------------------- #
@@ -900,7 +1276,8 @@ def _expected_launches(cfg, engine, paged):
             "quant_matmul_int4": proj if cfg.quant == "int4" else 0,
             "rmsnorm": (2 * cfg.n_layers + 1) * forwards,
             "ssd": 0,
-            "ssd_extend": cfg.n_layers * forwards if ssm else 0}
+            "ssd_extend": cfg.n_layers * forwards if ssm else 0,
+            "flash_attention": 0}
 
 
 def serve(torch, model, params, *, paged=False, base=None, phase=None,
@@ -1197,6 +1574,7 @@ def main() -> int:
     qmm, qmm_err = quant_matmul_cases(torch, flush)
     ext, ext_err = ssd_extend_cases(torch, flush)
     ssd, ssd_err = ssd_cases(torch, flush)
+    flash, flash_err = flash_attention_cases(torch, flush)
     del flush
     model_check(torch)
     model_check(torch, variant="edge", phase="model_quant")
@@ -1233,7 +1611,12 @@ def main() -> int:
     ext_counts, engine, _, _ = serve(torch, ssm_model,
                                      ssm_model.init(SEED), phase="serve_ssm")
     profile(torch, engine, "profile_ssm")
-    del engine
+    del engine, ssm_model
+    gc.collect()
+    # the Zoo: model services card against CPU, then the paper's
+    # deployment example at full width
+    model_vlm(torch)
+    zoo_counts = zoo(torch)
 
     def entry(name, route, src, tpu, err, rows, launches, extra=()):
         head = rows[0]
@@ -1254,7 +1637,7 @@ def main() -> int:
         entry("decode_attention", "cuda", DECODE_ATTN_SRC, DECODE_ATTN_TPU,
               attn_err, timed(attn), counts),
         entry("rmsnorm", "triton", RMSNORM_SRC, RMSNORM_TPU, norm_err,
-              timed(norm), counts),
+              timed(norm), counts, extra=("dtype",)),
         entry("paged_decode_attention", "cuda", DECODE_ATTN_SRC,
               PAGED_ATTN_TPU, paged_err, timed(paged), paged_counts,
               extra=("contiguous_kernel_ms", "gather_plus_sdpa_ms")),
@@ -1267,7 +1650,9 @@ def main() -> int:
         entry("ssd_extend", "cuda", SSD_SRC, SSD_EXT_TPU, ext_err,
               timed(ext), ext_counts, extra=("bound_by",)),
         entry("ssd", "cuda", SSD_SRC, SSD_TPU, ssd_err, timed(ssd),
-              ssd_counts, extra=("bound_by",))]})
+              ssd_counts, extra=("bound_by",)),
+        entry("flash_attention", "cuda", FLASH_SRC, FLASH_TPU, flash_err,
+              flash, zoo_counts, extra=("bound_by",))]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,9 @@ ROADMAP item that ports their family."""
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.configs.llama3_2_1b import CONFIG as _llama32
 from repro_torch.configs.mamba2_780m import CONFIG as _mamba2
+from repro_torch.configs.pixtral_12b import CONFIG as _pixtral
 
-ARCHS = {c.name: c for c in [_llama32, _mamba2]}
+ARCHS = {c.name: c for c in [_llama32, _mamba2, _pixtral]}
 
 #: architecture ids of the JAX package the port cannot build yet, with
 #: the ROADMAP item (section 1) that brings their family over
@@ -18,7 +19,6 @@ NOT_PORTED = {
     "qwen2-moe-a2.7b": "item 10 of section 1 (MoE family)",
     "granite-moe-3b-a800m": "item 10 of section 1 (MoE family)",
     "jamba-1.5-large-398b": "item 10 of section 1 (hybrid family)",
-    "pixtral-12b": "item 10 of section 1 (VLM embedding chunk)",
     "seamless-m4t-medium": "item 10 of section 1 (encoder-decoder)",
     "mixtral-8x7b": "item 10 of section 1 (MoE family)",
     "gemma2-9b-class": "item 10 of section 1 (other architectures)",

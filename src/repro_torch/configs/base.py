@@ -5,9 +5,10 @@ The port's own copy of the JAX package's ``configs/base.py``: a frozen
 Dtypes are kept as names (``"bfloat16"``, ``"float32"``) so a config
 reads the same in both packages; ``act_dtype`` / ``p_dtype`` resolve
 them to ``torch`` dtypes. Only the fields the ported families read
-are carried: the dense decoder's and the Mamba-2 mixer's (``SSMConfig``);
-the MoE, encoder and frontend sub-configs arrive with the families that
-need them (ROADMAP section 1, item 10).
+are carried: the dense decoder's, the Mamba-2 mixer's (``SSMConfig``)
+and the frontend stub's (``FrontendConfig``, the VLM's patch
+embeddings); the MoE and encoder sub-configs arrive with the families
+that need them (ROADMAP section 1, item 10).
 """
 from __future__ import annotations
 
@@ -34,6 +35,17 @@ class SSMConfig:
 
     def n_heads(self, d_model: int) -> int:
         return self.d_inner(d_model) // self.head_dim
+
+
+@dataclass(frozen=True)
+class FrontendConfig:
+    """Modality frontend stub: precomputed frame/patch embeddings of shape
+    ``(batch, n_tokens, d_embed)`` that a learned linear projector maps to
+    ``d_model``."""
+
+    kind: str                       # "vision" | "audio"
+    n_tokens: int                   # patches / frames per example
+    d_embed: int                    # embedding dim produced by the stub
 
 
 @dataclass(frozen=True)
@@ -67,6 +79,7 @@ class ModelConfig:
     draft: str = ""                 # speculative draft (not ported)
     spec_gamma: int = 0
     ssm: Optional[SSMConfig] = None
+    frontend: Optional[FrontendConfig] = None
     dtype: str = "bfloat16"         # activation dtype
     param_dtype: str = "bfloat16"
     source: str = ""                # citation for the architecture
@@ -91,7 +104,7 @@ class ModelConfig:
         The same rule as the JAX package, so both packages build the same
         shapes from one variant name; an attention-free config keeps no
         heads (head_dim 1, no FFN) and a smaller SSM (d_state 32,
-        head_dim 32, chunk 32)."""
+        head_dim 32, chunk 32); a frontend keeps 16 tokens of 64 dims."""
         d_model = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
         if n_heads:
@@ -115,6 +128,9 @@ class ModelConfig:
         if self.ssm is not None:
             kw["ssm"] = dataclasses.replace(self.ssm, d_state=32,
                                             head_dim=32, chunk=32)
+        if self.frontend is not None:
+            kw["frontend"] = dataclasses.replace(self.frontend, n_tokens=16,
+                                                 d_embed=64)
         return self.replace(**kw)
 
 

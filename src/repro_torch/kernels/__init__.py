@@ -2,15 +2,16 @@
 version: ``decode_attention`` and ``paged_decode_attention`` (CUDA C++,
 ``csrc/decode_attention.cu``), ``quant_matmul_int8`` and
 ``quant_matmul_int4`` (CUDA C++, ``csrc/quant_matmul.cu``), ``ssd`` and
-``ssd_extend`` (CUDA C++, ``csrc/ssd_scan.cu``) and ``rmsnorm``
-(Triton). ``launch_counts`` reads the launch counter each
-kernel wrapper keeps."""
+``ssd_extend`` (CUDA C++, ``csrc/ssd_scan.cu``), ``flash_attention``
+(CUDA C++, ``csrc/flash_attention.cu``) and ``rmsnorm`` (Triton).
+``launch_counts`` reads the launch counter each kernel wrapper keeps."""
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.kernels.decode_attention.kernel import (
     decode_attention_cuda, paged_decode_attention_cuda)
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.quant_matmul.kernel import (
     quant_matmul_int4_cuda, quant_matmul_int8_cuda)
 from repro_torch.kernels.rmsnorm.kernel import fused_rmsnorm_triton
@@ -22,7 +23,8 @@ _WRAPPERS = {"decode_attention": decode_attention_cuda,
              "quant_matmul_int4": quant_matmul_int4_cuda,
              "rmsnorm": fused_rmsnorm_triton,
              "ssd": ssd_cuda,
-             "ssd_extend": ssd_extend_cuda}
+             "ssd_extend": ssd_extend_cuda,
+             "flash_attention": flash_attention_cuda}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -29,8 +29,12 @@ kernel on the card, its plain version on the CPU (the JAX model's
 ``use_decode_kernel=True`` route). An int8 KV cache (``quant=True``:
 int8 K/V with one f32 scale per slot and head) is dequantized and read
 by plain ``gqa_attention``, as the JAX model always does for it: the
-JAX package has no kernel there. The cache-free forward keeps plain
-``gqa_attention``, which JAX also runs outside any kernel.
+JAX package has no kernel there. The cache-free self-attention
+(``forward_train``, ``prefill_into_cache``) goes through the
+flash-attention op on the card (``ops.gqa_flash``, the CUDA kernel that
+replaces the JAX package's flash Pallas kernels) and keeps plain
+``gqa_attention`` / ``chunked_causal_attention`` on the CPU, where it is
+held against the JAX model's route bit for bit.
 
 Quantized projections are structural, as in JAX: a QTensor dict
 (``{"q"|"q4", "scale"}``, ``repro_torch.quant``) where ``p["w"]`` was a
@@ -47,6 +51,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import (
     cached_decode_attention, paged_decode_attention)
 from repro_torch.kernels.decode_attention.ref import paged_kv_gather
+from repro_torch.kernels.dispatch import use_kernel
+from repro_torch.kernels.flash_attention.ops import gqa_flash
 from repro_torch.kernels.quant_matmul.ops import quant_matmul
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm
 
@@ -171,11 +177,37 @@ def chunked_causal_attention(q, k, v, *, block, positions=None, window=0):
 
 
 def _self_attention(q, k, v, cfg, positions, window):
+    """Causal self-attention of a whole sequence at ``positions`` (None:
+    ``arange(L)``, the positions every caller in the port builds). On
+    CUDA tensors: the flash-attention kernel, which places queries and
+    keys at ``arange(L)``, so positions a caller hands in must be exactly
+    that (checked on the device, without a host sync; None needs no
+    check). On CPU tensors: plain ``gqa_attention``, block-tiled above
+    ``cfg.attn_block``, the JAX model's own route (its probabilities
+    rounded to v's dtype before the PV product, which the kernel does not
+    do)."""
+    if use_kernel(q, k, v):
+        if positions is not None:
+            _assert_from_zero(positions, q.shape[1])
+        return gqa_flash(q, k, v, causal=True, window=window)
+    if positions is None:
+        positions = torch.arange(q.shape[1], device=q.device)
     if cfg.attn_block and q.shape[1] > cfg.attn_block:
         return chunked_causal_attention(q, k, v, block=cfg.attn_block,
                                         positions=positions, window=window)
     return gqa_attention(q, k, v, q_positions=positions,
                          k_positions=positions, causal=True, window=window)
+
+
+def _assert_from_zero(positions, L):
+    """``positions`` is ``arange(L)``: its shape on the host, its values
+    by an asynchronous device-side assert (a CPU tensor raises at once)."""
+    if positions.shape != (L,):
+        raise ValueError(f"the flash route takes positions arange({L}), "
+                         f"got shape {tuple(positions.shape)}")
+    torch._assert_async(
+        (positions == torch.arange(L, device=positions.device)).all(),
+        "the flash route takes positions arange(L)")
 
 
 # --------------------------------------------------------------------- #
@@ -358,11 +390,11 @@ def attention_block(p, x, cfg: ModelConfig, *, cache=None, positions=None,
     window = cfg.sliding_window if window is None else window
     q, k, v = _qkv(p, x, hd)
     if cache is None:
-        if positions is None:
-            positions = torch.arange(L, device=x.device)
         if cfg.rope:
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
+            at = torch.arange(L, device=x.device) if positions is None \
+                else positions
+            q = apply_rope(q, at, cfg.rope_theta)
+            k = apply_rope(k, at, cfg.rope_theta)
         y = _self_attention(q, k, v, cfg, positions, window)
         return linear(p["wo"], y.reshape(B, L, -1)), None
 
@@ -451,7 +483,7 @@ def prefill_into_cache(p, x, cfg: ModelConfig, cache, *, window=None,
     if cfg.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    y = _self_attention(q, k, v, cfg, positions, window)
+    y = _self_attention(q, k, v, cfg, None, window)
     S = cache["k"].shape[1]
     if length is not None and S < L:
         raise NotImplementedError(

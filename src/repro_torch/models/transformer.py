@@ -90,6 +90,8 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
          "ln_f": {"scale": (d,)}}
     if not cfg.tie_embeddings:
         p["lm_head"] = {"w": (d, cfg.vocab)}
+    if cfg.frontend is not None:
+        p["frontend_proj"] = {"w": (cfg.frontend.d_embed, d)}
     return p
 
 
@@ -113,7 +115,7 @@ def init_transformer(cfg: ModelConfig, seed: int, device) -> Dict[str, Any]:
             return torch.zeros(shape, dtype=cfg.p_dtype, device=device)
         w = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=device)
-        return (w * 0.02).to(cfg.p_dtype)
+        return w.mul_(0.02).to(cfg.p_dtype)   # in place: one f32 copy
 
     def walk(node, path):
         if isinstance(node, dict):
@@ -291,12 +293,16 @@ def _run_blocks(params, x, cfg: ModelConfig, *, mode: str, cache=None,
 # full forward passes
 # --------------------------------------------------------------------- #
 def embed_inputs(params, cfg: ModelConfig, tokens=None, embeddings=None):
-    """tokens: (B, L) ids -> (B, L, d) in the activation dtype."""
+    """tokens: (B, Lt) ids; embeddings: (B, Le, d_embed) frontend stub
+    output (VLM patches), projected by ``frontend_proj`` and placed before
+    the tokens. Returns (B, L, d) in the activation dtype."""
+    parts = []
     if embeddings is not None:
-        raise NotImplementedError(
-            "frontend embeddings are not ported yet: ROADMAP section 1, "
-            "item 10 (VLM embedding chunk)")
-    return L.embed(params["embed"], tokens).to(cfg.act_dtype)
+        parts.append(L.linear(params["frontend_proj"], embeddings))
+    if tokens is not None:
+        parts.append(L.embed(params["embed"], tokens))
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    return x.to(cfg.act_dtype)
 
 
 def logits_from(params, cfg: ModelConfig, x, res=None):

@@ -9,9 +9,10 @@ lookup, and the tied LM head) stay in full precision. Stacked block
 weights carry the leading block axis; quantization treats the last two
 dims as ``(d_in, d_out)`` and broadcasts over the rest.
 
-Saving and loading quantized trees, self-drafts and the deploy layer's
-``Endpoint(quantize=)`` are not part of the port yet (ROADMAP section 1,
-items 12, 9 and 7).
+The deploy layer's ``Endpoint(quantize=)`` stores a stage's tree through
+``quantize_params`` and runs it through ``dequantize_params``. Saving and
+loading quantized trees and self-drafts are not part of the port yet
+(ROADMAP section 1, items 12 and 9).
 """
 from __future__ import annotations
 

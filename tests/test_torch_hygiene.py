@@ -66,7 +66,17 @@ def test_every_port_module_imports_with_jax_blocked():
     names = r.stdout.split()
     assert len(names) >= 20
     assert {"repro_torch.serving.paged_kv", "repro_torch.serving.engine",
-            "repro_torch.kernels.decode_attention.kernel"} <= set(names)
+            "repro_torch.kernels.decode_attention.kernel",
+            "repro_torch.kernels.flash_attention.kernel",
+            "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.core.pytree", "repro_torch.core.service",
+            "repro_torch.core.compat", "repro_torch.core.compose",
+            "repro_torch.core.netmodel", "repro_torch.core.registry",
+            "repro_torch.core.transport", "repro_torch.core.deploy",
+            "repro_torch.core.profile", "repro_torch.core.zoo_builders",
+            "repro_torch.training.checkpoints",
+            "repro_torch.serving.faults", "repro_torch.configs.pixtral_12b",
+            "repro_torch.launch.zoo_cli"} <= set(names)
 
 
 def test_paged_allocator_is_host_only():
@@ -119,6 +129,58 @@ def test_kernel_build_fails_loudly_without_nvcc(monkeypatch):
     monkeypatch.setattr(_build.os.path, "exists", lambda _: False)
     with pytest.raises(RuntimeError, match="nvcc"):
         _build._nvcc()
+
+
+def test_flash_kernel_needs_nvcc(monkeypatch, tmp_path):
+    """The flash wrapper's launcher builds its library on first use; with
+    no compiler it raises, as the other kernels' do."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(kernel, "_FNS", {})
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda _: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernel._launcher()
+
+
+@pytest.mark.parametrize("cmd", [["init-demo"], ["list"],
+                                 ["deploy", "--name", "pipe"]])
+def test_zoo_cli_needs_a_gpu_without_device_cpu(cmd, tmp_path):
+    """The zoo CLI runs on the card unless ``--device cpu`` is given:
+    without a CUDA device it exits with an error instead of running on
+    the CPU (its subprocess sees no GPU)."""
+    r = _run("from repro_torch.launch.zoo_cli import main\n"
+             f"main(['--zoo', {str(tmp_path)!r}] + {cmd!r})\n")
+    assert r.returncode != 0
+    assert "CUDA device is required" in r.stderr
+
+
+def test_registry_pull_needs_a_gpu_without_a_device(tmp_path):
+    """Weights pulled from a zoo, or loaded from a pytree file, land on
+    CUDA unless a device is named: without one the pull and the load
+    raise; listing and publishing need none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    from repro_torch.core import zoo_builders as zb
+    from repro_torch.core.registry import Registry
+    clf = zb.classifier_service("pixtral-12b", n_classes=4)
+    clf = clf.with_params(clf.metadata["init_params"](0, "cpu"))
+    reg = Registry(tmp_path)
+    reg.publish(clf, builder="model.classifier",
+                config={"arch": "pixtral-12b", "n_classes": 4})
+    assert [n for n, _, _ in reg.list()] == [clf.name]
+    with pytest.raises(RuntimeError, match="CUDA device is required"):
+        reg.pull(clf.name)
+    assert Registry(tmp_path, device="cpu").pull(clf.name).n_params \
+        == clf.n_params
+    from repro_torch.training.checkpoints import load_pytree, save_pytree
+    save_pytree(tmp_path / "p", {"w": torch.ones(2)})
+    with pytest.raises(RuntimeError, match="CUDA device is required"):
+        load_pytree(tmp_path / "p")
+    assert load_pytree(tmp_path / "p", device="cpu")["w"].device.type \
+        == "cpu"
 
 
 @pytest.mark.parametrize("alone", [False, True])
