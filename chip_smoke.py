@@ -33,14 +33,22 @@ served with the same schedule (``serve_ssm``, launch counts equal to the
 trace) and a profiled second batch (``profile_ssm``). Then the Zoo
 compose layer: the flash-attention kernel against its plain version in
 the ``kernels`` phase (pixtral-12b's hd 160 and llama3.2-1b's hd 64 at
-G 4, G 1, a window, non-causal, a ragged length, fp32); the Zoo's model
-services at full width cut to 2 layers, fp32, card against CPU
+G 4, G 1 and G 8, hd 40, a window, non-causal, a ragged length, fp32);
+the repository's card tests (``card_tests``: ``tests/test_torch_card.py``
+run without ``tests/conftest.py``, which imports JAX, in a subprocess
+that must pass with no test skipped); the Zoo's model services at full
+width cut to 2 layers, fp32, card against CPU
 (``model_vlm``: the pixtral-12b classifier and ``model.lm``); and the
 paper's deployment example at full width (``zoo``: the 40-layer bf16
 pixtral-12b classifier ``>> label_decoder`` deployed local, remote and
 split, identical outputs, exactly 40 flash and 81 norm launches a
 forward; ``model.lm`` on llama3.2-1b; a registry round trip on the
-card). Every phase prints one JSON line; any failure raises and the
+card). The decode-attention cases cover both tensor-core routes of its
+plan (R <= 16 rows and above, S split over blocks, a fully masked row
+at T 1 and T 16); every timed attention case records its plan and the
+rates it reached, and the ``build`` line every template's ptxas
+registers and spills (a spilling tensor-core template fails the run).
+Every phase prints one JSON line; any failure raises and the
 script exits non-zero without the final line. The second-to-last lines are the
 kernel summary (JSON) and the card's name and power limit as
 ``nvidia-smi`` reports them; the last line is ``{"ok": true, "device":
@@ -51,6 +59,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -119,26 +128,77 @@ def bound_ms(nbytes, flops, dtype):
         else "operations"
 
 
+def achieved(rec):
+    """The rates a timed case reached: its bound's bytes and operations
+    over the kernel's time (GB/s, TFLOP/s)."""
+    s = rec["kernel_ms"] * 1e-3
+    return {"achieved_GBps": rec["bytes"] / s / 1e9,
+            "achieved_TFLOPs": rec["flops"] / s / 1e12}
+
+
+def ptxas_table(logs):
+    """{kernel<template arguments>: {registers, spill_stores,
+    spill_loads}} from ``nvcc -Xptxas -v`` output, one entry per
+    compiled template."""
+    import re
+    table, name = {}, None
+    for log in logs:
+        for ln in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                name = m.group(1)
+                k = re.search(r"_cu_[0-9a-f]{8}(\d+)(\w+)", name)
+                if k:
+                    n, rest = int(k.group(1)), k.group(2)
+                    name, tail = rest[:n], rest[n:]
+                    if tail.startswith("I") and "EEv" in tail:
+                        raw = tail[1:tail.index("EEv")]
+                        raw = re.sub(r"\d+__nv_bfloat16", "bf16,", raw)
+                        raw = re.sub(r"L[ib](\d+)E", r"\1,", raw)
+                        raw = re.sub(r"^f", "float,", raw)
+                        name = f"{name}<{raw.rstrip(',')}>"
+                table[name] = {}
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m and name:
+                table[name].update(spill_stores=int(m.group(1)),
+                                   spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and name:
+                table[name]["registers"] = int(m.group(1))
+    return table
+
+
 # --------------------------------------------------------------------- #
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------- #
 def decode_attention_cases(torch, flush):
     import torch.nn.functional as F
 
-    from repro_torch.kernels.decode_attention.kernel import \
-        decode_attention_cuda
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda, plan)
     from repro_torch.kernels.decode_attention.ref import \
         decode_attention_reference
 
     dev = torch.device("cuda")
     Hq, Hkv, hd = 32, 8, 64
-    # (name, B, T, S, window, special rows)
+    # (name, B, T, S, window, special rows): the main path's decode step
+    # (mma_keys, S split 4 ways) and chunk (mma_rows), a window, S 1000
+    # (the split of 256 slots does not divide it: the last is 232), a
+    # fully masked row at T 1 (every split masked: the combine's NEG_INF
+    # case) and at T 16, and R = T * G of 12, 16 (mma_keys) and 20
+    # (mma_rows) around the route threshold (R <= 16)
     cases = [
         ("decode", 8, 1, 1024, 0, None),
         ("chunk", 1, 128, 1024, 0, None),
         ("decode_window256", 8, 1, 1024, 256, None),
         ("decode_ragged_S1000", 8, 1, 1000, 0, None),
         ("chunk_all_masked_row", 2, 16, 1024, 0, "masked"),
+        ("decode_all_masked_row", 8, 1, 1024, 0, "masked"),
+        ("rows12", 4, 3, 1024, 0, None),
+        ("rows16", 4, 4, 1024, 0, None),
+        ("rows20", 4, 5, 1024, 0, None),
     ]
     out, errs = [], []
     for name, B, T, S, window, special in cases:
@@ -168,9 +228,11 @@ def decode_attention_cases(torch, flush):
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             ok = bool(torch.isfinite(got).all().item()) and err <= TOL[dname]
+            pl = plan(B, T, Hq, Hkv, S, hd, dtype)
             rec = {"phase": "kernels", "kernel": "decode_attention",
                    "case": name, "dtype": dname, "B": B, "T": T, "S": S,
                    "Hq": Hq, "Hkv": Hkv, "hd": hd, "window": window,
+                   "plan": pl._asdict(),
                    "max_abs_err": err, "tol": TOL[dname], "ok": ok}
             if special == "masked":
                 mean_v = v[0].float().mean(0).repeat_interleave(
@@ -201,6 +263,7 @@ def decode_attention_cases(torch, flush):
                         flush),
                     bound_ms=bms, bound_us=bms * 1e3, bound_by=by,
                     bytes=nbytes, flops=flops)
+                rec.update(achieved(rec))
             emit(rec)
             out.append(rec)
             errs.append(err)
@@ -220,7 +283,7 @@ def paged_decode_attention_cases(torch, flush):
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention.kernel import (
-        decode_attention_cuda, paged_decode_attention_cuda)
+        decode_attention_cuda, paged_decode_attention_cuda, plan)
     from repro_torch.kernels.decode_attention.ref import (
         paged_decode_attention_reference, paged_kv_gather)
 
@@ -234,6 +297,7 @@ def paged_decode_attention_cases(torch, flush):
         ("chunk_all_masked_row", 2, 16, 16, 0, "masked"),
         ("decode_ps8", 8, 1, 8, 0, None),
         ("chunk_ps32", 1, 128, 32, 0, None),
+        ("decode_all_masked_row", 8, 1, 16, 0, "masked"),
     ]
     out, errs = [], []
     for name, B, T, ps, window, special in cases:
@@ -281,6 +345,7 @@ def paged_decode_attention_cases(torch, flush):
                    "page_size": ps, "NB": NB, "pool_pages": P + 1,
                    "trash_entries": int((bt == P).sum().item()),
                    "Hq": Hq, "Hkv": Hkv, "hd": hd, "window": window,
+                   "plan": plan(B, T, Hq, Hkv, S, hd, dtype)._asdict(),
                    "max_abs_err": err, "tol": TOL[dname],
                    "vs_contiguous_kernel_max_abs_diff": cerr, "ok": ok}
             if special == "masked":
@@ -327,6 +392,9 @@ def paged_decode_attention_cases(torch, flush):
                     library_ms=None,
                     bound_ms=bms, bound_us=bms * 1e3, bound_by=by,
                     bytes=nbytes, flops=flops)
+                rec.update(achieved(rec))
+                rec["vs_contiguous_ms_ratio"] = \
+                    rec["kernel_ms"] / rec["contiguous_kernel_ms"]
             emit(rec)
             out.append(rec)
             errs.append(err)
@@ -705,14 +773,16 @@ def flash_attention_cases(torch, flush):
     llama3.2-1b's (hd 64, G 4) at B 2, L 1024 in bf16, a G = 1 case at
     hd 128, a window of 256 (whose first live tile is wholly masked for
     some rows: the finite NEG_INF case), ``causal=False``, a ragged L of
-    1000 and an fp32 case. Every case is timed beside the plain version
-    and SDPA (an explicit mask for the window, a yardstick only); the
-    bound counts q, k, v and o once and 4 B Hq hd operations per live
-    query-key pair. The backward raises."""
+    1000, hd 40 (zero-padded k-steps on the 64 tile), G 8 and an fp32
+    case. Every case is timed beside the plain version and SDPA (an
+    explicit mask for the window, a yardstick only); the bound counts q,
+    k, v and o once and 4 B Hq hd operations per live query-key pair.
+    Each case records its plan (route, head-dim tile) and the rates it
+    reached. The backward raises."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.kernel import \
-        flash_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda, plan)
     from repro_torch.kernels.flash_attention.ref import attention_reference
 
     dev = torch.device("cuda")
@@ -724,6 +794,8 @@ def flash_attention_cases(torch, flush):
         ("window256", 2, 1024, 32, 8, 64, "bfloat16", True, 256),
         ("non_causal", 2, 1024, 32, 8, 64, "bfloat16", False, 0),
         ("ragged_L1000", 2, 1000, 32, 8, 160, "bfloat16", True, 0),
+        ("hd40", 2, 1024, 32, 8, 40, "bfloat16", True, 0),
+        ("g8", 2, 1024, 32, 4, 64, "bfloat16", True, 0),
         ("fp32", 2, 1024, 32, 8, 64, "float32", True, 0),
     ]
     out, errs = [], []
@@ -766,6 +838,7 @@ def flash_attention_cases(torch, flush):
         rec = {"phase": "kernels", "kernel": "flash_attention",
                "case": name, "dtype": dname, "B": B, "L": L, "Hq": Hq,
                "Hkv": Hkv, "hd": hd, "causal": causal, "window": window,
+               "plan": plan(B, L, Hq, Hkv, hd, dtype)._asdict(),
                "live_pairs": pairs, "max_abs_err": err, "tol": TOL[dname],
                "ok": ok,
                "kernel_ms": median_ms(torch, lambda: flash_attention_cuda(
@@ -774,6 +847,7 @@ def flash_attention_cases(torch, flush):
                "library_ms": median_ms(torch, sdpa, flush),
                "bound_ms": bms, "bound_us": bms * 1e3, "bound_by": by,
                "bytes": nbytes, "flops": flops}
+        rec.update(achieved(rec))
         emit(rec)
         out.append(rec)
         errs.append(err)
@@ -789,6 +863,33 @@ def flash_attention_cases(torch, flush):
     else:
         raise AssertionError("flash_attention: backward did not raise")
     return out, max(errs)
+
+
+def card_tests():
+    """The repository's card tests (``tests/test_torch_card.py``), run
+    as the README names them: without ``tests/conftest.py``, which
+    imports JAX, absent here. Fails unless pytest exits 0 with at least
+    one test passed and none skipped."""
+    import re
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
+           "-q", "-p", "no:cacheprovider", "tests/test_torch_card.py"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                       env=dict(os.environ, PYTHONPATH=str(root / "src")),
+                       timeout=600)
+    tail = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
+    count = {k: int(n) for n, k in re.findall(
+        r"(\d+) (passed|skipped|failed|errors?|deselected)", tail)}
+    rec = {"phase": "card_tests", "command": " ".join(cmd[1:]),
+           "returncode": r.returncode, "summary": tail, "counts": count,
+           "seconds": time.perf_counter() - t0}
+    rec["ok"] = r.returncode == 0 and count.get("passed", 0) >= 1 \
+        and count.get("skipped", 0) == 0
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"card tests failed:\n{r.stdout[-6000:]}\n"
+                             f"{r.stderr[-3000:]}")
 
 
 # --------------------------------------------------------------------- #
@@ -970,9 +1071,16 @@ def _launch_delta(before, after):
     return {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
+def _ms_matching(rows, part):
+    """Device ms and launches of the kernels whose name holds ``part``."""
+    hit = [(ms, c) for ms, c, k in rows if part in k]
+    return {"ms": sum(ms for ms, _ in hit), "calls": sum(c for _, c in hit)}
+
+
 def _profile_call(torch, fn):
     """One warm call of ``fn`` under the profiler: device kernel time by
-    kernel and its share of the call's wall time."""
+    kernel and its share of the call's wall time, and the flash
+    kernel's time and launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -992,6 +1100,7 @@ def _profile_call(torch, fn):
     return {"wall_ms_profiled": wall_ms, "device_kernel_ms": busy,
             "device_busy_share": busy / wall_ms if busy else None,
             "kernel_launches": sum(c for _, c, _ in rows),
+            "flash_attention": _ms_matching(rows, "flash_"),
             "top": [{"kernel": k[:90], "ms": ms, "calls": c}
                     for ms, c, k in rows[:8]]}
 
@@ -1524,6 +1633,7 @@ def profile(torch, engine, phase="profile"):
           "wall_ms_profiled": wall_ms, "device_kernel_ms": busy,
           "device_busy_share": busy / wall_ms if busy else None,
           "kernel_launches": launches,
+          "decode_attention": _ms_matching(rows, "decode_"),
           "top": [{"kernel": k[:90], "ms": ms, "calls": c}
                   for ms, c, k in rows[:12]],
           "host_top": [{"op": k[:60], "self_ms": ms, "calls": c}
@@ -1561,11 +1671,16 @@ def main() -> int:
         for r in (x.to(dtype), None):
             fused_rmsnorm_triton(x.to(dtype), r, x[0].to(dtype))
     torch.cuda.synchronize()
-    ptxas = [ln.strip() for log in _build.BUILD_LOG.values()
-             for ln in log.splitlines() if "registers" in ln
-             or "spill" in ln]
+    ptxas = ptxas_table(_build.BUILD_LOG.values())
+    spills = {k: v for k, v in ptxas.items() if "_mma_kernel" in k
+              and (v.get("spill_stores") or v.get("spill_loads"))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_s": t_nvcc, "ptxas": ptxas})
+          "nvcc_s": t_nvcc, "ptxas": ptxas,
+          "tensor_core_templates": sum("_mma_kernel" in k for k in ptxas),
+          "tensor_core_spills": spills})
+    if spills or not any("_mma_kernel" in k for k in ptxas):
+        raise AssertionError(f"tensor-core templates missing or spilling: "
+                             f"{spills}")
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     attn, attn_err = decode_attention_cases(torch, flush)
@@ -1576,6 +1691,7 @@ def main() -> int:
     ssd, ssd_err = ssd_cases(torch, flush)
     flash, flash_err = flash_attention_cases(torch, flush)
     del flush
+    card_tests()
     model_check(torch)
     model_check(torch, variant="edge", phase="model_quant")
     model_check(torch, quant="int8", phase="model_quant")
@@ -1635,12 +1751,13 @@ def main() -> int:
 
     emit({"kernels": [
         entry("decode_attention", "cuda", DECODE_ATTN_SRC, DECODE_ATTN_TPU,
-              attn_err, timed(attn), counts),
+              attn_err, timed(attn), counts, extra=("plan",)),
         entry("rmsnorm", "triton", RMSNORM_SRC, RMSNORM_TPU, norm_err,
               timed(norm), counts, extra=("dtype",)),
         entry("paged_decode_attention", "cuda", DECODE_ATTN_SRC,
               PAGED_ATTN_TPU, paged_err, timed(paged), paged_counts,
-              extra=("contiguous_kernel_ms", "gather_plus_sdpa_ms")),
+              extra=("contiguous_kernel_ms", "gather_plus_sdpa_ms",
+                     "plan")),
         entry("quant_matmul_int8", "cuda", QMM_SRC, QMM_TPU[8], qmm_err[8],
               timed(qmm[8]), int8_counts,
               extra=("dense_bf16_ms", "blocks", "splits")),
@@ -1652,7 +1769,7 @@ def main() -> int:
         entry("ssd", "cuda", SSD_SRC, SSD_TPU, ssd_err, timed(ssd),
               ssd_counts, extra=("bound_by",)),
         entry("flash_attention", "cuda", FLASH_SRC, FLASH_TPU, flash_err,
-              flash, zoo_counts, extra=("bound_by",))]})
+              flash, zoo_counts, extra=("bound_by", "plan"))]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-#: ptxas report (registers, shared memory, spills) of the last build
+#: ptxas report (registers, shared memory, spills) of each library, kept
+#: beside it as ``lib<stem>.log`` so that a reused build reports it too
 BUILD_LOG: Dict[str, str] = {}
 
 
@@ -60,6 +61,10 @@ def build_all() -> Dict[str, Path]:
     libs = {src.stem: out_dir / f"lib{src.stem}.so"
             for src in sorted(CSRC.glob("*.cu"))}
     todo = {stem: lib for stem, lib in libs.items() if not lib.exists()}
+    for stem in libs.keys() - todo.keys():
+        log = out_dir / f"lib{stem}.log"
+        if log.exists():
+            BUILD_LOG[stem] = log.read_text()
     if not todo:
         return libs
     nvcc = _nvcc()
@@ -79,6 +84,7 @@ def build_all() -> Dict[str, Path]:
             failed.append(f"{stem}.cu (exit {p.returncode}):\n{log}")
             os.unlink(tmp)
         else:
+            (out_dir / f"lib{stem}.log").write_text(log)
             os.replace(tmp, todo[stem])
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))

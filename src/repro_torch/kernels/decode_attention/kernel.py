@@ -4,10 +4,24 @@ contiguous KV ring (it replaces the JAX package's
 ``decode_attention_pallas``) and ``paged_decode_attention_cuda`` over a
 paged KV pool (``paged_decode_attention_pallas``). Both entry points live
 in one library, built with ``nvcc`` on first use (``kernels/_build.py``).
+
+``plan`` picks the route from the shapes and the dtype alone: bf16
+takes the tensor cores (``mma_rows`` for R = T * G > 16 rows a sequence,
+every admitted chunk: operation-bound; ``mma_keys`` for R <= 16, every
+decode step: bound by the K/V bytes), fp32 the CUDA cores (``simt``,
+f32 products and f32 p, which the fp32 gates need). On the bf16 routes
+p is rounded to bf16 before the P V product, as the JAX model's plain
+route rounds it. When the (sequence, KV head, row tile) grid alone
+would leave the card's SMs short, the plan splits S over blocks; the
+wrapper then allocates the f32 scratch of the splits' partials and the
+library launches the main kernel and the kernel that combines the
+splits, in a fixed order. Both belong to one wrapper call: ``launches``
+counts calls.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -15,27 +29,96 @@ from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+_ROUTES = {"simt": 0, "mma_rows": 1, "mma_keys": 2}
+BK = 64                  # slots a staged K/V tile holds (csrc BK)
+SIMT_ROWS = 16           # rows a block of the f32 route
+MMA_ROWS = 64            # rows a block of the mma_rows route (4 warps)
+KEYS_MAX_ROWS = 16       # R at most this: one 16-row tile, mma_keys
+TARGET_BLOCKS = 264      # two blocks on each of the H100's 132 SMs
+MAX_SPLITS = 16
 _FNS = {}
+
+
+class Plan(NamedTuple):
+    """How one call runs: ``path`` ("mma_rows", "mma_keys" or "simt"),
+    ``rows`` a block, ``row_blocks`` a (sequence, KV head), ``splits``
+    of S, ``per`` slots a split (a multiple of ``BK`` when split) and
+    the ``blocks`` of the main kernel."""
+    path: str
+    rows: int
+    row_blocks: int
+    splits: int
+    per: int
+    blocks: int
+
+
+def plan(B: int, T: int, Hq: int, Hkv: int, S: int, hd: int,
+         dtype: torch.dtype) -> Plan:
+    """The route for q (B, T, Hq, hd) over S slots of Hkv heads: fp32
+    takes ``simt`` unsplit; bf16 takes ``mma_keys`` for R = T * Hq / Hkv
+    <= 16 rows a sequence and ``mma_rows`` above, and S is split until
+    about ``TARGET_BLOCKS`` blocks run (at most ``MAX_SPLITS`` splits of
+    whole ``BK``-slot tiles, every split non-empty, the last one ragged
+    where S is not a multiple of its share). ``hd`` does not change the
+    plan; it is named so that the plan reads as the call's shape."""
+    del hd
+    R = T * (Hq // Hkv)
+    if dtype == torch.float32:
+        rb = -(-R // SIMT_ROWS)
+        return Plan("simt", SIMT_ROWS, rb, 1, S, B * Hkv * rb)
+    path, rows = (("mma_keys", KEYS_MAX_ROWS) if R <= KEYS_MAX_ROWS
+                  else ("mma_rows", MMA_ROWS))
+    rb = -(-R // rows)
+    base = B * Hkv * rb
+    tiles = -(-S // BK)
+    want = min(MAX_SPLITS, tiles, max(1, -(-TARGET_BLOCKS // base)))
+    per_tiles = -(-tiles // want)
+    splits = -(-tiles // per_tiles)
+    per = per_tiles * BK if splits > 1 else S
+    return Plan(path, rows, rb, splits, per, base * splits)
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: the C signatures of csrc/decode_attention.cu's entry points
+ARGTYPES = {
+    "decode_attention_launch":
+        [_P] * 8 + [_I] * 9 + [_LL] * 10 + [_I, _I, _P],
+    "paged_decode_attention_launch":
+        [_P] * 9 + [_I] * 10 + [_LL] * 10 + [_I, _I, _P],
+}
 
 
 def _launcher(name="decode_attention_launch"):
     fn = _FNS.get(name)
     if fn is None:
         fn = getattr(_build.load("decode_attention"), name)
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        if name == "decode_attention_launch":
-            fn.argtypes = [p] * 6 + [i] * 6 + [ll] * 10 + [i, i, p]
-        else:
-            fn.argtypes = [p] * 7 + [i] * 7 + [ll] * 10 + [i, i, p]
+        fn.argtypes = ARGTYPES[name]
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return fn
 
 
+def _scratch(pl, q):
+    """The f32 partials of a split call (None, None when unsplit)."""
+    if pl.splits == 1:
+        return None, None
+    B, T, Hq, hd = q.shape
+    acc = torch.empty((pl.splits, B * T * Hq, hd), dtype=torch.float32,
+                      device=q.device)
+    ml = torch.empty((pl.splits, B * T * Hq, 2), dtype=torch.float32,
+                     device=q.device)
+    return acc, ml
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _check_common(name, q, k, v, tensors):
     """The checks both wrappers share: one CUDA device, one dtype, 4-D
-    q/k/v with matching head dims, contiguous last dimensions and K/V
-    rows on 16-byte boundaries."""
+    q/k/v with matching head dims, contiguous last dimensions and q, K
+    and V rows on 16-byte boundaries (the kernels copy them in 16-byte
+    pieces)."""
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError(f"{name} takes CUDA tensors on one device")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -57,10 +140,11 @@ def _check_common(name, q, k, v, tensors):
         raise ValueError("the last dimension of q, k and v must be "
                          "contiguous")
     vec = 16 // k.element_size()
-    for t in (k, v):
+    for t in (q, k, v):
         if t.data_ptr() % 16 or any(st % vec for st in t.stride()[:3]):
-            raise ValueError("K/V rows must start on 16-byte boundaries "
-                             f"(strides in multiples of {vec} elements)")
+            raise ValueError("q, K and V rows must start on 16-byte "
+                             f"boundaries (strides in multiples of {vec} "
+                             "elements)")
 
 
 def _check_positions(pos, q_pos, B, S, T, window):
@@ -80,8 +164,9 @@ def decode_attention_cuda(q, k, v, pos, q_pos, *, window=0):
     """Launch the kernel on the current stream. q: (B, T, Hq, hd); k, v:
     (B, S, Hkv, hd) in the model's cache layout, any strides with the
     last dimension contiguous; pos: (B, S) int32; q_pos: (B, T) int32.
-    Returns a new (B, T, Hq, hd) tensor in q's dtype. Raises on any input
-    the kernel does not take, and when the launch is refused."""
+    Returns a new (B, T, Hq, hd) tensor in q's dtype, by the route and
+    splits of ``plan``. Raises on any input the kernel does not take,
+    and when the launch is refused."""
     _check_common("decode_attention_cuda", q, k, v, (q, k, v, pos, q_pos))
     B, T, Hq, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
@@ -89,11 +174,14 @@ def decode_attention_cuda(q, k, v, pos, q_pos, *, window=0):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
     _check_positions(pos, q_pos, B, S, T, window)
+    pl = plan(B, T, Hq, Hkv, S, hd, q.dtype)
     out = torch.empty((B, T, Hq, hd), dtype=q.dtype, device=q.device)
+    ws_acc, ws_ml = _scratch(pl, q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        q_pos.data_ptr(), out.data_ptr(), B, T, Hq, Hkv, S, hd,
+        q_pos.data_ptr(), out.data_ptr(), _ptr(ws_acc), _ptr(ws_ml),
+        B, T, Hq, Hkv, S, hd, _ROUTES[pl.path], pl.splits, pl.per,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
@@ -114,11 +202,12 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_table, pos, q_pos,
     k_pool, v_pool: (P + 1, ps, Hkv, hd) with the trash page last, any
     strides with the last dimension contiguous; block_table: (B, NB)
     int32 contiguous, entries in [0, P]; pos: (B, NB * ps) int32; q_pos:
-    (B, T) int32. Returns a new (B, T, Hq, hd) tensor in q's dtype.
-    Raises on any input the kernel does not take, and when the launch is
-    refused. Block-table entries are not range-checked here (that would
-    read them back to the host): the engine's allocator keeps them in
-    the pool."""
+    (B, T) int32. Returns a new (B, T, Hq, hd) tensor in q's dtype, by
+    the plan of the logical shape (S = NB * ps), so exactly the
+    contiguous kernel's output on the gathered view. Raises on any input
+    the kernel does not take, and when the launch is refused.
+    Block-table entries are not range-checked here (that would read them
+    back to the host): the engine's allocator keeps them in the pool."""
     _check_common("paged_decode_attention_cuda", q, k_pool, v_pool,
                   (q, k_pool, v_pool, block_table, pos, q_pos))
     B, T, Hq, hd = q.shape
@@ -130,12 +219,15 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_table, pos, q_pos,
                          f"{tuple(block_table.shape)} {block_table.dtype}")
     NB = block_table.shape[1]
     _check_positions(pos, q_pos, B, NB * ps, T, window)
+    pl = plan(B, T, Hq, Hkv, NB * ps, hd, q.dtype)
     out = torch.empty((B, T, Hq, hd), dtype=q.dtype, device=q.device)
+    ws_acc, ws_ml = _scratch(pl, q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _launcher("paged_decode_attention_launch")(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_table.data_ptr(), pos.data_ptr(), q_pos.data_ptr(),
-        out.data_ptr(), B, T, Hq, Hkv, NB, ps, hd,
+        out.data_ptr(), _ptr(ws_acc), _ptr(ws_ml), B, T, Hq, Hkv, NB, ps,
+        hd, _ROUTES[pl.path], pl.splits, pl.per,
         q.stride(0), q.stride(1), q.stride(2),
         k_pool.stride(0), k_pool.stride(1), k_pool.stride(2),
         v_pool.stride(0), v_pool.stride(1), v_pool.stride(2),

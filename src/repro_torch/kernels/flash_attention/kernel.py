@@ -4,6 +4,15 @@
 entry points: ``flash_attention_pallas`` (G = 1) and
 ``flash_attention_gqa_pallas`` (G > 1).
 
+``plan`` picks the route from the dtype alone: bf16 runs on the tensor
+cores (``mma``: mma.sync bf16 products with f32 accumulators, p rounded
+to bf16 before the P V product, as the JAX model's plain route rounds
+it), fp32 on the CUDA cores (``simt``: f32 products and f32 p, which the
+fp32 gates need). Both group the G query heads of a KV head into a
+block of 64 rows, so a K/V tile is read once for the group, and run on
+the smallest head-dim tile that holds hd. What bounds them at the
+model's shapes: the operations, 4 B Hq hd per live query-key pair.
+
 The launch runs inside a ``torch.autograd.Function`` whose backward
 raises: a tensor made by a ctypes launch has no ``grad_fn`` of its own,
 so without it a ``backward()`` through the kernel would silently give
@@ -13,6 +22,7 @@ item 12 (training).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -21,15 +31,41 @@ from repro_torch.kernels import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 MAX_GROUP = 64                     # query rows of a block (csrc ROWS)
+HD_TILES = (32, 64, 128, 160, 256)  # the head-dim tiles csrc instantiates
 _FNS = {}
+
+
+class Plan(NamedTuple):
+    """How one call runs: ``path`` ("mma" or "simt"), the head-dim tile
+    ``hd_tile`` the launch instantiates, query positions a block
+    (``bq``) and the ``blocks`` of the grid."""
+    path: str
+    hd_tile: int
+    bq: int
+    blocks: int
+
+
+def plan(B: int, Lq: int, Hq: int, Hkv: int, hd: int,
+         dtype: torch.dtype) -> Plan:
+    """bf16 -> ``mma``, fp32 -> ``simt``; the smallest head-dim tile that
+    holds hd; one block per (batch, KV head, 64 / G query positions)."""
+    hd_tile = next(t for t in HD_TILES if hd <= t)
+    path = "mma" if dtype == torch.bfloat16 else "simt"
+    bq = MAX_GROUP // (Hq // Hkv)
+    return Plan(path, hd_tile, bq, B * Hkv * -(-Lq // bq))
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: the C signature of csrc/flash_attention.cu's entry point
+ARGTYPES = {"flash_attention_launch":
+            [_P] * 4 + [_I] * 7 + [_LL] * 9 + [_I] * 3 + [_P]}
 
 
 def _launcher():
     fn = _FNS.get("flash")
     if fn is None:
         fn = _build.load("flash_attention").flash_attention_launch
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 4 + [i] * 6 + [ll] * 9 + [i] * 3 + [p]
+        fn.argtypes = ARGTYPES["flash_attention_launch"]
         fn.restype = ctypes.c_int
         _FNS["flash"] = fn
     return fn
@@ -61,10 +97,11 @@ def _check(q, k, v, window):
         raise ValueError("the last dimension of q, k and v must be "
                          "contiguous")
     vec = 16 // k.element_size()
-    for t in (k, v):
+    for t in (q, k, v):
         if t.data_ptr() % 16 or any(st % vec for st in t.stride()[:3]):
-            raise ValueError("K/V rows must start on 16-byte boundaries "
-                             f"(strides in multiples of {vec} elements)")
+            raise ValueError("q, K and V rows must start on 16-byte "
+                             f"boundaries (strides in multiples of {vec} "
+                             "elements)")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
 
@@ -72,11 +109,12 @@ def _check(q, k, v, window):
 def _launch(q, k, v, causal, window):
     B, Lq, Hq, hd = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
+    pl = plan(B, Lq, Hq, Hkv, hd, q.dtype)
     out = torch.empty((B, Lq, Hq, hd), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, Lq, Lk, Hq, Hkv, hd,
+        B, Lq, Lk, Hq, Hkv, hd, pl.hd_tile,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),

@@ -184,8 +184,11 @@ def _self_attention(q, k, v, cfg, positions, window):
     that (checked on the device, without a host sync; None needs no
     check). On CPU tensors: plain ``gqa_attention``, block-tiled above
     ``cfg.attn_block``, the JAX model's own route (its probabilities
-    rounded to v's dtype before the PV product, which the kernel does not
-    do)."""
+    rounded to v's dtype before the PV product). On the card the kernel
+    rounds p the same way for bf16 inputs, where p is the bf16 A operand
+    of the tensor-core PV product, and keeps p in f32 for fp32 inputs
+    (the Pallas kernel's arithmetic); scores, sums and the normalisation
+    stay f32 on both."""
     if use_kernel(q, k, v):
         if positions is not None:
             _assert_from_zero(positions, q.shape[1])

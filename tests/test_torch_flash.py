@@ -8,9 +8,10 @@ Pallas kernels themselves (``flash_attention_pallas`` at G = 1,
 ``tests/test_kernels.py`` runs them. Inputs are made with numpy from a
 seed. Tolerances: fp32 1e-5, bf16 2e-2 (the bf16 inputs are exact in
 both packages; the outputs round once to bf16 after f32 arithmetic that
-sums in another order). The CUDA kernel runs only on a card:
-``test_flash_kernel_matches_plain_on_card`` carries the ``cuda`` marker
-and skips without one (``python3 chip_smoke.py`` holds it at full width).
+sums in another order). The CUDA kernel runs only on a card: its tests
+live in ``tests/test_torch_card.py``, which imports no JAX so that it
+runs on the card's machine (``python3 chip_smoke.py`` holds it at full
+width too).
 """
 import numpy as np
 import pytest
@@ -166,29 +167,21 @@ def test_wrapper_refuses_cpu_tensors():
         flash_kernel.flash_attention_cuda(q, k, v)
 
 
-@pytest.mark.cuda
-def test_flash_kernel_matches_plain_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
-    # (B, L, Hq, Hkv, hd, causal, window): G 4 at hd 160, G 1, a window,
-    # non-causal, a ragged length
-    for B, L, Hq, Hkv, hd, causal, window in [
-            (2, 192, 8, 2, 160, True, 0), (1, 128, 4, 4, 64, True, 0),
-            (2, 200, 8, 2, 64, True, 48), (1, 100, 4, 1, 128, False, 0)]:
-        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-            q = torch.randn((B, L, Hq, hd), generator=g, device=dev).to(dtype)
-            k = torch.randn((B, L, Hkv, hd), generator=g, device=dev
-                            ).to(dtype)
-            v = torch.randn_like(k)
-            got = flash_kernel.flash_attention_cuda(q, k, v, causal=causal,
-                                                    window=window)
-            rep = Hq // Hkv
-            want = ref.attention_reference(
-                q.transpose(1, 2),
-                k.transpose(1, 2).repeat_interleave(rep, dim=1),
-                v.transpose(1, 2).repeat_interleave(rep, dim=1),
-                causal=causal, window=window).transpose(1, 2)
-            torch.cuda.synchronize()
-            assert (got.float() - want.float()).abs().max().item() <= tol
+@pytest.mark.parametrize("hd,tile", [(8, 32), (40, 64), (64, 64),
+                                     (96, 128), (128, 128), (160, 160),
+                                     (168, 256), (256, 256)])
+def test_plan_routes_by_dtype_and_head_dim_tile(hd, tile):
+    """bf16 takes the tensor cores, fp32 the CUDA cores; the head-dim
+    tile is the smallest that holds hd (the dimensions past hd are zero
+    k-steps)."""
+    bf = flash_kernel.plan(2, 1024, 32, 8, hd, torch.bfloat16)
+    f32 = flash_kernel.plan(2, 1024, 32, 8, hd, torch.float32)
+    assert (bf.path, f32.path) == ("mma", "simt")
+    assert bf.hd_tile == f32.hd_tile == tile
+    assert bf.bq == 16 and bf.blocks == 2 * 8 * 64
+
+
+@pytest.mark.parametrize("G,bq", [(1, 64), (4, 16), (8, 8), (64, 1)])
+def test_plan_groups_heads_into_64_rows(G, bq):
+    p = flash_kernel.plan(1, 100, G * 2, 2, 64, torch.bfloat16)
+    assert p.bq == bq and p.blocks == 2 * -(-100 // bq)

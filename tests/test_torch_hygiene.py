@@ -40,6 +40,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert len(_port_files()) > 20
 
 
+def test_card_tests_import_no_jax_and_nothing_of_the_jax_package():
+    """``tests/test_torch_card.py`` runs on the card's machine, which has
+    no JAX, without ``tests/conftest.py``: it imports torch, numpy,
+    pytest and the port only."""
+    mods = {m.split(".")[0] for m in
+            _imports(ROOT / "tests" / "test_torch_card.py")}
+    assert not mods & set(FORBIDDEN), mods
+    assert mods <= {"numpy", "pytest", "torch", "repro_torch"}, mods
+
+
 def _run(code, cwd=ROOT, env_extra=None):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")

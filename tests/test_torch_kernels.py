@@ -3,10 +3,9 @@
 On the CPU each op runs its plain PyTorch version; it is held against the
 JAX oracle (``ref.py``) and the Pallas kernel in interpret mode on the
 same inputs, made with numpy from a seed. The CUDA/Triton kernels run
-only on a card: ``test_kernels_match_plain_on_card`` (decode attention,
-both layouts, RMSNorm and the dequantize-matmuls) carries the
-``cuda`` marker and skips without one (``python3 chip_smoke.py`` holds
-them at full width).
+only on a card: their tests live in ``tests/test_torch_card.py``, which
+imports no JAX so that it runs on the card's machine
+(``python3 chip_smoke.py`` holds them at full width too).
 """
 import numpy as np
 import pytest
@@ -27,8 +26,6 @@ from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as dec_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as dec_ref  # noqa: E402
-from repro_torch.kernels.quant_matmul import kernel as qmm_kernel  # noqa: E402
-from repro_torch.kernels.quant_matmul import ref as qmm_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel as norm_kernel  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as norm_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as norm_ref  # noqa: E402
@@ -240,125 +237,136 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 # --------------------------------------------------------------------- #
-# on the card
+# the kernel's route and split, held on the CPU
 # --------------------------------------------------------------------- #
-@pytest.mark.cuda
-def test_kernels_match_plain_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
-    dev = torch.device("cuda")
-    for T, G, window, masked in ((1, 4, 0, False), (8, 4, 16, True),
-                                 (4, 1, 0, False)):
-        for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-            q, k, v, pos, q_pos = (torch.from_numpy(a).to(dev) for a in
-                                   _decode_inputs(3, T, G, seed=T,
-                                                  masked_row=masked, hd=64))
-            q, k, v = q.to(dt), k.to(dt), v.to(dt)
-            got = dec_kernel.decode_attention_cuda(q, k, v, pos, q_pos,
-                                                   window=window)
-            want = dec_ref.decode_attention_reference(q, k, v, pos, q_pos,
-                                                      window=window)
-            assert (got.float() - want.float()).abs().max().item() <= tol
-            # the paged kernel on the same logical data, pages permuted:
-            # within tol of its plain version, equal to the contiguous one
-            for ps in (8, 16):
-                kp, vp, bt = _paged_from_contiguous(k, v, ps, seed=ps)
-                pgot = dec_kernel.paged_decode_attention_cuda(
-                    q, kp, vp, bt, pos, q_pos, window=window)
-                pwant = dec_ref.paged_decode_attention_reference(
-                    q, kp, vp, bt, pos, q_pos, window=window)
-                assert (pgot.float() - pwant.float()).abs().max().item() \
-                    <= tol
-                assert torch.equal(pgot, got)
-    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-        x = torch.randn(16, 2048, device=dev).to(dt)
-        r = torch.randn(16, 2048, device=dev).to(dt)
-        s = torch.rand(2048, device=dev).to(dt)
-        for res in (r, None):
-            y, t = norm_kernel.fused_rmsnorm_triton(x, res, s)
-            y0, t0 = norm_ref.fused_rmsnorm_reference(x, res, s)
-            assert (y.float() - y0.float()).abs().max().item() <= tol
-            assert (t.float() - t0.float()).abs().max().item() <= tol
-    # the dequantize-matmuls: ragged M and N, K split or not, an odd int4
-    # group (K 34, gs 17); max|kernel - plain| <= tol * max|plain|
-    from repro_torch.quant import quantize_tensor
-    g = torch.Generator(device=dev).manual_seed(0)
-    for M, K, N, gs in ((1, 2048, 512, 32), (37, 256, 200, 32),
-                        (8, 34, 48, 32), (128, 512, 384, 64)):
-        w = 0.05 * torch.randn((K, N), generator=g, device=dev)
-        for bits in (8, 4):
-            qt = quantize_tensor(w, bits=bits, group_size=gs)
-            for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-                x = torch.randn((M, K), generator=g, device=dev).to(dt)
-                if bits == 8:
-                    got = qmm_kernel.quant_matmul_int8_cuda(x, qt["q"],
-                                                            qt["scale"])
-                    want = qmm_ref.quant_matmul_int8_reference(
-                        x, qt["q"], qt["scale"])
-                else:
-                    got = qmm_kernel.quant_matmul_int4_cuda(x, qt["q4"],
-                                                            qt["scale"])
-                    want = qmm_ref.quant_matmul_int4_reference(
-                        x, qt["q4"], qt["scale"])
-                err = (got.float() - want.float()).abs().max().item()
-                assert got.dtype == dt and got.shape == (M, N)
-                assert err <= tol * want.float().abs().max().item()
-    # the SSD kernels: max|kernel - plain| <= 1e-4 * max|plain| (f32
-    # arithmetic, sums in another order); the extend kernel bitwise
-    # compositional, identity at dt = 0, and ssd_step its T = 1 launch
-    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
-    from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+def test_plan_routes_of_the_main_path():
+    """llama3.2-1b's shapes (Hq 32, Hkv 8, hd 64, S 1024): a chunk of 128
+    takes the row-tiled tensor-core route, a decode step at B 8 the
+    key-split one on at least 132 blocks, B 1 more splits than B 8, and
+    fp32 the CUDA-core route unsplit."""
+    bf, f32 = torch.bfloat16, torch.float32
+    chunk = dec_kernel.plan(1, 128, 32, 8, 1024, 64, bf)
+    assert chunk.path == "mma_rows" and chunk.rows == 64
+    assert chunk.row_blocks == 8 and chunk.blocks >= 132
+    dec8 = dec_kernel.plan(8, 1, 32, 8, 1024, 64, bf)
+    assert dec8.path == "mma_keys" and dec8.blocks >= 132
+    assert dec8.blocks == 8 * 8 * dec8.splits and dec8.splits > 1
+    dec1 = dec_kernel.plan(1, 1, 32, 8, 1024, 64, bf)
+    assert dec1.path == "mma_keys" and dec1.splits > dec8.splits
+    for T in (1, 128):
+        p = dec_kernel.plan(8, T, 32, 8, 1024, 64, f32)
+        assert p.path == "simt" and p.splits == 1 and p.per == 1024
 
-    def ssd_inputs(b, l, h, p, g, n, dtype=torch.float32):
-        return (torch.randn((b, l, h, p), generator=g_, device=dev).to(dtype),
-                0.001 + 0.1 * torch.rand((b, l, h), generator=g_, device=dev),
-                -0.5 - 1.5 * torch.rand((h,), generator=g_, device=dev),
-                torch.randn((b, l, g, n), generator=g_, device=dev).to(dtype),
-                torch.randn((b, l, g, n), generator=g_, device=dev).to(dtype),
-                torch.randn((h,), generator=g_, device=dev))
 
-    def rel(got, want):
-        return (got - want).abs().max().item() / want.abs().max().item()
+@pytest.mark.parametrize("T,G,path", [(3, 4, "mma_keys"),
+                                      (4, 4, "mma_keys"),
+                                      (5, 4, "mma_rows"),
+                                      (16, 1, "mma_keys"),
+                                      (17, 1, "mma_rows")])
+def test_plan_route_threshold(T, G, path):
+    """R = T * G rows a sequence: one 16-row tile up to 16, 64-row tiles
+    above."""
+    p = dec_kernel.plan(4, T, G * 8, 8, 1024, 64, torch.bfloat16)
+    assert p.path == path
+    assert p.row_blocks == -(-T * G // p.rows)
 
-    g_ = torch.Generator(device=dev).manual_seed(1)
-    for b, T, h, p, g, n in ((8, 1, 48, 64, 1, 128), (1, 37, 48, 64, 1, 128),
-                             (2, 5, 16, 32, 2, 32)):
-        x, dt_, A, Bm, Cm, D = ssd_inputs(b, T, h, p, g, n)
-        s0 = torch.randn((b, h, p, n), generator=g_, device=dev)
-        y, s = ssd_kernel.ssd_extend_cuda(s0, x, dt_, A, Bm, Cm, D)
-        y0, s1 = ssd_ref.ssd_extend_reference(s0, x, dt_, A, Bm, Cm, D)
-        assert rel(y, y0) <= 1e-4 and rel(s, s1) <= 1e-4
-        t1 = T // 2
-        if t1:
-            ya, sa = ssd_kernel.ssd_extend_cuda(
-                s0, x[:, :t1], dt_[:, :t1], A, Bm[:, :t1], Cm[:, :t1], D)
-            yb, sb = ssd_kernel.ssd_extend_cuda(
-                sa, x[:, t1:], dt_[:, t1:], A, Bm[:, t1:], Cm[:, t1:], D)
-            assert torch.equal(torch.cat([ya, yb], 1), y)
-            assert torch.equal(sb, s)
-        # x whose last dimension is not contiguous (as an einsum may
-        # leave the conv output) is copied by the wrapper
-        xt = x[:, 0].transpose(1, 2).contiguous().transpose(1, 2)
-        ys, ss = ssd_ops.ssd_step(s0, xt, dt_[:, 0], A, Bm[:, 0],
-                                  Cm[:, 0], D)
-        yk, sk = ssd_kernel.ssd_extend_cuda(s0, x[:, :1], dt_[:, :1], A,
-                                            Bm[:, :1], Cm[:, :1], D)
-        assert torch.equal(ys, yk[:, 0]) and torch.equal(ss, sk)
-        state, ckpt = s0.clone(), torch.empty_like(s0)
-        ssd_kernel.ssd_extend_cuda(state, x, torch.zeros_like(dt_), A, Bm,
-                                   Cm, D, out=state, ckpt=ckpt)
-        assert torch.equal(state, s0) and torch.equal(ckpt, s0)
-    for b, l, h, p, g, n, chunk in ((1, 512, 48, 64, 1, 128, 256),
-                                    (2, 64, 16, 32, 2, 32, 32),
-                                    (1, 48, 6, 32, 3, 64, 16)):
-        for dtype in (torch.float32, torch.bfloat16):
-            x, dt_, A, Bm, Cm, D = ssd_inputs(b, l, h, p, g, n, dtype)
-            s0 = torch.randn((b, h, p, n), generator=g_, device=dev)
-            for init in (None, s0):
-                y, s = ssd_kernel.ssd_cuda(x, dt_, A, Bm, Cm, D, chunk=chunk,
-                                           initial_state=init)
-                y0, s1 = ssd_ref.ssd_reference(x, dt_, A, Bm, Cm, D,
-                                               chunk=chunk,
-                                               initial_state=init)
-                assert rel(y, y0) <= 1e-4 and rel(s, s1) <= 1e-4
+
+@pytest.mark.parametrize("B,T,S", [(8, 1, 1024), (8, 1, 1000), (1, 1, 1000),
+                                   (1, 128, 1000), (3, 7, 48), (2, 1, 65),
+                                   (64, 1, 4096), (1, 1, 64)])
+def test_plan_splits_cover_s_in_whole_tiles(B, T, S):
+    """Every split is non-empty, covers whole 64-slot tiles but the last,
+    and together they cover S exactly once; the block count is the grid
+    the kernel launches."""
+    p = dec_kernel.plan(B, T, 32, 8, S, 64, torch.bfloat16)
+    assert 1 <= p.splits <= dec_kernel.MAX_SPLITS
+    if p.splits > 1:
+        assert p.per % dec_kernel.BK == 0
+    assert p.per * (p.splits - 1) < S <= p.per * p.splits
+    assert p.blocks == B * 8 * p.row_blocks * p.splits
+    if S == 1000 and p.splits > 1:
+        assert S % p.per, "the last split of S 1000 is ragged"
+
+
+def _split_model(q, k, v, pos, q_pos, window, per):
+    return dec_ref.decode_attention_split_reference(
+        *(torch.from_numpy(a) for a in (q, k, v, pos, q_pos)),
+        window=window, per=per)
+
+
+@pytest.mark.parametrize("per", [16, 20, 48])
+@pytest.mark.parametrize("T,G,window", [(1, 4, 0), (4, 4, 16), (8, 1, 0)])
+def test_split_combine_matches_one_pass_and_jax(T, G, window, per):
+    """The split-and-combine arithmetic of the kernel's split route
+    (splits of 16 or 20 slots over S 48: the last ragged at 20; rows at
+    random depths leave whole splits masked; row 0 fully masked) gives
+    the one-pass plain version and the JAX oracle within fp32 rounding
+    (1e-5: the same f32 sums, regrouped by split)."""
+    q, k, v, pos, q_pos = _decode_inputs(3, T, G, seed=per + T + G,
+                                         masked_row=True)
+    got = _split_model(q, k, v, pos, q_pos, window, per)
+    one = _port_decode(q, k, v, pos, q_pos, window)
+    want = _jax_decode(jnp.asarray(q), _jax_heads(k), _jax_heads(v),
+                       jnp.asarray(pos), jnp.asarray(q_pos), window=window)
+    np.testing.assert_allclose(got.numpy(), one.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+    mean_v = np.repeat(v[0].mean(0), G, axis=0)
+    np.testing.assert_allclose(got[0].numpy(),
+                               np.broadcast_to(mean_v, got[0].shape),
+                               atol=1e-5, rtol=0)
+
+
+def test_split_combine_at_the_plans_split():
+    """At the shapes of a decode step (B 8, G 4, S 1000: the plan's 4
+    splits of 256, the last of 232) the split model agrees with the
+    one-pass plain version, hd 64 as on the card."""
+    B, G = 8, 4
+    rng = np.random.default_rng(5)
+    Hkv, s_len, hd = 2, 1000, 64
+    q = rng.normal(size=(B, 1, G * Hkv, hd)).astype(np.float32)
+    k = rng.normal(size=(B, s_len, Hkv, hd)).astype(np.float32)
+    v = rng.normal(size=(B, s_len, Hkv, hd)).astype(np.float32)
+    depth = rng.integers(0, s_len, B)
+    pos = np.where(np.arange(s_len)[None] <= depth[:, None],
+                   np.arange(s_len)[None], -1).astype(np.int32)
+    pos[1] = -1
+    q_pos = depth[:, None].astype(np.int32)
+    p = dec_kernel.plan(B, 1, G * 8, 8, s_len, hd, torch.bfloat16)
+    assert p.splits > 1 and s_len % p.per
+    got = _split_model(q, k, v, pos, q_pos, 0, p.per)
+    one = _port_decode(q, k, v, pos, q_pos)
+    np.testing.assert_allclose(got.numpy(), one.numpy(), atol=1e-5, rtol=0)
+
+
+def _c_signature(src, name):
+    """The ctypes types of an ``extern "C"`` entry point's parameters,
+    read from its CUDA source."""
+    import ctypes
+    import re
+    from pathlib import Path
+    text = (Path(dec_kernel.__file__).parents[2] / "csrc" / src).read_text()
+    m = re.search(r'extern "C" int ' + name + r"\((.*?)\)\s*\{", text, re.S)
+    kinds = []
+    for param in m.group(1).split(","):
+        param = param.strip()
+        if "*" in param:
+            kinds.append(ctypes.c_void_p)
+        elif param.startswith("long long"):
+            kinds.append(ctypes.c_longlong)
+        else:
+            assert param.startswith("int "), param
+            kinds.append(ctypes.c_int)
+    return kinds
+
+
+@pytest.mark.parametrize("src,name", [
+    ("decode_attention.cu", "decode_attention_launch"),
+    ("decode_attention.cu", "paged_decode_attention_launch"),
+    ("flash_attention.cu", "flash_attention_launch")])
+def test_argtypes_match_the_c_signature(src, name):
+    """A ctypes signature that drifts from the C one would pass shifted
+    arguments: held here, where no compiler runs."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    wrapper = dec_kernel if src.startswith("decode") else flash_kernel
+    assert wrapper.ARGTYPES[name] == _c_signature(src, name)
