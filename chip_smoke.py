@@ -6,7 +6,9 @@ Builds the port's kernels from this checkout and holds each against its
 plain PyTorch version on the card (the paged decode-attention kernel
 also against the contiguous one on the gathered view, which it must
 equal exactly; the int8 and int4 dequantize-matmuls at every projection
-shape of the model, ragged M and N and an odd int4 group); checks a
+shape of the model, ragged M and N and an odd int4 group, bf16 int4 on
+the tensor-core route with groups of 32 and 64, a ragged K and a strided
+x, bitwise equal across two calls); checks a
 2-layer full-width llama3.2-1b on the card against the same model on the
 CPU in fp32, dense and quantized (the edge profile: int4 weights and
 int8 KV; int8 weights with fp32 KV); serves the full 16-layer bf16
@@ -491,16 +493,46 @@ def _int8pack_call(torch, x, qt):
     return lambda: torch._weight_int8pack_mm(x, w, s)
 
 
+def _simt_int4_call(torch, x, q, sc):
+    """The int4 product on the ``simt`` route (the CUDA-core kernel that
+    bf16 took before the ``mma`` route, unchanged and still built for
+    fp32 and odd groups), launched through the library's own entry point
+    with ``plan``'s split: a yardstick timed in the same run."""
+    from repro_torch.kernels.quant_matmul import kernel as K_
+    M, K = x.shape
+    N = q.shape[1]
+    _, splits, kper = K_.plan(M, N, K)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    ws = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+    fn = K_._launcher()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        err = fn(x.data_ptr(), x.stride(0), q.data_ptr(), sc.data_ptr(),
+                 out.data_ptr(), ws.data_ptr(), M, N, K,
+                 K // sc.shape[0], kper, splits, 1, 1, stream)
+        if err:
+            raise RuntimeError(f"simt int4 launch failed: {err}")
+        return out
+    return call
+
+
 def quant_matmul_cases(torch, flush):
     """Both dequantize-matmuls against their plain versions at every
     projection shape of llama3.2-1b, M in {1, 8, 37, 128} (decode, a
     ragged chunk tail, a full chunk), fp32 and bf16, plus a ragged N (200)
-    and, for int4, an odd group (K 34, gs 17). Tolerance: max|kernel -
-    plain| <= tol * max|plain| (the sums run in another order; bf16
-    rounds the output). bf16 times at M 8 and 128 for (2048, 8192) and
-    (2048, 512), beside the plain version, a bf16 matmul on the
-    dequantized weight (what quantization buys) and PyTorch's own
-    weight-only call where the card's PyTorch runs it."""
+    and, for int4, an odd group (K 34, gs 17), a group of 64, a K that
+    is no multiple of the mma route's 64-row tile (2080) and a strided x
+    (a view of wider rows). int4
+    records its ``int4_plan`` route: bf16 with a group of a multiple of
+    16 on ``mma`` (whose every case is also called twice and must be
+    bitwise equal), fp32 and gs 17 on ``simt``.
+    Tolerance: max|kernel - plain| <= tol * max|plain| (the sums run in
+    another order; bf16 rounds the output). bf16 times at M 8 and 128 for
+    all four shapes, beside the plain version, a bf16 matmul on the
+    dequantized weight (what quantization buys), PyTorch's own
+    weight-only call where the card's PyTorch runs it and, for int4, the
+    same product on the ``simt`` route (``simt_ms``)."""
     from repro_torch.kernels.quant_matmul import kernel as K_
     from repro_torch.kernels.quant_matmul import ref as R_
     from repro_torch.quant import dequantize_tensor, quantize_tensor
@@ -509,7 +541,6 @@ def quant_matmul_cases(torch, flush):
     out = {8: [], 4: []}
     errs = {8: [], 4: []}
     library_note = {}
-    timed = {(2048, 8192), (2048, 512)}
     for bits in (8, 4):
         name = f"quant_matmul_int{bits}"
         kern = K_.quant_matmul_int8_cuda if bits == 8 \
@@ -518,22 +549,30 @@ def quant_matmul_cases(torch, flush):
             else R_.quant_matmul_int4_reference
         lib = _int8pack_call if bits == 8 else _int4pack_call
         qkey = "q" if bits == 8 else "q4"
-        cases = [(K, N, M, 32) for K, N in QMM_SHAPES
+        # (K, N, M, group, strided x)
+        cases = [(K, N, M, 32, False) for K, N in QMM_SHAPES
                  for M in (1, 8, 37, 128)]
-        cases += [(2048, 200, 8, 32), (2048, 200, 37, 32)]
+        cases += [(2048, 200, 8, 32, False), (2048, 200, 37, 32, False)]
         if bits == 4:
-            cases += [(34, 48, 1, 32), (34, 48, 37, 32)]
+            cases += [(34, 48, 1, 32, False), (34, 48, 37, 32, False)]
+            cases += [(2048, 2048, M, 64, False)
+                      for M in (1, 8, 37, 128)]
+            cases += [(2080, 512, 8, 32, True), (2080, 512, 37, 32, False),
+                      (2048, 8192, 8, 32, True), (2048, 512, 128, 32, True)]
         g = torch.Generator(device=dev).manual_seed(SEED)
         weights = {}
-        for K, N, M, gs in cases:
-            if (K, N) not in weights:
+        for K, N, M, gs, strided in cases:
+            if (K, N, gs) not in weights:
                 w = 0.02 * torch.randn((K, N), generator=g, device=dev)
-                weights[K, N] = quantize_tensor(w, bits=bits, group_size=gs)
-            qt = weights[K, N]
+                weights[K, N, gs] = quantize_tensor(w, bits=bits,
+                                                    group_size=gs)
+            qt = weights[K, N, gs]
             q, sc = qt[qkey], qt["scale"]
+            group = K // sc.shape[0] if bits == 4 else None
             for dtype in (torch.float32, torch.bfloat16):
                 dname = str(dtype).split(".")[1]
-                x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+                x = torch.randn((M, K + 64 * strided), generator=g,
+                                device=dev).to(dtype)[:, :K]
                 got = kern(x, q, sc)
                 want = plain(x, q, sc)
                 torch.cuda.synchronize()
@@ -542,15 +581,31 @@ def quant_matmul_cases(torch, flush):
                 ok = bool(torch.isfinite(got).all().item()) \
                     and got.dtype == dtype and got.shape == (M, N) \
                     and err <= TOL[dname] * ref_max
-                blocks, splits, kper = K_.plan(M, N, K)
+                if bits == 4:
+                    pl = K_.int4_plan(M, N, K, group, dtype)
+                    route, blocks, splits = pl.route, pl.blocks, pl.splits
+                    ok = ok and route == ("mma" if dtype == torch.bfloat16
+                                          and group % 16 == 0 else "simt")
+                else:
+                    route = "simt"
+                    blocks, splits, _ = K_.plan(M, N, K)
                 rec = {"phase": "kernels", "kernel": name,
-                       "case": f"K{K}_N{N}_M{M}", "dtype": dname, "M": M,
-                       "K": K, "N": N, "group": K // sc.shape[0]
-                       if bits == 4 else None,
-                       "blocks": blocks, "splits": splits,
-                       "max_abs_err": err, "max_abs_plain": ref_max,
+                       "case": f"K{K}_N{N}_M{M}" + (f"_gs{group}" if bits
+                                                     == 4 and group != 32
+                                                     else "")
+                       + ("_strided" if strided else ""),
+                       "dtype": dname, "M": M, "K": K, "N": N,
+                       "group": group, "route": route, "blocks": blocks,
+                       "splits": splits, "max_abs_err": err,
+                       "max_abs_plain": ref_max,
+                       "rel_err": err / ref_max if ref_max else err,
                        "tol_rel": TOL[dname], "ok": ok}
-                if (K, N) in timed and M in (8, 128) \
+                if route == "mma":
+                    rec["bitwise_repeat"] = bool(torch.equal(
+                        kern(x, q, sc), got))
+                    rec["ok"] = ok = ok and rec["bitwise_repeat"]
+                if (K, N) in QMM_SHAPES and group in (None, 32) \
+                        and not strided and M in (8, 128) \
                         and dtype == torch.bfloat16:
                     elt = x.element_size()
                     nbytes = M * K * elt + q.numel() + 4 * sc.numel() \
@@ -567,6 +622,12 @@ def quant_matmul_cases(torch, flush):
                             torch, lambda: torch.matmul(x, w_bf16), flush),
                         bound_ms=bms, bound_us=bms * 1e3, bound_by=by,
                         bytes=nbytes, flops=flops, library_ms=None)
+                    rec.update(achieved(rec))
+                    if bits == 4:
+                        simt = _simt_int4_call(torch, x, q, sc)
+                        serr = (simt().float() - want.float()).abs().max()
+                        rec["simt_max_abs_err"] = serr.item()
+                        rec["simt_ms"] = median_ms(torch, simt, flush)
                     try:
                         call = lib(torch, x, qt)
                         lerr = (call().float() - want.float()).abs().max() \
@@ -1760,10 +1821,12 @@ def main() -> int:
                      "plan")),
         entry("quant_matmul_int8", "cuda", QMM_SRC, QMM_TPU[8], qmm_err[8],
               timed(qmm[8]), int8_counts,
-              extra=("dense_bf16_ms", "blocks", "splits")),
+              extra=("dense_bf16_ms", "route", "blocks", "splits",
+                     "bound_by")),
         entry("quant_matmul_int4", "cuda", QMM_SRC, QMM_TPU[4], qmm_err[4],
               timed(qmm[4]), edge_counts,
-              extra=("dense_bf16_ms", "blocks", "splits")),
+              extra=("dense_bf16_ms", "simt_ms", "route", "blocks",
+                     "splits", "bound_by", "rel_err")),
         entry("ssd_extend", "cuda", SSD_SRC, SSD_EXT_TPU, ext_err,
               timed(ext), ext_counts, extra=("bound_by",)),
         entry("ssd", "cuda", SSD_SRC, SSD_TPU, ssd_err, timed(ssd),

@@ -1,7 +1,8 @@
-// Warp-tile building blocks of the bf16 tensor-core attention kernels
-// (flash_attention.cu and decode_attention.cu): asynchronous global ->
-// shared copies, ldmatrix fragment loads and the m16n8k16 bf16 product
-// with f32 accumulation, plus the online-softmax step both kernels share.
+// Warp-tile building blocks of the bf16 tensor-core kernels
+// (flash_attention.cu, decode_attention.cu and quant_matmul.cu's int4
+// mma route): asynchronous global -> shared copies, ldmatrix fragment
+// loads and the m16n8k16 bf16 product with f32 accumulation, plus the
+// online-softmax step the two attention kernels share.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16): a0 (row g, cols 2t, 2t+1), a1 (row g+8, the same cols),

@@ -29,35 +29,67 @@
 // What bounds it: at decode (M = 8) the weight bytes. llama3.2-1b's
 // (K, N) = (2048, 8192) projection moves 16.8 MB in int8 (>= 5.07 us at
 // 3.35 TB/s) and 10.6 MB in int4 with its scales (>= 3.18 us), against
-// 0.27 GFLOP. At the admitting chunk (M = 128) the operations: 4.3 GFLOP,
-// which this kernel runs on the CUDA cores in f32.
+// 0.27 GFLOP. At the admitting chunk (M = 128) the operations: 4.3 GFLOP.
 //
-// Design. A block of 128 threads owns a tile of 8 rows of x by 128
-// columns of y and a range of K (the split); two blocks fit an SM. Each
-// thread owns 16 adjacent columns and a run of 8 (int8) or 16 (int4)
-// unpacked rows of every K tile. The K tiles stream through a ring of 4
-// shared-memory stages filled by cp.async (16-byte copies of weight rows,
-// 4-byte copies of x), so up to three tiles' loads are in flight while
-// one is consumed and no register holds a load in flight; a thread
-// copies exactly the weight bytes it later reads. Weights are unpacked
-// in registers with byte permutes into the float bit pattern of 2^23 +
-// value (one permute and one add a value, no int-to-float conversion),
-// scaled (int4) and multiplied on the CUDA cores into 8 x 16 f32
-// accumulators per thread. The 16 partial sums of a column (one per row
-// run) are reduced with shuffles inside each warp, then across the 4
-// warps in shared memory.
+// Two routes; kernels/quant_matmul/kernel.py's int4_plan picks one from
+// the shapes and the dtype alone.
 //
-// Occupancy at decode: with 128 columns a tile, N = 512 (wk, wv) gives 4
-// column tiles. The wrapper therefore splits K so that about 528 blocks
-// (two waves of 2 blocks on each of 132 SMs) are launched; a split
-// writes its f32 partial sums to a workspace and a second small kernel
-// adds the splits, applies the int8 scale and casts. A split covers a
-// multiple of 64 rows of K and there are at most 16 of them. Tensor-core
-// mma/wgmma with a dequantizing prologue is the next thing a faster
-// version changes (the M = 128 product is bound by the CUDA cores).
+// simt (int8; int4 on fp32 x, a group that is not a multiple of 16 or
+// an N that is not a multiple of 4). A block of 128 threads owns a tile
+// of 8 rows of x by 128 columns of y and a range of K (the split); two
+// blocks fit an SM. Each thread owns 16 adjacent columns and a run of 8
+// (int8) or 16 (int4) unpacked rows of every K tile. The K tiles stream
+// through a ring of 4 shared-memory stages filled by cp.async (16-byte
+// copies of weight rows, 4-byte copies of x); a thread copies exactly
+// the weight bytes it later reads. Weights
+// are unpacked in registers with byte permutes into the float bit pattern
+// of 2^23 + value (one permute and one add a value), scaled (int4) and
+// multiplied on the CUDA cores in f32. The 16 partial sums of a column
+// are reduced with shuffles inside each warp, then across the 4 warps in
+// shared memory. With 128 columns a tile, N = 512 gives 4 column tiles,
+// so the wrapper (plan) splits K until about 528 blocks run; a split
+// writes f32 partial sums to a workspace and qmm_finalize adds the
+// splits in order, applies the int8 scale and casts.
+//
+// mma (int4, bf16 x, gs a multiple of 16): qmm_int4_mma_kernel, on the
+// tensor cores. It computes the plain version's formula itself,
+// y = sum_g (x_g @ q_g) * s_g: a nibble q in -8..7 is exact in bf16, so
+// mma.sync m16n8k16 over bf16 q and bf16 x with f32 accumulators gives
+// each group's contraction (a fresh fragment per group), which is then
+// multiplied by its f32 scale and added to the running f32 sum. Only the
+// order of the f32 sums differs from the plain version; q * s is never
+// rounded to bf16. The product runs transposed, y^T = W^T x^T: the
+// weights are the A operand (16 output columns a m-tile) and x the B
+// operand (8 rows of x an n-tile), so decode's 8 rows fill every product.
+// A block of 4 warps owns 8 NT rows of x (NT 1 for decode's M <= 8, else
+// 4) by 128 columns,
+// a warp 32 columns as 2 m-tiles. K tiles of 64 rows (32 packed bytes a
+// column), their scale rows and the x tile stream through a ring of 4
+// cp.async stages; each thread's copies are set up once per block.
+// A fragments straight from the QTensor bytes: a0 of m16n8k16 is (row g;
+// k 2t, 2t+1), which is one packed byte (row 2i low nibble, 2i+1 high).
+// Inside a warp's 32 columns, m-tile j's rows g and g + 8 are the
+// physical columns 4g + j and 4g + 2 + j, so one 32-bit shared load at
+// packed row t gives a0 and a1 of both m-tiles (row t + 4: a2, a3); a
+// packed-row stride of 160 bytes puts a warp's 32 loads on 32 banks. A
+// byte becomes a bf16x2 exactly with one permute, one lop3 ((nibble ^ 8)
+// | 0x4300 is bf16 128 + q + 8) and one bf16x2 subtract of 136. A
+// thread's accumulators are then the 4 adjacent columns 4g .. 4g + 3 of
+// rows 2t and 2t + 1: its scales for a group are one float4 load and its
+// outputs 8-byte stores. K is split only when the column and row tiles
+// give fewer than 132 blocks, into splits of at least 3 tiles; the splits
+// of a tile run as one thread-block cluster and add their f32 sums
+// through distributed shared memory in a fixed order, so a call is one
+// launch, needs no workspace and is bitwise deterministic run to run; an
+// unsplit call is a plain launch, with no cluster attribute.
+// Ragged M, N (N % 4 == 0) and K are masked.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cooperative_groups.h>
+
+#include "attn_mma.cuh"
 
 namespace {
 
@@ -404,6 +436,405 @@ int launch_kind(bool int4, bool vec, const void* x, long long x_sm,
                                        K, gs, kper, splits, st);
 }
 
+// ---------------------------------------------------------------------
+// The mma route: int4 weights, bf16 x, gs a multiple of 16
+// ---------------------------------------------------------------------
+namespace mma4 {
+
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int BN = WARPS * 32;          // columns of y a block
+constexpr int BK = 64;                  // unpacked rows of a K tile
+constexpr int STEPS = BK / 16;          // k-steps of a tile
+constexpr int STAGES = 4;
+constexpr int MAX_SPLITS = 16;          // a (non-portable) cluster
+constexpr int QSTR = BN + 32;           // packed-row stride (S / 4 = 40)
+constexpr int XSTR = BK + 8;            // x-row stride in elements
+constexpr int Q_BYTES = (BK / 2) * QSTR;
+constexpr int S_ROWS = STEPS;           // at most one group a k-step
+constexpr int S_BYTES = S_ROWS * BN * 4;
+constexpr int YSTR = BN + 4;            // f32 row stride of a split's sums
+
+// NT n-tiles of 8 rows of x a block
+template <int NT> struct Tile {
+  static constexpr int BM = 8 * NT;
+  static constexpr int X_BYTES = BM * XSTR * 2;
+  static constexpr int STAGE = Q_BYTES + S_BYTES + X_BYTES;
+  static constexpr int SMEM = STAGES * STAGE;
+  static_assert(SMEM >= BM * YSTR * 4, "a split's sums reuse the stages");
+};
+
+// Four bf16x2 registers from one 32-bit word of packed bytes: byte j
+// holds k 2t (low nibble) and 2t+1 (high) of one column, the two halves
+// of r[j]; (nibble ^ 8) | 0x4300 is bf16 128 + (q + 8) (one lop3), and
+// subtracting 136 leaves q exactly
+__device__ __forceinline__ void dequant4(uint32_t w, uint32_t (&r)[4]) {
+  const uint32_t hi = w >> 4;
+  const __nv_bfloat162 off = __floats2bfloat162_rn(136.f, 136.f);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t p = __byte_perm(w, hi, j | ((4 + j) << 8));
+    uint32_t u;
+    asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n"       // (p & mask) ^ magic
+        : "=r"(u) : "r"(p), "r"(0x000F000Fu), "r"(0x43084308u));
+    __nv_bfloat162 h = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&u), off);
+    r[j] = *reinterpret_cast<uint32_t*>(&h);
+  }
+}
+
+// A thread's share of the copies of one K tile into a stage, set up once
+// per block: fixed source pointers and shared-memory offsets that only
+// move by a tile's stride, so that issuing a tile costs a few adds.
+// Packed weight rows go QV bytes a copy; the scale rows of the groups
+// the tile touches and the x tile 16 bytes a copy; past N, M or ke the
+// copy zero-fills.
+template <int NT, int QV> struct Loader {
+  static constexpr int QC = BN / QV;                  // copies a row
+  static constexpr int QN = (BK / 2) * QC / THREADS;  // a thread's rows
+  static constexpr int XCOPIES = Tile<NT>::BM * (BK / 8);
+  static constexpr int XN = (XCOPIES + THREADS - 1) / THREADS;
+  static_assert(QN * THREADS == (BK / 2) * QC, "whole weight copies");
+  static_assert(S_ROWS * (BN / 4) <= THREADS, "one scale copy a thread");
+  const int8_t* qs[QN];
+  int qd[QN], qr[QN];
+  bool qok[QN];
+  const __nv_bfloat16* xs[XN];
+  int xd[XN], xc[XN];
+  bool xok[XN], xon[XN];
+  const float* ss;
+  int sd, sr;
+  bool sok;
+
+  __device__ __forceinline__ Loader(const __nv_bfloat16* x, long long x_sm,
+                                    const int8_t* q, const float* scale,
+                                    int M, int N, int m0, int n0, int tid) {
+#pragma unroll
+    for (int u = 0; u < QN; ++u) {
+      const int i = tid + u * THREADS, r = i / QC, c = (i % QC) * QV;
+      qok[u] = n0 + c < N;
+      qs[u] = qok[u] ? q + static_cast<long long>(r) * N + n0 + c : q;
+      qd[u] = r * QSTR + c;
+      qr[u] = 2 * r;
+    }
+#pragma unroll
+    for (int u = 0; u < XN; ++u) {
+      const int i = tid + u * THREADS, m = i / (BK / 8), c = i % (BK / 8);
+      xon[u] = i < XCOPIES;
+      xok[u] = xon[u] && m0 + m < M;
+      xs[u] = xok[u] ? x + static_cast<long long>(m0 + m) * x_sm + 8 * c
+                     : x;
+      xd[u] = Q_BYTES + S_BYTES + (m * XSTR + 8 * c) * 2;
+      xc[u] = 8 * c;
+    }
+    sr = tid / (BN / 4);
+    const int c = (tid % (BN / 4)) * 4;
+    sok = n0 + c < N;
+    ss = sok ? scale + static_cast<long long>(sr) * N + n0 + c : scale;
+    sd = Q_BYTES + (sr * BN + c) * 4;
+  }
+
+  // the tile [k0, min(k0 + BK, ke)); its first group g0 and the number
+  // of groups it touches
+  __device__ __forceinline__ void load(unsigned char* stage, int k0, int ke,
+                                       int g0, int groups, int N) const {
+    const long long qoff = static_cast<long long>(k0 >> 1) * N;
+#pragma unroll
+    for (int u = 0; u < QN; ++u) {
+      const bool ok = qok[u] && k0 + qr[u] < ke;
+      if (QV == 16)
+        attn::cp_async16(stage + qd[u], ok ? qs[u] + qoff : qs[u], ok);
+      else
+        attn::cp_async4(stage + qd[u], ok ? qs[u] + qoff : qs[u], ok);
+    }
+    if (sr < groups)
+      attn::cp_async16(stage + sd,
+                       sok ? ss + static_cast<long long>(g0) * N : ss, sok);
+#pragma unroll
+    for (int u = 0; u < XN; ++u) {
+      if (!xon[u]) continue;
+      const bool ok = xok[u] && k0 + xc[u] < ke;
+      attn::cp_async16(stage + xd[u], ok ? xs[u] + k0 : xs[u], ok);
+    }
+  }
+};
+
+// The groups of K met in order, without a division a tile: the group g
+// of row k and k's offset r in it
+struct GroupCursor {
+  int g, r;
+  __device__ __forceinline__ void advance(int rows, int gs) {
+    r += rows;
+    while (r >= gs) {
+      r -= gs;
+      ++g;
+    }
+  }
+  // the number of groups that the next `rows` rows touch
+  __device__ __forceinline__ int span(int rows, int gs) const {
+    int n = 1;
+    for (int left = gs - r; left < rows; left += gs) ++n;
+    return n;
+  }
+};
+
+}  // namespace mma4
+
+// y for one 8 NT x 128 tile of the (M, N) output, computed transposed:
+// y^T = W^T x^T, the weights the A operand (16 output columns a m-tile)
+// and x the B operand (8 rows of x an n-tile), so that decode's 8 rows
+// fill the product. Warp w owns columns 32 w .. 32 w + 31 as two m-tiles:
+// m-tile j's rows g and g + 8 are the physical columns 4g + j and
+// 4g + 2 + j, so one 32-bit load at packed row t (t + 4) holds a0, a1
+// (a2, a3) of both m-tiles, and the thread's accumulators are the 4
+// adjacent columns 4g .. 4g + 3 of rows 2t and 2t + 1 of each n-tile.
+// Split z of a cluster of `splits` blocks covers the rows
+// [z kper, min(K, (z + 1) kper)) of K; the cluster's blocks add their
+// f32 sums through distributed shared memory in the order z = 0, 1, ..,
+// each block writing a share of y.
+template <int NT, int QV>
+__global__ void __launch_bounds__(mma4::THREADS)
+qmm_int4_mma_kernel(const __nv_bfloat16* __restrict__ x, long long x_sm,
+                    const int8_t* __restrict__ q,
+                    const float* __restrict__ scale,
+                    __nv_bfloat16* __restrict__ out, int M, int N, int K,
+                    int gs, int kper, int splits) {
+  using TL = mma4::Tile<NT>;
+  // the route's tiles (the simt route's names mean other sizes)
+  constexpr int BN = mma4::BN, BK = mma4::BK, STAGES = mma4::STAGES;
+  constexpr int STEPS = mma4::STEPS, QSTR = mma4::QSTR;
+  constexpr int XSTR = mma4::XSTR, YSTR = mma4::YSTR;
+  constexpr int Q_BYTES = mma4::Q_BYTES, S_BYTES = mma4::S_BYTES;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * TL::BM;
+  const int z = blockIdx.z;
+  const int kb = z * kper, ke = min(K, kb + kper);
+  const int tiles = (ke - kb + BK - 1) / BK;
+
+  // [n-tile][m-tile j][c0..c3]: the running f32 sum, and the group's
+  float acc[NT][2][4], accg[NT][2][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][j][e] = accg[nt][j][e] = 0.f;
+  int gcur = kb / gs;                     // the group being accumulated
+  int gend = min((gcur + 1) * gs, ke);    // the row that ends it
+  const mma4::Loader<NT, QV> ld(x, x_sm, q, scale, M, N, m0, n0, tid);
+  mma4::GroupCursor lc{gcur, kb - gcur * gs};   // the next tile to load
+  mma4::GroupCursor cc = lc;                    // the tile computed
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < tiles) {
+      const int k0 = kb + s * BK;
+      ld.load(smem + s * TL::STAGE, k0, ke, lc.g,
+              lc.span(min(BK, ke - k0), gs), N);
+      lc.advance(BK, gs);
+    }
+    attn::cp_async_commit();
+  }
+
+  for (int t = 0; t < tiles; ++t) {
+    attn::cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    {
+      const int tn = t + STAGES - 1;
+      if (tn < tiles) {
+        const int k0 = kb + tn * BK;
+        ld.load(smem + (tn % STAGES) * TL::STAGE, k0, ke, lc.g,
+                lc.span(min(BK, ke - k0), gs), N);
+        lc.advance(BK, gs);
+      }
+      attn::cp_async_commit();
+    }
+    const unsigned char* stage = smem + (t % STAGES) * TL::STAGE;
+    const int k0 = kb + t * BK;
+    const int steps = min(BK, ke - k0) / 16;
+    // every fragment of the tile first, so their latencies overlap: the
+    // packed rows 8 ks + t and 8 ks + 4 + t at columns 4g .. 4g + 3 as
+    // two words a k-step; x's B fragments of two k-steps an ldmatrix
+    // (rows 8 nt + l % 8, columns 8 (l / 8) of the pair)
+    uint32_t w[STEPS][2], xb[NT][STEPS / 2][4];
+    {
+      const uint32_t* qw = reinterpret_cast<const uint32_t*>(
+          stage + tq * QSTR + warp * 32 + 4 * gr);
+#pragma unroll
+      for (int ks = 0; ks < STEPS; ++ks) {
+        w[ks][0] = qw[ks * 8 * QSTR / 4];
+        w[ks][1] = qw[(ks * 8 + 4) * QSTR / 4];
+      }
+      const __nv_bfloat16* xl =
+          reinterpret_cast<const __nv_bfloat16*>(stage + Q_BYTES +
+                                                 S_BYTES) +
+          (lane & 7) * XSTR + (lane >> 3) * 8;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int kp = 0; kp < STEPS / 2; ++kp)
+          attn::ldsm_x4(xb[nt][kp], xl + nt * 8 * XSTR + kp * 32);
+    }
+    const float* ss = reinterpret_cast<const float*>(stage + Q_BYTES) +
+                      warp * 32 + 4 * gr;
+#pragma unroll
+    for (int ks = 0; ks < STEPS; ++ks) {
+      if (ks >= steps) break;
+      uint32_t r0[4], r1[4];
+      mma4::dequant4(w[ks][0], r0);       // a0, a1 of m-tiles 0 and 1
+      mma4::dequant4(w[ks][1], r1);       // a2, a3
+      const uint32_t a[2][4] = {{r0[0], r0[2], r1[0], r1[2]},
+                                {r0[1], r0[3], r1[1], r1[3]}};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          attn::mma_bf16(accg[nt][j], a[j], xb[nt][ks / 2][2 * (ks % 2)],
+                         xb[nt][ks / 2][2 * (ks % 2) + 1]);
+      if (k0 + 16 * ks + 16 == gend) {    // the group is complete: scale it
+        // columns 4g + j (c0, c1) and 4g + 2 + j (c2, c3) of m-tile j
+        const float4 sv = *reinterpret_cast<const float4*>(
+            ss + (gcur - cc.g) * BN);
+        const float s[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc[nt][j][e] = fmaf(accg[nt][j][e], s[(e & 2) + j],
+                                   acc[nt][j][e]);
+              accg[nt][j][e] = 0.f;
+            }
+          }
+        ++gcur;
+        gend = min(gend + gs, ke);
+      }
+    }
+    cc.advance(BK, gs);
+  }
+  attn::cp_async_wait<0>();
+
+  // the thread's 4 adjacent columns 4g .. 4g + 3 of row 2t + h of each
+  // n-tile: m-tile 0's c(2h), m-tile 1's c(2h), m-tile 0's c(2h + 2),
+  // m-tile 1's c(2h + 2)... with c0/c2 at row 2t and c1/c3 at 2t + 1
+  const int cl = warp * 32 + 4 * gr;
+  if (splits == 1) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + nt * 8 + 2 * tq + h, n = n0 + cl;
+        if (row >= M || n >= N) continue;
+        uint2 v;
+        v.x = attn::pack_bf16(acc[nt][0][h], acc[nt][1][h]);
+        v.y = attn::pack_bf16(acc[nt][0][2 + h], acc[nt][1][2 + h]);
+        *reinterpret_cast<uint2*>(out + static_cast<long long>(row) * N + n) =
+            v;
+      }
+    return;
+  }
+  // a split: its f32 sums as a (BM, BN) tile in its own shared memory,
+  // then every block of the cluster adds a share of the rows over all
+  // splits, in split order (bitwise the same on every call)
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  float* ys = reinterpret_cast<float*>(smem);
+  __syncthreads();                        // the stages are free
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float4*>(ys + (nt * 8 + 2 * tq + h) * YSTR + cl) =
+          make_float4(acc[nt][0][h], acc[nt][1][h], acc[nt][0][2 + h],
+                      acc[nt][1][2 + h]);
+  cluster.sync();
+  constexpr int CHUNKS = TL::BM * (BN / 4);
+  const int per = (CHUNKS + splits - 1) / splits;
+  const int rank = static_cast<int>(cluster.block_rank());
+  for (int i = rank * per + tid; i < min(CHUNKS, (rank + 1) * per);
+       i += mma4::THREADS) {
+    const int r = i / (BN / 4), c = (i - r * (BN / 4)) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < splits; ++s) {
+      const float4 p = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(ys + r * YSTR + c, s));
+      v.x += p.x;
+      v.y += p.y;
+      v.z += p.z;
+      v.w += p.w;
+    }
+    const int row = m0 + r, n = n0 + c;
+    if (row < M && n < N) {
+      uint2 o;
+      o.x = attn::pack_bf16(v.x, v.y);
+      o.y = attn::pack_bf16(v.z, v.w);
+      *reinterpret_cast<uint2*>(out + static_cast<long long>(row) * N + n) =
+          o;
+    }
+  }
+  cluster.sync();                         // the sums are read: free them
+}
+
+template <int NT, int QV>
+int launch_mma(const void* x, long long x_sm, const void* q,
+               const void* scale, void* out, int M, int N, int K, int gs,
+               int kper, int splits, cudaStream_t st) {
+  using TL = mma4::Tile<NT>;
+  static bool attr = false;              // once per instance
+  if (!attr) {
+    cudaError_t e = cudaFuncSetAttribute(
+        qmm_int4_mma_kernel<NT, QV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
+    if (e == cudaSuccess)               // clusters of up to 16 blocks
+      e = cudaFuncSetAttribute(qmm_int4_mma_kernel<NT, QV>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr = true;
+  }
+  const dim3 grid((N + mma4::BN - 1) / mma4::BN, (M + TL::BM - 1) / TL::BM,
+                  splits);
+  if (splits == 1) {                     // no cluster: a plain launch
+    qmm_int4_mma_kernel<NT, QV><<<grid, mma4::THREADS, TL::SMEM, st>>>(
+        static_cast<const __nv_bfloat16*>(x), x_sm,
+        static_cast<const int8_t*>(q), static_cast<const float*>(scale),
+        static_cast<__nv_bfloat16*>(out), M, N, K, gs, kper, splits);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(mma4::THREADS);
+  cfg.dynamicSmemBytes = TL::SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;        // the splits of one tile
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = splits;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, qmm_int4_mma_kernel<NT, QV>,
+      static_cast<const __nv_bfloat16*>(x), x_sm,
+      static_cast<const int8_t*>(q), static_cast<const float*>(scale),
+      static_cast<__nv_bfloat16*>(out), M, N, K, gs, kper, splits);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NT>
+int launch_mma_qv(const void* x, long long x_sm, const void* q,
+                  const void* scale, void* out, int M, int N, int K, int gs,
+                  int kper, int splits, cudaStream_t st) {
+  return N % 16 == 0
+             ? launch_mma<NT, 16>(x, x_sm, q, scale, out, M, N, K, gs, kper,
+                                  splits, st)
+             : launch_mma<NT, 4>(x, x_sm, q, scale, out, M, N, K, gs, kper,
+                                 splits, st);
+}
+
 }  // namespace
 
 // x: (M, K) with row stride x_sm (elements), last dimension contiguous;
@@ -441,4 +872,36 @@ extern "C" int quant_matmul_launch(const void* x, long long x_sm,
                                       out, ws, M, N, K, gs, kper, splits,
                                       st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The mma route (bf16 x, int4 weights): x (M, K) bf16 with row stride
+// x_sm (a multiple of 8 elements) on a 16-byte boundary; q (K/2, N)
+// packed int8 and scale (K/gs, N) f32, contiguous, on 16-byte
+// boundaries; out (M, N) bf16 contiguous. gs a multiple of 16 dividing
+// K, N a multiple of 4; nt the n-tiles of 8 rows of x a block (1 or
+// 4). Split z (one block of a cluster of `splits`, at most 16) covers
+// rows [z*kper, min(K, (z+1)*kper)), kper a multiple of 64. Returns the
+// launch's error (0 = launched).
+extern "C" int quant_matmul_int4_mma_launch(
+    const void* x, long long x_sm, const void* q, const void* scale,
+    void* out, int M, int N, int K, int gs, int nt, int kper, int splits,
+    void* stream) {
+  const bool bad_split = splits < 1 || splits > mma4::MAX_SPLITS ||
+                         kper < mma4::BK || kper % mma4::BK ||
+                         static_cast<long long>(splits - 1) * kper >= K ||
+                         static_cast<long long>(splits) * kper < K;
+  const bool bad_shape = M < 1 || N < 1 || K < 1 || N % 4 || gs < 16 ||
+                         gs % 16 || K % gs || (nt != 1 && nt != 4);
+  const bool bad_align = reinterpret_cast<uintptr_t>(x) % 16 ||
+                         reinterpret_cast<uintptr_t>(q) % 16 ||
+                         reinterpret_cast<uintptr_t>(scale) % 16 ||
+                         (M > 1 && (x_sm % 8 || x_sm < K));
+  if (bad_split || bad_shape || bad_align)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nt == 1)
+    return launch_mma_qv<1>(x, x_sm, q, scale, out, M, N, K, gs, kper,
+                            splits, st);
+  return launch_mma_qv<4>(x, x_sm, q, scale, out, M, N, K, gs, kper, splits,
+                          st);
 }

@@ -1,38 +1,84 @@
 """ctypes bindings of the CUDA dequantize-matmul kernels
 (``csrc/quant_matmul.cu``): ``quant_matmul_int8_cuda`` (it replaces the
 JAX package's ``quant_matmul_int8_pallas``) and ``quant_matmul_int4_cuda``
-(``quant_matmul_int4_pallas``). One entry point in one library, built with
-``nvcc`` on first use (``kernels/_build.py``).
+(``quant_matmul_int4_pallas``). One library, built with ``nvcc`` on first
+use (``kernels/_build.py``), with two entry points: one per route.
 
-The wrapper picks the split of K (``plan``), allocates the output and,
-when K is split, the f32 workspace of partial sums; the library launches
-the main kernel and, for a split, the kernel that adds the splits.
+Routes. ``simt`` (``plan``): f32 products on the CUDA cores, 8 rows of x
+by 128 columns a block, K split until about ``TARGET_BLOCKS`` blocks run;
+it takes int8 weights, and int4 weights under fp32 x or a group that is
+not a multiple of 16. When it splits K, the wrapper allocates an f32
+workspace of partial sums and the library launches, after the main
+kernel, a second kernel that adds the splits in a fixed order. ``mma``
+(``int4_plan``): int4 weights under bf16 x with a group that is a
+multiple of 16 and N a multiple of 4, on the tensor cores (mma.sync bf16
+with f32 accumulators over the exact nibble values, one fresh
+accumulator a group, scaled in f32 as the plain version does); 8 rows of
+x (M <= 8) or 32 by 128 columns a block, K tiles of 64 rows, and K split
+only where the column and row tiles give fewer than 132 blocks. Its
+splits of a tile run as one thread-block cluster that adds their sums
+through distributed shared memory: one launch, no workspace. Both plans
+are pure functions of the shapes and the dtype, and both routes are
+bitwise deterministic run to run.
+
+The wrapper picks the plan and allocates the output (and the simt
+workspace); one call counts once in ``launches``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BM, BN = 8, 128          # the kernel's tile of x rows and y columns
+BM, BN = 8, 128          # the simt tile of x rows and y columns
+SIMT_BK4 = 256           # unpacked rows of the simt int4 K tile
 TARGET_BLOCKS = 528      # two waves of 2 blocks on each of 132 SMs
 MAX_SPLITS = 16
 SPLIT_ALIGN = 64         # a split covers a multiple of this many rows
-_FN = []
+#: the mma route: columns a block, rows of a K tile, the fewest blocks
+#: that run unsplit (one per SM), the blocks a split aims at by the rows
+#: of x a block (decode's small blocks wait on their loads: four an SM;
+#: the chunk's: two), the fewest K tiles a split walks
+MMA_BN, MMA_BK = 128, 64
+MMA_MIN_BLOCKS = 132
+MMA_TARGET_BLOCKS = {8: 528, 32: 264}
+MMA_MIN_TILES = 3
+MMA_MAX_SPLITS = 16      # the splits of a tile are one cluster
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: the C signatures of csrc/quant_matmul.cu's entry points
+ARGTYPES = {"quant_matmul_launch": [_P, _LL, _P, _P, _P, _P] + [_I] * 8
+            + [_P],
+            "quant_matmul_int4_mma_launch": [_P, _LL, _P, _P, _P]
+            + [_I] * 7 + [_P]}
+_FNS = {}
 
 
-def _launcher():
-    if not _FN:
-        fn = _build.load("quant_matmul").quant_matmul_launch
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, ll, p, p, p, p] + [i] * 8 + [p]
+def _launcher(name="quant_matmul_launch"):
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(_build.load("quant_matmul"), name)
+        fn.argtypes = ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _FN.append(fn)
-    return _FN[0]
+        _FNS[name] = fn
+    return fn
+
+
+class Plan(NamedTuple):
+    """How one int4 call runs: ``route`` ("mma" or "simt"), rows of x
+    (``bm``) and columns of y (``bn``) a block, unpacked rows of a K
+    tile (``bk``), the K ``splits`` of ``kper`` rows each, and the
+    ``blocks`` of the main kernel's grid."""
+    route: str
+    bm: int
+    bn: int
+    bk: int
+    splits: int
+    kper: int
+    blocks: int
 
 
 def plan(M: int, N: int, K: int) -> Tuple[int, int, int]:
@@ -45,6 +91,31 @@ def plan(M: int, N: int, K: int) -> Tuple[int, int, int]:
     kper = -(-kper // SPLIT_ALIGN) * SPLIT_ALIGN
     splits = -(-K // kper)
     return base * splits, splits, kper
+
+
+def int4_plan(M: int, N: int, K: int, gs: int,
+              dtype: torch.dtype) -> Plan:
+    """The route and tiles of an int4 (M, K) x (K, N) product with group
+    ``gs``: ``mma`` for bf16 x, gs a multiple of 16 and N a multiple of
+    4, else ``simt`` (``plan``'s split). On ``mma`` a block owns 8 rows
+    of x (M <= 8, decode) or 32 (the admitting chunk), and 128 columns; K is split only
+    when those tiles give fewer than ``MMA_MIN_BLOCKS`` blocks, towards
+    ``MMA_TARGET_BLOCKS[bm]``, each split walking at least ``MMA_MIN_TILES``
+    K tiles of 64 rows (at most ``MMA_MAX_SPLITS`` splits)."""
+    if dtype != torch.bfloat16 or gs % 16 or N % 4:
+        blocks, splits, kper = plan(M, N, K)
+        return Plan("simt", BM, BN, SIMT_BK4, splits, kper, blocks)
+    bm = 8 if M <= 8 else 32
+    base = -(-N // MMA_BN) * -(-M // bm)
+    tiles = -(-K // MMA_BK)
+    want = 1
+    if base < MMA_MIN_BLOCKS:
+        want = min(MMA_MAX_SPLITS, max(1, tiles // MMA_MIN_TILES),
+                   -(-MMA_TARGET_BLOCKS[bm] // base))
+    per = -(-tiles // want)
+    splits = -(-tiles // per)
+    return Plan("mma", bm, MMA_BN, MMA_BK, splits, per * MMA_BK,
+                base * splits)
 
 
 def _launch(name, x, q, scale, *, int4):
@@ -83,15 +154,26 @@ def _launch(name, x, q, scale, *, int4):
                                       or (M > 1 and x.stride(0) % 2)):
         raise ValueError("bfloat16 x needs an even K and its rows on "
                          "4-byte boundaries")
-    _, splits, kper = plan(M, N, K)
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    ws = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) \
-        if splits > 1 else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _launcher()(
-        x.data_ptr(), x.stride(0), q.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), None if ws is None else ws.data_ptr(), M, N, K, gs,
-        kper, splits, int(int4), _DTYPES[x.dtype], stream)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    pl = int4_plan(M, N, K, gs, x.dtype) if int4 else None
+    if pl is not None and pl.route == "mma":
+        if x.data_ptr() % 16 or (M > 1 and x.stride(0) % 8) \
+                or q.data_ptr() % 16 or scale.data_ptr() % 16:
+            raise ValueError("the int4 mma route needs x's rows, the "
+                             "weights and the scales on 16-byte boundaries")
+        err = _launcher("quant_matmul_int4_mma_launch")(
+            x.data_ptr(), x.stride(0), q.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), M, N, K, gs, pl.bm // 8, pl.kper, pl.splits,
+            stream)
+    else:
+        _, splits, kper = plan(M, N, K)
+        ws = torch.empty((splits, M, N), dtype=torch.float32,
+                         device=x.device) if splits > 1 else None
+        err = _launcher()(
+            x.data_ptr(), x.stride(0), q.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), None if ws is None else ws.data_ptr(), M, N, K,
+            gs, kper, splits, int(int4), _DTYPES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return out

@@ -136,6 +136,12 @@ def test_kernels_match_plain_on_card():
                     want = qmm_ref.quant_matmul_int8_reference(
                         x, qt["q"], qt["scale"])
                 else:
+                    # bf16 with a group of a multiple of 16 on the tensor
+                    # cores; fp32 and the odd group on the CUDA cores
+                    route = qmm_kernel.int4_plan(
+                        M, N, K, K // qt["scale"].shape[0], dt).route
+                    assert route == ("mma" if dt == torch.bfloat16
+                                     and K != 34 else "simt")
                     got = qmm_kernel.quant_matmul_int4_cuda(x, qt["q4"],
                                                             qt["scale"])
                     want = qmm_ref.quant_matmul_int4_reference(
@@ -330,3 +336,56 @@ def test_flash_routes_match_plain_on_card(case):
         again = flash_kernel.flash_attention_cuda(q, k, v, causal=causal,
                                                   window=window)
         assert torch.equal(again, got)
+
+
+# (M, K, N, gs, strided x, split): the int4 mma route at decode (M 1, 8
+# on the 8-row tile), ragged rows of the 32-row tile (12; a chunk tail,
+# 37) and a full chunk (128); groups of 32, 64 and 48 (a split boundary
+# inside a group); ragged N (200, 16400, 8200; the first and the last
+# not a multiple of 16); K not a multiple of the 64-row K tile (2080,
+# 2016, 1056); x a view of wider rows
+INT4_MMA_CASES = [
+    (1, 2048, 512, 32, False, True),
+    (8, 2048, 8192, 32, False, True),
+    (8, 2016, 512, 48, True, True),
+    (12, 1024, 1024, 64, True, True),
+    (37, 2080, 200, 32, True, True),
+    (37, 1056, 16400, 32, False, False),
+    (128, 2048, 8192, 64, False, False),
+    (128, 1024, 8200, 32, True, False),
+    (128, 2048, 512, 32, True, True),
+    (128, 2080, 200, 32, False, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", INT4_MMA_CASES,
+                         ids=lambda c: "M{}_K{}_N{}_gs{}_{}_{}".format(
+                             *c[:4], "strided" if c[4] else "dense",
+                             "split" if c[5] else "whole"))
+def test_int4_mma_route_matches_plain_on_card(case):
+    """bf16 int4 on the tensor-core route: within 2e-2 max|plain| of the
+    plain version (bf16 output rounding; the f32 sums run in another
+    order), on the split or unsplit plan the case names, and bitwise
+    equal across two calls (the splits are added in a fixed order)."""
+    from repro_torch.quant import quantize_tensor
+    dev = _card()
+    M, K, N, gs, strided, split = case
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    w = 0.05 * torch.randn((K, N), generator=g, device=dev)
+    qt = quantize_tensor(w, bits=4, group_size=gs)
+    assert K // qt["scale"].shape[0] == gs
+    pl = qmm_kernel.int4_plan(M, N, K, gs, torch.bfloat16)
+    assert pl.route == "mma" and (pl.splits > 1) == split, pl
+    wide = torch.randn((M, K + 64 * strided), generator=g, device=dev)
+    x = wide.to(torch.bfloat16)[:, :K]
+    assert x.is_contiguous() != strided
+    got = qmm_kernel.quant_matmul_int4_cuda(x, qt["q4"], qt["scale"])
+    want = qmm_ref.quant_matmul_int4_reference(x, qt["q4"], qt["scale"])
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert torch.isfinite(got).all()
+    assert _err(got, want) <= 2e-2 * want.float().abs().max().item(), (
+        pl, _err(got, want))
+    again = qmm_kernel.quant_matmul_int4_cuda(x, qt["q4"], qt["scale"])
+    assert torch.equal(again, got)

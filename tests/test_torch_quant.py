@@ -294,6 +294,58 @@ def test_quant_kernel_plan_fills_the_card():
     assert qkernel.plan(128, 8192, 2048)[1] == 1
 
 
+@pytest.mark.parametrize("dtype,gs,N,route", [
+    (torch.bfloat16, 32, 8192, "mma"), (torch.bfloat16, 64, 512, "mma"),
+    (torch.bfloat16, 16, 200, "mma"), (torch.bfloat16, 48, 2048, "mma"),
+    (torch.float32, 32, 8192, "simt"), (torch.bfloat16, 17, 48, "simt"),
+    (torch.bfloat16, 8, 2048, "simt"), (torch.bfloat16, 32, 202, "simt"),
+])
+def test_int4_plan_route_by_dtype_and_group(dtype, gs, N, route):
+    """The tensor cores take bf16 x with a group of a multiple of 16 and
+    N a multiple of 4; everything else stays on simt with plan's split."""
+    K = 34 if gs == 17 else 2048 // gs * gs
+    pl = qkernel.int4_plan(8, N, K, gs, dtype)
+    assert pl.route == route
+    if route == "simt":
+        assert (pl.blocks, pl.splits, pl.kper) == qkernel.plan(8, N, K)
+
+
+_LLAMA_KN = ((2048, 8192), (2048, 512), (2048, 2048), (8192, 2048))
+
+
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 37, 128, 512])
+@pytest.mark.parametrize("K,N", _LLAMA_KN + ((2080, 200), (34 * 16, 48)))
+def test_int4_plan_tiles_cover_k_once(M, K, N):
+    """mma splits are whole K tiles that cover K exactly once; K is split
+    only when the unsplit grid has fewer than 132 blocks."""
+    pl = qkernel.int4_plan(M, N, K, 16, torch.bfloat16)
+    assert pl.route == "mma" and pl.bk == 64 and pl.bn == 128
+    assert pl.bm == (8 if M <= 8 else 32)
+    assert pl.kper % pl.bk == 0 and 1 <= pl.splits <= qkernel.MMA_MAX_SPLITS
+    assert (pl.splits - 1) * pl.kper < K <= pl.splits * pl.kper
+    base = -(-N // pl.bn) * -(-M // pl.bm)
+    assert pl.blocks == base * pl.splits
+    assert (pl.splits > 1) <= (base < 132)
+
+
+@pytest.mark.parametrize("M", [1, 8])
+@pytest.mark.parametrize("K,N", _LLAMA_KN)
+def test_int4_plan_decode_walks_three_tiles_and_fills_the_card(M, K, N):
+    """At llama3.2-1b's decode shapes every split, the last one too,
+    walks at least 3 K tiles (the ring has tiles in flight); the wide
+    shapes give 132 SMs a block each, and the narrow ones (N 512, 2048:
+    4 and 16 column tiles) take the finest split of whole tiles that
+    keeps 3 tiles in every split."""
+    pl = qkernel.int4_plan(M, N, K, 32, torch.bfloat16)
+    tiles, per = -(-K // pl.bk), pl.kper // pl.bk
+    assert per >= 3 and tiles - (pl.splits - 1) * per >= 3
+    if N * K >= 2048 * 8192:
+        assert pl.blocks >= 132
+    else:
+        finer = per - 1
+        assert finer < 3 or tiles - (-(-tiles // finer) - 1) * finer < 3
+
+
 # --------------------------------------------------------------------- #
 # (c) int8 KV caches, bit for bit
 # --------------------------------------------------------------------- #
