@@ -6,9 +6,9 @@ Builds the port's kernels from this checkout and holds each against its
 plain PyTorch version on the card (the paged decode-attention kernel
 also against the contiguous one on the gathered view, which it must
 equal exactly; the int8 and int4 dequantize-matmuls at every projection
-shape of the model, ragged M and N and an odd int4 group, bf16 int4 on
-the tensor-core route with groups of 32 and 64, a ragged K and a strided
-x, bitwise equal across two calls); checks a
+shape of the model, ragged M and N, K 34 (an odd int4 group), a ragged K
+and a strided x, bf16 int8 and int4 (groups of 32 and 64) on the
+tensor-core route, bitwise equal across two calls); checks a
 2-layer full-width llama3.2-1b on the card against the same model on the
 CPU in fp32, dense and quantized (the edge profile: int4 weights and
 int8 KV; int8 weights with fp32 KV); serves the full 16-layer bf16
@@ -23,8 +23,8 @@ streams on a pool too small for their growth, which must preempt, resume
 by replay and drain; and serves the same 16 requests quantized: int8
 weights on bf16 rings (``serve_int8``), the edge profile on int8 rings
 (``serve_edge``) and on an int8 pool (``serve_edge_paged``, tokens equal
-to ``serve_edge``'s), with a profiled second batch through the edge
-engine. Then the SSM family (mamba2-780m): both SSD kernels against
+to ``serve_edge``'s), with a profiled second batch through the int8 and
+the edge engines. Then the SSM family (mamba2-780m): both SSD kernels against
 their plain versions in the ``kernels`` phase (the recurrence kernel
 also bitwise compositional over a split, an identity step at dt = 0 and
 ``ssd_step``'s T = 1 launch); a 2-layer full-width fp32 mamba2 on the
@@ -493,11 +493,12 @@ def _int8pack_call(torch, x, qt):
     return lambda: torch._weight_int8pack_mm(x, w, s)
 
 
-def _simt_int4_call(torch, x, q, sc):
-    """The int4 product on the ``simt`` route (the CUDA-core kernel that
-    bf16 took before the ``mma`` route, unchanged and still built for
-    fp32 and odd groups), launched through the library's own entry point
-    with ``plan``'s split: a yardstick timed in the same run."""
+def _simt_call(torch, x, q, sc, bits):
+    """The product on the ``simt`` route (the CUDA-core kernel that bf16
+    took before the ``mma`` route, unchanged and still built for fp32
+    and the shapes ``mma`` does not take), launched through the
+    library's own entry point with ``plan``'s split: a yardstick timed
+    in the same run."""
     from repro_torch.kernels.quant_matmul import kernel as K_
     M, K = x.shape
     N = q.shape[1]
@@ -506,13 +507,14 @@ def _simt_int4_call(torch, x, q, sc):
     ws = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
     fn = K_._launcher()
     stream = torch.cuda.current_stream().cuda_stream
+    gs = K // sc.shape[0] if bits == 4 else 0
 
     def call():
         err = fn(x.data_ptr(), x.stride(0), q.data_ptr(), sc.data_ptr(),
-                 out.data_ptr(), ws.data_ptr(), M, N, K,
-                 K // sc.shape[0], kper, splits, 1, 1, stream)
+                 out.data_ptr(), ws.data_ptr(), M, N, K, gs, kper, splits,
+                 int(bits == 4), 1, stream)
         if err:
-            raise RuntimeError(f"simt int4 launch failed: {err}")
+            raise RuntimeError(f"simt int{bits} launch failed: {err}")
         return out
     return call
 
@@ -520,19 +522,20 @@ def _simt_int4_call(torch, x, q, sc):
 def quant_matmul_cases(torch, flush):
     """Both dequantize-matmuls against their plain versions at every
     projection shape of llama3.2-1b, M in {1, 8, 37, 128} (decode, a
-    ragged chunk tail, a full chunk), fp32 and bf16, plus a ragged N (200)
-    and, for int4, an odd group (K 34, gs 17), a group of 64, a K that
-    is no multiple of the mma route's 64-row tile (2080) and a strided x
-    (a view of wider rows). int4
-    records its ``int4_plan`` route: bf16 with a group of a multiple of
-    16 on ``mma`` (whose every case is also called twice and must be
-    bitwise equal), fp32 and gs 17 on ``simt``.
+    ragged chunk tail, a full chunk), fp32 and bf16, plus a ragged N
+    (200), K 34 (int4: an odd group of 17; int8: no multiple of 8), a K
+    that is no multiple of the mma route's 64-row tile (2080), a strided
+    x (a view of wider rows) and, for int4, a group of 64. Each case
+    records its ``mma_plan`` route, which must be the rule's: bf16 on
+    ``mma`` where N % 4 == 0 and, int4, the group is a multiple of 16
+    or, int8, K a multiple of 8 (every ``mma`` case is also called twice
+    and must be bitwise equal); fp32 and the rest on ``simt``.
     Tolerance: max|kernel - plain| <= tol * max|plain| (the sums run in
     another order; bf16 rounds the output). bf16 times at M 8 and 128 for
     all four shapes, beside the plain version, a bf16 matmul on the
     dequantized weight (what quantization buys), PyTorch's own
-    weight-only call where the card's PyTorch runs it and, for int4, the
-    same product on the ``simt`` route (``simt_ms``)."""
+    weight-only call where the card's PyTorch runs it and the same
+    product on the ``simt`` route (``simt_ms``)."""
     from repro_torch.kernels.quant_matmul import kernel as K_
     from repro_torch.kernels.quant_matmul import ref as R_
     from repro_torch.quant import dequantize_tensor, quantize_tensor
@@ -552,13 +555,13 @@ def quant_matmul_cases(torch, flush):
         # (K, N, M, group, strided x)
         cases = [(K, N, M, 32, False) for K, N in QMM_SHAPES
                  for M in (1, 8, 37, 128)]
-        cases += [(2048, 200, 8, 32, False), (2048, 200, 37, 32, False)]
+        cases += [(2048, 200, 8, 32, False), (2048, 200, 37, 32, False),
+                  (34, 48, 1, 32, False), (34, 48, 37, 32, False),
+                  (2080, 512, 8, 32, True), (2080, 512, 37, 32, False),
+                  (2048, 8192, 8, 32, True), (2048, 512, 128, 32, True)]
         if bits == 4:
-            cases += [(34, 48, 1, 32, False), (34, 48, 37, 32, False)]
             cases += [(2048, 2048, M, 64, False)
                       for M in (1, 8, 37, 128)]
-            cases += [(2080, 512, 8, 32, True), (2080, 512, 37, 32, False),
-                      (2048, 8192, 8, 32, True), (2048, 512, 128, 32, True)]
         g = torch.Generator(device=dev).manual_seed(SEED)
         weights = {}
         for K, N, M, gs, strided in cases:
@@ -581,14 +584,11 @@ def quant_matmul_cases(torch, flush):
                 ok = bool(torch.isfinite(got).all().item()) \
                     and got.dtype == dtype and got.shape == (M, N) \
                     and err <= TOL[dname] * ref_max
-                if bits == 4:
-                    pl = K_.int4_plan(M, N, K, group, dtype)
-                    route, blocks, splits = pl.route, pl.blocks, pl.splits
-                    ok = ok and route == ("mma" if dtype == torch.bfloat16
-                                          and group % 16 == 0 else "simt")
-                else:
-                    route = "simt"
-                    blocks, splits, _ = K_.plan(M, N, K)
+                pl = K_.mma_plan(bits, M, N, K, group or 0, dtype)
+                route, blocks, splits = pl.route, pl.blocks, pl.splits
+                fits = group % 16 == 0 if bits == 4 else K % 8 == 0
+                ok = ok and route == ("mma" if dtype == torch.bfloat16
+                                      and N % 4 == 0 and fits else "simt")
                 rec = {"phase": "kernels", "kernel": name,
                        "case": f"K{K}_N{N}_M{M}" + (f"_gs{group}" if bits
                                                      == 4 and group != 32
@@ -623,11 +623,10 @@ def quant_matmul_cases(torch, flush):
                         bound_ms=bms, bound_us=bms * 1e3, bound_by=by,
                         bytes=nbytes, flops=flops, library_ms=None)
                     rec.update(achieved(rec))
-                    if bits == 4:
-                        simt = _simt_int4_call(torch, x, q, sc)
-                        serr = (simt().float() - want.float()).abs().max()
-                        rec["simt_max_abs_err"] = serr.item()
-                        rec["simt_ms"] = median_ms(torch, simt, flush)
+                    simt = _simt_call(torch, x, q, sc, bits)
+                    serr = (simt().float() - want.float()).abs().max()
+                    rec["simt_max_abs_err"] = serr.item()
+                    rec["simt_ms"] = median_ms(torch, simt, flush)
                     try:
                         call = lib(torch, x, qt)
                         lerr = (call().float() - want.float()).abs().max() \
@@ -1609,7 +1608,8 @@ def serve_quantized(torch, model, cpu_params, bf16_tokens):
     int8 weights on bf16 rings (``serve_int8``), then the edge profile,
     int4 weights (group 32) on int8 rings (``serve_edge``) and on an int8
     pool (``serve_edge_paged``: tokens equal to ``serve_edge``'s, the pool
-    drained), and a profiled second batch through the edge engine.
+    drained), and a profiled second batch through the int8 engine
+    (``profile_int8``) and the edge engine (``profile_edge``).
     ``cpu_params``: the bf16 tree on the host. Each configuration copies
     it to the card, quantizes it there and frees the bf16 projections
     before it serves, so the card holds only what a quantized deployment
@@ -1630,8 +1630,8 @@ def serve_quantized(torch, model, cpu_params, bf16_tokens):
         counts, engine, rec, tokens = serve(torch, qmodel, qparams,
                                             phase=phase, bf16=bf16_tokens)
         out.append(counts)
-        if cfg.kv_quant:
-            profile(torch, engine, "profile_edge")
+        profile(torch, engine,
+                "profile_edge" if cfg.kv_quant else "profile_int8")
         del engine
         if cfg.kv_quant:
             serve(torch, qmodel, qparams, paged=True, base=(rec, tokens),
@@ -1645,7 +1645,9 @@ def serve_quantized(torch, model, cpu_params, bf16_tokens):
 def profile(torch, engine, phase="profile"):
     """A second batch through the warm engine under the profiler: device
     kernel time by kernel, and its share of the wall time (the rest is
-    the device idling while the host launches work)."""
+    the device idling while the host launches work); ``seconds`` is what
+    the phase adds to a run, the profiler's own bookkeeping included."""
+    t_phase = time.perf_counter()
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -1695,11 +1697,13 @@ def profile(torch, engine, phase="profile"):
           "device_busy_share": busy / wall_ms if busy else None,
           "kernel_launches": launches,
           "decode_attention": _ms_matching(rows, "decode_"),
+          "quant_matmul": _ms_matching(rows, "qmm_"),
           "top": [{"kernel": k[:90], "ms": ms, "calls": c}
                   for ms, c, k in rows[:12]],
           "host_top": [{"op": k[:60], "self_ms": ms, "calls": c}
                        for ms, c, k in host[:15]],
-          "host_blocking_calls": blocking})
+          "host_blocking_calls": blocking,
+          "seconds": time.perf_counter() - t_phase})
 
 
 def main() -> int:
@@ -1821,8 +1825,8 @@ def main() -> int:
                      "plan")),
         entry("quant_matmul_int8", "cuda", QMM_SRC, QMM_TPU[8], qmm_err[8],
               timed(qmm[8]), int8_counts,
-              extra=("dense_bf16_ms", "route", "blocks", "splits",
-                     "bound_by")),
+              extra=("dense_bf16_ms", "simt_ms", "route", "blocks",
+                     "splits", "bound_by", "rel_err")),
         entry("quant_matmul_int4", "cuda", QMM_SRC, QMM_TPU[4], qmm_err[4],
               timed(qmm[4]), edge_counts,
               extra=("dense_bf16_ms", "simt_ms", "route", "blocks",

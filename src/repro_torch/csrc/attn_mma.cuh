@@ -1,6 +1,6 @@
 // Warp-tile building blocks of the bf16 tensor-core kernels
-// (flash_attention.cu, decode_attention.cu and quant_matmul.cu's int4
-// mma route): asynchronous global -> shared copies, ldmatrix fragment
+// (flash_attention.cu, decode_attention.cu and quant_matmul.cu's mma
+// route): asynchronous global -> shared copies, ldmatrix fragment
 // loads and the m16n8k16 bf16 product with f32 accumulation, plus the
 // online-softmax step the two attention kernels share.
 //

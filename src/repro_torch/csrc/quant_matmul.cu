@@ -29,13 +29,15 @@
 // What bounds it: at decode (M = 8) the weight bytes. llama3.2-1b's
 // (K, N) = (2048, 8192) projection moves 16.8 MB in int8 (>= 5.07 us at
 // 3.35 TB/s) and 10.6 MB in int4 with its scales (>= 3.18 us), against
-// 0.27 GFLOP. At the admitting chunk (M = 128) the operations: 4.3 GFLOP.
+// 0.27 GFLOP. At the admitting chunk (M = 128) int4 is bound by its 4.3
+// GFLOP (>= 4.34 us at 989 TFLOP/s), int8 still by its bytes (>= 5.80 us).
 //
-// Two routes; kernels/quant_matmul/kernel.py's int4_plan picks one from
-// the shapes and the dtype alone.
+// Two routes; kernels/quant_matmul/kernel.py's mma_plan picks one from
+// the bits, the shapes and the dtype alone.
 //
-// simt (int8; int4 on fp32 x, a group that is not a multiple of 16 or
-// an N that is not a multiple of 4). A block of 128 threads owns a tile
+// simt (fp32 x; int4 under a group that is not a multiple of 16; an N
+// that is not a multiple of 4; int8 under a K that is not a multiple of
+// 8). A block of 128 threads owns a tile
 // of 8 rows of x by 128 columns of y and a range of K (the split); two
 // blocks fit an SM. Each thread owns 16 adjacent columns and a run of 8
 // (int8) or 16 (int4) unpacked rows of every K tile. The K tiles stream
@@ -51,38 +53,47 @@
 // writes f32 partial sums to a workspace and qmm_finalize adds the
 // splits in order, applies the int8 scale and casts.
 //
-// mma (int4, bf16 x, gs a multiple of 16): qmm_int4_mma_kernel, on the
-// tensor cores. It computes the plain version's formula itself,
-// y = sum_g (x_g @ q_g) * s_g: a nibble q in -8..7 is exact in bf16, so
-// mma.sync m16n8k16 over bf16 q and bf16 x with f32 accumulators gives
-// each group's contraction (a fresh fragment per group), which is then
-// multiplied by its f32 scale and added to the running f32 sum. Only the
-// order of the f32 sums differs from the plain version; q * s is never
-// rounded to bf16. The product runs transposed, y^T = W^T x^T: the
-// weights are the A operand (16 output columns a m-tile) and x the B
-// operand (8 rows of x an n-tile), so decode's 8 rows fill every product.
-// A block of 4 warps owns 8 NT rows of x (NT 1 for decode's M <= 8, else
-// 4) by 128 columns,
-// a warp 32 columns as 2 m-tiles. K tiles of 64 rows (32 packed bytes a
-// column), their scale rows and the x tile stream through a ring of 4
+// mma (bf16 x: int4 with gs a multiple of 16, int8): qmm_mma_kernel, on
+// the tensor cores. Every int8 value and every nibble is exact in bf16,
+// and a product of two bf16 values is exact in f32, so mma.sync m16n8k16
+// over bf16 weights and bf16 x with f32 accumulators computes the plain
+// version's formula itself; only the order of the f32 sums differs.
+// int4: y = sum_g (x_g @ q_g) * s_g, each group's contraction in a fresh
+// fragment, multiplied by its f32 scale and added to the running f32
+// sum. int8: y = (x @ q) * s, one running f32 sum over all of K, scaled
+// per column in the epilogue after the splits are added. The weights
+// are never rounded with their scales. The product runs transposed,
+// y^T = W^T x^T: the weights are the A operand (16 output columns a
+// m-tile) and x the B operand (8 rows of x an n-tile), so decode's 8
+// rows fill every product. A block of 4 warps owns 8 NT rows of x (NT 1
+// for decode's M <= 8, else 4) by 128 columns, a warp 32 columns as 2
+// m-tiles. K tiles of 64 rows (int4: 32 packed bytes a column, and their
+// scale rows; int8: 64 bytes) and the x tile stream through a ring of 4
 // cp.async stages; each thread's copies are set up once per block.
-// A fragments straight from the QTensor bytes: a0 of m16n8k16 is (row g;
-// k 2t, 2t+1), which is one packed byte (row 2i low nibble, 2i+1 high).
-// Inside a warp's 32 columns, m-tile j's rows g and g + 8 are the
-// physical columns 4g + j and 4g + 2 + j, so one 32-bit shared load at
-// packed row t gives a0 and a1 of both m-tiles (row t + 4: a2, a3); a
-// packed-row stride of 160 bytes puts a warp's 32 loads on 32 banks. A
-// byte becomes a bf16x2 exactly with one permute, one lop3 ((nibble ^ 8)
-// | 0x4300 is bf16 128 + q + 8) and one bf16x2 subtract of 136. A
-// thread's accumulators are then the 4 adjacent columns 4g .. 4g + 3 of
-// rows 2t and 2t + 1: its scales for a group are one float4 load and its
-// outputs 8-byte stores. K is split only when the column and row tiles
-// give fewer than 132 blocks, into splits of at least 3 tiles; the splits
-// of a tile run as one thread-block cluster and add their f32 sums
-// through distributed shared memory in a fixed order, so a call is one
-// launch, needs no workspace and is bitwise deterministic run to run; an
-// unsplit call is a plain launch, with no cluster attribute.
-// Ragged M, N (N % 4 == 0) and K are masked.
+// A fragments straight from the QTensor bytes. Inside a warp's 32
+// columns, m-tile j's rows g and g + 8 are the physical columns 4g + j
+// and 4g + 2 + j, so one 32-bit shared load of a stored row gives bytes
+// of 4 adjacent columns for both m-tiles. int4: a0 of m16n8k16 is (row
+// g; k 2t, 2t+1), one packed byte, so the word at packed row t gives a0
+// and a1 of both m-tiles (row t + 4: a2, a3); a byte becomes a bf16x2
+// exactly with one permute, one lop3 ((nibble ^ 8) | 0x4300 is bf16 128
+// + q + 8) and one bf16x2 subtract of 136. int8: k 2t and 2t+1 lie in
+// two rows, so the words at rows 2t, 2t+1, 2t+8 and 2t+9 give the four
+// registers of both m-tiles, paired byte by byte with one permute; a
+// signed byte b is (128 + (b & 0x7f)) - (128 + (b & 0x80)), both bf16
+// under 0x4300, so two lop3 and one bf16x2 subtract give b exactly
+// (2 instructions a weight; the simt route's f32 magic takes 2.5). Row
+// strides of 160 (int4 packed) and 144 (int8) bytes put a warp's 32
+// loads on 32 banks. A thread's accumulators are the 4 adjacent columns
+// 4g .. 4g + 3 of rows 2t and 2t + 1: its int4 scales for a group and
+// its int8 column scales are one float4 load and its outputs 8-byte
+// stores. K is split only when the column and row tiles give fewer than
+// 132 blocks, into splits of at least 3 tiles; the splits of a tile run
+// as one thread-block cluster and add their f32 sums through distributed
+// shared memory in a fixed order, so a call is one launch, needs no
+// workspace and is bitwise deterministic run to run; an unsplit call is
+// a plain launch, with no cluster attribute. Ragged M, N (N % 4 == 0)
+// and K are masked.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -437,9 +448,9 @@ int launch_kind(bool int4, bool vec, const void* x, long long x_sm,
 }
 
 // ---------------------------------------------------------------------
-// The mma route: int4 weights, bf16 x, gs a multiple of 16
+// The mma route: bf16 x; int4 weights with gs a multiple of 16, or int8
 // ---------------------------------------------------------------------
-namespace mma4 {
+namespace mma {
 
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
@@ -448,26 +459,35 @@ constexpr int BK = 64;                  // unpacked rows of a K tile
 constexpr int STEPS = BK / 16;          // k-steps of a tile
 constexpr int STAGES = 4;
 constexpr int MAX_SPLITS = 16;          // a (non-portable) cluster
-constexpr int QSTR = BN + 32;           // packed-row stride (S / 4 = 40)
 constexpr int XSTR = BK + 8;            // x-row stride in elements
-constexpr int Q_BYTES = (BK / 2) * QSTR;
-constexpr int S_ROWS = STEPS;           // at most one group a k-step
-constexpr int S_BYTES = S_ROWS * BN * 4;
 constexpr int YSTR = BN + 4;            // f32 row stride of a split's sums
 
+// The weights of a K tile in shared memory. int4: 32 packed rows at a
+// stride of 160 bytes (S / 4 = 40) and the scale rows of the groups the
+// tile touches, at most one a k-step. int8: 64 rows at 144 bytes (S / 4
+// = 36) and no scale rows (one scale a column, applied in the
+// epilogue). Either stride puts a warp's 32 fragment loads on 32 banks.
+template <int BITS> struct W {
+  static constexpr int ROWS = BITS == 4 ? BK / 2 : BK;   // stored rows
+  static constexpr int QSTR = BN + (BITS == 4 ? 32 : 16);
+  static constexpr int Q_BYTES = ROWS * QSTR;
+  static constexpr int S_ROWS = BITS == 4 ? STEPS : 0;
+  static constexpr int S_BYTES = S_ROWS * BN * 4;
+};
+
 // NT n-tiles of 8 rows of x a block
-template <int NT> struct Tile {
+template <int BITS, int NT> struct Tile {
   static constexpr int BM = 8 * NT;
-  static constexpr int X_BYTES = BM * XSTR * 2;
-  static constexpr int STAGE = Q_BYTES + S_BYTES + X_BYTES;
+  static constexpr int X_OFF = W<BITS>::Q_BYTES + W<BITS>::S_BYTES;
+  static constexpr int STAGE = X_OFF + BM * XSTR * 2;
   static constexpr int SMEM = STAGES * STAGE;
   static_assert(SMEM >= BM * YSTR * 4, "a split's sums reuse the stages");
 };
 
-// Four bf16x2 registers from one 32-bit word of packed bytes: byte j
-// holds k 2t (low nibble) and 2t+1 (high) of one column, the two halves
-// of r[j]; (nibble ^ 8) | 0x4300 is bf16 128 + (q + 8) (one lop3), and
-// subtracting 136 leaves q exactly
+// Four bf16x2 registers from one 32-bit word of packed int4 bytes: byte
+// j holds k 2t (low nibble) and 2t+1 (high) of one column, the two
+// halves of r[j]; (nibble ^ 8) | 0x4300 is bf16 128 + (q + 8) (one
+// lop3), and subtracting 136 leaves q exactly
 __device__ __forceinline__ void dequant4(uint32_t w, uint32_t (&r)[4]) {
   const uint32_t hi = w >> 4;
   const __nv_bfloat162 off = __floats2bfloat162_rn(136.f, 136.f);
@@ -482,22 +502,41 @@ __device__ __forceinline__ void dequant4(uint32_t w, uint32_t (&r)[4]) {
   }
 }
 
+// One bf16x2 register from byte c of two words of int8 rows: the low
+// half from word lo (row k), the high half from word hi (row k + 1). A
+// signed byte b is (b & 0x7f) - (b & 0x80); under 0x4300 (bf16 128) each
+// part is a bf16, 128 + (b & 0x7f) and 128 or 256, so the bf16x2
+// difference is b exactly: one permute, two lop3, one subtract
+__device__ __forceinline__ uint32_t dequant8(uint32_t lo, uint32_t hi,
+                                             int c) {
+  const uint32_t p = __byte_perm(lo, hi, c | ((4 + c) << 8));
+  uint32_t a = (p & 0x007F007Fu) | 0x43004300u;
+  uint32_t s = (p & 0x00800080u) | 0x43004300u;
+  __nv_bfloat162 h = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&a),
+                             *reinterpret_cast<__nv_bfloat162*>(&s));
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
 // A thread's share of the copies of one K tile into a stage, set up once
 // per block: fixed source pointers and shared-memory offsets that only
 // move by a tile's stride, so that issuing a tile costs a few adds.
-// Packed weight rows go QV bytes a copy; the scale rows of the groups
-// the tile touches and the x tile 16 bytes a copy; past N, M or ke the
-// copy zero-fills.
-template <int NT, int QV> struct Loader {
+// Weight rows go QV bytes a copy (a thread's copies share one column
+// and lie RSTEP stored rows apart); int4's scale rows of the groups the
+// tile touches and the x tile 16 bytes a copy; past N, M or ke the copy
+// zero-fills.
+template <int BITS, int NT, int QV> struct Loader {
+  using WT = W<BITS>;
   static constexpr int QC = BN / QV;                  // copies a row
-  static constexpr int QN = (BK / 2) * QC / THREADS;  // a thread's rows
-  static constexpr int XCOPIES = Tile<NT>::BM * (BK / 8);
+  static constexpr int QN = WT::ROWS * QC / THREADS;  // a thread's rows
+  static constexpr int RSTEP = THREADS / QC;          // rows between them
+  static constexpr int XCOPIES = Tile<BITS, NT>::BM * (BK / 8);
   static constexpr int XN = (XCOPIES + THREADS - 1) / THREADS;
-  static_assert(QN * THREADS == (BK / 2) * QC, "whole weight copies");
-  static_assert(S_ROWS * (BN / 4) <= THREADS, "one scale copy a thread");
-  const int8_t* qs[QN];
-  int qd[QN], qr[QN];
-  bool qok[QN];
+  static_assert(QN * THREADS == WT::ROWS * QC, "whole weight copies");
+  static_assert(WT::S_ROWS * (BN / 4) <= THREADS, "one scale copy a thread");
+  const int8_t* qs;
+  long long qstep;                    // RSTEP rows of q, in bytes
+  int qd, qr;
+  bool qok;
   const __nv_bfloat16* xs[XN];
   int xd[XN], xc[XN];
   bool xok[XN], xon[XN];
@@ -508,14 +547,12 @@ template <int NT, int QV> struct Loader {
   __device__ __forceinline__ Loader(const __nv_bfloat16* x, long long x_sm,
                                     const int8_t* q, const float* scale,
                                     int M, int N, int m0, int n0, int tid) {
-#pragma unroll
-    for (int u = 0; u < QN; ++u) {
-      const int i = tid + u * THREADS, r = i / QC, c = (i % QC) * QV;
-      qok[u] = n0 + c < N;
-      qs[u] = qok[u] ? q + static_cast<long long>(r) * N + n0 + c : q;
-      qd[u] = r * QSTR + c;
-      qr[u] = 2 * r;
-    }
+    const int r = tid / QC, qc = (tid % QC) * QV;
+    qok = n0 + qc < N;
+    qs = qok ? q + static_cast<long long>(r) * N + n0 + qc : q;
+    qstep = static_cast<long long>(RSTEP) * N;
+    qd = r * WT::QSTR + qc;
+    qr = BITS == 4 ? 2 * r : r;             // its first unpacked row
 #pragma unroll
     for (int u = 0; u < XN; ++u) {
       const int i = tid + u * THREADS, m = i / (BK / 8), c = i % (BK / 8);
@@ -523,30 +560,34 @@ template <int NT, int QV> struct Loader {
       xok[u] = xon[u] && m0 + m < M;
       xs[u] = xok[u] ? x + static_cast<long long>(m0 + m) * x_sm + 8 * c
                      : x;
-      xd[u] = Q_BYTES + S_BYTES + (m * XSTR + 8 * c) * 2;
+      xd[u] = Tile<BITS, NT>::X_OFF + (m * XSTR + 8 * c) * 2;
       xc[u] = 8 * c;
     }
     sr = tid / (BN / 4);
-    const int c = (tid % (BN / 4)) * 4;
-    sok = n0 + c < N;
-    ss = sok ? scale + static_cast<long long>(sr) * N + n0 + c : scale;
-    sd = Q_BYTES + (sr * BN + c) * 4;
+    const int sc = (tid % (BN / 4)) * 4;
+    sok = BITS == 4 && n0 + sc < N;
+    ss = sok ? scale + static_cast<long long>(sr) * N + n0 + sc : scale;
+    sd = WT::Q_BYTES + (sr * BN + sc) * 4;
   }
 
-  // the tile [k0, min(k0 + BK, ke)); its first group g0 and the number
-  // of groups it touches
+  // the tile [k0, min(k0 + BK, ke)); int4: its first group g0 and the
+  // number of groups it touches
   __device__ __forceinline__ void load(unsigned char* stage, int k0, int ke,
                                        int g0, int groups, int N) const {
-    const long long qoff = static_cast<long long>(k0 >> 1) * N;
+    const int8_t* q0 =
+        qs + static_cast<long long>(BITS == 4 ? k0 >> 1 : k0) * N;
+    const int left = ke - k0 - qr;          // unpacked rows left from qr
 #pragma unroll
     for (int u = 0; u < QN; ++u) {
-      const bool ok = qok[u] && k0 + qr[u] < ke;
+      const bool ok = qok && u * RSTEP * (BITS == 4 ? 2 : 1) < left;
+      void* dst = stage + qd + u * RSTEP * WT::QSTR;
+      const int8_t* src = ok ? q0 + u * qstep : qs;
       if (QV == 16)
-        attn::cp_async16(stage + qd[u], ok ? qs[u] + qoff : qs[u], ok);
+        attn::cp_async16(dst, src, ok);
       else
-        attn::cp_async4(stage + qd[u], ok ? qs[u] + qoff : qs[u], ok);
+        attn::cp_async4(dst, src, ok);
     }
-    if (sr < groups)
+    if (BITS == 4 && sr < groups)
       attn::cp_async16(stage + sd,
                        sok ? ss + static_cast<long long>(g0) * N : ss, sok);
 #pragma unroll
@@ -577,33 +618,38 @@ struct GroupCursor {
   }
 };
 
-}  // namespace mma4
+}  // namespace mma
 
 // y for one 8 NT x 128 tile of the (M, N) output, computed transposed:
 // y^T = W^T x^T, the weights the A operand (16 output columns a m-tile)
 // and x the B operand (8 rows of x an n-tile), so that decode's 8 rows
 // fill the product. Warp w owns columns 32 w .. 32 w + 31 as two m-tiles:
 // m-tile j's rows g and g + 8 are the physical columns 4g + j and
-// 4g + 2 + j, so one 32-bit load at packed row t (t + 4) holds a0, a1
-// (a2, a3) of both m-tiles, and the thread's accumulators are the 4
-// adjacent columns 4g .. 4g + 3 of rows 2t and 2t + 1 of each n-tile.
+// 4g + 2 + j, so one 32-bit load of a stored row at columns 4g .. 4g + 3
+// feeds both m-tiles, and the thread's accumulators are the 4 adjacent
+// columns 4g .. 4g + 3 of rows 2t and 2t + 1 of each n-tile. int4 (BITS
+// 4): the word at packed row t (t + 4) holds a0, a1 (a2, a3) of both
+// m-tiles; each group is summed in a fresh fragment and added to the
+// running sum times its scale. int8: the words at rows 2t, 2t + 1,
+// 2t + 8 and 2t + 9 hold them, paired byte by byte; one running sum over
+// all of K, multiplied by the column's scale in the epilogue.
 // Split z of a cluster of `splits` blocks covers the rows
 // [z kper, min(K, (z + 1) kper)) of K; the cluster's blocks add their
 // f32 sums through distributed shared memory in the order z = 0, 1, ..,
 // each block writing a share of y.
-template <int NT, int QV>
-__global__ void __launch_bounds__(mma4::THREADS)
-qmm_int4_mma_kernel(const __nv_bfloat16* __restrict__ x, long long x_sm,
-                    const int8_t* __restrict__ q,
-                    const float* __restrict__ scale,
-                    __nv_bfloat16* __restrict__ out, int M, int N, int K,
-                    int gs, int kper, int splits) {
-  using TL = mma4::Tile<NT>;
+template <int BITS, int NT, int QV>
+__global__ void __launch_bounds__(mma::THREADS)
+qmm_mma_kernel(const __nv_bfloat16* __restrict__ x, long long x_sm,
+               const int8_t* __restrict__ q, const float* __restrict__ scale,
+               __nv_bfloat16* __restrict__ out, int M, int N, int K, int gs,
+               int kper, int splits) {
+  constexpr bool INT4 = BITS == 4;
+  using TL = mma::Tile<BITS, NT>;
+  using WT = mma::W<BITS>;
   // the route's tiles (the simt route's names mean other sizes)
-  constexpr int BN = mma4::BN, BK = mma4::BK, STAGES = mma4::STAGES;
-  constexpr int STEPS = mma4::STEPS, QSTR = mma4::QSTR;
-  constexpr int XSTR = mma4::XSTR, YSTR = mma4::YSTR;
-  constexpr int Q_BYTES = mma4::Q_BYTES, S_BYTES = mma4::S_BYTES;
+  constexpr int BN = mma::BN, BK = mma::BK, STAGES = mma::STAGES;
+  constexpr int STEPS = mma::STEPS, QSTR = WT::QSTR;
+  constexpr int XSTR = mma::XSTR, YSTR = mma::YSTR;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gr = lane >> 2, tq = lane & 3;
@@ -612,7 +658,8 @@ qmm_int4_mma_kernel(const __nv_bfloat16* __restrict__ x, long long x_sm,
   const int kb = z * kper, ke = min(K, kb + kper);
   const int tiles = (ke - kb + BK - 1) / BK;
 
-  // [n-tile][m-tile j][c0..c3]: the running f32 sum, and the group's
+  // [n-tile][m-tile j][c0..c3]: the running f32 sum and, int4, the
+  // group's
   float acc[NT][2][4], accg[NT][2][4];
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
@@ -620,55 +667,56 @@ qmm_int4_mma_kernel(const __nv_bfloat16* __restrict__ x, long long x_sm,
     for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[nt][j][e] = accg[nt][j][e] = 0.f;
-  int gcur = kb / gs;                     // the group being accumulated
-  int gend = min((gcur + 1) * gs, ke);    // the row that ends it
-  const mma4::Loader<NT, QV> ld(x, x_sm, q, scale, M, N, m0, n0, tid);
-  mma4::GroupCursor lc{gcur, kb - gcur * gs};   // the next tile to load
-  mma4::GroupCursor cc = lc;                    // the tile computed
+  int gcur = INT4 ? kb / gs : 0;          // the group being accumulated
+  int gend = INT4 ? min((gcur + 1) * gs, ke) : 0;  // the row that ends it
+  const mma::Loader<BITS, NT, QV> ld(x, x_sm, q, scale, M, N, m0, n0, tid);
+  mma::GroupCursor lc{gcur, kb - gcur * gs};    // the next tile to load
+  mma::GroupCursor cc = lc;                     // the tile computed
+  auto fetch = [&](int t) {               // tile t into its stage
+    const int k0 = kb + t * BK;
+    unsigned char* stage = smem + (t % STAGES) * TL::STAGE;
+    if constexpr (INT4) {
+      ld.load(stage, k0, ke, lc.g, lc.span(min(BK, ke - k0), gs), N);
+      lc.advance(BK, gs);
+    } else {
+      ld.load(stage, k0, ke, 0, 0, N);
+    }
+  };
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < tiles) {
-      const int k0 = kb + s * BK;
-      ld.load(smem + s * TL::STAGE, k0, ke, lc.g,
-              lc.span(min(BK, ke - k0), gs), N);
-      lc.advance(BK, gs);
-    }
+    if (s < tiles) fetch(s);
     attn::cp_async_commit();
   }
 
   for (int t = 0; t < tiles; ++t) {
     attn::cp_async_wait<STAGES - 2>();
     __syncthreads();
-    {
-      const int tn = t + STAGES - 1;
-      if (tn < tiles) {
-        const int k0 = kb + tn * BK;
-        ld.load(smem + (tn % STAGES) * TL::STAGE, k0, ke, lc.g,
-                lc.span(min(BK, ke - k0), gs), N);
-        lc.advance(BK, gs);
-      }
-      attn::cp_async_commit();
-    }
+    if (t + STAGES - 1 < tiles) fetch(t + STAGES - 1);
+    attn::cp_async_commit();
     const unsigned char* stage = smem + (t % STAGES) * TL::STAGE;
     const int k0 = kb + t * BK;
-    const int steps = min(BK, ke - k0) / 16;
+    const int steps = (min(BK, ke - k0) + 15) / 16;
     // every fragment of the tile first, so their latencies overlap: the
-    // packed rows 8 ks + t and 8 ks + 4 + t at columns 4g .. 4g + 3 as
-    // two words a k-step; x's B fragments of two k-steps an ldmatrix
-    // (rows 8 nt + l % 8, columns 8 (l / 8) of the pair)
-    uint32_t w[STEPS][2], xb[NT][STEPS / 2][4];
+    // weight words of each k-step at columns 4g .. 4g + 3 (int4: packed
+    // rows 8 ks + t and 8 ks + 4 + t; int8: rows 16 ks + 2t, + 1, + 8,
+    // + 9); x's B fragments of two k-steps an ldmatrix (rows 8 nt +
+    // l % 8, columns 8 (l / 8) of the pair)
+    constexpr int WORDS = INT4 ? 2 : 4;
+    uint32_t w[STEPS][WORDS], xb[NT][STEPS / 2][4];
     {
       const uint32_t* qw = reinterpret_cast<const uint32_t*>(
-          stage + tq * QSTR + warp * 32 + 4 * gr);
+          stage + (INT4 ? tq : 2 * tq) * QSTR + warp * 32 + 4 * gr);
 #pragma unroll
-      for (int ks = 0; ks < STEPS; ++ks) {
-        w[ks][0] = qw[ks * 8 * QSTR / 4];
-        w[ks][1] = qw[(ks * 8 + 4) * QSTR / 4];
-      }
+      for (int ks = 0; ks < STEPS; ++ks)
+#pragma unroll
+        for (int i = 0; i < WORDS; ++i) {
+          const int row = INT4 ? ks * 8 + 4 * i
+                               : ks * 16 + (i & 1) + 8 * (i >> 1);
+          w[ks][i] = qw[row * QSTR / 4];
+        }
       const __nv_bfloat16* xl =
-          reinterpret_cast<const __nv_bfloat16*>(stage + Q_BYTES +
-                                                 S_BYTES) +
+          reinterpret_cast<const __nv_bfloat16*>(stage + TL::X_OFF) +
           (lane & 7) * XSTR + (lane >> 3) * 8;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
@@ -676,26 +724,48 @@ qmm_int4_mma_kernel(const __nv_bfloat16* __restrict__ x, long long x_sm,
         for (int kp = 0; kp < STEPS / 2; ++kp)
           attn::ldsm_x4(xb[nt][kp], xl + nt * 8 * XSTR + kp * 32);
     }
-    const float* ss = reinterpret_cast<const float*>(stage + Q_BYTES) +
-                      warp * 32 + 4 * gr;
 #pragma unroll
     for (int ks = 0; ks < STEPS; ++ks) {
       if (ks >= steps) break;
-      uint32_t r0[4], r1[4];
-      mma4::dequant4(w[ks][0], r0);       // a0, a1 of m-tiles 0 and 1
-      mma4::dequant4(w[ks][1], r1);       // a2, a3
-      const uint32_t a[2][4] = {{r0[0], r0[2], r1[0], r1[2]},
-                                {r0[1], r0[3], r1[1], r1[3]}};
+      // m-tile j: a0 (column 4g + j; k 2t, 2t+1), a1 (4g + 2 + j; the
+      // same k), a2 and a3 (k 2t+8, 2t+9)
+      uint32_t a[2][4];
+      if constexpr (INT4) {
+        uint32_t r0[4], r1[4];
+        mma::dequant4(w[ks][0], r0);      // a0, a1 of m-tiles 0 and 1
+        mma::dequant4(w[ks][1], r1);      // a2, a3
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          a[j][0] = r0[j];
+          a[j][1] = r0[2 + j];
+          a[j][2] = r1[j];
+          a[j][3] = r1[2 + j];
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          a[j][0] = mma::dequant8(w[ks][0], w[ks][1], j);
+          a[j][1] = mma::dequant8(w[ks][0], w[ks][1], 2 + j);
+          a[j][2] = mma::dequant8(w[ks][2], w[ks][3], j);
+          a[j][3] = mma::dequant8(w[ks][2], w[ks][3], 2 + j);
+        }
+      }
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          attn::mma_bf16(accg[nt][j], a[j], xb[nt][ks / 2][2 * (ks % 2)],
-                         xb[nt][ks / 2][2 * (ks % 2) + 1]);
-      if (k0 + 16 * ks + 16 == gend) {    // the group is complete: scale it
+        for (int j = 0; j < 2; ++j) {
+          const uint32_t b0 = xb[nt][ks / 2][2 * (ks % 2)];
+          const uint32_t b1 = xb[nt][ks / 2][2 * (ks % 2) + 1];
+          if constexpr (INT4)
+            attn::mma_bf16(accg[nt][j], a[j], b0, b1);
+          else
+            attn::mma_bf16(acc[nt][j], a[j], b0, b1);
+        }
+      if (INT4 && k0 + 16 * ks + 16 == gend) {  // the group is complete
         // columns 4g + j (c0, c1) and 4g + 2 + j (c2, c3) of m-tile j
         const float4 sv = *reinterpret_cast<const float4*>(
-            ss + (gcur - cc.g) * BN);
+            reinterpret_cast<const float*>(stage + WT::Q_BYTES) +
+            (gcur - cc.g) * BN + warp * 32 + 4 * gr);
         const float s[4] = {sv.x, sv.y, sv.z, sv.w};
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
@@ -712,15 +782,23 @@ qmm_int4_mma_kernel(const __nv_bfloat16* __restrict__ x, long long x_sm,
         gend = min(gend + gs, ke);
       }
     }
-    cc.advance(BK, gs);
+    if constexpr (INT4) cc.advance(BK, gs);
   }
   attn::cp_async_wait<0>();
 
+  // int8: the scales of 4 adjacent columns from n (1 for int4, whose
+  // groups were scaled), applied to the f32 sum just before the cast
+  auto col_scale = [&](int n) {
+    return !INT4 && n < N
+               ? __ldg(reinterpret_cast<const float4*>(scale + n))
+               : make_float4(1.f, 1.f, 1.f, 1.f);
+  };
   // the thread's 4 adjacent columns 4g .. 4g + 3 of row 2t + h of each
   // n-tile: m-tile 0's c(2h), m-tile 1's c(2h), m-tile 0's c(2h + 2),
   // m-tile 1's c(2h + 2)... with c0/c2 at row 2t and c1/c3 at 2t + 1
   const int cl = warp * 32 + 4 * gr;
   if (splits == 1) {
+    const float4 s = col_scale(n0 + cl);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -728,8 +806,9 @@ qmm_int4_mma_kernel(const __nv_bfloat16* __restrict__ x, long long x_sm,
         const int row = m0 + nt * 8 + 2 * tq + h, n = n0 + cl;
         if (row >= M || n >= N) continue;
         uint2 v;
-        v.x = attn::pack_bf16(acc[nt][0][h], acc[nt][1][h]);
-        v.y = attn::pack_bf16(acc[nt][0][2 + h], acc[nt][1][2 + h]);
+        v.x = attn::pack_bf16(acc[nt][0][h] * s.x, acc[nt][1][h] * s.y);
+        v.y = attn::pack_bf16(acc[nt][0][2 + h] * s.z,
+                              acc[nt][1][2 + h] * s.w);
         *reinterpret_cast<uint2*>(out + static_cast<long long>(row) * N + n) =
             v;
       }
@@ -754,7 +833,7 @@ qmm_int4_mma_kernel(const __nv_bfloat16* __restrict__ x, long long x_sm,
   const int per = (CHUNKS + splits - 1) / splits;
   const int rank = static_cast<int>(cluster.block_rank());
   for (int i = rank * per + tid; i < min(CHUNKS, (rank + 1) * per);
-       i += mma4::THREADS) {
+       i += mma::THREADS) {
     const int r = i / (BN / 4), c = (i - r * (BN / 4)) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int s = 0; s < splits; ++s) {
@@ -767,9 +846,10 @@ qmm_int4_mma_kernel(const __nv_bfloat16* __restrict__ x, long long x_sm,
     }
     const int row = m0 + r, n = n0 + c;
     if (row < M && n < N) {
+      const float4 s = col_scale(n);
       uint2 o;
-      o.x = attn::pack_bf16(v.x, v.y);
-      o.y = attn::pack_bf16(v.z, v.w);
+      o.x = attn::pack_bf16(v.x * s.x, v.y * s.y);
+      o.y = attn::pack_bf16(v.z * s.z, v.w * s.w);
       *reinterpret_cast<uint2*>(out + static_cast<long long>(row) * N + n) =
           o;
     }
@@ -777,35 +857,36 @@ qmm_int4_mma_kernel(const __nv_bfloat16* __restrict__ x, long long x_sm,
   cluster.sync();                         // the sums are read: free them
 }
 
-template <int NT, int QV>
+template <int BITS, int NT, int QV>
 int launch_mma(const void* x, long long x_sm, const void* q,
                const void* scale, void* out, int M, int N, int K, int gs,
                int kper, int splits, cudaStream_t st) {
-  using TL = mma4::Tile<NT>;
+  using TL = mma::Tile<BITS, NT>;
+  const auto kernel = qmm_mma_kernel<BITS, NT, QV>;
   static bool attr = false;              // once per instance
   if (!attr) {
     cudaError_t e = cudaFuncSetAttribute(
-        qmm_int4_mma_kernel<NT, QV>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
     if (e == cudaSuccess)               // clusters of up to 16 blocks
-      e = cudaFuncSetAttribute(qmm_int4_mma_kernel<NT, QV>,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed,
-                               1);
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr = true;
   }
-  const dim3 grid((N + mma4::BN - 1) / mma4::BN, (M + TL::BM - 1) / TL::BM,
+  const dim3 grid((N + mma::BN - 1) / mma::BN, (M + TL::BM - 1) / TL::BM,
                   splits);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* qb = static_cast<const int8_t*>(q);
+  const auto* sb = static_cast<const float*>(scale);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
   if (splits == 1) {                     // no cluster: a plain launch
-    qmm_int4_mma_kernel<NT, QV><<<grid, mma4::THREADS, TL::SMEM, st>>>(
-        static_cast<const __nv_bfloat16*>(x), x_sm,
-        static_cast<const int8_t*>(q), static_cast<const float*>(scale),
-        static_cast<__nv_bfloat16*>(out), M, N, K, gs, kper, splits);
+    qmm_mma_kernel<BITS, NT, QV><<<grid, mma::THREADS, TL::SMEM, st>>>(
+        xb, x_sm, qb, sb, ob, M, N, K, gs, kper, splits);
     return static_cast<int>(cudaGetLastError());
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(mma4::THREADS);
+  cfg.blockDim = dim3(mma::THREADS);
   cfg.dynamicSmemBytes = TL::SMEM;
   cfg.stream = st;
   cudaLaunchAttribute cluster[1];
@@ -815,24 +896,31 @@ int launch_mma(const void* x, long long x_sm, const void* q,
   cluster[0].val.clusterDim.z = splits;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, qmm_int4_mma_kernel<NT, QV>,
-      static_cast<const __nv_bfloat16*>(x), x_sm,
-      static_cast<const int8_t*>(q), static_cast<const float*>(scale),
-      static_cast<__nv_bfloat16*>(out), M, N, K, gs, kper, splits);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, xb, x_sm, qb, sb,
+                                           ob, M, N, K, gs, kper, splits);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NT>
+template <int BITS, int NT>
 int launch_mma_qv(const void* x, long long x_sm, const void* q,
                   const void* scale, void* out, int M, int N, int K, int gs,
                   int kper, int splits, cudaStream_t st) {
   return N % 16 == 0
-             ? launch_mma<NT, 16>(x, x_sm, q, scale, out, M, N, K, gs, kper,
-                                  splits, st)
-             : launch_mma<NT, 4>(x, x_sm, q, scale, out, M, N, K, gs, kper,
-                                 splits, st);
+             ? launch_mma<BITS, NT, 16>(x, x_sm, q, scale, out, M, N, K, gs,
+                                        kper, splits, st)
+             : launch_mma<BITS, NT, 4>(x, x_sm, q, scale, out, M, N, K, gs,
+                                       kper, splits, st);
+}
+
+template <int BITS>
+int launch_mma_nt(const void* x, long long x_sm, const void* q,
+                  const void* scale, void* out, int M, int N, int K, int gs,
+                  int nt, int kper, int splits, cudaStream_t st) {
+  return nt == 1 ? launch_mma_qv<BITS, 1>(x, x_sm, q, scale, out, M, N, K,
+                                          gs, kper, splits, st)
+                 : launch_mma_qv<BITS, 4>(x, x_sm, q, scale, out, M, N, K,
+                                          gs, kper, splits, st);
 }
 
 }  // namespace
@@ -874,24 +962,28 @@ extern "C" int quant_matmul_launch(const void* x, long long x_sm,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The mma route (bf16 x, int4 weights): x (M, K) bf16 with row stride
-// x_sm (a multiple of 8 elements) on a 16-byte boundary; q (K/2, N)
-// packed int8 and scale (K/gs, N) f32, contiguous, on 16-byte
-// boundaries; out (M, N) bf16 contiguous. gs a multiple of 16 dividing
-// K, N a multiple of 4; nt the n-tiles of 8 rows of x a block (1 or
-// 4). Split z (one block of a cluster of `splits`, at most 16) covers
+// The mma route (bf16 x): x (M, K) bf16 with row stride x_sm (a
+// multiple of 8 elements) on a 16-byte boundary; q (K, N) int8 (bits 8)
+// or (K/2, N) packed int8 (bits 4) and scale (N,) or (K/gs, N) f32,
+// contiguous, on 16-byte boundaries; out (M, N) bf16 contiguous. N a
+// multiple of 4; int4: gs a multiple of 16 dividing K; int8: K a
+// multiple of 8 (gs unused). nt: the n-tiles of 8 rows of x a block (1
+// or 4). Split z (one block of a cluster of `splits`, at most 16) covers
 // rows [z*kper, min(K, (z+1)*kper)), kper a multiple of 64. Returns the
 // launch's error (0 = launched).
-extern "C" int quant_matmul_int4_mma_launch(
-    const void* x, long long x_sm, const void* q, const void* scale,
-    void* out, int M, int N, int K, int gs, int nt, int kper, int splits,
-    void* stream) {
-  const bool bad_split = splits < 1 || splits > mma4::MAX_SPLITS ||
-                         kper < mma4::BK || kper % mma4::BK ||
+extern "C" int quant_matmul_mma_launch(const void* x, long long x_sm,
+                                       const void* q, const void* scale,
+                                       void* out, int M, int N, int K, int gs,
+                                       int bits, int nt, int kper, int splits,
+                                       void* stream) {
+  const bool bad_split = splits < 1 || splits > mma::MAX_SPLITS ||
+                         kper < mma::BK || kper % mma::BK ||
                          static_cast<long long>(splits - 1) * kper >= K ||
                          static_cast<long long>(splits) * kper < K;
-  const bool bad_shape = M < 1 || N < 1 || K < 1 || N % 4 || gs < 16 ||
-                         gs % 16 || K % gs || (nt != 1 && nt != 4);
+  const bool bad_bits = bits == 4 ? gs < 16 || gs % 16 || K % gs
+                                  : bits != 8 || K % 8;
+  const bool bad_shape = M < 1 || N < 1 || K < 1 || N % 4 || bad_bits ||
+                         (nt != 1 && nt != 4);
   const bool bad_align = reinterpret_cast<uintptr_t>(x) % 16 ||
                          reinterpret_cast<uintptr_t>(q) % 16 ||
                          reinterpret_cast<uintptr_t>(scale) % 16 ||
@@ -899,9 +991,9 @@ extern "C" int quant_matmul_int4_mma_launch(
   if (bad_split || bad_shape || bad_align)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nt == 1)
-    return launch_mma_qv<1>(x, x_sm, q, scale, out, M, N, K, gs, kper,
+  if (bits == 4)
+    return launch_mma_nt<4>(x, x_sm, q, scale, out, M, N, K, gs, nt, kper,
                             splits, st);
-  return launch_mma_qv<4>(x, x_sm, q, scale, out, M, N, K, gs, kper, splits,
-                          st);
+  return launch_mma_nt<8>(x, x_sm, q, scale, out, M, N, K, gs, nt, kper,
+                          splits, st);
 }

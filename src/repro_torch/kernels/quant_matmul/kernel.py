@@ -4,22 +4,23 @@ JAX package's ``quant_matmul_int8_pallas``) and ``quant_matmul_int4_cuda``
 (``quant_matmul_int4_pallas``). One library, built with ``nvcc`` on first
 use (``kernels/_build.py``), with two entry points: one per route.
 
-Routes. ``simt`` (``plan``): f32 products on the CUDA cores, 8 rows of x
-by 128 columns a block, K split until about ``TARGET_BLOCKS`` blocks run;
-it takes int8 weights, and int4 weights under fp32 x or a group that is
-not a multiple of 16. When it splits K, the wrapper allocates an f32
+Routes, from ``mma_plan``. ``simt``: f32 products on the CUDA cores, 8
+rows of x by 128 columns a block, K split until about ``TARGET_BLOCKS``
+blocks run (``plan``); it takes fp32 x, int4 under a group that is not a
+multiple of 16, an N that is not a multiple of 4 and int8 under a K that
+is not a multiple of 8. When it splits K, the wrapper allocates an f32
 workspace of partial sums and the library launches, after the main
-kernel, a second kernel that adds the splits in a fixed order. ``mma``
-(``int4_plan``): int4 weights under bf16 x with a group that is a
-multiple of 16 and N a multiple of 4, on the tensor cores (mma.sync bf16
-with f32 accumulators over the exact nibble values, one fresh
-accumulator a group, scaled in f32 as the plain version does); 8 rows of
-x (M <= 8) or 32 by 128 columns a block, K tiles of 64 rows, and K split
-only where the column and row tiles give fewer than 132 blocks. Its
-splits of a tile run as one thread-block cluster that adds their sums
-through distributed shared memory: one launch, no workspace. Both plans
-are pure functions of the shapes and the dtype, and both routes are
-bitwise deterministic run to run.
+kernel, a second kernel that adds the splits in a fixed order. ``mma``:
+bf16 x on the tensor cores (mma.sync bf16 with f32 accumulators over
+the exact weight values): int8, whose one running sum is scaled per
+column in f32 at the end, and int4 with a group of a multiple of 16, one
+fresh accumulator a group, scaled in f32 as the plain version does; 8
+rows of x (M <= 8) or 32 by 128 columns a block, K tiles of 64 rows,
+and K split only where the column and row tiles give fewer than 132
+blocks. Its splits of a tile run as one thread-block cluster that adds
+their sums through distributed shared memory: one launch, no
+workspace. Both plans are pure functions of the shapes and the dtype,
+and both routes are bitwise deterministic run to run.
 
 The wrapper picks the plan and allocates the output (and the simt
 workspace); one call counts once in ``launches``.
@@ -35,7 +36,7 @@ from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BM, BN = 8, 128          # the simt tile of x rows and y columns
-SIMT_BK4 = 256           # unpacked rows of the simt int4 K tile
+SIMT_BK = {8: 128, 4: 256}   # unpacked rows of the simt K tile, by bits
 TARGET_BLOCKS = 528      # two waves of 2 blocks on each of 132 SMs
 MAX_SPLITS = 16
 SPLIT_ALIGN = 64         # a split covers a multiple of this many rows
@@ -52,8 +53,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: the C signatures of csrc/quant_matmul.cu's entry points
 ARGTYPES = {"quant_matmul_launch": [_P, _LL, _P, _P, _P, _P] + [_I] * 8
             + [_P],
-            "quant_matmul_int4_mma_launch": [_P, _LL, _P, _P, _P]
-            + [_I] * 7 + [_P]}
+            "quant_matmul_mma_launch": [_P, _LL, _P, _P, _P] + [_I] * 8
+            + [_P]}
 _FNS = {}
 
 
@@ -68,7 +69,7 @@ def _launcher(name="quant_matmul_launch"):
 
 
 class Plan(NamedTuple):
-    """How one int4 call runs: ``route`` ("mma" or "simt"), rows of x
+    """How one call runs: ``route`` ("mma" or "simt"), rows of x
     (``bm``) and columns of y (``bn``) a block, unpacked rows of a K
     tile (``bk``), the K ``splits`` of ``kper`` rows each, and the
     ``blocks`` of the main kernel's grid."""
@@ -93,18 +94,22 @@ def plan(M: int, N: int, K: int) -> Tuple[int, int, int]:
     return base * splits, splits, kper
 
 
-def int4_plan(M: int, N: int, K: int, gs: int,
-              dtype: torch.dtype) -> Plan:
-    """The route and tiles of an int4 (M, K) x (K, N) product with group
-    ``gs``: ``mma`` for bf16 x, gs a multiple of 16 and N a multiple of
-    4, else ``simt`` (``plan``'s split). On ``mma`` a block owns 8 rows
-    of x (M <= 8, decode) or 32 (the admitting chunk), and 128 columns; K is split only
+def mma_plan(bits: int, M: int, N: int, K: int, gs: int,
+             dtype: torch.dtype) -> Plan:
+    """The route and tiles of an int8 (``bits`` 8) or int4 (4, group
+    ``gs``; int8 ignores it) (M, K) x (K, N) product: ``mma`` for bf16
+    x, N a multiple of 4 and, int4, gs a multiple of 16 or, int8, K a
+    multiple of 8 (x's rows go 16 bytes a copy), else ``simt``
+    (``plan``'s split). On ``mma`` a block owns 8 rows of x (M <= 8,
+    decode) or 32 (the admitting chunk), and 128 columns; K is split only
     when those tiles give fewer than ``MMA_MIN_BLOCKS`` blocks, towards
-    ``MMA_TARGET_BLOCKS[bm]``, each split walking at least ``MMA_MIN_TILES``
-    K tiles of 64 rows (at most ``MMA_MAX_SPLITS`` splits)."""
-    if dtype != torch.bfloat16 or gs % 16 or N % 4:
+    ``MMA_TARGET_BLOCKS[bm]``, each split walking at least
+    ``MMA_MIN_TILES`` K tiles of 64 rows (at most ``MMA_MAX_SPLITS``
+    splits)."""
+    fits = gs % 16 == 0 if bits == 4 else K % 8 == 0
+    if dtype != torch.bfloat16 or N % 4 or not fits:
         blocks, splits, kper = plan(M, N, K)
-        return Plan("simt", BM, BN, SIMT_BK4, splits, kper, blocks)
+        return Plan("simt", BM, BN, SIMT_BK[bits], splits, kper, blocks)
     bm = 8 if M <= 8 else 32
     base = -(-N // MMA_BN) * -(-M // bm)
     tiles = -(-K // MMA_BK)
@@ -156,24 +161,24 @@ def _launch(name, x, q, scale, *, int4):
                          "4-byte boundaries")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    pl = int4_plan(M, N, K, gs, x.dtype) if int4 else None
-    if pl is not None and pl.route == "mma":
+    bits = 4 if int4 else 8
+    pl = mma_plan(bits, M, N, K, gs, x.dtype)
+    if pl.route == "mma":
         if x.data_ptr() % 16 or (M > 1 and x.stride(0) % 8) \
                 or q.data_ptr() % 16 or scale.data_ptr() % 16:
-            raise ValueError("the int4 mma route needs x's rows, the "
-                             "weights and the scales on 16-byte boundaries")
-        err = _launcher("quant_matmul_int4_mma_launch")(
+            raise ValueError("the mma route needs x's rows, the weights "
+                             "and the scales on 16-byte boundaries")
+        err = _launcher("quant_matmul_mma_launch")(
             x.data_ptr(), x.stride(0), q.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), M, N, K, gs, pl.bm // 8, pl.kper, pl.splits,
-            stream)
+            out.data_ptr(), M, N, K, gs, bits, pl.bm // 8, pl.kper,
+            pl.splits, stream)
     else:
-        _, splits, kper = plan(M, N, K)
-        ws = torch.empty((splits, M, N), dtype=torch.float32,
-                         device=x.device) if splits > 1 else None
+        ws = torch.empty((pl.splits, M, N), dtype=torch.float32,
+                         device=x.device) if pl.splits > 1 else None
         err = _launcher()(
             x.data_ptr(), x.stride(0), q.data_ptr(), scale.data_ptr(),
             out.data_ptr(), None if ws is None else ws.data_ptr(), M, N, K,
-            gs, kper, splits, int(int4), _DTYPES[x.dtype], stream)
+            gs, pl.kper, pl.splits, int(int4), _DTYPES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return out

@@ -119,8 +119,9 @@ def test_kernels_match_plain_on_card():
             y0, t0 = norm_ref.fused_rmsnorm_reference(x, res, s)
             assert (y.float() - y0.float()).abs().max().item() <= tol
             assert (t.float() - t0.float()).abs().max().item() <= tol
-    # the dequantize-matmuls: ragged M and N, K split or not, an odd int4
-    # group (K 34, gs 17); max|kernel - plain| <= tol * max|plain|
+    # the dequantize-matmuls: ragged M and N, K split or not, K 34 (an odd
+    # int4 group of 17; for int8 no multiple of 8); max|kernel - plain| <=
+    # tol * max|plain|
     from repro_torch.quant import quantize_tensor
     g = torch.Generator(device=dev).manual_seed(0)
     for M, K, N, gs in ((1, 2048, 512, 32), (37, 256, 200, 32),
@@ -130,18 +131,18 @@ def test_kernels_match_plain_on_card():
             qt = quantize_tensor(w, bits=bits, group_size=gs)
             for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
                 x = torch.randn((M, K), generator=g, device=dev).to(dt)
+                # bf16 on the tensor cores, but K 34 (int4: group 17;
+                # int8: no multiple of 8); fp32 on the CUDA cores
+                group = K // qt["scale"].shape[0] if bits == 4 else 0
+                route = qmm_kernel.mma_plan(bits, M, N, K, group, dt).route
+                assert route == ("mma" if dt == torch.bfloat16
+                                 and K != 34 else "simt")
                 if bits == 8:
                     got = qmm_kernel.quant_matmul_int8_cuda(x, qt["q"],
                                                             qt["scale"])
                     want = qmm_ref.quant_matmul_int8_reference(
                         x, qt["q"], qt["scale"])
                 else:
-                    # bf16 with a group of a multiple of 16 on the tensor
-                    # cores; fp32 and the odd group on the CUDA cores
-                    route = qmm_kernel.int4_plan(
-                        M, N, K, K // qt["scale"].shape[0], dt).route
-                    assert route == ("mma" if dt == torch.bfloat16
-                                     and K != 34 else "simt")
                     got = qmm_kernel.quant_matmul_int4_cuda(x, qt["q4"],
                                                             qt["scale"])
                     want = qmm_ref.quant_matmul_int4_reference(
@@ -375,7 +376,7 @@ def test_int4_mma_route_matches_plain_on_card(case):
     w = 0.05 * torch.randn((K, N), generator=g, device=dev)
     qt = quantize_tensor(w, bits=4, group_size=gs)
     assert K // qt["scale"].shape[0] == gs
-    pl = qmm_kernel.int4_plan(M, N, K, gs, torch.bfloat16)
+    pl = qmm_kernel.mma_plan(4, M, N, K, gs, torch.bfloat16)
     assert pl.route == "mma" and (pl.splits > 1) == split, pl
     wide = torch.randn((M, K + 64 * strided), generator=g, device=dev)
     x = wide.to(torch.bfloat16)[:, :K]
@@ -388,4 +389,57 @@ def test_int4_mma_route_matches_plain_on_card(case):
     assert _err(got, want) <= 2e-2 * want.float().abs().max().item(), (
         pl, _err(got, want))
     again = qmm_kernel.quant_matmul_int4_cuda(x, qt["q4"], qt["scale"])
+    assert torch.equal(again, got)
+
+
+# (M, K, N, strided x, split): every llama3.2-1b projection shape at
+# decode (M 1, 8: the 8-row tile), a chunk tail (37) and a full chunk
+# (128: the 32-row tile), split where the tiles give fewer than 132
+# blocks; ragged N (200: no multiple of 16, 4-byte weight copies); K no
+# multiple of the 64-row K tile (2080) nor of its 16-row k-step (2056);
+# x a view of wider rows
+INT8_MMA_CASES = [
+    (M, K, N, False, None) for K, N in ((2048, 8192), (2048, 512),
+                                        (2048, 2048), (8192, 2048))
+    for M in (1, 8, 37, 128)] + [
+    (8, 2048, 200, False, True),
+    (37, 2048, 200, True, True),
+    (8, 2080, 512, True, True),
+    (128, 2080, 8192, False, False),
+    (37, 2056, 512, False, True),
+    (8, 2048, 8192, True, None),
+    (128, 2048, 512, True, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", INT8_MMA_CASES,
+                         ids=lambda c: "M{}_K{}_N{}_{}".format(
+                             *c[:3], "strided" if c[3] else "dense"))
+def test_int8_mma_route_matches_plain_on_card(case):
+    """bf16 int8 on the tensor-core route: within 2e-2 max|plain| of the
+    plain version (bf16 output rounding; the f32 sums run in another
+    order), on the split or unsplit plan the case names where it names
+    one, and bitwise equal across two calls (the splits are added in a
+    fixed order)."""
+    from repro_torch.quant import quantize_tensor
+    dev = _card()
+    M, K, N, strided, split = case
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    w = 0.05 * torch.randn((K, N), generator=g, device=dev)
+    qt = quantize_tensor(w, bits=8)
+    pl = qmm_kernel.mma_plan(8, M, N, K, 0, torch.bfloat16)
+    assert pl.route == "mma", pl
+    assert split is None or (pl.splits > 1) == split, pl
+    wide = torch.randn((M, K + 64 * strided), generator=g, device=dev)
+    x = wide.to(torch.bfloat16)[:, :K]
+    assert x.is_contiguous() != strided
+    got = qmm_kernel.quant_matmul_int8_cuda(x, qt["q"], qt["scale"])
+    want = qmm_ref.quant_matmul_int8_reference(x, qt["q"], qt["scale"])
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert torch.isfinite(got).all()
+    assert _err(got, want) <= 2e-2 * want.float().abs().max().item(), (
+        pl, _err(got, want))
+    again = qmm_kernel.quant_matmul_int8_cuda(x, qt["q"], qt["scale"])
     assert torch.equal(again, got)

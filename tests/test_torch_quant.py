@@ -294,31 +294,44 @@ def test_quant_kernel_plan_fills_the_card():
     assert qkernel.plan(128, 8192, 2048)[1] == 1
 
 
-@pytest.mark.parametrize("dtype,gs,N,route", [
-    (torch.bfloat16, 32, 8192, "mma"), (torch.bfloat16, 64, 512, "mma"),
-    (torch.bfloat16, 16, 200, "mma"), (torch.bfloat16, 48, 2048, "mma"),
-    (torch.float32, 32, 8192, "simt"), (torch.bfloat16, 17, 48, "simt"),
-    (torch.bfloat16, 8, 2048, "simt"), (torch.bfloat16, 32, 202, "simt"),
+# (dtype, gs, N, K, route of int4, route of int8): int4 takes a group of
+# a multiple of 16, int8 a K of a multiple of 8 (x's rows are copied 16
+# bytes at a time); both N a multiple of 4 and bf16 x
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("dtype,gs,N,K,route4,route8", [
+    (torch.bfloat16, 32, 8192, 2048, "mma", "mma"),
+    (torch.bfloat16, 64, 512, 2048, "mma", "mma"),
+    (torch.bfloat16, 16, 200, 2048, "mma", "mma"),
+    (torch.bfloat16, 48, 2048, 2016, "mma", "mma"),
+    (torch.float32, 32, 8192, 2048, "simt", "simt"),
+    (torch.bfloat16, 17, 48, 34, "simt", "simt"),
+    (torch.bfloat16, 8, 2048, 2048, "simt", "mma"),
+    (torch.bfloat16, 32, 202, 2048, "simt", "simt"),
+    (torch.bfloat16, 4, 2048, 2052, "simt", "simt"),
 ])
-def test_int4_plan_route_by_dtype_and_group(dtype, gs, N, route):
-    """The tensor cores take bf16 x with a group of a multiple of 16 and
-    N a multiple of 4; everything else stays on simt with plan's split."""
-    K = 34 if gs == 17 else 2048 // gs * gs
-    pl = qkernel.int4_plan(8, N, K, gs, dtype)
-    assert pl.route == route
-    if route == "simt":
+def test_int4_plan_route_by_dtype_and_group(bits, dtype, gs, N, K, route4,
+                                            route8):
+    """``mma_plan`` sends bf16 x to the tensor cores where N is a multiple
+    of 4 and, int4, the group a multiple of 16 or, int8, K a multiple of
+    8; everything else stays on simt with plan's split."""
+    pl = qkernel.mma_plan(bits, 8, N, K, gs, dtype)
+    assert pl.route == (route4 if bits == 4 else route8)
+    if pl.route == "simt":
         assert (pl.blocks, pl.splits, pl.kper) == qkernel.plan(8, N, K)
+        assert pl.bk == qkernel.SIMT_BK[bits]
 
 
 _LLAMA_KN = ((2048, 8192), (2048, 512), (2048, 2048), (8192, 2048))
 
 
+@pytest.mark.parametrize("bits", [4, 8])
 @pytest.mark.parametrize("M", [1, 8, 16, 17, 37, 128, 512])
 @pytest.mark.parametrize("K,N", _LLAMA_KN + ((2080, 200), (34 * 16, 48)))
-def test_int4_plan_tiles_cover_k_once(M, K, N):
+def test_int4_plan_tiles_cover_k_once(bits, M, K, N):
     """mma splits are whole K tiles that cover K exactly once; K is split
-    only when the unsplit grid has fewer than 132 blocks."""
-    pl = qkernel.int4_plan(M, N, K, 16, torch.bfloat16)
+    only when the unsplit grid has fewer than 132 blocks; int8 and int4
+    take the same tiles and splits."""
+    pl = qkernel.mma_plan(bits, M, N, K, 16, torch.bfloat16)
     assert pl.route == "mma" and pl.bk == 64 and pl.bn == 128
     assert pl.bm == (8 if M <= 8 else 32)
     assert pl.kper % pl.bk == 0 and 1 <= pl.splits <= qkernel.MMA_MAX_SPLITS
@@ -326,17 +339,21 @@ def test_int4_plan_tiles_cover_k_once(M, K, N):
     base = -(-N // pl.bn) * -(-M // pl.bm)
     assert pl.blocks == base * pl.splits
     assert (pl.splits > 1) <= (base < 132)
+    assert pl == qkernel.mma_plan(12 - bits, M, N, K, 16, torch.bfloat16)
 
 
+@pytest.mark.parametrize("bits", [4, 8])
 @pytest.mark.parametrize("M", [1, 8])
 @pytest.mark.parametrize("K,N", _LLAMA_KN)
-def test_int4_plan_decode_walks_three_tiles_and_fills_the_card(M, K, N):
+def test_int4_plan_decode_walks_three_tiles_and_fills_the_card(bits, M, K,
+                                                               N):
     """At llama3.2-1b's decode shapes every split, the last one too,
     walks at least 3 K tiles (the ring has tiles in flight); the wide
     shapes give 132 SMs a block each, and the narrow ones (N 512, 2048:
     4 and 16 column tiles) take the finest split of whole tiles that
     keeps 3 tiles in every split."""
-    pl = qkernel.int4_plan(M, N, K, 32, torch.bfloat16)
+    pl = qkernel.mma_plan(bits, M, N, K, 32, torch.bfloat16)
+    assert pl.route == "mma"
     tiles, per = -(-K // pl.bk), pl.kper // pl.bk
     assert per >= 3 and tiles - (pl.splits - 1) * per >= 3
     if N * K >= 2048 * 8192:
