@@ -25,9 +25,11 @@ weights on bf16 rings (``serve_int8``), the edge profile on int8 rings
 (``serve_edge``) and on an int8 pool (``serve_edge_paged``, tokens equal
 to ``serve_edge``'s), with a profiled second batch through the int8 and
 the edge engines. Then the SSM family (mamba2-780m): both SSD kernels against
-their plain versions in the ``kernels`` phase (the recurrence kernel
-also bitwise compositional over a split, an identity step at dt = 0 and
-``ssd_step``'s T = 1 launch); a 2-layer full-width fp32 mamba2 on the
+their plain versions in the ``kernels`` phase (the recurrence kernel on
+the route its plan picks, also bitwise compositional over splits at 1,
+the tile's edges and 37, an identity step at dt = 0 and ``ssd_step``'s T
+= 1 launch, and timed over a T sweep at b 1 with its fixed and per-token
+cost fitted); a 2-layer full-width fp32 mamba2 on the
 card against the CPU through ``prefill`` (the chunked kernel) and
 through an extend (``model_ssm``) and through ``Engine``
 (``serve_ssm_check``, tokens identical); the full 48-layer bf16 model
@@ -49,7 +51,9 @@ card). The decode-attention cases cover both tensor-core routes of its
 plan (R <= 16 rows and above, S split over blocks, a fully masked row
 at T 1 and T 16); every timed attention case records its plan and the
 rates it reached, and the ``build`` line every template's ptxas
-registers and spills (a spilling tensor-core template fails the run).
+registers and spills (a spilling tensor-core or ``ssd_extend`` template
+fails the run); every profile line splits the ``ssd_extend`` device time
+by template (route).
 Every phase prints one JSON line; any failure raises and the
 script exits non-zero without the final line. The second-to-last lines are the
 kernel summary (JSON) and the card's name and power limit as
@@ -91,6 +95,8 @@ FLASH_TPU = ("src/repro/kernels/flash_attention/kernel.py:153, "
 SSD_FULL = (48, 64, 1, 128)
 SSD_REDUCED_G2 = (16, 32, 2, 32)
 SSD_TOL_REL = 1e-4
+#: the recurrence kernel's T sweep at b 1 (fixed and per-token cost)
+SSD_SWEEP_T = (1, 16, 64, 128, 256)
 #: llama3.2-1b's projection shapes (K, N): wi/wg, wk/wv, wq/wo, mlp wo;
 #: the first one's decode row heads the kernel summary
 QMM_SHAPES = ((2048, 8192), (2048, 512), (2048, 2048), (8192, 2048))
@@ -678,12 +684,16 @@ def ssd_extend_cases(torch, flush):
     steps) at mamba2's decode (B 8, T 1) and chunk (B 1, T 128) shapes
     and at the reduced dims with 2 groups and a ragged T 5, in the form
     the model calls it (new state in place, the incoming one to the
-    checkpoint): max|kernel - plain| <= 1e-4 * max|plain| in f32. Exact
-    gates: extending by T // 2 then the rest (37 + 91 at T 128) gives
-    the bits of extending by T; a row with dt = 0 keeps its state bit for
-    bit; ``ssd_step`` on CUDA equals the T = 1 launch; the checkpoint
-    equals the incoming state."""
-    from repro_torch.kernels.ssd_scan.kernel import ssd_extend_cuda
+    checkpoint), each on the route and grid ``extend_plan`` gives it:
+    max|kernel - plain| <= 1e-4 * max|plain| in f32. Exact gates:
+    extending by t1 then the rest gives the bits of extending by T at t1
+    = 1 (a T = 1 launch, the decode route, then the chunk route), the
+    tile's edges (tile - 1, tile, tile + 1), 37 and T // 2; a row with dt
+    = 0 keeps its state bit for bit; ``ssd_step`` on CUDA equals the T =
+    1 launch; the checkpoint equals the incoming state. Then the T sweep
+    at b 1 (``ssd_extend_sweep``)."""
+    from repro_torch.kernels.ssd_scan.kernel import (EXT_TILE, extend_plan,
+                                                     ssd_extend_cuda)
     from repro_torch.kernels.ssd_scan.ops import ssd_step
     from repro_torch.kernels.ssd_scan.ref import ssd_extend_reference
 
@@ -698,15 +708,16 @@ def ssd_extend_cases(torch, flush):
         y, s = ssd_extend_cuda(state, x, dt, A, B, C, D, out=state,
                                ckpt=ckpt)
         y0, s1 = ssd_extend_reference(s0, x, dt, A, B, C, D)
-        t1 = 37 if T == 128 else T // 2
+        splits = sorted(t for t in {1, EXT_TILE - 1, EXT_TILE, EXT_TILE + 1,
+                                    37, T // 2} if 0 < t < T)
         split_equal = True
-        if t1:
+        for t1 in splits:
             ya, sa = ssd_extend_cuda(s0, x[:, :t1], dt[:, :t1], A,
                                      B[:, :t1], C[:, :t1], D)
             yb, sb = ssd_extend_cuda(sa, x[:, t1:], dt[:, t1:], A,
                                      B[:, t1:], C[:, t1:], D)
-            split_equal = torch.equal(torch.cat([ya, yb], 1), y) \
-                and torch.equal(sb, s)
+            split_equal = split_equal and torch.equal(
+                torch.cat([ya, yb], 1), y) and torch.equal(sb, s)
         dt0 = dt.clone()
         dt0[0] = 0.0
         _, sz = ssd_extend_cuda(s0, x, dt0, A, B, C, D)
@@ -718,11 +729,13 @@ def ssd_extend_cases(torch, flush):
         rel = _rel_err([(y, y0), (s, s1)])
         rec = {"phase": "kernels", "kernel": "ssd_extend", "case": name,
                "dtype": "float32", "B": b, "T": T, "h": h, "p": p,
-               "g": groups, "n": n, "max_rel_err": rel,
+               "g": groups, "n": n,
+               "plan": extend_plan(b, T, h, p, groups, n)._asdict(),
+               "max_rel_err": rel,
                "max_abs_err": max((y - y0).abs().max().item(),
                                   (s - s1).abs().max().item()),
                "tol_rel": SSD_TOL_REL,
-               "split_at": t1, "split_bitwise_equal": split_equal,
+               "split_at": splits, "split_bitwise_equal": split_equal,
                "dt0_row_unchanged": torch.equal(sz[0], s0[0]),
                "ssd_step_equals_T1_kernel": torch.equal(y_step, y_k1[:, 0])
                and torch.equal(s_step, s_k1),
@@ -733,13 +746,7 @@ def ssd_extend_cases(torch, flush):
             and rec["ssd_step_equals_T1_kernel"] \
             and rec["ckpt_equals_incoming"]
         if name in ("decode", "chunk"):
-            # each input read once (state, x, dt, B, C, A, D), each output
-            # written once (y, the new state, the checkpoint); per token
-            # and head 5 p n operations (decay, update, readout) + 3 p
-            nbytes = 4 * (3 * s0.numel() + x.numel() + dt.numel()
-                          + B.numel() + C.numel() + 2 * h + y.numel())
-            flops = b * T * h * (5 * p * n + 3 * p)
-            bms, by = bound_ms(nbytes, flops, "float32")
+            bms, by, nbytes, flops = _ssd_extend_bound(s0, x, dt, B, C)
             sbuf, cbuf = torch.empty_like(s0), torch.empty_like(s0)
             rec.update(
                 kernel_ms=median_ms(torch, lambda: ssd_extend_cuda(
@@ -755,7 +762,53 @@ def ssd_extend_cases(torch, flush):
             raise AssertionError(f"ssd_extend {name}: kernel disagrees "
                                  f"with the plain version or an exact gate "
                                  f"failed: {rec}")
+    out.append(ssd_extend_sweep(torch, flush))
     return out, max(errs)
+
+
+def _ssd_extend_bound(s0, x, dt, B, C):
+    """(bound ms, "bytes" or "operations", bytes, operations) of one
+    extend call: each input read once (state, x, dt, B, C, A, D), each
+    output written once (y, x's shape; the new state; the checkpoint);
+    per token and head 5 p n operations (decay, update, readout) + 3 p."""
+    b, T, h, p = x.shape
+    n = s0.shape[-1]
+    nbytes = 4 * (3 * s0.numel() + 2 * x.numel() + dt.numel() + B.numel()
+                  + C.numel() + 2 * h)
+    flops = b * T * h * (5 * p * n + 3 * p)
+    return bound_ms(nbytes, flops, "float32") + (nbytes, flops)
+
+
+def ssd_extend_sweep(torch, flush):
+    """The recurrence kernel's time at b 1 and mamba2's dims over T in
+    ``SSD_SWEEP_T`` (its own inputs each), and the least-squares line ms
+    = fixed + per_token * T through them: the fixed part is the launch,
+    the state's load and store and the first tile's round trip, the
+    per-token part the recurrence."""
+    import numpy as np
+
+    from repro_torch.kernels.ssd_scan.kernel import (extend_plan,
+                                                     ssd_extend_cuda)
+    h, p, groups, n = SSD_FULL
+    ms, bounds = [], []
+    for T in SSD_SWEEP_T:
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        x, dt, A, B, C, D, s0 = _ssd_inputs(torch, g, 1, T, h, p, groups,
+                                            n, torch.float32)
+        sbuf, cbuf = torch.empty_like(s0), torch.empty_like(s0)
+        ms.append(median_ms(torch, lambda: ssd_extend_cuda(
+            s0, x, dt, A, B, C, D, out=sbuf, ckpt=cbuf), flush))
+        bounds.append(_ssd_extend_bound(s0, x, dt, B, C)[0])
+    per_token, fixed = np.polyfit(np.array(SSD_SWEEP_T, dtype=float),
+                                  np.array(ms), 1)
+    rec = {"phase": "kernels", "kernel": "ssd_extend", "case": "sweep_b1",
+           "h": h, "p": p, "g": groups, "n": n, "T": list(SSD_SWEEP_T),
+           "sweep_ms": ms, "sweep_bound_ms": bounds,
+           "plans": [extend_plan(1, T, h, p, groups, n)._asdict()
+                     for T in SSD_SWEEP_T],
+           "fixed_ms": float(fixed), "per_token_us": float(per_token) * 1e3}
+    emit(rec)
+    return rec
 
 
 def ssd_cases(torch, flush):
@@ -1135,6 +1188,22 @@ def _ms_matching(rows, part):
     """Device ms and launches of the kernels whose name holds ``part``."""
     hit = [(ms, c) for ms, c, k in rows if part in k]
     return {"ms": sum(ms for ms, _ in hit), "calls": sum(c for _, c in hit)}
+
+
+def _ms_by_template(rows, part):
+    """``_ms_matching`` of the kernels whose name holds ``part``, and the
+    same split by their template arguments (one entry per route where
+    the routes are distinct templates)."""
+    import re
+    out, per = _ms_matching(rows, part), {}
+    for ms, c, k in rows:
+        if part in k:
+            m = re.search(re.escape(part) + r"\w*<([^<>]*)>", k)
+            t = per.setdefault(m.group(1) if m else k[:60],
+                               {"ms": 0.0, "calls": 0})
+            t["ms"] += ms
+            t["calls"] += c
+    return dict(out, templates=per)
 
 
 def _profile_call(torch, fn):
@@ -1698,6 +1767,7 @@ def profile(torch, engine, phase="profile"):
           "kernel_launches": launches,
           "decode_attention": _ms_matching(rows, "decode_"),
           "quant_matmul": _ms_matching(rows, "qmm_"),
+          "ssd_extend": _ms_by_template(rows, "ssd_extend"),
           "top": [{"kernel": k[:90], "ms": ms, "calls": c}
                   for ms, c, k in rows[:12]],
           "host_top": [{"op": k[:60], "self_ms": ms, "calls": c}
@@ -1737,15 +1807,18 @@ def main() -> int:
             fused_rmsnorm_triton(x.to(dtype), r, x[0].to(dtype))
     torch.cuda.synchronize()
     ptxas = ptxas_table(_build.BUILD_LOG.values())
-    spills = {k: v for k, v in ptxas.items() if "_mma_kernel" in k
+    gated = ("_mma_kernel", "ssd_extend")
+    spills = {k: v for k, v in ptxas.items() if any(s in k for s in gated)
               and (v.get("spill_stores") or v.get("spill_loads"))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_s": t_nvcc, "ptxas": ptxas,
           "tensor_core_templates": sum("_mma_kernel" in k for k in ptxas),
-          "tensor_core_spills": spills})
-    if spills or not any("_mma_kernel" in k for k in ptxas):
-        raise AssertionError(f"tensor-core templates missing or spilling: "
-                             f"{spills}")
+          "ssd_extend_templates": {k: v for k, v in ptxas.items()
+                                   if "ssd_extend" in k},
+          "gated_spills": spills})
+    if spills or not all(any(s in k for k in ptxas) for s in gated):
+        raise AssertionError(f"tensor-core or ssd_extend templates missing "
+                             f"or spilling: {spills}")
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     attn, attn_err = decode_attention_cases(torch, flush)
@@ -1831,8 +1904,10 @@ def main() -> int:
               timed(qmm[4]), edge_counts,
               extra=("dense_bf16_ms", "simt_ms", "route", "blocks",
                      "splits", "bound_by", "rel_err")),
-        entry("ssd_extend", "cuda", SSD_SRC, SSD_EXT_TPU, ext_err,
-              timed(ext), ext_counts, extra=("bound_by",)),
+        dict(entry("ssd_extend", "cuda", SSD_SRC, SSD_EXT_TPU, ext_err,
+                   timed(ext), ext_counts, extra=("bound_by", "plan")),
+             sweep={k: ext[-1][k] for k in ("T", "sweep_ms", "fixed_ms",
+                                            "per_token_us")}),
         entry("ssd", "cuda", SSD_SRC, SSD_TPU, ssd_err, timed(ssd),
               ssd_counts, extra=("bound_by",)),
         entry("flash_attention", "cuda", FLASH_SRC, FLASH_TPU, flash_err,

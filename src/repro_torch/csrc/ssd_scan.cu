@@ -16,30 +16,60 @@
 // x/B/C slices of the model's conv output are never copied.
 //
 // ssd_extend: s' = exp(dt*A)*s + (dt*x) B^T, y = C s'^T + D*x, token by
-// token. One block per (batch row, head, 32 state rows) holds its rows
-// of the (p, n) state in registers for the whole token loop (2 blocks
-// per head at p 64): 8 warps own 4 rows each, a lane owns n/32 columns,
-// so at n 128 a thread keeps 16 floats. Tiles of 16 tokens' x, B, C and
-// dt are staged in shared memory, so the loop pays one global round trip
-// per tile, not per token. A warp's 4 row sums y_r over n are reduced
-// together by a transposed butterfly (6 shuffles, not 4 x 5), which
-// shortens each token's dependent chain. The state is read once and
-// written once (in place when the caller passes the same buffer: each
-// block reads all of its rows before it writes any), and the incoming
-// state is written to the checkpoint buffer on the way (the cache's
-// ssm_ckpt leaf), so the engine pays no separate copy.
-// Exactness: the arithmetic of a token is the same whatever T is and
-// where a tile starts (explicit _rn intrinsics, so no contraction choice
-// of the compiler can differ between two call sites), so extending by t1
-// then t2 tokens gives the bits of extending by t1 + t2, and the T = 1
-// launch is the single decode step. A token with dt = 0 is an identity
-// step: expf(-0.0f) is exactly 1 without --use_fast_math (this file is
-// built without it) and the update adds a signed zero.
+// token. The state rows of a batch row are numbered through the heads
+// (row h*p + r); a block owns `rows` consecutive ones (an even number up
+// to 32, never across a group) and holds them in registers for the whole
+// token loop: a warp owns 2 rows of one head, a lane n/32 columns (lane,
+// lane + 32, ...), so at n 128 a thread keeps 8 floats. The only serial
+// work per state element and token is one multiply and one FMA; the
+// design takes the rest off that chain and spreads it over the card:
+// - Deferred readout. Tokens go in tiles of TT (16 on the chunk route, 1
+//   on the decode route). Within a tile the state advances through every
+//   token, each lane keeping its partial of C s'^T over its columns for
+//   every (token, row) item (TT x 2 of them); then the warp reduces all
+//   of them at once by a transposed butterfly over the lane bits 16, 8, 4,
+//   2, 1 (31 shuffles for 32 items, where one butterfly a token took 5 or
+//   6), after which lane l holds item l (item = token * 2 + row) and
+//   writes its y. The tile's token loop is unrolled (a full tile has no
+//   mask), so token t + 1's update issues while token t's readout runs.
+// - Prefetched staging. A tile's B and C (block-wide) and each warp's x
+//   and dt slices go to shared memory by cp.async, B and C 16 bytes a
+//   copy where the pointers and strides allow (4 otherwise), into a ring
+//   of 3 buffers filled two tiles ahead (60 KB at n 128: dynamic shared
+//   memory), so T 128 waits on one round trip, the first, which overlaps
+//   the state's load. A warp turns its x and dt into x*dt and exp(dt*A)
+//   once a tile.
+// - The card filled at batch 1. The plan (kernels/ssd_scan/kernel.py::
+//   extend_plan) takes the fewest rows a block that keep the grid within
+//   one block per SM: at mamba2's b 1, 24 rows (12 warps, 3 on each of an
+//   SM's 4 schedulers) in 128 blocks, where one block per (head, 32 rows)
+//   gave 96 blocks of 8 warps; where 32 rows a block cannot (decode at b
+//   8: 768 blocks) it takes 32.
+// The state is read once and written once (in place when the caller
+// passes the same buffer: every thread reads the elements it later
+// writes, before it writes any), and the incoming state goes to the
+// checkpoint buffer on the way (the cache's ssm_ckpt leaf), so the
+// engine pays no separate copy.
+// Exactness: both routes run one arithmetic per token: the same column
+// to lane map, the same sequential FMA chain over a lane's columns, the
+// same tree over the lane bits 16, 8, 4, 2, 1 (IEEE addition commutes,
+// so which lane ends up holding an item does not change its bits), and
+// explicit _rn intrinsics, so no contraction choice of the compiler can
+// differ between two call sites. So a token's bits depend neither on T,
+// nor on where its tile starts, nor on the route: extending by t1 then
+// t2 tokens gives the bits of extending by t1 + t2, and the T = 1 launch
+// is the single decode step. A token with dt = 0 is an identity step:
+// expf(-0.0f) is exactly 1 without --use_fast_math (this file is built
+// without it) and the update adds a signed zero.
 // What bounds it: at decode (T = 1, b = 8) the bytes of the state, read
 // once and written twice (state and checkpoint): 37.7 MB at h 48, p 64,
-// n 128, 11 us at 3.35 TB/s. At a chunk (b = 1, T = 128) the 96 blocks
-// walk 128 dependent steps each, so latency, not the 0.25 GFLOP, bounds
-// it.
+// n 128, 11 us at 3.35 TB/s. At a chunk (b = 1, T = 128) the bound counts
+// 0.25 GFLOP at 67 TFLOP/s (3.8 us), but the kernel issues about 55
+// instructions a warp per token (24 for the update and the readout's
+// FMAs, 9 shared-memory loads, 10 for its share of the butterfly, the
+// rest for a tile's copies and x*dt and decay): instruction issue binds
+// it, the readout's reduction and the staging costing as much as the
+// arithmetic.
 //
 // ssd (chunked): one block per (batch row, head) walks the chunks in
 // order with the carried (p, n) state in shared memory (32 KB at p 64,
@@ -60,6 +90,9 @@
 // and tensor-core products are what a faster version changes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "attn_mma.cuh"
 
 namespace {
 
@@ -73,11 +106,10 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
 // --------------------------------------------------------------------- //
 // ssd_extend
 // --------------------------------------------------------------------- //
-constexpr int EXT_WARPS = 8;
-constexpr int EXT_THREADS = EXT_WARPS * 32;
-constexpr int EXT_RPW = 4;                     // state rows per warp
-constexpr int EXT_ROWS = EXT_WARPS * EXT_RPW;  // state rows per block
-constexpr int EXT_TT = 16;                     // tokens staged per tile
+constexpr int EXT_RPW = 2;         // state rows a warp
+constexpr int EXT_MAX_WARPS = 16;  // 32 rows a block at most
+constexpr int EXT_TILE = 16;       // tokens a tile on the chunk route
+constexpr int EXT_STAGES = 3;      // the staging ring: tiles k .. k + 2
 
 struct ExtArgs {
   const float* s_in;
@@ -90,7 +122,8 @@ struct ExtArgs {
   const float* C;
   const float* D;
   float* y;
-  int T, H, G, P;
+  int T, H, G, P, rows;
+  bool vec_bc;  // B and C go 16 bytes a copy
   long long s_in_sb, s_out_sb, ckpt_sb;
   long long x_sb, x_st, x_sh;
   long long dt_sb, dt_st;
@@ -98,128 +131,232 @@ struct ExtArgs {
   long long c_sb, c_st, c_sg;
 };
 
-// The sums over the warp of its RPW row partials v[] by a transposed
-// butterfly: each halving step swaps half of the rows with the partner
-// lane (RPW/2 + RPW/4 + ... shuffles), then the lanes that hold the same
-// row finish with a plain butterfly. Returns the total of row *row (all
-// lanes of a row group get the same bits); the same arithmetic on every
-// call.
-template <int RPW>
-__device__ __forceinline__ float warp_row_sums(float (&v)[RPW], int lane,
-                                               int* row) {
-  int m = 16, sel = 0;
+// A tile's staged inputs (a ring of EXT_STAGES) and the per-warp
+// products made from them once a tile: x*dt for each (token, row) item
+// and exp(dt*A) for each token. 60 KB at TT 16, n 128: dynamic shared
+// memory.
+template <int TT, int N>
+struct __align__(16) ExtSmem {
+  float b[EXT_STAGES][TT][N];
+  float c[EXT_STAGES][TT][N];
+  float x[EXT_STAGES][EXT_MAX_WARPS][TT][EXT_RPW];
+  float dt[EXT_STAGES][EXT_MAX_WARPS][TT];
+  float xdt[EXT_MAX_WARPS][TT][EXT_RPW];
+  float da[EXT_MAX_WARPS][TT];
+};
+
+__host__ __device__ constexpr int log2i(int v) {
+  return v <= 1 ? 0 : 1 + log2i(v / 2);
+}
+
+// One level of warp_item_sums at lane bit M: with HALF > 0 the lane swaps
+// HALF items with its partner and keeps the half its bit selects, else a
+// plain butterfly step on its one item. Every level is a template, so
+// every index into v[] is a constant and v[] stays in registers.
+template <int K, int HALF, int M>
+__device__ __forceinline__ void item_level(float (&v)[K], int lane) {
+  if constexpr (M >= 1) {
+    if constexpr (HALF >= 1) {
+      const bool up = (lane & M) != 0;
 #pragma unroll
-  for (int half = RPW / 2; half >= 1; half >>= 1) {
-    const bool up = (lane & m) != 0;
-#pragma unroll
-    for (int k = 0; k < half; ++k) {
-      const float send = up ? v[k] : v[k + half];
-      const float keep = up ? v[k + half] : v[k];
-      v[k] = __fadd_rn(keep, __shfl_xor_sync(FULL, send, m));
+      for (int k = 0; k < HALF; ++k) {
+        const float send = up ? v[k] : v[k + HALF];
+        const float keep = up ? v[k + HALF] : v[k];
+        v[k] = __fadd_rn(keep, __shfl_xor_sync(FULL, send, M));
+      }
+    } else {
+      v[0] = __fadd_rn(v[0], __shfl_xor_sync(FULL, v[0], M));
     }
-    if (up) sel += half;
-    m >>= 1;
+    item_level<K, HALF / 2, M / 2>(v, lane);
   }
-#pragma unroll
-  for (; m >= 1; m >>= 1)
-    v[0] = __fadd_rn(v[0], __shfl_xor_sync(FULL, v[0], m));
-  *row = sel;
+}
+
+// The sums over the warp of K items, each lane holding one partial of
+// every item in v[]: a transposed butterfly halves the items a lane holds
+// at each lane bit 16, 8, ... (the lane with the bit set keeps the upper
+// half and adds its partner's), and a plain butterfly finishes the bits
+// left once a lane holds one item. Every item is summed by the same tree
+// over the lane bits 16, 8, 4, 2, 1 whatever K is; lane l ends up with
+// item l >> (5 - log2 K), in 32 / K lanes alike.
+template <int K>
+__device__ __forceinline__ float warp_item_sums(float (&v)[K], int lane) {
+  item_level<K, K / 2, 16>(v, lane);
   return v[0];
 }
 
-// A block owns EXT_ROWS rows of one (batch row, head) state (blockIdx.z
-// picks which); NPL columns per lane (n = 32 * NPL).
-template <int NPL>
-__global__ void __launch_bounds__(EXT_THREADS)
-    ssd_extend_kernel(const ExtArgs a) {
+// The first nt tokens of a tile (nt = TT: no mask): the state advances
+// token by token; part[token * EXT_RPW + row] receives the lane's partial
+// of that token's readout of that row (0 for a masked token).
+template <int NPL, int TT>
+__device__ __forceinline__ void ext_tokens(float (&s)[EXT_RPW][NPL],
+                                           float (&part)[TT * EXT_RPW],
+                                           const float* bs, const float* cs,
+                                           const float* xdt, const float* da,
+                                           int lane, int nt) {
   constexpr int N = 32 * NPL;
-  __shared__ float xs[EXT_TT][EXT_ROWS];
-  __shared__ float bs[EXT_TT][N];
-  __shared__ float cs[EXT_TT][N];
-  __shared__ float dts[EXT_TT];
-
-  const int h = blockIdx.x;
-  const long long b = blockIdx.y;
-  const int r0 = blockIdx.z * EXT_ROWS;  // the block's first state row
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = h / (a.H / a.G);
-  const float Ah = a.A[h];
-  const float Dh = a.D[h];
-  const long long soff = ((long long)h * a.P + r0) * N;
-
-  float s[EXT_RPW][NPL];
-  const float* sp = a.s_in + b * a.s_in_sb + soff;
 #pragma unroll
-  for (int i = 0; i < EXT_RPW; ++i)
-#pragma unroll
-    for (int j = 0; j < NPL; ++j)
-      s[i][j] = sp[(warp + EXT_WARPS * i) * N + lane + 32 * j];
-  if (a.ckpt != nullptr) {
-    float* cp = a.ckpt + b * a.ckpt_sb + soff;
-#pragma unroll
-    for (int i = 0; i < EXT_RPW; ++i)
-#pragma unroll
-      for (int j = 0; j < NPL; ++j)
-        cp[(warp + EXT_WARPS * i) * N + lane + 32 * j] = s[i][j];
-  }
-
-  const float* xb = a.x + b * a.x_sb + (long long)h * a.x_sh + r0;
-  const float* dtb = a.dt + b * a.dt_sb + h;
-  const float* Bb = a.B + b * a.b_sb + (long long)g * a.b_sg;
-  const float* Cb = a.C + b * a.c_sb + (long long)g * a.c_sg;
-  float* yb = a.y + (b * a.T * a.H + h) * a.P + r0;
-
-  for (int t0 = 0; t0 < a.T; t0 += EXT_TT) {
-    const int nt = min(EXT_TT, a.T - t0);
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = threadIdx.x; idx < nt * EXT_ROWS; idx += EXT_THREADS) {
-      const int tt = idx / EXT_ROWS, r = idx % EXT_ROWS;
-      xs[tt][r] = xb[(t0 + tt) * a.x_st + r];
-    }
-    for (int idx = threadIdx.x; idx < nt * N; idx += EXT_THREADS) {
-      const int tt = idx / N, c = idx % N;
-      bs[tt][c] = Bb[(t0 + tt) * a.b_st + c];
-      cs[tt][c] = Cb[(t0 + tt) * a.c_st + c];
-    }
-    if (threadIdx.x < nt) dts[threadIdx.x] = dtb[(t0 + threadIdx.x) * a.dt_st];
-    __syncthreads();
-
-    for (int tt = 0; tt < nt; ++tt) {
-      const float d = dts[tt];
-      const float dA = expf(__fmul_rn(d, Ah));
-      float bv[NPL], cv[NPL], part[EXT_RPW];
+  for (int tt = 0; tt < TT; ++tt) {
+    if (tt < nt) {
+      const float dA = da[tt];
+      static_assert(EXT_RPW == 2, "a token's x*dt is read as a float2");
+      const float2 xd = *reinterpret_cast<const float2*>(xdt + tt * 2);
+      const float xv[EXT_RPW] = {xd.x, xd.y};
+      float bv[NPL], cv[NPL];
 #pragma unroll
       for (int j = 0; j < NPL; ++j) {
-        bv[j] = bs[tt][lane + 32 * j];
-        cv[j] = cs[tt][lane + 32 * j];
+        bv[j] = bs[tt * N + lane + 32 * j];
+        cv[j] = cs[tt * N + lane + 32 * j];
       }
 #pragma unroll
       for (int i = 0; i < EXT_RPW; ++i) {
-        const float xdt = __fmul_rn(xs[tt][warp + EXT_WARPS * i], d);
         float acc = 0.f;
 #pragma unroll
         for (int j = 0; j < NPL; ++j) {
-          s[i][j] = __fmaf_rn(xdt, bv[j], __fmul_rn(s[i][j], dA));
+          s[i][j] = __fmaf_rn(xv[i], bv[j], __fmul_rn(s[i][j], dA));
           acc = __fmaf_rn(s[i][j], cv[j], acc);
         }
-        part[i] = acc;
+        part[tt * EXT_RPW + i] = acc;
       }
-      int i;
-      const float tot = warp_row_sums<EXT_RPW>(part, lane, &i);
-      if ((lane & (32 / EXT_RPW - 1)) == 0) {  // one lane per row
-        const int r = warp + EXT_WARPS * i;
-        yb[(long long)(t0 + tt) * a.H * a.P + r] =
-            __fmaf_rn(Dh, xs[tt][r], tot);
-      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < EXT_RPW; ++i) part[tt * EXT_RPW + i] = 0.f;
     }
   }
+}
 
-  float* op = a.s_out + b * a.s_out_sb + soff;
+// A block owns a.rows consecutive state rows (numbered h * P + r) of
+// batch row blockIdx.y, starting at blockIdx.x * a.rows; NPL columns a
+// lane (n = 32 * NPL), TT tokens a tile. One block an SM is all the
+// plan asks for, so ptxas may use 128 registers a thread at 512 threads.
+template <int NPL, int TT>
+__global__ void __launch_bounds__(EXT_MAX_WARPS * 32, 1)
+    ssd_extend_kernel(const ExtArgs a) {
+  constexpr int N = 32 * NPL;
+  constexpr int K = TT * EXT_RPW;  // (token, row) items of a warp's tile
+  constexpr int SHIFT = 5 - log2i(K);
+  static_assert(K <= 32 && (K & (K - 1)) == 0, "a tile's items fit a warp");
+  extern __shared__ __align__(16) unsigned char ext_smem[];
+  ExtSmem<TT, N>& sm = *reinterpret_cast<ExtSmem<TT, N>*>(ext_smem);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long b = blockIdx.y;
+  const int fr0 = blockIdx.x * a.rows;
+  const int fr = fr0 + EXT_RPW * warp;  // the warp's first row
+  const int h = fr / a.P, r = fr % a.P;
+  const int g = fr0 / a.P / (a.H / a.G);
+  const float Ah = a.A[h], Dh = a.D[h];
+  const int ntiles = (a.T + TT - 1) / TT;
+  const float* Bb = a.B + b * a.b_sb + (long long)g * a.b_sg;
+  const float* Cb = a.C + b * a.c_sb + (long long)g * a.c_sg;
+  const float* xw = a.x + b * a.x_sb + (long long)h * a.x_sh + r;
+  const float* dtw = a.dt + b * a.dt_sb + h;
+
+  // tile k's copies into buffer k % EXT_STAGES (only its tokens before
+  // T: a masked token's slots are never read into the state or y); one
+  // commit group a tile, an empty one past the last
+  auto stage = [&](int k) {
+    if (k < ntiles) {
+      const int buf = k % EXT_STAGES, t0 = k * TT;
+      const int nt = min(TT, a.T - t0);
+      const float* Bt = Bb + t0 * a.b_st;
+      const float* Ct = Cb + t0 * a.c_st;
+      if (a.vec_bc) {
+        for (int i = threadIdx.x; i < nt * (N / 4); i += blockDim.x) {
+          const int tt = i / (N / 4), c = 4 * (i % (N / 4));
+          attn::cp_async16(&sm.b[buf][tt][c], Bt + tt * a.b_st + c, true);
+          attn::cp_async16(&sm.c[buf][tt][c], Ct + tt * a.c_st + c, true);
+        }
+      } else {
+        for (int i = threadIdx.x; i < nt * N; i += blockDim.x) {
+          const int tt = i / N, c = i % N;
+          attn::cp_async4(&sm.b[buf][tt][c], Bt + tt * a.b_st + c, true);
+          attn::cp_async4(&sm.c[buf][tt][c], Ct + tt * a.c_st + c, true);
+        }
+      }
+      if (lane < nt * EXT_RPW) {
+        const int tt = lane / EXT_RPW, i = lane % EXT_RPW;
+        attn::cp_async4(&sm.x[buf][warp][tt][i],
+                        xw + (t0 + tt) * a.x_st + i, true);
+      }
+      if (lane < nt)
+        attn::cp_async4(&sm.dt[buf][warp][lane], dtw + (t0 + lane) * a.dt_st,
+                        true);
+    }
+    attn::cp_async_commit();
+  };
+#pragma unroll
+  for (int k = 0; k < EXT_STAGES - 1; ++k) stage(k);
+
+  // the state, while the first tiles are in flight; the incoming state
+  // to the checkpoint
+  float s[EXT_RPW][NPL];
+  const long long so = (long long)fr * N + lane;
+  const float* sp = a.s_in + b * a.s_in_sb + so;
 #pragma unroll
   for (int i = 0; i < EXT_RPW; ++i)
 #pragma unroll
-    for (int j = 0; j < NPL; ++j)
-      op[(warp + EXT_WARPS * i) * N + lane + 32 * j] = s[i][j];
+    for (int j = 0; j < NPL; ++j) s[i][j] = sp[i * N + 32 * j];
+  if (a.ckpt != nullptr) {
+    float* cp = a.ckpt + b * a.ckpt_sb + so;
+#pragma unroll
+    for (int i = 0; i < EXT_RPW; ++i)
+#pragma unroll
+      for (int j = 0; j < NPL; ++j) cp[i * N + 32 * j] = s[i][j];
+  }
+
+  const long long ystep = (long long)a.H * a.P;
+  float* yw = a.y + b * a.T * ystep + fr;
+  for (int k = 0; k < ntiles; ++k) {
+    attn::cp_async_wait<EXT_STAGES - 2>();  // this thread's copies of k
+    __syncthreads();  // everyone's copies of k; tile k - 1 is consumed
+    stage(k + EXT_STAGES - 1);
+    const int buf = k % EXT_STAGES, t0 = k * TT;
+    const int nt = min(TT, a.T - t0);
+    if (lane < K) {
+      const int tt = lane / EXT_RPW, i = lane % EXT_RPW;
+      sm.xdt[warp][tt][i] =
+          __fmul_rn(sm.x[buf][warp][tt][i], sm.dt[buf][warp][tt]);
+    }
+    if (lane < TT)
+      sm.da[warp][lane] = expf(__fmul_rn(sm.dt[buf][warp][lane], Ah));
+    __syncwarp();
+    float part[K];
+    const float* bs = &sm.b[buf][0][0];
+    const float* cs = &sm.c[buf][0][0];
+    if (nt == TT)
+      ext_tokens<NPL, TT>(s, part, bs, cs, &sm.xdt[warp][0][0],
+                          sm.da[warp], lane, TT);
+    else
+      ext_tokens<NPL, TT>(s, part, bs, cs, &sm.xdt[warp][0][0],
+                          sm.da[warp], lane, nt);
+    const float tot = warp_item_sums<K>(part, lane);
+    const int item = lane >> SHIFT, tt = item / EXT_RPW, i = item % EXT_RPW;
+    if ((lane & ((1 << SHIFT) - 1)) == 0 && tt < nt)
+      yw[(t0 + tt) * ystep + i] =
+          __fmaf_rn(Dh, sm.x[buf][warp][tt][i], tot);
+  }
+
+  float* op = a.s_out + b * a.s_out_sb + so;
+#pragma unroll
+  for (int i = 0; i < EXT_RPW; ++i)
+#pragma unroll
+    for (int j = 0; j < NPL; ++j) op[i * N + 32 * j] = s[i][j];
+}
+
+template <int NPL, int TT>
+int launch_extend(const ExtArgs& a, dim3 grid, int threads,
+                  cudaStream_t stream) {
+  const int bytes = (int)sizeof(ExtSmem<TT, 32 * NPL>);
+  auto kern = ssd_extend_kernel<NPL, TT>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  kern<<<grid, threads, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // --------------------------------------------------------------------- //
@@ -485,32 +622,41 @@ extern "C" {
 
 // ssd_extend: T recurrence steps from s_in; the new state goes to s_out
 // (may equal s_in), the incoming one to ckpt when it is not null. p in
-// {32, 64}, n in {32, 64, 128}; every buffer f32. Returns a cudaError_t,
-// or -1 for a shape without an instance.
+// {32, 64}, n in {32, 64, 128}; every buffer f32. The plan (rows a
+// block, tokens a tile) comes from kernels/ssd_scan/kernel.py::
+// extend_plan: rows an even number up to 32 that divides a group's
+// (h / g) * p rows, tt 1 or 16. Returns a cudaError_t, or -1 for a shape
+// or plan without an instance.
 int ssd_extend_launch(const void* s_in, void* s_out, void* ckpt,
                       const void* x, const void* dt, const void* A,
                       const void* B, const void* C, const void* D, void* y,
-                      int batch, int T, int H, int G, int P, int N,
-                      long long s_in_sb, long long s_out_sb,
+                      int batch, int T, int H, int G, int P, int N, int rows,
+                      int tt, long long s_in_sb, long long s_out_sb,
                       long long ckpt_sb, long long x_sb, long long x_st,
                       long long x_sh, long long dt_sb, long long dt_st,
                       long long b_sb, long long b_st, long long b_sg,
                       long long c_sb, long long c_st, long long c_sg,
                       void* stream) {
-  if (P % EXT_ROWS || P > 2 * EXT_ROWS) return -1;
+  if (P % EXT_RPW || G < 1 || H % G || rows < EXT_RPW ||
+      rows > EXT_RPW * EXT_MAX_WARPS || rows % EXT_RPW ||
+      (H / G * P) % rows)
+    return -1;
+  const bool vec_bc = ((uintptr_t)B | (uintptr_t)C) % 16 == 0 &&
+                      (b_sb | b_st | b_sg | c_sb | c_st | c_sg) % 4 == 0;
   ExtArgs a{(const float*)s_in, (float*)s_out, (float*)ckpt,
             (const float*)x, (const float*)dt, (const float*)A,
             (const float*)B, (const float*)C, (const float*)D, (float*)y,
-            T, H, G, P, s_in_sb, s_out_sb, ckpt_sb, x_sb, x_st, x_sh,
-            dt_sb, dt_st, b_sb, b_st, b_sg, c_sb, c_st, c_sg};
+            T, H, G, P, rows, vec_bc, s_in_sb, s_out_sb, ckpt_sb,
+            x_sb, x_st, x_sh, dt_sb, dt_st, b_sb, b_st, b_sg, c_sb, c_st,
+            c_sg};
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid(H, batch, P / EXT_ROWS);
-#define EXT_CASE(NN)                                            \
-  if (N == NN) {                                                \
-    ssd_extend_kernel<NN / 32><<<grid, EXT_THREADS, 0, s>>>(a); \
-    return (int)cudaGetLastError();                             \
-  }
-  EXT_CASE(32) EXT_CASE(64) EXT_CASE(128)
+  const dim3 grid(H * P / rows, batch);
+  const int threads = rows / EXT_RPW * 32;
+#define EXT_CASE(NN, TT)                                       \
+  if (N == NN && tt == TT)                                     \
+    return launch_extend<NN / 32, TT>(a, grid, threads, s);
+  EXT_CASE(32, 1) EXT_CASE(64, 1) EXT_CASE(128, 1)
+  EXT_CASE(32, EXT_TILE) EXT_CASE(64, EXT_TILE) EXT_CASE(128, EXT_TILE)
 #undef EXT_CASE
   return -1;
 }

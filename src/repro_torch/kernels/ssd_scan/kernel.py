@@ -11,10 +11,19 @@ dimension is not contiguous is copied first). States are never copied:
 a state output must have contiguous (h, p, n) dimensions. Outputs are allocated
 here; the extend kernel writes its new state into ``out`` when given (the
 cache's own leaf, in place) and the incoming state into ``ckpt``.
+
+The extend kernel's launch comes from ``extend_plan``, a pure function of
+the shapes: ``tt`` tokens a tile (1, the decode route, at T = 1; else 16,
+the chunk route, which advances the state through a tile before it
+reduces the tile's readouts together) and ``rows`` state rows a block (2
+a warp), the fewest that keep the grid within one block per SM, else 32.
+Both routes run one arithmetic per token, so a token's bits depend
+neither on T nor on the route.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -24,6 +33,14 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)              # p the kernels are instantiated for
 STATE_DIMS = (32, 64, 128)        # n
 MAX_CHUNK = 256
+#: the extend kernel: state rows a warp, the most rows a block (16
+#: warps), tokens a tile on the chunk route, the staging ring's depth, the
+#: SMs a grid aims to fill at most once
+EXT_RPW = 2
+EXT_MAX_ROWS = 32
+EXT_TILE = 16
+EXT_STAGES = 3
+SMS = 132
 _FNS = {}
 
 
@@ -33,7 +50,7 @@ def _launcher(name):
         fn = getattr(_build.load("ssd_scan"), name)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if name == "ssd_extend_launch":
-            fn.argtypes = [p] * 10 + [i] * 6 + [ll] * 14 + [p]
+            fn.argtypes = [p] * 10 + [i] * 8 + [ll] * 14 + [p]
         else:
             fn.argtypes = [p] * 9 + [i] * 8 + [ll] * 11 + [p]
         fn.restype = ctypes.c_int
@@ -83,6 +100,45 @@ def _check_state(name, t, b, h, p, n):
                          f"{t.stride()}")
 
 
+class ExtendPlan(NamedTuple):
+    """How one extend call runs: ``tt`` tokens a tile, ``rows`` state
+    rows a block (``rows // 2`` warps, ``threads`` threads), a grid of
+    ``blocks`` (the (h * p) // rows blocks of a batch row, by ``batch``)
+    and ``smem`` bytes of dynamic shared memory a block."""
+    tt: int
+    rows: int
+    blocks: int
+    batch: int
+    threads: int
+    smem: int
+
+
+def extend_smem_bytes(tt: int, n: int) -> int:
+    """The kernel's ``ExtSmem<tt, n>``: the staging ring of B, C (tt x n
+    each), x (16 warps x tt x 2) and dt (16 x tt), and a warp's x*dt and
+    decay."""
+    w = EXT_MAX_ROWS // EXT_RPW
+    ring = 2 * tt * n + w * tt * EXT_RPW + w * tt
+    return 4 * (EXT_STAGES * ring + w * tt * EXT_RPW + w * tt)
+
+
+def extend_plan(b: int, T: int, h: int, p: int, g: int,
+                n: int) -> ExtendPlan:
+    """The extend launch for state (b, h, p, n) over T tokens with g
+    groups: the chunk route (tiles of ``EXT_TILE`` tokens) for T > 1, the
+    decode route (tt 1) at T = 1; ``rows`` the smallest even number up
+    to 32 that divides a group's (h / g) * p rows and gives at most
+    ``SMS`` blocks (b 1 at mamba2's dims: 24 rows, 128 blocks), else 32
+    (decode at b 8: 768 blocks, one per 32 rows)."""
+    per_group, total = h // g * p, b * h * p
+    rows = next((r for r in range(EXT_RPW, EXT_MAX_ROWS + 1, EXT_RPW)
+                 if per_group % r == 0 and total // r <= SMS),
+                EXT_MAX_ROWS)
+    tt = 1 if T == 1 else EXT_TILE
+    return ExtendPlan(tt, rows, h * p // rows, b, rows // EXT_RPW * 32,
+                      extend_smem_bytes(tt, n))
+
+
 def ssd_extend_cuda(state, x, dt, A, B, C, D=None, *, out=None, ckpt=None):
     """T recurrence steps from ``state`` (b, h, p, n) f32: x (b, T, h, p),
     dt (b, T, h), B/C (b, T, g, n), all f32; A, D (h,) f32. Returns (y (b,
@@ -105,12 +161,13 @@ def ssd_extend_cuda(state, x, dt, A, B, C, D=None, *, out=None, ckpt=None):
     for t in (state, out) + (() if ckpt is None else (ckpt,)):
         _check_state("ssd_extend_cuda", t, b, h, p, n)
     y = torch.empty((b, T, h, p), dtype=torch.float32, device=x.device)
+    pl = extend_plan(b, T, h, p, g, n)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _launcher("ssd_extend_launch")(
         state.data_ptr(), out.data_ptr(),
         None if ckpt is None else ckpt.data_ptr(), x.data_ptr(),
         dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-        D.data_ptr(), y.data_ptr(), b, T, h, g, p, n,
+        D.data_ptr(), y.data_ptr(), b, T, h, g, p, n, pl.rows, pl.tt,
         state.stride(0), out.stride(0),
         0 if ckpt is None else ckpt.stride(0),
         x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1),

@@ -150,11 +150,10 @@ def test_kernels_match_plain_on_card():
                 err = (got.float() - want.float()).abs().max().item()
                 assert got.dtype == dt and got.shape == (M, N)
                 assert err <= tol * want.float().abs().max().item()
-    # the SSD kernels: max|kernel - plain| <= 1e-4 * max|plain| (f32
-    # arithmetic, sums in another order); the extend kernel bitwise
-    # compositional, identity at dt = 0, and ssd_step its T = 1 launch
+    # the chunked SSD kernel: max|kernel - plain| <= 1e-4 * max|plain|
+    # (f32 arithmetic, sums in another order); the recurrence kernel has
+    # its own cases (test_ssd_extend_routes_match_plain_on_card)
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
-    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
     def ssd_inputs(b, l, h, p, g, n, dtype=torch.float32):
@@ -169,33 +168,6 @@ def test_kernels_match_plain_on_card():
         return (got - want).abs().max().item() / want.abs().max().item()
 
     g_ = torch.Generator(device=dev).manual_seed(1)
-    for b, T, h, p, g, n in ((8, 1, 48, 64, 1, 128), (1, 37, 48, 64, 1, 128),
-                             (2, 5, 16, 32, 2, 32)):
-        x, dt_, A, Bm, Cm, D = ssd_inputs(b, T, h, p, g, n)
-        s0 = torch.randn((b, h, p, n), generator=g_, device=dev)
-        y, s = ssd_kernel.ssd_extend_cuda(s0, x, dt_, A, Bm, Cm, D)
-        y0, s1 = ssd_ref.ssd_extend_reference(s0, x, dt_, A, Bm, Cm, D)
-        assert rel(y, y0) <= 1e-4 and rel(s, s1) <= 1e-4
-        t1 = T // 2
-        if t1:
-            ya, sa = ssd_kernel.ssd_extend_cuda(
-                s0, x[:, :t1], dt_[:, :t1], A, Bm[:, :t1], Cm[:, :t1], D)
-            yb, sb = ssd_kernel.ssd_extend_cuda(
-                sa, x[:, t1:], dt_[:, t1:], A, Bm[:, t1:], Cm[:, t1:], D)
-            assert torch.equal(torch.cat([ya, yb], 1), y)
-            assert torch.equal(sb, s)
-        # x whose last dimension is not contiguous (as an einsum may
-        # leave the conv output) is copied by the wrapper
-        xt = x[:, 0].transpose(1, 2).contiguous().transpose(1, 2)
-        ys, ss = ssd_ops.ssd_step(s0, xt, dt_[:, 0], A, Bm[:, 0],
-                                  Cm[:, 0], D)
-        yk, sk = ssd_kernel.ssd_extend_cuda(s0, x[:, :1], dt_[:, :1], A,
-                                            Bm[:, :1], Cm[:, :1], D)
-        assert torch.equal(ys, yk[:, 0]) and torch.equal(ss, sk)
-        state, ckpt = s0.clone(), torch.empty_like(s0)
-        ssd_kernel.ssd_extend_cuda(state, x, torch.zeros_like(dt_), A, Bm,
-                                   Cm, D, out=state, ckpt=ckpt)
-        assert torch.equal(state, s0) and torch.equal(ckpt, s0)
     for b, l, h, p, g, n, chunk in ((1, 512, 48, 64, 1, 128, 256),
                                     (2, 64, 16, 32, 2, 32, 32),
                                     (1, 48, 6, 32, 3, 64, 16)):
@@ -443,3 +415,101 @@ def test_int8_mma_route_matches_plain_on_card(case):
         pl, _err(got, want))
     again = qmm_kernel.quant_matmul_int8_cuda(x, qt["q"], qt["scale"])
     assert torch.equal(again, got)
+
+
+# (name, b, T, h, p, g, n, layout): mamba2-780m's decode (B 8, T 1) and
+# chunk (B 1, T 128) shapes and two chunks (T 256); ragged T 5 and 37 at
+# the reduced dims with 2 groups; p 32 with n 32 and 64. ``layout``:
+# "packed", x, B and C slices of one conv-output row as the model passes
+# them (16-byte copies); "offset", the same shifted by one float (4-byte
+# copies); "dense", separate tensors
+SSD_EXTEND_CASES = [
+    ("decode", 8, 1, 48, 64, 1, 128, "packed"),
+    ("chunk", 1, 128, 48, 64, 1, 128, "packed"),
+    ("chunk_T256", 1, 256, 48, 64, 1, 128, "dense"),
+    ("chunk_offset", 1, 128, 48, 64, 1, 128, "offset"),
+    ("reduced_g2_T5", 2, 5, 16, 32, 2, 32, "dense"),
+    ("reduced_g2_T37", 2, 37, 16, 32, 2, 32, "offset"),
+    ("p32_n32", 3, 37, 8, 32, 1, 32, "packed"),
+    ("p32_n64", 1, 37, 8, 32, 2, 64, "packed"),
+]
+
+
+def _ssd_extend_inputs(b, T, h, p, g, n, layout, *, seed):
+    """x, dt, A, B, C, D and a state on the card from a seeded generator
+    (the kernels phase's distributions); x, B, C laid out as ``layout``
+    says."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d_in = h * p
+    width = d_in + 2 * g * n + (layout == "offset")
+    xbc = torch.randn((b, T, width), generator=gen, device=dev)
+    if layout == "offset":
+        xbc = xbc[..., 1:]
+    x = xbc[..., :d_in].unflatten(-1, (h, p))
+    B = xbc[..., d_in:d_in + g * n].unflatten(-1, (g, n))
+    C = xbc[..., d_in + g * n:].unflatten(-1, (g, n))
+    if layout == "dense":
+        x, B, C = x.contiguous(), B.contiguous(), C.contiguous()
+    dt = 0.001 + 0.1 * torch.rand((b, T, h), generator=gen, device=dev)
+    A = -0.5 - 1.5 * torch.rand((h,), generator=gen, device=dev)
+    D = torch.randn((h,), generator=gen, device=dev)
+    s0 = torch.randn((b, h, p, n), generator=gen, device=dev)
+    return x, dt, A, B, C, D, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_EXTEND_CASES, ids=lambda c: c[0])
+def test_ssd_extend_routes_match_plain_on_card(case):
+    """The recurrence kernel on the route its plan picks: within 1e-4
+    max|plain| of the plain loop of steps (f32, the readout summed in
+    another order), y and the state; extending by t1 then T - t1 tokens
+    gives the bits of extending by T at t1 = 1, the tile's edges (tile -
+    1, tile, tile + 1) and 37, across routes (t1 = 1 is a T = 1 launch);
+    a batch row with dt = 0 keeps its state bit for bit; ``ssd_step`` (x
+    with a non-contiguous last dimension, which the wrapper copies) gives
+    the bits of the T = 1 launch; in place (``out=state``) the result is
+    the out-of-place one and ``ckpt`` receives the incoming state."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+
+    name, b, T, h, p, g, n, layout = case
+    x, dt, A, B, C, D, s0 = _ssd_extend_inputs(b, T, h, p, g, n, layout,
+                                               seed=T + n)
+    pl = ssd_kernel.extend_plan(b, T, h, p, g, n)
+    assert pl.tt == (1 if T == 1 else ssd_kernel.EXT_TILE)
+
+    def ext(t0, t1, state, **kw):
+        return ssd_kernel.ssd_extend_cuda(
+            state, x[:, t0:t1], dt[:, t0:t1], A, B[:, t0:t1], C[:, t0:t1],
+            D, **kw)
+
+    y, s = ext(0, T, s0)
+    y0, s1 = ssd_ref.ssd_extend_reference(s0, x, dt, A, B, C, D)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    for got, want in ((y, y0), (s, s1)):
+        assert _err(got, want) <= 1e-4 * want.abs().max().item(), (
+            pl, _err(got, want))
+    tile = ssd_kernel.EXT_TILE
+    for t1 in sorted({1, tile - 1, tile, tile + 1, 37}):
+        if t1 < T:
+            ya, sa = ext(0, t1, s0)
+            yb, sb = ext(t1, T, sa)
+            assert torch.equal(torch.cat([ya, yb], 1), y), t1
+            assert torch.equal(sb, s), t1
+    dt0 = dt.clone()
+    dt0[0] = 0.0
+    _, sz = ssd_kernel.ssd_extend_cuda(s0, x, dt0, A, B, C, D)
+    assert torch.equal(sz[0], s0[0])
+    xt = x[:, 0].transpose(1, 2).contiguous().transpose(1, 2)
+    assert xt.stride(-1) != 1
+    ys, ss = ssd_ops.ssd_step(s0, xt, dt[:, 0], A, B[:, 0], C[:, 0], D)
+    yk, sk = ext(0, 1, s0)
+    assert torch.equal(ys, yk[:, 0]) and torch.equal(ss, sk)
+    state, ckpt = s0.clone(), torch.empty_like(s0)
+    yi, si = ext(0, T, state, out=state, ckpt=ckpt)
+    assert si is state
+    assert torch.equal(yi, y) and torch.equal(state, s)
+    assert torch.equal(ckpt, s0)

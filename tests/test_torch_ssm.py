@@ -134,12 +134,15 @@ def test_ssd_extend_is_bitwise_compositional():
     """[t1] + [t2] == [t1 + t2] == T single steps, bit for bit; a row
     whose dt is 0 comes out with its state unchanged; ``out`` may be the
     state itself and ``ckpt`` receives the incoming state."""
-    b, T, h, p, g, n = 3, 9, 4, 32, 2, 32
+    tile = tkernel.EXT_TILE
+    b, T, h, p, g, n = 3, 2 * tile + 3, 4, 32, 2, 32
     x, dt, A, B, C, D = map(_t, _ssd_inputs(b, T, h, p, g, n, seed=5))
     s0 = _t(np.random.default_rng(6).standard_normal((b, h, p, n)).astype(
         np.float32))
     y, s = ops.ssd_extend(s0, x, dt, A, B, C, D)
-    for t1 in (1, 4):
+    # 1 (the decode route's one token, then the chunk route), 4, and the
+    # edges of the kernel's tiles
+    for t1 in (1, 4, tile - 1, tile, tile + 1, 2 * tile, 2 * tile + 1):
         ya, sa = ops.ssd_extend(s0, x[:, :t1], dt[:, :t1], A, B[:, :t1],
                                 C[:, :t1], D)
         yb, sb = ops.ssd_extend(sa, x[:, t1:], dt[:, t1:], A, B[:, t1:],
@@ -159,6 +162,45 @@ def test_ssd_extend_is_bitwise_compositional():
     assert torch.equal(ckpt, s0)
     assert torch.equal(state[1], s0[1])
     assert not torch.equal(state[0], s0[0])
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("T", [1, 128])
+@pytest.mark.parametrize("p,n", [(p, n) for p in tkernel.HEAD_DIMS
+                                 for n in tkernel.STATE_DIMS])
+@pytest.mark.parametrize("h,g", [(48, 1), (16, 2)])
+def test_extend_plan_is_a_legal_launch_covering_every_row(b, T, p, n, h, g):
+    """The recurrence kernel's plan: the decode route (a tile of 1 token)
+    at T = 1, else tiles of ``EXT_TILE``; a block of 1 to 16 warps, its
+    dynamic shared memory (the kernel's ``ExtSmem``) within the 227 KB a
+    block may use; every state row (batch row, head, row) owned by exactly
+    one warp of one block, a warp's rows in one head, a block's rows in
+    one group; no more blocks than SMs unless 32 rows a block (the most)
+    still give more; at mamba2-780m's dims, 24 rows (128 blocks) at b 1
+    and 32 (768) at decode's b 8."""
+    pl = tkernel.extend_plan(b, T, h, p, g, n)
+    assert pl.tt == (1 if T == 1 else tkernel.EXT_TILE)
+    assert pl.rows % tkernel.EXT_RPW == 0
+    assert tkernel.EXT_RPW <= pl.rows <= tkernel.EXT_MAX_ROWS
+    assert pl.threads == pl.rows // tkernel.EXT_RPW * 32 <= 512
+    assert pl.smem <= 227 * 1024
+    assert pl.batch == b and pl.blocks * pl.rows == h * p
+    assert pl.blocks * b <= tkernel.SMS or pl.rows == tkernel.EXT_MAX_ROWS
+    owned = np.zeros((b, h, p), dtype=np.int64)
+    for by in range(pl.batch):
+        for bx in range(pl.blocks):
+            groups = set()
+            for w in range(pl.threads // 32):
+                fr = bx * pl.rows + tkernel.EXT_RPW * w + np.arange(
+                    tkernel.EXT_RPW)
+                heads = set((fr // p).tolist())
+                assert len(heads) == 1
+                groups.add(heads.pop() // (h // g))
+                np.add.at(owned, (by, fr // p, fr % p), 1)
+            assert len(groups) == 1
+    assert (owned == 1).all()
+    if (h, p, g, n) == (48, 64, 1, 128):
+        assert (pl.rows, pl.blocks * b) == {1: (24, 128), 8: (32, 768)}[b]
 
 
 def test_ssd_cpu_tensors_take_the_plain_version():
