@@ -51,15 +51,24 @@ card). The decode-attention cases cover both tensor-core routes of its
 plan (R <= 16 rows and above, S split over blocks, a fully masked row
 at T 1 and T 16); every timed attention case records its plan and the
 rates it reached, and the ``build`` line every template's ptxas
-registers and spills (a spilling tensor-core or ``ssd_extend`` template
-fails the run); every profile line splits the ``ssd_extend`` device time
-by template (route).
+registers and spills (a spilling tensor-core, ``ssd_extend`` or
+``rmsnorm_kernel`` template fails the run); every profile line splits
+the ``ssd_extend`` device time by template (route) and gates the norm's
+launch counter at 2 n_layers + 1 a forward. The RMSNorm kernel's three
+routes (add + norm, the norm alone, Mamba-2's gated norm) are held
+against their plain versions at llama3.2-1b's, pixtral-12b's and
+mamba2-780m's shapes, bitwise repeatable, each timed with its host
+microseconds per call (enqueue only).
 Every phase prints one JSON line; any failure raises and the
 script exits non-zero without the final line. The second-to-last lines are the
 kernel summary (JSON) and the card's name and power limit as
 ``nvidia-smi`` reports them; the last line is ``{"ok": true, "device":
 {...}}``. Exits non-zero without a CUDA device, and when the port's
 package is not beside it.
+
+    python3 chip_smoke.py --norm-host-us SRC
+
+times another checkout's norm wrapper alone (``norm_host_cost``).
 """
 from __future__ import annotations
 
@@ -79,7 +88,7 @@ PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core rate, published
 DECODE_ATTN_SRC = "src/repro_torch/csrc/decode_attention.cu"
 DECODE_ATTN_TPU = "src/repro/kernels/decode_attention/kernel.py:157"
 PAGED_ATTN_TPU = "src/repro/kernels/decode_attention/kernel.py:90"
-RMSNORM_SRC = "src/repro_torch/kernels/rmsnorm/kernel.py"
+RMSNORM_SRC = "src/repro_torch/csrc/rmsnorm.cu"
 RMSNORM_TPU = "src/repro/kernels/rmsnorm/kernel.py:30"
 QMM_SRC = "src/repro_torch/csrc/quant_matmul.cu"
 QMM_TPU = {8: "src/repro/kernels/quant_matmul/kernel.py:45",
@@ -414,64 +423,144 @@ def paged_decode_attention_cases(torch, flush):
     return out, max(errs)
 
 
+def host_us(torch, fn, n=200):
+    """Host microseconds per call of ``fn``, enqueue only: a spin on the
+    card (~5 ms) keeps the stream busy, so no call waits on the device."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(n * 50_000)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+#: (case, N, d, route, scale in the other dtype than the rows):
+#: llama3.2-1b's d 2048 at a decode batch (N 8), a chunk (N 128) and
+#: ``model.lm``'s forward (B 2 x L 1024 = N 2048); pixtral-12b's d 5120
+#: in the Zoo's classifier forward (N 2048); mamba2-780m's d 1536 (ln1,
+#: ln_f) at N 8 and 128, and its gated norm at d_in 3072 (f32 y, z a
+#: slice of the 6448-wide in-projection row); each route once with an
+#: f32 scale on bf16 rows and a bf16 scale on f32 rows
+NORM_CASES = (("N8_d2048", 8, 2048, "add", False),
+              ("N128_d2048", 128, 2048, "add", False),
+              ("N8_d2048_no_residual", 8, 2048, "norm", False),
+              ("N2048_d2048", 2048, 2048, "add", False),
+              ("N2048_d5120", 2048, 5120, "add", False),
+              ("N8_d1536", 8, 1536, "add", False),
+              ("N128_d1536", 128, 1536, "add", False),
+              ("N8_d3072_gated", 8, 3072, "gated", False),
+              ("N128_d3072_gated", 128, 3072, "gated", False),
+              ("N8_d1536_other_scale", 8, 1536, "add", True),
+              ("N8_d2048_no_residual_other_scale", 8, 2048, "norm", True),
+              ("N8_d3072_gated_other_scale", 8, 3072, "gated", True))
+MAMBA2_PROJ = 6448       # mamba2-780m's in-projection width (z's stride)
+
+
 def rmsnorm_cases(torch, flush):
-    """The Triton norm against its plain version at the shapes its paths
-    give it: llama3.2-1b's d 2048 at a decode batch (N 8), a chunk
-    (N 128) and ``model.lm``'s forward (B 2 x L 1024 = N 2048), and
-    pixtral-12b's d 5120 in the Zoo's classifier forward (N 2048; a
-    non-power-of-two d, so a BLOCK 8192 launch with a masked tail); fp32
-    and bf16, timed against its bound wherever it adds a residual."""
+    """The CUDA norm against its plain version on its three routes at the
+    shapes its paths give it (``NORM_CASES``), fp32 and bf16: max abs
+    error within TOL (the gated route in bf16: within 2e-2 of max(1,
+    |plain|) element by element, since one rounding step of a bf16
+    output past 4 is 2^-5 and the sum of squares taken in another order
+    may move one), bitwise equal across two launches; each timed against
+    its bound, its plain version and, where one call computes the
+    function, add + ``F.rms_norm`` (the gated route has none), with the
+    wrapper's host microseconds per call (enqueue only)."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.rmsnorm.kernel import fused_rmsnorm_triton
-    from repro_torch.kernels.rmsnorm.ref import fused_rmsnorm_reference
+    from repro_torch.kernels.rmsnorm.kernel import (
+        fused_rmsnorm_cuda, gated_rmsnorm_cuda, plan)
+    from repro_torch.kernels.rmsnorm.ref import (
+        fused_rmsnorm_reference, gated_rmsnorm_reference)
 
     dev = torch.device("cuda")
     eps = 1e-5
     out, errs = [], []
-    for N, d, with_res in ((8, 2048, True), (128, 2048, True),
-                           (8, 2048, False), (2048, 2048, True),
-                           (2048, 5120, True)):
+    for case, N, d, route, other_scale in NORM_CASES:
         g = torch.Generator(device=dev).manual_seed(SEED)
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
-            x = torch.randn((N, d), generator=g, device=dev).to(dtype)
-            r = torch.randn((N, d), generator=g, device=dev).to(dtype) \
-                if with_res else None
+            elt = dtype.itemsize
+            sdt = dtype if not other_scale else (
+                torch.float32 if dtype == torch.bfloat16 else torch.bfloat16)
             scale = (1 + 0.1 * torch.randn((d,), generator=g, device=dev)
-                     ).to(dtype)
-            y, t = fused_rmsnorm_triton(x, r, scale, eps)
-            y0, t0 = fused_rmsnorm_reference(x, r, scale, eps)
+                     ).to(sdt)
+            if route == "gated":
+                y = torch.randn((N, d), generator=g, device=dev)
+                z = torch.randn((N, MAMBA2_PROJ), generator=g,
+                                device=dev).to(dtype)[:, :d]
+
+                def kernel():
+                    return gated_rmsnorm_cuda(y, z, scale, eps)
+
+                def plain():
+                    return gated_rmsnorm_reference(y, z, scale, eps)
+                library = None
+                # read y (f32) and z, write the output; silu (4), the
+                # product, the square and sum, two scalings
+                nbytes = N * d * (4 + 2 * elt) + sdt.itemsize * d
+                flops = 9 * N * d
+            else:
+                x = torch.randn((N, d), generator=g, device=dev).to(dtype)
+                r = torch.randn((N, d), generator=g, device=dev).to(dtype) \
+                    if route == "add" else None
+
+                def kernel():
+                    return fused_rmsnorm_cuda(x, r, scale, eps)
+
+                def plain():
+                    return fused_rmsnorm_reference(x, r, scale, eps)
+
+                def library():
+                    return F.rms_norm(x if r is None else torch.add(x, r),
+                                      (d,), scale, eps)
+                if other_scale:   # one call takes one dtype
+                    library = None
+                # read x (and the residual), write y (and t)
+                rw = 4 if route == "add" else 2
+                nbytes = elt * rw * N * d + sdt.itemsize * d
+                flops = (5 if route == "add" else 4) * N * d
+            got, want = kernel(), plain()
+            if route != "gated":
+                got, want = got[0], want[0]
+                t_err = (kernel()[1].float() - plain()[1].float()).abs().max()
+            repeat = torch.equal(kernel() if route == "gated"
+                                 else kernel()[0], got)
             torch.cuda.synchronize()
-            err = max((y.float() - y0.float()).abs().max().item(),
-                      (t.float() - t0.float()).abs().max().item())
-            ok = bool(torch.isfinite(y).all().item()) and err <= TOL[dname]
-            rec = {"phase": "kernels", "kernel": "rmsnorm",
-                   "case": f"N{N}_d{d}" + ("" if with_res
-                                           else "_no_residual"),
-                   "dtype": dname, "N": N, "d": d, "max_abs_err": err,
-                   "tol": TOL[dname], "ok": ok}
-            if with_res:
-                elt = x.element_size()
-                nbytes = elt * (4 * N * d + d)
-                flops = 5 * N * d
-                bms, by = bound_ms(nbytes, flops, "float32")
-                rec.update(
-                    kernel_ms=median_ms(torch, lambda: fused_rmsnorm_triton(
-                        x, r, scale, eps), flush),
-                    plain_ms=median_ms(torch, lambda: fused_rmsnorm_reference(
-                        x, r, scale, eps), flush),
-                    library_ms=median_ms(torch, lambda: F.rms_norm(
-                        torch.add(x, r), (d,), scale, eps), flush),
-                    bound_ms=bms, bound_us=bms * 1e3, bound_by=by,
-                    bytes=nbytes, flops=flops)
+            diff = (got.float() - want.float()).abs()
+            err = diff.max().item()
+            if route != "gated":
+                err = max(err, t_err.item())
+                gate = err
+            else:
+                gate = (diff / want.float().abs().clamp(min=1)).max().item() \
+                    if dtype == torch.bfloat16 else err
+            ok = bool(torch.isfinite(got).all().item()) \
+                and gate <= TOL[dname] and repeat
+            bms, by = bound_ms(nbytes, flops, "float32")
+            rec = {"phase": "kernels", "kernel": "rmsnorm", "case": case,
+                   "route": route, "dtype": dname,
+                   "scale_dtype": str(sdt).split(".")[1], "N": N, "d": d,
+                   "plan": plan(N, d, dtype, route)._asdict(),
+                   "max_abs_err": err, "gate_err": gate, "tol": TOL[dname],
+                   "bitwise_repeat": repeat, "ok": ok,
+                   "kernel_ms": median_ms(torch, kernel, flush),
+                   "plain_ms": median_ms(torch, plain, flush),
+                   "library_ms": None if library is None
+                   else median_ms(torch, library, flush),
+                   "host_us": host_us(torch, kernel),
+                   "bound_ms": bms, "bound_us": bms * 1e3, "bound_by": by,
+                   "bytes": nbytes, "flops": flops}
             emit(rec)
             out.append(rec)
             errs.append(err)
             if not ok:
-                raise AssertionError(f"rmsnorm {rec['case']} {dname}: "
-                                     f"kernel disagrees with the plain "
-                                     f"version: {rec}")
+                raise AssertionError(f"rmsnorm {case} {dname}: kernel "
+                                     f"disagrees with the plain version or "
+                                     f"with itself: {rec}")
     return out, max(errs)
 
 
@@ -1715,13 +1804,17 @@ def profile(torch, engine, phase="profile"):
     """A second batch through the warm engine under the profiler: device
     kernel time by kernel, and its share of the wall time (the rest is
     the device idling while the host launches work); ``seconds`` is what
-    the phase adds to a run, the profiler's own bookkeeping included."""
+    the phase adds to a run, the profiler's own bookkeeping included.
+    The ``rmsnorm`` counter, set to 0 just before, must read 2 n_layers
+    + 1 launches a forward just after (97 on mamba2-780m, 33 on
+    llama3.2-1b: the gated norm counts there too)."""
     t_phase = time.perf_counter()
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
+    from repro_torch import kernels
     from repro_torch.serving.request import Request
 
     vocab = engine.model.cfg.vocab
@@ -1731,12 +1824,14 @@ def profile(torch, engine, phase="profile"):
                               max_new_tokens=16))
     n0 = len(engine.step_kinds)
     torch.cuda.synchronize()
+    kernels.reset_launch_counts()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launch_counts()
     rows = []
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CUDA:
@@ -1757,6 +1852,7 @@ def profile(torch, engine, phase="profile"):
     kinds = engine.step_kinds[n0:]
     launches = sum(c for _, c, _ in rows)
     forwards = kinds.count("plain") + 2 * kinds.count("mixed")
+    norms = (2 * engine.model.cfg.n_layers + 1) * forwards
     emit({"phase": phase, "requests": 8, "prompt_len": 256,
           "max_new_tokens": 16, "steps": len(kinds),
           "plain_steps": kinds.count("plain"),
@@ -1772,8 +1868,49 @@ def profile(torch, engine, phase="profile"):
                   for ms, c, k in rows[:12]],
           "host_top": [{"op": k[:60], "self_ms": ms, "calls": c}
                        for ms, c, k in host[:15]],
-          "host_blocking_calls": blocking,
+          "host_blocking_calls": blocking, "launch_counts": counts,
+          "rmsnorm_per_forward": counts["rmsnorm"] / forwards,
+          "rmsnorm_device": _ms_matching(rows, "rmsnorm"),
           "seconds": time.perf_counter() - t_phase})
+    if counts["rmsnorm"] != norms:
+        raise AssertionError(f"{phase}: {counts['rmsnorm']} rmsnorm "
+                             f"launches, the trace implies {norms}")
+
+
+def norm_host_cost(torch, src):
+    """``python3 chip_smoke.py --norm-host-us SRC``: the host microseconds
+    per call (enqueue only) and device ms of the ``rmsnorm`` wrapper that
+    the ``repro_torch`` under SRC registers, called as ``wrapper(x,
+    residual, scale, eps)``, bf16, at ``NORM_CASES``' add shapes; one
+    JSON line a shape, then the card's name and power limit. Run on two
+    checkouts in one chip call (a parent unpacked with ``git archive``
+    and this one), it compares their wrappers on one card."""
+    sys.path.insert(0, str(src))
+    from repro_torch import kernels
+
+    wrapper = kernels._WRAPPERS["rmsnorm"]
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    for case, N, d, route, other_scale in NORM_CASES:
+        if route != "add" or other_scale:
+            continue
+        x, r = (torch.randn((N, d), generator=g, device="cuda").bfloat16()
+                for _ in range(2))
+        scale = torch.ones((d,), device="cuda", dtype=torch.bfloat16)
+
+        def call():
+            return wrapper(x, r, scale, 1e-5)
+
+        emit({"phase": "norm_host_cost", "src": str(src),
+              "wrapper": f"{wrapper.__module__}.{wrapper.__name__}",
+              "case": case, "N": N, "d": d, "dtype": "bfloat16",
+              "host_us": host_us(torch, call),
+              "host_us_again": host_us(torch, call),
+              "kernel_ms": median_ms(torch, call, flush)})
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -1781,10 +1918,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--norm-host-us"] and len(sys.argv) == 3:
+        return norm_host_cost(torch, Path(sys.argv[2]).resolve())
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
-    from repro_torch.kernels.rmsnorm.kernel import fused_rmsnorm_triton
     from repro_torch.models.model import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1801,13 +1939,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     t_nvcc = time.perf_counter() - t0
-    x = torch.ones((1, 2048), device="cuda")
-    for dtype in (torch.float32, torch.bfloat16):
-        for r in (x.to(dtype), None):
-            fused_rmsnorm_triton(x.to(dtype), r, x[0].to(dtype))
-    torch.cuda.synchronize()
     ptxas = ptxas_table(_build.BUILD_LOG.values())
-    gated = ("_mma_kernel", "ssd_extend")
+    gated = ("_mma_kernel", "ssd_extend", "rmsnorm_kernel")
     spills = {k: v for k, v in ptxas.items() if any(s in k for s in gated)
               and (v.get("spill_stores") or v.get("spill_loads"))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -1815,10 +1948,12 @@ def main() -> int:
           "tensor_core_templates": sum("_mma_kernel" in k for k in ptxas),
           "ssd_extend_templates": {k: v for k, v in ptxas.items()
                                    if "ssd_extend" in k},
+          "rmsnorm_templates": {k: v for k, v in ptxas.items()
+                                if "rmsnorm_kernel" in k},
           "gated_spills": spills})
     if spills or not all(any(s in k for k in ptxas) for s in gated):
-        raise AssertionError(f"tensor-core or ssd_extend templates missing "
-                             f"or spilling: {spills}")
+        raise AssertionError(f"tensor-core, ssd_extend or rmsnorm templates "
+                             f"missing or spilling: {spills}")
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     attn, attn_err = decode_attention_cases(torch, flush)
@@ -1890,8 +2025,10 @@ def main() -> int:
     emit({"kernels": [
         entry("decode_attention", "cuda", DECODE_ATTN_SRC, DECODE_ATTN_TPU,
               attn_err, timed(attn), counts, extra=("plan",)),
-        entry("rmsnorm", "triton", RMSNORM_SRC, RMSNORM_TPU, norm_err,
-              timed(norm), counts, extra=("dtype",)),
+        entry("rmsnorm", "cuda", RMSNORM_SRC, RMSNORM_TPU, norm_err,
+              timed(norm), counts,
+              extra=("dtype", "scale_dtype", "route", "bound_by", "host_us",
+                     "plan")),
         entry("paged_decode_attention", "cuda", DECODE_ATTN_SRC,
               PAGED_ATTN_TPU, paged_err, timed(paged), paged_counts,
               extra=("contiguous_kernel_ms", "gather_plus_sdpa_ms",

@@ -7,7 +7,7 @@ intermediate payload sizes, without changing the service itself.
 Times are host-clock times around a call that ends in a synchronize on
 the devices its output lives on. The first call is timed too: where JAX
 pays its trace and XLA compile there, the port pays the first build of
-its kernels (``nvcc``, Triton) and PyTorch's own warm-up.
+its kernels (``nvcc``) and PyTorch's own warm-up.
 """
 from __future__ import annotations
 

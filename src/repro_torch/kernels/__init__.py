@@ -3,8 +3,10 @@ version: ``decode_attention`` and ``paged_decode_attention`` (CUDA C++,
 ``csrc/decode_attention.cu``), ``quant_matmul_int8`` and
 ``quant_matmul_int4`` (CUDA C++, ``csrc/quant_matmul.cu``), ``ssd`` and
 ``ssd_extend`` (CUDA C++, ``csrc/ssd_scan.cu``), ``flash_attention``
-(CUDA C++, ``csrc/flash_attention.cu``) and ``rmsnorm`` (Triton).
-``launch_counts`` reads the launch counter each kernel wrapper keeps."""
+(CUDA C++, ``csrc/flash_attention.cu``) and ``rmsnorm`` (CUDA C++,
+``csrc/rmsnorm.cu``: the add + norm, the norm alone and Mamba-2's gated
+norm, one counter). ``launch_counts`` reads the launch counter each
+kernel wrapper keeps."""
 from __future__ import annotations
 
 from typing import Dict
@@ -14,14 +16,14 @@ from repro_torch.kernels.decode_attention.kernel import (
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.quant_matmul.kernel import (
     quant_matmul_int4_cuda, quant_matmul_int8_cuda)
-from repro_torch.kernels.rmsnorm.kernel import fused_rmsnorm_triton
+from repro_torch.kernels.rmsnorm.kernel import fused_rmsnorm_cuda
 from repro_torch.kernels.ssd_scan.kernel import ssd_cuda, ssd_extend_cuda
 
 _WRAPPERS = {"decode_attention": decode_attention_cuda,
              "paged_decode_attention": paged_decode_attention_cuda,
              "quant_matmul_int8": quant_matmul_int8_cuda,
              "quant_matmul_int4": quant_matmul_int4_cuda,
-             "rmsnorm": fused_rmsnorm_triton,
+             "rmsnorm": fused_rmsnorm_cuda,
              "ssd": ssd_cuda,
              "ssd_extend": ssd_extend_cuda,
              "flash_attention": flash_attention_cuda}

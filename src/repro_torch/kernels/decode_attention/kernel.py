@@ -25,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _autograd, _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
@@ -166,14 +166,20 @@ def decode_attention_cuda(q, k, v, pos, q_pos, *, window=0):
     last dimension contiguous; pos: (B, S) int32; q_pos: (B, T) int32.
     Returns a new (B, T, Hq, hd) tensor in q's dtype, by the route and
     splits of ``plan``. Raises on any input the kernel does not take,
-    and when the launch is refused."""
+    when the launch is refused, and in a backward pass."""
     _check_common("decode_attention_cuda", q, k, v, (q, k, v, pos, q_pos))
-    B, T, Hq, hd = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
+    B, T = q.shape[:2]
     if k.shape[0] != B:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
-    _check_positions(pos, q_pos, B, S, T, window)
+    _check_positions(pos, q_pos, B, k.shape[1], T, window)
+    return _autograd.launch("decode attention", _launch, q, k, v, pos,
+                            q_pos, int(window))
+
+
+def _launch(q, k, v, pos, q_pos, window):
+    B, T, Hq, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
     pl = plan(B, T, Hq, Hkv, S, hd, q.dtype)
     out = torch.empty((B, T, Hq, hd), dtype=q.dtype, device=q.device)
     ws_acc, ws_ml = _scratch(pl, q)
@@ -205,20 +211,29 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_table, pos, q_pos,
     (B, T) int32. Returns a new (B, T, Hq, hd) tensor in q's dtype, by
     the plan of the logical shape (S = NB * ps), so exactly the
     contiguous kernel's output on the gathered view. Raises on any input
-    the kernel does not take, and when the launch is refused.
-    Block-table entries are not range-checked here (that would read them
-    back to the host): the engine's allocator keeps them in the pool."""
+    the kernel does not take, when the launch is refused, and in a
+    backward pass. Block-table entries are not range-checked here (that
+    would read them back to the host): the engine's allocator keeps them
+    in the pool."""
     _check_common("paged_decode_attention_cuda", q, k_pool, v_pool,
                   (q, k_pool, v_pool, block_table, pos, q_pos))
-    B, T, Hq, hd = q.shape
-    ps, Hkv = k_pool.shape[1], k_pool.shape[2]
+    B, T = q.shape[:2]
     if block_table.dim() != 2 or block_table.shape[0] != B \
             or block_table.dtype != torch.int32 \
             or not block_table.is_contiguous():
         raise ValueError(f"want block_table (B, NB) int32 contiguous; got "
                          f"{tuple(block_table.shape)} {block_table.dtype}")
+    _check_positions(pos, q_pos, B, block_table.shape[1] * k_pool.shape[1],
+                     T, window)
+    return _autograd.launch("paged decode attention", _launch_paged, q,
+                            k_pool, v_pool, block_table, pos, q_pos,
+                            int(window))
+
+
+def _launch_paged(q, k_pool, v_pool, block_table, pos, q_pos, window):
+    B, T, Hq, hd = q.shape
+    ps, Hkv = k_pool.shape[1], k_pool.shape[2]
     NB = block_table.shape[1]
-    _check_positions(pos, q_pos, B, NB * ps, T, window)
     pl = plan(B, T, Hq, Hkv, NB * ps, hd, q.dtype)
     out = torch.empty((B, T, Hq, hd), dtype=q.dtype, device=q.device)
     ws_acc, ws_ml = _scratch(pl, q)

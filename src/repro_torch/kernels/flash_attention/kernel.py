@@ -13,11 +13,11 @@ block of 64 rows, so a K/V tile is read once for the group, and run on
 the smallest head-dim tile that holds hd. What bounds them at the
 model's shapes: the operations, 4 B Hq hd per live query-key pair.
 
-The launch runs inside a ``torch.autograd.Function`` whose backward
-raises: a tensor made by a ctypes launch has no ``grad_fn`` of its own,
-so without it a ``backward()`` through the kernel would silently give
-q, k and v no gradient. The flash backward kernel is ROADMAP section 1,
-item 12 (training).
+The launch runs through ``_autograd.launch``: where a gradient could be
+asked for, inside an autograd node whose backward raises (a tensor made
+by a ctypes launch has no ``grad_fn`` of its own, so a ``backward()``
+through the kernel would silently give q, k and v no gradient). The
+flash backward kernel is ROADMAP section 1, item 12 (training).
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _autograd, _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
@@ -126,18 +126,6 @@ def _launch(q, k, v, causal, window):
     return out
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        return _launch(q, k, v, causal, window)
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "flash attention has no backward kernel yet: ROADMAP section "
-            "1, item 12 (training)")
-
-
 def flash_attention_cuda(q, k, v, *, causal=True, window=0):
     """Launch the kernel on the current stream. q: (B, Lq, Hq, hd); k, v:
     (B, Lk, Hkv, hd), the model's layout, any strides with the last
@@ -145,7 +133,8 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0):
     in q's dtype. Raises on any input the kernel does not take, when the
     launch is refused, and in a backward pass."""
     _check(q, k, v, window)
-    return _FlashAttention.apply(q, k, v, causal, int(window))
+    return _autograd.launch("flash attention", _launch, q, k, v, causal,
+                            int(window))
 
 
 flash_attention_cuda.launches = 0

@@ -23,7 +23,8 @@ workspace. Both plans are pure functions of the shapes and the dtype,
 and both routes are bitwise deterministic run to run.
 
 The wrapper picks the plan and allocates the output (and the simt
-workspace); one call counts once in ``launches``.
+workspace); one call counts once in ``launches``. The launch runs
+through ``_autograd.launch``: a backward pass through it raises.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _autograd, _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BM, BN = 8, 128          # the simt tile of x rows and y columns
@@ -123,7 +124,7 @@ def mma_plan(bits: int, M: int, N: int, K: int, gs: int,
                 base * splits)
 
 
-def _launch(name, x, q, scale, *, int4):
+def _launch(name, x, q, scale, int4):
     if not all(t.is_cuda and t.device == x.device for t in (x, q, scale)):
         raise ValueError(f"{name} takes CUDA tensors on one device")
     if x.dtype not in _DTYPES:
@@ -187,8 +188,10 @@ def _launch(name, x, q, scale, *, int4):
 def quant_matmul_int8_cuda(x, q, scale):
     """x: (M, K) f32 or bf16, last dimension contiguous; q: (K, N) int8;
     scale: (N,) f32 -> a new (M, N) tensor in x's dtype. Raises on any
-    input the kernel does not take, and when the launch is refused."""
-    out = _launch("quant_matmul_int8_cuda", x, q, scale, int4=False)
+    input the kernel does not take, when the launch is refused, and in a
+    backward pass."""
+    out = _autograd.launch("int8 quant_matmul", _launch,
+                           "quant_matmul_int8_cuda", x, q, scale, False)
     quant_matmul_int8_cuda.launches += 1
     return out
 
@@ -196,9 +199,10 @@ def quant_matmul_int8_cuda(x, q, scale):
 def quant_matmul_int4_cuda(x, q4, scale):
     """x: (M, K) f32 or bf16, last dimension contiguous; q4: (K//2, N)
     packed int8; scale: (K//gs, N) f32 -> a new (M, N) tensor in x's
-    dtype. Raises on any input the kernel does not take, and when the
-    launch is refused."""
-    out = _launch("quant_matmul_int4_cuda", x, q4, scale, int4=True)
+    dtype. Raises on any input the kernel does not take, when the launch
+    is refused, and in a backward pass."""
+    out = _autograd.launch("int4 quant_matmul", _launch,
+                           "quant_matmul_int4_cuda", x, q4, scale, True)
     quant_matmul_int4_cuda.launches += 1
     return out
 

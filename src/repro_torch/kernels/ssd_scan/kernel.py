@@ -19,6 +19,9 @@ reduces the tile's readouts together) and ``rows`` state rows a block (2
 a warp), the fewest that keep the grid within one block per SM, else 32.
 Both routes run one arithmetic per token, so a token's bits depend
 neither on T nor on the route.
+
+Both launches run through ``_autograd.launch``: a backward pass through
+either raises.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _autograd, _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)              # p the kernels are instantiated for
@@ -145,9 +148,15 @@ def ssd_extend_cuda(state, x, dt, A, B, C, D=None, *, out=None, ckpt=None):
     T, h, p) f32, new state). The new state is written into ``out`` when
     given (it may be ``state`` itself), else into a new tensor; ``ckpt``,
     when given, receives the incoming state. Raises on any input the
-    kernel does not take, and when the launch is refused."""
+    kernel does not take, when the launch is refused, and in a backward
+    pass."""
     if D is None:
         D = torch.zeros_like(A)
+    return _autograd.launch("ssd_extend", _launch_extend, state, x, dt, A,
+                            B, C, D, out, ckpt)
+
+
+def _launch_extend(state, x, dt, A, B, C, D, out, ckpt):
     ts = [t for t in (state, x, dt, A, B, C, D, out, ckpt) if t is not None]
     if not all(t.is_cuda and t.device == x.device for t in ts):
         raise ValueError("ssd_extend_cuda takes CUDA tensors on one device")
@@ -188,10 +197,15 @@ def ssd_cuda(x, dt, A, B, C, D=None, *, chunk=64, initial_state=None):
     float32 or bfloat16, dt (b, l, h), A and D (h,) f32; l % chunk == 0,
     chunk <= 256. ``initial_state`` (b, h, p, n) f32 seeds the carried
     state (zero when None). Returns (y (b, l, h, p) f32, final state (b,
-    h, p, n) f32). Raises on any input the kernel does not take, and when
-    the launch is refused."""
+    h, p, n) f32). Raises on any input the kernel does not take, when
+    the launch is refused, and in a backward pass."""
     if D is None:
         D = torch.zeros_like(A)
+    return _autograd.launch("ssd", _launch_chunk, x, dt, A, B, C, D, chunk,
+                            initial_state)
+
+
+def _launch_chunk(x, dt, A, B, C, D, chunk, initial_state):
     ts = [t for t in (x, dt, A, B, C, D, initial_state) if t is not None]
     if not all(t.is_cuda and t.device == x.device for t in ts):
         raise ValueError("ssd_cuda takes CUDA tensors on one device")

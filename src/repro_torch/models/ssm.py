@@ -16,8 +16,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.rmsnorm.ops import gated_rmsnorm
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.models.layers import linear, rms_norm
+from repro_torch.models.layers import linear
 
 #: parameter leaves kept in float32 in every parameter dtype
 F32_LEAVES = ("A_log", "D", "dt_bias")
@@ -158,7 +159,7 @@ def ssm_block(p, u, cfg: ModelConfig, *, cache=None, return_cache=False,
             xh, Bg, Cg, dt = (F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
                               for a in (xh, Bg, Cg, dt))
         y, final = ssd_ops.ssd(xh, dt, A, Bg, Cg, p["D"], chunk=chunk)
-        y = y[:, :L].reshape(Bsz, L, d_in).to(u.dtype)
+        y = y[:, :L].reshape(Bsz, L, d_in)
         new_cache = None
         if return_cache:
             if length is not None:
@@ -194,7 +195,7 @@ def ssm_block(p, u, cfg: ModelConfig, *, cache=None, return_cache=False,
         xh, Bg, Cg = _heads(xc, cfg, (Bsz, L))
         y, _ = ssd_ops.ssd_extend(cache["ssm"], xh, dt, A, Bg, Cg, p["D"],
                                   out=cache["ssm"], ckpt=cache["ssm_ckpt"])
-        y = y.reshape(Bsz, L, d_in).to(u.dtype)
+        y = y.reshape(Bsz, L, d_in)
         lens = length.to(torch.int32) if length is not None else \
             torch.full((Bsz,), L, dtype=torch.int32, device=u.device)
         tidx = lens[:, None].long() + torch.arange(K - 1,
@@ -213,11 +214,11 @@ def ssm_block(p, u, cfg: ModelConfig, *, cache=None, return_cache=False,
         y1, _ = ssd_ops.ssd_step(cache["ssm"], xh, dt[:, 0], A, Bg, Cg,
                                  p["D"], out=cache["ssm"],
                                  ckpt=cache["ssm_ckpt"])
-        y = y1.reshape(Bsz, 1, d_in).to(u.dtype)
+        y = y1.reshape(Bsz, 1, d_in)
         _advance_conv(cache, conv_full[:, 1:], 1)
         new_cache = cache
 
-    # gated RMSNorm (Mamba-2): norm(y * silu(z))
-    y, _ = rms_norm(p["norm"], y * F.silu(z.float()).to(u.dtype),
-                    cfg.norm_eps)
+    # gated RMSNorm (Mamba-2): norm(y * silu(z)) in u's dtype (z's), one
+    # op that casts the f32 SSD output itself
+    y = gated_rmsnorm(y, z, p["norm"]["scale"], eps=cfg.norm_eps)
     return linear(p["out_proj"], y), new_cache

@@ -1,5 +1,5 @@
-"""The port's CUDA and Triton kernels against their plain PyTorch
-versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.
 
 This module imports ``torch``, ``numpy``, ``pytest`` and the port only:
 the card's machine has no JAX, and ``tests/conftest.py`` imports it, so
@@ -14,7 +14,9 @@ Tolerances: fp32 1e-4 (f32 arithmetic, sums in another order), bf16
 2e-2 (bf16 inputs and outputs, p rounded to bf16 on the tensor-core
 routes); the dequantize-matmuls and the SSD kernels relative to
 max|plain|. The paged decode kernel must equal the contiguous one
-exactly on the same logical data, on every route.
+exactly on the same logical data, on every route. Every kernel op
+refuses a backward pass: an input that requires grad gives outputs whose
+backward raises, and none gives the same outputs with no autograd node.
 """
 import numpy as np
 import pytest
@@ -115,7 +117,7 @@ def test_kernels_match_plain_on_card():
         r = torch.randn(16, 2048, device=dev).to(dt)
         s = torch.rand(2048, device=dev).to(dt)
         for res in (r, None):
-            y, t = norm_kernel.fused_rmsnorm_triton(x, res, s)
+            y, t = norm_kernel.fused_rmsnorm_cuda(x, res, s)
             y0, t0 = norm_ref.fused_rmsnorm_reference(x, res, s)
             assert (y.float() - y0.float()).abs().max().item() <= tol
             assert (t.float() - t0.float()).abs().max().item() <= tol
@@ -513,3 +515,144 @@ def test_ssd_extend_routes_match_plain_on_card(case):
     assert si is state
     assert torch.equal(yi, y) and torch.equal(state, s)
     assert torch.equal(ckpt, s0)
+
+
+# (N, d): mamba2-780m's d 1536 (ln1, ln_f) and d_in 3072 (the gated
+# norm), llama3.2-1b's 2048, pixtral-12b's 5120; one row, a decode batch,
+# a chunk and the Zoo's forward (B 2 x L 1024)
+NORM_D = (1536, 2048, 3072, 5120)
+NORM_N = (1, 8, 128, 2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["add", "norm", "gated"])
+@pytest.mark.parametrize("d", NORM_D)
+@pytest.mark.parametrize("N", NORM_N)
+def test_rmsnorm_routes_match_plain_on_card(N, d, route):
+    """The CUDA norm on each route of its plan against the plain version,
+    bf16 and fp32 (TOL), and bitwise equal across two launches. The add
+    route takes a strided residual; the gated route takes z as a strided
+    slice of an in-projection row (mamba2-780m's row stride 6448 at d
+    3072, 2 d + 304 otherwise) and y in f32 or in the activation dtype.
+    Every route also takes the scale in the other dtype than its rows (an
+    f32 scale on a bf16 row, a bf16 scale on an f32 row). The gated route
+    in bf16 is held
+    within 2e-2 of max(1, |plain|) element by element: its outputs reach
+    past 8, where one rounding step of bf16 is 2^-4, and the sum of
+    squares taken in another order may move one."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(N + d)
+    assert norm_kernel.plan(N, d, torch.bfloat16, route).route == route
+    for dt in DTYPES:
+        other = torch.float32 if dt == torch.bfloat16 else torch.bfloat16
+        x = torch.randn((N, d), generator=g, device=dev).to(dt)
+        wide = torch.randn((N, 2 * d + 304), generator=g, device=dev).to(dt)
+        scale = (1 + 0.1 * torch.randn((d,), generator=g, device=dev)).to(dt)
+        if route == "gated":
+            z = wide[:, :d]
+            for y, s in ((x.float(), scale), (x, scale),
+                         (x.float(), scale.to(other)),
+                         (x, scale.to(other))):
+                got = norm_kernel.gated_rmsnorm_cuda(y, z, s)
+                want = norm_ref.gated_rmsnorm_reference(y, z, s)
+                torch.cuda.synchronize()
+                assert got.dtype == dt and torch.isfinite(got).all()
+                err = _err(got, want) if dt == torch.float32 else (
+                    (got.float() - want.float()).abs()
+                    / want.float().abs().clamp(min=1)).max().item()
+                assert err <= TOL[dt], (y.dtype, s.dtype, err)
+                assert torch.equal(norm_kernel.gated_rmsnorm_cuda(y, z, s),
+                                   got)
+            continue
+        res = wide[:, d + 1:2 * d + 1] if route == "add" else None
+        for s in (scale, scale.to(other)):
+            y, t = norm_kernel.fused_rmsnorm_cuda(x, res, s)
+            y0, t0 = norm_ref.fused_rmsnorm_reference(x, res, s)
+            torch.cuda.synchronize()
+            assert y.dtype == dt and torch.isfinite(y).all()
+            assert _err(y, y0) <= TOL[dt] and _err(t, t0) <= TOL[dt], \
+                (s.dtype, _err(y, y0), _err(t, t0))
+            y2, t2 = norm_kernel.fused_rmsnorm_cuda(x, res, s)
+            assert torch.equal(y2, y) and torch.equal(t2, t)
+            assert (t is x) == (route == "norm")
+
+
+def _grad_cases(dev):
+    """{op: (call, inputs)}: every kernel op at a small shape, ``call``
+    taking the inputs and returning its outputs (a tensor or a tuple)."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.quant import quantize_tensor
+
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    q, k, v, pos, q_pos = (torch.from_numpy(a).to(dev) for a in
+                           _decode_inputs(2, 3, 2, seed=0))
+    kp, vp, bt = _paged_from_contiguous(k, v, 8, seed=0)
+    w = 0.05 * rn(256, 128)
+    q8, q4 = quantize_tensor(w, bits=8), quantize_tensor(w, bits=4,
+                                                         group_size=32)
+    b, T, h, p, gr, n = 1, 16, 4, 32, 1, 32
+    sx, sdt, sA, sB, sC, sD = (rn(b, T, h, p), 0.05 + 0.05 * rn(b, T, h).abs(),
+                               -1 - rn(h).abs(), rn(b, T, gr, n),
+                               rn(b, T, gr, n), rn(h))
+    s0 = rn(b, h, p, n)
+    return {
+        "rmsnorm_add": (lambda x, r, s: norm_kernel.fused_rmsnorm_cuda(
+            x, r, s), (rn(8, 1536), rn(8, 1536), rn(1536))),
+        "rmsnorm_norm": (lambda x, s: norm_kernel.fused_rmsnorm_cuda(
+            x, None, s)[0], (rn(8, 1536), rn(1536))),
+        "rmsnorm_gated": (norm_kernel.gated_rmsnorm_cuda,
+                          (rn(8, 3072), rn(8, 3072), rn(3072))),
+        "quant_matmul_int8": (lambda x: qmm_kernel.quant_matmul_int8_cuda(
+            x, q8["q"], q8["scale"]), (rn(8, 256).bfloat16(),)),
+        "quant_matmul_int4": (lambda x: qmm_kernel.quant_matmul_int4_cuda(
+            x, q4["q4"], q4["scale"]), (rn(8, 256).bfloat16(),)),
+        "ssd": (lambda x, B, C: ssd_kernel.ssd_cuda(
+            x, sdt, sA, B, C, sD, chunk=16), (sx, sB, sC)),
+        "ssd_extend": (lambda x, st: ssd_kernel.ssd_extend_cuda(
+            st, x, sdt, sA, sB, sC, sD), (sx, s0)),
+        "ssd_step": (lambda x, st: ssd_ops.ssd_step(
+            st, x[:, 0], sdt[:, 0], sA, sB[:, 0], sC[:, 0], sD), (sx, s0)),
+        "decode_attention": (lambda q_: dec_kernel.decode_attention_cuda(
+            q_, k, v, pos, q_pos), (q,)),
+        "paged_decode_attention": (
+            lambda q_: dec_kernel.paged_decode_attention_cuda(
+                q_, kp, vp, bt, pos, q_pos), (q,)),
+        "flash_attention": (lambda q_, k_, v_:
+                            flash_kernel.flash_attention_cuda(q_, k_, v_),
+                            (q, k, v)),
+    }
+
+
+GRAD_OPS = ("rmsnorm_add", "rmsnorm_norm", "rmsnorm_gated",
+            "quant_matmul_int8", "quant_matmul_int4", "ssd", "ssd_extend",
+            "ssd_step", "decode_attention", "paged_decode_attention",
+            "flash_attention")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", GRAD_OPS)
+def test_kernel_op_refuses_a_backward_on_card(op):
+    """With no gradient asked for, the op launches straight: no autograd
+    node on its outputs. With its first input requiring grad it returns
+    the same outputs, bit for bit, through a node whose backward raises
+    (naming ROADMAP item 12) instead of giving the inputs no gradient."""
+    dev = _card()
+    call, inputs = _grad_cases(dev)[op]
+
+    def outs(r):
+        return r if isinstance(r, tuple) else (r,)
+
+    want = outs(call(*inputs))
+    assert all(o.grad_fn is None for o in want)
+    leaf = inputs[0].detach().clone().requires_grad_()
+    got = outs(call(leaf, *inputs[1:]))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o.detach(), w) for o, w in zip(got, want))
+    assert got[0].grad_fn is not None
+    with pytest.raises(NotImplementedError, match="item 12"):
+        got[0].float().sum().backward()

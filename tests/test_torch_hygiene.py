@@ -40,6 +40,14 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert len(_port_files()) > 20
 
 
+def test_port_imports_no_triton():
+    """Every kernel of the port is CUDA C++ built by ``nvcc``: no module
+    of the port, nor ``chip_smoke.py``, imports Triton."""
+    bad = [(str(p.relative_to(ROOT)), mod) for p in _port_files()
+           for mod in _imports(p) if mod.split(".")[0] == "triton"]
+    assert not bad, bad
+
+
 def test_card_tests_import_no_jax_and_nothing_of_the_jax_package():
     """``tests/test_torch_card.py`` runs on the card's machine, which has
     no JAX, without ``tests/conftest.py``: it imports torch, numpy,

@@ -2,8 +2,8 @@
 
 On the CPU each op runs its plain PyTorch version; it is held against the
 JAX oracle (``ref.py``) and the Pallas kernel in interpret mode on the
-same inputs, made with numpy from a seed. The CUDA/Triton kernels run
-only on a card: their tests live in ``tests/test_torch_card.py``, which
+same inputs, made with numpy from a seed. The CUDA kernels run only on
+a card: their tests live in ``tests/test_torch_card.py``, which
 imports no JAX so that it runs on the card's machine
 (``python3 chip_smoke.py`` holds them at full width too).
 """
@@ -22,13 +22,15 @@ from repro.kernels.decode_attention.ref import \
 from repro.kernels.rmsnorm.kernel import fused_rmsnorm_pallas  # noqa: E402
 from repro.kernels.rmsnorm.ref import \
     fused_rmsnorm_reference as jax_rmsnorm_ref  # noqa: E402
-from repro_torch.kernels import dispatch  # noqa: E402
+from repro.models.layers import rms_norm as jax_rms_norm  # noqa: E402
+from repro_torch.kernels import _autograd, dispatch  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as dec_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as dec_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel as norm_kernel  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as norm_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as norm_ref  # noqa: E402
+from repro_torch.models import layers as torch_layers  # noqa: E402
 
 S = 48
 HD = 16
@@ -189,6 +191,150 @@ def test_rmsnorm_leading_axes_and_no_residual_passthrough():
     assert torch.equal(y.reshape(6, 64), y2)
 
 
+def _jax_gated(y, z, scale, eps=1e-5):
+    """The JAX model's gated norm (``repro/models/ssm.py``), y cast to the
+    activation dtype (z's) first, as the mixer casts the SSD output."""
+    return jax_rms_norm({"scale": scale},
+                        y.astype(z.dtype) * jax.nn.silu(
+                            z.astype(jnp.float32)).astype(z.dtype), eps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("y_f32", [True, False])
+def test_gated_plain_is_the_mixers_old_expression_bitwise(dtype, y_f32):
+    """The gated op's plain version equals, bit for bit, what the mixer
+    ran before the op existed: the SSD output cast to the activation
+    dtype, times silu(f32 z) cast to it, through ``layers.rms_norm``; z a
+    strided slice of a wider projection output."""
+    g = torch.Generator().manual_seed(3)
+    y = torch.randn(2, 5, 96, generator=g)
+    z = torch.randn(2, 5, 96 * 2 + 20, generator=g).to(dtype)[..., :96]
+    scale = (1 + 0.1 * torch.randn(96, generator=g)).to(dtype)
+    got = norm_ops.gated_rmsnorm(y if y_f32 else y.to(dtype), z, scale,
+                                 eps=1e-5)
+    old, _ = torch_layers.rms_norm(
+        {"scale": scale}, y.to(dtype) * torch.nn.functional.silu(
+            z.float()).to(dtype), 1e-5)
+    assert got.dtype == dtype and torch.equal(got, old)
+
+
+@pytest.mark.parametrize("route", ["add", "norm", "gated"])
+def test_rmsnorm_plain_grads_match_jax(route):
+    """On the CPU the ops stay differentiable: autograd of the plain
+    versions against ``jax.grad`` of the JAX expressions, every input,
+    fp32 at 1e-5."""
+    rng = np.random.default_rng(11)
+    N, d = 8, 96
+    a, b, gy, gt = (rng.normal(size=(N, d)).astype(np.float32)
+                    for _ in range(4))
+    scale = (1 + 0.1 * rng.normal(size=(d,))).astype(np.float32)
+
+    def jax_loss(a, b, s):
+        if route == "gated":
+            return jnp.sum(_jax_gated(a, b, s) * gy)
+        y, t = jax_rmsnorm_ref(a, b if route == "add" else 0 * a, s)
+        return jnp.sum(y * gy) + (jnp.sum(t * gt) if route == "add" else 0)
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(a, b, scale)
+    ta, tb, ts = (torch.from_numpy(v).requires_grad_() for v in
+                  (a, b, scale))
+    if route == "gated":
+        loss = (norm_ops.gated_rmsnorm(ta, tb, ts) * torch.from_numpy(gy)
+                ).sum()
+    else:
+        y, t = norm_ops.fused_rmsnorm(ta, tb if route == "add" else None, ts)
+        loss = (y * torch.from_numpy(gy)).sum()
+        if route == "add":
+            loss = loss + (t * torch.from_numpy(gt)).sum()
+    loss.backward()
+    got = (ta.grad, tb.grad, ts.grad)
+    for i, (g_, w) in enumerate(zip(got, want)):
+        if route == "norm" and i == 1:
+            assert g_ is None
+            continue
+        np.testing.assert_allclose(g_.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 100, 1536, 2048, 3072, 5120, 16384])
+@pytest.mark.parametrize("N", [13, 2048])
+def test_rmsnorm_plan_covers_a_row_without_a_spare_warp(N, d, dtype):
+    """A row's threads hold its 16-byte units with no idle warp and no
+    power-of-two padding (mamba2's d 1536 and 3072 and pixtral-12b's
+    5120 in bf16 mask no lane); rows short of 128 threads share a block;
+    the grid covers every row once; one unit a thread for a few rows,
+    two for many wide ones; a row past the kernel's limit raises."""
+    unit = 16 // dtype.itemsize
+    p = norm_kernel.plan(N, d, dtype)
+    assert p.nv in norm_kernel.NVS[dtype]
+    assert p.tpr % 32 == 0 and p.threads == p.tpr * p.rows <= 1024
+    assert (p.tpr - 32) * p.nv * unit < d <= p.tpr * p.nv * unit
+    assert p.rows == max(1, 128 // p.tpr)
+    assert (p.blocks - 1) * p.rows < N <= p.blocks * p.rows
+    wide = N >= 1024 and d >= 256 * unit
+    assert p.nv == max(-(-d // (1024 * unit)), 2 if wide else 1)
+    if dtype == torch.bfloat16 and d in (1536, 3072, 5120):
+        assert p.tpr * p.nv * unit == d
+    with pytest.raises(ValueError, match="row limit"):
+        norm_kernel.plan(N, norm_kernel.NVS[dtype][-1] * 1024 * unit + 1,
+                         dtype)
+
+
+def test_autograd_launch_enters_a_node_only_for_a_gradient():
+    """``_autograd.launch`` calls the launch straight unless grad mode is
+    on and an input requires grad; then the outputs carry a node whose
+    backward raises, with the values unchanged."""
+    def fn(a, b, k):
+        return a * b + k, a - b
+
+    g = torch.Generator().manual_seed(0)
+    a, b = torch.randn(4, generator=g), torch.randn(4, generator=g)
+    out = _autograd.launch("op", fn, a, b, 1.0)
+    assert all(o.grad_fn is None for o in out)
+    a.requires_grad_()
+    with torch.no_grad():
+        assert _autograd.launch("op", fn, a, b, 1.0)[0].grad_fn is None
+    got = _autograd.launch("op", fn, a, b, 1.0)
+    assert all(o.grad_fn is not None for o in got)
+    assert all(torch.equal(o.detach(), w) for o, w in zip(got, out))
+    with pytest.raises(NotImplementedError,
+                       match="op has no backward kernel yet.*item 12"):
+        got[1].sum().backward()
+
+
+@pytest.mark.parametrize("route", ["add", "norm", "gated"])
+def test_rmsnorm_wrappers_refuse_a_backward(route, monkeypatch):
+    """Both norm wrappers run their launch through ``_autograd.launch``:
+    an input that requires grad gives outputs whose backward raises; none
+    gives plain outputs. (The launch, checks included, is replaced by
+    the plain version on CPU tensors here.)"""
+    def plain(route_, a, b, scale, eps):
+        if route_ == "gated":
+            return norm_ref.gated_rmsnorm_reference(a, b, scale, eps)
+        y, t = norm_ref.fused_rmsnorm_reference(a, b, scale, eps)
+        return (y, t) if route_ == "add" else y
+
+    monkeypatch.setattr(norm_kernel, "_launch", plain)
+    g = torch.Generator().manual_seed(1)
+    x, r = torch.randn(3, 64, generator=g), torch.randn(3, 64, generator=g)
+    scale = torch.ones(64)
+
+    def call():
+        if route == "gated":
+            return norm_kernel.gated_rmsnorm_cuda(x, r, scale)
+        return norm_kernel.fused_rmsnorm_cuda(
+            x, r if route == "add" else None, scale)[0]
+
+    want = call()
+    assert want.grad_fn is None
+    x.requires_grad_()
+    got = call()
+    assert got.grad_fn is not None and torch.equal(got.detach(), want)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        got.sum().backward()
+
+
 # --------------------------------------------------------------------- #
 # dispatch: CUDA -> kernel, CPU -> plain version, nothing else
 # --------------------------------------------------------------------- #
@@ -209,11 +355,13 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     def boom(*a, **k):
         raise AssertionError("kernel launched for CPU tensors")
     monkeypatch.setattr(dec_kernel, "decode_attention_cuda", boom)
-    monkeypatch.setattr(norm_kernel, "fused_rmsnorm_triton", boom)
+    monkeypatch.setattr(norm_kernel, "fused_rmsnorm_cuda", boom)
+    monkeypatch.setattr(norm_kernel, "gated_rmsnorm_cuda", boom)
     q, k, v, pos, q_pos = (torch.from_numpy(a) for a in
                            _decode_inputs(1, 1, 1, seed=0))
     dec_ops.cached_decode_attention(q, k, v, pos, q_pos)
     norm_ops.fused_rmsnorm(torch.ones(2, 8), torch.ones(2, 8), torch.ones(8))
+    norm_ops.gated_rmsnorm(torch.ones(2, 8), torch.ones(2, 8), torch.ones(8))
 
 
 def test_dispatch_rejects_other_devices():
@@ -225,15 +373,18 @@ def test_dispatch_rejects_other_devices():
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    """The CUDA and Triton wrappers launch or raise: handed CPU tensors
-    they raise before building or importing anything."""
+    """The CUDA wrappers launch or raise: handed CPU tensors they raise
+    before building anything."""
     q, k, v, pos, q_pos = (torch.from_numpy(a) for a in
                            _decode_inputs(1, 1, 1, seed=0))
     with pytest.raises(ValueError, match="CUDA"):
         dec_kernel.decode_attention_cuda(q, k, v, pos, q_pos)
     with pytest.raises(ValueError, match="CUDA"):
-        norm_kernel.fused_rmsnorm_triton(torch.ones(2, 8), None,
-                                         torch.ones(8))
+        norm_kernel.fused_rmsnorm_cuda(torch.ones(2, 8), None,
+                                       torch.ones(8))
+    with pytest.raises(ValueError, match="CUDA"):
+        norm_kernel.gated_rmsnorm_cuda(torch.ones(2, 8), torch.ones(2, 8),
+                                       torch.ones(8))
 
 
 # --------------------------------------------------------------------- #
@@ -354,6 +505,8 @@ def _c_signature(src, name):
             kinds.append(ctypes.c_void_p)
         elif param.startswith("long long"):
             kinds.append(ctypes.c_longlong)
+        elif param.startswith("float "):
+            kinds.append(ctypes.c_float)
         else:
             assert param.startswith("int "), param
             kinds.append(ctypes.c_int)
@@ -363,10 +516,17 @@ def _c_signature(src, name):
 @pytest.mark.parametrize("src,name", [
     ("decode_attention.cu", "decode_attention_launch"),
     ("decode_attention.cu", "paged_decode_attention_launch"),
-    ("flash_attention.cu", "flash_attention_launch")])
+    ("flash_attention.cu", "flash_attention_launch"),
+    ("rmsnorm.cu", "rmsnorm_launch"),
+    ("quant_matmul.cu", "quant_matmul_launch"),
+    ("quant_matmul.cu", "quant_matmul_mma_launch")])
 def test_argtypes_match_the_c_signature(src, name):
     """A ctypes signature that drifts from the C one would pass shifted
     arguments: held here, where no compiler runs."""
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
-    wrapper = dec_kernel if src.startswith("decode") else flash_kernel
+    from repro_torch.kernels.quant_matmul import kernel as qmm_kernel
+    wrapper = {"decode_attention.cu": dec_kernel,
+               "flash_attention.cu": flash_kernel,
+               "rmsnorm.cu": norm_kernel,
+               "quant_matmul.cu": qmm_kernel}[src]
     assert wrapper.ARGTYPES[name] == _c_signature(src, name)

@@ -29,6 +29,7 @@ from repro.configs import param_count  # noqa: E402
 from repro.kernels.ssd_scan import kernel as jkernel  # noqa: E402
 from repro.kernels.ssd_scan import ref as jref  # noqa: E402
 from repro.models import ssm as JS  # noqa: E402
+from repro.models.layers import rms_norm as jax_rms_norm  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro.models.model import build as jax_build  # noqa: E402
 from repro.serving.engine import Engine as JaxEngine  # noqa: E402
@@ -37,6 +38,7 @@ from repro.serving.sampler import Sampler as JaxSampler  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import launch_counts  # noqa: E402
+from repro_torch.kernels.rmsnorm import ops as norm_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as tkernel  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops  # noqa: E402
 from repro_torch.models import ssm as TS  # noqa: E402
@@ -201,6 +203,39 @@ def test_extend_plan_is_a_legal_launch_covering_every_row(b, T, p, n, h, g):
     assert (owned == 1).all()
     if (h, p, g, n) == (48, 64, 1, 128):
         assert (pl.rows, pl.blocks * b) == {1: (24, 128), 8: (32, 768)}[b]
+
+
+@pytest.mark.parametrize("y_f32", [True, False])
+@pytest.mark.parametrize("d", [1536, 3072])
+@pytest.mark.parametrize("N", [1, 8, 128])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 2e-2)])
+def test_gated_norm_plain_matches_jax(dtype, tol, N, d, y_f32):
+    """The mixer's gated norm op (plain version) against the JAX model's
+    expression, ``rms_norm(p, y * silu(z.astype(f32)).astype(dtype))``
+    with y already in the activation dtype; z a strided slice of a
+    wider in-projection row (row stride 2 d + 2 * 128 + 48, as
+    mamba2-780m's 6448 at d 3072), y the SSD output in f32 or in the
+    activation dtype. fp32 within 1e-5; bf16 within 2e-2 absolute plus
+    2e-2 relative (one step of a bf16 output past 4 is 2^-5, and XLA
+    may keep the gate's product in f32 where the port rounds it)."""
+    rng = np.random.default_rng(N + d)
+    y = rng.normal(size=(N, d)).astype(np.float32)
+    zx = rng.normal(size=(N, 2 * d + 2 * 128 + 48)).astype(np.float32)
+    scale = (1 + 0.1 * rng.normal(size=(d,))).astype(np.float32)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    z = torch.from_numpy(zx).to(tdt)[:, :d]
+    got = norm_ops.gated_rmsnorm(
+        torch.from_numpy(y) if y_f32 else torch.from_numpy(y).to(tdt), z,
+        torch.from_numpy(scale).to(tdt), eps=1e-5)
+    jz = jnp.asarray(zx, jdt)[:, :d]
+    want = jax_rms_norm({"scale": jnp.asarray(scale, jdt)},
+                        jnp.asarray(y).astype(jdt) * jax.nn.silu(
+                            jz.astype(jnp.float32)).astype(jdt), 1e-5)
+    assert got.dtype == tdt and got.shape == (N, d)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=0 if dtype == "float32" else tol)
 
 
 def test_ssd_cpu_tensors_take_the_plain_version():
