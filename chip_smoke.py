@@ -29,12 +29,16 @@ their plain versions in the ``kernels`` phase (the recurrence kernel on
 the route its plan picks, also bitwise compositional over splits at 1,
 the tile's edges and 37, an identity step at dt = 0 and ``ssd_step``'s T
 = 1 launch, and timed over a T sweep at b 1 with its fixed and per-token
-cost fitted); a 2-layer full-width fp32 mamba2 on the
+cost fitted; the dual form on the route ``chunk_plan`` picks, bf16 on
+the tensor-core route, bitwise repeatable, timed by sub-step and over
+its sub-chunks); a 2-layer full-width fp32 mamba2 on the
 card against the CPU through ``prefill`` (the chunked kernel) and
 through an extend (``model_ssm``) and through ``Engine``
 (``serve_ssm_check``, tokens identical); the full 48-layer bf16 model
 served with the same schedule (``serve_ssm``, launch counts equal to the
-trace) and a profiled second batch (``profile_ssm``). Then the Zoo
+trace), a profiled second batch (``profile_ssm``) and a 1024-token
+``Model.prefill`` at full depth (``prefill_ssm``: wall and device ms,
+the dual form's share, 48 ``ssd`` launches a call). Then the Zoo
 compose layer: the flash-attention kernel against its plain version in
 the ``kernels`` phase (pixtral-12b's hd 160 and llama3.2-1b's hd 64 at
 G 4, G 1 and G 8, hd 40, a window, non-causal, a ragged length, fp32);
@@ -47,12 +51,14 @@ paper's deployment example at full width (``zoo``: the 40-layer bf16
 pixtral-12b classifier ``>> label_decoder`` deployed local, remote and
 split, identical outputs, exactly 40 flash and 81 norm launches a
 forward; ``model.lm`` on llama3.2-1b; a registry round trip on the
-card). The decode-attention cases cover both tensor-core routes of its
+card); and the bf16 classifier at full width cut to 2 layers on the
+card against the plain fp32 forward on the CPU (``zoo_plain``: class
+ids equal, logits within 2e-2 of max|plain|). The decode-attention cases cover both tensor-core routes of its
 plan (R <= 16 rows and above, S split over blocks, a fully masked row
 at T 1 and T 16); every timed attention case records its plan and the
 rates it reached, and the ``build`` line every template's ptxas
-registers and spills (a spilling tensor-core, ``ssd_extend`` or
-``rmsnorm_kernel`` template fails the run); every profile line splits
+registers and spills (a spilling tensor-core, ``ssd_extend``, dual-form
+``mma`` or ``rmsnorm_kernel`` template fails the run); every profile line splits
 the ``ssd_extend`` device time by template (route) and gates the norm's
 launch counter at 2 n_layers + 1 a forward. The RMSNorm kernel's three
 routes (add + norm, the norm alone, Mamba-2's gated norm) are held
@@ -68,7 +74,12 @@ package is not beside it.
 
     python3 chip_smoke.py --norm-host-us SRC
 
-times another checkout's norm wrapper alone (``norm_host_cost``).
+times another checkout's norm wrapper alone (``norm_host_cost``);
+
+    python3 chip_smoke.py --ssd-compare SRC
+
+times another checkout's dual form at the kernels phase's two bf16
+shapes and its ``prefill_ssm`` (``ssd_compare``).
 """
 from __future__ import annotations
 
@@ -104,6 +115,9 @@ FLASH_TPU = ("src/repro/kernels/flash_attention/kernel.py:153, "
 SSD_FULL = (48, 64, 1, 128)
 SSD_REDUCED_G2 = (16, 32, 2, 32)
 SSD_TOL_REL = 1e-4
+#: the bf16 Zoo classifier on the card against the plain fp32 forward,
+#: relative to max|plain logits| (``zoo_plain``)
+ZOO_BF16_TOL_REL = 2e-2
 #: the recurrence kernel's T sweep at b 1 (fixed and per-token cost)
 SSD_SWEEP_T = (1, 16, 64, 128, 256)
 #: llama3.2-1b's projection shapes (K, N): wi/wg, wk/wv, wq/wo, mlp wo;
@@ -900,13 +914,36 @@ def ssd_extend_sweep(torch, flush):
     return rec
 
 
+def _ssd_bound(x, B, C, dt, b, l, h, p, n, chunk, dtype):
+    """(bound ms, "bytes" or "operations", bytes, operations) of one
+    dual-form call at ``dtype``'s peak: bytes, x, B, C in their dtype,
+    dt, A, D, y and the final state in f32; operations of the unmasked
+    (i, j <= i) pairs only (scores 2n, weight 3, product with x 2p) and,
+    per position, the carried state's readout and update 4 p n and D*x
+    2p, counted at the caller's chunk."""
+    Q = chunk
+    per_chunk = Q * (Q + 1) // 2 * (2 * n + 2 * p + 3) \
+        + Q * (4 * p * n + 2 * p)
+    flops = b * h * (l // Q) * per_chunk
+    nbytes = x.element_size() * (x.numel() + B.numel() + C.numel()) \
+        + 4 * (dt.numel() + 2 * h + b * l * h * p + b * h * p * n)
+    return bound_ms(nbytes, flops, dtype) + (nbytes, flops)
+
+
 def ssd_cases(torch, flush):
     """The chunked kernel against its plain version at mamba2's full dims
     (b 1, l 1024 and b 2, l 512 at chunk 256), and at the reduced dims
     with 2 groups at chunk 32 (from zero and from a given state), with
-    f32 and bf16 x, B, C: max|kernel - plain| <= 1e-4 * max|plain| over
-    y and the final state (both compute in f32 from the same inputs)."""
-    from repro_torch.kernels.ssd_scan.kernel import ssd_cuda
+    f32 and bf16 x, B, C, each on the route ``chunk_plan`` gives it:
+    max|kernel - plain| <= 1e-4 * max|plain| over y and the final state
+    (both compute in f32 from the same inputs; the bf16 route's split
+    pairs keep 16 bits of each f32 operand), two calls bitwise equal. The
+    bf16 full-dims cases are timed: the call, each sub-step of the mma
+    route alone ((a) chunk states, (b) the state pass, (c) the outputs,
+    CUDA events on one set of buffers), and at b 1, l 1024 the call at
+    every sub-chunk the kernels hold; ``bound_ms`` at the route's peak
+    (bf16 tensor cores), ``bound_ms_cuda_cores`` at f32's."""
+    from repro_torch.kernels.ssd_scan import kernel as K
     from repro_torch.kernels.ssd_scan.ref import ssd_reference
 
     cases = [("b1_l1024", 1, 1024, SSD_FULL, 256, False),
@@ -921,8 +958,11 @@ def ssd_cases(torch, flush):
             x, dt, A, B, C, D, s0 = _ssd_inputs(torch, g, b, l, h, p,
                                                 groups, n, dtype)
             s0 = s0 if init else None
-            y, s = ssd_cuda(x, dt, A, B, C, D, chunk=chunk,
-                            initial_state=s0)
+            pl = K.chunk_plan(b, l, h, p, n, chunk, dtype)
+            y, s = K.ssd_cuda(x, dt, A, B, C, D, chunk=chunk,
+                              initial_state=s0)
+            y2, s2 = K.ssd_cuda(x, dt, A, B, C, D, chunk=chunk,
+                                initial_state=s0)
             y0, s1 = ssd_reference(x, dt, A, B, C, D, chunk=chunk,
                                    initial_state=s0)
             torch.cuda.synchronize()
@@ -930,41 +970,58 @@ def ssd_cases(torch, flush):
             rec = {"phase": "kernels", "kernel": "ssd", "case": name,
                    "dtype": dname, "b": b, "l": l, "h": h, "p": p,
                    "g": groups, "n": n, "chunk": chunk,
-                   "initial_state": init, "max_rel_err": rel,
+                   "initial_state": init, "route": pl.route,
+                   "plan": pl._asdict(), "max_rel_err": rel,
                    "max_abs_err": max((y - y0).abs().max().item(),
                                       (s - s1).abs().max().item()),
-                   "tol_rel": SSD_TOL_REL}
+                   "tol_rel": SSD_TOL_REL,
+                   "bitwise_repeat": torch.equal(y, y2)
+                   and torch.equal(s, s2)}
             rec["ok"] = bool(torch.isfinite(y).all().item()) \
-                and rel <= SSD_TOL_REL
+                and rel <= SSD_TOL_REL and rec["bitwise_repeat"]
             if b * l == 1024 and dtype == torch.bfloat16:
-                # bytes: x, B, C in their dtype, dt, A, D, y and the final
-                # state in f32; operations of the unmasked (i, j <= i)
-                # pairs only: scores 2n, weight 3, product with x 2p; per
-                # position the carried state's readout and update 4 p n
-                # and D*x 2p (the masked half of each diagonal tile,
-                # which the kernel computes and zeroes, is not counted)
-                Q = chunk
-                per_chunk = Q * (Q + 1) // 2 * (2 * n + 2 * p + 3) \
-                    + Q * (4 * p * n + 2 * p)
-                flops = b * h * (l // Q) * per_chunk
-                nbytes = x.element_size() * (x.numel() + B.numel()
-                                             + C.numel()) \
-                    + 4 * (dt.numel() + 2 * h + y.numel() + b * h * p * n)
-                bms, by = bound_ms(nbytes, flops, "float32")
+                peak = "bfloat16" if pl.route == "mma" else "float32"
+                bms, by, nbytes, flops = _ssd_bound(x, B, C, dt, b, l, h, p,
+                                                    n, chunk, peak)
+                bufs = K.chunk_buffers(pl, b, l, h, p, n, x.device)
+
+                def sub_step(mask, sub=0):
+                    return lambda: K._launch_chunk(
+                        x, dt, A, B, C, D, chunk, None, sub=sub,
+                        steps=mask, bufs=bufs)
+
                 rec.update(
-                    kernel_ms=median_ms(torch, lambda: ssd_cuda(
+                    kernel_ms=median_ms(torch, lambda: K.ssd_cuda(
                         x, dt, A, B, C, D, chunk=chunk), flush),
                     plain_ms=median_ms(torch, lambda: ssd_reference(
                         x, dt, A, B, C, D, chunk=chunk), flush),
                     library_ms=None, bound_ms=bms, bound_us=bms * 1e3,
-                    bound_by=by, bytes=nbytes, flops=flops)
+                    bound_by=by, bound_peak=peak,
+                    bound_ms_cuda_cores=_ssd_bound(
+                        x, B, C, dt, b, l, h, p, n, chunk, "float32")[0],
+                    bytes=nbytes, flops=flops)
+                if pl.route == "mma":
+                    rec["substep_ms"] = {
+                        k: median_ms(torch, sub_step(m), flush)
+                        for k, m in (("a_states", 1), ("b_pass", 2),
+                                     ("c_outputs", 4))}
+                    if b == 1:
+                        rec["sub_ms"] = {}
+                        for q in (16, 32, 64, 128):
+                            qp = K.chunk_plan(b, l, h, p, n, chunk, dtype,
+                                              q)
+                            bufs = K.chunk_buffers(qp, b, l, h, p, n,
+                                                   x.device)
+                            rec["sub_ms"][q] = median_ms(
+                                torch, sub_step(K.STEPS_ALL, q), flush)
+                rec.update(achieved(rec))
             emit(rec)
             out.append(rec)
             errs.append(rec["max_abs_err"])
             if not rec["ok"]:
                 raise AssertionError(f"ssd {name} {dname}: kernel "
-                                     f"disagrees with the plain version: "
-                                     f"{rec}")
+                                     f"disagrees with the plain version or "
+                                     f"is not repeatable: {rec}")
     return out, max(errs)
 
 
@@ -1295,10 +1352,11 @@ def _ms_by_template(rows, part):
     return dict(out, templates=per)
 
 
-def _profile_call(torch, fn):
+def _profile_call(torch, fn, parts=()):
     """One warm call of ``fn`` under the profiler: device kernel time by
-    kernel and its share of the call's wall time, and the flash
-    kernel's time and launches."""
+    kernel and its share of the call's wall time, the flash kernel's
+    time and launches, and ``parts``: {name: (substring, excluded
+    substring)} summed the same way."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -1319,6 +1377,8 @@ def _profile_call(torch, fn):
             "device_busy_share": busy / wall_ms if busy else None,
             "kernel_launches": sum(c for _, c, _ in rows),
             "flash_attention": _ms_matching(rows, "flash_"),
+            **{name: _ms_matching([r for r in rows if out not in r[2]], inc)
+               for name, (inc, out) in dict(parts).items()},
             "top": [{"kernel": k[:90], "ms": ms, "calls": c}
                     for ms, c, k in rows[:8]]}
 
@@ -1549,6 +1609,125 @@ def zoo(torch):
     if not rec["ok"]:
         raise AssertionError(f"zoo phase failed: {rec}")
     return counts
+
+
+def zoo_plain(torch):
+    """The bf16 Zoo at full width against a plain forward: the pixtral-12b
+    classifier (d 5120, Hq 32, Hkv 8, hd 160) cut to 2 layers, B 1, 256
+    frontend tokens of 1024 dims, weights from seed 0 made on the CPU in
+    bf16: once on the card in bf16 (flash and norm kernels) and once on
+    the CPU through the port's plain route in fp32, on the same weights
+    and embeddings (the bf16 values widened). Class ids equal; logits
+    within ``ZOO_BF16_TOL_REL`` of max|plain| (the card rounds every
+    activation to bf16, unit roundoff 2^-8, and p to bf16 before the PV
+    product; the plain fp32 route rounds neither: 2e-2, the kernels' bf16
+    gate, taken relative to the logits' scale). The top-2 margin of the
+    plain logits is printed beside the error."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.core import zoo_builders as zb
+
+    t0 = time.perf_counter()
+    cfg = get_arch("pixtral-12b").replace(n_layers=2)
+    c32 = cfg.replace(dtype="float32", param_dtype="float32")
+    clf = zb.classifier_service_for(cfg, 1000, arch="pixtral-12b",
+                                    n_tokens=256)
+    plain = zb.classifier_service_for(c32, 1000, arch="pixtral-12b",
+                                      n_tokens=256)
+    p_bf16 = clf.metadata["init_params"](SEED, "cpu")
+    emb = torch.from_numpy(np.random.default_rng(SEED).normal(
+        0, 1, (1, 256, 1024)).astype(np.float32)).bfloat16()
+    p_gpu = _tree_to(p_bf16, "cuda")
+    before = kernels.launch_counts()
+    lg = clf.fn(p_gpu, {"embeddings": emb.cuda()}).float().cpu()
+    launches = _launch_delta(before, kernels.launch_counts())
+    del p_gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    p_f32 = _tree_to(p_bf16, torch.float32)
+    del p_bf16
+    before = kernels.launch_counts()
+    lp = plain.fn(p_f32, {"embeddings": emb.float()})
+    cpu_launches = _launch_delta(before, kernels.launch_counts())
+    err = (lg - lp).abs().max().item()
+    scale = lp.abs().max().item()
+    top2 = lp[0].topk(2).values
+    want = {"flash_attention": 2, "rmsnorm": 5}
+    rec = {"phase": "zoo_plain", "arch": cfg.name, "n_layers": 2,
+           "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+           "n_kv_heads": cfg.n_kv_heads, "hd": cfg.hd, "batch": 1,
+           "n_tokens": 256, "n_classes": 1000, "card_dtype": cfg.dtype,
+           "plain_dtype": "float32", "logits_max_abs_err": err,
+           "logits_max_abs_plain": scale, "rel_err": err / scale,
+           "tol_rel": ZOO_BF16_TOL_REL,
+           "top2_margin_plain": (top2[0] - top2[1]).item(),
+           "class_id_gpu": int(lg[0].argmax()),
+           "class_id_cpu": int(lp[0].argmax()),
+           "launches_gpu": launches, "launches_expected": want,
+           "seconds": time.perf_counter() - t0}
+    rec["ok"] = err <= ZOO_BF16_TOL_REL * scale \
+        and rec["class_id_gpu"] == rec["class_id_cpu"] \
+        and launches == want and not cpu_launches \
+        and bool(torch.isfinite(lg).all().item())
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"zoo_plain: the card's bf16 classifier and "
+                             f"the plain fp32 forward disagree: {rec}")
+
+
+def prefill_ssm(torch, model, params, phase="prefill_ssm"):
+    """The cache-free forward at full depth: mamba2-780m (48 layers, bf16,
+    the caller's seed-0 weights), B 1, a 1024-token prompt through
+    ``Model.prefill`` into a fresh cache. Wall ms per synchronized call
+    (median of 3 after a warm-up; the caches made beforehand), the
+    launch counts of those 3 calls (``ssd`` 48 a call: one a layer),
+    device ms by kernel and the dual form's share under the profiler
+    (one more call). Fails on non-finite logits of the wrong shape or
+    another ``ssd`` count."""
+    import numpy as np
+
+    from repro_torch import kernels
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, 1024)).to(model.device)[None]
+    caches = [model.make_cache(1, 1024) for _ in range(5)]
+
+    def call(cache):
+        return model.prefill(params, {"tokens": toks}, cache)[0]
+
+    logits = call(caches[0])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    walls = []
+    for cache in caches[1:4]:
+        t0 = time.perf_counter()
+        call(cache)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    prof = _profile_call(torch, lambda: call(caches[4]),
+                         parts={"ssd": ("ssd_", "ssd_extend")})
+    ssd = prof.pop("ssd")
+    busy = prof["device_kernel_ms"]
+    ssd["share_of_device"] = ssd["ms"] / busy if busy else None
+    rec = {"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "dtype": cfg.dtype, "batch": 1, "prompt": 1024,
+           "wall_ms_median": statistics.median(walls), "wall_ms": walls,
+           "launches_3_calls": counts, "ssd_per_call": counts.get("ssd", 0)
+           / 3, "ssd_device": ssd, **prof,
+           "logits_shape": list(logits.shape),
+           "seconds": time.perf_counter() - t_phase}
+    rec["ok"] = bool(torch.isfinite(logits).all().item()) \
+        and logits.shape[-1] == cfg.vocab and logits.shape[0] == 1 \
+        and counts.get("ssd", 0) == 3 * cfg.n_layers
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"{phase} failed: {rec}")
+    return rec
 
 
 # --------------------------------------------------------------------- #
@@ -1913,6 +2092,40 @@ def norm_host_cost(torch, src):
     return 0
 
 
+def ssd_compare(torch, src):
+    """``python3 chip_smoke.py --ssd-compare SRC``: the dual form of the
+    ``repro_torch`` under SRC, bf16 at the kernels phase's two timed
+    shapes (b 1, l 1024 and b 2, l 512, chunk 256, its inputs), then
+    ``prefill_ssm`` on that package; one JSON line each, then the card's
+    name and power limit. Run on two checkouts in one chip call (a parent
+    unpacked with ``git archive`` and this one), it compares their
+    kernels and prefills on one card."""
+    sys.path.insert(0, str(src))
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ssd_scan.kernel import ssd_cuda
+    from repro_torch.models.model import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    h, p, groups, n = SSD_FULL
+    for name, b, l in (("b1_l1024", 1, 1024), ("b2_l512", 2, 512)):
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        _ssd_inputs(torch, g, b, l, h, p, groups, n, torch.float32)
+        x, dt, A, B, C, D, _ = _ssd_inputs(torch, g, b, l, h, p, groups, n,
+                                           torch.bfloat16)
+        emit({"phase": "ssd_compare", "src": str(src), "case": name,
+              "dtype": "bfloat16", "chunk": 256,
+              "kernel_ms": median_ms(torch, lambda: ssd_cuda(
+                  x, dt, A, B, C, D, chunk=256), flush)})
+    del flush
+    model = build(get_arch("mamba2-780m"))
+    prefill_ssm(torch, model, model.init(SEED), phase="prefill_ssm_compare")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1920,6 +2133,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--norm-host-us"] and len(sys.argv) == 3:
         return norm_host_cost(torch, Path(sys.argv[2]).resolve())
+    if sys.argv[1:2] == ["--ssd-compare"] and len(sys.argv) == 3:
+        return ssd_compare(torch, Path(sys.argv[2]).resolve())
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
@@ -1940,7 +2155,8 @@ def main() -> int:
     _build.build_all()
     t_nvcc = time.perf_counter() - t0
     ptxas = ptxas_table(_build.BUILD_LOG.values())
-    gated = ("_mma_kernel", "ssd_extend", "rmsnorm_kernel")
+    gated = ("_mma_kernel", "ssd_extend", "rmsnorm_kernel",
+             "ssd_chunk_states", "ssd_state_pass", "ssd_chunk_out")
     spills = {k: v for k, v in ptxas.items() if any(s in k for s in gated)
               and (v.get("spill_stores") or v.get("spill_loads"))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -1950,10 +2166,12 @@ def main() -> int:
                                    if "ssd_extend" in k},
           "rmsnorm_templates": {k: v for k, v in ptxas.items()
                                 if "rmsnorm_kernel" in k},
+          "ssd_mma_templates": {k: v for k, v in ptxas.items()
+                                if any(s in k for s in gated[3:])},
           "gated_spills": spills})
     if spills or not all(any(s in k for k in ptxas) for s in gated):
-        raise AssertionError(f"tensor-core, ssd_extend or rmsnorm templates "
-                             f"missing or spilling: {spills}")
+        raise AssertionError(f"tensor-core, ssd_extend, ssd mma or rmsnorm "
+                             f"templates missing or spilling: {spills}")
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     attn, attn_err = decode_attention_cases(torch, flush)
@@ -1997,15 +2215,22 @@ def main() -> int:
     serve_ssm_check(torch, pair)
     del pair
     ssm_model = build(get_arch("mamba2-780m"))
-    ext_counts, engine, _, _ = serve(torch, ssm_model,
-                                     ssm_model.init(SEED), phase="serve_ssm")
+    ssm_params = ssm_model.init(SEED)
+    ext_counts, engine, _, _ = serve(torch, ssm_model, ssm_params,
+                                     phase="serve_ssm")
     profile(torch, engine, "profile_ssm")
-    del engine, ssm_model
+    del engine
+    prefill_ssm(torch, ssm_model, ssm_params)
+    del ssm_model, ssm_params
     gc.collect()
     # the Zoo: model services card against CPU, then the paper's
-    # deployment example at full width
+    # deployment example at full width, then the bf16 classifier at full
+    # width against the plain forward
     model_vlm(torch)
     zoo_counts = zoo(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo_plain(torch)
 
     def entry(name, route, src, tpu, err, rows, launches, extra=()):
         head = rows[0]
@@ -2046,7 +2271,8 @@ def main() -> int:
              sweep={k: ext[-1][k] for k in ("T", "sweep_ms", "fixed_ms",
                                             "per_token_us")}),
         entry("ssd", "cuda", SSD_SRC, SSD_TPU, ssd_err, timed(ssd),
-              ssd_counts, extra=("bound_by",)),
+              ssd_counts, extra=("bound_by", "route", "plan", "substep_ms",
+                                 "bound_ms_cuda_cores")),
         entry("flash_attention", "cuda", FLASH_SRC, FLASH_TPU, flash_err,
               flash, zoo_counts, extra=("bound_by", "plan"))]})
     print(smi, flush=True)

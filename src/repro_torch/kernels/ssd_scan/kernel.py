@@ -1,7 +1,7 @@
 """ctypes bindings of the CUDA SSD kernels (``csrc/ssd_scan.cu``):
 ``ssd_extend_cuda``, the sequential recurrence from an explicit state (it
 replaces the JAX package's ``ssd_extend_pallas``), and ``ssd_cuda``, the
-chunked dual form (``ssd_pallas``). Both entry points live in one
+chunked dual form (``ssd_pallas``). Every entry point lives in one
 library, built with ``nvcc`` on first use (``kernels/_build.py``).
 
 The wrappers check devices, dtypes, shapes and strides and raise on what
@@ -20,8 +20,15 @@ a warp), the fewest that keep the grid within one block per SM, else 32.
 Both routes run one arithmetic per token, so a token's bits depend
 neither on T nor on the route.
 
-Both launches run through ``_autograd.launch``: a backward pass through
-either raises.
+The dual form's launch comes from ``chunk_plan``: bf16 x, B, C with a
+chunk that is a multiple of 16 take the ``mma`` route (three launches
+parallel over sub-chunks of ``sub`` tokens: the chunk states, the state
+pass, the outputs; tensor-core products), everything else the ``simt``
+route (one block per (head, batch row) walking the chunks). The ``mma``
+route's workspace of chunk states is allocated here with the outputs.
+
+Every launch runs through ``_autograd.launch``: a backward pass through
+any of them raises.
 """
 from __future__ import annotations
 
@@ -36,6 +43,20 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)              # p the kernels are instantiated for
 STATE_DIMS = (32, 64, 128)        # n
 MAX_CHUNK = 256
+#: the dual form's mma route: sub-chunks it may work in (largest first;
+#: ``chunk_plan`` takes the first that divides the chunk), the largest
+#: the kernels hold, threads of the chunk-states and state-pass kernels,
+#: the sub-steps (1: chunk states, 2: state pass, 4: outputs)
+MMA_SUBS = (128, 64, 32, 16)
+MMA_MAX_SUB = 128
+STATES_THREADS = 128
+PASS_THREADS = 256
+STEPS_ALL = 7
+#: the most query rows a block of the outputs kernel takes (4 warps)
+OUT_ROWS = 64
+#: the simt route's tiles (``ssd_chunk_kernel``)
+SIMT_THREADS = 256
+SIMT_TILE = 64
 #: the extend kernel: state rows a warp, the most rows a block (16
 #: warps), tokens a tile on the chunk route, the staging ring's depth, the
 #: SMs a grid aims to fill at most once
@@ -47,15 +68,19 @@ SMS = 132
 _FNS = {}
 
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: the C signatures of ``csrc/ssd_scan.cu``'s entry points
+ARGTYPES = {"ssd_extend_launch": [_P] * 10 + [_I] * 8 + [_LL] * 14 + [_P],
+            "ssd_chunk_launch": [_P] * 9 + [_I] * 8 + [_LL] * 11 + [_P],
+            "ssd_chunk_mma_launch": [_P] * 12 + [_I] * 8 + [_LL] * 11
+            + [_P]}
+
+
 def _launcher(name):
     fn = _FNS.get(name)
     if fn is None:
         fn = getattr(_build.load("ssd_scan"), name)
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        if name == "ssd_extend_launch":
-            fn.argtypes = [p] * 10 + [i] * 8 + [ll] * 14 + [p]
-        else:
-            fn.argtypes = [p] * 9 + [i] * 8 + [ll] * 11 + [p]
+        fn.argtypes = ARGTYPES[name]
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return fn
@@ -192,20 +217,113 @@ def _launch_extend(state, x, dt, A, B, C, D, out, ckpt):
 ssd_extend_cuda.launches = 0
 
 
+class ChunkPlan(NamedTuple):
+    """How one dual-form call runs: the ``route`` ("mma" or "simt"),
+    ``sub`` tokens a sub-chunk (on simt the caller's chunk) and the
+    ``chunks`` of them in l; the outputs kernel's grid of ``blocks``
+    (``chunks`` x ``sub // rows`` x h x b on mma, h x b on simt) that take
+    ``rows`` query rows each (simt: a whole sequence), of ``threads``
+    threads and ``smem`` bytes of dynamic shared memory; on mma also the
+    chunk-states kernel's ``states_blocks`` (``chunks`` x h x b) of
+    ``states_threads`` threads and ``states_smem`` bytes, the state
+    pass's ``pass_blocks`` of ``PASS_THREADS`` (a thread per 4 state
+    elements) and the ``workspace`` bytes: the chunk states (b h chunks p
+    n f32, written by the first kernel and read by the state pass), the
+    incoming states as split bf16 pairs (the same bytes, written by the
+    pass and read by the outputs kernel) and the decays (b h chunks f32);
+    all 0 on simt."""
+    route: str
+    sub: int
+    chunks: int
+    rows: int
+    blocks: int
+    threads: int
+    smem: int
+    states_blocks: int
+    states_threads: int
+    states_smem: int
+    pass_blocks: int
+    workspace: int
+
+
+def _out_region(q: int, p: int, n: int) -> int:
+    """The outputs kernel's shared region in bf16 elements: the split
+    state (2 x p x (n + 8)), later B and x (q x (n + 8 + p + 8))."""
+    return max(2 * p * (n + 8), q * (n + p + 16))
+
+
+def chunk_plan(b: int, l: int, h: int, p: int, n: int, chunk: int,
+               dtype, sub: int = 0) -> ChunkPlan:
+    """The dual form's launch for x (b, l, h, p), B/C (b, l, g, n) in
+    ``dtype`` at ``chunk``. bf16 with a chunk that is a multiple of 16:
+    the ``mma`` route, in sub-chunks of the first of ``MMA_SUBS`` that
+    divides the chunk (``sub`` overrides it: any multiple of 16 up to
+    ``MMA_MAX_SUB`` dividing l); the outputs kernel takes ``OUT_ROWS``
+    query rows a block at most. 128 at mamba2's chunk 256: at b 1, l
+    1024, h 48, 384 chunk-state blocks (3 an SM: one wave) and 768
+    output blocks of 4 warps (70 KB of shared memory, 3 an SM), with
+    12.6 MB of chunk states; 64 doubles the chunk-state bytes and
+    measured slower on the card (``PERF.md`` §6, row 8). f32, or a chunk
+    that is no multiple of 16: the ``simt`` route, one block per (head,
+    batch row) at the caller's chunk."""
+    if dtype == torch.bfloat16 and chunk % 16 == 0:
+        q = sub or next(s for s in MMA_SUBS if chunk % s == 0)
+        if q % 16 or not 16 <= q <= MMA_MAX_SUB or l % q:
+            raise ValueError(f"ssd_cuda: sub-chunk {q} must be a multiple "
+                             f"of 16 up to {MMA_MAX_SUB} dividing l = {l}")
+        nc, rows = l // q, min(q, OUT_ROWS)
+        states_smem = 2 * q * (n + 8) + 4 * q * (p + 8) + 8 * MMA_MAX_SUB
+        smem = 2 * (rows * (n + 8) + _out_region(q, p, n)) \
+            + 8 * MMA_MAX_SUB
+        total4 = b * h * p * n // 4
+        return ChunkPlan("mma", q, nc, rows, nc * (q // rows) * h * b,
+                         rows // 16 * 32, smem, nc * h * b, STATES_THREADS,
+                         states_smem, -(-total4 // PASS_THREADS),
+                         4 * b * h * nc * (2 * p * n + 1))
+    t = SIMT_TILE
+    smem = 4 * (p * (n + 1) + 2 * t * (n + 1) + t * (p + 1) + t * (t + 1)
+                + 2 * MAX_CHUNK + t + 32)
+    return ChunkPlan("simt", chunk, l // chunk, l, h * b, SIMT_THREADS, smem,
+                     0, 0, 0, 0, 0)
+
+
 def ssd_cuda(x, dt, A, B, C, D=None, *, chunk=64, initial_state=None):
     """The chunked scan: x, B, C (b, l, h, p) / (b, l, g, n) in one of
     float32 or bfloat16, dt (b, l, h), A and D (h,) f32; l % chunk == 0,
     chunk <= 256. ``initial_state`` (b, h, p, n) f32 seeds the carried
     state (zero when None). Returns (y (b, l, h, p) f32, final state (b,
-    h, p, n) f32). Raises on any input the kernel does not take, when
-    the launch is refused, and in a backward pass."""
+    h, p, n) f32), on the route ``chunk_plan`` picks. Raises on any input
+    the kernels do not take, when a launch is refused, and in a backward
+    pass."""
     if D is None:
         D = torch.zeros_like(A)
     return _autograd.launch("ssd", _launch_chunk, x, dt, A, B, C, D, chunk,
                             initial_state)
 
 
-def _launch_chunk(x, dt, A, B, C, D, chunk, initial_state):
+def chunk_buffers(pl: ChunkPlan, b: int, l: int, h: int, p: int, n: int,
+                  device):
+    """The outputs and the workspace of a call on plan ``pl``: y (b, l,
+    h, p) and the final state (b, h, p, n) f32; the chunk states (b, h,
+    chunks, p, n) and their decays (b, h, chunks) f32, and the incoming
+    states' hi and lo planes (b, h, chunks, 2, p, n) bf16 (the last three
+    empty on simt)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    c = pl.chunks if pl.route == "mma" else 0
+    return (torch.empty((b, l, h, p), **f32),
+            torch.empty((b, h, p, n), **f32),
+            torch.empty((b, h, c, p, n), **f32),
+            torch.empty((b, h, c), **f32),
+            torch.empty((b, h, c, 2, p, n), dtype=torch.bfloat16,
+                        device=device))
+
+
+def _launch_chunk(x, dt, A, B, C, D, chunk, initial_state, *, sub=0,
+                  steps=STEPS_ALL, bufs=None):
+    """One call of the dual form; ``sub``, ``steps`` (a mask of the mma
+    route's sub-steps) and ``bufs`` (``chunk_buffers``' tuple, reused)
+    let a timing run launch one sub-step at a time on one set of
+    buffers."""
     ts = [t for t in (x, dt, A, B, C, D, initial_state) if t is not None]
     if not all(t.is_cuda and t.device == x.device for t in ts):
         raise ValueError("ssd_cuda takes CUDA tensors on one device")
@@ -222,20 +340,31 @@ def _launch_chunk(x, dt, A, B, C, D, chunk, initial_state):
     if initial_state is not None:
         _check_state("ssd_cuda", initial_state, b, h, p, n)
         initial_state = initial_state.contiguous()
-    y = torch.empty((b, l, h, p), dtype=torch.float32, device=x.device)
-    final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    pl = chunk_plan(b, l, h, p, n, chunk, x.dtype, sub)
+    if pl.route == "mma" and initial_state is not None \
+            and initial_state.data_ptr() % 16:
+        initial_state = initial_state.clone()    # the state pass's float4s
+    y, final, ws, decay, s_in = bufs or chunk_buffers(pl, b, l, h, p, n,
+                                                      x.device)
+    s0 = None if initial_state is None else initial_state.data_ptr()
+    strides = (x.stride(0), x.stride(1), x.stride(2), dt.stride(0),
+               dt.stride(1), B.stride(0), B.stride(1), B.stride(2),
+               C.stride(0), C.stride(1), C.stride(2))
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _launcher("ssd_chunk_launch")(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-        C.data_ptr(), D.data_ptr(),
-        None if initial_state is None else initial_state.data_ptr(),
-        y.data_ptr(), final.data_ptr(), b, l, chunk, h, g, p, n,
-        _DTYPES[x.dtype], x.stride(0), x.stride(1), x.stride(2),
-        dt.stride(0), dt.stride(1), B.stride(0), B.stride(1), B.stride(2),
-        C.stride(0), C.stride(1), C.stride(2), stream)
+    ptrs = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), D.data_ptr(), s0, y.data_ptr(), final.data_ptr())
+    if pl.route == "mma":
+        err = _launcher("ssd_chunk_mma_launch")(
+            *ptrs, ws.data_ptr(), decay.data_ptr(), s_in.data_ptr(), b, l,
+            pl.sub, h, g, p, n, steps, *strides, stream)
+    else:
+        err = _launcher("ssd_chunk_launch")(
+            *ptrs, b, l, chunk, h, g, p, n, _DTYPES[x.dtype], *strides,
+            stream)
     ssd_cuda.launches += 1
     if err != 0:
-        raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"ssd kernel launch failed ({pl.route} route): "
+                           f"CUDA error {err}")
     return y, final
 
 

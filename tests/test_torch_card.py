@@ -437,15 +437,16 @@ SSD_EXTEND_CASES = [
 ]
 
 
-def _ssd_extend_inputs(b, T, h, p, g, n, layout, *, seed):
+def _ssd_extend_inputs(b, T, h, p, g, n, layout, *, seed,
+                       dtype=torch.float32):
     """x, dt, A, B, C, D and a state on the card from a seeded generator
-    (the kernels phase's distributions); x, B, C laid out as ``layout``
-    says."""
+    (the kernels phase's distributions); x, B, C in ``dtype``, laid out
+    as ``layout`` says."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(seed)
     d_in = h * p
     width = d_in + 2 * g * n + (layout == "offset")
-    xbc = torch.randn((b, T, width), generator=gen, device=dev)
+    xbc = torch.randn((b, T, width), generator=gen, device=dev).to(dtype)
     if layout == "offset":
         xbc = xbc[..., 1:]
     x = xbc[..., :d_in].unflatten(-1, (h, p))
@@ -515,6 +516,61 @@ def test_ssd_extend_routes_match_plain_on_card(case):
     assert si is state
     assert torch.equal(yi, y) and torch.equal(state, s)
     assert torch.equal(ckpt, s0)
+
+
+# (name, b, l, h, p, g, n, chunk, layout): the dual form at mamba2-780m's
+# full dims (b 1, l 1024 and b 2, l 512 at chunk 256), chunks 16, 32,
+# 48, 64 and 128 (sub-chunks 16, 32, 16, 64, 128), g 2 and 3, p 32, n 32
+# and 64, and a chunk of 8 (bf16 on the simt route); layouts as for the
+# recurrence ("packed": slices of one conv-output row as the model passes
+# them; "offset": shifted by one element, so staged without 16-byte
+# copies; "dense": separate tensors)
+SSD_CHUNK_CASES = [
+    ("full_b1_l1024", 1, 1024, 48, 64, 1, 128, 256, "packed"),
+    ("full_b2_l512", 2, 512, 48, 64, 1, 128, 256, "dense"),
+    ("chunk16_g2", 2, 64, 16, 32, 2, 32, 16, "packed"),
+    ("chunk32_g3", 1, 96, 6, 32, 3, 64, 32, "dense"),
+    ("chunk48_g3", 1, 96, 6, 64, 3, 128, 48, "offset"),
+    ("chunk64_p32_n64", 2, 128, 8, 32, 1, 64, 64, "packed"),
+    ("chunk128_n32_g2", 1, 256, 8, 64, 2, 32, 128, "offset"),
+    ("chunk8_simt", 1, 64, 4, 32, 1, 32, 8, "dense"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", SSD_CHUNK_CASES, ids=lambda c: c[0])
+def test_ssd_routes_match_plain_on_card(case, dtype):
+    """The dual form on the route its plan picks (bf16 with a chunk that
+    is a multiple of 16: the tensor-core route in sub-chunks; else simt),
+    from zero and from a given state: y and the final state each within
+    1e-4 of max|plain| of the plain version (f32 arithmetic from the same
+    inputs; the tensor-core route's split bf16 pairs keep 16 bits of each
+    f32 operand), two calls bitwise equal, one launch counted a call."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+
+    name, b, l, h, p, g, n, chunk, layout = case
+    x, dt, A, B, C, D, s0 = _ssd_extend_inputs(b, l, h, p, g, n, layout,
+                                               seed=l + n, dtype=dtype)
+    pl = ssd_kernel.chunk_plan(b, l, h, p, n, chunk, dtype)
+    assert pl.route == ("mma" if dtype == torch.bfloat16 and chunk % 16 == 0
+                        else "simt")
+    for init in (None, s0):
+        before = ssd_kernel.ssd_cuda.launches
+        y, s = ssd_kernel.ssd_cuda(x, dt, A, B, C, D, chunk=chunk,
+                                   initial_state=init)
+        y2, s2 = ssd_kernel.ssd_cuda(x, dt, A, B, C, D, chunk=chunk,
+                                     initial_state=init)
+        assert ssd_kernel.ssd_cuda.launches == before + 2
+        y0, s1 = ssd_ref.ssd_reference(x, dt, A, B, C, D, chunk=chunk,
+                                       initial_state=init)
+        torch.cuda.synchronize()
+        assert torch.isfinite(y).all() and torch.isfinite(s).all()
+        for got, want in ((y, y0), (s, s1)):
+            assert _err(got, want) <= 1e-4 * want.abs().max().item(), (
+                pl, init is None, _err(got, want))
+        assert torch.equal(y, y2) and torch.equal(s, s2), pl
 
 
 # (N, d): mamba2-780m's d 1536 (ln1, ln_f) and d_in 3072 (the gated

@@ -519,14 +519,19 @@ def _c_signature(src, name):
     ("flash_attention.cu", "flash_attention_launch"),
     ("rmsnorm.cu", "rmsnorm_launch"),
     ("quant_matmul.cu", "quant_matmul_launch"),
-    ("quant_matmul.cu", "quant_matmul_mma_launch")])
+    ("quant_matmul.cu", "quant_matmul_mma_launch"),
+    ("ssd_scan.cu", "ssd_extend_launch"),
+    ("ssd_scan.cu", "ssd_chunk_launch"),
+    ("ssd_scan.cu", "ssd_chunk_mma_launch")])
 def test_argtypes_match_the_c_signature(src, name):
     """A ctypes signature that drifts from the C one would pass shifted
     arguments: held here, where no compiler runs."""
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.quant_matmul import kernel as qmm_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     wrapper = {"decode_attention.cu": dec_kernel,
                "flash_attention.cu": flash_kernel,
                "rmsnorm.cu": norm_kernel,
-               "quant_matmul.cu": qmm_kernel}[src]
+               "quant_matmul.cu": qmm_kernel,
+               "ssd_scan.cu": ssd_kernel}[src]
     assert wrapper.ARGTYPES[name] == _c_signature(src, name)

@@ -205,6 +205,190 @@ def test_extend_plan_is_a_legal_launch_covering_every_row(b, T, p, n, h, g):
         assert (pl.rows, pl.blocks * b) == {1: (24, 128), 8: (32, 768)}[b]
 
 
+# (b, l, h, g): mamba2-780m's heads and the reduced dims with 2 groups,
+# at lengths every chunk below divides
+CHUNK_PLAN_DIMS = [(1, 1536, 48, 1), (2, 768, 16, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("chunk", [16, 24, 32, 48, 64, 128, 256])
+@pytest.mark.parametrize("p,n", [(p, n) for p in tkernel.HEAD_DIMS
+                                 for n in tkernel.STATE_DIMS])
+@pytest.mark.parametrize("b,l,h,g", CHUNK_PLAN_DIMS)
+def test_chunk_plan_is_a_legal_launch_covering_every_row(b, l, h, g, p, n,
+                                                         chunk, dtype):
+    """The dual form's plan: bf16 with a chunk that is a multiple of 16
+    takes the mma route, in sub-chunks that divide the chunk (multiples
+    of 16 up to ``MMA_MAX_SUB``), everything else the simt route at the
+    caller's chunk; each kernel's dynamic shared memory within the 227
+    KB a block may use; the chunk states' grid of (sub-chunk, head,
+    batch row) blocks and the outputs' grid of (row block, head, batch
+    row) blocks, a warp per 16 rows, each cover every token of every
+    (batch row, head) exactly once, and the state pass's threads every 4
+    state elements; the workspace is b h chunks (2 p n + 1) f32
+    words (the chunk states, the incoming states as bf16 pairs, the
+    decays)."""
+    pl = tkernel.chunk_plan(b, l, h, p, n, chunk, dtype)
+    mma = dtype == torch.bfloat16 and chunk % 16 == 0
+    assert pl.route == ("mma" if mma else "simt")
+    assert chunk % pl.sub == 0 and pl.chunks * pl.sub == l
+    assert pl.smem <= 227 * 1024 and pl.states_smem <= 227 * 1024
+    assert pl.threads <= 1024
+    if mma:
+        assert pl.sub % 16 == 0 and pl.sub <= tkernel.MMA_MAX_SUB
+        assert pl.sub == next(s for s in tkernel.MMA_SUBS if chunk % s == 0)
+        assert pl.rows == min(pl.sub, tkernel.OUT_ROWS)
+        assert pl.sub % pl.rows == 0 and pl.threads == pl.rows // 16 * 32
+        assert pl.states_threads == tkernel.STATES_THREADS
+        assert pl.states_blocks == pl.chunks * h * b
+        parts = pl.sub // pl.rows
+        assert pl.blocks == pl.chunks * parts * h * b
+        states = np.zeros((b, h, l), dtype=np.int64)
+        outs = np.zeros((b, h, l), dtype=np.int64)
+        for bz in range(b):
+            for hy in range(h):
+                for cx in range(pl.chunks):
+                    states[bz, hy, cx * pl.sub:(cx + 1) * pl.sub] += 1
+                for bx in range(pl.chunks * parts):
+                    r0 = bx // parts * pl.sub + bx % parts * pl.rows
+                    outs[bz, hy, r0:r0 + pl.rows] += 1
+        assert (states == 1).all() and (outs == 1).all()
+        total4 = b * h * p * n // 4
+        assert (pl.pass_blocks - 1) * tkernel.PASS_THREADS < total4 \
+            <= pl.pass_blocks * tkernel.PASS_THREADS
+        assert pl.workspace == 4 * b * h * pl.chunks * (2 * p * n + 1)
+    else:
+        assert pl.sub == chunk and pl.blocks == h * b and pl.rows == l
+        assert pl.threads == tkernel.SIMT_THREADS and pl.workspace == 0
+
+
+def test_chunk_plan_at_mamba2_and_sub_override():
+    """At mamba2-780m's b 1, l 1024, chunk 256 in bf16: sub-chunks of
+    128, 384 chunk-state blocks, 768 output blocks of 64 rows (4 warps, 70
+    KB of shared memory), 12.6 MB of chunk states. ``sub`` picks another
+    sub-chunk for a timing run; one that is no multiple of 16, above
+    ``MMA_MAX_SUB`` or not dividing l raises."""
+    pl = tkernel.chunk_plan(1, 1024, 48, 64, 128, 256, torch.bfloat16)
+    assert (pl.route, pl.sub, pl.rows, pl.blocks, pl.threads, pl.smem,
+            pl.states_blocks) == ("mma", 128, 64, 768, 128, 71680, 384)
+    assert 4 * 48 * pl.chunks * 64 * 128 == 12582912
+    pl = tkernel.chunk_plan(1, 1024, 48, 64, 128, 256, torch.bfloat16, 64)
+    assert (pl.sub, pl.blocks, pl.states_blocks) == (64, 768, 768)
+    for bad in (24, 256, 96):
+        with pytest.raises(ValueError, match="sub-chunk"):
+            tkernel.chunk_plan(1, 1024, 48, 64, 128, 256, torch.bfloat16,
+                               bad)
+
+
+def _bf16_exact(args):
+    """x, B and C rounded to bf16 values (kept in f32): the inputs of
+    the mma route."""
+    x, dt, A, B, C, D = args
+    r = lambda a: np.asarray(  # noqa: E731
+        torch.from_numpy(a).bfloat16().float())
+    return r(x), dt, A, r(B), r(C), D
+
+
+# (b, l, h, p, g, n, chunk): the plan's sub-chunk is 128, 64, 16, 32
+SUB_CHUNK_CASES = [(1, 512, 8, 64, 1, 128, 256), (2, 256, 4, 32, 2, 64, 64),
+                   (1, 96, 6, 32, 3, 32, 48), (2, 128, 4, 64, 1, 32, 32)]
+
+
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("case", SUB_CHUNK_CASES)
+def test_ssd_plain_at_the_plans_sub_chunk_matches(case, init):
+    """What justifies the mma route's sub-chunks: the plain dual form at
+    the plan's sub-chunk agrees with itself at the caller's chunk and
+    with the JAX oracle there, within 1e-5 of max|plain| over y and the
+    final state (the same f32 algorithm; the chunk length only regroups
+    the sums), from zero and from a given state."""
+    *dims, chunk = case
+    b, l, h, p, g, n = dims
+    args = _bf16_exact(_ssd_inputs(*dims, seed=sum(dims) + init))
+    s0 = np.random.default_rng(l).standard_normal((b, h, p, n)).astype(
+        np.float32) if init else None
+    sub = tkernel.chunk_plan(b, l, h, p, n, chunk, torch.bfloat16).sub
+    assert sub < chunk or chunk in (32, 64)
+    ts0 = None if s0 is None else _t(s0)
+    ys, ss = ops.ssd(*map(_t, args), chunk=sub, initial_state=ts0)
+    yc, sc = ops.ssd(*map(_t, args), chunk=chunk, initial_state=ts0)
+    yj, sj = jref.ssd_reference(
+        *map(jnp.asarray, args), chunk=chunk,
+        initial_state=None if s0 is None else jnp.asarray(s0))
+    for got, want in ((ys, yc), (ss, sc), (ys, yj), (ss, sj)):
+        want = np.asarray(want)
+        err = np.abs(np.asarray(got) - want).max()
+        assert err <= 1e-5 * np.abs(want).max(), err
+
+
+def _mma_route_model(x, dt, A, B, C, D, sub, s0=None, *, split=True):
+    """The mma route's arithmetic in plain torch (the card kernels' three
+    steps at sub-chunk ``sub``): every product with an f32 operand (x w
+    in the chunk states, the weights W and the carried state in the
+    outputs) takes that operand as bf16 hi + lo against an exact bf16
+    partner (x, B, C rounded to bf16 beforehand), sums in f32. With
+    ``split=False`` the f32 operand is rounded to bf16 once."""
+    def pair(v):
+        hi = v.bfloat16().float()
+        return hi, ((v - hi).bfloat16().float() if split
+                    else torch.zeros_like(v))
+
+    b, l, h, p = x.shape
+    g, n = B.shape[2:]
+    nc = l // sub
+    Bh = B.repeat_interleave(h // g, 2).reshape(b, nc, sub, h, n)
+    Ch = C.repeat_interleave(h // g, 2).reshape(b, nc, sub, h, n)
+    xr = x.reshape(b, nc, sub, h, p)
+    dtr = dt.reshape(b, nc, sub, h)
+    cum = torch.cumsum(dtr * A, dim=2)                   # (b, nc, sub, h)
+    cend = cum[:, :, -1]                                 # (b, nc, h)
+    w = torch.exp(cend[:, :, None] - cum) * dtr
+    hi, lo = pair(xr * w[..., None])
+    states = sum(torch.einsum("bcshp,bcshn->bchpn", t, Bh) for t in (hi, lo))
+    s = torch.zeros((b, h, p, n)) if s0 is None else s0
+    s_in = []
+    for c in range(nc):
+        s_in.append(s)
+        s = torch.exp(cend[:, c])[..., None, None] * s + states[:, c]
+    shi, slo = pair(torch.stack(s_in, 1))                # (b, nc, h, p, n)
+    y = sum(torch.einsum("bcihn,bchpn->bcihp", Ch, t) for t in (shi, slo))
+    y = y * torch.exp(cum)[..., None]
+    scores = torch.einsum("bcihn,bcjhn->bchij", Ch, Bh)
+    ci = cum.permute(0, 1, 3, 2)                         # (b, nc, h, sub)
+    mask = torch.tril(torch.ones(sub, sub, dtype=torch.bool))
+    W = torch.where(mask, scores * torch.exp(
+        (ci[..., :, None] - ci[..., None, :]).clamp(max=0)), 0.0) \
+        * dtr.permute(0, 1, 3, 2)[..., None, :]
+    whi, wlo = pair(W)
+    y = y + sum(torch.einsum("bchij,bcjhp->bcihp", t, xr)
+                for t in (whi, wlo))
+    return y.reshape(b, l, h, p) + x * D[:, None], s
+
+
+@pytest.mark.parametrize("init", [False, True])
+def test_mma_route_model_meets_the_gate(init):
+    """The split-bf16 products hold the card's gate: the mma route's
+    arithmetic, modelled in plain torch at mamba2-780m's head (p 64, n
+    128) in the plan's sub-chunks (128 at chunk 256), is within
+    ``SSD_TOL_REL`` = 1e-4 of max|plain| of the plain dual form over y
+    and the final state; one bf16 rounding of each f32 operand instead
+    misses it."""
+    b, l, h, p, g, n = 1, 256, 4, 64, 1, 128
+    args = [_t(a) for a in _bf16_exact(_ssd_inputs(b, l, h, p, g, n, 9))]
+    s0 = _t(np.random.default_rng(10).standard_normal((b, h, p, n)).astype(
+        np.float32)) if init else None
+    y0, s1 = ops.ssd(*args, chunk=256, initial_state=s0)
+    scale = max(y0.abs().max().item(), s1.abs().max().item())
+
+    def rel(y, s):
+        return max((y - y0).abs().max().item(),
+                   (s - s1).abs().max().item()) / scale
+
+    sub = tkernel.chunk_plan(b, l, h, p, n, 256, torch.bfloat16).sub
+    assert rel(*_mma_route_model(*args, sub, s0)) <= 1e-4
+    assert rel(*_mma_route_model(*args, sub, s0, split=False)) > 1e-4
+
+
 @pytest.mark.parametrize("y_f32", [True, False])
 @pytest.mark.parametrize("d", [1536, 3072])
 @pytest.mark.parametrize("N", [1, 8, 128])
