@@ -65,6 +65,16 @@ routes (add + norm, the norm alone, Mamba-2's gated norm) are held
 against their plain versions at llama3.2-1b's, pixtral-12b's and
 mamba2-780m's shapes, bitwise repeatable, each timed with its host
 microseconds per call (enqueue only).
+Every engine runs its steps as CUDA graphs (``Engine``'s default on
+the card): each serve phase checks it, ``serve_eager`` and
+``serve_ssm_eager`` serve the same requests on eager steps
+(``graphs=False``) in turns with graphs (tokens identical; decode ms,
+ITL, TTFT and tok/s of both), and every profile phase marks its engine
+steady and fails on a capture in its window, on a host stream sync
+other than the poll's two reads, and on a launch counter that differs
+from the profiler's count of its kernel templates (a count may fall
+short by no more than the records the profiler lost, which the
+window's lead spins measure).
 Every phase prints one JSON line; any failure raises and the
 script exits non-zero without the final line. The second-to-last lines are the
 kernel summary (JSON) and the card's name and power limit as
@@ -124,6 +134,21 @@ SSD_SWEEP_T = (1, 16, 64, 128, 256)
 #: the first one's decode row heads the kernel summary
 QMM_SHAPES = ((2048, 8192), (2048, 512), (2048, 2048), (8192, 2048))
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: spin kernels that open a profile window (``_profiled``)
+PROFILE_LEAD = 256
+#: the kernel templates that a wrapper call launches exactly once, by
+#: the counters of the wrappers that launch them (a split's combine or
+#: finalize kernel and the dual form's first two launches are left out):
+#: each profile phase holds the counters against the profiler's counts
+PROFILE_TEMPLATES = (
+    (("decode_attention", "paged_decode_attention"),
+     ("decode_mma_kernel", "decode_f32_kernel")),
+    (("quant_matmul_int8", "quant_matmul_int4"),
+     ("qmm_mma_kernel", "qmm_kernel")),
+    (("rmsnorm",), ("rmsnorm_kernel",)),
+    (("ssd_extend",), ("ssd_extend_kernel",)),
+    (("ssd",), ("ssd_chunk_out_kernel", "ssd_chunk_kernel")),
+    (("flash_attention",), ("flash_mma_kernel", "flash_f32_kernel")))
 
 
 def emit(obj) -> None:
@@ -1352,26 +1377,54 @@ def _ms_by_template(rows, part):
     return dict(out, templates=per)
 
 
-def _profile_call(torch, fn, parts=()):
-    """One warm call of ``fn`` under the profiler: device kernel time by
-    kernel and its share of the call's wall time, the flash kernel's
-    time and launches, and ``parts``: {name: (substring, excluded
-    substring)} summed the same way."""
-    from torch.autograd import DeviceType
+def _profiled(torch, fn):
+    """Run ``fn`` in a profile window and return the profiler and the
+    wall ms of ``fn`` (synchronized). The window opens with
+    ``PROFILE_LEAD`` spin kernels, which ``_device_rows`` counts apart:
+    the profiler loses a few device records of a window once the process
+    has run a while (none in its first window; 0–24 a window over a
+    run, once 293), and the spins it lost measure that."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((getattr(e, "device_time_total",
-                            getattr(e, "cuda_time_total", 0.0)) / 1e3,
-                    e.count, e.key) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
+    return prof, wall_ms
+
+
+def _device_rows(prof):
+    """(device ms, calls, kernel) of a profile window, largest first,
+    without the window's lead spins, and how many of the spins the
+    profiler lost."""
+    from torch.autograd import DeviceType
+
+    rows, spins = [], 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            if "spin_kernel" in e.key:
+                spins += e.count
+            else:
+                rows.append((getattr(e, "device_time_total",
+                                     getattr(e, "cuda_time_total", 0.0))
+                             / 1e3, e.count, e.key))
+    return sorted(rows, reverse=True), PROFILE_LEAD - spins
+
+
+def _profile_call(torch, fn, parts=()):
+    """One warm call of ``fn`` under the profiler: device kernel time by
+    kernel and its share of the call's wall time, the flash kernel's
+    time and launches, and ``parts``: {name: (substring, excluded
+    substring)} summed the same way."""
+    prof, wall_ms = _profiled(torch, fn)
+    rows, _ = _device_rows(prof)
     busy = sum(ms for ms, _, _ in rows)
     return {"wall_ms_profiled": wall_ms, "device_kernel_ms": busy,
             "device_busy_share": busy / wall_ms if busy else None,
@@ -1787,7 +1840,7 @@ def _expected_launches(cfg, engine, paged):
 
 
 def serve(torch, model, params, *, paged=False, base=None, phase=None,
-          bf16=None):
+          bf16=None, graphs=None):
     """16 requests (prompts of 64-512 tokens from the seed in the model's
     vocab, 32 new each) through the engine; every kernel count set to 0
     just before and read just after, and equal to what the step trace
@@ -1796,7 +1849,9 @@ def serve(torch, model, params, *, paged=False, base=None, phase=None,
     holds all 8 streams at once, so the schedule and the greedy tokens
     are the contiguous run's; the pool drains. ``bf16``: the bf16 serve
     phase's tokens, whose share a quantized run reproduces is printed
-    (information, not a gate: quantization changes tokens)."""
+    (information, not a gate: quantization changes tokens). ``graphs``:
+    the engine's argument (None: its steps run as CUDA graphs, which the
+    phase checks; False: eager)."""
     import numpy as np
 
     from repro_torch import kernels
@@ -1808,7 +1863,8 @@ def serve(torch, model, params, *, paged=False, base=None, phase=None,
     cfg = model.cfg
     kw = dict(paged=True, page_size=16, num_pages=288) if paged else {}
     engine = Engine(model, params, max_batch=8, cache_len=1024,
-                    prefill_chunk=128, sampler=Sampler(), seed=SEED, **kw)
+                    prefill_chunk=128, sampler=Sampler(), seed=SEED,
+                    graphs=graphs, **kw)
     rng = np.random.default_rng(SEED)
     lens = rng.integers(64, 513, 16)
     torch.cuda.synchronize()
@@ -1848,8 +1904,13 @@ def serve(torch, model, params, *, paged=False, base=None, phase=None,
            "weight_bytes": quantized_stats(params)["weight_bytes"],
            "table_bytes": params["embed"]["table"].nbytes,
            "kv_bytes": _kv_bytes(engine),
-           "state_bytes": _state_bytes(engine), "bad_requests": bad}
-    rec["ok"] = not bad and counts == want
+           "state_bytes": _state_bytes(engine), "bad_requests": bad,
+           "graphs": engine.graphs,
+           "programs": engine.program_cache_sizes(),
+           "program_builds_ms": [e["elapsed_ms"] for e in
+                                 engine.metrics.get_series("compiles").values]}
+    rec["ok"] = not bad and counts == want \
+        and engine.graphs == (graphs is not False)
     # a snapshot: the profile phase serves more requests on this engine
     tokens = {uid: list(r.tokens) for uid, r in responses.items()}
     if bf16 is not None:
@@ -1940,6 +2001,46 @@ def pool_pressure(torch, model, params):
     return rec
 
 
+def serve_eager(torch, model, params, graphs_turn, phase):
+    """The serve phase's requests through the engine's eager steps
+    (``graphs=False``) and its CUDA graphs, in turns: the serve phase's
+    own run on graphs and its profiled second batch (``graphs_turn``:
+    the serve record, its tokens and the profile record), then eager,
+    eager, graphs, each a fresh engine that serves (its own serve line)
+    and profiles a second batch (its own profile line, gated as every
+    profile phase). This phase's line sets the four turns side by side
+    (decode ms p50, ITL and TTFT p50, tok/s; the profiled batch's wall,
+    device time and busy share; a graphs turn's serve wall includes its
+    captures) and passes when every turn's greedy tokens equal the first
+    graphs run's."""
+    rec0, tokens0, prof0 = graphs_turn
+    turns, same = [("graphs", rec0, prof0)], []
+    for i, graphs in enumerate((False, False, None)):
+        _, engine, rec, tokens = serve(torch, model, params, graphs=graphs,
+                                       phase=f"{phase}_turn{i + 2}")
+        prof = profile(torch, engine, f"{phase}_profile{i + 2}")
+        del engine
+        gc.collect()
+        turns.append(("eager" if graphs is False else "graphs", rec, prof))
+        same.append(tokens == tokens0)
+    keys = ("decode_ms_p50", "itl_ms_p50", "ttft_ms_p50", "tok_per_s")
+    pkeys = ("wall_ms_profiled", "device_kernel_ms", "device_busy_share")
+    out = {"phase": phase, "arch": model.cfg.name,
+           "turns": [dict({k: r[k] for k in keys + ("wall_s",)},
+                          **{k: p[k] for k in pkeys}, mode=mode)
+                     for mode, r, p in turns],
+           "tokens_equal_first_graphs_run": same}
+    for mode in ("graphs", "eager"):
+        for k in keys + pkeys:
+            vals = [{**r, **p}[k] for m, r, p in turns if m == mode]
+            out[f"{mode}_{k}"] = statistics.median(vals)
+    out["ok"] = all(same)
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"{phase} phase failed: {out}")
+    return out
+
+
 def serve_quantized(torch, model, cpu_params, bf16_tokens):
     """The serve phase's requests on the seed-0 bf16 weights quantized:
     int8 weights on bf16 rings (``serve_int8``), then the edge profile,
@@ -1986,12 +2087,21 @@ def profile(torch, engine, phase="profile"):
     the phase adds to a run, the profiler's own bookkeeping included.
     The ``rmsnorm`` counter, set to 0 just before, must read 2 n_layers
     + 1 launches a forward just after (97 on mamba2-780m, 33 on
-    llama3.2-1b: the gated norm counts there too)."""
+    llama3.2-1b: the gated norm counts there too). The engine's steps
+    run as CUDA graphs (or eagerly, in ``serve_eager``'s eager turns):
+    the phase marks it steady first and fails on any capture in the
+    window (``steady_compiles``), on a host stream sync
+    other than the poll's two reads (``cudaStreamSynchronize`` = 2 x
+    polls), and where a launch counter differs from the profiler's count
+    of the kernel templates its wrapper launches once a call
+    (``PROFILE_TEMPLATES``) by more than the records the profiler lost
+    (the window's lead spins it lost; never above the counter); it
+    prints the program counts and each
+    program's build wall time (warm-up and capture). Returns its
+    line."""
     t_phase = time.perf_counter()
     import numpy as np
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
 
     from repro_torch import kernels
     from repro_torch.serving.request import Request
@@ -2002,22 +2112,15 @@ def profile(torch, engine, phase="profile"):
         engine.submit(Request(uid=uid, prompt=rng.integers(0, vocab, 256),
                               max_new_tokens=16))
     n0 = len(engine.step_kinds)
+    engine.mark_steady()
+    programs = engine.program_cache_sizes()
+    counters = engine.metrics.counters
+    polls0 = counters["trace_polls"].value
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof, wall_ms = _profiled(torch, engine.run)
     counts = kernels.launch_counts()
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA:
-            ms = getattr(evt, "device_time_total",
-                         getattr(evt, "cuda_time_total", 0.0)) / 1e3
-            rows.append((ms, evt.count, evt.key))
-    rows.sort(reverse=True)
+    rows, lost = _device_rows(prof)
     # the host side: self time by op and CUDA runtime call, and the
     # calls that block the host on the device or on a page-locked
     # allocation
@@ -2028,32 +2131,64 @@ def profile(torch, engine, phase="profile"):
                 if "Synchronize" in k or k in ("cudaHostAlloc", "cudaMemcpy",
                                                "cudaFreeHost")}
     busy = sum(ms for ms, _, _ in rows)
+    calls = {k: c for _, c, k in host}
+    polls = counters["trace_polls"].value - polls0
+    seen = {"+".join(names): (sum(counts[n] for n in names),
+                              sum(c for _, c, k in rows
+                                  if any(t in k for t in temps)))
+            for names, temps in PROFILE_TEMPLATES}
     kinds = engine.step_kinds[n0:]
     launches = sum(c for _, c, _ in rows)
     forwards = kinds.count("plain") + 2 * kinds.count("mixed")
     norms = (2 * engine.model.cfg.n_layers + 1) * forwards
-    emit({"phase": phase, "requests": 8, "prompt_len": 256,
-          "max_new_tokens": 16, "steps": len(kinds),
-          "plain_steps": kinds.count("plain"),
-          "mixed_steps": kinds.count("mixed"),
-          "launches_per_forward": launches / forwards if forwards else None,
-          "wall_ms_profiled": wall_ms, "device_kernel_ms": busy,
-          "device_busy_share": busy / wall_ms if busy else None,
-          "kernel_launches": launches,
-          "decode_attention": _ms_matching(rows, "decode_"),
-          "quant_matmul": _ms_matching(rows, "qmm_"),
-          "ssd_extend": _ms_by_template(rows, "ssd_extend"),
-          "top": [{"kernel": k[:90], "ms": ms, "calls": c}
-                  for ms, c, k in rows[:12]],
-          "host_top": [{"op": k[:60], "self_ms": ms, "calls": c}
-                       for ms, c, k in host[:15]],
-          "host_blocking_calls": blocking, "launch_counts": counts,
-          "rmsnorm_per_forward": counts["rmsnorm"] / forwards,
-          "rmsnorm_device": _ms_matching(rows, "rmsnorm"),
-          "seconds": time.perf_counter() - t_phase})
+    rec = {"phase": phase, "requests": 8, "prompt_len": 256,
+           "max_new_tokens": 16, "steps": len(kinds),
+           "plain_steps": kinds.count("plain"),
+           "mixed_steps": kinds.count("mixed"),
+           "launches_per_forward": launches / forwards if forwards else None,
+           "wall_ms_profiled": wall_ms, "device_kernel_ms": busy,
+           "device_busy_share": busy / wall_ms if busy else None,
+           "kernel_launches": launches,
+           "decode_attention": _ms_matching(rows, "decode_"),
+           "quant_matmul": _ms_matching(rows, "qmm_"),
+           "ssd_extend": _ms_by_template(rows, "ssd_extend"),
+           "top": [{"kernel": k[:90], "ms": ms, "calls": c}
+                   for ms, c, k in rows[:12]],
+           "host_top": [{"op": k[:60], "self_ms": ms, "calls": c}
+                        for ms, c, k in host[:15]],
+           "host_blocking_calls": blocking, "launch_counts": counts,
+           "rmsnorm_per_forward": counts["rmsnorm"] / forwards,
+           "rmsnorm_device": _ms_matching(rows, "rmsnorm"),
+           "graphs": engine.graphs, "programs": programs,
+           "program_builds": engine.metrics.get_series("compiles").values,
+           "steady_compiles": counters["steady_compiles"].value,
+           "polls": polls,
+           "host_calls": {k: calls.get(k, 0) for k in (
+               "cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC",
+               "cudaStreamSynchronize", "cudaMemcpyAsync")},
+           "launches_counted_vs_profiled": seen,
+           "profiler_lost_lead_spins": lost,
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
     if counts["rmsnorm"] != norms:
         raise AssertionError(f"{phase}: {counts['rmsnorm']} rmsnorm "
                              f"launches, the trace implies {norms}")
+    if counters["steady_compiles"].value \
+            or engine.program_cache_sizes() != programs:
+        raise AssertionError(f"{phase}: a program was built in the "
+                             f"steady window")
+    if calls.get("cudaStreamSynchronize", 0) != 2 * polls or not polls:
+        raise AssertionError(
+            f"{phase}: {calls.get('cudaStreamSynchronize', 0)} host stream "
+            f"syncs over {polls} polls; only the poll's two reads may sync")
+    # the profiler may lose a few records: a kernel count may fall short
+    # of its counter by no more than the lead spins the window lost, and
+    # never exceed it
+    if any(not 0 <= a - b <= lost for a, b in seen.values()):
+        raise AssertionError(f"{phase}: launch counters differ from the "
+                             f"profiler's kernel counts by more than the "
+                             f"{lost} records it lost: {seen}")
+    return rec
 
 
 def norm_host_cost(torch, src):
@@ -2188,8 +2323,9 @@ def main() -> int:
     model_check(torch, quant="int8", phase="model_quant")
     model, params = served_model()
     counts, engine, rec, tokens = serve(torch, model, params)
-    profile(torch, engine)
+    prof = profile(torch, engine)
     del engine
+    serve_eager(torch, model, params, (rec, tokens, prof), "serve_eager")
     paged_counts, engine, _, _ = serve(torch, model, params, paged=True,
                                        base=(rec, tokens))
     profile(torch, engine, "profile_paged")
@@ -2216,10 +2352,12 @@ def main() -> int:
     del pair
     ssm_model = build(get_arch("mamba2-780m"))
     ssm_params = ssm_model.init(SEED)
-    ext_counts, engine, _, _ = serve(torch, ssm_model, ssm_params,
-                                     phase="serve_ssm")
-    profile(torch, engine, "profile_ssm")
+    ext_counts, engine, ssm_rec, ssm_tokens = serve(
+        torch, ssm_model, ssm_params, phase="serve_ssm")
+    prof = profile(torch, engine, "profile_ssm")
     del engine
+    serve_eager(torch, ssm_model, ssm_params, (ssm_rec, ssm_tokens, prof),
+                "serve_ssm_eager")
     prefill_ssm(torch, ssm_model, ssm_params)
     del ssm_model, ssm_params
     gc.collect()

@@ -6,10 +6,15 @@ version: ``decode_attention`` and ``paged_decode_attention`` (CUDA C++,
 (CUDA C++, ``csrc/flash_attention.cu``) and ``rmsnorm`` (CUDA C++,
 ``csrc/rmsnorm.cu``: the add + norm, the norm alone and Mamba-2's gated
 norm, one counter). ``launch_counts`` reads the launch counter each
-kernel wrapper keeps."""
+kernel wrapper keeps. A replayed CUDA graph runs its kernels with no
+Python, so no wrapper counts them: the program that captured them takes
+back what its capture counted (``recorded_launches``) and adds it at
+every replay (``add_launches``), and the counters keep their meaning,
+launches that ran."""
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+from typing import Dict, Iterator
 
 from repro_torch.kernels.decode_attention.kernel import (
     decode_attention_cuda, paged_decode_attention_cuda)
@@ -36,3 +41,26 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
+
+
+def add_launches(delta: Dict[str, int]) -> None:
+    """Add ``delta`` (wrapper name -> launches) to the counters."""
+    for name, n in delta.items():
+        _WRAPPERS[name].launches += n
+
+
+@contextlib.contextmanager
+def recorded_launches() -> Iterator[Dict[str, int]]:
+    """Around a CUDA graph capture: yields a dict that holds, on exit,
+    the launches the wrappers counted inside the block, by name, and
+    sets the counters back, since a capture records kernels and runs
+    none of them (also when the block raises)."""
+    before = launch_counts()
+    delta: Dict[str, int] = {}
+    try:
+        yield delta
+    finally:
+        for name, n in launch_counts().items():
+            if n != before[name]:
+                delta[name] = n - before[name]
+        add_launches({name: -n for name, n in delta.items()})

@@ -18,12 +18,30 @@ admission path: every engine step is either
   admitting row its first token, arming the slot on device.
 
 The cache is updated in place (where JAX donates it); the decode state
-(``tokens``, ``remaining``, ``active``, ``eos``) and the per-step token
-trace stay on the device and are read back only at the periodic poll,
-every ``sync_every`` steps, which cuts each slot's stream at the same
-stop condition the device applied. An on-device guard turns a row with
-non-finite logits into :data:`ERR_TOKEN` and a ``finish_reason="error"``
-finish while the rest of the batch continues.
+(``tokens``, ``remaining``, ``active``, ``eos``) lives in persistent
+device buffers that each step updates in place, and the per-step token
+trace stays on the device until the periodic poll, every ``sync_every``
+steps, which cuts each slot's stream at the same stop condition the
+device applied. An on-device guard turns a row with non-finite logits
+into :data:`ERR_TOKEN` and a ``finish_reason="error"`` finish while the
+rest of the batch continues.
+
+Each step is a **program** (:class:`StepProgram`), the counterpart of
+the JAX engine's jitted step programs: the plain step, and one mixed
+step per admitting slot (the mixed step slices the cache at its slot).
+A program's body takes no arguments and reads only static buffers: the
+decode state, the cache, the params and one staging buffer into which
+the host copies a mixed step's chunk and scalars (from pinned memory,
+asynchronously), so no step syncs the host. With ``graphs`` on (the
+default on a CUDA device) a program's first call runs its body eagerly,
+as the warm-up (kernel builds, attribute setup, cuBLAS handles), then
+captures it as a CUDA graph; later calls replay the graph. On the CPU
+the bodies run eagerly. Every build is recorded by the recompile
+watchdog (``telemetry.CompileWatchdog``), which warns once the engine
+is marked steady; ``program_cache_sizes()`` counts the programs built.
+The page-table push, copy-on-write page copies and slot resets stay
+eager, outside the programs: they write in place into the cache's
+persistent leaves, which the graphs read.
 
 With ``paged=True`` the per-slot rings are replaced by a pool of
 ``num_pages`` pages of ``page_size`` tokens (``serving/paged_kv.py``):
@@ -53,12 +71,14 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.models.model import Model, build
 from repro_torch.serving import paged_kv, telemetry
 from repro_torch.serving.request import Request, Response
@@ -95,6 +115,59 @@ def _slot_view(cache, slot: int):
             for name, sub in cache.items()}
 
 
+class StepProgram:
+    """One engine step program. ``body`` takes no arguments, reads only
+    the engine's static buffers, the cache and the params, updates them
+    in place and returns one tensor. Until ``capture`` a call runs the
+    body eagerly (the CPU path). ``capture`` records the body into a CUDA
+    graph on ``stream``, from the memory ``pool`` the engine's graphs
+    share (they never run at once, and every output is copied right
+    after its replay); later calls replay it, add the launches its
+    capture recorded to the kernel counters and return a copy of the
+    graph's output, which the next replay overwrites. Nothing falls back
+    to eager: a failed capture or replay raises."""
+
+    def __init__(self, body):
+        self.body = body
+        self.graph = None
+        self.out: Optional[torch.Tensor] = None
+        self.launches: Dict[str, int] = {}
+
+    def _new_graph(self, generator):
+        graph = torch.cuda.CUDAGraph()
+        # temperature sampling draws from the engine's generator: the
+        # replays advance its offset as the eager calls would
+        graph.register_generator_state(generator)
+        return graph
+
+    @staticmethod
+    def _recording(graph, pool, stream):
+        return torch.cuda.graph(graph, pool=pool, stream=stream)
+
+    def capture(self, pool=None, stream=None, generator=None) -> None:
+        """Record the body. The garbage collector is off meanwhile: a
+        collection inside the capture could destroy an unreachable
+        engine's graphs, which invalidates the capture."""
+        graph = self._new_graph(generator)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with kernels.recorded_launches() as launches:
+                with self._recording(graph, pool, stream):
+                    out = self.body()
+        finally:
+            if collecting:
+                gc.enable()
+        self.graph, self.out, self.launches = graph, out, launches
+
+    def __call__(self) -> torch.Tensor:
+        if self.graph is None:
+            return self.body()
+        self.graph.replay()
+        kernels.add_launches(self.launches)
+        return self.out.clone()
+
+
 @dataclasses.dataclass
 class _Admission:
     """One in-flight chunked admission: ``tokens`` enter the slot
@@ -121,7 +194,7 @@ class Engine:
                  mesh: Any = None, paged: bool = False, page_size: int = 16,
                  num_pages: Optional[int] = None,
                  faults: Any = None, recorder: Any = None,
-                 trace_dir: str = ""):
+                 trace_dir: str = "", graphs: Optional[bool] = None):
         """Arguments as in the JAX engine. ``params`` and the cache live
         on ``model.device``. ``prefill_chunk`` sizes chunked admission
         (None follows ``cfg.prefill_chunk``; 0 = the whole prompt in one
@@ -130,8 +203,10 @@ class Engine:
         layout's capacity plus two pages of provisioning headroom per
         slot); the pool must hold one full-length stream.
         ``kv_cache_dtype="int8"`` rebuilds the model with ``kv_quant``,
-        as the JAX engine does. The arguments of features not ported yet
-        raise."""
+        as the JAX engine does. ``graphs``: run the step programs as CUDA
+        graphs (None: on a CUDA device, and eager on the CPU; False: eager
+        anywhere; True on the CPU raises). The arguments of features not
+        ported yet raise."""
         if kv_cache_dtype not in ("", "int8"):
             raise ValueError(f"unsupported kv_cache_dtype "
                              f"{kv_cache_dtype!r} (use '' or 'int8')")
@@ -157,6 +232,11 @@ class Engine:
         self.model = model
         self.params = params
         self.device = model.device
+        on_card = self.device.type == "cuda"
+        if graphs and not on_card:
+            raise ValueError(f"graphs=True needs a CUDA device; the model "
+                             f"is on {self.device}")
+        self.graphs = on_card if graphs is None else bool(graphs)
         self.max_batch = max_batch
         self.cache_len = cache_len
         self.sampler = sampler or Sampler()
@@ -179,6 +259,8 @@ class Engine:
         self._c_preempt = self.metrics.counter("preemptions")
         self._h_ttft = self.metrics.histogram("ttft_s")
         self._h_itl = self.metrics.histogram("itl_s")
+        self._c_polls = self.metrics.counter("trace_polls")
+        self._watchdog = telemetry.CompileWatchdog(self.metrics)
 
         # --- host-side scheduling state ------------------------------- #
         self.queue: collections.deque[Request] = collections.deque()
@@ -198,8 +280,6 @@ class Engine:
         self.eos = torch.full((max_batch,), -1, dtype=torch.int64,
                               device=dev)
         self._rows = torch.arange(max_batch, device=dev)
-        self._ones = torch.ones((max_batch,), dtype=torch.int32,
-                                device=dev)
 
         # --- paged KV cache ------------------------------------------- #
         self.paged = bool(paged)
@@ -246,6 +326,18 @@ class Engine:
         self._await_first: List[Request] = []
         self._drop_compile_step = True        # step_times[0] is warm-up
 
+        # --- step programs -------------------------------------------- #
+        # the mixed step's host values, copied in one transfer a step:
+        # the chunk's C tokens, then n, last, the admitted request's
+        # token budget and its eos id (-1: none)
+        self._stage = torch.zeros((self.prefill_chunk + 4,),
+                                  dtype=torch.int64, device=dev)
+        self._programs: Dict[Tuple[Any, ...], StepProgram] = {}
+        self._graph_pool = torch.cuda.graph_pool_handle() \
+            if self.graphs else None
+        self._capture_stream = torch.cuda.Stream(dev) if self.graphs \
+            else None
+
     # ------------------------------------------------------------ #
     # host-side step series
     # ------------------------------------------------------------ #
@@ -268,11 +360,48 @@ class Engine:
             torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------ #
-    # fused steps (device work only, no host sync)
+    # step programs (device work only, no host sync)
     # ------------------------------------------------------------ #
+    def _run_program(self, key: Tuple[Any, ...], body) -> torch.Tensor:
+        """Call the step program ``key`` (its name first). Its first call
+        builds it: the body runs eagerly (the warm-up) and, with graphs
+        on, is then captured; the watchdog records the build with the
+        first call's wall time (on the card the capture starts with a
+        device sync, so it covers the warm-up's device work too)."""
+        prog = self._programs.get(key)
+        if prog is not None:
+            return prog()
+        t0 = time.perf_counter()
+        out = body()
+        prog = StepProgram(body)
+        if self.graphs:
+            prog.capture(self._graph_pool, self._capture_stream,
+                         self.generator)
+        t1 = time.perf_counter()
+        self._programs[key] = prog
+        self._watchdog.record(key[0], t1 - t0, self._steps, t1)
+        return out
+
+    def program_cache_sizes(self) -> Dict[str, int]:
+        """Programs built per name: ``step`` always, ``mixed`` (one per
+        admitting slot) once the first mixed step ran, the keys of the
+        JAX engine's dict. Steady serving keeps every count flat."""
+        out = {"step": 0}
+        for name, *_ in self._programs:
+            out[name] = out.get(name, 0) + 1
+        return out
+
+    def mark_steady(self) -> None:
+        """Arm the recompile watchdog without touching stats: every later
+        program build is a steady-state regression (``RecompileWarning``
+        and the ``steady_compiles`` counter). ``reset_stats()`` arms it
+        too."""
+        self._watchdog.arm()
+
     def _decode(self) -> torch.Tensor:
-        """Plain step: decode + sample + slot bookkeeping on device.
-        Returns the sampled tokens (B,) for the trace. A paged engine
+        """Plain step body: decode + sample + slot bookkeeping on device,
+        the decode state updated in place. Returns (B, 2) int64: each
+        row's sampled token and its emit count (1). A paged engine
         decodes through a masked T=1 extend (per row the same arithmetic
         as ``decode_step``), so rows the device already finished neither
         write into pages nor advance: provisioning stays an upper bound
@@ -288,55 +417,70 @@ class Engine:
         nxt, bad = _guarded_sample(self.sampler, self.generator,
                                    logits[:, -1].float())
         done = active & (bad | (remaining <= 1) | (nxt == self.eos))
-        self.active = active & ~done
-        self.remaining = torch.where(active, remaining - 1, remaining)
+        new_remaining = torch.where(active, remaining - 1, remaining)
+        new_active = active & ~done
+        self.remaining.copy_(new_remaining)
+        self.active.copy_(new_active)
         # the next step embeds these: an ERR_TOKEN row (now inactive)
         # feeds a valid id instead, the trace keeps the sentinel
-        self.tokens = nxt.clamp(min=0)[:, None]
-        return nxt
+        self.tokens.copy_(nxt.clamp(min=0)[:, None])
+        return torch.stack([nxt, torch.ones_like(nxt)], dim=1)
 
-    def _slot_extend(self, slot: int, chunk: np.ndarray, n: int):
-        """Advance the admitting slot by the first ``n`` of the chunk's C
-        tokens at batch 1, through the view ``cache[:, slot:slot+1]``
-        (the writes land in the batched cache; page pools pass whole and
-        the chunk's K/V goes through the slot's block-table row).
-        Returns (1, 1, V) last-valid logits."""
-        view = _slot_view(self.cache, slot)
-        toks = torch.from_numpy(chunk).to(self.device)[None]
-        lengths = torch.full((1,), n, dtype=torch.int32, device=self.device)
-        logits, _ = self.model.extend_into_cache(self.params, toks, view,
-                                                 lengths, last_only=True)
-        return logits
-
-    def _mixed(self, adm: _Admission, chunk: np.ndarray, n: int,
-               last: bool):
-        """Mixed step: decode every active slot, push one chunk of the
-        admitting slot, sample all rows at once and arm the admitting
-        row when its prompt is complete. Returns (tokens, emit count)."""
-        req = adm.req
+    def _mixed(self, slot: int) -> torch.Tensor:
+        """Mixed step body for an admission into ``slot``: decode every
+        active slot, advance the slot by the staged chunk at batch 1
+        through the view ``cache[:, slot:slot+1]`` (the writes land in
+        the batched cache; page pools pass whole and the chunk's K/V
+        goes through the slot's block-table row), sample all rows at
+        once and arm the slot when its prompt is complete. Reads the
+        chunk and its scalars from the staging buffer (``_stage_chunk``).
+        Returns (B, 2) int64: tokens and emit counts."""
+        C = self.prefill_chunk
+        st = self._stage
+        n, last, a_rem, a_eos = st[C:C + 1], st[C + 1], st[C + 2], st[C + 3]
         active, remaining, eos = self.active, self.remaining, self.eos
-        is_admit = self._rows == adm.slot
+        is_admit = self._rows == slot
         dec_logits, _ = self.model.extend_into_cache(
             self.params, self.tokens, self.cache, active.to(torch.int32),
             last_only=True)
-        ch_logits = self._slot_extend(adm.slot, chunk, n)
+        ch_logits, _ = self.model.extend_into_cache(
+            self.params, st[:C][None], _slot_view(self.cache, slot),
+            n.to(torch.int32), last_only=True)
         logits = torch.where(is_admit[:, None], ch_logits[0, 0][None],
                              dec_logits[:, 0])
         nxt, bad = _guarded_sample(self.sampler, self.generator,
                                    logits.float())
-        a_rem = req.max_new_tokens - adm.n_done
-        a_eos = -1 if req.eos_id is None else int(req.eos_id)
-        arm = is_admit & last
+        arm = is_admit & (last != 0)
         emit = active | arm
         done = emit & (bad | (torch.where(arm, a_rem, remaining) <= 1)
                        | (nxt == torch.where(arm, a_eos, eos)))
-        self.active = emit & ~done
-        self.remaining = torch.where(
+        new_remaining = torch.where(
             arm, a_rem - 1, torch.where(active, remaining - 1, remaining))
-        self.eos = torch.where(arm, a_eos, eos)
-        self.tokens = torch.where(emit, nxt.clamp(min=0),
-                                  self.tokens[:, 0])[:, None]
-        return nxt[:, None], emit.to(torch.int32)
+        new_eos = torch.where(arm, a_eos, eos)
+        new_tokens = torch.where(emit, nxt.clamp(min=0), self.tokens[:, 0])
+        self.active.copy_(emit & ~done)
+        self.remaining.copy_(new_remaining)
+        self.eos.copy_(new_eos)
+        self.tokens.copy_(new_tokens[:, None])
+        return torch.stack([nxt, emit.to(nxt.dtype)], dim=1)
+
+    def _stage_chunk(self, adm: _Admission, n: int) -> bool:
+        """Write the admission's next chunk (its ``n`` valid tokens) and
+        its scalars into one host vector and copy it into the staging
+        buffer: from pinned memory without blocking on the card (a fresh
+        pinned block each step: the host allocator reuses one only after
+        its copy ran). Returns whether the chunk ends the prompt."""
+        C = self.prefill_chunk
+        last = adm.base + n >= adm.length
+        req = adm.req
+        host = torch.zeros((C + 4,), dtype=torch.int64,
+                           pin_memory=self.device.type == "cuda")
+        buf = host.numpy()
+        buf[:n] = adm.tokens[adm.base:adm.base + n]
+        buf[C:] = (n, last, req.max_new_tokens - adm.n_done,
+                   -1 if req.eos_id is None else int(req.eos_id))
+        self._stage.copy_(host, non_blocking=True)
+        return last
 
     def _reset_slot(self, b: int) -> None:
         """Erase slot ``b``: every position empty, depth 0, so a recycled
@@ -598,18 +742,14 @@ class Engine:
             while not self._provision_decode_rows(1):
                 pass
             self._push_block_tables()
-        self._trace.append((self._decode()[:, None], self._ones))
+        self._push_trace(self._run_program(("step",), self._decode))
         self._record_step("plain")
 
-    def _chunk_args(self, adm: _Admission) -> Tuple[np.ndarray, int, bool]:
-        C = self.prefill_chunk
-        n = min(C, adm.length - adm.base)
-        chunk = np.zeros((C,), np.int64)
-        chunk[:n] = adm.tokens[adm.base:adm.base + n]
-        return chunk, n, adm.base + n >= adm.length
+    def _push_trace(self, rec: torch.Tensor) -> None:
+        self._trace.append((rec[:, :1], rec[:, 1]))
 
     def _step_mixed(self, adm: _Admission) -> None:
-        chunk, n, last = self._chunk_args(adm)
+        n = min(self.prefill_chunk, adm.length - adm.base)
         if self.paged:
             while True:
                 if not self._provision_decode_rows(1):
@@ -618,7 +758,10 @@ class Engine:
                     break
             self._depth_ub[adm.slot] = adm.base + n
             self._push_block_tables()
-        self._trace.append(self._mixed(adm, chunk, n, last))
+        last = self._stage_chunk(adm, n)
+        slot = adm.slot
+        self._push_trace(self._run_program(("mixed", slot),
+                                           lambda: self._mixed(slot)))
         adm.base += n
         if last:
             self._complete_admission(adm)
@@ -645,9 +788,9 @@ class Engine:
 
     def _poll(self) -> None:
         """The periodic host sync: read the unconsumed suffix of the
-        trace back in two transfers, harvest each occupied slot's tokens
-        and prune the trace. Finish detection replays the device's stop
-        conditions on the harvested tokens."""
+        trace back in two transfers (counted in ``trace_polls``), harvest
+        each occupied slot's tokens and prune the trace. Finish detection
+        replays the device's stop conditions on the harvested tokens."""
         if not self._trace:
             return
         occupied = [(b, self._slot_start[b] - self._trace_base)
@@ -659,6 +802,7 @@ class Engine:
             blocks = torch.cat([t for t, _ in suffix], dim=1).cpu().numpy()
             counts = torch.stack([c for _, c in suffix],
                                  dim=1).cpu().numpy()
+            self._c_polls.inc()
             for b, start in occupied:
                 s = start - lo
                 if s >= len(suffix):
@@ -805,9 +949,13 @@ class Engine:
         return self.responses
 
     def reset_stats(self) -> None:
-        """Forget timing and finished-request history (cache state is
-        kept): for benchmarks that warm an engine up, then measure."""
+        """Forget timing and finished-request history (cache state and
+        the step programs are kept): for benchmarks that warm an engine
+        up, then measure. Also arms the recompile watchdog, as
+        ``mark_steady()`` does: the warm-then-measure boundary is where
+        steady state begins."""
         self.metrics.reset()
+        self._watchdog.arm()
         self._drop_compile_step = False
         for uid in [u for u, r in self.responses.items() if r.finished]:
             del self.responses[uid]

@@ -17,6 +17,11 @@ max|plain|. The paged decode kernel must equal the contiguous one
 exactly on the same logical data, on every route. Every kernel op
 refuses a backward pass: an input that requires grad gives outputs whose
 backward raises, and none gives the same outputs with no autograd node.
+The serving engine's step programs run as CUDA graphs: greedy tokens,
+temperature samples and launch counters equal the eager engine's at
+reduced sizes (rings, bf16, paged, int8 KV, int8 weights, the edge
+profile paged, mamba2), nothing is captured after warm-up, and a capture
+that fails raises.
 """
 import numpy as np
 import pytest
@@ -712,3 +717,122 @@ def test_kernel_op_refuses_a_backward_on_card(op):
     assert got[0].grad_fn is not None
     with pytest.raises(NotImplementedError, match="item 12"):
         got[0].float().sum().backward()
+
+
+# --------------------------------------------------------------------- #
+# the engine's step programs as CUDA graphs
+# --------------------------------------------------------------------- #
+#: engine configurations at reduced size: (variant, cfg changes, engine
+#: arguments); every kernel of the serve path runs inside a captured step
+GRAPH_CASES = {
+    "rings": ("reduced", {}, {}),
+    "rings_bf16": ("reduced", {"dtype": "bfloat16",
+                               "param_dtype": "bfloat16"}, {}),
+    "paged": ("reduced", {}, {"paged": True, "page_size": 8}),
+    "int8_kv": ("reduced", {}, {"kv_cache_dtype": "int8"}),
+    "int8_weights": ("reduced", {"quant": "int8"}, {}),
+    "edge_paged_bf16": ("reduced+edge", {"dtype": "bfloat16",
+                                         "param_dtype": "bfloat16"},
+                        {"paged": True, "page_size": 8}),
+    "mamba2": ("reduced", {}, {}),
+}
+
+
+def _graph_model(case):
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build
+    from repro_torch.quant import quantize_for_cfg
+
+    variant, changes, kw = GRAPH_CASES[case]
+    arch = "mamba2-780m" if case == "mamba2" else "llama3.2-1b"
+    cfg = get_arch(arch, variant=variant).replace(**changes)
+    model = build(cfg, device="cuda")
+    return model, quantize_for_cfg(model.init(0), cfg), kw
+
+
+def _graph_serve(model, params, kw, graphs, sampler=None, batches=1):
+    """Five requests on three slots (chunks of 8), ``batches`` times;
+    returns the engine, the tokens by uid and the launch counters of the
+    run, set to 0 just before it."""
+    from repro_torch import kernels
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request
+
+    engine = Engine(model, params, max_batch=3, cache_len=64,
+                    prefill_chunk=8, sampler=sampler, seed=0,
+                    graphs=graphs, **kw)
+    rng = np.random.default_rng(0)
+    kernels.reset_launch_counts()
+    for batch in range(batches):
+        for uid in range(5 * batch, 5 * batch + 5):
+            engine.submit(Request(
+                uid=uid, prompt=rng.integers(0, model.cfg.vocab,
+                                             int(rng.integers(3, 30))),
+                max_new_tokens=int(rng.integers(2, 9))))
+        engine.run()
+        if batch == 0:
+            engine.mark_steady()
+    torch.cuda.synchronize()
+    tokens = {u: list(r.tokens) for u, r in engine.responses.items()}
+    return engine, tokens, kernels.launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_graph_steps_match_eager_steps_on_card(case):
+    """Greedy tokens and launch counters of a graphed engine equal the
+    eager engine's on the same requests; every program the graphed
+    engine built is a captured graph (nothing falls back to eager), one
+    plain program and one mixed program a slot that admitted; a second
+    batch after ``mark_steady()`` captures nothing."""
+    _card()
+    model, params, kw = _graph_model(case)
+    eager, want, want_counts = _graph_serve(model, params, kw, False,
+                                            batches=2)
+    graphed, got, got_counts = _graph_serve(model, params, kw, None,
+                                            batches=2)
+    assert graphed.graphs and not eager.graphs
+    assert got == want
+    assert got_counts == want_counts and sum(got_counts.values()) > 0
+    assert all(p.graph is not None for p in graphed._programs.values())
+    assert graphed.program_cache_sizes() == eager.program_cache_sizes() \
+        == {"step": 1, "mixed": 3}
+    c = graphed.metrics.counters
+    assert c["steady_compiles"].value == 0
+    assert c["compiles_total"].value == 4
+
+
+@pytest.mark.cuda
+def test_graph_steps_sample_as_eager_steps_with_a_temperature_on_card():
+    """The engine's generator is registered with every graph: replays
+    advance it as the eager calls do, so one seed gives one stream."""
+    from repro_torch.serving.sampler import Sampler
+
+    _card()
+    model, params, kw = _graph_model("rings")
+    sampler = Sampler(temperature=0.9, top_k=50)
+    _, want, _ = _graph_serve(model, params, kw, False, sampler, batches=2)
+    _, got, _ = _graph_serve(model, params, kw, None, sampler, batches=2)
+    assert got == want
+    assert len({t for toks in got.values() for t in toks}) > 5
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises_on_card(monkeypatch):
+    """A body that syncs the host cannot be captured: the engine raises
+    and does not fall back to eager. (Last in the module: the capture
+    is left invalid.)"""
+    from repro_torch.serving import engine as engine_mod
+
+    _card()
+    model, params, kw = _graph_model("rings")
+    real = engine_mod._guarded_sample
+
+    def syncing(sampler, gen, logits):
+        float(logits.sum())                       # a host sync
+        return real(sampler, gen, logits)
+
+    monkeypatch.setattr(engine_mod, "_guarded_sample", syncing)
+    with pytest.raises(RuntimeError):
+        _graph_serve(model, params, kw, None)
+    torch.cuda.synchronize()
