@@ -49,9 +49,26 @@ width cut to 2 layers, fp32, card against CPU
 (``model_vlm``: the pixtral-12b classifier and ``model.lm``); and the
 paper's deployment example at full width (``zoo``: the 40-layer bf16
 pixtral-12b classifier ``>> label_decoder`` deployed local, remote and
-split, identical outputs, exactly 40 flash and 81 norm launches a
-forward; ``model.lm`` on llama3.2-1b; a registry round trip on the
-card); and the bf16 classifier at full width cut to 2 layers on the
+split, every endpoint group a program captured as a CUDA graph in its
+first call and replayed after: identical outputs, exactly 40 flash and
+81 norm launches a forward, the replays' counts confirmed by the
+profiler's count of the kernels one replay ran, no capture after the
+first call, each
+build's wall ms, the deployed calls' peak memory apart from the
+weights' draw and their graph pools' bytes; ``model.lm`` on llama3.2-1b
+through ``lm.jitted()``, confirmed the same way; a registry round
+trip on the card); fig. 2's
+turn for the cache-free forward (``forward_turns``: mamba2-780m's
+``model.lm``, 48 layers, B 1, L 1024, on the SSD ``mma`` route; the
+deployed pixtral-12b classifier; llama3.2-1b's ``model.lm``, B 2, L
+1024: each on graphs and eagerly in turns, graphs, eager, eager,
+graphs, with wall ms, device ms, busy share and host launch calls,
+outputs of the two modes bitwise equal (the same kernels run), launch
+counters a forward as expected and confirmed by the profiler over
+each profiled call, no capture after the first call, and on mamba2
+the timing of the dual form's three launches a layer in each mode);
+and the bf16 classifier at full
+width cut to 2 layers on the
 card against the plain fp32 forward on the CPU (``zoo_plain``: class
 ids equal, logits within 2e-2 of max|plain|). The decode-attention cases cover both tensor-core routes of its
 plan (R <= 16 rows and above, S split over blocks, a fully masked row
@@ -128,6 +145,10 @@ SSD_TOL_REL = 1e-4
 #: the bf16 Zoo classifier on the card against the plain fp32 forward,
 #: relative to max|plain logits| (``zoo_plain``)
 ZOO_BF16_TOL_REL = 2e-2
+#: the dual form's launches on its ``mma`` route, in order; the last two
+#: are programmatic dependent launches
+SSD_CHAIN = ("ssd_chunk_states_kernel", "ssd_state_pass_kernel",
+             "ssd_chunk_out_kernel")
 #: the recurrence kernel's T sweep at b 1 (fixed and per-token cost)
 SSD_SWEEP_T = (1, 16, 64, 128, 256)
 #: llama3.2-1b's projection shapes (K, N): wi/wg, wk/wv, wq/wo, mlp wo;
@@ -1418,17 +1439,102 @@ def _device_rows(prof):
     return sorted(rows, reverse=True), PROFILE_LEAD - spins
 
 
-def _profile_call(torch, fn, parts=()):
+def _counted_vs_profiled(counted, rows):
+    """For each ``PROFILE_TEMPLATES`` group: (the launches its counters
+    ``counted``, the profiler's count of its kernel templates)."""
+    return {"+".join(names): (sum(counted.get(n, 0) for n in names),
+                              sum(c for _, c, k in rows
+                                  if any(t in k for t in temps)))
+            for names, temps in PROFILE_TEMPLATES}
+
+
+def _counters_confirmed(seen, lost):
+    """The profiler may lose a few records: a kernel count may fall
+    short of its counter by no more than the lead spins the window lost
+    (``lost``), and never exceed it."""
+    return all(0 <= a - b <= lost for a, b in seen.values())
+
+
+def _chain_timing(prof, chain):
+    """The runs of the kernels ``chain`` (name substrings, in launch
+    order) in a profile window: each kernel's device us, the gap from
+    each one's end to the next one's start (below 0 where the next began
+    before it ended, as a programmatic dependent launch may), and the
+    span from the first one's start to the last one's end, as medians
+    over the runs; and the spans' sum in ms."""
+    from torch.autograd import DeviceType
+
+    evs = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    runs = []
+    for i, ev in enumerate(evs):
+        if chain[0] not in ev[2]:
+            continue
+        run, j = [ev], i + 1
+        for part in chain[1:]:
+            while j < len(evs) and part not in evs[j][2]:
+                j += 1
+            if j == len(evs):
+                break
+            run.append(evs[j])
+            j += 1
+        if len(run) == len(chain):
+            runs.append(run)
+    if not runs:
+        return {"runs": 0}
+    med = statistics.median
+    return {"runs": len(runs),
+            "kernel_us": {c: med(r[k][1] - r[k][0] for r in runs)
+                          for k, c in enumerate(chain)},
+            "gap_us": {f"{a}->{b}": med(r[k + 1][0] - r[k][1]
+                                        for r in runs)
+                       for k, (a, b) in enumerate(zip(chain, chain[1:]))},
+            "min_gap_us": {f"{a}->{b}": min(r[k + 1][0] - r[k][1]
+                                            for r in runs)
+                           for k, (a, b) in enumerate(zip(chain,
+                                                          chain[1:]))},
+            "span_us": med(r[-1][1] - r[0][0] for r in runs),
+            "spans_ms": sum(r[-1][1] - r[0][0] for r in runs) / 1e3}
+
+
+#: CUDA runtime calls a profile line counts on the host (the window's
+#: ``PROFILE_LEAD`` spins are ``cudaLaunchKernel`` calls too)
+HOST_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC",
+              "cudaMemcpyAsync", "cudaStreamSynchronize")
+
+
+def _profile_call(torch, fn, parts=(), chain=None):
     """One warm call of ``fn`` under the profiler: device kernel time by
     kernel and its share of the call's wall time, the flash kernel's
-    time and launches, and ``parts``: {name: (substring, excluded
-    substring)} summed the same way."""
+    time and launches, the host's CUDA runtime calls (``HOST_CALLS``),
+    and ``parts``: {name: (substring, excluded substring)} summed the
+    same way. The launch counters' change over the call is held against
+    the profiler's count of the kernel templates (``PROFILE_TEMPLATES``):
+    ``launch_counters_confirmed`` is false where they differ by more
+    than the records the profiler lost, so a replay that added counts
+    its graph did not launch, or launched kernels it did not count,
+    shows. ``chain``: ``_chain_timing`` of those kernels."""
+    from torch.autograd import DeviceType
+
+    from repro_torch import kernels
+
+    before = kernels.launch_counts()
     prof, wall_ms = _profiled(torch, fn)
-    rows, _ = _device_rows(prof)
+    counted = _launch_delta(before, kernels.launch_counts())
+    rows, lost = _device_rows(prof)
     busy = sum(ms for ms, _, _ in rows)
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.device_type == DeviceType.CPU}
+    seen = _counted_vs_profiled(counted, rows)
     return {"wall_ms_profiled": wall_ms, "device_kernel_ms": busy,
             "device_busy_share": busy / wall_ms if busy else None,
             "kernel_launches": sum(c for _, c, _ in rows),
+            "host_calls": {k: calls.get(k, 0) for k in HOST_CALLS},
+            "launches_counted": counted,
+            "launches_counted_vs_profiled": seen,
+            "launch_counters_confirmed": _counters_confirmed(seen, lost),
+            **({"chain": _chain_timing(prof, chain)} if chain else {}),
+            "profiler_lost_lead_spins": lost,
             "flash_attention": _ms_matching(rows, "flash_"),
             **{name: _ms_matching([r for r in rows if out not in r[2]], inc)
                for name, (inc, out) in dict(parts).items()},
@@ -1504,20 +1610,49 @@ def model_vlm(torch):
         raise AssertionError(f"model_vlm: card and CPU disagree: {rec}")
 
 
+def _program_totals(programs):
+    """Captures held and graph-pool bytes over ``programs``."""
+    return {"captures": sum(p.cache_size() for p in programs),
+            "pool_bytes": sum(p.pool_bytes for p in programs)}
+
+
+def _deployed_programs(dep):
+    return [fn for _, fn, _ in dep._compiled.values()]
+
+
+def _confirmed(prof):
+    """What ``_profile_call`` found of the launch counters."""
+    return {k: prof[k] for k in (
+        "launch_counters_confirmed", "launches_counted_vs_profiled",
+        "profiler_lost_lead_spins", "device_kernel_ms",
+        "device_busy_share", "wall_ms_profiled")}
+
+
 def zoo(torch):
     """The paper's deployment example at full width: the pixtral-12b
     classifier (40 layers, bf16, weights made on the card from seed 0)
     ``>> label_decoder(1000)`` on frontend embeddings (B 2, 1024 tokens of
     1024 dims, bf16, seed 0), deployed all local, all remote and split
-    after the classifier. Class ids and confidences must be identical
-    across the three, and every forward must launch exactly 40 flash
-    attentions and 81 norms and nothing else of ours. Then ``model.lm``
-    on the full llama3.2-1b (B 2, L 1024: 16 flash launches a forward),
-    and a registry round trip on the card: the reduced classifier (25 GB
-    of npz is not a smoke step) published from the card, pulled back
-    through a transport onto the card with its hash checked, composed
-    with the decoder, giving equal outputs. Returns the launch counts of
-    the phase."""
+    after the classifier; every endpoint group runs through its program
+    (``Service.jitted()``), captured as a CUDA graph in the first call
+    and replayed after. Class ids and confidences must be identical
+    across the three, every forward (the replays through the launches
+    their capture recorded) must launch exactly 40 flash attentions and
+    81 norms and nothing else of ours, one more call of each deployment
+    under the profiler must confirm those counts from the kernels it
+    ran (``_profile_call``), and no deployment may capture after its
+    first call. The peak device memory is read from a reset
+    made after the weights, so it holds the deployed calls and their
+    graph pools, not ``init_params``' f32 draw. Then ``model.lm`` on the
+    full llama3.2-1b (B 2, L 1024: 16 flash launches a forward) through
+    ``lm.jitted()``, its replays confirmed the same way, and a registry
+    round trip on the card: the reduced
+    classifier (25 GB of npz is not a smoke step) published from the
+    card, pulled back through a transport onto the card with its hash
+    checked, composed with the decoder, giving equal outputs. Returns
+    the launch counts of the phase (without ``profile_stages``' own
+    programs, which no profiled call confirms) and the deployed service,
+    its stages and input, for ``forward_turns``."""
     import shutil
 
     import numpy as np
@@ -1536,7 +1671,6 @@ def zoo(torch):
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     clf = zb.classifier_service("pixtral-12b", n_classes=1000, variant="")
     clf = clf.with_params(clf.metadata["init_params"](SEED, "cuda"))
@@ -1546,14 +1680,18 @@ def zoo(torch):
         0, 1, (2, 1024, 1024)).astype(np.float32)).to("cuda",
                                                       torch.bfloat16)}
     clf.check_input(x)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     want = {"flash_attention": 40, "rmsnorm": 81}
     plans = {"local": DeploymentPlan.all_local(svc),
              "remote": DeploymentPlan.all_remote(svc, NetworkModel(seed=1)),
              "split": DeploymentPlan.split(svc, 1, NetworkModel(seed=2))}
-    outs, recs, bad = {}, {}, []
+    outs, recs, bad, pools, confirmed = {}, {}, [], 0, {}
     for name, plan in plans.items():
         dep = deploy(svc, plan, stages=[clf, dec])
-        walls = []
+        walls, captures = [], []
         for i in range(4):               # the first call warms up
             before = kernels.launch_counts()
             torch.cuda.synchronize()
@@ -1564,22 +1702,48 @@ def zoo(torch):
             delta = _launch_delta(before, kernels.launch_counts())
             if delta != want:
                 bad.append((name, i, delta))
+            captures.append(_program_totals(_deployed_programs(dep))[
+                "captures"])
+        # one more replay of every program under the profiler: its
+        # kernel templates must confirm what the replays counted
+        seen = _profile_call(torch, lambda: dep.call(x))
+        confirmed[name] = _confirmed(seen)
+        if seen["launches_counted"] != want \
+                or not seen["launch_counters_confirmed"]:
+            bad.append((name, "profiled", confirmed[name]))
         outs[name] = y
+        totals = _program_totals(_deployed_programs(dep))
+        pools += totals["pool_bytes"]
         recs[name] = {
             "wall_ms_median": statistics.median(walls[1:]),
-            "wall_ms_first": walls[0],
+            "wall_ms": walls[1:],
+            "build_wall_ms": walls[0],
+            "captures_after_each_call": captures,
+            "graph_pool_bytes": totals["pool_bytes"],
             "stages": [{"stage": s.stage, "endpoint": s.endpoint,
                         "compute_ms": s.compute_s * 1e3,
-                        "modelled_network_ms": s.transfer_s * 1e3}
+                        "modelled_network_ms": s.transfer_s * 1e3,
+                        "param_bytes": s.param_bytes,
+                        "pool_bytes": s.pool_bytes}
                        for s in tel.stages]}
+        if len(set(captures)) != 1:
+            bad.append((name, "captured after the first call", captures))
+        del dep
+    torch.cuda.synchronize()
+    deployed_peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # profile_stages' programs are its own and no profiled call confirms
+    # their replays: its launches stay out of the phase's counts
+    before = kernels.launch_counts()
     prof = profile_stages([clf, dec], x, iters=3)
-    device_profile = _profile_call(torch, lambda: svc(x))
+    stage_launches = _launch_delta(before, kernels.launch_counts())
     ref = outs["local"]
     same = {name: torch.equal(o["class_id"], ref["class_id"])
             and torch.equal(o["confidence"], ref["confidence"])
             for name, o in outs.items()}
-    peak = torch.cuda.max_memory_allocated() / 2**30
     n_params = clf.n_params
+    turns_case = (svc, [clf, dec], x)
     del clf, svc, dec
     gc.collect()
     torch.cuda.empty_cache()
@@ -1589,20 +1753,28 @@ def zoo(torch):
     lp = init_transformer(lcfg, SEED, "cuda")
     toks = torch.from_numpy(rng.integers(0, lcfg.vocab, (2, 1024)).astype(
         np.int32)).cuda()
-    lm_walls, lm_bad = [], []
-    for i in range(3):
+    lm_prog = lm.jitted()
+    lm_walls, lm_bad, lm_captures = [], [], []
+    for i in range(4):                   # the first call warms up
         before = kernels.launch_counts()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        logits = lm.fn(lp, {"tokens": toks})
+        logits = lm_prog(lp, {"tokens": toks})
         torch.cuda.synchronize()
         lm_walls.append((time.perf_counter() - t1) * 1e3)
         delta = _launch_delta(before, kernels.launch_counts())
         if delta != {"flash_attention": 16, "rmsnorm": 33}:
             lm_bad.append((i, delta))
+        lm_captures.append(lm_prog.cache_size())
+    lm_prof = _profile_call(torch, lambda: lm_prog(lp, {"tokens": toks}))
     lm_ok = tuple(logits.shape) == (2, 1024, lcfg.vocab) \
-        and bool(torch.isfinite(logits).all().item())
-    del lp, logits
+        and bool(torch.isfinite(logits).all().item()) \
+        and len(set(lm_captures)) == 1 \
+        and lm_prof["launches_counted"] == {"flash_attention": 16,
+                                            "rmsnorm": 33} \
+        and lm_prof["launch_counters_confirmed"]
+    lm_pool = lm_prog.pool_bytes
+    del lp, logits, lm_prog
     gc.collect()
 
     # the registry round trip on the card (reduced classifier)
@@ -1634,6 +1806,7 @@ def zoo(torch):
     shutil.rmtree(root, ignore_errors=True)
 
     counts = kernels.launch_counts()
+    counts = {k: v - stage_launches.get(k, 0) for k, v in counts.items()}
     rec = {"phase": "zoo", "service": "classify_pixtral-12b >> "
            "label_decoder", "n_layers": 40, "dtype": "bfloat16",
            "n_params": n_params, "batch": 2, "n_tokens": 1024,
@@ -1645,11 +1818,21 @@ def zoo(torch):
                         "first_call_excess_ms": p.compile_ms,
                         "output_bytes": p.output_bytes,
                         "n_params": p.n_params} for p in prof],
-           "device_profile": device_profile,
            "launches_per_forward_expected": want,
-           "bad_launch_counts": bad, "peak_mem_gib": peak,
+           "bad_launch_counts": bad,
+           "replays_confirmed_by_profiler": confirmed,
+           "lm_replay_confirmed_by_profiler": _confirmed(lm_prof),
+           "profile_stages_launches_not_counted": stage_launches,
+           "resident_gib": resident / 2**30,
+           "deployed_peak_gib": deployed_peak / 2**30,
+           "deployed_peak_over_resident_gib":
+               (deployed_peak - resident) / 2**30,
+           "graph_pools_gib": pools / 2**30,
            "lm_arch": lcfg.name, "lm_batch": 2, "lm_seq": 1024,
            "lm_wall_ms_median": statistics.median(lm_walls[1:]),
+           "lm_wall_ms": lm_walls[1:], "lm_build_wall_ms": lm_walls[0],
+           "lm_captures_after_each_call": lm_captures,
+           "lm_graph_pool_bytes": lm_pool,
            "lm_bad_launch_counts": lm_bad,
            "registry": {"hashes_equal": len(set(hashes)) == 1,
                         "pulled_bytes": pulled_bytes, "ok": reg_ok},
@@ -1661,7 +1844,156 @@ def zoo(torch):
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"zoo phase failed: {rec}")
-    return counts
+    return counts, turns_case
+
+
+def _outputs_agree(torch, graphs, eager):
+    """Graph outputs against eager ones, which ran the same kernels on
+    the same inputs: class ids equal where there are any, and the float
+    output bitwise equal (its error beside, for a failure's reading)."""
+    if isinstance(eager, dict):
+        ids = torch.equal(graphs["class_id"], eager["class_id"])
+        graphs, eager = graphs["confidence"], eager["confidence"]
+    else:
+        ids = True
+    err = (graphs.float() - eager.float()).abs().max().item()
+    bitwise = torch.equal(graphs, eager)
+    return {"class_ids_equal": ids, "bitwise": bitwise,
+            "max_abs_err": err, "ok": ids and bitwise}
+
+
+def forward_turns(torch, service, graphs_call, eager_call, programs, want,
+                  parts=(), extra=None, chain=None):
+    """Fig. 2's turn for a cache-free forward: ``graphs_call`` (the
+    service's program: one graph replay a call after its first) and
+    ``eager_call`` (``Service.__call__``: one launch at a time) in turns
+    inside one call: graphs, eager, eager, graphs. Each turn: a warm-up
+    call, 3 synchronized calls (wall ms, median), one call under the
+    profiler (device ms, busy share, kernel launches, the host's
+    ``cudaGraphLaunch`` and ``cudaLaunchKernel`` calls). Fails unless
+    every call's launch counters equal ``want``, the profiler's count of
+    the kernel templates confirms the counters over each profiled call
+    (on graphs, where a replay adds the launches its capture recorded),
+    the programs (``programs()``: their captures and pool bytes) capture
+    nothing after the first graphs call, and each graphs turn's outputs
+    equal the eager turns' bitwise, since both run the same kernels on
+    the same inputs (``_outputs_agree``). The device's peak memory is
+    read from a reset made at the phase's start (the weights are
+    resident by then). ``parts`` and ``chain`` as in
+    ``_profile_call``."""
+    from repro_torch import kernels
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    turns, bad, outs, captures = [], [], {}, None
+    for t, mode in enumerate(("graphs", "eager", "eager", "graphs")):
+        call = graphs_call if mode == "graphs" else eager_call
+        walls = []
+        for i in range(4):               # the first call warms up
+            before = kernels.launch_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            y = call()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+            delta = _launch_delta(before, kernels.launch_counts())
+            if delta != want:
+                bad.append((t, i, delta))
+            if captures is None:
+                captures = programs()["captures"]
+        outs.setdefault(mode, []).append(y)
+        del y
+        prof = _profile_call(torch, call, parts, chain)
+        if prof["launches_counted"] != want:
+            bad.append((t, "profiled", prof["launches_counted"]))
+        if not prof["launch_counters_confirmed"]:
+            bad.append((t, "profiler", prof["launches_counted_vs_profiled"]))
+        turns.append(dict(mode=mode, warmup_ms=walls[0],
+                          wall_ms_median=statistics.median(walls[1:]),
+                          wall_ms=walls[1:], **prof))
+    agree = [_outputs_agree(torch, g, outs["eager"][0])
+             for g in outs["graphs"]]
+    totals = programs()
+    rec = {"phase": "forward_turns", "service": service, **(extra or {}),
+           "turns": turns, "graphs_vs_eager": agree,
+           "launches_per_call_expected": want, "bad_launch_counts": bad,
+           "captures_after_first_call": captures,
+           "captures_at_end": totals["captures"],
+           "graph_pool_bytes": totals["pool_bytes"],
+           "resident_gib": resident / 2**30,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    for mode in ("graphs", "eager"):
+        for k in ("wall_ms_median", "device_kernel_ms",
+                  "device_busy_share"):
+            rec[f"{mode}_{k}"] = statistics.median(
+                r[k] for r in turns if r["mode"] == mode)
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["ok"] = not bad and all(a["ok"] for a in agree) \
+        and captures == totals["captures"] and captures > 0
+    del outs
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"forward_turns failed for {service}: {rec}")
+    return rec
+
+
+def forward_turns_zoo(torch, case):
+    """``forward_turns`` of the ``zoo`` phase's service deployed all
+    local (its own deployment, freed after with its graph pool)."""
+    from repro_torch.core.deploy import DeploymentPlan, deploy
+
+    svc, stages, x = case
+    dep = deploy(svc, DeploymentPlan.all_local(svc), stages=stages)
+    forward_turns(
+        torch, "classify_pixtral-12b >> label_decoder (deployed local)",
+        lambda: dep.call(x)[0], lambda: svc(x),
+        lambda: _program_totals(_deployed_programs(dep)),
+        {"flash_attention": 40, "rmsnorm": 81},
+        extra={"n_layers": 40, "dtype": "bfloat16", "batch": 2,
+               "n_tokens": 1024})
+    del dep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def forward_turns_lm(torch, cfg, arch, params, batch, want, parts=()):
+    """``forward_turns`` of ``model.lm`` on ``cfg`` with the caller's
+    weights: ``batch`` rows of 1024 tokens from seed 0, through
+    ``lm.jitted()`` (freed after with its graph pool) and eagerly. On an
+    SSM the profiled calls time the dual form's three launches a layer
+    (``SSD_CHAIN``), to show whether the programmatic dependent launches
+    overlap inside a graph as they do eagerly."""
+    import numpy as np
+
+    from repro_torch.core import zoo_builders as zb
+
+    extra = {"n_layers": cfg.n_layers, "dtype": cfg.dtype, "batch": batch,
+             "seq": 1024, "logits_bytes": batch * 1024 * cfg.vocab * 4}
+    if cfg.ssm is not None:
+        from repro_torch.kernels.ssd_scan.kernel import chunk_plan
+
+        s = cfg.ssm
+        extra["ssd_route"] = chunk_plan(
+            batch, 1024, s.expand * cfg.d_model // s.head_dim, s.head_dim,
+            s.d_state, s.chunk, getattr(torch, cfg.dtype)).route
+        if extra["ssd_route"] != "mma":
+            raise AssertionError(f"{arch}: the dual form would run "
+                                 f"{extra['ssd_route']}, not mma")
+    lm = zb.lm_service_for(cfg, arch=arch)
+    toks = {"tokens": torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (batch, 1024)).astype(np.int32)).cuda()}
+    prog = lm.jitted()
+    rec = forward_turns(
+        torch, f"model.lm {arch}", lambda: prog(params, toks),
+        lambda: lm(toks, params=params),
+        lambda: _program_totals([prog]), want, parts, extra,
+        chain=SSD_CHAIN if cfg.ssm is not None else None)
+    del prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 def zoo_plain(torch):
@@ -1776,7 +2108,8 @@ def prefill_ssm(torch, model, params, phase="prefill_ssm"):
            "seconds": time.perf_counter() - t_phase}
     rec["ok"] = bool(torch.isfinite(logits).all().item()) \
         and logits.shape[-1] == cfg.vocab and logits.shape[0] == 1 \
-        and counts.get("ssd", 0) == 3 * cfg.n_layers
+        and counts.get("ssd", 0) == 3 * cfg.n_layers \
+        and prof["launch_counters_confirmed"]
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"{phase} failed: {rec}")
@@ -2133,10 +2466,7 @@ def profile(torch, engine, phase="profile"):
     busy = sum(ms for ms, _, _ in rows)
     calls = {k: c for _, c, k in host}
     polls = counters["trace_polls"].value - polls0
-    seen = {"+".join(names): (sum(counts[n] for n in names),
-                              sum(c for _, c, k in rows
-                                  if any(t in k for t in temps)))
-            for names, temps in PROFILE_TEMPLATES}
+    seen = _counted_vs_profiled(counts, rows)
     kinds = engine.step_kinds[n0:]
     launches = sum(c for _, c, _ in rows)
     forwards = kinds.count("plain") + 2 * kinds.count("mixed")
@@ -2181,10 +2511,7 @@ def profile(torch, engine, phase="profile"):
         raise AssertionError(
             f"{phase}: {calls.get('cudaStreamSynchronize', 0)} host stream "
             f"syncs over {polls} polls; only the poll's two reads may sync")
-    # the profiler may lose a few records: a kernel count may fall short
-    # of its counter by no more than the lead spins the window lost, and
-    # never exceed it
-    if any(not 0 <= a - b <= lost for a, b in seen.values()):
+    if not _counters_confirmed(seen, lost):
         raise AssertionError(f"{phase}: launch counters differ from the "
                              f"profiler's kernel counts by more than the "
                              f"{lost} records it lost: {seen}")
@@ -2274,6 +2601,7 @@ def main() -> int:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
     from repro_torch.models.model import build
+    from repro_torch.models.transformer import init_transformer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2359,13 +2687,28 @@ def main() -> int:
     serve_eager(torch, ssm_model, ssm_params, (ssm_rec, ssm_tokens, prof),
                 "serve_ssm_eager")
     prefill_ssm(torch, ssm_model, ssm_params)
+    # fig. 2's turn for the cache-free forward: the same dual form
+    # through model.lm, on graphs and eagerly
+    forward_turns_lm(torch, ssm_model.cfg, "mamba2-780m", ssm_params, 1,
+                     {"ssd": 48, "rmsnorm": 97},
+                     parts={"ssd": ("ssd_", "ssd_extend")})
     del ssm_model, ssm_params
     gc.collect()
+    torch.cuda.empty_cache()
     # the Zoo: model services card against CPU, then the paper's
-    # deployment example at full width, then the bf16 classifier at full
+    # deployment example at full width on graphs, fig. 2's turn for it
+    # and for llama3.2-1b's model.lm, then the bf16 classifier at full
     # width against the plain forward
     model_vlm(torch)
-    zoo_counts = zoo(torch)
+    zoo_counts, zoo_case = zoo(torch)
+    forward_turns_zoo(torch, zoo_case)
+    del zoo_case
+    gc.collect()
+    torch.cuda.empty_cache()
+    lcfg = get_arch("llama3.2-1b")
+    forward_turns_lm(torch, lcfg, "llama3.2-1b",
+                     init_transformer(lcfg, SEED, "cuda"), 2,
+                     {"flash_attention": 16, "rmsnorm": 33})
     gc.collect()
     torch.cuda.empty_cache()
     zoo_plain(torch)

@@ -4,10 +4,13 @@ existing ones". Sequential connection is the primary primitive (paper
 of adapter services come beside it, as in the JAX package's
 ``core/compose.py``.
 
-A composed service is one function over the combined params tree. JAX
-compiles it into one XLA program; eager torch runs the stages one after
-another on the same device, with no host round trip between them except
-where ``route`` reads its branch index (below).
+A composed service is one function over the combined params tree; a
+``seq`` or a ``route`` also keeps its component services
+(``Service.parts``). JAX compiles it into
+one XLA program; the port's ``Service.jitted()`` captures it as one CUDA
+graph, or as segments split around each ``route``, which reads its
+branch index on the host (``core/program.py``). Called directly, a
+service runs eagerly, as JAX's ``Service.__call__`` is not jitted.
 """
 from __future__ import annotations
 
@@ -43,7 +46,8 @@ def seq(*services: Service, name: Optional[str] = None) -> Service:
                    description=f"sequential composition of "
                                f"{[s.name for s in services]}",
                    metadata={"combinator": "seq",
-                             "stages": [s.name for s in services]})
+                             "stages": [s.name for s in services]},
+                   parts=tuple(services))
 
 
 # --------------------------------------------------------------------- #
@@ -111,10 +115,11 @@ def route(selector: Service, branches: Sequence[Service],
     """selector maps the input to an int32 scalar branch index; all
     branches must share input/output signatures.
 
-    JAX chooses on the device with ``lax.switch``. Eager torch needs the
+    JAX chooses on the device with ``lax.switch``. The port needs the
     choice on the host: the index is read back (a device sync, the
     port's cost of a route) and only that branch runs, as ``lax.switch``
-    runs one. An index out of range is clamped into it, as
+    runs one; a program runs the selector and the branch as separate
+    graphs for it. An index out of range is clamped into it, as
     ``lax.switch`` clamps."""
     s0 = branches[0]
     for s in branches[1:]:
@@ -138,7 +143,8 @@ def route(selector: Service, branches: Sequence[Service],
                                        s0.signature.outputs),
                    params=params,
                    metadata={"combinator": "route",
-                             "stages": [s.name for s in branches]})
+                             "stages": [s.name for s in branches]},
+                   parts=(selector, *branches))
 
 
 # --------------------------------------------------------------------- #

@@ -13,11 +13,12 @@ Endpoints:
     deploying onto one raises ``NotImplementedError``.
 
 Consecutive stages on the same endpoint are grouped and run as one
-``seq`` (JAX compiles such a group into one XLA program; eager torch has
-no counterpart, and runs the stages back to back on the device with no
-host round trip). Transfers between endpoints are charged for the
-intermediate tree's bytes. A stage's compute time stops after a
-synchronize on the device its output lives on.
+``seq`` through its program (``Service.jitted()``: one CUDA graph on the
+card, replayed on every call after the first, where JAX compiles the
+group into one XLA program; eager on the CPU). A quantized endpoint's
+dequantize runs inside that program. Transfers between endpoints are
+charged for the intermediate tree's bytes. A stage's compute time stops
+after a synchronize on the device its output lives on.
 """
 from __future__ import annotations
 
@@ -57,6 +58,9 @@ class StageTelemetry:
     transfer_s: float
     precision: str = "fp"                    # endpoint's quantize profile
     param_bytes: int = 0                     # stage params as stored
+    pool_bytes: int = 0                      # its program's graph pool
+                                             # (device memory kept while
+                                             # the program lives)
 
 
 @dataclass
@@ -147,7 +151,7 @@ class DeployedService:
             stages = [service]
         self.stages = stages
         self._groups = self._group()
-        self._built: Dict[int, Tuple[Service, int]] = {}
+        self._compiled: Dict[int, Tuple[Service, Any, int]] = {}
 
     # -------------------------------------------------------------- #
     def _group(self) -> List[Tuple[Endpoint, List[Service]]]:
@@ -177,26 +181,28 @@ class DeployedService:
                 groups.append((ep, [s]))
         return groups
 
-    def _stage(self, gi: int) -> Tuple[Service, int]:
-        """Group ``gi`` as one service (quantized for its endpoint) and
-        the bytes of its params as stored."""
-        if gi not in self._built:
+    def _fn_for(self, gi: int) -> Tuple[Service, Any, int]:
+        """Group ``gi`` as one service (quantized for its endpoint), its
+        program and the bytes of its params as stored."""
+        if gi not in self._compiled:
             ep, stages = self._groups[gi]
             svc = stages[0] if len(stages) == 1 else seq(*stages)
             if ep.quantize and svc.params is not None:
                 # store the stage's params quantized (the endpoint's
                 # memory budget is what the profile models) and
-                # dequantize (to f32, as JAX does) inside the stage's
-                # call: generic over any service fn
+                # dequantize (to f32, as JAX does) inside the program:
+                # generic over any service fn. The parts go: they would
+                # see the quantized tree
                 bits = {"int8": 8, "int4": 4}[ep.quantize]
                 raw_fn = svc.fn
                 svc = dataclasses.replace(
                     svc, params=quantize_params(svc.params, bits=bits),
-                    fn=lambda p, x, _f=raw_fn: _f(dequantize_params(p), x))
+                    fn=lambda p, x, _f=raw_fn: _f(dequantize_params(p), x),
+                    parts=())
             nbytes = tree_nbytes(svc.params) if svc.params is not None \
                 else 0
-            self._built[gi] = (svc, nbytes)
-        return self._built[gi]
+            self._compiled[gi] = (svc, svc.jitted(), nbytes)
+        return self._compiled[gi]
 
     # -------------------------------------------------------------- #
     def call(self, inputs, *, queue_position: int = 0
@@ -204,11 +210,11 @@ class DeployedService:
         telemetry = Telemetry()
         x = inputs
         for gi, (ep, stages) in enumerate(self._groups):
-            svc, param_bytes = self._stage(gi)
+            svc, fn, param_bytes = self._fn_for(gi)
             payload = tree_nbytes(x)
 
             t0 = time.perf_counter()
-            y = block_until_ready(svc.fn(svc.params, x))
+            y = block_until_ready(fn(svc.params, x))
             compute_s = time.perf_counter() - t0
             transfer_s = 0.0
             if ep.kind == "remote":
@@ -223,7 +229,7 @@ class DeployedService:
                 stage="+".join(s.name for s in stages), endpoint=ep.name,
                 compute_s=compute_s, transfer_s=transfer_s,
                 precision=ep.quantize or "fp",
-                param_bytes=param_bytes))
+                param_bytes=param_bytes, pool_bytes=fn.pool_bytes))
             x = y
         return x, telemetry
 

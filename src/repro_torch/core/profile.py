@@ -4,10 +4,11 @@
 given a composed service's stages, time each stage's compute and the
 intermediate payload sizes, without changing the service itself.
 
-Times are host-clock times around a call that ends in a synchronize on
-the devices its output lives on. The first call is timed too: where JAX
-pays its trace and XLA compile there, the port pays the first build of
-its kernels (``nvcc``) and PyTorch's own warm-up.
+Each stage runs through its own program (``Service.jitted()``, where
+JAX calls ``jax.jit(s.fn)``): on the card its first call runs eagerly
+(the warm-up, which builds the kernels with ``nvcc``) and captures a
+CUDA graph, and later calls replay it. Times are host-clock times around
+a call that ends in a synchronize on the devices its output lives on.
 """
 from __future__ import annotations
 
@@ -26,25 +27,27 @@ class StageProfile:
     compute_ms: float
     output_bytes: int
     n_params: int
-    compile_ms: float = 0.0   # first call minus steady median
+    compile_ms: float = 0.0   # first call (warm-up + capture) minus
+                              # the steady median
 
 
-def _timed(s: Service, x):
+def _timed(fn, s: Service, x):
     t0 = time.perf_counter()
-    y = block_until_ready(s.fn(s.params, x))
+    y = block_until_ready(fn(s.params, x))
     return y, time.perf_counter() - t0
 
 
 def profile_stages(stages: Sequence[Service], inputs: Any, *,
                    iters: int = 5) -> List[StageProfile]:
     """Run the pipeline stage by stage, timing each (median of iters).
-    ``compile_ms`` is the first call's excess over the steady median:
-    the one-off cost a cold service pays."""
+    ``compile_ms`` is the first call's excess (warm-up plus capture)
+    over the steady median: the one-off cost a cold service pays."""
     out: List[StageProfile] = []
     x = inputs
     for s in stages:
-        y, first = _timed(s, x)
-        times = sorted(_timed(s, x)[1] for _ in range(iters))
+        fn = s.jitted()
+        y, first = _timed(fn, s, x)
+        times = sorted(_timed(fn, s, x)[1] for _ in range(iters))
         steady_ms = times[len(times) // 2] * 1e3
         out.append(StageProfile(
             stage=s.name,

@@ -29,6 +29,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.core.program import ServiceProgram
 from repro_torch.core.pytree import tree_leaves, tree_map
 
 _BY_NAME = {"float32": torch.float32, "float16": torch.float16,
@@ -101,6 +102,9 @@ class Service:
 
     ``fn(params, inputs) -> outputs`` must be a pure function of its
     arguments. ``params`` may be ``None`` for stateless adapter services.
+    A ``seq`` or ``route`` keeps its component services in ``parts``:
+    the program ``jitted()`` returns splits a composition around a route
+    by them (``core/program.py``).
     """
 
     name: str
@@ -110,6 +114,8 @@ class Service:
     version: str = "0.1.0"
     description: str = ""
     metadata: Dict[str, Any] = field(default_factory=dict)
+    parts: Tuple["Service", ...] = field(default=(), repr=False,
+                                         compare=False)
 
     # -- ergonomics ---------------------------------------------------- #
     def __rshift__(self, other: "Service") -> "Service":
@@ -118,6 +124,11 @@ class Service:
 
     def __call__(self, inputs, params=None):
         return self.fn(self.params if params is None else params, inputs)
+
+    def jitted(self) -> Callable[[Any, Any], Any]:
+        """``(params, inputs) -> outputs`` as a program: CUDA graphs on
+        the card, eager on the CPU (``core.program.ServiceProgram``)."""
+        return ServiceProgram(self)
 
     def with_params(self, params) -> "Service":
         return dataclasses.replace(self, params=params)

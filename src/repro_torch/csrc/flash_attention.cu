@@ -511,10 +511,15 @@ __global__ void __launch_bounds__(THREADS) flash_f32_kernel(Args a) {
 template <int ND>
 int launch_f32(const Args& a, cudaStream_t stream) {
   const int bytes = smem_floats(a.hd) * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel<ND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  static bool opted = false;           // once per template, per process
+  if (!opted) {
+    // the most a call of this template needs: hd <= ND * LANES
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_f32_kernel<ND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_floats(ND * LANES) * static_cast<int>(sizeof(float)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted = true;
+  }
   const dim3 grid((a.Lq + a.bq - 1) / a.bq, a.B * a.Hkv);
   flash_f32_kernel<ND><<<grid, THREADS, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());

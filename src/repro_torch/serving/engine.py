@@ -71,7 +71,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import gc
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -79,6 +78,7 @@ import numpy as np
 import torch
 
 from repro_torch import kernels
+from repro_torch.core.program import capture
 from repro_torch.models.model import Model, build
 from repro_torch.serving import paged_kv, telemetry
 from repro_torch.serving.request import Request, Response
@@ -145,19 +145,10 @@ class StepProgram:
         return torch.cuda.graph(graph, pool=pool, stream=stream)
 
     def capture(self, pool=None, stream=None, generator=None) -> None:
-        """Record the body. The garbage collector is off meanwhile: a
-        collection inside the capture could destroy an unreachable
-        engine's graphs, which invalidates the capture."""
+        """Record the body (``core.program.capture``)."""
         graph = self._new_graph(generator)
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with kernels.recorded_launches() as launches:
-                with self._recording(graph, pool, stream):
-                    out = self.body()
-        finally:
-            if collecting:
-                gc.enable()
+        out, launches = capture(self.body,
+                                self._recording(graph, pool, stream))
         self.graph, self.out, self.launches = graph, out, launches
 
     def __call__(self) -> torch.Tensor:

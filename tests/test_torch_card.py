@@ -21,7 +21,11 @@ The serving engine's step programs run as CUDA graphs: greedy tokens,
 temperature samples and launch counters equal the eager engine's at
 reduced sizes (rings, bf16, paged, int8 KV, int8 weights, the edge
 profile paged, mamba2), nothing is captured after warm-up, and a capture
-that fails raises.
+that fails raises. The Zoo's service programs (``Service.jitted()``,
+the deployed call) replay the eager call bitwise (the reduced
+classifier in fp32 and bf16, mamba2's ``model.lm`` on the SSD ``mma``
+route), a route runs as segments, another params tree is another
+capture, grad mode raises, and replays count their capture's launches.
 """
 import numpy as np
 import pytest
@@ -815,6 +819,189 @@ def test_graph_steps_sample_as_eager_steps_with_a_temperature_on_card():
     _, got, _ = _graph_serve(model, params, kw, None, sampler, batches=2)
     assert got == want
     assert len({t for toks in got.values() for t in toks}) > 5
+
+
+# --------------------------------------------------------------------- #
+# the Zoo's service programs as CUDA graphs
+# --------------------------------------------------------------------- #
+def _card_classifier(dtype, seed=0):
+    """The reduced pixtral-12b classifier (10 classes) ``>>`` its label
+    decoder on the card in ``dtype`` (fp32 runs the f32 flash route),
+    weights from ``seed``, and an embeddings batch (B 2, 16 tokens)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import zoo_builders as zb
+
+    cfg = get_arch("pixtral-12b", variant="reduced")
+    if dtype == torch.bfloat16:
+        cfg = cfg.replace(dtype="bfloat16", param_dtype="bfloat16")
+    clf = zb.classifier_service_for(cfg, 10, arch="pixtral-12b")
+    clf = clf.with_params(clf.metadata["init_params"](seed, "cuda"))
+    x = np.random.default_rng(seed).normal(0, 1, (2, 16, 64))
+    return clf >> zb.label_decoder(10), {"embeddings": torch.from_numpy(
+        x.astype(np.float32)).to("cuda", dtype)}
+
+
+def _same_tree(a, b):
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_same_tree(a[k], b[k]) for k in a)
+    return torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_captured_service_matches_its_eager_call_on_card(dtype):
+    """``Service.jitted()`` on the card: the first call warms up and
+    captures once; replays equal the eager call bitwise (the same
+    kernels on the same inputs), for the first inputs and for new input
+    values, which give new outputs; nothing is captured after the first
+    call, and every output is a fresh tensor."""
+    from repro_torch.core.program import ServiceProgram
+
+    _card()
+    svc, x = _card_classifier(dtype)
+    x2 = {"embeddings": torch.flip(x["embeddings"], dims=(0,)) * 0.5}
+    prog = svc.jitted()
+    assert isinstance(prog, ServiceProgram)
+    want, want2 = svc(x), svc(x2)
+    outs = [prog(svc.params, x) for _ in range(3)]
+    assert prog.cache_size() == 1 and prog.pool_bytes > 0
+    got2 = prog(svc.params, x2)
+    assert prog.cache_size() == 1
+    assert all(_same_tree(o, want) for o in outs)
+    assert _same_tree(got2, want2)
+    assert not torch.equal(want["confidence"], want2["confidence"])
+    assert len({o["confidence"].data_ptr() for o in outs}) == 3
+
+
+@pytest.mark.cuda
+def test_captured_ssm_lm_replays_the_mma_route_bitwise_on_card():
+    """``model.lm`` on mamba2-780m at full width cut to 2 layers, bf16,
+    B 1, 256 tokens: the SSD dual form runs its ``mma`` route (three
+    launches, the last two programmatic dependents) inside the graph,
+    and the replays equal the eager call bitwise, launch counts
+    included."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.core import zoo_builders as zb
+    from repro_torch.kernels.ssd_scan.kernel import chunk_plan
+    from repro_torch.models.transformer import init_transformer
+
+    _card()
+    cfg = get_arch("mamba2-780m").replace(n_layers=2)
+    s = cfg.ssm
+    h = s.expand * cfg.d_model // s.head_dim
+    assert chunk_plan(1, 256, h, s.head_dim, s.d_state, s.chunk,
+                      torch.bfloat16).route == "mma"
+    lm = zb.lm_service_for(cfg, arch="mamba2-780m")
+    params = init_transformer(cfg, 0, "cuda")
+    toks = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, 256)).astype(np.int32)).cuda()}
+    kernels.reset_launch_counts()
+    want = lm(toks, params=params)
+    eager = kernels.launch_counts()
+    prog = lm.jitted()
+    for _ in range(3):
+        assert torch.equal(prog(params, toks), want)
+    got = kernels.launch_counts()
+    assert eager["ssd"] == 2
+    assert got == {k: 4 * v for k, v in eager.items()}
+    assert prog.cache_size() == 1
+
+
+@pytest.mark.cuda
+def test_deployed_route_matches_the_undeployed_one_on_card():
+    """pre >> route(sel, [small, big]) on the card, deployed all local
+    (one group, which the program splits around the route) and split
+    after its first stage: both branches, twice each, equal the eager
+    undeployed call; the captures stop growing once both branches ran."""
+    from repro_torch.core import compose
+    from repro_torch.core.deploy import DeploymentPlan, deploy
+    from repro_torch.core.netmodel import NetworkModel
+    from repro_torch.core.service import (Service, Signature, TensorSpec,
+                                          service_from_fn)
+
+    _card()
+    g = torch.Generator().manual_seed(0)
+
+    def linear(name, d_in, d_out):
+        w = (torch.randn(d_in, d_out, generator=g) * 0.1).cuda()
+        return service_from_fn(name, lambda p, x: x @ p["w"],
+                               torch.zeros(4, d_in, device="cuda"),
+                               params={"w": w})
+
+    small, big = linear("small", 8, 4), linear("big", 8, 4)
+    # pre doubles its input, so the selector sees the input's sign
+    pre = service_from_fn("pre", lambda p, x: x @ p["w"],
+                          torch.zeros(4, 8, device="cuda"),
+                          params={"w": 2 * torch.eye(8, device="cuda")})
+    sel = Service(name="sel", fn=lambda p, x: (x.mean() > 0).to(torch.int32),
+                  signature=Signature(small.signature.inputs,
+                                      TensorSpec((), "int32")))
+    svc = pre >> compose.route(sel, [small, big])
+    stages = [pre, svc.parts[1]]
+    deps = [deploy(svc, DeploymentPlan.all_local(svc), stages=stages),
+            deploy(svc, DeploymentPlan.split(svc, 1, NetworkModel(seed=0)),
+                   stages=stages)]
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, (4, 8)).astype(np.float32)).cuda()
+    for sign in (1.0, -1.0, 1.0, -1.0):
+        xs = sign * x.abs()
+        want = svc(xs)
+        for dep in deps:
+            out, _ = dep.call(xs)
+            assert torch.equal(out, want)
+    sizes = [sum(fn.cache_size() for _, fn, _ in dep._compiled.values())
+             for dep in deps]
+    assert sizes == [3, 4]     # head + 2 branches; pre, head + 2 branches
+
+
+@pytest.mark.cuda
+def test_a_new_params_tree_is_a_new_capture_on_card():
+    """A graph reads fixed addresses: another params tree (new weights
+    from another seed) is another capture, whose replays give the new
+    weights' output; the first tree's capture still replays its own."""
+    _card()
+    svc, x = _card_classifier(torch.bfloat16)
+    other, _ = _card_classifier(torch.bfloat16, seed=1)
+    prog = svc.jitted()
+    want, want_other = svc(x), other(x)
+    assert not torch.equal(want["confidence"], want_other["confidence"])
+    for _ in range(2):
+        assert _same_tree(prog(svc.params, x), want)
+        assert _same_tree(prog(other.params, x), want_other)
+    assert prog.cache_size() == 2
+
+
+@pytest.mark.cuda
+def test_a_captured_call_under_grad_mode_raises_on_card():
+    _card()
+    svc, x = _card_classifier(torch.float32)
+    params = {"stage0": {"backbone": svc.params["stage0"]["backbone"],
+                         "head": {"w": svc.params["stage0"]["head"]["w"]
+                                  .clone().requires_grad_()}},
+              "stage1": None}
+    prog = svc.jitted()
+    with pytest.raises(RuntimeError, match="item 12"):
+        prog(params, x)
+    assert prog.cache_size() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("replays", [1, 4])
+def test_replays_count_their_capture_launches_on_card(replays):
+    """After the warm-up and N replays the launch counters hold N + 1
+    times one forward's: 2 flash attentions and 2 n_layers + 1 norms."""
+    from repro_torch import kernels
+
+    _card()
+    svc, x = _card_classifier(torch.bfloat16)
+    prog = svc.jitted()
+    kernels.reset_launch_counts()
+    for _ in range(replays + 1):
+        prog(svc.params, x)
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert counts == {"flash_attention": 2 * (replays + 1),
+                      "rmsnorm": 5 * (replays + 1)}
 
 
 @pytest.mark.cuda
