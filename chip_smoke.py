@@ -20,7 +20,15 @@ kernel time by kernel); serves the same requests on a paged KV pool
 (greedy tokens equal to the contiguous run's, the paged kernel counted,
 the pool drained) and profiles a second batch there too; serves four
 streams on a pool too small for their growth, which must preempt, resume
-by replay and drain; and serves the same 16 requests quantized: int8
+by replay and drain; drives the engine lifecycle on the graph-captured
+steps (``lifecycle``: an empty fault schedule invisible, a chaos
+schedule of NaN logits, forced page exhaustion and a host stall
+contained to one stream, cancels of a queued, a mid-admission and an
+active request, an expired and a mid-stream deadline, a priority
+displacement, the request tracer and the ``trace_dir`` profiler window,
+each with no capture after warm-up, launch counters equal to the step
+trace and, under the profiler, two host stream syncs a poll); and
+serves the same 16 requests quantized: int8
 weights on bf16 rings (``serve_int8``), the edge profile on int8 rings
 (``serve_edge``) and on an int8 pool (``serve_edge_paged``, tokens equal
 to ``serve_edge``'s), with a profiled second batch through the int8 and
@@ -2147,8 +2155,9 @@ def _state_bytes(engine):
                if key in ("conv", "ssm", "conv_ckpt", "ssm_ckpt"))
 
 
-def _expected_launches(cfg, engine, paged):
-    """Kernel launches the step trace implies: per forward, one
+def _expected_launches(cfg, engine, paged, kinds=None):
+    """Kernel launches the step trace implies (``kinds``: the kinds of
+    the steps to count, default every step of the engine): per forward, one
     attention launch a layer (none on an int8 cache, which plain
     attention reads, as in the JAX model), 2 * n_layers + 1 norms, and 7
     projections a layer through the dequantize-matmul of ``cfg.quant``
@@ -2156,8 +2165,9 @@ def _expected_launches(cfg, engine, paged):
     makes one recurrence launch a layer (a plain step's decode is its
     T = 1 launch) and no attention, and its norms are ``ln1`` and the
     gated norm of each layer and ``ln_f``."""
-    n_plain = engine.step_kinds.count("plain")
-    n_mixed = engine.step_kinds.count("mixed")
+    kinds = engine.step_kinds if kinds is None else kinds
+    n_plain = kinds.count("plain")
+    n_mixed = kinds.count("mixed")
     forwards = n_plain + 2 * n_mixed       # a mixed step runs two forwards
     ssm = cfg.ssm is not None
     attn = 0 if (cfg.kv_quant or ssm) else cfg.n_layers * forwards
@@ -2331,6 +2341,477 @@ def pool_pressure(torch, model, params):
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"pool-pressure phase failed: {rec}")
+    return rec
+
+
+# --------------------------------------------------------------------- #
+# the engine lifecycle on the graph-captured steps: faults, cancel,
+# deadlines, priorities and request tracing
+# --------------------------------------------------------------------- #
+#: the lifecycle phase's engine: llama3.2-1b at full width on graphs,
+#: paged (pages of 16), as the serve phase's batch and chunk
+LIFECYCLE_ENGINE = dict(max_batch=8, cache_len=1024, prefill_chunk=128,
+                        paged=True, page_size=16)
+#: the lifecycle workload: 12 prompts of 64-384 tokens from the seed, 64
+#: new tokens each (8 slots, so 4 wait), and a 512-token prompt (four
+#: chunks) that a cancel catches mid-admission
+LIFECYCLE_REQUESTS, LIFECYCLE_NEW = 12, 64
+#: the serve phase's decode ms/step p50 on graphs before the poison lane
+#: (PERF.md §5); and the lane's reckoned cost a step, µs (8 x 128256 f32
+#: logits read and written at 3.35 TB/s)
+SERVE_DECODE_MS_P50_BEFORE_LANE = (5.7, 5.8)
+POISON_US_RECKONED = 2.5
+
+
+def _lifecycle_prompts(vocab):
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 3)
+    lens = rng.integers(64, 385, LIFECYCLE_REQUESTS)
+    prompts = [rng.integers(0, vocab, int(L)) for L in lens]
+    return prompts, rng.integers(0, vocab, 512)
+
+
+def _lifecycle_engine(model, params, **extra):
+    """A lifecycle engine warmed until every slot admitted once (each
+    slot's mixed program and the plain step captured: 8 one-chunk
+    admissions, then plain steps), then marked steady."""
+    import numpy as np
+
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.sampler import Sampler
+
+    engine = Engine(model, params, sampler=Sampler(), seed=SEED,
+                    **LIFECYCLE_ENGINE, **extra)
+    rng = np.random.default_rng(SEED + 4)
+    for uid in range(8):
+        engine.submit(Request(uid=1000 + uid,
+                              prompt=rng.integers(0, model.cfg.vocab, 16),
+                              max_new_tokens=16))
+    engine.tick(16)              # every build falls in this first burst
+    engine.run()
+    progs = engine.program_cache_sizes()
+    if progs != {"step": 1, "mixed": 8}:
+        raise AssertionError(f"lifecycle warm-up built {progs}")
+    engine.mark_steady()
+    return engine
+
+
+def _submit(engine, uids, prompts, **kw):
+    from repro_torch.serving.request import Request
+
+    for uid, p in zip(uids, prompts):
+        engine.submit(Request(uid=uid, prompt=p,
+                              max_new_tokens=LIFECYCLE_NEW, **kw))
+
+
+def _fill_slots(engine):
+    """Tick one step at a time until every slot holds a stream."""
+    while engine._admit is not None or None in engine.slots:
+        engine.tick(1)
+
+
+def _steady(engine, progs):
+    """Nothing built since warm-up: program counts as they were and no
+    capture after ``mark_steady``."""
+    return engine.program_cache_sizes() == progs \
+        and engine.metrics.counters["steady_compiles"].value == 0
+
+
+def _drive(torch, engine, fn):
+    """Run ``fn`` with every launch counter set to 0 just before; returns
+    (counts, the counts the steps it ran imply, wall s)."""
+    from repro_torch import kernels
+
+    n0 = len(engine.step_kinds)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = _expected_launches(engine.model.cfg, engine, True,
+                              engine.step_kinds[n0:])
+    return counts, want, wall
+
+
+def _tokens(engine, uids):
+    return {u: list(engine.responses[u].tokens) for u in uids}
+
+
+def _gate(rec):
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"{rec['phase']} failed: {rec}")
+
+
+def lifecycle(torch, model, params, serve_rec):
+    """The engine lifecycle on the card's graph-captured steps, at full
+    width (llama3.2-1b, 16 layers, bf16; ``LIFECYCLE_ENGINE``). Every
+    engine is warmed until each slot admitted once and marked steady, so
+    a capture in any part fails it. One line a part:
+
+    * ``lifecycle_invisible``: an enabled, empty fault schedule against
+      ``faults=False``: tokens and program counts equal;
+    * ``lifecycle_chaos``: NaN logits on slot 3 mid-run, ``page_alloc``
+      forced twice, a 2 ms ``slow_step``: one stream ends "error", every
+      stream never preempted equals the clean run, preempted ones end
+      "length" with all their tokens (equality printed), the pool
+      drains, >= 3 faults counted by the engine and the schedule;
+    * ``lifecycle_cancel``: a queued, a mid-admission and an active
+      request cancelled; the active one keeps a prefix of its clean
+      stream and the next queued request takes its slot and streams
+      clean;
+    * ``lifecycle_deadline``: an expired request times out with no
+      token; a deadline blown by a 1 s ``slow_step`` keeps a prefix;
+    * ``lifecycle_priority``: a priority-1 request displaces a
+      priority-0 stream from a full table; the victim waits behind it
+      and ends "length";
+    * ``lifecycle_tracer``: ``recorder=True``: a valid Chrome trace, one
+      complete span a request with its tokens and reason, tokens equal
+      to untraced runs; tok/s traced and untraced in turns;
+    * ``lifecycle_profile_window``: ``trace_dir=`` writes a trace naming
+      the decode-attention and RMSNorm kernels;
+    * ``lifecycle_syncs``: under the profiler, a poison, a cancel and a
+      preemption: ``cudaStreamSynchronize`` = 2 x polls; poisoning and
+      clearing the lane alone: no sync;
+    * ``lifecycle``: the launch counters of every part against its step
+      trace, the poison lane's device time and the serve phase's decode
+      ms/step p50 with it.
+
+    Launch counters equal the step trace in every part."""
+    import shutil
+
+    from torch.autograd import DeviceType
+
+    from repro_torch import kernels
+    from repro_torch.serving import tracing
+    from repro_torch.serving.faults import Faults
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    prompts, long_prompt = _lifecycle_prompts(cfg.vocab)
+    W = list(range(LIFECYCLE_REQUESTS))
+    launches = {}
+
+    # --- the clean run and an empty, enabled schedule ------------------
+    clean_e = _lifecycle_engine(model, params, faults=False)
+    progs = clean_e.program_cache_sizes()
+    launches["clean"] = _drive(torch, clean_e, lambda: (
+        _submit(clean_e, W, prompts), clean_e.run()))
+    clean = _tokens(clean_e, W)
+    empty_e = _lifecycle_engine(model, params, faults=Faults(seed=0))
+    launches["empty"] = _drive(torch, empty_e, lambda: (
+        _submit(empty_e, W, prompts), empty_e.run()))
+    rec = {"phase": "lifecycle_invisible", "requests": len(W),
+           "max_new_tokens": LIFECYCLE_NEW, **LIFECYCLE_ENGINE,
+           "programs": progs,
+           "programs_empty_schedule": empty_e.program_cache_sizes(),
+           "tokens_equal": _tokens(empty_e, W) == clean,
+           "lengths": [len(t) for t in clean.values()]}
+    rec["ok"] = rec["tokens_equal"] and _steady(clean_e, progs) \
+        and _steady(empty_e, progs) \
+        and all(n == LIFECYCLE_NEW for n in rec["lengths"])
+    del empty_e
+    _gate(rec)
+
+    # --- chaos ----------------------------------------------------------
+    sched = Faults(seed=0)
+    chaos_e = _lifecycle_engine(model, params, faults=sched)
+    w0 = chaos_e._steps
+    (sched.on("slow_step", step=w0 + 16, delay_s=0.002)
+          .on("nan_logits", step=w0 + 24, slot=3)
+          .on("page_alloc", step=w0 + 40, times=2))
+    uids = [100 + u for u in W]
+    launches["chaos"] = _drive(torch, chaos_e, lambda: (
+        _submit(chaos_e, uids, prompts), chaos_e.run()))
+    resp = {u - 100: chaos_e.responses[u] for u in uids}
+    pre = {u - 100: chaos_e.requests[u].preemptions for u in uids}
+    errors = [u for u, r in resp.items() if r.finish_reason == "error"]
+    unpreempted = [u for u in W if not pre[u] and u not in errors]
+    preempted = [u for u in W if pre[u]]
+    st = chaos_e.latency_stats()
+    chaos_e._paged.check_invariants()
+    rec = {"phase": "lifecycle_chaos",
+           "schedule": [{k: getattr(s, k) for k in
+                         ("site", "step", "slot", "times", "delay_s",
+                          "fired")} for s in sched.specs],
+           "warm_up_steps": w0, "errors": errors,
+           "error_prefix_of_clean": all(
+               resp[u].tokens == clean[u][:len(resp[u].tokens)]
+               for u in errors),
+           "preempted": preempted,
+           "preempted_reasons": [resp[u].finish_reason for u in preempted],
+           "preempted_equal_unpreempted_run": [
+               resp[u].tokens == clean[u] for u in preempted],
+           "unpreempted_equal_clean": sum(
+               resp[u].tokens == clean[u] for u in unpreempted),
+           "unpreempted": len(unpreempted),
+           "faults_injected": st["faults_injected"],
+           "snapshot_faults_fired_total": chaos_e.metrics.snapshot()[
+               "collected"]["faults_fired_total"],
+           "preemptions": st["preemptions"],
+           "kv_pages_live": st["kv_pages_live"]}
+    rec["ok"] = len(errors) == 1 and rec["error_prefix_of_clean"] \
+        and rec["unpreempted_equal_clean"] == len(unpreempted) \
+        and preempted and all(
+            resp[u].finish_reason == "length"
+            and len(resp[u].tokens) == LIFECYCLE_NEW for u in preempted) \
+        and st["kv_pages_live"] == 0 and st["faults_injected"] >= 3 \
+        and rec["snapshot_faults_fired_total"] >= 3 \
+        and _steady(chaos_e, progs)
+    _gate(rec)
+
+    # --- cancel: queued, mid-admission, active --------------------------
+    c = clean_e
+    states = {}
+
+    def cancel_run():
+        _submit(c, [200 + u for u in range(8)], prompts[:8])
+        _submit(c, [208], [long_prompt])
+        _submit(c, [209, 210], prompts[8:10])
+        states["queued"] = c.cancel(210)
+        _fill_slots(c)
+        c.tick()
+        states["slot"] = next(b for b, r in enumerate(c.slots)
+                              if r is not None and r.uid == 202)
+        states["active"] = c.cancel(202)
+        c.tick(1)
+        adm = c._admit
+        states["admitting"] = (adm.req.uid, adm.slot, adm.base, adm.length)
+        states["mid_admission"] = c.cancel(208)
+        while any(r.uid == 209 for r in c.queue) or c._admit is not None:
+            c.tick(1)
+        states["next_in_slot"] = c.slots[states["slot"]].uid
+        c.run()
+
+    launches["cancel"] = _drive(torch, c, cancel_run)
+    resp = {u: c.responses[u] for u in range(200, 211)}
+    got202 = resp[202].tokens
+    rec = {"phase": "lifecycle_cancel", **states,
+           "reasons": {u: r.finish_reason for u, r in resp.items()},
+           "active_tokens": len(got202),
+           "active_prefix_of_clean": got202 == clean[2][:len(got202)],
+           "next_equal_clean": resp[209].tokens == clean[8],
+           "others_equal_clean": sum(resp[200 + u].tokens == clean[u]
+                                     for u in (0, 1, 3, 4, 5, 6, 7)),
+           "cancellations": c.latency_stats()["cancellations"]}
+    adm_uid, _, base, length = states["admitting"]
+    rec["ok"] = all(states[k] is True for k in
+                    ("queued", "active", "mid_admission")) \
+        and [resp[u].finish_reason for u in (210, 208, 202)] \
+        == ["cancelled"] * 3 \
+        and not resp[210].tokens and not resp[208].tokens \
+        and adm_uid == 208 and 0 < base < length \
+        and 0 < len(got202) < LIFECYCLE_NEW \
+        and rec["active_prefix_of_clean"] \
+        and states["next_in_slot"] == 209 and rec["next_equal_clean"] \
+        and resp[209].finish_reason == "length" \
+        and rec["others_equal_clean"] == 7 and _steady(c, progs)
+    _gate(rec)
+
+    # --- deadlines --------------------------------------------------------
+    d = chaos_e
+
+    def deadline_run():
+        sched.on("slow_step", step=d._steps + 12, delay_s=1.0)
+        _submit(d, [300], prompts[10:11], deadline_s=1e-6)
+        _submit(d, [301], prompts[11:12], deadline_s=0.5)
+        time.sleep(0.01)
+        d.run()
+
+    launches["deadline"] = _drive(torch, d, deadline_run)
+    r0, r1 = d.responses[300], d.responses[301]
+    rec = {"phase": "lifecycle_deadline",
+           "expired": {"reason": r0.finish_reason, "tokens": len(r0.tokens)},
+           "midstream": {"reason": r1.finish_reason,
+                         "tokens": len(r1.tokens),
+                         "prefix_of_clean":
+                             r1.tokens == clean[11][:len(r1.tokens)]},
+           "timeouts": d.latency_stats()["timeouts"]}
+    rec["ok"] = r0.finish_reason == "timeout" and not r0.tokens \
+        and r1.finish_reason == "timeout" \
+        and 0 < len(r1.tokens) < LIFECYCLE_NEW \
+        and rec["midstream"]["prefix_of_clean"] and _steady(d, progs) \
+        and d._paged.live_pages == 0
+    _gate(rec)
+
+    # --- priorities ---------------------------------------------------------
+    p = clean_e
+    order = {}
+
+    def priority_run():
+        _submit(p, [400 + u for u in range(8)], prompts[:8])
+        _fill_slots(p)
+        p.tick()
+        _submit(p, [408], prompts[8:9], priority=1)
+        p.tick(1)
+        order["queue"] = [r.uid for r in p.queue]
+        order["displacer"] = (p._admit.req.uid if p._admit is not None
+                              else next((r.uid for r in p.slots
+                                         if r is not None and r.uid == 408),
+                                        None))
+        p.run()
+
+    launches["priority"] = _drive(torch, p, priority_run)
+    victims = [u for u in range(400, 408) if p.requests[u].preemptions]
+    rec = {"phase": "lifecycle_priority", **order, "victims": victims,
+           "victim_reasons": [p.responses[u].finish_reason for u in victims],
+           "victim_tokens": [len(p.responses[u].tokens) for u in victims],
+           "victims_equal_unpreempted_run": [
+               p.responses[u].tokens == clean[u - 400] for u in victims],
+           "displacer_equal_clean": p.responses[408].tokens == clean[8],
+           "others_equal_clean": sum(
+               p.responses[u].tokens == clean[u - 400]
+               for u in range(400, 408) if u not in victims)}
+    rec["ok"] = len(victims) == 1 and order["queue"] == victims \
+        and order["displacer"] == 408 \
+        and rec["victim_reasons"] == ["length"] \
+        and rec["victim_tokens"] == [LIFECYCLE_NEW] \
+        and p.responses[408].finish_reason == "length" \
+        and rec["displacer_equal_clean"] and rec["others_equal_clean"] == 7 \
+        and _steady(p, progs)
+    _gate(rec)
+
+    # --- the tracer, traced against untraced in turns --------------------
+    traced_e = _lifecycle_engine(model, params, faults=False, recorder=True)
+    turns = []
+    for i, e in enumerate((clean_e, traced_e, traced_e, clean_e)):
+        uids = [500 + 100 * i + u for u in W]
+        counts, want, wall = _drive(torch, e, lambda: (
+            _submit(e, uids, prompts), e.run()))
+        launches[f"tracer_turn{i + 1}"] = (counts, want, wall)
+        toks = _tokens(e, uids)
+        turns.append({"traced": e is traced_e, "wall_s": wall,
+                      "tok_per_s": sum(map(len, toks.values())) / wall,
+                      "tokens_equal_clean": [toks[u] for u in uids]
+                      == [clean[u] for u in W]})
+    trace = traced_e.export_trace()
+    spans = tracing.complete_spans(trace)
+    traced_uids = [u for u in traced_e.responses]
+    rec = {"phase": "lifecycle_tracer", "turns": turns,
+           "traced_tok_per_s": statistics.median(
+               t["tok_per_s"] for t in turns if t["traced"]),
+           "untraced_tok_per_s": statistics.median(
+               t["tok_per_s"] for t in turns if not t["traced"]),
+           "events": len(trace["traceEvents"]), "spans": len(spans),
+           "requests": len(traced_uids),
+           "validate": tracing.validate_chrome_trace(trace)}
+    rec["spans_match"] = len(spans) == len(traced_uids) and all(
+        spans[f"req {u}"]["args"]["generated"]
+        == len(traced_e.responses[u].tokens)
+        and spans[f"req {u}"]["args"]["finish"]
+        == traced_e.responses[u].finish_reason for u in traced_uids)
+    rec["ok"] = rec["validate"] == [] and rec["spans_match"] \
+        and all(t["tokens_equal_clean"] for t in turns) \
+        and _steady(traced_e, progs) and _steady(clean_e, progs)
+    del traced_e
+    _gate(rec)
+
+    # --- the profiler window (trace_dir=) ---------------------------------
+    tdir = Path(__file__).resolve().parent / "build" / "lifecycle_trace"
+    shutil.rmtree(tdir, ignore_errors=True)
+    window_e = _lifecycle_engine(model, params, faults=False,
+                                 trace_dir=str(tdir))
+    launches["profile_window"] = _drive(torch, window_e, lambda: (
+        _submit(window_e, W[:8], prompts[:8]), window_e.run()))
+    path = window_e.profile_trace
+    names = set()
+    if path and os.path.exists(path):
+        with open(path) as f:
+            names = {ev.get("name", "") for ev in json.load(f)["traceEvents"]}
+    rec = {"phase": "lifecycle_profile_window",
+           "trace_file": path and os.path.relpath(path, tdir.parent.parent),
+           "bytes": os.path.getsize(path) if names else 0,
+           "decode_kernels": sorted({n[:60] for n in names
+                                     if "decode_" in n and "kernel" in n}),
+           "rmsnorm_kernels": sorted({n[:60] for n in names
+                                      if "rmsnorm_kernel" in n}),
+           "tokens_equal_clean": _tokens(window_e, W[:8])
+           == {u: clean[u] for u in W[:8]}}
+    rec["ok"] = bool(names) and bool(rec["decode_kernels"]) \
+        and bool(rec["rmsnorm_kernels"]) and rec["tokens_equal_clean"] \
+        and _steady(window_e, progs)
+    del window_e
+    shutil.rmtree(tdir, ignore_errors=True)
+    _gate(rec)
+
+    # --- host syncs under the profiler: poison, cancel, preemption -------
+    e = chaos_e
+    polls = e.metrics.counters["trace_polls"]
+    marks = {}
+
+    def sync_run():
+        _submit(e, [700 + u for u in range(8)], prompts[:8])
+        _fill_slots(e)
+        e.tick()
+        _submit(e, [708], prompts[8:9], priority=1)
+        e.tick()                         # 708 displaces a stream
+        sched.on("nan_logits", step=e._steps + 4, slot=5)
+        e.tick()
+        marks["cancel"] = e.cancel(702)
+        e.run()
+
+    p0, pre0 = polls.value, e.latency_stats()["preemptions"]
+    n0 = len(e.step_kinds)
+    kernels.reset_launch_counts()
+    prof, wall_ms = _profiled(torch, sync_run)
+    counts = kernels.launch_counts()
+    launches["syncs"] = (counts, _expected_launches(
+        cfg, e, True, e.step_kinds[n0:]), wall_ms / 1e3)
+    calls = {ev.key: ev.count for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CPU}
+    reasons = {u: e.responses[u].finish_reason for u in range(700, 709)}
+    rec = {"phase": "lifecycle_syncs", "polls": polls.value - p0,
+           "cudaStreamSynchronize": calls.get("cudaStreamSynchronize", 0),
+           "preemptions": e.latency_stats()["preemptions"] - pre0,
+           "cancelled": marks["cancel"], "reasons": reasons,
+           "host_calls": {k: calls.get(k, 0) for k in HOST_CALLS}}
+    prof, _ = _profiled(torch, lambda: (e._set_poison(3),
+                                        e._clear_poison()))
+    calls = {ev.key: ev.count for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CPU}
+    rec["poison_alone"] = {k: calls.get(k, 0) for k in HOST_CALLS}
+    rec["ok"] = rec["polls"] > 0 \
+        and rec["cudaStreamSynchronize"] == 2 * rec["polls"] \
+        and rec["preemptions"] >= 1 and marks["cancel"] \
+        and list(reasons.values()).count("error") == 1 \
+        and reasons[702] == "cancelled" and reasons[708] == "length" \
+        and rec["poison_alone"]["cudaStreamSynchronize"] == 0 \
+        and rec["poison_alone"]["cudaMemcpyAsync"] == 0 \
+        and _steady(e, progs) and not bool(e._poison.any())
+    _gate(rec)
+    e._paged.check_invariants()
+    live = e._paged.live_pages
+    del chaos_e, e, d
+
+    # --- the poison lane's cost and the counters of every part -----------
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    logits = torch.randn(8, cfg.vocab, device="cuda")
+    lane = torch.zeros(8, device="cuda")
+    lane_ms = median_ms(torch, lambda: logits + lane[:, None], flush)
+    del flush
+    rec = {"phase": "lifecycle",
+           "launches": {k: {"counted": {n: v for n, v in c.items() if v},
+                            "expected": {n: v for n, v in w.items() if v},
+                            "equal": c == w, "wall_s": t}
+                        for k, (c, w, t) in launches.items()},
+           "poison_lane_ms": lane_ms,
+           "poison_lane_bound_ms": bound_ms(2 * logits.nbytes + lane.nbytes,
+                                            0, "float32")[0],
+           "poison_lane_reckoned_us": POISON_US_RECKONED,
+           "serve_decode_ms_p50": serve_rec["decode_ms_p50"],
+           "serve_decode_ms_p50_before_lane":
+               SERVE_DECODE_MS_P50_BEFORE_LANE,
+           "chaos_engine_pages_live_after": live,
+           "seconds": time.perf_counter() - t_phase}
+    rec["ok"] = all(v["equal"] for v in rec["launches"].values()) \
+        and live == 0
+    del clean_e, c, p
+    gc.collect()
+    _gate(rec)
     return rec
 
 
@@ -2665,6 +3146,7 @@ def main() -> int:
           phase="serve_paged_turn2")
     serve(torch, model, params, phase="serve_turn2")
     pool_pressure(torch, model, params)
+    lifecycle(torch, model, params, rec)
     # the bf16 tree leaves the card, so the quantized phases' peak memory
     # counts only their own weights
     params = _tree_to(params, "cpu")

@@ -62,15 +62,40 @@ the ``edge`` variant) the cache holds int8 K/V with per-(slot, head)
 scales, on rings or in the pool; the parameters may be quantized
 (``repro_torch.quant``), which the model routes by their structure.
 
+Lifecycle control, as in the JAX engine: requests carry ``deadline_s``
+and ``priority``; ``Engine.cancel(uid)`` and deadline enforcement at tick
+boundaries finish a stream with ``finish_reason`` "cancelled" or
+"timeout", keeping its partial output and releasing its slot and pages at
+once. Under slot or page pressure the engine preempts a victim (lowest
+priority, then latest deadline, then lowest slot) and requeues it; it
+resumes by replay. A cancel, a timeout or a preemption changes only host
+state and, in place and outside any step program, the device row
+``active[b]`` that the programs read, so none of them builds a program
+or syncs the host beyond the poll it makes.
+
+Faults (``serving/faults.py``; ``Engine(faults=...)`` or
+``REPRO_FAULTS``) fire at three engine sites: ``slow_step`` (a host
+stall before a step), ``nan_logits`` (NaN into one row's sampler logits,
+which the guard contains to that row) and ``page_alloc`` (a forced pool
+exhaustion inside provisioning). The NaN goes through the poison lane,
+a static ``(max_batch,)`` f32 device buffer that both step bodies add to
+their sampler logits on every step (0.0 is the identity on finite
+values): arming writes NaN into one row in place before the step and
+clearing zeroes the buffer after it, so the programs are the same with
+or without faults. Request lifecycles go to a ``Recorder`` (the no-op by
+default; ``recorder=True`` builds a ``serving/tracing.Tracer`` whose
+Chrome trace ``export_trace(path)`` writes), and ``trace_dir=`` records
+a ``torch.profiler`` trace of ``profile_steps`` steps after the first.
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item when asked for: speculative decoding, the prefix cache,
-tensor-parallel meshes, fault injection, lifecycle tracing and
-profiling, deadlines, priorities and cancellation.
+item when asked for: speculative decoding, the prefix cache and
+tensor-parallel meshes.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -80,6 +105,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.core.program import capture
 from repro_torch.models.model import Model, build
+from repro_torch.serving import faults as faults_mod
 from repro_torch.serving import paged_kv, telemetry
 from repro_torch.serving.request import Request, Response
 from repro_torch.serving.sampler import Sampler
@@ -185,7 +211,8 @@ class Engine:
                  mesh: Any = None, paged: bool = False, page_size: int = 16,
                  num_pages: Optional[int] = None,
                  faults: Any = None, recorder: Any = None,
-                 trace_dir: str = "", graphs: Optional[bool] = None):
+                 trace_dir: str = "", profile_steps: int = 8,
+                 graphs: Optional[bool] = None):
         """Arguments as in the JAX engine. ``params`` and the cache live
         on ``model.device``. ``prefill_chunk`` sizes chunked admission
         (None follows ``cfg.prefill_chunk``; 0 = the whole prompt in one
@@ -194,10 +221,15 @@ class Engine:
         layout's capacity plus two pages of provisioning headroom per
         slot); the pool must hold one full-length stream.
         ``kv_cache_dtype="int8"`` rebuilds the model with ``kv_quant``,
-        as the JAX engine does. ``graphs``: run the step programs as CUDA
-        graphs (None: on a CUDA device, and eager on the CPU; False: eager
-        anywhere; True on the CPU raises). The arguments of features not
-        ported yet raise."""
+        as the JAX engine does. ``faults``: a ``Faults`` schedule, a spec
+        string for ``Faults.parse``, False for none, or None to follow
+        ``REPRO_FAULTS``. ``recorder``: True builds a ``Tracer``, or pass
+        a ``telemetry.Recorder``; None keeps the no-op. ``trace_dir``:
+        write a ``torch.profiler`` Chrome trace of ``profile_steps``
+        steps, starting after step 1, into that directory. ``graphs``:
+        run the step programs as CUDA graphs (None: on a CUDA device, and
+        eager on the CPU; False: eager anywhere; True on the CPU raises).
+        The arguments of features not ported yet raise."""
         if kv_cache_dtype not in ("", "int8"):
             raise ValueError(f"unsupported kv_cache_dtype "
                              f"{kv_cache_dtype!r} (use '' or 'int8')")
@@ -215,11 +247,6 @@ class Engine:
         if mesh_src not in ("", "none", "off", None):
             raise _not_ported("mesh (tensor-parallel serving)",
                               "13 (distribution)")
-        if faults not in (None, False):
-            raise _not_ported("faults", "5 (engine lifecycle)")
-        if recorder or trace_dir:
-            raise _not_ported("recorder/trace_dir",
-                              "5 (engine lifecycle)")
         self.model = model
         self.params = params
         self.device = model.device
@@ -242,22 +269,60 @@ class Engine:
             else self.kv_len
 
         # --- telemetry (host-side) ------------------------------------ #
+        # the registry holds every host-side stat; the recorder is the
+        # request-lifecycle event sink (a no-op unless asked for)
         self.metrics = telemetry.MetricsRegistry()
+        if recorder is True:
+            from repro_torch.serving.tracing import Tracer
+            recorder = Tracer()
+        self.recorder: telemetry.Recorder = recorder or telemetry.Recorder()
+        self._watchdog = telemetry.CompileWatchdog(self.metrics,
+                                                   self.recorder)
         self._step_series = self.metrics.get_series("step_wall_s")
         self._kind_series = self.metrics.get_series("step_kind")
+        self._kinds_base = 0               # global step of step_kinds[0]
+        self._c_tokens = self.metrics.counter("tokens_emitted")
+        self._c_steps = self.metrics.counter("steps_total", persist=True)
         self._c_admissions = self.metrics.counter("chunked_admissions")
-        self._c_errors = self.metrics.counter("slot_errors")
-        self._c_preempt = self.metrics.counter("preemptions")
+        # admissions that could not take the chunked path: none can in
+        # the port (every family it serves extends); kept so the counter
+        # and its key read as in the JAX engine
+        self._c_fallback = self.metrics.counter("fallback_admissions")
         self._h_ttft = self.metrics.histogram("ttft_s")
         self._h_itl = self.metrics.histogram("itl_s")
+        self._c_preempt = self.metrics.counter("preemptions")
+        self._c_timeout = self.metrics.counter("timeouts")
+        self._c_cancel = self.metrics.counter("cancellations")
+        self._c_faults = self.metrics.counter("faults_injected")
+        self._c_errors = self.metrics.counter("slot_errors")
         self._c_polls = self.metrics.counter("trace_polls")
-        self._watchdog = telemetry.CompileWatchdog(self.metrics)
+        self._trace_dir = trace_dir
+        self._profile_steps = max(1, int(profile_steps))
+        self._prof = None                  # the torch.profiler window
+        self._prof_done = False
+        self._prof_base = 0
+        #: the Chrome trace the profiler window wrote (None until then)
+        self.profile_trace: Optional[str] = None
+        self._kv_nbytes: Optional[int] = None   # lazy: cache bytes
+
+        # --- fault injection ------------------------------------------ #
+        if faults is None:
+            faults = faults_mod.from_env()
+        elif isinstance(faults, str):
+            faults = faults_mod.Faults.parse(faults)
+        elif faults is False:
+            faults = faults_mod.NoFaults()
+        self.faults = faults
+        if self.faults.enabled:
+            self.metrics.add_collector(self.faults.stats)
 
         # --- host-side scheduling state ------------------------------- #
         self.queue: collections.deque[Request] = collections.deque()
         self.slots: List[Optional[Request]] = [None] * max_batch
+        self.requests: Dict[int, Request] = {}
         self.responses: Dict[int, Response] = {}
         self._admit: Optional[_Admission] = None
+        self._deadline_armed = False   # a live request has deadline_s
 
         # --- device-resident decode state ----------------------------- #
         dev = self.device
@@ -271,6 +336,12 @@ class Engine:
         self.eos = torch.full((max_batch,), -1, dtype=torch.int64,
                               device=dev)
         self._rows = torch.arange(max_batch, device=dev)
+        # the poison lane: added to every step program's sampler logits
+        # (0.0 is the identity on finite values). The nan_logits site
+        # writes NaN into one row for one step, in place: the tensor is
+        # never rebound, so the captured graphs read it on every replay
+        self._poison = torch.zeros((max_batch,), dtype=torch.float32,
+                                   device=dev)
 
         # --- paged KV cache ------------------------------------------- #
         self.paged = bool(paged)
@@ -299,6 +370,7 @@ class Engine:
                     f"stream ({n_blk} blocks of {self.page_size} tokens)")
             self._paged = paged_kv.PagedKVState(
                 max_batch, self.kv_len, self.page_size, self.num_pages)
+            self.metrics.add_collector(self._paged.stats)
             self.cache = model.make_paged_cache(
                 max_batch, cache_len, page_size=self.page_size,
                 num_pages=self.num_pages)
@@ -343,7 +415,12 @@ class Engine:
         return self._kind_series.values
 
     def _record_step(self, kind: str) -> None:
+        """One engine step happened: the global counter, the per-kind
+        counters and the aligned kind series (``step()`` appends the wall
+        entry once timing is known)."""
         self._kind_series.append(kind)
+        self.metrics.counter("steps_" + kind).inc()
+        self._c_steps.inc()
         self._steps += 1
 
     def _sync(self) -> None:
@@ -391,8 +468,9 @@ class Engine:
 
     def _decode(self) -> torch.Tensor:
         """Plain step body: decode + sample + slot bookkeeping on device,
-        the decode state updated in place. Returns (B, 2) int64: each
-        row's sampled token and its emit count (1). A paged engine
+        the decode state updated in place; the sampler logits carry the
+        poison lane. Returns (B, 2) int64: each row's sampled token and
+        its emit count (1). A paged engine
         decodes through a masked T=1 extend (per row the same arithmetic
         as ``decode_step``), so rows the device already finished neither
         write into pages nor advance: provisioning stays an upper bound
@@ -405,8 +483,9 @@ class Engine:
         else:
             logits, _ = self.model.decode_step(self.params, self.tokens,
                                                self.cache)
-        nxt, bad = _guarded_sample(self.sampler, self.generator,
-                                   logits[:, -1].float())
+        nxt, bad = _guarded_sample(
+            self.sampler, self.generator,
+            logits[:, -1].float() + self._poison[:, None])
         done = active & (bad | (remaining <= 1) | (nxt == self.eos))
         new_remaining = torch.where(active, remaining - 1, remaining)
         new_active = active & ~done
@@ -423,7 +502,8 @@ class Engine:
         through the view ``cache[:, slot:slot+1]`` (the writes land in
         the batched cache; page pools pass whole and the chunk's K/V
         goes through the slot's block-table row), sample all rows at
-        once and arm the slot when its prompt is complete. Reads the
+        once (the logits carry the poison lane) and arm the slot when its
+        prompt is complete. Reads the
         chunk and its scalars from the staging buffer (``_stage_chunk``).
         Returns (B, 2) int64: tokens and emit counts."""
         C = self.prefill_chunk
@@ -440,7 +520,7 @@ class Engine:
         logits = torch.where(is_admit[:, None], ch_logits[0, 0][None],
                              dec_logits[:, 0])
         nxt, bad = _guarded_sample(self.sampler, self.generator,
-                                   logits.float())
+                                   logits.float() + self._poison[:, None])
         arm = is_admit & (last != 0)
         emit = active | arm
         done = emit & (bad | (torch.where(arm, a_rem, remaining) <= 1)
@@ -494,7 +574,12 @@ class Engine:
         here, with the violated constraint spelled out."""
         self._validate(req)
         req.submitted_s = time.perf_counter()
+        if req.deadline_s is not None:
+            self._deadline_armed = True
+        if self.recorder.enabled:
+            self.recorder.on_submit(req)
         self.queue.append(req)
+        self.requests[req.uid] = req
         self.responses[req.uid] = Response(uid=req.uid,
                                            prompt_len=len(req.prompt))
 
@@ -512,9 +597,10 @@ class Engine:
             raise ValueError(
                 f"request {req.uid}: max_new_tokens must be positive, "
                 f"got {req.max_new_tokens}")
-        if req.deadline_s is not None or req.priority:
-            raise _not_ported("request deadlines and priorities",
-                              "5 (engine lifecycle)")
+        if req.deadline_s is not None and req.deadline_s <= 0:
+            raise ValueError(
+                f"request {req.uid}: deadline_s must be positive, got "
+                f"{req.deadline_s}")
         if req.embeddings is not None:
             raise _not_ported("frontend embeddings", "10 (other families)")
         old = self.responses.get(req.uid)
@@ -553,14 +639,32 @@ class Engine:
         return not self.paged or self._paged.can_admit(self._eff_len(req))
 
     def _fill_free_slots(self) -> None:
-        """FIFO admission: the head of the queue starts a chunked
-        admission when a slot is free (at most one in flight) and, when
-        paged, the pool can hold it."""
+        """Admission scheduler (FIFO head): the head of the queue starts a
+        chunked admission when a slot is free (at most one in flight)
+        and, when paged, the pool can hold it. A head that outranks a
+        live stream may preempt it when the slot table or the pool is
+        short: the victim requeues right behind the displacing request
+        (never ahead, which would livelock) and resumes later by
+        replay."""
         while self.queue and self._admit is None:
+            req = self.queue[0]
             b = self._free_slot()
-            if b is None or not self._admit_fits(self.queue[0]):
+            if b is None or not self._admit_fits(req):
+                if self._outranked(req) and self._preempt_one(
+                        below=req.priority, requeue_pos=1):
+                    continue
                 return
             self._start_chunked(self.queue.popleft(), b)
+
+    def _outranked(self, req: Request) -> bool:
+        """Cheap pre-check (no device sync) for priority displacement:
+        some occupied slot runs at strictly lower priority than ``req``.
+        A chunked admission in flight blocks displacement: the head could
+        not admit into the freed slot until it completes."""
+        if self._admit is not None:
+            return False
+        return any(r is not None and r.priority < req.priority
+                   for r in self.slots)
 
     def _start_chunked(self, req: Request, b: int) -> None:
         """Begin a chunked admission into slot ``b``. A preempted request
@@ -580,49 +684,167 @@ class Engine:
         self._admit = _Admission(req=req, slot=b, base=0,
                                  length=len(toks), tokens=toks,
                                  n_done=len(done))
+        if self.recorder.enabled:
+            self.recorder.on_admission(req, b, 0, "chunked")
 
     # ------------------------------------------------------------ #
-    # preempt-and-requeue (paged pool pressure)
+    # lifecycle control: cancel / deadlines / preempt-and-requeue
     # ------------------------------------------------------------ #
+    def cancel(self, uid: int) -> bool:
+        """Cancel a request in any live state: queued, mid-admission or
+        active. Tokens already produced stay in the response; the slot
+        and (paged) its pages are released at once and ``finish_reason``
+        reads "cancelled". An active slot is polled first (its tokens
+        on the device are committed) and then deactivated in place.
+        Returns True if the request was live, False when it is unknown
+        or had already finished."""
+        req = self.requests.get(uid)
+        resp = self.responses.get(uid)
+        if req is None or resp is None or resp.finished:
+            return False
+        now = time.perf_counter()
+        if req in self.queue:
+            self.queue.remove(req)
+            self._finish_request(req, "cancelled", now)
+            self._c_cancel.inc()
+            return True
+        if self._admit is not None and self._admit.req.uid == uid:
+            self._abort_admission("cancelled", now)
+            self._c_cancel.inc()
+            return True
+        for b, r in enumerate(self.slots):
+            if r is not None and r.uid == uid:
+                self._poll()       # commit tokens already produced...
+                if resp.finished:  # ...which may have finished it first
+                    return False
+                self._release_active_slot(b)
+                self._finish_request(req, "cancelled",
+                                     time.perf_counter())
+                self._c_cancel.inc()
+                return True
+        return False
+
+    def _finish_request(self, req: Request, reason: str,
+                        now: float) -> None:
+        resp = self.responses[req.uid]
+        resp.finished = True
+        resp.finish_reason = reason
+        req.finished_s = now
+        if self.recorder.enabled:
+            self.recorder.on_finish(req, reason, now)
+
     def _release_active_slot(self, b: int) -> None:
         """Tear down an occupied slot, keeping its harvested tokens:
-        deactivate the device row (masked steps then neither write KV nor
-        advance it), detach the request and, when paged, return its
-        pages to the pool."""
-        self.active[b] = False
+        deactivate the device row in place (masked steps then neither
+        write KV nor advance it; no program is rebuilt), detach the
+        request and, when paged, return its pages to the pool."""
+        self.active[b].fill_(False)
         self.slots[b] = None
         self._slot_start[b] = self._steps
         if self.paged:
             self._paged.release_slot(b)
             self._depth_ub[b] = 0
 
-    def _select_victim(self, exclude=()) -> Optional[int]:
-        """The slot to preempt: the lowest slot index whose stream can
-        resume (its effective stream plus one decode write still fits the
-        KV ring). Priorities and deadlines, which rank victims in the
-        JAX engine, are not ported; with none set its order is this."""
+    def _abort_admission(self, reason: str, now: float) -> None:
+        """Tear down the in-flight chunked admission: its slot was never
+        attached nor armed on the device, so only the pages provisioned
+        for it go back."""
+        adm, self._admit = self._admit, None
+        if self.paged:
+            self._paged.release_slot(adm.slot)
+            self._depth_ub[adm.slot] = 0
+        self._finish_request(adm.req, reason, now)
+
+    def _enforce_deadlines(self, include_active: bool = True) -> None:
+        """Finish every request past its absolute deadline with
+        ``finish_reason="timeout"``, keeping partial tokens. Runs at tick
+        boundaries: before admission with ``include_active=False``
+        (queued and admitting only: an active slot may hold tokens not
+        yet harvested) and right after each poll with the full sweep."""
+        now = time.perf_counter()
+        for req in [r for r in self.queue if r.deadline_abs() <= now]:
+            self.queue.remove(req)
+            self._finish_request(req, "timeout", now)
+            self._c_timeout.inc()
+        if self._admit is not None \
+                and self._admit.req.deadline_abs() <= now:
+            self._abort_admission("timeout", now)
+            self._c_timeout.inc()
+        if not include_active:
+            return
+        for b, r in enumerate(self.slots):
+            if r is not None and r.deadline_abs() <= now:
+                self._release_active_slot(b)
+                self._finish_request(r, "timeout", now)
+                self._c_timeout.inc()
+
+    def _select_victim(self, exclude=(),
+                       below: Optional[int] = None) -> Optional[int]:
+        """The slot to preempt: lowest priority first, then latest
+        deadline (none counts as latest), then lowest slot index. Only
+        streams that can resume qualify (the effective stream plus one
+        decode write still fits the KV ring). ``below`` restricts victims
+        to priorities strictly below it (priority displacement)."""
+        best = None
         for b, r in enumerate(self.slots):
             if r is None or b in exclude:
                 continue
-            if self._eff_len(r) + 1 <= self.kv_len:
-                return b
-        return None
+            if below is not None and r.priority >= below:
+                continue
+            if self._eff_len(r) + 1 > self.kv_len:
+                continue           # too long to replay: not resumable
+            key = (r.priority, -r.deadline_abs(), b)
+            if best is None or key < best[0]:
+                best = (key, b)
+        return None if best is None else best[1]
 
-    def _preempt_one(self, exclude=()) -> bool:
+    def _preempt_one(self, exclude=(), below: Optional[int] = None,
+                     requeue_pos: int = 0) -> bool:
         """Preempt-and-requeue one victim stream: poll first so every
         token the device already produced is committed, release the
-        victim's slot and pages, and requeue it at the front of the
-        queue. Returns False when no resumable victim exists."""
+        victim's slot and pages, and requeue it (position 0 = the front;
+        1 = right behind a displacing higher-priority head). Returns
+        False when no resumable victim exists."""
         self._poll()
-        b = self._select_victim(exclude=exclude)
+        b = self._select_victim(exclude=exclude, below=below)
         if b is None:
             return False
         req = self.slots[b]
         self._release_active_slot(b)
         req.preemptions += 1
         self._c_preempt.inc()
-        self.queue.appendleft(req)
+        if self.recorder.enabled:
+            self.recorder.on_preempt(req, b, time.perf_counter())
+        pos = min(requeue_pos, len(self.queue))
+        if pos <= 0:
+            self.queue.appendleft(req)
+        else:
+            self.queue.insert(pos, req)
         return True
+
+    # ------------------------------------------------------------ #
+    # fault sites
+    # ------------------------------------------------------------ #
+    def _fire(self, site: str, **ctx):
+        """Ask the fault schedule whether ``site`` fails here (None when
+        nothing is scheduled). Fired faults count into
+        ``faults_injected`` and the recorder's fault lane."""
+        spec = self.faults.fire(site, **ctx)
+        if spec is not None:
+            self._c_faults.inc()
+            if self.recorder.enabled:
+                self.recorder.on_fault(site, self._steps,
+                                       time.perf_counter())
+        return spec
+
+    def _set_poison(self, b: int) -> None:
+        """Arm the ``nan_logits`` fault: NaN into row ``b`` of the poison
+        lane for the next dispatched step, written in place outside any
+        program (no build, no host sync)."""
+        self._poison[b % self.max_batch].fill_(float("nan"))
+
+    def _clear_poison(self) -> None:
+        self._poison.zero_()
 
     # ------------------------------------------------------------ #
     # paged provisioning (host allocator <-> device page pools)
@@ -630,9 +852,10 @@ class Engine:
     def _provision(self, slot: int, start: int, n: int) -> bool:
         """Make the pages behind positions [start, start+n) of ``slot``
         privately writable before a dispatched step (allocate missing
-        pages, copy-on-write split shared ones). Exhaustion degrades:
-        poll (a finished slot may hold pages), then preempt-and-requeue
-        a victim; only a pool that cannot hold the live set raises.
+        pages, copy-on-write split shared ones). Exhaustion, real or
+        forced by the ``page_alloc`` fault site, degrades: poll (a
+        finished slot may hold pages), then preempt-and-requeue a victim;
+        only a pool that cannot hold the live set raises.
         Returns False when it polled or preempted: the poll's shrink may
         have reclaimed headroom provisioned for other slots this round,
         so callers rebuild their provisioning pass. A poll may also have
@@ -644,11 +867,14 @@ class Engine:
             if not clean and self.slots[slot] is None and (
                     self._admit is None or self._admit.slot != slot):
                 return False
-            try:
-                copies = self._paged.prepare_write(slot, start, n)
-                break
-            except paged_kv.PagePoolExhausted:
-                pass
+            forced = self.faults.enabled and self._fire(
+                "page_alloc", step=self._steps, slot=slot)
+            if not forced:
+                try:
+                    copies = self._paged.prepare_write(slot, start, n)
+                    break
+                except paged_kv.PagePoolExhausted:
+                    pass
             clean = False
             if not polled:
                 polled = True
@@ -656,6 +882,15 @@ class Engine:
                 continue
             if self._preempt_one(exclude={slot}):
                 continue
+            if forced:
+                # the forced exhaustion outlived every rung; unlike a
+                # real one it freed nothing, so consult the actual pool
+                # before declaring the ladder dead
+                try:
+                    copies = self._paged.prepare_write(slot, start, n)
+                    break
+                except paged_kv.PagePoolExhausted:
+                    pass
             raise RuntimeError(
                 f"KV page pool exhausted mid-decode (slot {slot}, "
                 f"positions [{start}, {start + n})) with no resumable "
@@ -711,9 +946,20 @@ class Engine:
     # ------------------------------------------------------------ #
     def step(self) -> None:
         """One engine step (plain or mixed): device work only; tokens,
-        finish flags and counters stay on the device."""
+        finish flags and counters stay on the device. The ``slow_step``
+        and ``nan_logits`` fault sites fire first; a poisoned row is
+        cleared after the dispatch."""
         t0 = time.perf_counter()
         n0 = self._steps
+        poisoned = False
+        if self.faults.enabled:
+            spec = self._fire("slow_step", step=self._steps)
+            if spec is not None and spec.delay_s > 0:
+                time.sleep(spec.delay_s)
+            spec = self._fire("nan_logits", step=self._steps)
+            if spec is not None:
+                self._set_poison(spec.slot or 0)
+                poisoned = True
         if self._admit is None and self.queue:
             # pipeline the next admission mid-burst
             b = self._free_slot()
@@ -723,6 +969,8 @@ class Engine:
             self._step_mixed(self._admit)
         else:
             self._step_plain()
+        if poisoned:
+            self._clear_poison()
         made = self._steps - n0
         dt = (time.perf_counter() - t0) / max(made, 1)
         for _ in range(made):
@@ -753,6 +1001,9 @@ class Engine:
         slot = adm.slot
         self._push_trace(self._run_program(("mixed", slot),
                                            lambda: self._mixed(slot)))
+        if self.recorder.enabled:
+            self.recorder.on_chunk(adm.req, slot, adm.base, adm.base + n,
+                                   last)
         adm.base += n
         if last:
             self._complete_admission(adm)
@@ -775,6 +1026,8 @@ class Engine:
             if not req.first_token_s:
                 req.first_token_s = now
                 self._h_ttft.observe(now - req.submitted_s)
+                if self.recorder.enabled:
+                    self.recorder.on_first_token(req, now)
         self._await_first.clear()
 
     def _poll(self) -> None:
@@ -783,6 +1036,7 @@ class Engine:
         each occupied slot's tokens and prune the trace. Finish detection
         replays the device's stop conditions on the harvested tokens."""
         if not self._trace:
+            self._sample_occupancy()
             return
         occupied = [(b, self._slot_start[b] - self._trace_base)
                     for b, r in enumerate(self.slots) if r is not None]
@@ -837,6 +1091,36 @@ class Engine:
                         self._depth_ub[b] = depth
             if __debug__:
                 self._paged.check_invariants()
+        self._sample_occupancy()
+
+    def _sample_occupancy(self) -> None:
+        """Refresh the poll-time gauges (live occupancy, queue depth,
+        pool pressure, KV bytes per live token) and feed the recorder's
+        counter lanes, from host state only: the page allocator and the
+        slot table are host-authoritative."""
+        m = self.metrics
+        active = self.active_slots
+        m.gauge("active_slots").set(active)
+        m.gauge("queue_depth").set(len(self.queue))
+        pool: Dict[str, float] = {}
+        if self.paged:
+            ps = self._paged.stats()
+            pool["kv_pages_live"] = ps["kv_pages_live"]
+            pool["kv_pages_free"] = ps["kv_pages_free"]
+            m.gauge("kv_pages_free").set(ps["kv_pages_free"])
+            live_tok = ps["kv_pages_live"] * self.page_size
+        else:
+            live_tok = sum(
+                len(r.prompt) + len(self.responses[r.uid].tokens)
+                for r in self.slots if r is not None)
+        if live_tok:
+            if self._kv_nbytes is None:
+                self._kv_nbytes = sum(t.nbytes for sub in self.cache.values()
+                                      for t in sub.values())
+            m.gauge("kv_bytes_per_live_token").set(
+                self._kv_nbytes / live_tok)
+        if self.recorder.enabled:
+            self.recorder.on_poll(time.perf_counter(), active, pool)
 
     def _harvest(self, b: int, col: List[int],
                  gaps: List[Optional[float]]) -> None:
@@ -846,6 +1130,7 @@ class Engine:
         req = self.slots[b]
         resp = self.responses[req.uid]
         done = False
+        n0 = len(resp.tokens)
         for tok, gap in zip(col, gaps):
             if tok == ERR_TOKEN:
                 resp.finish_reason = "error"
@@ -863,9 +1148,17 @@ class Engine:
                 resp.finish_reason = "length"
                 done = True
                 break
+        appended = len(resp.tokens) - n0
+        if appended:
+            self._c_tokens.inc(appended)
+            if self.recorder.enabled:
+                self.recorder.on_emit(req, b, appended, time.perf_counter())
         if done:
             resp.finished = True
             req.finished_s = time.perf_counter()
+            if self.recorder.enabled:
+                self.recorder.on_finish(req, resp.finish_reason,
+                                        req.finished_s)
             self.slots[b] = None
             if self.paged:
                 # the stream's pages return to the free list
@@ -885,13 +1178,19 @@ class Engine:
 
     def tick(self, steps: Optional[int] = None) -> int:
         """One admission pass, one burst of up to ``steps`` fused steps
-        (default ``sync_every``) and one poll. Returns the steps run."""
+        (default ``sync_every``) and one poll, with deadline sweeps before
+        admission (queued and admitting requests) and after the poll
+        (every request). Returns the steps run."""
         k = self.sync_every if steps is None else max(1, steps)
+        if self._deadline_armed:
+            self._enforce_deadlines(include_active=False)
         self._fill_free_slots()
         if not (self.active_slots or self._admit is not None):
             self._poll()
+            if self._deadline_armed:
+                self._enforce_deadlines()
             return 0
-        t0 = time.perf_counter()
+        t0 = t_begin = time.perf_counter()
         # steps run outside tick (raw .step() calls) have no wall stamp
         while len(self._step_wall) + self._step_wall_base < self._steps:
             self._step_wall.append(t0)
@@ -923,8 +1222,21 @@ class Engine:
                 self.step_times[i] = dt
             for i in range(m):
                 self._step_wall.append(t0 + dt * (i + 1))
+        if self.recorder.enabled and self._steps > ran0:
+            # the steps lane: each step ends at its wall stamp and starts
+            # at its predecessor's (the burst's start for the first)
+            spans = []
+            for g in range(ran0, self._steps):
+                w = g - self._step_wall_base
+                start = self._step_wall[w - 1] if w > 0 else t_begin
+                spans.append((start, self._step_wall[w],
+                              self.step_kinds[g - self._kinds_base]))
+            self.recorder.on_steps(spans)
         self._stamp_first_tokens(t1)
         self._poll()
+        if self._deadline_armed:
+            self._enforce_deadlines()
+        self._maybe_profile()
         return self._steps - ran0
 
     def run(self, max_steps: int = 100_000,
@@ -937,6 +1249,7 @@ class Engine:
             if made == 0 and not self.has_work:
                 break
         self._poll()   # partial tokens for interrupted slots
+        self._stop_profile()
         return self.responses
 
     def reset_stats(self) -> None:
@@ -946,13 +1259,72 @@ class Engine:
         ``mark_steady()`` does: the warm-then-measure boundary is where
         steady state begins."""
         self.metrics.reset()
+        self._kinds_base = self._steps
         self._watchdog.arm()
         self._drop_compile_step = False
         for uid in [u for u, r in self.responses.items() if r.finished]:
             del self.responses[uid]
+            self.requests.pop(uid, None)
         if self.paged:
             pk = self._paged
             pk.alias_pages = pk.cow_splits = pk.pages_released = 0
+
+    # ------------------------------------------------------------ #
+    # trace / profiler export
+    # ------------------------------------------------------------ #
+    def export_trace(self, path: Optional[str] = None) -> Dict[str, Any]:
+        """Export the recorded request-lifecycle trace as a Chrome
+        trace-event object (written as JSON to ``path`` when given); see
+        ``serving/tracing.py`` for the lanes. Requires a tracing recorder
+        (``Engine(..., recorder=True)``)."""
+        exp = getattr(self.recorder, "export_chrome_trace", None)
+        if exp is None:
+            raise RuntimeError(
+                "export_trace needs a tracing recorder: build the "
+                "engine with recorder=True (or a tracing.Tracer)")
+        return exp(path)
+
+    def _maybe_profile(self) -> None:
+        """Drive the ``torch.profiler`` window of ``trace_dir=``: start
+        after the first step (so the first builds do not dominate it),
+        stop after ``profile_steps`` steps. A profiler that cannot start
+        (another one running, a directory that cannot be written)
+        disables the window, never the run."""
+        if not self._trace_dir or self._prof_done:
+            return
+        if self._prof is None:
+            if self._steps >= 1:
+                try:
+                    from torch.profiler import ProfilerActivity, profile
+                    acts = [ProfilerActivity.CPU]
+                    if self.device.type == "cuda":
+                        acts.append(ProfilerActivity.CUDA)
+                    prof = profile(activities=acts)
+                    prof.start()
+                    self._prof, self._prof_base = prof, self._steps
+                except Exception:
+                    self._prof_done = True
+        elif self._steps - self._prof_base >= self._profile_steps:
+            self._stop_profile()
+
+    def _stop_profile(self) -> None:
+        """Close the profiler window and write its Chrome trace into
+        ``trace_dir`` (``profile_trace`` names the file)."""
+        if self._prof is None:
+            return
+        prof, self._prof = self._prof, None
+        self._prof_done = True
+        try:
+            self._sync()
+            prof.stop()
+            os.makedirs(self._trace_dir, exist_ok=True)
+            path = os.path.join(
+                self._trace_dir,
+                f"engine_{os.getpid()}_{time.time_ns()}.pt.trace.json")
+            prof.export_chrome_trace(path)
+            self.profile_trace = path
+        except Exception:
+            pass
 
     def latency_stats(self) -> Dict[str, float]:
         """Latency summary. The ``decode_ms_*`` / ``ttft_ms_*`` /
@@ -963,11 +1335,15 @@ class Engine:
         stats: Dict[str, float] = {
             "n_finished": len(finished),
             "tokens_generated": sum(r.n_generated for r in finished),
+            "fallback_admissions": self._c_fallback.value,
             "decode_steps": self._steps,
             "prefill_chunk": self.prefill_chunk,
             "chunked_admissions": self._c_admissions.value,
             "preemptions": self._c_preempt.value,
+            "timeouts": self._c_timeout.value,
+            "cancellations": self._c_cancel.value,
             "slot_errors": self._c_errors.value,
+            "faults_injected": self._c_faults.value,
         }
         telemetry.pct_stats(stats, "decode_ms", self.step_times[drop:],
                             (50, 99))

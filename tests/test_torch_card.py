@@ -21,7 +21,8 @@ The serving engine's step programs run as CUDA graphs: greedy tokens,
 temperature samples and launch counters equal the eager engine's at
 reduced sizes (rings, bf16, paged, int8 KV, int8 weights, the edge
 profile paged, mamba2), nothing is captured after warm-up, and a capture
-that fails raises. The Zoo's service programs (``Service.jitted()``,
+that fails raises; on graphs a poisoned row is contained to that row and
+a cancel frees its slot, neither building a program. The Zoo's service programs (``Service.jitted()``,
 the deployed call) replay the eager call bitwise (the reduced
 classifier in fp32 and bf16, mamba2's ``model.lm`` on the SSD ``mma``
 route), a route runs as segments, another params tree is another
@@ -819,6 +820,104 @@ def test_graph_steps_sample_as_eager_steps_with_a_temperature_on_card():
     _, got, _ = _graph_serve(model, params, kw, None, sampler, batches=2)
     assert got == want
     assert len({t for toks in got.values() for t in toks}) > 5
+
+
+def _steady_engine(model, params, kw, **extra):
+    """A graphed engine (three slots, chunks of 8) warmed until every
+    slot admitted once, then marked steady."""
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request
+
+    engine = Engine(model, params, max_batch=3, cache_len=64,
+                    prefill_chunk=8, seed=0, **kw, **extra)
+    for uid in range(3):
+        engine.submit(Request(uid=1000 + uid, prompt=np.arange(5) + uid,
+                              max_new_tokens=8))
+    engine.run()
+    assert engine.graphs
+    assert engine.program_cache_sizes() == {"step": 1, "mixed": 3}
+    engine.mark_steady()
+    return engine
+
+
+def _lifecycle_requests(model):
+    from repro_torch.serving.request import Request
+
+    rng = np.random.default_rng(1)
+    return [Request(uid=uid, prompt=rng.integers(0, model.cfg.vocab, L),
+                    max_new_tokens=16) for uid, L in enumerate((6, 11, 4, 9))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rings", "paged"])
+def test_poisoned_row_is_contained_on_graphs_on_card(case):
+    """The nan_logits fault on graphs: one row finishes with "error",
+    every other stream equals a fault-free graphed run's, and poisoning
+    and clearing the buffer (in place, outside the graphs) build no
+    program."""
+    from repro_torch.serving.faults import Faults
+
+    _card()
+    model, params, kw = _graph_model(case)
+    clean = _steady_engine(model, params, kw, faults=False)
+    for r in _lifecycle_requests(model):
+        clean.submit(r)
+    want = {u: list(r.tokens) for u, r in clean.run().items() if u < 1000}
+    sched = Faults(seed=0)
+    engine = _steady_engine(model, params, kw, faults=sched)
+    progs = engine.program_cache_sizes()
+    sched.on("nan_logits", step=engine._steps + 6, slot=1)
+    for r in _lifecycle_requests(model):
+        engine.submit(r)
+    got = {u: r for u, r in engine.run().items() if u < 1000}
+    errors = [u for u, r in got.items() if r.finish_reason == "error"]
+    assert len(errors) == 1
+    for u, r in got.items():
+        if u not in errors:
+            assert r.finish_reason == "length" and r.tokens == want[u], u
+    assert got[errors[0]].tokens == want[errors[0]][:len(
+        got[errors[0]].tokens)]
+    assert engine.program_cache_sizes() == progs
+    assert engine.metrics.counters["steady_compiles"].value == 0
+    assert engine.latency_stats()["faults_injected"] == 1
+    assert not bool(engine._poison.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rings", "paged"])
+def test_cancel_of_an_active_slot_on_graphs_frees_it_on_card(case):
+    """Cancelling a decoding stream on graphs polls, deactivates its row
+    in place and frees the slot: the queued request takes that slot and
+    streams as in a run without the cancel; nothing is captured."""
+    _card()
+    model, params, kw = _graph_model(case)
+    clean = _steady_engine(model, params, kw)
+    for r in _lifecycle_requests(model):
+        clean.submit(r)
+    want = {u: list(r.tokens) for u, r in clean.run().items() if u < 1000}
+    engine = _steady_engine(model, params, kw)
+    progs = engine.program_cache_sizes()
+    for r in _lifecycle_requests(model):
+        engine.submit(r)
+    for _ in range(2):
+        engine.tick(4)
+    slot = next(b for b, r in enumerate(engine.slots)
+                if r is not None and r.uid == 1)
+    assert [r.uid for r in engine.queue] == [3]
+    assert engine.cancel(1)
+    assert not bool(engine.active[slot])
+    engine.tick(2)                       # two chunks of 8: armed
+    assert engine.slots[slot] is not None and engine.slots[slot].uid == 3
+    got = engine.run()
+    assert got[1].finish_reason == "cancelled"
+    assert 0 < len(got[1].tokens) < 16
+    assert got[1].tokens == want[1][:len(got[1].tokens)]
+    for u in (0, 2, 3):
+        assert got[u].finish_reason == "length" and got[u].tokens == want[u]
+    assert engine.program_cache_sizes() == progs
+    assert engine.metrics.counters["steady_compiles"].value == 0
+    if case == "paged":
+        assert engine.latency_stats()["kv_pages_live"] == 0
 
 
 # --------------------------------------------------------------------- #

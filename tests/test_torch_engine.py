@@ -6,7 +6,9 @@ greedy sampling): the token streams and finish reasons are identical,
 with chunked admission as the whole prompt (``prefill_chunk=0``) and in
 chunks of 8, more requests than slots, an EOS finish and a one-token
 request. Also: the arguments of features not ported yet raise, the
-NaN guard, the samplers' distributions, and the serve CLI.
+NaN guard, the samplers' distributions, and the serve CLI. The engine
+lifecycle (cancel, deadlines, priorities, faults, tracing) is held
+against the JAX engine in ``tests/test_torch_lifecycle.py``.
 """
 import numpy as np
 import pytest
@@ -111,8 +113,6 @@ def test_slot_reset_leaves_no_stale_keys():
 @pytest.mark.parametrize("kw", [
     {"draft": "ngram"}, {"spec_gamma": 2},
     {"prefix_cache_tokens": 64}, {"mesh": "auto"},
-    {"faults": "nan_logits@3"},
-    {"recorder": True}, {"trace_dir": "/nonexistent"},
 ])
 def test_out_of_slice_arguments_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -129,13 +129,6 @@ def test_submit_validates(req, match):
     te = Engine(_TM, _TP, max_batch=2, cache_len=48)
     with pytest.raises(ValueError, match=match):
         te.submit(Request(uid=0, **req))
-
-
-def test_unported_request_fields_raise():
-    te = Engine(_TM, _TP, max_batch=2, cache_len=48)
-    for kw in ({"deadline_s": 1.0}, {"priority": 1}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            te.submit(Request(uid=0, prompt=np.arange(3), **kw))
 
 
 def test_nan_guard_contains_the_poisoned_row(monkeypatch):

@@ -94,7 +94,9 @@ def test_every_port_module_imports_with_jax_blocked():
             "repro_torch.core.profile", "repro_torch.core.zoo_builders",
             "repro_torch.training.checkpoints",
             "repro_torch.serving.faults", "repro_torch.configs.pixtral_12b",
-            "repro_torch.launch.zoo_cli"} <= set(names)
+            "repro_torch.launch.zoo_cli", "repro_torch.serving.tracing",
+            "repro_torch.serving.telemetry",
+            "repro_torch.training.metrics"} <= set(names)
 
 
 def test_paged_allocator_is_host_only():
