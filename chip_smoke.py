@@ -27,7 +27,14 @@ contained to one stream, cancels of a queued, a mid-admission and an
 active request, an expired and a mid-stream deadline, a priority
 displacement, the request tracer and the ``trace_dir`` profiler window,
 each with no capture after warm-up, launch counters equal to the step
-trace and, under the profiler, two host stream syncs a poll); and
+trace and, under the profiler, two host stream syncs a poll); serves
+shared prompt heads through the prefix cache on the same steps
+(``prefix``: a 512-token header, whole and partial hits on rings and on
+the pool, hot tokens equal to a cold engine's, the hit counts, the
+pool's page aliases and no split, no capture, two syncs a poll and none
+in a hit's copies, the rings' copy time, eviction under a small budget,
+the ladder's prefix-reclaim rung under pool pressure, a forced
+copy-on-write split, an int8 KV pool; the pools drain); and
 serves the same 16 requests quantized: int8
 weights on bf16 rings (``serve_int8``), the edge profile on int8 rings
 (``serve_edge``) and on an int8 pool (``serve_edge_paged``, tokens equal
@@ -2373,29 +2380,37 @@ def _lifecycle_prompts(vocab):
 
 
 def _lifecycle_engine(model, params, **extra):
-    """A lifecycle engine warmed until every slot admitted once (each
-    slot's mixed program and the plain step captured: 8 one-chunk
-    admissions, then plain steps), then marked steady."""
-    import numpy as np
-
+    """A lifecycle engine warmed until every slot admitted once
+    (``_warm``), then marked steady."""
     from repro_torch.serving.engine import Engine
-    from repro_torch.serving.request import Request
     from repro_torch.serving.sampler import Sampler
 
     engine = Engine(model, params, sampler=Sampler(), seed=SEED,
                     **LIFECYCLE_ENGINE, **extra)
+    _warm(engine, "lifecycle")
+    engine.mark_steady()
+    return engine
+
+
+def _warm(engine, phase):
+    """Admit into every slot once (8 one-chunk admissions of 16-token
+    prompts, then plain steps): each slot's mixed program and the plain
+    step built and, on graphs, captured."""
+    import numpy as np
+
+    from repro_torch.serving.request import Request
+
     rng = np.random.default_rng(SEED + 4)
     for uid in range(8):
         engine.submit(Request(uid=1000 + uid,
-                              prompt=rng.integers(0, model.cfg.vocab, 16),
+                              prompt=rng.integers(0, engine.model.cfg.vocab,
+                                                  16),
                               max_new_tokens=16))
     engine.tick(16)              # every build falls in this first burst
     engine.run()
     progs = engine.program_cache_sizes()
     if progs != {"step": 1, "mixed": 8}:
-        raise AssertionError(f"lifecycle warm-up built {progs}")
-    engine.mark_steady()
-    return engine
+        raise AssertionError(f"{phase} warm-up built {progs}")
 
 
 def _submit(engine, uids, prompts, **kw):
@@ -2432,7 +2447,7 @@ def _drive(torch, engine, fn):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    want = _expected_launches(engine.model.cfg, engine, True,
+    want = _expected_launches(engine.model.cfg, engine, engine.paged,
                               engine.step_kinds[n0:])
     return counts, want, wall
 
@@ -2815,6 +2830,376 @@ def lifecycle(torch, model, params, serve_rec):
     return rec
 
 
+# --------------------------------------------------------------------- #
+# the prefix cache on the graph-captured steps
+# --------------------------------------------------------------------- #
+#: the prefix phase's engines: the lifecycle phase's shape (llama3.2-1b
+#: at full width on graphs, 8 slots, chunks of 128), on rings or on a
+#: pool of pages of 16; the hot engines' budget in tokens
+PREFIX_ENGINE = dict(max_batch=8, cache_len=1024, prefill_chunk=128)
+PREFIX_PAGED = dict(paged=True, page_size=16)
+PREFIX_BUDGET = 8192
+#: the shared header and the partial hits' share of it (both multiples
+#: of the chunk: a hit resumes on a chunk boundary, so the hot run's
+#: chunks have the cold run's shapes), and the requests behind each
+PREFIX_HEADER, PREFIX_PARTIAL, PREFIX_FULL_N, PREFIX_PARTIAL_N = \
+    512, 256, 12, 4
+#: the eviction part's budget, and the pressure part's pool (pages)
+PREFIX_EVICT_BUDGET, PREFIX_PRESSURE_PAGES = 1024, 216
+#: host calls that must not appear in a hit's copies: a stream sync and
+#: a synchronous copy (``_profiled``'s own device syncs bracket the call)
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaMemcpy")
+
+
+def _prefix_prompts(vocab):
+    """From the seed: 12 prompts of the 512-token header and a tail of
+    32-256 tokens of their own, then 4 of its first 256 tokens, 256 of
+    their own and a tail (partial hits at 256); 4 other 512-token headers
+    with tails (the eviction and pressure parts); 4 prompts of 600 tokens
+    sharing nothing (the pressure part)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 5)
+    header = rng.integers(0, vocab, PREFIX_HEADER)
+
+    def tail():
+        return rng.integers(0, vocab, int(rng.integers(32, 257)))
+
+    shared = [np.concatenate([header, tail()])
+              for _ in range(PREFIX_FULL_N)]
+    shared += [np.concatenate([header[:PREFIX_PARTIAL],
+                               rng.integers(0, vocab, 256), tail()])
+               for _ in range(PREFIX_PARTIAL_N)]
+    others = [np.concatenate([rng.integers(0, vocab, PREFIX_HEADER), tail()])
+              for _ in range(4)]
+    plain = [rng.integers(0, vocab, 600) for _ in range(4)]
+    return shared, others, plain
+
+
+def _prefix_engine(model, params, pct, paged, **extra):
+    """An engine of the prefix phase, warmed until every slot admitted
+    once (``_warm``; the 16-token prompts publish nothing), then
+    ``reset_stats()``: the watchdog armed, the stats counting from
+    here."""
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.sampler import Sampler
+
+    engine = Engine(model, params, sampler=Sampler(), seed=SEED,
+                    faults=False, prefix_cache_tokens=pct,
+                    **PREFIX_ENGINE, **(PREFIX_PAGED if paged else {}),
+                    **extra)
+    _warm(engine, "prefix")
+    engine.reset_stats()
+    return engine
+
+
+def _host_calls(prof):
+    from torch.autograd import DeviceType
+
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.device_type == DeviceType.CPU}
+    return {k: calls.get(k, 0) for k in HOST_CALLS + SYNC_CALLS[1:]}
+
+
+def _no_sync(calls):
+    return all(calls[k] == 0 for k in SYNC_CALLS)
+
+
+def _serve_run(torch, engine, uids, prompts, launches, key):
+    """Serve ``prompts`` to the end with the counters set to 0 just
+    before; returns the run's record (steps by kind, wall, TTFT, ITL and
+    decode ms/step p50 of the engine's stats since its reset)."""
+    n0 = len(engine.step_kinds)
+    launches[key] = _drive(torch, engine, lambda: (
+        _submit(engine, uids, prompts), engine.run()))
+    kinds = engine.step_kinds[n0:]
+    st = engine.latency_stats()
+    return {"mixed_steps": kinds.count("mixed"),
+            "plain_steps": kinds.count("plain"),
+            "wall_s": launches[key][2],
+            "tok_per_s": sum(len(engine.responses[u].tokens)
+                             for u in uids) / launches[key][2],
+            **{k: st.get(k) for k in ("ttft_ms_p50", "itl_ms_p50",
+                                      "decode_ms_p50")}}
+
+
+def _prefix_layout(torch, model, params, shared, paged, launches, flush):
+    """The main part on one layout: a cold and a hot engine serve the 16
+    shared-header requests; the hot engine serves them again under the
+    profiler (all 16 hit); then a hit's host calls alone and, on the
+    pool, a forced copy-on-write split; the entries dropped, the pool
+    drains. Returns (record, the cold engine, its tokens)."""
+    from repro_torch import kernels
+
+    lay = "paged" if paged else "ring"
+    cfg = model.cfg
+    uids = list(range(len(shared)))
+    cold = _prefix_engine(model, params, 0, paged)
+    progs = cold.program_cache_sizes()
+    cold_run = _serve_run(torch, cold, uids, shared, launches, f"{lay}_cold")
+    want = _tokens(cold, uids)
+    hot = _prefix_engine(model, params, PREFIX_BUDGET, paged)
+    hot_run = _serve_run(torch, hot, uids, shared, launches, f"{lay}_hot")
+    st = hot.latency_stats()
+    rec = {"phase": f"prefix_{lay}", **PREFIX_ENGINE,
+           **(PREFIX_PAGED if paged else {}), "requests": len(shared),
+           "header": PREFIX_HEADER, "partial": PREFIX_PARTIAL,
+           "max_new_tokens": LIFECYCLE_NEW, "budget": PREFIX_BUDGET,
+           "prompt_lens": [len(p) for p in shared],
+           "cold": cold_run, "hot": hot_run,
+           "tokens_equal_cold": _tokens(hot, uids) == want,
+           **{k: st[k] for k in ("prefix_hits", "prefix_hit_tokens",
+                                 "prefix_entries", "prefix_tokens",
+                                 "prefix_misses")}}
+    hits_want = (PREFIX_FULL_N - 1, PREFIX_PARTIAL_N)
+    ok = rec["tokens_equal_cold"] \
+        and st["prefix_hits"] == sum(hits_want) \
+        and st["prefix_hit_tokens"] == hits_want[0] * PREFIX_HEADER \
+        + hits_want[1] * PREFIX_PARTIAL
+    if paged:
+        rec.update({k: st[k] for k in ("kv_alias_pages", "kv_cow_splits")})
+        ok = ok and st["kv_alias_pages"] == (
+            hits_want[0] * PREFIX_HEADER + hits_want[1] * PREFIX_PARTIAL) \
+            // PREFIX_PAGED["page_size"] and st["kv_cow_splits"] == 0
+
+    # the same requests again under the profiler: every one hits
+    polls = hot.metrics.counters["trace_polls"]
+    p0, n0, h0 = polls.value, len(hot.step_kinds), st["prefix_hits"]
+    uids2 = [100 + u for u in uids]
+    kernels.reset_launch_counts()
+    prof, wall_ms = _profiled(torch, lambda: (
+        _submit(hot, uids2, shared), hot.run()))
+    launches[f"{lay}_hot_profiled"] = (
+        kernels.launch_counts(),
+        _expected_launches(cfg, hot, paged, hot.step_kinds[n0:]),
+        wall_ms / 1e3)
+    calls = _host_calls(prof)
+    rec["profiled"] = {
+        "polls": polls.value - p0, "host_calls": calls,
+        "hits": hot.latency_stats()["prefix_hits"] - h0,
+        "tokens_equal_cold": [_tokens(hot, uids2)[100 + u] for u in uids]
+        == [want[u] for u in uids]}
+    ok = ok and rec["profiled"]["tokens_equal_cold"] \
+        and rec["profiled"]["hits"] == len(uids) \
+        and rec["profiled"]["polls"] > 0 \
+        and calls["cudaStreamSynchronize"] == 2 * rec["profiled"]["polls"]
+
+    # a hit's host calls alone, on an idle slot
+    kv, _, Q = hot.prefix_cache.lookup(shared[0])
+    b = 0
+    if paged:
+        pk = hot._paged
+        ps = PREFIX_PAGED["page_size"]
+        pinned = []
+
+        def alias():
+            pk.release_slot(b)
+            pk.alias_prefix(b, kv[:Q // ps])
+            hot._reset_slot(b, Q)
+            hot._push_block_tables()
+
+        alias_calls = _host_calls(_profiled(torch, alias)[0])
+        publish_calls = _host_calls(_profiled(
+            torch, lambda: pinned.append(pk.snapshot_prefix(b, Q)))[0])
+        pk.release_pages(pinned[0])
+        # part 0: a forced copy-on-write split on the aliased pages
+        split0 = pk.cow_splits
+        before = {k: sub[k][:, kv[:2]].clone()
+                  for sub in hot.cache.values() for k in sub
+                  if k in ("kp", "vp")}
+        split_calls = _host_calls(_profiled(
+            torch, lambda: hot._provision(b, 0, 2 * ps))[0])
+        new = [int(p) for p in pk.block_tables[b, :2]]
+        rec["hit_host_calls"] = {"alias_and_stamp": alias_calls,
+                                 "publish": publish_calls}
+        rec["forced_split"] = {
+            "splits": pk.cow_splits - split0, "host_calls": split_calls,
+            "pages_equal": all(torch.equal(
+                next(iter(hot.cache.values()))[k][:, new], v)
+                for k, v in before.items()) and not set(new) & set(kv)}
+        pk.release_slot(b)
+        hot._push_block_tables()
+        pk.check_invariants(hot.prefix_cache.entries())
+        ok = ok and _no_sync(alias_calls) and _no_sync(publish_calls) \
+            and _no_sync(split_calls) and rec["forced_split"]["splits"] == 2 \
+            and rec["forced_split"]["pages_equal"]
+    else:
+        nbytes = 2 * sum(t[:, :, :Q].nbytes for part in kv.values()
+                         for t in part.values())
+        mat = _profiled(torch, lambda: hot._materialize(b, kv, Q))[0]
+        ext = _profiled(torch, lambda: hot._extract(b, Q))[0]
+        rec["hit_host_calls"] = {"materialize": _host_calls(mat),
+                                 "extract": _host_calls(ext)}
+        rec["hit_copies"] = {
+            "tokens": Q, "bytes_moved": nbytes,
+            "materialize_ms": median_ms(
+                torch, lambda: hot._materialize(b, kv, Q), flush),
+            "extract_ms": median_ms(torch, lambda: hot._extract(b, Q),
+                                    flush),
+            "bound_ms": bound_ms(nbytes, 0, cfg.dtype)[0]}
+        for name, prof in (("materialize", mat), ("extract", ext)):
+            rows = _device_rows(prof)[0]
+            rec["hit_copies"][f"{name}_device_ms"] = sum(r[0] for r in rows)
+            rec["hit_copies"][f"{name}_kernels"] = sum(r[1] for r in rows)
+        ok = ok and all(_no_sync(c) for c in rec["hit_host_calls"].values())
+    rec["programs"] = hot.program_cache_sizes()
+    ok = ok and _steady(hot, progs) and _steady(cold, progs)
+    if paged:
+        while hot.prefix_cache.drop_lru():
+            pass
+        pk.check_invariants()
+        rec["pages_live_after_drop"] = pk.live_pages
+        rec["cold_pages_live"] = cold._paged.live_pages
+        ok = ok and pk.live_pages == 0 and cold._paged.live_pages == 0
+    rec["ok"] = ok
+    del hot
+    gc.collect()
+    _gate(rec)
+    return rec, cold, want
+
+
+def prefix(torch, model, params):
+    """The prefix cache on the card's graph-captured steps, at full width
+    (llama3.2-1b, 16 layers, bf16; ``PREFIX_ENGINE``), greedy. Every
+    engine is warmed until each slot admitted once, so a capture in any
+    part fails it. One line a part:
+
+    * ``prefix_ring`` / ``prefix_paged``: 12 requests behind one 512-token
+      header and 4 behind its first 256 tokens, 64 new each, on a cold
+      engine (no prefix cache) and a hot one (8192 tokens): tokens equal,
+      15 hits of 6656 tokens, on the pool 416 alias pages and no split;
+      mixed steps, TTFT, ITL and decode ms/step p50 of both; the hot
+      engine serves them again under the profiler (16 hits,
+      ``cudaStreamSynchronize`` = 2 x polls); a hit's host calls alone
+      (rings: materialize and extract, timed, with the kernels they
+      launch; pool: the alias and stamp, the publication's pin) make no
+      host sync and no synchronous copy; on the pool a forced
+      copy-on-write split copies its 2 pages bitwise with no sync, and
+      the pool drains once the entries go;
+    * ``prefix_evict``: a 1024-token budget and 4 distinct headers twice
+      (paged): >= 2 evictions, <= 1024 tokens stored, tokens equal cold;
+    * ``prefix_pressure``: a pool of 216 pages: 3 headers' streams leave
+      their entries pinned, then 4 unrelated 600-token streams admit and
+      grow only because the ladder evicts entries: no preemption, >= 1
+      eviction, tokens equal cold;
+    * ``prefix_int8``: 4 of the header's requests on an int8 KV pool:
+      hot = cold, 3 hits, the entry's scale pages written, the pool
+      drains (the rings' int8 copies are held by the card tests);
+    * ``prefix``: the launch counters of every run against its step
+      trace, and the phase's seconds."""
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    shared, others, plain = _prefix_prompts(cfg.vocab)
+    launches = {}
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    ring_rec, cold, _ = _prefix_layout(torch, model, params, shared, False,
+                                       launches, flush)
+    del cold, flush
+    gc.collect()
+    paged_rec, cold, _ = _prefix_layout(torch, model, params, shared, True,
+                                        launches, None)
+    progs = cold.program_cache_sizes()
+
+    # --- eviction under the token budget (paged) ------------------------
+    evict_prompts = others + others
+    ev_uids = [200 + u for u in range(len(evict_prompts))]
+    _serve_run(torch, cold, ev_uids, evict_prompts, launches, "evict_cold")
+    e = _prefix_engine(model, params, PREFIX_EVICT_BUDGET, True)
+    ev_run = _serve_run(torch, e, ev_uids, evict_prompts, launches,
+                        "evict_hot")
+    st = e.latency_stats()
+    rec = {"phase": "prefix_evict", "budget": PREFIX_EVICT_BUDGET,
+           "requests": len(evict_prompts), "run": ev_run,
+           **{k: st[k] for k in ("prefix_evictions", "prefix_tokens",
+                                 "prefix_entries", "prefix_hits",
+                                 "kv_pages_released")},
+           "tokens_equal_cold": _tokens(e, ev_uids) == _tokens(cold,
+                                                               ev_uids)}
+    while e.prefix_cache.drop_lru():
+        pass
+    rec["pages_live_after_drop"] = e._paged.live_pages
+    rec["ok"] = rec["tokens_equal_cold"] and st["prefix_evictions"] >= 2 \
+        and st["prefix_tokens"] <= PREFIX_EVICT_BUDGET \
+        and e._paged.live_pages == 0 and _steady(e, progs)
+    del e
+    gc.collect()
+    _gate(rec)
+
+    # --- pool pressure: the ladder's prefix-reclaim rung -----------------
+    a_uids = [300 + u for u in range(3)]
+    b_uids = [310 + u for u in range(4)]
+    for uids, prompts in ((a_uids, others[:3]), (b_uids, plain)):
+        _serve_run(torch, cold, uids, prompts, launches, f"pressure_cold{uids[0]}")
+    e = _prefix_engine(model, params, PREFIX_BUDGET, True,
+                       num_pages=PREFIX_PRESSURE_PAGES)
+    a_run = _serve_run(torch, e, a_uids, others[:3], launches,
+                       "pressure_hot_a")
+    pinned = e._paged.live_pages
+    b_run = _serve_run(torch, e, b_uids, plain, launches, "pressure_hot_b")
+    st = e.latency_stats()
+    rec = {"phase": "prefix_pressure", "num_pages": PREFIX_PRESSURE_PAGES,
+           "first": a_run, "then": b_run,
+           "pages_pinned_by_entries_between": pinned,
+           **{k: st[k] for k in ("preemptions", "prefix_evictions",
+                                 "prefix_entries", "kv_pages_live")},
+           "tokens_equal_cold": _tokens(e, a_uids + b_uids)
+           == _tokens(cold, a_uids + b_uids)}
+    while e.prefix_cache.drop_lru():
+        pass
+    rec["pages_live_after_drop"] = e._paged.live_pages
+    rec["ok"] = rec["tokens_equal_cold"] and st["preemptions"] == 0 \
+        and st["prefix_evictions"] >= 1 and e._paged.live_pages == 0 \
+        and _steady(e, progs) and _steady(cold, progs) \
+        and cold._paged.live_pages == 0
+    del e, cold
+    gc.collect()
+    _gate(rec)
+
+    # --- an int8 KV pool -------------------------------------------------
+    uids = list(range(4))
+    runs = {}
+    for name, pct in (("cold", 0), ("hot", PREFIX_BUDGET)):
+        e = _prefix_engine(model, params, pct, True, kv_cache_dtype="int8")
+        _serve_run(torch, e, uids, shared[:4], launches, f"int8_{name}")
+        runs[name] = _tokens(e, uids)
+        runs[f"{name}_steady"] = _steady(e, progs)
+    st = e.latency_stats()
+    kv, _, Q = e.prefix_cache.lookup(shared[0])
+    sub = next(iter(e.cache.values()))
+    rec = {"phase": "prefix_int8", "requests": len(uids),
+           "tokens_equal_cold": runs["hot"] == runs["cold"],
+           "prefix_hits": st["prefix_hits"],
+           "kv_alias_pages": st["kv_alias_pages"],
+           "scale_pages_set": bool((sub["kp_scale"][:, kv[:Q // 16]] != 0)
+                                   .all()),
+           "pool_dtypes": {k: str(sub[k].dtype) for k in
+                           ("kp", "kp_scale")}}
+    while e.prefix_cache.drop_lru():
+        pass
+    rec["pages_live_after_drop"] = e._paged.live_pages
+    rec["ok"] = rec["tokens_equal_cold"] and rec["prefix_hits"] == 3 \
+        and rec["scale_pages_set"] and e._paged.live_pages == 0 \
+        and runs["cold_steady"] and runs["hot_steady"]
+    del e
+    gc.collect()
+    _gate(rec)
+
+    rec = {"phase": "prefix",
+           "launches": {k: {"counted": {n: v for n, v in c.items() if v},
+                            "expected": {n: v for n, v in w.items() if v},
+                            "equal": c == w, "wall_s": t}
+                        for k, (c, w, t) in launches.items()},
+           "mixed_steps_cold_hot": {
+               r["phase"]: (r["cold"]["mixed_steps"], r["hot"]["mixed_steps"])
+               for r in (ring_rec, paged_rec)},
+           "seconds": time.perf_counter() - t_phase}
+    rec["ok"] = all(v["equal"] for v in rec["launches"].values())
+    gc.collect()
+    torch.cuda.empty_cache()
+    _gate(rec)
+    return rec
+
+
 def serve_eager(torch, model, params, graphs_turn, phase):
     """The serve phase's requests through the engine's eager steps
     (``graphs=False``) and its CUDA graphs, in turns: the serve phase's
@@ -3147,6 +3532,7 @@ def main() -> int:
     serve(torch, model, params, phase="serve_turn2")
     pool_pressure(torch, model, params)
     lifecycle(torch, model, params, rec)
+    prefix_rec = prefix(torch, model, params)
     # the bf16 tree leaves the card, so the quantized phases' peak memory
     # counts only their own weights
     params = _tree_to(params, "cpu")

@@ -27,7 +27,6 @@ NOT_PORTED = {
 #: variants of the JAX registry the port does not build yet
 _VARIANT_ITEMS = {
     "spec": "item 9 of section 1 (speculative decoding)",
-    "continuous": "item 6 of section 1 (prefix cache)",
     "sharded": "item 13 of section 1 (distribution)",
 }
 
@@ -35,9 +34,11 @@ _VARIANT_ITEMS = {
 def get_arch(name: str, *, variant: str = "") -> ModelConfig:
     """Resolve an architecture id with optional "+"-composed variants
     (applied left to right): "reduced" (smoke config), "swa"
-    (sliding-window attention, window 4096) and "edge" (the edge
+    (sliding-window attention, window 4096), "edge" (the edge
     deployment profile: int4 weight-only quantization and an int8 KV
-    cache), e.g. "reduced+edge"."""
+    cache) and "continuous" (chunked admission, 64 tokens a chunk unless
+    the config sets one, and an 8192-token shared-prefix KV budget unless
+    it sets one), e.g. "reduced+edge" or "reduced+continuous"."""
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"{name!r} is not ported yet: ROADMAP {NOT_PORTED[name]}")
@@ -53,6 +54,11 @@ def get_arch(name: str, *, variant: str = "") -> ModelConfig:
         elif v == "edge":
             cfg = cfg.replace(name=cfg.name + "-edge", quant="int4",
                               kv_quant=True)
+        elif v == "continuous":
+            cfg = cfg.replace(name=cfg.name + "-cont",
+                              prefill_chunk=cfg.prefill_chunk or 64,
+                              prefix_cache_tokens=cfg.prefix_cache_tokens
+                              or 8192)
         elif v in _VARIANT_ITEMS:
             raise NotImplementedError(
                 f"variant {v!r} is not ported yet: ROADMAP "

@@ -74,7 +74,7 @@ class ModelConfig:
                                     # edge variant key off)
     quant_group: int = 32           # int4 group size along d_in
     prefill_chunk: int = 0          # engine chunked-admission default
-    prefix_cache_tokens: int = 0    # shared-prefix KV reuse (not ported)
+    prefix_cache_tokens: int = 0    # shared-prefix KV reuse budget
     mesh: str = ""                  # tensor-parallel serving (not ported)
     draft: str = ""                 # speculative draft (not ported)
     spec_gamma: int = 0

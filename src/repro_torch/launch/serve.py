@@ -4,12 +4,16 @@ one engine on one device.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --variant reduced --device cpu --requests 8 --max-new 12 \\
       [--paged --page-size 8] [--quant int8|int4] [--kv-cache-dtype int8] \\
+      [--prefix-cache-tokens 256] \\
       [--faults nan_logits@12/1,page_alloc@30x2] [--deadline 2.0] \\
       [--trace-out trace.json] [--trace-dir prof/] \\
       [--metrics-jsonl run.jsonl] [--log-every 1.0]
 
 ``--variant reduced+edge`` (or ``edge`` at full width) serves the edge
-profile: int4 weights and an int8 KV cache. ``--arch mamba2-780m``
+profile: int4 weights and an int8 KV cache. ``--variant
+reduced+continuous`` turns on chunked admission and the shared-prefix KV
+cache, whose budget ``--prefix-cache-tokens`` also sets (attention-only
+stacks: an SSM stack serves without one). ``--arch mamba2-780m``
 serves the attention-free SSM family (contiguous state only: no
 ``--paged``, and no quantization yet). The device is CUDA unless
 ``--device cpu`` is given; without a CUDA device the CLI exits with an
@@ -56,6 +60,10 @@ def main(argv=None):
                     help="prompt tokens of one admitting request fused "
                          "into each step (0 = the whole prompt in one "
                          "chunk, -1 keeps cfg.prefill_chunk)")
+    ap.add_argument("--prefix-cache-tokens", type=int, default=-1,
+                    help="shared-prefix KV reuse budget in tokens (LRU; "
+                         "0 = off, -1 keeps cfg.prefix_cache_tokens; "
+                         "attention-only stacks)")
     ap.add_argument("--sync-every", type=int, default=8,
                     help="decode steps between host polls")
     ap.add_argument("--paged", action="store_true",
@@ -119,6 +127,8 @@ def main(argv=None):
                     seed=args.seed, sync_every=args.sync_every,
                     prefill_chunk=None if args.prefill_chunk < 0
                     else args.prefill_chunk,
+                    prefix_cache_tokens=None if args.prefix_cache_tokens < 0
+                    else args.prefix_cache_tokens,
                     paged=args.paged, page_size=args.page_size,
                     num_pages=args.num_pages or None,
                     kv_cache_dtype=args.kv_cache_dtype,
@@ -199,9 +209,13 @@ def main(argv=None):
           f"p50={g('itl_ms_p50'):.2f} p95={g('itl_ms_p95'):.2f} "
           f"p99={g('itl_ms_p99'):.2f}")
     n_ok = sum(1 for r in responses.values() if r.ok)
-    print(f"ok={n_ok}/{len(responses)} chunk={stats['prefill_chunk']} "
-          f"chunked admissions={stats['chunked_admissions']} "
-          f"fallback admissions={stats['fallback_admissions']}")
+    line = (f"ok={n_ok}/{len(responses)} chunk={stats['prefill_chunk']} "
+            f"chunked admissions={stats['chunked_admissions']} "
+            f"fallback admissions={stats['fallback_admissions']}")
+    if "prefix_hits" in stats:
+        line += (f" prefix hits={stats['prefix_hits']} "
+                 f"reused tokens={stats['prefix_hit_tokens']}")
+    print(line)
     if n_ok != len(responses) or stats["preemptions"] \
             or stats["faults_injected"]:
         print(f"resilience: ok={n_ok}/{len(responses)} "

@@ -39,9 +39,11 @@ captures it as a CUDA graph; later calls replay the graph. On the CPU
 the bodies run eagerly. Every build is recorded by the recompile
 watchdog (``telemetry.CompileWatchdog``), which warns once the engine
 is marked steady; ``program_cache_sizes()`` counts the programs built.
-The page-table push, copy-on-write page copies and slot resets stay
-eager, outside the programs: they write in place into the cache's
-persistent leaves, which the graphs read.
+The page-table push, copy-on-write page copies, slot resets and the
+prefix cache's copies stay eager, outside the programs: they write in
+place into the cache's persistent leaves, which the graphs read, so a
+prefix hit builds no program (the JAX engine jits a materialize program
+per hit length instead).
 
 With ``paged=True`` the per-slot rings are replaced by a pool of
 ``num_pages`` pages of ``page_size`` tokens (``serving/paged_kv.py``):
@@ -87,9 +89,19 @@ default; ``recorder=True`` builds a ``serving/tracing.Tracer`` whose
 Chrome trace ``export_trace(path)`` writes), and ``trace_dir=`` records
 a ``torch.profiler`` trace of ``profile_steps`` steps after the first.
 
+With ``prefix_cache_tokens > 0`` (attention-only stacks) a host-side
+trie (``serving/prefix_cache.py``) keeps the KV of recently admitted
+prompt heads. A request whose stream starts with a stored head resumes
+chunked admission after it: on the rings the entry's K/V (and int8
+scales) are copied into the slot in place and its position row stamped;
+on the paged pool the slot's block table aliases the entry's pages
+(refcount bumps, no copy). A first admission publishes its prompt's
+bucketed head: a clone of the slot's K/V on the rings, a pin of its
+pages on the pool. Under page pressure the ladder evicts LRU entries
+before it polls or preempts.
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item when asked for: speculative decoding, the prefix cache and
-tensor-parallel meshes.
+item when asked for: speculative decoding and tensor-parallel meshes.
 """
 from __future__ import annotations
 
@@ -107,6 +119,7 @@ from repro_torch.core.program import capture
 from repro_torch.models.model import Model, build
 from repro_torch.serving import faults as faults_mod
 from repro_torch.serving import paged_kv, telemetry
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.request import Request, Response
 from repro_torch.serving.sampler import Sampler
 
@@ -188,17 +201,19 @@ class StepProgram:
 @dataclasses.dataclass
 class _Admission:
     """One in-flight chunked admission: ``tokens`` enter the slot
-    ``prefill_chunk`` per mixed step, ``base`` of them so far. ``tokens``
-    is the prompt plus, when resuming a preempted request, the ``n_done``
-    tokens it had already generated: replaying them through the same
-    extend path makes the resumed stream's next tokens those of an
-    unpreempted run (greedy)."""
+    ``prefill_chunk`` per mixed step, ``base`` of them so far (it starts
+    past the head a prefix-cache hit served). ``tokens`` is the prompt
+    plus, when resuming a preempted request (``resumed``), the
+    ``n_done`` tokens it had already generated: replaying them through
+    the same extend path makes the resumed stream's next tokens those of
+    an unpreempted run (greedy)."""
     req: Request
     slot: int
     base: int
     length: int
     tokens: np.ndarray
     n_done: int = 0
+    resumed: bool = False
 
 
 class Engine:
@@ -216,7 +231,10 @@ class Engine:
         """Arguments as in the JAX engine. ``params`` and the cache live
         on ``model.device``. ``prefill_chunk`` sizes chunked admission
         (None follows ``cfg.prefill_chunk``; 0 = the whole prompt in one
-        chunk). ``paged=True`` serves from a pool of ``num_pages`` pages
+        chunk). ``prefix_cache_tokens``: the shared-prefix KV budget in
+        tokens (None follows ``cfg.prefix_cache_tokens``, 0 is off); an
+        SSM stack builds no prefix cache, as in the JAX engine.
+        ``paged=True`` serves from a pool of ``num_pages`` pages
         of ``page_size`` tokens (None sizes it for the contiguous
         layout's capacity plus two pages of provisioning headroom per
         slot); the pool must hold one full-length stream.
@@ -241,8 +259,6 @@ class Engine:
                               "9 (speculative decoding)")
         pct = cfg.prefix_cache_tokens if prefix_cache_tokens is None \
             else prefix_cache_tokens
-        if pct:
-            raise _not_ported("prefix_cache_tokens > 0", "6 (prefix cache)")
         mesh_src = cfg.mesh if mesh is None else mesh
         if mesh_src not in ("", "none", "off", None):
             raise _not_ported("mesh (tensor-parallel serving)",
@@ -377,6 +393,27 @@ class Engine:
         else:
             self.num_pages = 0
             self.cache = model.make_cache(max_batch, cache_len)
+
+        # --- shared-prefix KV reuse ----------------------------------- #
+        # attention-only stacks, as in the JAX engine: recurrent state
+        # has no per-position slices to share. On the pool entries are
+        # page lists bucketed on the page size, so a hit aliases whole
+        # pages, and an evicted entry drops its page references (the
+        # pages outlive it while a live slot still aliases them)
+        self.prefix_cache: Optional[PrefixCache] = None
+        if pct and model.supports_paged:
+            if self.paged:
+                self.prefix_cache = PrefixCache(
+                    pct, self.page_size,
+                    on_evict=lambda e: self._paged.release_pages(e["kv"]))
+            else:
+                self.prefix_cache = PrefixCache(pct, self.prefill_chunk)
+            self.metrics.add_collector(self.prefix_cache.stats)
+
+        # 0, 1, ..., S - 1: the position row a prefix hit stamps
+        S = max((sub["pos"].shape[-1] for sub in self.cache.values()
+                 if "pos" in sub), default=0)
+        self._positions = torch.arange(S, dtype=torch.int32, device=dev)
 
         # per-step token trace on device: (tokens (B, 1), emit count (B,))
         # per step, harvested at the next poll
@@ -553,18 +590,47 @@ class Engine:
         self._stage.copy_(host, non_blocking=True)
         return last
 
-    def _reset_slot(self, b: int) -> None:
+    def _reset_slot(self, b: int, upto: int = 0) -> None:
         """Erase slot ``b``: every position empty, depth 0, so a recycled
-        slot keeps no stale keys from its previous occupant. An SSM
+        slot keeps no stale keys from its previous occupant. With ``upto``
+        > 0 (a prefix-cache hit) the first ``upto`` positions are stamped
+        valid instead, depth ``upto`` (JAX's ``pos_row``): their K/V was
+        just copied in, or the block table aliases written pages. An SSM
         sub-cache has no positions to mask a previous occupant behind:
-        its state, conv tail, depth and checkpoints are zeroed."""
+        its state, conv tail, depth and checkpoints are zeroed. Every
+        write is in place, ``upto`` a host int (no sync): a copy of the
+        static ``_positions`` row, a fill of the rest and of the depth."""
         for sub in self.cache.values():
             if "pos" in sub:
-                sub["pos"][:, b] = -1
-                sub["step"][:, b] = 0
+                pos = sub["pos"][:, b]
+                if upto:
+                    pos[:, :upto] = self._positions[:upto]
+                pos[:, upto:] = -1
+                sub["step"][:, b] = upto
             else:
                 for leaf in sub.values():
                     leaf[:, b] = 0
+
+    def _materialize(self, b: int, kv, upto: int) -> None:
+        """Copy the first ``upto`` positions of a ring entry (``kv``: per
+        attention sub-cache, its K/V leaves and int8 scales, each
+        ``[n_blocks, 1, P, ...]``, P >= ``upto``) into slot ``b`` in place
+        and stamp the slot's positions: the ring counterpart of the JAX
+        engine's ``materialize`` program. A partial hit takes a prefix of
+        a longer entry, exact by causality."""
+        for name, part in kv.items():
+            sub = self.cache[name]
+            for k, src in part.items():
+                sub[k][:, b, :upto].copy_(src[:, 0, :upto])
+        self._reset_slot(b, upto)
+
+    def _extract(self, b: int, P: int) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The ring entry of slot ``b``'s first ``P`` positions: a clone
+        of each attention sub-cache's K/V leaves (and int8 scales), since
+        a view would see the next decode step's writes."""
+        return {name: {k: sub[k][:, b:b + 1, :P].clone()
+                       for k in ("k", "v", "k_scale", "v_scale") if k in sub}
+                for name, sub in self.cache.items() if "pos" in sub}
 
     # ------------------------------------------------------------ #
     # scheduling
@@ -633,10 +699,18 @@ class Engine:
 
     def _admit_fits(self, req: Request) -> bool:
         """Paged admission backpressure: admit only when the pool can
-        hold the whole effective stream plus the first decode write;
-        otherwise the head of the queue waits (and nothing behind it is
-        admitted either)."""
-        return not self.paged or self._paged.can_admit(self._eff_len(req))
+        hold the whole effective stream plus the first decode write
+        (conservative: a prefix hit would need less), evicting LRU prefix
+        entries first; otherwise the head of the queue waits (and nothing
+        behind it is admitted either)."""
+        if not self.paged:
+            return True
+        need = self._eff_len(req)
+        while not self._paged.can_admit(need):
+            if self.prefix_cache is None \
+                    or not self.prefix_cache.drop_lru():
+                return False
+        return True
 
     def _fill_free_slots(self) -> None:
         """Admission scheduler (FIFO head): the head of the queue starts a
@@ -667,25 +741,37 @@ class Engine:
                    for r in self.slots)
 
     def _start_chunked(self, req: Request, b: int) -> None:
-        """Begin a chunked admission into slot ``b``. A preempted request
-        re-admits through this same path: its effective stream is the
-        prompt plus the tokens it had already generated, replayed chunk
-        by chunk, and it is armed with the budget it has left."""
+        """Begin a chunked admission into slot ``b``: probe the prefix
+        cache with the effective stream, then serve the hit's head (the
+        rings: copy it into the slot; the pool: alias its pages) or reset
+        the slot; the mixed steps take the stream from there. A preempted
+        request re-admits through this same path: its effective stream
+        is the prompt plus the tokens it had already generated, replayed
+        chunk by chunk, and it is armed with the budget it has left."""
         req.started_s = req.started_s or time.perf_counter()
         resp = self.responses.get(req.uid)
         done = resp.tokens if resp is not None else []
         toks = np.asarray(req.prompt, np.int64)
         if done:
             toks = np.concatenate([toks, np.asarray(done, np.int64)])
-        self._reset_slot(b)
+        kv, base = None, 0
+        if self.prefix_cache is not None:
+            kv, _, base = self.prefix_cache.lookup(toks)
         if self.paged:
             self._paged.release_slot(b)
-            self._depth_ub[b] = 0
-        self._admit = _Admission(req=req, slot=b, base=0,
+            if kv is not None:
+                self._paged.alias_prefix(b, kv[:base // self.page_size])
+            self._reset_slot(b, base)
+            self._depth_ub[b] = base
+        elif kv is not None:
+            self._materialize(b, kv, base)
+        else:
+            self._reset_slot(b)
+        self._admit = _Admission(req=req, slot=b, base=base,
                                  length=len(toks), tokens=toks,
-                                 n_done=len(done))
+                                 n_done=len(done), resumed=bool(done))
         if self.recorder.enabled:
-            self.recorder.on_admission(req, b, 0, "chunked")
+            self.recorder.on_admission(req, b, base, "chunked")
 
     # ------------------------------------------------------------ #
     # lifecycle control: cancel / deadlines / preempt-and-requeue
@@ -853,9 +939,10 @@ class Engine:
         """Make the pages behind positions [start, start+n) of ``slot``
         privately writable before a dispatched step (allocate missing
         pages, copy-on-write split shared ones). Exhaustion, real or
-        forced by the ``page_alloc`` fault site, degrades: poll (a
-        finished slot may hold pages), then preempt-and-requeue a victim;
-        only a pool that cannot hold the live set raises.
+        forced by the ``page_alloc`` fault site, degrades: evict LRU
+        prefix entries, then poll (a finished slot may hold pages), then
+        preempt-and-requeue a victim; only a pool that cannot hold the
+        live set raises.
         Returns False when it polled or preempted: the poll's shrink may
         have reclaimed headroom provisioned for other slots this round,
         so callers rebuild their provisioning pass. A poll may also have
@@ -875,6 +962,11 @@ class Engine:
                     break
                 except paged_kv.PagePoolExhausted:
                     pass
+            # the first rung: an evicted prefix entry may free pages and
+            # costs no poll, so the round stays clean
+            if self.prefix_cache is not None \
+                    and self.prefix_cache.drop_lru():
+                continue
             clean = False
             if not polled:
                 polled = True
@@ -902,16 +994,19 @@ class Engine:
     def _copy_pages(self, copies) -> None:
         """Copy-on-write splits: duplicate the shared pool pages on the
         device before the write that would have mutated them through an
-        alias (an index copy on every pool leaf)."""
-        dev = self.device
-        src = torch.tensor([s for s, _ in copies], dtype=torch.long,
-                           device=dev)
-        dst = torch.tensor([d for _, d in copies], dtype=torch.long,
-                           device=dev)
+        alias (a gather and an index copy on every pool leaf, in place).
+        The (src, dst) pairs go up through a fresh pinned block without
+        blocking, as the block tables do: no host sync."""
+        on_card = self.device.type == "cuda"
+        host = torch.empty((2, len(copies)), dtype=torch.long,
+                           pin_memory=on_card)
+        host.numpy()[:] = np.asarray(copies, dtype=np.int64).T
+        idx = host.to(self.device, non_blocking=True) if on_card else host
+        src, dst = idx[0], idx[1]
         for sub in self.cache.values():
             for k in paged_kv.POOL_KEYS:
                 if k in sub:
-                    sub[k][:, dst] = sub[k][:, src]
+                    sub[k].index_copy_(1, dst, sub[k].index_select(1, src))
 
     def _push_block_tables(self) -> None:
         """Copy the host-authoritative block tables into every attention
@@ -1012,14 +1107,25 @@ class Engine:
     def _complete_admission(self, adm: _Admission) -> None:
         """The chunk just dispatched ends the prompt: the device sampled
         the first token and armed the slot. Host-side: attach the request
-        to the slot (its trace starts at this step) and queue its TTFT
-        stamp for the next sync."""
+        to the slot (its trace starts at this step), queue its TTFT stamp
+        for the next sync, and publish the prompt's head to the prefix
+        cache before any decode step can wrap the ring over it: a pin of
+        the slot's own pages on the pool, a clone of its K/V on the
+        rings, queued behind the step on the stream. A resumed admission
+        publishes nothing: its prompt was published on its first
+        admission, and the rest of its stream is its own output."""
         b = adm.slot
         self.slots[b] = adm.req
         self._slot_start[b] = self._steps
         self._await_first.append(adm.req)
         self._c_admissions.inc()
         self._admit = None
+        if self.prefix_cache is not None and not adm.resumed:
+            P = self.prefix_cache.wants(adm.req.prompt)
+            if P and P <= self.kv_len:
+                kv = self._paged.snapshot_prefix(b, P) if self.paged \
+                    else self._extract(b, P)
+                self.prefix_cache.insert(adm.req.prompt, P, kv)
 
     def _stamp_first_tokens(self, now: float) -> None:
         for req in self._await_first:
@@ -1090,7 +1196,9 @@ class Engine:
                         self._paged.shrink(b, depth)
                         self._depth_ub[b] = depth
             if __debug__:
-                self._paged.check_invariants()
+                self._paged.check_invariants(
+                    self.prefix_cache.entries()
+                    if self.prefix_cache is not None else None)
         self._sample_occupancy()
 
     def _sample_occupancy(self) -> None:
@@ -1265,6 +1373,9 @@ class Engine:
         for uid in [u for u, r in self.responses.items() if r.finished]:
             del self.responses[uid]
             self.requests.pop(uid, None)
+        if self.prefix_cache is not None:
+            pc = self.prefix_cache
+            pc.hits = pc.misses = pc.hit_tokens = pc.evictions = 0
         if self.paged:
             pk = self._paged
             pk.alias_pages = pk.cow_splits = pk.pages_released = 0
@@ -1329,7 +1440,8 @@ class Engine:
     def latency_stats(self) -> Dict[str, float]:
         """Latency summary. The ``decode_ms_*`` / ``ttft_ms_*`` /
         ``itl_ms_*`` keys are present only when their stream has at least
-        one sample; the ``kv_*`` pool keys only on a paged engine."""
+        one sample; the ``prefix_*`` keys only with a prefix cache, the
+        ``kv_*`` pool keys only on a paged engine."""
         drop = 1 if self._drop_compile_step else 0
         finished = [r for r in self.responses.values() if r.finished]
         stats: Dict[str, float] = {
@@ -1351,6 +1463,8 @@ class Engine:
                             (50, 95, 99))
         telemetry.pct_stats(stats, "itl_ms", self._h_itl.values,
                             (50, 95, 99))
+        if self.prefix_cache is not None:
+            stats.update(self.prefix_cache.stats())
         if self.paged:
             stats.update(self._paged.stats())
         return stats

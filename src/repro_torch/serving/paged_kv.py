@@ -12,7 +12,7 @@ to pool pages, so
   positions are written and released when a stream finishes), and
 * a shared-prefix hit can be a **page alias**: the new slot's block
   table points at the donor's pages with a refcount bump — zero KV
-  copies (the prefix cache that uses it is not ported yet).
+  copies (``serving/prefix_cache.py``; the engine's paged path).
 
 Split of responsibilities
 -------------------------

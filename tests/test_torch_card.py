@@ -22,7 +22,9 @@ temperature samples and launch counters equal the eager engine's at
 reduced sizes (rings, bf16, paged, int8 KV, int8 weights, the edge
 profile paged, mamba2), nothing is captured after warm-up, and a capture
 that fails raises; on graphs a poisoned row is contained to that row and
-a cancel frees its slot, neither building a program. The Zoo's service programs (``Service.jitted()``,
+a cancel frees its slot, neither building a program; prefix-cache hits
+(copied in place on the rings, aliased on the pool) stream as the eager
+and the cold engines, and a forced copy-on-write split syncs nothing. The Zoo's service programs (``Service.jitted()``,
 the deployed call) replay the eager call bitwise (the reduced
 classifier in fp32 and bf16, mamba2's ``model.lm`` on the SSD ``mma``
 route), a route runs as segments, another params tree is another
@@ -918,6 +920,105 @@ def test_cancel_of_an_active_slot_on_graphs_frees_it_on_card(case):
     assert engine.metrics.counters["steady_compiles"].value == 0
     if case == "paged":
         assert engine.latency_stats()["kv_pages_live"] == 0
+
+
+def _shared_head_requests(model):
+    """Five requests behind one 16-token head (the last shares only its
+    first 8 tokens: a partial hit), 8 new tokens each."""
+    from repro_torch.serving.request import Request
+
+    rng = np.random.default_rng(2)
+    head = rng.integers(0, model.cfg.vocab, 16)
+    tails = [rng.integers(0, model.cfg.vocab, n) for n in (5, 9, 3, 12)]
+    prompts = [np.concatenate([head, t]) for t in tails]
+    prompts.append(np.concatenate([head[:8],
+                                   rng.integers(0, model.cfg.vocab, 14)]))
+    return [Request(uid=u, prompt=p, max_new_tokens=8)
+            for u, p in enumerate(prompts)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rings", "rings_bf16", "int8_kv", "paged"])
+def test_prefix_hits_on_graphs_match_eager_and_cold_on_card(case):
+    """Prefix-cache hits on a steady graphed engine: the head is copied
+    into the slot in place (rings; int8 scales too) or aliased (pool)
+    between replays, and every stream equals the eager engine's hot run
+    and a cold graphed run; nothing is captured after warm-up, so the
+    graphs read the copies through the cache's persistent leaves."""
+    _card()
+    model, params, kw = _graph_model(case)
+    runs = {}
+    for name, extra in (("cold", dict(prefix_cache_tokens=0)),
+                        ("hot", dict(prefix_cache_tokens=256)),
+                        ("eager", dict(prefix_cache_tokens=256,
+                                       graphs=False))):
+        if name == "eager":
+            from repro_torch.serving.engine import Engine
+
+            engine = Engine(model, params, max_batch=3, cache_len=64,
+                            prefill_chunk=8, seed=0, **kw, **extra)
+        else:
+            engine = _steady_engine(model, params, kw, **extra)
+        progs = engine.program_cache_sizes()
+        for r in _shared_head_requests(model):
+            engine.submit(r)
+        got = {u: list(r.tokens) for u, r in engine.run().items()
+               if u < 1000}
+        runs[name] = (got, engine)
+        if name != "eager":
+            assert engine.program_cache_sizes() == progs
+            assert engine.metrics.counters["steady_compiles"].value == 0
+    assert runs["hot"][0] == runs["cold"][0] == runs["eager"][0]
+    hot = runs["hot"][1]
+    st = hot.latency_stats()
+    assert st["prefix_hits"] == 4 and st["prefix_hit_tokens"] == 56
+    if case == "paged":
+        assert st["kv_alias_pages"] == 7 and st["kv_cow_splits"] == 0
+        while hot.prefix_cache.drop_lru():
+            pass
+        assert hot._paged.live_pages == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["paged", "edge_paged_bf16"])
+def test_forced_page_split_syncs_nothing_on_card(case):
+    """A copy-on-write split forced on the card (an entry's pages aliased
+    into a second slot, then a write over them): the pool pages are
+    duplicated bitwise, and the split makes no host sync and no blocking
+    copy (the page pairs go up from pinned memory)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _card()
+    model, params, kw = _graph_model(case)
+    engine = _steady_engine(model, params, kw, prefix_cache_tokens=256)
+    engine.submit(_shared_head_requests(model)[0])
+    engine.run()
+    (pages,) = engine.prefix_cache.entries()
+    st = engine._paged
+    st.release_slot(2)
+    st.alias_prefix(2, pages)
+    before = {k: engine.cache["sub0"][k][:, pages].clone()
+              for k in ("kp", "vp", "kp_scale", "vp_scale")
+              if k in engine.cache["sub0"]}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        assert engine._provision(2, 0, 16)
+    torch.cuda.synchronize()
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.device_type == DeviceType.CPU}
+    assert st.cow_splits == 2
+    # (the profiler's own stop syncs the device once: not counted here)
+    assert calls.get("cudaMemcpyAsync", 0) >= 1    # the runtime was seen
+    assert calls.get("cudaStreamSynchronize", 0) == 0
+    assert calls.get("cudaMemcpy", 0) == 0
+    new = [int(p) for p in st.block_tables[2, :2]]
+    assert set(new).isdisjoint(pages)
+    for k, want in before.items():
+        assert torch.equal(engine.cache["sub0"][k][:, new], want), k
+    st.release_slot(2)
+    st.check_invariants([pages])
 
 
 # --------------------------------------------------------------------- #

@@ -111,8 +111,7 @@ def test_slot_reset_leaves_no_stale_keys():
 
 
 @pytest.mark.parametrize("kw", [
-    {"draft": "ngram"}, {"spec_gamma": 2},
-    {"prefix_cache_tokens": 64}, {"mesh": "auto"},
+    {"draft": "ngram"}, {"spec_gamma": 2}, {"mesh": "auto"},
 ])
 def test_out_of_slice_arguments_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
