@@ -26,7 +26,6 @@ NOT_PORTED = {
 
 #: variants of the JAX registry the port does not build yet
 _VARIANT_ITEMS = {
-    "spec": "item 9 of section 1 (speculative decoding)",
     "sharded": "item 13 of section 1 (distribution)",
 }
 
@@ -36,9 +35,11 @@ def get_arch(name: str, *, variant: str = "") -> ModelConfig:
     (applied left to right): "reduced" (smoke config), "swa"
     (sliding-window attention, window 4096), "edge" (the edge
     deployment profile: int4 weight-only quantization and an int8 KV
-    cache) and "continuous" (chunked admission, 64 tokens a chunk unless
+    cache), "continuous" (chunked admission, 64 tokens a chunk unless
     the config sets one, and an 8192-token shared-prefix KV budget unless
-    it sets one), e.g. "reduced+edge" or "reduced+continuous"."""
+    it sets one) and "spec" (speculative decoding: an int8 self-draft of
+    half the target's blocks at gamma 4), e.g. "reduced+edge",
+    "reduced+continuous" or "reduced+spec"."""
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"{name!r} is not ported yet: ROADMAP {NOT_PORTED[name]}")
@@ -59,6 +60,13 @@ def get_arch(name: str, *, variant: str = "") -> ModelConfig:
                               prefill_chunk=cfg.prefill_chunk or 64,
                               prefix_cache_tokens=cfg.prefix_cache_tokens
                               or 8192)
+        elif v == "spec":
+            # half-depth int8 self-draft: weight-sharing, no second
+            # checkpoint (the edge deployment's speculative profile)
+            from repro_torch.models.transformer import n_blocks
+            nb = max(1, n_blocks(cfg) // 2)
+            cfg = cfg.replace(name=cfg.name + "-spec",
+                              draft=f"int8@{nb}", spec_gamma=4)
         elif v in _VARIANT_ITEMS:
             raise NotImplementedError(
                 f"variant {v!r} is not ported yet: ROADMAP "

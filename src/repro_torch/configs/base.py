@@ -76,8 +76,10 @@ class ModelConfig:
     prefill_chunk: int = 0          # engine chunked-admission default
     prefix_cache_tokens: int = 0    # shared-prefix KV reuse budget
     mesh: str = ""                  # tensor-parallel serving (not ported)
-    draft: str = ""                 # speculative draft (not ported)
-    spec_gamma: int = 0
+    draft: str = ""                 # speculative draft: a self-draft spec
+                                    # "<prec>[@<blocks>]" (quant.self_draft,
+                                    # e.g. "int8@1") or "ngram"
+    spec_gamma: int = 0             # draft tokens proposed per spec step
     ssm: Optional[SSMConfig] = None
     frontend: Optional[FrontendConfig] = None
     dtype: str = "bfloat16"         # activation dtype

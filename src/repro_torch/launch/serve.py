@@ -4,7 +4,7 @@ one engine on one device.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --variant reduced --device cpu --requests 8 --max-new 12 \\
       [--paged --page-size 8] [--quant int8|int4] [--kv-cache-dtype int8] \\
-      [--prefix-cache-tokens 256] \\
+      [--prefix-cache-tokens 256] [--draft int8@1|ngram --spec-gamma 4] \\
       [--faults nan_logits@12/1,page_alloc@30x2] [--deadline 2.0] \\
       [--trace-out trace.json] [--trace-dir prof/] \\
       [--metrics-jsonl run.jsonl] [--log-every 1.0]
@@ -13,7 +13,11 @@ one engine on one device.
 profile: int4 weights and an int8 KV cache. ``--variant
 reduced+continuous`` turns on chunked admission and the shared-prefix KV
 cache, whose budget ``--prefix-cache-tokens`` also sets (attention-only
-stacks: an SSM stack serves without one). ``--arch mamba2-780m``
+stacks: an SSM stack serves without one). ``--draft`` turns on speculative decoding (a self-draft
+spec such as ``int8@1``, or ``ngram``, the prompt-lookup drafter that
+also serves the SSM family; ``none`` turns off a config's draft, as in
+the ``spec`` variant) and ``--spec-gamma`` sets the tokens proposed a
+step; the run then prints a ``speculative:`` line. ``--arch mamba2-780m``
 serves the attention-free SSM family (contiguous state only: no
 ``--paged``, and no quantization yet). The device is CUDA unless
 ``--device cpu`` is given; without a CUDA device the CLI exits with an
@@ -80,6 +84,17 @@ def main(argv=None):
                          "variants (edge), '' keeps the config's setting")
     ap.add_argument("--kv-cache-dtype", choices=["", "int8"], default="",
                     help="int8 = quantized KV cache (edge memory profile)")
+    ap.add_argument("--draft", default="",
+                    help="speculative-decoding draft: a self-draft spec "
+                         "'<prec>[@<blocks>]' (fp|int8|int4, e.g. "
+                         "'int8@1' = the first block, int8-quantized) or "
+                         "'ngram' (the prompt-lookup drafter, every "
+                         "family); 'none' turns off a config-set draft "
+                         "(the spec variant); '' keeps cfg.draft")
+    ap.add_argument("--spec-gamma", type=int, default=0,
+                    help="draft tokens proposed a speculative step (0 "
+                         "keeps cfg.spec_gamma; needs --draft or a "
+                         "spec-variant config)")
     ap.add_argument("--temperature", type=float, default=0.8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", default="",
@@ -119,6 +134,12 @@ def main(argv=None):
     cfg = get_arch(args.arch, variant=args.variant)
     if args.quant:
         cfg = cfg.replace(quant="" if args.quant == "none" else args.quant)
+    if args.draft == "none":
+        cfg = cfg.replace(draft="", spec_gamma=0)   # speculation off
+    elif args.draft:
+        cfg = cfg.replace(draft=args.draft)
+    if args.spec_gamma:
+        cfg = cfg.replace(spec_gamma=args.spec_gamma)
     model = build(cfg, device)
     params = quantize_for_cfg(model.init(args.seed), cfg)
     engine = Engine(model, params, max_batch=args.max_batch,
@@ -224,6 +245,10 @@ def main(argv=None):
               f"errors={stats['slot_errors']} "
               f"preemptions={stats['preemptions']} "
               f"faults_injected={stats['faults_injected']}")
+    if engine.spec_gamma:
+        print(f"speculative: gamma={stats['spec_gamma']} "
+              f"accept={stats['spec_acceptance_rate']:.2f} "
+              f"tokens/step={stats['spec_tokens_per_step']:.2f}")
     if args.paged:
         print(f"kv pages: total={stats['kv_pages_total']} "
               f"live={stats['kv_pages_live']} "

@@ -37,6 +37,14 @@ class Model:
     * ``make_paged_cache(batch, cache_len, page_size=, num_pages=)``
       builds the paged layout the same two methods take (page pools
       shared by all slots, a block table per slot).
+    * ``verify_step(params, tokens, cache)`` is extend with every row
+      advanced by the full window T (the speculative verify pass), and
+      ``rollback(cache, steps)`` moves every sub-cache back to the
+      accepted depth in place: attention caches rewrite ``step`` (causal
+      masking hides the speculated tail until it is rewritten), SSM
+      sub-caches restore the checkpoint taken before the most recent
+      advance, so when ``rollback_needs_replay`` holds the caller rolls
+      back to the pre-verify depth and re-extends the accepted tokens.
     """
 
     cfg: ModelConfig
@@ -63,6 +71,15 @@ class Model:
         return T.extend_step(params, self.cfg, tokens, cache,
                              lengths=lengths, last_only=last_only)
 
+    def verify_step(self, params, tokens, cache):
+        return T.extend_step(params, self.cfg, tokens, cache)
+
+    def rollback(self, cache, steps):
+        return T.set_cache_steps(cache, steps)
+
+    def cache_steps(self, cache):
+        return T.cache_steps(cache)
+
     def make_cache(self, batch: int, cache_len: int, dtype=None):
         return T.make_cache(self.cfg, batch, cache_len, dtype, self.device)
 
@@ -77,6 +94,19 @@ class Model:
         """Paged KV pools are attention-only: SSM recurrent state has no
         per-position storage to page."""
         return all(mixer == "attn" for mixer, _ in T.block_spec(self.cfg))
+
+    @property
+    def supports_speculative(self) -> bool:
+        """Every family the port builds has ``verify_step`` and
+        ``rollback``."""
+        return True
+
+    @property
+    def rollback_needs_replay(self) -> bool:
+        """True for stacks with recurrent (SSM) state: rollback restores
+        the pre-advance checkpoint, so a speculative accept re-extends
+        the accepted tokens instead of only rewinding ``step``."""
+        return any(mixer == "ssm" for mixer, _ in T.block_spec(self.cfg))
 
 
 def build(cfg: ModelConfig, device: Optional[Any] = None) -> Model:

@@ -10,9 +10,10 @@ weights carry the leading block axis; quantization treats the last two
 dims as ``(d_in, d_out)`` and broadcasts over the rest.
 
 The deploy layer's ``Endpoint(quantize=)`` stores a stage's tree through
-``quantize_params`` and runs it through ``dequantize_params``. Saving and
-loading quantized trees and self-drafts are not part of the port yet
-(ROADMAP section 1, items 12 and 9).
+``quantize_params`` and runs it through ``dequantize_params``; the
+speculative self-draft (``quant/self_draft.py``) quantizes its views of
+the target's blocks through it. Saving and loading quantized trees are
+not part of the port yet (ROADMAP section 1, item 12).
 """
 from __future__ import annotations
 

@@ -100,8 +100,27 @@ bucketed head: a clone of the slot's K/V on the rings, a pin of its
 pages on the pool. Under page pressure the ladder evicts LRU entries
 before it polls or preempts.
 
-Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item when asked for: speculative decoding and tensor-parallel meshes.
+Speculative decoding (``draft=`` / ``spec_gamma=``, or ``cfg.draft``):
+every step is a **spec step**, one program that proposes ``gamma``
+tokens a row, scores ``[pending, proposals]`` in one masked target
+forward (``Model.verify_step``'s window), accepts a prefix on device
+(``Sampler.speculative``; greedy output equals plain decode) and rolls
+every cache back to the committed depth. The drafter is a self-draft
+(``quant/self_draft.py``: ``"int8@1"`` and the like; its cache lags the
+committed depth by one position, so its first proposal comes from the
+window ``[prev, pending]`` and the rest from ``gamma - 1`` single-token
+decodes) or ``"ngram"`` (``serving/ngram_draft.py``: proposals from the
+slot's own stream, kept on the device as ``hist``; no draft cache, so an
+SSM stack speculates too, committing by checkpoint restore and a replay
+of the accepted prefix inside the same program). Admission then runs as
+its own **admit chunk** program (target, and the lagging draft one
+position short), dispatched right before the spec step. A spec step
+emits up to ``gamma + 1`` tokens a row, so every trace record is that
+wide, and the poll comes ``gamma + 1`` times less often. In spec mode
+the prefix cache is off, as in the JAX engine.
+
+Not ported yet, and raising ``NotImplementedError`` with its ROADMAP
+item when asked for: tensor-parallel meshes.
 """
 from __future__ import annotations
 
@@ -119,6 +138,7 @@ from repro_torch.core.program import capture
 from repro_torch.models.model import Model, build
 from repro_torch.serving import faults as faults_mod
 from repro_torch.serving import paged_kv, telemetry
+from repro_torch.serving.ngram_draft import ngram_propose
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.request import Request, Response
 from repro_torch.serving.sampler import Sampler
@@ -142,6 +162,15 @@ def _guarded_sample(sampler, generator, logits):
     safe = torch.where(bad[:, None], torch.zeros_like(logits), logits)
     nxt = sampler(generator, safe)
     return torch.where(bad, torch.full_like(nxt, ERR_TOKEN), nxt), bad
+
+
+def _finite_rows(logits):
+    """Zero the logit rows that are not finite (the draft-side guard:
+    proposals from a poisoned draft row are garbage that the target's
+    verify rejects; zeroing keeps sampling and the accept ratio
+    defined)."""
+    ok = torch.isfinite(logits).all(dim=-1, keepdim=True)
+    return torch.where(ok, logits, torch.zeros_like(logits))
 
 
 def _slot_view(cache, slot: int):
@@ -247,16 +276,20 @@ class Engine:
         steps, starting after step 1, into that directory. ``graphs``:
         run the step programs as CUDA graphs (None: on a CUDA device, and
         eager on the CPU; False: eager anywhere; True on the CPU raises).
-        The arguments of features not ported yet raise."""
+        ``draft``: a self-draft spec (``"int8@1"``, see
+        ``quant.self_draft``), ``"ngram"`` for the prompt-lookup drafter,
+        a ``(draft_model, draft_params)`` pair, or None to follow
+        ``cfg.draft``; ``spec_gamma``: tokens proposed a step (0 follows
+        ``cfg.spec_gamma``, 4 once a draft is set). A model draft needs
+        caches that rewind without replay on both sides (attention-only
+        stacks); the n-gram drafter serves every family. ``mesh`` (not
+        ported yet) raises."""
         if kv_cache_dtype not in ("", "int8"):
             raise ValueError(f"unsupported kv_cache_dtype "
                              f"{kv_cache_dtype!r} (use '' or 'int8')")
         if kv_cache_dtype == "int8" and not model.cfg.kv_quant:
             model = build(model.cfg.replace(kv_quant=True), model.device)
         cfg = model.cfg
-        if draft is not None or spec_gamma or cfg.draft or cfg.spec_gamma:
-            raise _not_ported("speculative decoding (draft/spec_gamma)",
-                              "9 (speculative decoding)")
         pct = cfg.prefix_cache_tokens if prefix_cache_tokens is None \
             else prefix_cache_tokens
         mesh_src = cfg.mesh if mesh is None else mesh
@@ -304,6 +337,8 @@ class Engine:
         # the port (every family it serves extends); kept so the counter
         # and its key read as in the JAX engine
         self._c_fallback = self.metrics.counter("fallback_admissions")
+        self._c_spec_emitted = self.metrics.counter("spec_tokens_emitted")
+        self._c_spec_steps = self.metrics.counter("spec_active_steps")
         self._h_ttft = self.metrics.histogram("ttft_s")
         self._h_itl = self.metrics.histogram("itl_s")
         self._c_preempt = self.metrics.counter("preemptions")
@@ -345,6 +380,10 @@ class Engine:
         self.generator = torch.Generator(device=dev).manual_seed(seed)
         self.tokens = torch.zeros((max_batch, 1), dtype=torch.int64,
                                   device=dev)
+        # spec: the token preceding the pending one (the draft cache
+        # lags the committed depth by one position)
+        self.prev = torch.zeros((max_batch, 1), dtype=torch.int64,
+                                device=dev)
         self.remaining = torch.zeros((max_batch,), dtype=torch.int32,
                                      device=dev)
         self.active = torch.zeros((max_batch,), dtype=torch.bool,
@@ -394,14 +433,71 @@ class Engine:
             self.num_pages = 0
             self.cache = model.make_cache(max_batch, cache_len)
 
+        # --- speculative decoding ------------------------------------- #
+        draft_src = draft if draft is not None else (cfg.draft or None)
+        gamma = spec_gamma or cfg.spec_gamma
+        if draft_src is not None and gamma == 0:
+            gamma = 4
+        if gamma and draft_src is None:
+            raise ValueError("spec_gamma set but no draft configured "
+                             "(pass draft=... or set cfg.draft)")
+        self.spec_gamma = gamma if draft_src is not None else 0
+        self._ngram = isinstance(draft_src, str) \
+            and draft_src.partition("@")[0] == "ngram"
+        self._draft_model: Optional[Model] = None
+        self._draft_params = None
+        self.draft_cache = None
+        self.hist = self.hist_len = None   # the n-gram drafter's history
+        self._hist_cap = 0
+        if self.spec_gamma:
+            if self.spec_gamma + 1 > self.kv_len:
+                raise ValueError(
+                    f"spec_gamma={self.spec_gamma} needs a verify window "
+                    f"of {self.spec_gamma + 1} <= kv ring {self.kv_len}")
+            if self._ngram:
+                # each slot's effective stream, on the device so the spec
+                # step stays sync-free; a trash column past the H tokens
+                # takes the writes JAX drops (index H, mode="drop")
+                H = self._hist_cap = 2 * self.kv_len
+                self.hist = torch.full((max_batch, H + 1), -1,
+                                       dtype=torch.int64, device=dev)
+                self.hist_len = torch.zeros((max_batch,),
+                                            dtype=torch.int64, device=dev)
+            else:
+                if isinstance(draft_src, str):
+                    from repro_torch.quant.self_draft import make_self_draft
+                    dmodel, dparams = make_self_draft(model, params,
+                                                      draft_src)
+                else:
+                    dmodel, dparams = draft_src
+                if model.rollback_needs_replay \
+                        or dmodel.rollback_needs_replay:
+                    raise ValueError(
+                        "model-draft speculation requires caches that "
+                        "rewind without replay on both sides (attention-"
+                        f"backed); families {cfg.family!r} / "
+                        f"{dmodel.cfg.family!r} carry recurrent state — "
+                        "use draft='ngram' instead")
+                self._draft_model = dmodel
+                self._draft_params = dparams
+                # contiguous even when the target is paged
+                self.draft_cache = dmodel.make_cache(max_batch, cache_len)
+            # a spec step emits up to gamma + 1 tokens a slot: poll that
+            # much more often, so the overshoot past a finish stays the
+            # same number of tokens as in plain decode
+            self.sync_every = max(1, self.sync_every
+                                  // (self.spec_gamma + 1))
+
         # --- shared-prefix KV reuse ----------------------------------- #
         # attention-only stacks, as in the JAX engine: recurrent state
-        # has no per-position slices to share. On the pool entries are
-        # page lists bucketed on the page size, so a hit aliases whole
-        # pages, and an evicted entry drops its page references (the
-        # pages outlive it while a live slot still aliases them)
+        # has no per-position slices to share; off in spec mode, where
+        # the draft cache would still need recomputing. On the pool
+        # entries are page lists bucketed on the page size, so a hit
+        # aliases whole pages, and an evicted entry drops its page
+        # references (the pages outlive it while a live slot still
+        # aliases them)
         self.prefix_cache: Optional[PrefixCache] = None
-        if pct and model.supports_paged:
+        if pct and not self.spec_gamma and model.supports_paged:
             if self.paged:
                 self.prefix_cache = PrefixCache(
                     pct, self.page_size,
@@ -415,9 +511,13 @@ class Engine:
                  if "pos" in sub), default=0)
         self._positions = torch.arange(S, dtype=torch.int32, device=dev)
 
-        # per-step token trace on device: (tokens (B, 1), emit count (B,))
-        # per step, harvested at the next poll
-        self._trace: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        # per-step token trace on device: (block (B, W), emit count (B,),
+        # whether a spec step made it) per step, harvested at the next
+        # poll. W is 1, or gamma + 1 for every record in spec mode (the
+        # admit chunk's one token padded), so a poll reads each part of
+        # the trace back in one transfer
+        self._width = self.spec_gamma + 1
+        self._trace: List[Tuple[torch.Tensor, torch.Tensor, bool]] = []
         self._trace_base = 0                  # global step of _trace[0]
         self._slot_start = [0] * max_batch    # global step per slot
         self._steps = 0
@@ -427,10 +527,12 @@ class Engine:
         self._drop_compile_step = True        # step_times[0] is warm-up
 
         # --- step programs -------------------------------------------- #
-        # the mixed step's host values, copied in one transfer a step:
-        # the chunk's C tokens, then n, last, the admitted request's
-        # token budget and its eos id (-1: none)
-        self._stage = torch.zeros((self.prefill_chunk + 4,),
+        # the mixed step's (or admit chunk's) host values, copied in one
+        # transfer a step: the chunk's C tokens, then n, last, the
+        # admitted request's token budget, its eos id (-1: none), the
+        # draft's chunk length and the stream's last token (the armed
+        # slot's ``prev``)
+        self._stage = torch.zeros((self.prefill_chunk + 6,),
                                   dtype=torch.int64, device=dev)
         self._programs: Dict[Tuple[Any, ...], StepProgram] = {}
         self._graph_pool = torch.cuda.graph_pool_handle() \
@@ -448,7 +550,8 @@ class Engine:
 
     @property
     def step_kinds(self) -> List[str]:
-        """"plain" | "mixed" per step, aligned with ``step_times``."""
+        """"plain" | "mixed" | "admit" | "spec" per step, aligned with
+        ``step_times``."""
         return self._kind_series.values
 
     def _record_step(self, kind: str) -> None:
@@ -488,9 +591,11 @@ class Engine:
         return out
 
     def program_cache_sizes(self) -> Dict[str, int]:
-        """Programs built per name: ``step`` always, ``mixed`` (one per
-        admitting slot) once the first mixed step ran, the keys of the
-        JAX engine's dict. Steady serving keeps every count flat."""
+        """Programs built per name: ``step`` always (the plain step, or
+        the spec step in spec mode), ``mixed`` (one per admitting slot)
+        once the first mixed step ran, ``admit_chunk`` (one per admitting
+        slot) in spec mode: the keys of the JAX engine's dict. Steady
+        serving keeps every count flat."""
         out = {"step": 0}
         for name, *_ in self._programs:
             out[name] = out.get(name, 0) + 1
@@ -572,6 +677,182 @@ class Engine:
         self.tokens.copy_(new_tokens[:, None])
         return torch.stack([nxt, emit.to(nxt.dtype)], dim=1)
 
+    def _verify(self, draft_tokens, draft_logits):
+        """The spec steps' shared middle: one masked target forward over
+        ``[pending, proposals]`` (active rows advance by gamma + 1, the
+        others by 0), the poison lane on its logits, the accept rule,
+        and a non-finite row emitting one :data:`ERR_TOKEN`. Returns
+        ``(seq, block, n_acc, n_emit, bad, steps_now, committed)``:
+        ``steps_now`` the depths after the verify (a fresh tensor),
+        ``committed`` the depths to roll back to (active rows: the old
+        depth + 1 + n_acc)."""
+        g, active = self.spec_gamma, self.active
+        act1 = active.to(torch.int32)
+        seq = torch.cat([self.tokens, draft_tokens], dim=1)
+        t_logits, _ = self.model.extend_into_cache(
+            self.params, seq, self.cache, (g + 1) * act1)
+        t32 = t_logits.float() + self._poison[:, None, None]
+        bad = active & ~torch.isfinite(t32).all(dim=2).all(dim=1)
+        block, n_acc = self.sampler.speculative(
+            self.generator, draft_tokens, draft_logits,
+            torch.where(bad[:, None, None], torch.zeros_like(t32), t32))
+        block = torch.where(bad[:, None], torch.full_like(block, ERR_TOKEN),
+                            block)
+        n_acc = torch.where(bad, torch.zeros_like(n_acc), n_acc)
+        n_emit = torch.where(active, n_acc + 1, torch.zeros_like(n_acc))
+        steps_now = self.model.cache_steps(self.cache).long()
+        committed = torch.where(active, steps_now - g + n_acc, steps_now)
+        return seq, block, n_acc, n_emit, bad, steps_now, committed
+
+    def _accept(self, block, n_emit, bad) -> torch.Tensor:
+        """The spec steps' bookkeeping (the plain step's stop conditions
+        with a variable emit count), written into the decode state in
+        place; returns the record (B, gamma + 2): the block, then the
+        emit count."""
+        g, active = self.spec_gamma, self.active
+        remaining, eos = self.remaining, self.eos
+        idx = torch.arange(g + 1, device=block.device)[None, :]
+        emitted = idx < n_emit[:, None]
+        eos_hit = (emitted & (block == eos[:, None])).any(dim=1)
+        done = active & (bad | (remaining <= n_emit) | eos_hit)
+        new_remaining = torch.where(
+            active, torch.clamp(remaining - n_emit, min=0), remaining)
+        last = torch.gather(block, 1,
+                            (torch.clamp(n_emit, min=1) - 1)[:, None])[:, 0]
+        nxt = torch.where(active, last, self.tokens[:, 0])
+        self.active.copy_(active & ~done)
+        self.remaining.copy_(new_remaining)
+        # an ERR_TOKEN row (now inactive) feeds a valid id
+        self.tokens.copy_(nxt.clamp(min=0)[:, None])
+        return torch.cat([block, n_emit[:, None]], dim=1)
+
+    def _spec(self) -> torch.Tensor:
+        """Spec step body with a model draft. The draft proposes gamma
+        tokens: its verify window ``[prev, pending]`` then gamma - 1
+        single-token decodes, every forward masked by ``active`` (an
+        admitting row between chunks stays as it is), each proposal
+        sampled from logits that ``_finite_rows`` keeps defined. The
+        target verifies (``_verify``), both caches roll back (the target
+        to the committed depth, the draft one short of it), and the
+        decode state and ``prev`` take the emitted block's tail."""
+        g, active = self.spec_gamma, self.active
+        draft, dparams, dcache = (self._draft_model, self._draft_params,
+                                  self.draft_cache)
+        act1 = active.to(torch.int32)
+        window = torch.cat([self.prev, self.tokens], dim=1)
+        dl, _ = draft.extend_into_cache(dparams, window, dcache, 2 * act1)
+        cur = _finite_rows(dl[:, -1].float())
+        d_toks, d_logits = [], []
+        for i in range(g):
+            t = self.sampler(self.generator, cur)
+            d_toks.append(t)
+            d_logits.append(cur)
+            if i + 1 < g:
+                dl, _ = draft.extend_into_cache(dparams, t[:, None], dcache,
+                                                act1)
+                cur = _finite_rows(dl[:, -1].float())
+        _, block, n_acc, n_emit, bad, _, committed = self._verify(
+            torch.stack(d_toks, dim=1), torch.stack(d_logits, dim=1))
+        d_back = torch.where(active, committed - 1,
+                             draft.cache_steps(dcache).long())
+        self.model.rollback(self.cache, committed)
+        draft.rollback(dcache, d_back)
+        # the token preceding the new pending one: the last accepted
+        # proposal, or the old pending token when none was accepted
+        prev = torch.where(
+            n_acc > 0,
+            torch.gather(block, 1,
+                         (torch.clamp(n_acc, min=1) - 1)[:, None])[:, 0],
+            self.tokens[:, 0])
+        prev = torch.where(active, prev, self.prev[:, 0])
+        rec = self._accept(block, n_emit, bad)
+        self.prev.copy_(prev.clamp(min=0)[:, None])
+        return rec
+
+    def _ngram_spec(self) -> torch.Tensor:
+        """Spec step body with the prompt-lookup drafter: proposals from
+        each row's history (``ngram_propose``), the target's verify
+        (``_verify``), the rollback (a recurrent stack restores the
+        pre-verify checkpoint and replays the accepted prefix, pending
+        plus n_acc proposals, through the same masked extend: the
+        checkpoint restore is in place and the replay rewrites the
+        checkpoints), then the emitted block appended to the history
+        (entries past its H tokens go to the trash column)."""
+        g, active, H = self.spec_gamma, self.active, self._hist_cap
+        draft_tokens, draft_logits = ngram_propose(
+            self.hist[:, :H], self.hist_len, gamma=g,
+            vocab=self.model.cfg.vocab)
+        seq, block, n_acc, n_emit, bad, steps_now, committed = \
+            self._verify(draft_tokens, draft_logits)
+        if self.model.rollback_needs_replay:
+            pre = torch.where(active, steps_now - (g + 1), steps_now)
+            self.model.rollback(self.cache, pre)
+            self.model.extend_into_cache(
+                self.params, seq, self.cache,
+                torch.where(active, n_acc + 1,
+                            torch.zeros_like(n_acc)).to(torch.int32),
+                last_only=True)
+        else:
+            self.model.rollback(self.cache, committed)
+        idx = torch.arange(g + 1, device=block.device)[None, :]
+        wpos = torch.where((idx < n_emit[:, None]) & active[:, None],
+                           torch.clamp(self.hist_len[:, None] + idx, max=H),
+                           torch.full_like(idx, H))
+        self.hist.scatter_(1, wpos, block)
+        self.hist_len.copy_(torch.clamp(self.hist_len + n_emit, max=H))
+        return self._accept(block, n_emit, bad)
+
+    def _admit_chunk(self, slot: int) -> torch.Tensor:
+        """Spec-mode admission chunk body for ``slot``: advance the slot
+        by the staged chunk at batch 1 in the target cache and, with a
+        model draft, by the staged draft length in the draft cache (one
+        position behind: the stream's last token becomes ``prev`` and
+        the first verify window re-reads it); sample the first token and
+        arm the slot when the chunk ends the prompt; with the n-gram
+        drafter append that token to the slot's history. Returns (B,
+        gamma + 2): the armed token in column 0 (padded to the spec
+        width) and the emit counts."""
+        C, g = self.prefill_chunk, self.spec_gamma
+        st = self._stage
+        n, last, a_rem, a_eos = st[C:C + 1], st[C + 1], st[C + 2], st[C + 3]
+        d_len, a_prev = st[C + 4:C + 5], st[C + 5]
+        active, tokens = self.active, self.tokens
+        is_admit = self._rows == slot
+        logits, _ = self.model.extend_into_cache(
+            self.params, st[:C][None], _slot_view(self.cache, slot),
+            n.to(torch.int32), last_only=True)
+        if self._draft_model is not None:
+            self._draft_model.extend_into_cache(
+                self._draft_params, st[:C][None],
+                _slot_view(self.draft_cache, slot), d_len.to(torch.int32),
+                last_only=True)
+        nxt, bad = _guarded_sample(
+            self.sampler, self.generator,
+            logits[:, 0].float() + self._poison[slot])            # (1,)
+        arm = is_admit & (last != 0)
+        done = arm & (bad[0] | (a_rem <= 1) | (nxt[0] == a_eos))
+        block = torch.where(arm, nxt[0], tokens[:, 0])
+        self.active.copy_(active | (arm & ~done))
+        self.remaining.copy_(torch.where(arm, a_rem - 1, self.remaining))
+        self.eos.copy_(torch.where(arm, a_eos, self.eos))
+        if self._draft_model is not None:
+            self.prev.copy_(torch.where(arm, a_prev, self.prev[:, 0])[:, None])
+        if self._ngram:
+            H = self._hist_cap
+            wpos = torch.where(last != 0, self.hist_len[slot],
+                               torch.full_like(self.hist_len[slot], H))
+            self.hist[slot].scatter_(0, torch.clamp(wpos, max=H)[None],
+                                     nxt[:1])
+            self.hist_len.copy_(torch.where(
+                is_admit & (last != 0),
+                torch.clamp(self.hist_len + 1, max=H), self.hist_len))
+        self.tokens.copy_(torch.where(arm, nxt[0].clamp(min=0),
+                                      tokens[:, 0])[:, None])
+        pad = torch.zeros((block.shape[0], g), dtype=block.dtype,
+                          device=block.device)
+        return torch.cat([block[:, None], pad, arm.to(block.dtype)[:, None]],
+                         dim=1)
+
     def _stage_chunk(self, adm: _Admission, n: int) -> bool:
         """Write the admission's next chunk (its ``n`` valid tokens) and
         its scalars into one host vector and copy it into the staging
@@ -581,16 +862,20 @@ class Engine:
         C = self.prefill_chunk
         last = adm.base + n >= adm.length
         req = adm.req
-        host = torch.zeros((C + 4,), dtype=torch.int64,
+        host = torch.zeros((C + 6,), dtype=torch.int64,
                            pin_memory=self.device.type == "cuda")
         buf = host.numpy()
         buf[:n] = adm.tokens[adm.base:adm.base + n]
+        # the draft consumes the same chunk capped one short of the
+        # stream (its cache lags the committed depth by one position)
         buf[C:] = (n, last, req.max_new_tokens - adm.n_done,
-                   -1 if req.eos_id is None else int(req.eos_id))
+                   -1 if req.eos_id is None else int(req.eos_id),
+                   max(0, min(n, adm.length - 1 - adm.base)),
+                   int(adm.tokens[-1]))
         self._stage.copy_(host, non_blocking=True)
         return last
 
-    def _reset_slot(self, b: int, upto: int = 0) -> None:
+    def _reset_slot(self, b: int, upto: int = 0, cache=None) -> None:
         """Erase slot ``b``: every position empty, depth 0, so a recycled
         slot keeps no stale keys from its previous occupant. With ``upto``
         > 0 (a prefix-cache hit) the first ``upto`` positions are stamped
@@ -599,8 +884,10 @@ class Engine:
         sub-cache has no positions to mask a previous occupant behind:
         its state, conv tail, depth and checkpoints are zeroed. Every
         write is in place, ``upto`` a host int (no sync): a copy of the
-        static ``_positions`` row, a fill of the rest and of the depth."""
-        for sub in self.cache.values():
+        static ``_positions`` row, a fill of the rest and of the depth.
+        ``cache``: the cache to reset (default the target's; the draft
+        cache in spec mode)."""
+        for sub in (self.cache if cache is None else cache).values():
             if "pos" in sub:
                 pos = sub["pos"][:, b]
                 if upto:
@@ -757,6 +1044,18 @@ class Engine:
         kv, base = None, 0
         if self.prefix_cache is not None:
             kv, _, base = self.prefix_cache.lookup(toks)
+        if self._ngram:
+            # seed the drafter's history with the effective stream (its
+            # most recent H tokens), from pinned memory without blocking
+            H = self._hist_cap
+            n = min(len(toks), H)
+            host = torch.full((H,), -1, dtype=torch.int64,
+                              pin_memory=self.device.type == "cuda")
+            host.numpy()[:n] = toks[len(toks) - n:]
+            self.hist[b, :H].copy_(host, non_blocking=True)
+            self.hist_len[b].fill_(n)
+        if self._draft_model is not None:
+            self._reset_slot(b, cache=self.draft_cache)
         if self.paged:
             self._paged.release_slot(b)
             if kv is not None:
@@ -1040,7 +1339,8 @@ class Engine:
     # decode
     # ------------------------------------------------------------ #
     def step(self) -> None:
-        """One engine step (plain or mixed): device work only; tokens,
+        """One engine step (plain, mixed or spec; in spec mode an admit
+        chunk first while an admission is in flight): device work only; tokens,
         finish flags and counters stay on the device. The ``slow_step``
         and ``nan_logits`` fault sites fire first; a poisoned row is
         cleared after the dispatch."""
@@ -1060,8 +1360,16 @@ class Engine:
             b = self._free_slot()
             if b is not None and self._admit_fits(self.queue[0]):
                 self._start_chunked(self.queue.popleft(), b)
-        if self._admit is not None:
-            self._step_mixed(self._admit)
+        adm = self._admit
+        if self.spec_gamma:
+            if adm is not None:
+                self._step_admit_chunk(adm)
+                if self.active_slots:
+                    self._step_spec()
+            else:
+                self._step_spec()
+        elif adm is not None:
+            self._step_mixed(adm)
         else:
             self._step_plain()
         if poisoned:
@@ -1079,8 +1387,45 @@ class Engine:
         self._push_trace(self._run_program(("step",), self._decode))
         self._record_step("plain")
 
-    def _push_trace(self, rec: torch.Tensor) -> None:
-        self._trace.append((rec[:, :1], rec[:, 1]))
+    def _push_trace(self, rec: torch.Tensor, spec: bool = False) -> None:
+        W = self._width
+        self._trace.append((rec[:, :W], rec[:, W], spec))
+
+    def _step_spec(self) -> None:
+        if self.paged:
+            # a spec step writes up to gamma + 1 positions an active row
+            # (the verify window); rollback keeps the committed prefix
+            # and the poll's shrink drops the pages past it
+            while not self._provision_decode_rows(self.spec_gamma + 1):
+                pass
+            self._push_block_tables()
+        body = self._ngram_spec if self._ngram else self._spec
+        self._push_trace(self._run_program(("step",), body), spec=True)
+        self._record_step("spec")
+
+    def _step_admit_chunk(self, adm: _Admission) -> None:
+        """Dispatch the spec-mode admission chunk program; the spec step
+        that follows decodes the other slots."""
+        n = min(self.prefill_chunk, adm.length - adm.base)
+        if self.paged:
+            # the target's chunk only: the draft cache stays contiguous,
+            # and the spec step provisions the decode rows (a slot this
+            # chunk arms included)
+            while not self._provision(adm.slot, adm.base, n):
+                pass
+            self._depth_ub[adm.slot] = adm.base + n
+            self._push_block_tables()
+        last = self._stage_chunk(adm, n)
+        slot = adm.slot
+        self._push_trace(self._run_program(("admit_chunk", slot),
+                                           lambda: self._admit_chunk(slot)))
+        if self.recorder.enabled:
+            self.recorder.on_chunk(adm.req, slot, adm.base, adm.base + n,
+                                   last)
+        adm.base += n
+        if last:
+            self._complete_admission(adm)
+        self._record_step("admit")
 
     def _step_mixed(self, adm: _Admission) -> None:
         n = min(self.prefill_chunk, adm.length - adm.base)
@@ -1150,9 +1495,10 @@ class Engine:
         if starts:
             lo = min(starts)
             suffix = self._trace[lo:]
-            blocks = torch.cat([t for t, _ in suffix], dim=1).cpu().numpy()
-            counts = torch.stack([c for _, c in suffix],
-                                 dim=1).cpu().numpy()
+            blocks = torch.stack([t for t, _, _ in suffix],
+                                 dim=1).cpu().numpy()          # (B, n, W)
+            counts = torch.stack([c for _, c, _ in suffix],
+                                 dim=1).cpu().numpy()          # (B, n)
             self._c_polls.inc()
             for b, start in occupied:
                 s = start - lo
@@ -1161,14 +1507,21 @@ class Engine:
                 col: List[int] = []
                 gaps: List[Optional[float]] = []
                 for off in range(s, len(suffix)):
-                    if not counts[b, off]:
+                    c = int(counts[b, off])
+                    if suffix[off][2]:
+                        # every (spec step, occupied slot) pair emitted
+                        # 1 + n_acc tokens (0 once the device finished it)
+                        self._c_spec_emitted.inc(c)
+                        self._c_spec_steps.inc(int(c > 0))
+                    if not c:
                         continue
                     w = self._trace_base + lo + off - self._step_wall_base
                     gap = None
                     if 0 < w < len(self._step_wall):
                         gap = self._step_wall[w] - self._step_wall[w - 1]
-                    col.append(int(blocks[b, off]))
-                    gaps.append(gap)
+                    for tok in blocks[b, off, :c]:
+                        col.append(int(tok))
+                        gaps.append(None if gap is None else gap / c)
                 self._harvest(b, col, gaps)
         # every occupied slot has now consumed the whole trace
         keep_from = min((self._slot_start[b] for b, r
@@ -1441,7 +1794,8 @@ class Engine:
         """Latency summary. The ``decode_ms_*`` / ``ttft_ms_*`` /
         ``itl_ms_*`` keys are present only when their stream has at least
         one sample; the ``prefix_*`` keys only with a prefix cache, the
-        ``kv_*`` pool keys only on a paged engine."""
+        ``kv_*`` pool keys only on a paged engine, the ``spec_*`` keys
+        only in spec mode."""
         drop = 1 if self._drop_compile_step else 0
         finished = [r for r in self.responses.values() if r.finished]
         stats: Dict[str, float] = {
@@ -1467,4 +1821,14 @@ class Engine:
             stats.update(self.prefix_cache.stats())
         if self.paged:
             stats.update(self._paged.stats())
+        if self.spec_gamma:
+            # acceptance rate = mean(n_acc) / gamma over the harvested
+            # (spec step, active slot) pairs
+            emitted = self._c_spec_emitted.value
+            steps = self._c_spec_steps.value
+            n = max(steps, 1)
+            stats["spec_gamma"] = self.spec_gamma
+            stats["spec_tokens_per_step"] = emitted / n
+            stats["spec_acceptance_rate"] = \
+                (emitted - steps) / (self.spec_gamma * n)
         return stats

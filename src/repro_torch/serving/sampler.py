@@ -1,4 +1,5 @@
-"""Token samplers: greedy, temperature, top-k and top-p.
+"""Token samplers: greedy, temperature, top-k and top-p, plus the
+speculative-decoding accept/resample rule.
 
 The sampler is a frozen dataclass of static knobs that the engine calls
 on device-resident logits inside its fused steps, so sampled tokens
@@ -6,8 +7,9 @@ never leave the device. Stochastic sampling draws with the Gumbel-max
 rule from a caller-owned ``torch.Generator``: an exact sample of the
 (filtered) softmax that needs no host sync. It cannot reproduce
 ``jax.random``'s bits; it matches the JAX sampler's distribution. The
-speculative accept/resample rule waits for the speculative slice
-(ROADMAP section 1, item 9).
+speculative rule (``speculative``) runs on device too: acceptance, the
+first rejection's resample and the bonus token, drawn from the same
+generator.
 """
 from __future__ import annotations
 
@@ -35,10 +37,85 @@ class Sampler:
         if self.top_p < 1.0:
             logits = self._nucleus(logits)
         if self.top_k:
-            vals, idx = torch.topk(logits, self.top_k, dim=-1)
+            vals, idx = self._topk(logits)
             choice = self._gumbel_argmax(generator, vals)
             return torch.gather(idx, -1, choice[:, None])[:, 0]
         return self._gumbel_argmax(generator, logits)
+
+    def _topk(self, logits):
+        """The one top-k rule of the sampler: the k largest logits, ties
+        at the k-th value broken by lowest index, as ``lax.top_k`` does
+        (a descending stable sort cut at k). ``__call__`` and
+        ``filtered_logits`` both select through it, so the speculative
+        accept/resample distributions are the ones the engine samples."""
+        vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+        return vals[..., :self.top_k], idx[..., :self.top_k]
+
+    def filtered_logits(self, logits):
+        """The post-knob logits over the full vocab: temperature, then
+        nucleus, then top-k masking (masked entries at NEG_INF), so
+        ``softmax(filtered_logits(l))`` is the distribution ``__call__``
+        samples from, ties included (the same k entries ``_topk``
+        selects). Any leading shape (..., V). Greedy has no such
+        distribution; callers special-case it."""
+        assert self.temperature != 0.0
+        lead = logits.shape[:-1]
+        logits = logits.reshape(-1, logits.shape[-1]) / self.temperature
+        if self.top_p < 1.0:
+            logits = self._nucleus(logits)
+        if self.top_k:
+            vals, idx = self._topk(logits)
+            logits = torch.full_like(logits, NEG_INF).scatter(-1, idx, vals)
+        return logits.reshape(lead + (-1,))
+
+    def speculative(self, generator: Optional[torch.Generator],
+                    draft_tokens, draft_logits, target_logits):
+        """Speculative-decoding accept/resample (Leviathan et al. 2023),
+        over the batch and on device.
+
+        draft_tokens: (B, G) proposals; draft_logits: (B, G, V) the
+        logits they were drawn from; target_logits: (B, G+1, V) the
+        target's at the same positions (G is the bonus position).
+
+        Returns ``(block, n_acc)``: ``block`` (B, G+1) int64 whose first
+        ``n_acc[b] + 1`` entries are row b's tokens to emit, the accepted
+        draft prefix then the resampled first rejection (or the bonus
+        token when every proposal was accepted).
+
+        Greedy: accept while a proposal equals the target's argmax, so
+        the emitted prefix is the target's greedy continuation. Otherwise
+        accept x when ``u * q(x) < p(x)`` (u uniform) and resample the
+        first rejection from ``norm(max(p - q, 0))`` (q = 0 at the bonus
+        position), so each emitted token is a sample of the target's
+        distribution. The draws come from ``generator``; they cannot
+        reproduce ``jax.random``'s bits, only the distribution."""
+        B, G = draft_tokens.shape
+        if self.temperature == 0.0:
+            block = torch.argmax(target_logits, dim=-1)
+            acc = draft_tokens.long() == block[:, :G]
+            n_acc = torch.cumprod(acc.long(), dim=1).sum(dim=1)
+            return block, n_acc
+        p = torch.softmax(self.filtered_logits(target_logits), dim=-1)
+        q = torch.softmax(self.filtered_logits(draft_logits), dim=-1)
+        d = draft_tokens.long()[..., None]
+        p_d = torch.gather(p[:, :G], -1, d)[..., 0]              # (B, G)
+        q_d = torch.gather(q, -1, d)[..., 0]
+        u = torch.rand((B, G), generator=generator, device=p.device,
+                       dtype=torch.float32)
+        acc = u * q_d < p_d          # u < p/q without dividing by q = 0
+        n_acc = torch.cumprod(acc.long(), dim=1).sum(dim=1)
+        q_pad = torch.cat([q, torch.zeros_like(p[:, :1])], dim=1)
+        resid = torch.clamp(p - q_pad, min=0.0)
+        # p == q: the residual is empty and any token of p will do
+        empty = resid.sum(dim=-1, keepdim=True) <= 0.0
+        resid = torch.where(empty, p, resid)
+        r = self._gumbel_argmax(generator,
+                                torch.log(torch.clamp(resid, min=1e-30)))
+        d_pad = torch.cat([draft_tokens.long(),
+                           torch.zeros_like(draft_tokens[:, :1]).long()],
+                          dim=1)
+        idx = torch.arange(G + 1, device=p.device)[None, :]
+        return torch.where(idx < n_acc[:, None], d_pad, r), n_acc
 
     @staticmethod
     def _gumbel_argmax(generator, logits):

@@ -22,7 +22,11 @@ temperature samples and launch counters equal the eager engine's at
 reduced sizes (rings, bf16, paged, int8 KV, int8 weights, the edge
 profile paged, mamba2), nothing is captured after warm-up, and a capture
 that fails raises; on graphs a poisoned row is contained to that row and
-a cancel frees its slot, neither building a program; prefix-cache hits
+a cancel frees its slot, neither building a program; speculative
+engines (an int8 self-draft and the n-gram drafter, on rings, a bf16
+pool and mamba2) give the eager engine's tokens and launch counters on
+graphs, greedy and with a temperature, and capture nothing after
+warm-up; prefix-cache hits
 (copied in place on the rings, aliased on the pool) stream as the eager
 and the cold engines, and a forced copy-on-write split syncs nothing. The Zoo's service programs (``Service.jitted()``,
 the deployed call) replay the eager call bitwise (the reduced
@@ -817,6 +821,64 @@ def test_graph_steps_sample_as_eager_steps_with_a_temperature_on_card():
 
     _card()
     model, params, kw = _graph_model("rings")
+    sampler = Sampler(temperature=0.9, top_k=50)
+    _, want, _ = _graph_serve(model, params, kw, False, sampler, batches=2)
+    _, got, _ = _graph_serve(model, params, kw, None, sampler, batches=2)
+    assert got == want
+    assert len({t for toks in got.values() for t in toks}) > 5
+
+
+#: speculative engines on graphs at reduced size: (a GRAPH_CASES
+#: configuration, the speculative arguments)
+SPEC_GRAPH_CASES = {
+    "int8@1_rings": ("rings", dict(draft="int8@1", spec_gamma=4)),
+    "int8@1_bf16_paged": ("rings_bf16", dict(draft="int8@1", spec_gamma=4,
+                                             paged=True, page_size=8)),
+    "ngram_rings": ("rings", dict(draft="ngram", spec_gamma=4)),
+    "ngram_mamba2": ("mamba2", dict(draft="ngram", spec_gamma=4)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SPEC_GRAPH_CASES))
+def test_spec_graph_steps_match_eager_steps_on_card(case):
+    """A speculative engine's greedy tokens and launch counters on graphs
+    equal its eager twin's; every program is a captured graph, the spec
+    step and one admit chunk a slot that admitted; the second batch,
+    after ``mark_steady()``, captures nothing."""
+    _card()
+    base, spec_kw = SPEC_GRAPH_CASES[case]
+    model, params, kw = _graph_model(base)
+    kw = dict(kw, **spec_kw)
+    eager, want, want_counts = _graph_serve(model, params, kw, False,
+                                            batches=2)
+    graphed, got, got_counts = _graph_serve(model, params, kw, None,
+                                            batches=2)
+    assert graphed.graphs and not eager.graphs
+    assert got == want
+    assert got_counts == want_counts and sum(got_counts.values()) > 0
+    assert all(p.graph is not None for p in graphed._programs.values())
+    progs = graphed.program_cache_sizes()
+    assert progs == eager.program_cache_sizes()
+    assert set(progs) == {"step", "admit_chunk"} and progs["step"] == 1
+    assert graphed.metrics.counters["steady_compiles"].value == 0
+    assert graphed.metrics.counters["compiles_total"].value \
+        == sum(progs.values())
+    assert "spec" in graphed.step_kinds
+    if kw.get("paged"):
+        assert graphed.latency_stats()["kv_pages_live"] == 0
+
+
+@pytest.mark.cuda
+def test_spec_graph_steps_sample_as_eager_steps_with_a_temperature_on_card():
+    """The spec step's draws (the draft's samples, the accept test, the
+    resample) come from the engine's generator, registered with the
+    graph: one seed gives one stream on graphs and eagerly."""
+    from repro_torch.serving.sampler import Sampler
+
+    _card()
+    model, params, kw = _graph_model("rings")
+    kw = dict(kw, draft="int8@1", spec_gamma=3)
     sampler = Sampler(temperature=0.9, top_k=50)
     _, want, _ = _graph_serve(model, params, kw, False, sampler, batches=2)
     _, got, _ = _graph_serve(model, params, kw, None, sampler, batches=2)

@@ -5,7 +5,8 @@ The same requests go through the JAX ``Engine`` and the port's
 greedy sampling): the token streams and finish reasons are identical,
 with chunked admission as the whole prompt (``prefill_chunk=0``) and in
 chunks of 8, more requests than slots, an EOS finish and a one-token
-request. Also: the arguments of features not ported yet raise, the
+request. Also: speculation's argument errors raise as JAX's, the mesh
+(not ported yet) raises, the
 NaN guard, the samplers' distributions, and the serve CLI. The engine
 lifecycle (cancel, deadlines, priorities, faults, tracing) is held
 against the JAX engine in ``tests/test_torch_lifecycle.py``.
@@ -110,12 +111,28 @@ def test_slot_reset_leaves_no_stale_keys():
         assert bool((sub["step"][:, 0] == 0).all())
 
 
-@pytest.mark.parametrize("kw", [
-    {"draft": "ngram"}, {"spec_gamma": 2}, {"mesh": "auto"},
-])
-def test_out_of_slice_arguments_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(_TM, _TP, max_batch=2, cache_len=48, **kw)
+@pytest.mark.parametrize("arch,kw,exc,match", [
+    ("llama3.2-1b", {"spec_gamma": 2}, ValueError, "no draft"),
+    ("mamba2-780m", {"draft": "fp@1", "spec_gamma": 2}, ValueError,
+     "ngram"),
+    ("llama3.2-1b", {"mesh": "auto"}, NotImplementedError, "ROADMAP"),
+], ids=["gamma_without_draft", "model_draft_on_ssm", "mesh"])
+def test_out_of_slice_arguments_raise(arch, kw, exc, match):
+    """Speculation's argument errors raise as the JAX engine's do (a
+    gamma with no draft; a model draft on a stack that needs replay);
+    the mesh, not ported yet, raises naming its ROADMAP item."""
+    if arch == "llama3.2-1b":
+        tm, tp = _TM, _TP
+    else:
+        tm = build(get_arch(arch, variant="reduced"), device="cpu")
+        tp = tm.init(0)
+    if exc is ValueError:
+        jm = jax_build(jax_get_arch(arch, variant="reduced"))
+        with pytest.raises(exc, match=match):
+            JaxEngine(jm, jm.init(jax.random.PRNGKey(0)), max_batch=2,
+                      cache_len=48, **kw)
+    with pytest.raises(exc, match=match):
+        Engine(tm, tp, max_batch=2, cache_len=48, **kw)
 
 
 @pytest.mark.parametrize("req,match", [

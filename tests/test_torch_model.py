@@ -276,7 +276,7 @@ def test_unported_configs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_arch("qwen2-moe-a2.7b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch("llama3.2-1b", variant="reduced+spec")
+        get_arch("llama3.2-1b", variant="reduced+sharded")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build(get_arch("llama3.2-1b").replace(family="moe"), device="cpu")
     assert get_arch("llama3.2-1b", variant="reduced+swa").sliding_window \
