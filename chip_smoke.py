@@ -94,7 +94,21 @@ bitwise equal), the n-gram drafter and the plain engine, each warmed
 and steady (no capture, counters = the trace, two syncs a poll, every
 divergence from the plain engine's bf16 tokens at a near tie), and
 ``spec_ssm`` mamba2-780m's n-gram verify and replay (exact against
-plain in fp32 at full depth, measured in bf16). The decode-attention cases cover both tensor-core routes of its
+plain in fp32 at full depth, measured in bf16). The other families,
+after the Zoo: ``model_families`` holds qwen2-moe-a2.7b,
+granite-moe-3b-a800m, internlm2-20b, qwen2.5-14b, starcoder2-15b and
+gemma2-9b-class at full width cut to 2 layers (and mixtral-8x7b at its
+reduced width) card against CPU in fp32, through ``prefill`` (flash at
+G 1, 3, 5, 6 and 12 and hd 256, MoE capacity dispatch) and an extend
+(decode attention, dense routing) with 8 decodes each: logits within
+2e-3, greedy tokens and the experts of every router call identical;
+``model_hybrid`` does the same for jamba's reduced super-block at the
+SSM's published p 128, n 128; ``serve_moe`` serves qwen2-moe-a2.7b at
+full width and depth (24 layers, 60 experts top-4 and 4 shared, bf16)
+with the serve phase's engine and requests on rings (profiled), eagerly
+and on a pool (tokens bitwise equal); ``serve_hybrid`` serves jamba at
+its published widths cut to one super-block of 8 of its 16 experts on
+rings (profiled) and eagerly, the pool refused. The decode-attention cases cover both tensor-core routes of its
 plan (R <= 16 rows and above, S split over blocks, a fully masked row
 at T 1 and T 16); every timed attention case records its plan and the
 rates it reached, and the ``build`` line every template's ptxas
@@ -165,6 +179,8 @@ FLASH_TPU = ("src/repro/kernels/flash_attention/kernel.py:153, "
 #: groups
 SSD_FULL = (48, 64, 1, 128)
 SSD_REDUCED_G2 = (16, 32, 2, 32)
+#: jamba-1.5-large-398b's SSD dims: 128 heads of 128, d_state 128
+SSD_JAMBA = (128, 128, 1, 128)
 SSD_TOL_REL = 1e-4
 #: the bf16 Zoo classifier on the card against the plain fp32 forward,
 #: relative to max|plain logits| (``zoo_plain``)
@@ -276,7 +292,12 @@ def ptxas_table(logs):
 # --------------------------------------------------------------------- #
 #: the attention cases timed (bf16): the plain steps' decode and chunk,
 #: the spec steps' verify window and the draft's two-token window
-TIMED_ATTN = ("decode", "chunk", "verify_T5", "window_T2")
+TIMED_ATTN = ("decode", "chunk", "verify_T5", "window_T2", "decode_hd256",
+              "chunk_hd256")
+#: query heads, KV heads and head_dim of the attention cases: llama3.2-1b's
+#: by default, gemma2-9b-class's for the hd 256 cases
+ATTN_DIMS = (32, 8, 64)
+GEMMA2_DIMS = (16, 8, 256)
 
 
 def decode_attention_cases(torch, flush):
@@ -288,8 +309,8 @@ def decode_attention_cases(torch, flush):
         decode_attention_reference
 
     dev = torch.device("cuda")
-    Hq, Hkv, hd = 32, 8, 64
-    # (name, B, T, S, window, special rows): the main path's decode step
+    # (name, B, T, S, window, special rows[, (Hq, Hkv, hd)]): the main
+    # path's decode step
     # (mma_keys, S split 4 ways) and chunk (mma_rows), a window, S 1000
     # (the split of 256 slots does not divide it: the last is 232), a
     # fully masked row at T 1 (every split masked: the combine's NEG_INF
@@ -308,9 +329,17 @@ def decode_attention_cases(torch, flush):
         ("rows20", 4, 5, 1024, 0, None),
         ("verify_T5", 8, 5, 1024, 0, None),
         ("window_T2", 8, 2, 1024, 0, None),
+        # gemma2-9b-class: head_dim 256 at G 2, decode and chunk, and a
+        # decode under a window the ring wraps past
+        ("decode_hd256", 8, 1, 1024, 0, None, GEMMA2_DIMS),
+        ("chunk_hd256", 1, 128, 1024, 0, None, GEMMA2_DIMS),
+        ("decode_hd256_window512", 8, 1, 1024, 512, None, GEMMA2_DIMS),
+        ("chunk_hd256_all_masked_row", 2, 16, 1024, 0, "masked",
+         GEMMA2_DIMS),
     ]
     out, errs = [], []
-    for name, B, T, S, window, special in cases:
+    for name, B, T, S, window, special, *dims in cases:
+        Hq, Hkv, hd = dims[0] if dims else ATTN_DIMS
         g = torch.Generator(device=dev).manual_seed(SEED)
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[1]
@@ -397,8 +426,8 @@ def paged_decode_attention_cases(torch, flush):
         paged_decode_attention_reference, paged_kv_gather)
 
     dev = torch.device("cuda")
-    Hq, Hkv, hd, S = 32, 8, 64, 1024
-    # (name, B, T, page size, window, special rows)
+    S = 1024
+    # (name, B, T, page size, window, special rows[, (Hq, Hkv, hd)])
     cases = [
         ("decode", 8, 1, 16, 0, None),
         ("chunk", 1, 128, 16, 0, None),
@@ -409,9 +438,12 @@ def paged_decode_attention_cases(torch, flush):
         ("decode_all_masked_row", 8, 1, 16, 0, "masked"),
         ("verify_T5", 8, 5, 16, 0, None),
         ("window_T2", 8, 2, 16, 0, None),
+        ("decode_hd256", 8, 1, 16, 0, None, GEMMA2_DIMS),
+        ("chunk_hd256", 1, 128, 16, 0, None, GEMMA2_DIMS),
     ]
     out, errs = [], []
-    for name, B, T, ps, window, special in cases:
+    for name, B, T, ps, window, special, *dims in cases:
+        Hq, Hkv, hd = dims[0] if dims else ATTN_DIMS
         NB = S // ps
         P = B * NB + 8                   # 8 pages no row maps
         g = torch.Generator(device=dev).manual_seed(SEED)
@@ -549,8 +581,14 @@ NORM_CASES = (("N8_d2048", 8, 2048, "add", False),
               ("N128_d3072_gated", 128, 3072, "gated", False),
               ("N8_d1536_other_scale", 8, 1536, "add", True),
               ("N8_d2048_no_residual_other_scale", 8, 2048, "norm", True),
-              ("N8_d3072_gated_other_scale", 8, 3072, "gated", True))
+              ("N8_d3072_gated_other_scale", 8, 3072, "gated", True),
+              # the hybrid: jamba's residual stream (d 8192) and its
+              # gated norm at d_inner 16384, the kernel's MAX_D
+              ("N8_d8192", 8, 8192, "add", False),
+              ("N8_d16384_gated", 8, 16384, "gated", False),
+              ("N128_d16384_gated", 128, 16384, "gated", False))
 MAMBA2_PROJ = 6448       # mamba2-780m's in-projection width (z's stride)
+JAMBA_PROJ = 33152       # jamba-1.5-large's (2 * 16384 + 2 * 128 + 128)
 
 
 def rmsnorm_cases(torch, flush):
@@ -584,7 +622,8 @@ def rmsnorm_cases(torch, flush):
                      ).to(sdt)
             if route == "gated":
                 y = torch.randn((N, d), generator=g, device=dev)
-                z = torch.randn((N, MAMBA2_PROJ), generator=g,
+                proj = MAMBA2_PROJ if d < MAMBA2_PROJ else JAMBA_PROJ
+                z = torch.randn((N, proj), generator=g,
                                 device=dev).to(dtype)[:, :d]
 
                 def kernel():
@@ -889,7 +928,9 @@ def ssd_extend_cases(torch, flush):
 
     cases = [("decode", 8, 1, SSD_FULL), ("chunk", 1, 128, SSD_FULL),
              ("reduced_g2_T5", 2, 5, SSD_REDUCED_G2),
-             ("verify_T5", 8, 5, SSD_FULL)]
+             ("verify_T5", 8, 5, SSD_FULL),
+             ("jamba_decode", 8, 1, SSD_JAMBA),
+             ("jamba_T16", 8, 16, SSD_JAMBA)]
     out, errs = [], []
     for name, b, T, (h, p, groups, n) in cases:
         g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -936,7 +977,8 @@ def ssd_extend_cases(torch, flush):
             and rec["dt0_row_unchanged"] \
             and rec["ssd_step_equals_T1_kernel"] \
             and rec["ckpt_equals_incoming"]
-        if name in ("decode", "chunk", "verify_T5"):
+        if name in ("decode", "chunk", "verify_T5", "jamba_decode",
+                    "jamba_T16"):
             bms, by, nbytes, flops = _ssd_extend_bound(s0, x, dt, B, C)
             sbuf, cbuf = torch.empty_like(s0), torch.empty_like(s0)
             rec.update(
@@ -1037,7 +1079,8 @@ def ssd_cases(torch, flush):
     cases = [("b1_l1024", 1, 1024, SSD_FULL, 256, False),
              ("b2_l512", 2, 512, SSD_FULL, 256, False),
              ("reduced_g2_l64", 2, 64, SSD_REDUCED_G2, 32, False),
-             ("reduced_g2_l64_init", 2, 64, SSD_REDUCED_G2, 32, True)]
+             ("reduced_g2_l64_init", 2, 64, SSD_REDUCED_G2, 32, True),
+             ("jamba_b1_l1024", 1, 1024, SSD_JAMBA, 256, False)]
     out, errs = [], []
     for name, b, l, (h, p, groups, n), chunk, init in cases:
         g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1144,6 +1187,11 @@ def flash_attention_cases(torch, flush):
         ("hd40", 2, 1024, 32, 8, 40, "bfloat16", True, 0),
         ("g8", 2, 1024, 32, 4, 64, "bfloat16", True, 0),
         ("fp32", 2, 1024, 32, 8, 64, "float32", True, 0),
+        # starcoder2-15b's G 12 (bq 5 query positions a block) and
+        # gemma2-9b-class's hd 256 under its 4096-token window
+        ("g12_hd128", 2, 1024, 48, 4, 128, "bfloat16", True, 0),
+        ("gemma2_hd256_window4096", 1, 6144, 16, 8, 256, "bfloat16", True,
+         4096),
     ]
     out, errs = [], []
     for name, B, L, Hq, Hkv, hd, dname, causal, window in cases:
@@ -1242,12 +1290,13 @@ def card_tests():
 # --------------------------------------------------------------------- #
 # phase 4: 2-layer full-width model, card against CPU
 # --------------------------------------------------------------------- #
-def model_check(torch, variant="", quant="", phase="model"):
+def model_check(torch, variant="", quant="", phase="model",
+                arch="llama3.2-1b"):
     """The 2-layer full-width fp32 model on the card against the same
     model on the CPU: a 128-token extend and 8 greedy decode steps, logits
     within 2e-3 and tokens identical. ``variant``/``quant`` as in the
     serve CLI (the weights, from one seed, quantized on the CPU and
-    copied to the card)."""
+    copied to the card); a ``reduced`` variant keeps its own depth."""
     import numpy as np
 
     from repro_torch import kernels
@@ -1255,7 +1304,7 @@ def model_check(torch, variant="", quant="", phase="model"):
     from repro_torch.models.model import build
     from repro_torch.quant import quantize_for_cfg
 
-    cfg = get_arch("llama3.2-1b", variant=variant).replace(
+    cfg = get_arch(arch, variant=variant).replace(
         n_layers=2, dtype="float32", param_dtype="float32")
     if quant:
         cfg = cfg.replace(quant=quant)
@@ -2195,25 +2244,48 @@ def _state_bytes(engine):
                if key in ("conv", "ssm", "conv_ckpt", "ssm_ckpt"))
 
 
+def _sublayers(cfg):
+    """(attention, SSM, FFN-carrying, MoE) sublayers of ``cfg``'s stack."""
+    from repro_torch.models.transformer import block_spec, n_blocks
+
+    spec, nb = block_spec(cfg), n_blocks(cfg)
+    return tuple(nb * sum(f(m, ffn) for m, ffn in spec) for f in (
+        lambda m, ffn: m == "attn", lambda m, ffn: m == "ssm",
+        lambda m, ffn: ffn is not None, lambda m, ffn: ffn == "moe"))
+
+
+def _norms_per_forward(cfg):
+    """Fused-norm launches of one forward: ``ln1`` a sublayer, ``ln2``
+    a sublayer with an FFN, the gated norm an SSM mixer, and ``ln_f``:
+    2 n_layers + 1 for a dense, MoE or pure SSM stack, 23 a Jamba
+    super-block and ``ln_f``."""
+    n_attn, n_ssm, n_ffn, _ = _sublayers(cfg)
+    return n_attn + n_ssm + n_ffn + n_ssm + 1
+
+
 def _forward_launches(cfg, forwards, paged, quant):
     """Kernel launches of ``forwards`` cached forwards of ``cfg``'s stack:
-    one attention launch a layer (none on an int8 cache, which plain
-    attention reads, as in the JAX model), 2 * n_layers + 1 norms, and 7
-    projections a layer through the dequantize-matmul of ``quant`` (the
-    tied LM head is the bf16 embedding table); an SSM stack instead
-    makes one recurrence launch a layer (a decode is its T = 1 launch)
-    and no attention, and its norms are ``ln1`` and the gated norm of
-    each layer and ``ln_f``."""
-    ssm = cfg.ssm is not None
-    attn = 0 if (cfg.kv_quant or ssm) else cfg.n_layers * forwards
-    proj = 7 * cfg.n_layers * forwards
+    one attention launch an attention sublayer (none on an int8 cache,
+    which plain attention reads, as in the JAX model), one recurrence
+    launch an SSM sublayer (a decode is its T = 1 launch), the norms of
+    ``_norms_per_forward``, and through the dequantize-matmul of
+    ``quant`` the projections: 4 an attention sublayer (q, k, v, o), 2
+    an SSM mixer (in, out), 3 an MLP, 3 a MoE FFN's shared expert (the
+    routed experts and the router stay unquantized, as in JAX), and an
+    untied LM head (a tied one is the bf16 embedding table): 7 a dense
+    layer, 4 a MoE layer (7 with a shared expert)."""
+    n_attn, n_ssm, n_ffn, n_moe = _sublayers(cfg)
+    attn = 0 if cfg.kv_quant else n_attn * forwards
+    shared = 3 * n_moe if cfg.moe is not None and cfg.moe.n_shared else 0
+    proj = (4 * n_attn + 2 * n_ssm + 3 * (n_ffn - n_moe) + shared
+            + (0 if cfg.tie_embeddings else 1)) * forwards
     return {"decode_attention": 0 if paged else attn,
             "paged_decode_attention": attn if paged else 0,
             "quant_matmul_int8": proj if quant == "int8" else 0,
             "quant_matmul_int4": proj if quant == "int4" else 0,
-            "rmsnorm": (2 * cfg.n_layers + 1) * forwards,
+            "rmsnorm": _norms_per_forward(cfg) * forwards,
             "ssd": 0,
-            "ssd_extend": cfg.n_layers * forwards if ssm else 0,
+            "ssd_extend": n_ssm * forwards,
             "flash_attention": 0}
 
 
@@ -3451,6 +3523,288 @@ def _tree_map(tree, fn):
     return fn(tree)
 
 
+# --------------------------------------------------------------------- #
+# the MoE, hybrid and other dense families
+# --------------------------------------------------------------------- #
+#: held card against CPU at full width cut to 2 layers, fp32: the MoE
+#: family (G 1 and 3) and the dense ids (G 6, 5, 12; head_dim 256 under
+#: a window), each with the query-head groups its flash and decode
+#: attention launches take; mixtral-8x7b (93 GB of bf16 weights, more
+#: than one card) at its reduced width
+FAMILY_ARCHS = (("qwen2-moe-a2.7b", ""), ("granite-moe-3b-a800m", ""),
+                ("internlm2-20b", ""), ("qwen2.5-14b", ""),
+                ("starcoder2-15b", ""), ("gemma2-9b-class", ""),
+                ("mixtral-8x7b", "reduced"))
+#: jamba-1.5-large-398b on one card: one super-block (8 sublayers) of 8
+#: of its 16 experts, top-2 kept (51.6 GB of bf16 weights; 90.3 GB with
+#: all 16)
+JAMBA_EXPERTS = 8
+FAMILY_TOL = 2e-3
+
+
+class _ExpertLog:
+    """While active, records the experts every MoE router call picks
+    (``moe._gates``' top-k ids, each row sorted, read back after the
+    run)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.mod, self.real, self.ids = moe, moe._gates, []
+
+        def gates(p, xf, m):
+            out = self.real(p, xf, m)
+            self.ids.append(out[2])
+            return out
+
+        moe._gates = gates
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._gates = self.real
+
+    def host(self):
+        import numpy as np
+        return [np.sort(i.reshape(-1, i.shape[-1]).cpu().numpy(), -1)
+                for i in self.ids]
+
+
+def _card_pair(cfg):
+    """``cfg``'s model on the CPU and on the card with one set of
+    weights: made on the card from the seed, copied to the host."""
+    from repro_torch.models.model import build
+
+    gpu, cpu = build(cfg, "cuda"), build(cfg, "cpu")
+    p_gpu = gpu.init(SEED)
+    return (("cpu", cpu, _tree_to(p_gpu, "cpu")), ("gpu", gpu, p_gpu))
+
+
+def _card_vs_cpu(torch, cfg, runs_on, phase, extra=None):
+    """The cache-free path (a 128-token ``prefill``: flash attention, MoE
+    capacity dispatch, the SSD dual form) and the cached path (a
+    128-token extend: decode attention, dense routing, the recurrence),
+    each followed by 8 greedy decodes, on the CPU and on the card. Gates:
+    logits within ``FAMILY_TOL``, greedy tokens identical, the same
+    experts picked for every token of every router call, and the card
+    run's launches of the path's kernels (counted from 0 just before)."""
+    import numpy as np
+
+    from repro_torch import kernels
+
+    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab, 128)
+    t0 = time.perf_counter()
+    runs = {}
+    for name, model, params in runs_on:
+        if name == "gpu":
+            kernels.reset_launch_counts()
+        out = {}
+        for path in ("prefill", "extend"):
+            with _ExpertLog() as log:
+                cache = model.make_cache(1, 256)
+                toks = torch.from_numpy(tokens).to(model.device)[None]
+                if path == "prefill":
+                    logits, _ = model.prefill(params, {"tokens": toks},
+                                              cache)
+                else:
+                    logits, _ = model.extend_into_cache(params, toks, cache)
+                seq, steps = [int(logits[0, -1].argmax())], \
+                    [logits[0].cpu()]
+                for _ in range(8):
+                    tok = torch.tensor([[seq[-1]]], device=model.device)
+                    logits, _ = model.decode_step(params, tok, cache)
+                    steps.append(logits[0].cpu())
+                    seq.append(int(logits[0, -1].argmax()))
+            out[path] = (seq, steps, log.host())
+        if name == "gpu":
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+        runs[name] = out
+    rec = {"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+           "n_kv_heads": cfg.n_kv_heads, "G": cfg.n_heads // cfg.n_kv_heads
+           if cfg.n_kv_heads else 0, "head_dim": cfg.hd,
+           "window": cfg.sliding_window, "dtype": cfg.dtype,
+           "prompt": 128, "decode_steps": 8, "tol": FAMILY_TOL,
+           "launches_gpu": counts, **(extra or {})}
+    if cfg.moe is not None:
+        rec.update(n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+                   n_shared=cfg.moe.n_shared)
+    ok = all(counts[k] > 0 for k in (
+        ["decode_attention", "flash_attention"] * bool(cfg.n_heads)
+        + ["ssd", "ssd_extend"] * (cfg.ssm is not None)))
+    for path in ("prefill", "extend"):
+        (ts_c, lg_c, ex_c), (ts_g, lg_g, ex_g) = runs["cpu"][path], \
+            runs["gpu"][path]
+        err = max((a - b).abs().max().item() for a, b in zip(lg_c, lg_g))
+        experts = len(ex_c) == len(ex_g) and all(
+            np.array_equal(a, b) for a, b in zip(ex_c, ex_g))
+        rec[f"{path}_logits_max_abs_err"] = err
+        rec[f"{path}_tokens_gpu"] = ts_g
+        rec[f"{path}_tokens_equal"] = ts_g == ts_c
+        rec[f"{path}_router_calls"] = len(ex_g)
+        rec[f"{path}_experts_equal"] = experts
+        ok = ok and err <= FAMILY_TOL and ts_g == ts_c and experts
+    rec["seconds"] = time.perf_counter() - t0
+    rec["ok"] = ok
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"{phase}: card and CPU disagree: {rec}")
+    return counts
+
+
+def model_families(torch):
+    """``FAMILY_ARCHS`` card against CPU (``_card_vs_cpu``), one line an
+    architecture. Returns the card runs' launch counts by architecture."""
+    from repro_torch.configs import get_arch
+
+    out = {}
+    for arch, variant in FAMILY_ARCHS:
+        cfg = get_arch(arch, variant=variant).replace(
+            n_layers=2, dtype="float32", param_dtype="float32")
+        pair = _card_pair(cfg)
+        out[cfg.name] = _card_vs_cpu(torch, cfg, pair, "model_families")
+        del pair
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def model_hybrid(torch):
+    """jamba-1.5-large-398b's reduced super-block (attention, seven SSM
+    mixers, MoE on the even sublayers) widened to d_model 512 with the
+    SSM's published head_dim 128 and d_state 128 (8 heads), so the SSD
+    kernels run at p 128 inside a whole model: card against CPU in fp32
+    (``_card_vs_cpu``). Returns the card run's launch counts."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("jamba-1.5-large-398b", variant="reduced")
+    cfg = cfg.replace(d_model=512, head_dim=512 // cfg.n_heads,
+                      ssm=dataclasses.replace(cfg.ssm, head_dim=128,
+                                              d_state=128))
+    pair = _card_pair(cfg)
+    counts = _card_vs_cpu(torch, cfg, pair, "model_hybrid", extra={
+        "ssm_head_dim": cfg.ssm.head_dim, "ssm_d_state": cfg.ssm.d_state,
+        "ssm_heads": cfg.ssm.n_heads(cfg.d_model)})
+    del pair
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _nbytes(tree):
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    return tree.nbytes
+
+
+def _family_serve(torch, cfg, phase, paged):
+    """``cfg`` at full width, bf16, weights from the seed, through the
+    serve phase's engine and requests (``serve``: 8 slots, cache 1024,
+    chunks of 128, 16 requests, 32 new tokens each, launch counters =
+    the step trace) on graphs; a profiled second batch (``profile``: no
+    capture after ``mark_steady``, 2 host syncs a poll, counters = the
+    profiler's kernel counts); the same requests on eager steps (tokens
+    bitwise equal to the graphs run's) and, where ``paged``, on a pool of
+    pages of 16 (tokens bitwise equal to the rings', the pool drained),
+    else the pool refused with ``ValueError``. One summary line: the
+    weights' and KV's bytes, the init time, tok/s, TTFT and decode ms
+    p50 of each run and the least time a forward can take, every weight
+    byte read once (dense routing reads every expert). Returns the
+    graphs run's launch counts by phase, and the pool run's."""
+    from repro_torch.models.model import build
+    from repro_torch.serving.engine import Engine
+
+    t0 = time.perf_counter()
+    model = build(cfg)
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    counts, engine, rec, tokens = serve(torch, model, params, phase=phase)
+    prof = profile(torch, engine, phase.replace("serve", "profile"))
+    del engine
+    gc.collect()
+    runs = {"graphs": rec}
+    _, engine, erec, etokens = serve(torch, model, params, graphs=False,
+                                     phase=f"{phase}_eager")
+    runs["eager"] = erec
+    del engine
+    gc.collect()
+    out_counts = {phase: counts}
+    if paged:
+        pcounts, engine, prec, _ = serve(torch, model, params, paged=True,
+                                         base=(rec, tokens),
+                                         phase=f"{phase}_paged")
+        runs["paged"] = prec
+        out_counts[f"{phase}_paged"] = pcounts
+        del engine
+        pool = "served"
+    else:
+        try:
+            Engine(model, params, max_batch=8, cache_len=1024, paged=True)
+        except ValueError as err:
+            pool = f"ValueError: {err}"
+        else:
+            pool = "accepted"
+    table = params["embed"]["table"].nbytes
+    weights = _nbytes(params)
+    experts = sum(sub["moe"][k].nbytes for sub in params["blocks"].values()
+                  if "moe" in sub for k in ("wi", "wg", "wo"))
+    out = {"phase": f"{phase}_summary", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "n_experts": cfg.moe.n_experts,
+           "top_k": cfg.moe.top_k, "weight_bytes": weights,
+           "expert_bytes": experts, "embed_table_bytes": table,
+           "kv_bytes": rec["kv_bytes"], "state_bytes": rec["state_bytes"],
+           "init_s": t_init,
+           "forward_bound_ms": (weights - table) / HBM_BYTES_PER_S * 1e3,
+           "graphs_equal_eager": etokens == tokens,
+           "pool": pool, "profile_busy_share": prof["device_busy_share"],
+           "profile_decode_attention": prof["decode_attention"],
+           **{f"{k}_{m}": r[k] for m, r in runs.items() for k in (
+               "tok_per_s", "ttft_ms_p50", "decode_ms_p50", "peak_mem_gib")}}
+    out["ok"] = out["graphs_equal_eager"] and (
+        pool == "served" if paged else pool.startswith("ValueError"))
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"{phase}: {out}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out_counts
+
+
+def serve_moe(torch):
+    """qwen2-moe-a2.7b at full width and depth (24 layers, 60 experts
+    top-4 and 4 shared, bf16: 28.6 GB of weights) through
+    ``_family_serve`` on rings, eagerly and on the pool."""
+    from repro_torch.configs import get_arch
+
+    return _family_serve(torch, get_arch("qwen2-moe-a2.7b"), "serve_moe",
+                         paged=True)
+
+
+def serve_hybrid(torch):
+    """jamba-1.5-large-398b at its published widths (d_model 8192, 64
+    heads over 8 KV heads, d_expert 24576, SSM head_dim 128, d_state 128),
+    one super-block of 8 sublayers and 8 of its 16 experts (top-2 kept):
+    ``JAMBA_EXPERTS``, 51.6 GB of bf16 weights, through
+    ``_family_serve`` on rings and eagerly; the pool raises, as in JAX."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("jamba-1.5-large-398b")
+    cfg = cfg.replace(n_layers=cfg.attn_every, moe=dataclasses.replace(
+        cfg.moe, n_experts=JAMBA_EXPERTS))
+    emit({"phase": "serve_hybrid_cut", "arch": cfg.name,
+          "n_layers": "72 -> 8 (one super-block)",
+          "n_experts": f"16 -> {JAMBA_EXPERTS} (top-2 kept)",
+          "why": "90.3 GB of bf16 weights for one super-block with all "
+                 "16 experts; 80 GB on the card"})
+    return _family_serve(torch, cfg, "serve_hybrid", paged=False)
+
+
 def spec_exact(torch):
     """The exact identity gates, in fp32: a 2-layer full-width
     llama3.2-1b (the ``spec`` variant's ``int8@1`` self-draft, and the
@@ -3788,9 +4142,10 @@ def profile(torch, engine, phase="profile"):
     kernel time by kernel, and its share of the wall time (the rest is
     the device idling while the host launches work); ``seconds`` is what
     the phase adds to a run, the profiler's own bookkeeping included.
-    The ``rmsnorm`` counter, set to 0 just before, must read 2 n_layers
-    + 1 launches a forward just after (97 on mamba2-780m, 33 on
-    llama3.2-1b: the gated norm counts there too). The engine's steps
+    The ``rmsnorm`` counter, set to 0 just before, must read
+    ``_norms_per_forward`` launches a forward just after (2 n_layers + 1:
+    97 on mamba2-780m, the gated norm counting there too, 33 on
+    llama3.2-1b, 49 on qwen2-moe-a2.7b; 24 on a Jamba super-block). The engine's steps
     run as CUDA graphs (or eagerly, in ``serve_eager``'s eager turns):
     the phase marks it steady first and fails on any capture in the
     window (``steady_compiles``), on a host stream sync
@@ -3840,7 +4195,7 @@ def profile(torch, engine, phase="profile"):
     kinds = engine.step_kinds[n0:]
     launches = sum(c for _, c, _ in rows)
     forwards = kinds.count("plain") + 2 * kinds.count("mixed")
-    norms = (2 * engine.model.cfg.n_layers + 1) * forwards
+    norms = _norms_per_forward(engine.model.cfg) * forwards
     rec = {"phase": phase, "requests": 8, "prompt_len": 256,
            "max_new_tokens": 16, "steps": len(kinds),
            "plain_steps": kinds.count("plain"),
@@ -3985,6 +4340,7 @@ def main() -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": smi})
 
     t0 = time.perf_counter()
+    marks = [("start", t0)]
     _build.build_all()
     t_nvcc = time.perf_counter() - t0
     ptxas = ptxas_table(_build.BUILD_LOG.values())
@@ -4015,10 +4371,17 @@ def main() -> int:
     ssd, ssd_err = ssd_cases(torch, flush)
     flash, flash_err = flash_attention_cases(torch, flush)
     del flush
+    marks.append(("build_and_kernels", time.perf_counter()))
     card_tests()
+    marks.append(("card_tests", time.perf_counter()))
     model_check(torch)
     model_check(torch, variant="edge", phase="model_quant")
     model_check(torch, quant="int8", phase="model_quant")
+    # quantized SSM stacks: the edge profile and int8 weights on mamba2
+    model_check(torch, variant="reduced+edge", phase="model_quant",
+                arch="mamba2-780m")
+    model_check(torch, variant="reduced", quant="int8", phase="model_quant",
+                arch="mamba2-780m")
     spec_exact(torch)
     model, params = served_model()
     counts, engine, rec, tokens = serve(torch, model, params)
@@ -4045,6 +4408,7 @@ def main() -> int:
     int8_counts, edge_counts = serve_quantized(torch, model, params, tokens)
     del model, params
     gc.collect()
+    marks.append(("llama_serve", time.perf_counter()))
     # the SSM family: mamba2-780m, 2 layers card against CPU, then the
     # full 48-layer bf16 model through the engine
     pair = _ssm_pair()
@@ -4068,6 +4432,7 @@ def main() -> int:
     del ssm_model, ssm_params
     gc.collect()
     torch.cuda.empty_cache()
+    marks.append(("ssm", time.perf_counter()))
     # the Zoo: model services card against CPU, then the paper's
     # deployment example at full width on graphs, fig. 2's turn for it
     # and for llama3.2-1b's model.lm, then the bf16 classifier at full
@@ -4085,6 +4450,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     zoo_plain(torch)
+    marks.append(("zoo", time.perf_counter()))
+    # the MoE, hybrid and other dense families: card against CPU, then
+    # qwen2-moe at full width and depth and jamba's super-block served
+    family_counts = model_families(torch)
+    family_counts["jamba-reduced-p128"] = model_hybrid(torch)
+    family_counts.update(serve_moe(torch))
+    family_counts.update(serve_hybrid(torch))
+    marks.append(("families", time.perf_counter()))
     # speculative decoding last: its profile windows come after every
     # earlier phase's, whose gates count the records a window loses
     # (more in the later windows of a process)
@@ -4098,6 +4471,10 @@ def main() -> int:
                                ssm_tokens))
     del ssm_model
     gc.collect()
+    marks.append(("spec", time.perf_counter()))
+    emit({"phase": "timing", "seconds": {
+        name: t - prev for (name, t), (_, prev) in zip(marks[1:], marks)},
+        "total_s": marks[-1][1] - marks[0][1]})
 
     def entry(name, route, src, tpu, err, rows, launches, extra=()):
         head = rows[0]
@@ -4149,6 +4526,9 @@ def main() -> int:
               flash, zoo_counts, extra=("bound_by", "plan"))]
     for line in kernel_lines:
         line["spec_launches"] = spec_launches(line["name"])
+        line["family_launches"] = {
+            k: c[line["name"]] for k, c in family_counts.items()
+            if c[line["name"]]}
     emit({"kernels": kernel_lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

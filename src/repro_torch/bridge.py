@@ -19,8 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dispatch import resolve_device
-from repro_torch.models.ssm import F32_LEAVES
-from repro_torch.models.transformer import param_shapes
+from repro_torch.models.transformer import is_f32_leaf, param_shapes
 from repro_torch.quant.params import quantized_shapes
 
 _NP_DTYPES = {torch.int8: np.int8, torch.float32: np.float32}
@@ -56,8 +55,10 @@ def params_from_jax(tree, cfg: ModelConfig, device=None) -> Dict[str, Any]:
     (nb, K/2, N) int8, ``scale`` (nb, N) or (nb, K/gs, N) f32). Raises
     when a key or a shape differs from what ``cfg`` builds, or a leaf's
     dtype from ``cfg.param_dtype`` (float32 for an SSM mixer's
-    ``A_log``/``D``/``dt_bias``, the QTensor format's for a quantized
-    leaf)."""
+    ``A_log``/``D``/``dt_bias`` and a MoE router's ``w``, chosen by the
+    leaf's path: ``transformer.is_f32_leaf``; the QTensor format's for a
+    quantized leaf; the experts and the router stay unquantized, as the
+    JAX package's ``quantize_params`` leaves them)."""
     device = resolve_device(device)
     want = quantized_shapes(param_shapes(cfg), cfg)
 
@@ -74,8 +75,7 @@ def params_from_jax(tree, cfg: ModelConfig, device=None) -> Dict[str, Any]:
             shape, want_dt = ref[0], np.dtype(_NP_DTYPES[ref[1]]).name
         else:
             shape = ref
-            want_dt = "float32" if path[-1] in F32_LEAVES \
-                else cfg.param_dtype
+            want_dt = "float32" if is_f32_leaf(path) else cfg.param_dtype
         if tuple(np.shape(node)) != tuple(shape):
             raise ValueError(f"params{list(path)}: shape "
                              f"{np.shape(node)} != {shape}")

@@ -1,27 +1,30 @@
-"""Architecture registry: ``--arch <id>`` resolves through ``ARCHS``.
-
-Only the architectures whose family the port can build are registered;
-the JAX package's other ids raise ``NotImplementedError`` naming the
-ROADMAP item that ports their family."""
-from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
+"""Architecture registry: ``--arch <id>`` resolves through ``ARCHS``,
+and the two stretch ids of ``extra.py`` through ``get_arch`` alone, as
+in the JAX package. The encoder-decoder id raises
+``NotImplementedError`` naming the ROADMAP item that ports its family."""
+from repro_torch.configs.base import (SHAPES, ModelConfig, MoEConfig,
+                                      ShapeConfig, SSMConfig)
+from repro_torch.configs.extra import EXTRA_ARCHS
+from repro_torch.configs.granite_moe_3b_a800m import CONFIG as _granite
+from repro_torch.configs.internlm2_20b import CONFIG as _internlm2
+from repro_torch.configs.jamba_1_5_large_398b import CONFIG as _jamba
 from repro_torch.configs.llama3_2_1b import CONFIG as _llama32
 from repro_torch.configs.mamba2_780m import CONFIG as _mamba2
 from repro_torch.configs.pixtral_12b import CONFIG as _pixtral
+from repro_torch.configs.qwen2_5_14b import CONFIG as _qwen25
+from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as _qwen2moe
+from repro_torch.configs.starcoder2_15b import CONFIG as _starcoder2
 
-ARCHS = {c.name: c for c in [_llama32, _mamba2, _pixtral]}
+ARCHS = {c.name: c for c in [
+    _internlm2, _starcoder2, _qwen25, _qwen2moe, _pixtral, _llama32,
+    _granite, _mamba2, _jamba,
+]}
 
 #: architecture ids of the JAX package the port cannot build yet, with
 #: the ROADMAP item (section 1) that brings their family over
 NOT_PORTED = {
-    "internlm2-20b": "item 10 of section 1 (other architectures)",
-    "qwen2.5-14b": "item 10 of section 1 (other architectures)",
-    "starcoder2-15b": "item 10 of section 1 (other architectures)",
-    "qwen2-moe-a2.7b": "item 10 of section 1 (MoE family)",
-    "granite-moe-3b-a800m": "item 10 of section 1 (MoE family)",
-    "jamba-1.5-large-398b": "item 10 of section 1 (hybrid family)",
-    "seamless-m4t-medium": "item 10 of section 1 (encoder-decoder)",
-    "mixtral-8x7b": "item 10 of section 1 (MoE family)",
-    "gemma2-9b-class": "item 10 of section 1 (other architectures)",
+    "seamless-m4t-medium": "item 10b of section 1 (frontend families: "
+                           "the encoder-decoder)",
 }
 
 #: variants of the JAX registry the port does not build yet
@@ -43,10 +46,10 @@ def get_arch(name: str, *, variant: str = "") -> ModelConfig:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"{name!r} is not ported yet: ROADMAP {NOT_PORTED[name]}")
-    if name not in ARCHS:
-        raise KeyError(f"unknown architecture {name!r}; "
-                       f"known: {sorted(ARCHS)}")
-    cfg = ARCHS[name]
+    cfg = ARCHS.get(name) or EXTRA_ARCHS.get(name)
+    if cfg is None:
+        raise KeyError(f"unknown architecture {name!r}; known: "
+                       f"{sorted(ARCHS)} and {sorted(EXTRA_ARCHS)}")
     for v in filter(None, variant.split("+")):
         if v == "swa":
             cfg = cfg.replace(name=cfg.name + "-swa", sliding_window=4096)
@@ -76,4 +79,5 @@ def get_arch(name: str, *, variant: str = "") -> ModelConfig:
     return cfg
 
 
-__all__ = ["ARCHS", "SHAPES", "ModelConfig", "ShapeConfig", "get_arch"]
+__all__ = ["ARCHS", "EXTRA_ARCHS", "SHAPES", "ModelConfig", "MoEConfig",
+           "SSMConfig", "ShapeConfig", "get_arch"]

@@ -5,10 +5,11 @@ The port's own copy of the JAX package's ``configs/base.py``: a frozen
 Dtypes are kept as names (``"bfloat16"``, ``"float32"``) so a config
 reads the same in both packages; ``act_dtype`` / ``p_dtype`` resolve
 them to ``torch`` dtypes. Only the fields the ported families read
-are carried: the dense decoder's, the Mamba-2 mixer's (``SSMConfig``)
-and the frontend stub's (``FrontendConfig``, the VLM's patch
-embeddings); the MoE and encoder sub-configs arrive with the families
-that need them (ROADMAP section 1, item 10).
+are carried: the dense decoder's, the mixture-of-experts FFN's
+(``MoEConfig``), the Mamba-2 mixer's (``SSMConfig``), the hybrid's
+interleave (``attn_every``) and the frontend stub's (``FrontendConfig``,
+the VLM's patch embeddings); the encoder sub-config arrives with the
+encoder-decoder family (ROADMAP section 1, item 10b).
 """
 from __future__ import annotations
 
@@ -17,6 +18,22 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts FFN configuration."""
+
+    n_experts: int                  # routed experts
+    top_k: int
+    d_expert: int                   # hidden dim of each routed expert
+    n_shared: int = 0               # always-on shared experts
+    d_shared: int = 0               # hidden dim of the shared expert block
+    capacity_factor: float = 1.25   # tokens-per-expert capacity multiplier
+    router_jitter: float = 0.0
+    moe_every: int = 1              # 1 = every layer is MoE; 2 = alternate
+    aux_loss_weight: float = 0.01   # load-balance auxiliary loss
+    group_routing: bool = False     # route within per-row token groups
 
 
 @dataclass(frozen=True)
@@ -51,8 +68,7 @@ class FrontendConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | vlm | ssm (the families
-                                    # ported so far)
+    family: str                     # dense | moe | ssm | hybrid | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -80,7 +96,10 @@ class ModelConfig:
                                     # "<prec>[@<blocks>]" (quant.self_draft,
                                     # e.g. "int8@1") or "ngram"
     spec_gamma: int = 0             # draft tokens proposed per spec step
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    attn_every: int = 0             # hybrid: one attention sublayer per
+                                    # this many (the super-block's size)
     frontend: Optional[FrontendConfig] = None
     dtype: str = "bfloat16"         # activation dtype
     param_dtype: str = "bfloat16"
@@ -106,7 +125,10 @@ class ModelConfig:
         The same rule as the JAX package, so both packages build the same
         shapes from one variant name; an attention-free config keeps no
         heads (head_dim 1, no FFN) and a smaller SSM (d_state 32,
-        head_dim 32, chunk 32); a frontend keeps 16 tokens of 64 dims."""
+        head_dim 32, chunk 32); a mixture of experts keeps at most 4
+        experts, top-2, of 128 hidden units, and one shared expert of
+        128; a frontend keeps 16 tokens of 64 dims; a hybrid keeps one
+        full super-block (``n_layers = attn_every``)."""
         d_model = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
         if n_heads:
@@ -127,12 +149,23 @@ class ModelConfig:
             dtype="float32",
             param_dtype="float32",
         )
+        if self.moe is not None:
+            kw["moe"] = dataclasses.replace(
+                self.moe,
+                n_experts=min(self.moe.n_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+                d_expert=min(self.moe.d_expert, 128),
+                n_shared=min(self.moe.n_shared, 1),
+                d_shared=min(self.moe.d_shared, 128),
+            )
         if self.ssm is not None:
             kw["ssm"] = dataclasses.replace(self.ssm, d_state=32,
                                             head_dim=32, chunk=32)
         if self.frontend is not None:
             kw["frontend"] = dataclasses.replace(self.frontend, n_tokens=16,
                                                  d_embed=64)
+        if self.attn_every:
+            kw["n_layers"] = self.attn_every    # one full super-block
         return self.replace(**kw)
 
 

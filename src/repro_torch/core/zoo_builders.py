@@ -74,7 +74,7 @@ def classifier_service_for(cfg: ModelConfig, n_classes: int, *, arch: str,
     def fn(params, inputs):
         bp = params["backbone"]
         x = T.embed_inputs(bp, cfg, embeddings=inputs["embeddings"])
-        x, res = T._run_blocks(bp, x, cfg, mode="train")
+        x, res, _ = T._run_blocks(bp, x, cfg, mode="train")
         # the last block's output is still pending: the final norm adds it
         h, _ = L.rms_norm(bp["ln_f"], x, cfg.norm_eps, residual=res)
         pooled = h.float().mean(dim=1)

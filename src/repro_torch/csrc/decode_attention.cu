@@ -49,6 +49,11 @@
 //     product code on one 16-row tile, the 4 warps taking a quarter of
 //     each tile's slots each; their (m, l, acc) are combined through
 //     shared memory at the end in a fixed order.
+//   At hd 256 (gemma2-class) a lane's share of O for 16 rows would take
+//   128 registers, so the warps of a row group split the head dim
+//   instead: every warp scores the whole tile (the same S, bit for bit)
+//   and accumulates its slice of O; "mma_rows" then holds 32 rows a
+//   block (2 row groups x 2 slices), "mma_keys" 16 (4 slices).
 //   f32 ("simt"): products on the CUDA cores, p in f32, no split (the
 //     port's first design, kept for the fp32 gates: TF32 would not hold
 //     1e-4 against the plain version).
@@ -119,18 +124,25 @@ constexpr int mma_smem_bytes() {
   return (16 * WR + 4 * BK) * (HD + 8) * 2 + 2 * BK * 4;
 }
 
-// WR: row groups of 16 in a block (4: "mma_rows", 1: "mma_keys"); the
-// 4 / WR warps of a row group split each tile's slots between them
-template <int HD, int WR, bool PAGED>
+// WR: row groups of 16 in a block (4: "mma_rows", 1: "mma_keys"); WD:
+// slices of the head dim, each a warp's share of O (1 up to hd 128; at
+// hd 256, where O alone would take 128 registers a lane, 2 on the 32
+// rows of "mma_rows" and 4 on "mma_keys": every warp of a row group
+// scores the whole tile, a bitwise equal S, and accumulates its slice);
+// the 4 / (WR * WD) warps left of a row group split each tile's slots
+template <int HD, int WR, int WD, bool PAGED>
 __global__ void __launch_bounds__(MMA_THREADS)
     decode_mma_kernel(Args a) {
-  constexpr int WK = 4 / WR;          // warps sharing a row group
+  static_assert(WR * WD <= 4 && 4 % (WR * WD) == 0, "4 warps a block");
+  static_assert(WD == 1 || 4 == WR * WD, "a slot split keeps whole O");
+  constexpr int WK = 4 / (WR * WD);   // warps splitting a tile's slots
+  constexpr int DW = HD / WD;         // head dims a warp accumulates
   constexpr int KW = BK / WK;         // slots a warp takes of each tile
   constexpr int STR = HD + 8;         // padded shared row (elements)
   constexpr int ROWSB = 16 * WR;      // rows a block
   constexpr int CPR = HD / 8;         // 16-byte chunks a row
   constexpr int NS = KW / 8;          // n-tiles of a warp's S
-  constexpr int NO = HD / 8;          // n-tiles of O
+  constexpr int NO = DW / 8;          // n-tiles of the warp's O
   constexpr int KS = HD / 16;         // k-steps of Q K^T
   // Q's fragments stay in registers up to hd 64; at hd 128 they are
   // re-read from shared memory each tile, which keeps the 64-row tile
@@ -151,7 +163,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
   const int s_lo = split * a.per;
   const int s_hi = min(a.S, s_lo + a.per);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wr = warp % WR, wk = warp / WR;
+  const int wr = warp % WR, wd = warp / WR % WD, wk = warp / (WR * WD);
 
   const bf16* q = static_cast<const bf16*>(a.q);
   // K/V row s of this (sequence, head): kc + row offset, 64-bit
@@ -167,8 +179,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
   auto load = [&](int k0, int st) {
     bf16* dk = sK + st * BK * STR;
     bf16* dv = sV + st * BK * STR;
-#pragma unroll
-    for (int it = 0; it < BK * CPR / MMA_THREADS; ++it) {
+    auto copy = [&](int it) {
       const int i = tid + it * MMA_THREADS;
       const int r = i / CPR, c = (i % CPR) * 8;
       const bool ok = k0 + r < s_hi;
@@ -185,6 +196,15 @@ __global__ void __launch_bounds__(MMA_THREADS)
       }
       attn::cp_async16(dk + r * STR + c, kc + ko + c, ok);
       attn::cp_async16(dv + r * STR + c, vc + vo + c, ok);
+    };
+    if constexpr (HD > 128) {
+      // 16 copies a thread: a loop, so their row addresses are not all
+      // held in registers at once (the paged template spilled unrolled)
+#pragma unroll 1
+      for (int it = 0; it < BK * CPR / MMA_THREADS; ++it) copy(it);
+    } else {
+#pragma unroll
+      for (int it = 0; it < BK * CPR / MMA_THREADS; ++it) copy(it);
     }
     if (tid < BK) {
       const bool ok = k0 + tid < s_hi;
@@ -238,7 +258,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
     }
     if (live) {
       const bf16* tK = sK + (st * BK + wk * KW) * STR;
-      const bf16* tV = sV + (st * BK + wk * KW) * STR;
+      const bf16* tV = sV + (st * BK + wk * KW) * STR + wd * DW;
       const int* tP = sPos + st * BK + wk * KW;
       float s[NS][4];
 #pragma unroll
@@ -344,19 +364,19 @@ __global__ void __launch_bounds__(MMA_THREADS)
     const long long row = (static_cast<long long>(b) * a.T + t) * a.Hq + head;
     if (a.splits == 1) {
       const float inv = 1.f / (l[h] == 0.f ? 1.f : l[h]);
-      bf16* orow = static_cast<bf16*>(a.out) + row * HD;
+      bf16* orow = static_cast<bf16*>(a.out) + row * HD + wd * DW;
 #pragma unroll
       for (int n = 0; n < NO; ++n)
         *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * (lane & 3)) =
             __floats2bfloat162_rn(o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
     } else {
       const long long prow = split * NR + row;
-      float* wa = a.ws_acc + prow * HD;
+      float* wa = a.ws_acc + prow * HD + wd * DW;
 #pragma unroll
       for (int n = 0; n < NO; ++n)
         *reinterpret_cast<float2*>(wa + n * 8 + 2 * (lane & 3)) =
             make_float2(o[n][2 * h], o[n][2 * h + 1]);
-      if ((lane & 3) == 0) {
+      if ((lane & 3) == 0 && wd == 0) {
         a.ws_ml[2 * prow] = m[h];
         a.ws_ml[2 * prow + 1] = l[h];
       }
@@ -384,19 +404,20 @@ __global__ void decode_combine_kernel(const float* ws_acc,
   out[i] = __float2bfloat16(acc * (1.f / (l == 0.f ? 1.f : l)));
 }
 
-template <int HD, int WR, bool PAGED>
+template <int HD, int WR, int WD, bool PAGED>
 int launch_mma(const Args& a, cudaStream_t stream) {
   constexpr int bytes = mma_smem_bytes<HD, WR>();
   static bool opted = false;           // once per template, per process
   if (!opted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_mma_kernel<HD, WR, PAGED>,
+        decode_mma_kernel<HD, WR, WD, PAGED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted = true;
   }
   const dim3 grid(a.B * a.Hkv, (a.R + 16 * WR - 1) / (16 * WR), a.splits);
-  decode_mma_kernel<HD, WR, PAGED><<<grid, MMA_THREADS, bytes, stream>>>(a);
+  decode_mma_kernel<HD, WR, WD, PAGED>
+      <<<grid, MMA_THREADS, bytes, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return static_cast<int>(err);
   const long long NR = static_cast<long long>(a.B) * a.T * a.Hq;
@@ -445,10 +466,11 @@ __global__ void __launch_bounds__(THREADS) decode_f32_kernel(Args a) {
   constexpr int NV = BKS * VPR / THREADS;  // loads per thread per tile
   static_assert(BKS * VPR % THREADS == 0, "tile must split evenly");
   static_assert(BKS <= THREADS, "one thread per slot position");
-  __shared__ float sK[BKS * KSTR];
-  __shared__ float sV[BKS * KSTR];
-  __shared__ float sQ[ROWS * HD];
-  __shared__ int sPos[BKS];
+  extern __shared__ __align__(16) float f32_smem[];  // f32_smem_bytes
+  float* sK = f32_smem;                       // BKS x KSTR
+  float* sV = sK + BKS * KSTR;                // BKS x KSTR
+  float* sQ = sV + BKS * KSTR;                // ROWS x HD
+  int* sPos = reinterpret_cast<int*>(sQ + ROWS * HD);  // BKS
 
   const int b = blockIdx.x / a.Hkv;
   const int kvh = blockIdx.x % a.Hkv;
@@ -606,11 +628,28 @@ __global__ void __launch_bounds__(THREADS) decode_f32_kernel(Args a) {
   }
 }
 
+template <int HD, int BKS>
+constexpr int f32_smem_bytes() {
+  return (2 * BKS * (HD + 1) + ROWS * HD + BKS) * 4;
+}
+
 template <int HD, bool PAGED>
 int launch_f32(const Args& a, cudaStream_t stream) {
-  constexpr int BKS = HD <= 64 ? 64 : 32;  // keeps shared memory < 48 KB
+  // shared memory under 48 KB up to hd 128; 82 KB at hd 256
+  constexpr int BKS = HD <= 64 ? 64 : 32;
+  constexpr int bytes = f32_smem_bytes<HD, BKS>();
+  if constexpr (bytes > 48 * 1024) {
+    static bool opted = false;         // once per template, per process
+    if (!opted) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          decode_f32_kernel<HD, BKS, PAGED>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      opted = true;
+    }
+  }
   const dim3 grid(a.B * a.Hkv, (a.R + ROWS - 1) / ROWS);
-  decode_f32_kernel<HD, BKS, PAGED><<<grid, THREADS, 0, stream>>>(a);
+  decode_f32_kernel<HD, BKS, PAGED><<<grid, THREADS, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -621,12 +660,15 @@ int launch_route(const Args& a, int hd, int route, cudaStream_t st) {
     case 32: return launch_f32<32, PAGED>(a, st);
     case 64: return launch_f32<64, PAGED>(a, st);
     case 128: return launch_f32<128, PAGED>(a, st);
-    case 1032: return launch_mma<32, 4, PAGED>(a, st);
-    case 1064: return launch_mma<64, 4, PAGED>(a, st);
-    case 1128: return launch_mma<128, 4, PAGED>(a, st);
-    case 2032: return launch_mma<32, 1, PAGED>(a, st);
-    case 2064: return launch_mma<64, 1, PAGED>(a, st);
-    case 2128: return launch_mma<128, 1, PAGED>(a, st);
+    case 256: return launch_f32<256, PAGED>(a, st);
+    case 1032: return launch_mma<32, 4, 1, PAGED>(a, st);
+    case 1064: return launch_mma<64, 4, 1, PAGED>(a, st);
+    case 1128: return launch_mma<128, 4, 1, PAGED>(a, st);
+    case 1256: return launch_mma<256, 2, 2, PAGED>(a, st);   // 32 rows
+    case 2032: return launch_mma<32, 1, 1, PAGED>(a, st);
+    case 2064: return launch_mma<64, 1, 1, PAGED>(a, st);
+    case 2128: return launch_mma<128, 1, 1, PAGED>(a, st);
+    case 2256: return launch_mma<256, 1, 4, PAGED>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -666,6 +666,7 @@ int dispatch_chunk(const ChunkArgs& a, int batch, int P, int N,
   if (P == PP && N == NN) return launch_chunk<Tin, PP, NN>(a, batch, stream);
   SSD_CASE(32, 32) SSD_CASE(32, 64) SSD_CASE(32, 128)
   SSD_CASE(64, 32) SSD_CASE(64, 64) SSD_CASE(64, 128)
+  SSD_CASE(128, 128)
 #undef SSD_CASE
   return -1;
 }
@@ -675,6 +676,8 @@ int dispatch_chunk(const ChunkArgs& a, int batch, int P, int N,
 constexpr int MMA_MAX_SUB = 128;     // the largest sub-chunk (4 a lane in
                                      // sub_cumsum, 8 warps in (c))
 constexpr int STATES_THREADS = 128;  // (a): 4 warps over the p x n state
+                                     // (8 at p 128: a warp a 16-row
+                                     // m-tile, states_threads)
 constexpr int PASS_THREADS = 256;    // (b)
 constexpr int OUT_ROWS = 64;         // (c): query rows a block at most
 constexpr int PASS_DEPTH = 8;        // (b): chunk states in flight a thread
@@ -797,18 +800,25 @@ __device__ __forceinline__ void pdl_wait() {
   asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
+// (a)'s threads: 4 warps, or one a 16-row m-tile of the state where p
+// has more than 4 (p 128: 8 warps)
+__host__ __device__ constexpr int states_threads(int P) {
+  return P / 16 > 4 ? P / 16 * 32 : STATES_THREADS;
+}
+
 // (a) S_c (P x N) = (x w)^T B over the sub-chunk's Q tokens: x w is the A
 // operand (rows: state rows, k: tokens), read transposed by ldmatrix from
 // its [token][row] tile; B the B operand from its [token][column] tile.
 // Warp (mt, nw) owns state rows 16 mt .. and columns nw N / WN ...
 template <int P, int N>
-__global__ void __launch_bounds__(STATES_THREADS)
+__global__ void __launch_bounds__(states_threads(P))
     ssd_chunk_states_kernel(const MmaArgs a) {
   constexpr int SN = N + 8, SP = P + 8;
+  constexpr int THREADS = states_threads(P);
   constexpr int WM = P / 16;      // m-tiles of state rows
-  constexpr int WN = 4 / WM;      // warps along the state columns
+  constexpr int WN = THREADS / 32 / WM;  // warps along the state columns
   constexpr int NT = N / 8 / WN;  // n-tiles a warp
-  static_assert(WM * WN * 32 == STATES_THREADS && NT % 2 == 0,
+  static_assert(WM * WN * 32 == THREADS && NT % 2 == 0,
                 "the warps tile the state");
   extern __shared__ __align__(16) unsigned char mma_smem[];
   const int Q = a.Q;
@@ -833,18 +843,18 @@ __global__ void __launch_bounds__(STATES_THREADS)
   stage_rows<N, SN>(bs, Bb, a.b_st, Q, a.vec);
   stage_rows<P, SP>(xh, xb, a.x_st, Q, a.vec);
   attn::cp_async_commit();
-  for (int k = tid; k < Q; k += STATES_THREADS) wv[k] = dtb[k * a.dt_st];
+  for (int k = tid; k < Q; k += THREADS) wv[k] = dtb[k * a.dt_st];
   __syncthreads();
   if (warp == 0) sub_cumsum(cum, wv, a.A[h], Q, lane);
   __syncthreads();
   const float cend = cum[Q - 1];
-  for (int k = tid; k < Q; k += STATES_THREADS)
+  for (int k = tid; k < Q; k += THREADS)
     wv[k] = __fmul_rn(expf(__fsub_rn(cend, cum[k])), wv[k]);
   if (tid == 0) a.decay[(b * a.H + h) * nc + c] = expf(cend);
   attn::cp_async_wait<0>();
   __syncthreads();
   // x w as hi + lo, laid out [token][row] like x: x's tile becomes hi
-  for (int i = tid; i < Q * P; i += STATES_THREADS) {
+  for (int i = tid; i < Q * P; i += THREADS) {
     const int k = i / P, r = i % P;
     const float v = __fmul_rn(__bfloat162float(xh[k * SP + r]), wv[k]);
     const __nv_bfloat16 hi = __float2bfloat16_rn(v);
@@ -935,8 +945,11 @@ __global__ void __launch_bounds__(PASS_THREADS)
 // rows q0 .. q0 + R - 1 (blockIdx.x = sub-chunk * Q / R + q0 / R): warp w
 // owns rows q0 + 16 w .. q0 + 16 w + 15, a lane rows ra = q0 + 16 w +
 // lane / 4 and ra + 8, over the keys 0 .. ra of the sub-chunk
+// 3 blocks an SM up to p 64 (70 KB of shared memory a block at Q 128);
+// at p 128 two (86 KB each), which leaves a thread the registers of O and
+// the state's product, 64 floats each
 template <int P, int N>
-__global__ void __launch_bounds__(OUT_ROWS / 16 * 32, 3)
+__global__ void __launch_bounds__(OUT_ROWS / 16 * 32, P > 64 ? 2 : 3)
     ssd_chunk_out_kernel(const MmaArgs a) {
   constexpr int SN = N + 8, SP = P + 8;
   constexpr int NO = P / 8;  // output n-tiles
@@ -1127,7 +1140,7 @@ int launch_mma(const MmaArgs& a, int batch, int steps, cudaStream_t stream) {
   const dim3 grid(nc, a.H, batch), out_grid(nc * (a.Q / rows), a.H, batch);
   cudaError_t e = cudaSuccess;
   if (steps & 1) {
-    ka<<<grid, STATES_THREADS, states_smem_bytes<P, N>(a.Q), stream>>>(a);
+    ka<<<grid, states_threads(P), states_smem_bytes<P, N>(a.Q), stream>>>(a);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   if (steps & 2) {
@@ -1152,7 +1165,8 @@ int launch_mma(const MmaArgs& a, int batch, int steps, cudaStream_t stream) {
 
 // ssd_extend: T recurrence steps from s_in; the new state goes to s_out
 // (may equal s_in), the incoming one to ckpt when it is not null. p in
-// {32, 64}, n in {32, 64, 128}; every buffer f32. The plan (rows a
+// {32, 64, 128} (any even p runs: the kernel numbers state rows through
+// the heads), n in {32, 64, 128}; every buffer f32. The plan (rows a
 // block, tokens a tile) comes from kernels/ssd_scan/kernel.py::
 // extend_plan: rows an even number up to 32 that divides a group's
 // (h / g) * p rows, tt 1 or 16. Returns a cudaError_t, or -1 for a shape
@@ -1244,6 +1258,7 @@ extern "C" int ssd_chunk_mma_launch(
   if (P == PP && N == NN) return launch_mma<PP, NN>(a, batch, steps, s);
   MMA_CASE(32, 32) MMA_CASE(32, 64) MMA_CASE(32, 128)
   MMA_CASE(64, 32) MMA_CASE(64, 64) MMA_CASE(64, 128)
+  MMA_CASE(128, 128)
 #undef MMA_CASE
   return -1;
 }

@@ -40,8 +40,12 @@ import torch
 from repro_torch.kernels import _autograd, _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64)              # p the kernels are instantiated for
+HEAD_DIMS = (32, 64, 128)         # p the kernels take
 STATE_DIMS = (32, 64, 128)        # n
+#: the (p, n) pairs the dual form is instantiated for: every n at p 32
+#: and 64, and Jamba's p 128 at n 128 (the recurrence takes any pair)
+CHUNK_DIMS = tuple((p, n) for p in (32, 64) for n in STATE_DIMS) \
+    + ((128, 128),)
 MAX_CHUNK = 256
 #: the dual form's mma route: sub-chunks it may work in (largest first;
 #: ``chunk_plan`` takes the first that divides the chunk), the largest
@@ -49,7 +53,7 @@ MAX_CHUNK = 256
 #: the sub-steps (1: chunk states, 2: state pass, 4: outputs)
 MMA_SUBS = (128, 64, 32, 16)
 MMA_MAX_SUB = 128
-STATES_THREADS = 128
+STATES_THREADS = 128              # 4 warps; a warp a 16-row m-tile above
 PASS_THREADS = 256
 STEPS_ALL = 7
 #: the most query rows a block of the outputs kernel takes (4 warps)
@@ -273,11 +277,12 @@ def chunk_plan(b: int, l: int, h: int, p: int, n: int, chunk: int,
                              f"of 16 up to {MMA_MAX_SUB} dividing l = {l}")
         nc, rows = l // q, min(q, OUT_ROWS)
         states_smem = 2 * q * (n + 8) + 4 * q * (p + 8) + 8 * MMA_MAX_SUB
+        states_threads = max(STATES_THREADS, p // 16 * 32)
         smem = 2 * (rows * (n + 8) + _out_region(q, p, n)) \
             + 8 * MMA_MAX_SUB
         total4 = b * h * p * n // 4
         return ChunkPlan("mma", q, nc, rows, nc * (q // rows) * h * b,
-                         rows // 16 * 32, smem, nc * h * b, STATES_THREADS,
+                         rows // 16 * 32, smem, nc * h * b, states_threads,
                          states_smem, -(-total4 // PASS_THREADS),
                          4 * b * h * nc * (2 * p * n + 1))
     t = SIMT_TILE
@@ -334,6 +339,9 @@ def _launch_chunk(x, dt, A, B, C, D, chunk, initial_state, *, sub=0,
                         f"{B.dtype}, {C.dtype}")
     x, dt, B, C = _rows(x, dt, B, C)
     b, l, h, p, g, n = _check_dims("ssd_cuda", x, dt, A, B, C, D)
+    if (p, n) not in CHUNK_DIMS:
+        raise ValueError(f"ssd_cuda: head dim {p} with state dim {n} is "
+                         f"not instantiated (want one of {CHUNK_DIMS})")
     if not 1 <= chunk <= MAX_CHUNK or l % chunk:
         raise ValueError(f"ssd_cuda: want 1 <= chunk <= {MAX_CHUNK} "
                          f"dividing l = {l}; got chunk {chunk}")

@@ -17,9 +17,14 @@ stacks: an SSM stack serves without one). ``--draft`` turns on speculative decod
 spec such as ``int8@1``, or ``ngram``, the prompt-lookup drafter that
 also serves the SSM family; ``none`` turns off a config's draft, as in
 the ``spec`` variant) and ``--spec-gamma`` sets the tokens proposed a
-step; the run then prints a ``speculative:`` line. ``--arch mamba2-780m``
-serves the attention-free SSM family (contiguous state only: no
-``--paged``, and no quantization yet). The device is CUDA unless
+step; the run then prints a ``speculative:`` line. ``--arch`` takes every
+architecture the port builds: the dense ids, the MoE family
+(qwen2-moe-a2.7b, granite-moe-3b-a800m, mixtral-8x7b), the SSM family
+(mamba2-780m) and the hybrid jamba-1.5-large-398b. A stack with SSM
+sublayers keeps contiguous state only (no ``--paged``, no prefix cache,
+no model draft: ``--draft ngram`` serves it); quantization and the edge
+profile apply to every stack (the MoE experts and router stay in full
+precision, as in the JAX package). The device is CUDA unless
 ``--device cpu`` is given; without a CUDA device the CLI exits with an
 error instead of running on the CPU. Weights are made from ``--seed``
 and quantized after they are made, as ``cfg.quant`` says.
@@ -39,7 +44,7 @@ import time
 
 import numpy as np
 
-from repro_torch.configs import ARCHS, get_arch
+from repro_torch.configs import ARCHS, EXTRA_ARCHS, get_arch
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models.model import build
 from repro_torch.quant import quantize_for_cfg, quantized_stats
@@ -51,7 +56,8 @@ from repro_torch.serving.sampler import Sampler
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=sorted(ARCHS), default="llama3.2-1b")
+    ap.add_argument("--arch", choices=sorted(ARCHS) + sorted(EXTRA_ARCHS),
+                    default="llama3.2-1b")
     ap.add_argument("--variant", default="reduced")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--prompt-len", type=int, default=16,

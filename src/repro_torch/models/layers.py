@@ -79,6 +79,15 @@ def rms_norm(p, x, eps=1e-5, residual=None):
     return fused_rmsnorm(x, residual, p["scale"], eps=eps)
 
 
+def top_k(x, k):
+    """The k largest entries of x along its last dim and their indices,
+    ties broken by lowest index, as ``lax.top_k`` does (a descending
+    stable sort cut at k): the one top-k rule of the port, for the MoE
+    router and the sampler."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def embed(p, ids):
     return F.embedding(ids, p["table"])
 

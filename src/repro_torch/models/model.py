@@ -1,6 +1,8 @@
 """Model facade: ``build(cfg, device)`` returns a ``Model`` with the
 methods the serving engine and the tests call, for the decoder families
-the port can build (dense and SSM so far)."""
+the port builds: dense (and the VLM's decoder), MoE, SSM and the
+attention + SSM + MoE hybrid, each in full precision or with int8 / int4
+weights (``cfg.quant``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -113,8 +115,4 @@ def build(cfg: ModelConfig, device: Optional[Any] = None) -> Model:
     """The model on ``device`` (CUDA unless the caller names another;
     raises when CUDA is asked for and absent)."""
     T.block_spec(cfg)              # raises for families not ported yet
-    if cfg.ssm is not None and cfg.quant:
-        raise NotImplementedError(
-            "quantized SSM stacks are not ported yet: ROADMAP section 1, "
-            "item 10 (quantized SSM stacks)")
     return Model(cfg=cfg, device=resolve_device(device))

@@ -1,26 +1,32 @@
-"""The decoder stacks (dense GQA and the Mamba-2 SSM family):
-parameters, the stacked cache and the layer loop behind every forward
-mode.
+"""The decoder stacks of every family the port builds (dense GQA, MoE,
+the Mamba-2 SSM stack, the attention + SSM + MoE hybrid and the VLM's
+decoder): parameters, the stacked cache and the layer loop behind every
+forward mode.
 
 Parameters and caches keep the JAX package's tree layout: block leaves
 carry the stacked block axis first (``[n_blocks, ...]``), cache leaves
 ``[n_blocks, batch, ...]`` with a per-row ``step``, so slots at
-different depths share one batched cache. The layer loop takes the
-per-block views ``leaf[i]``; cache writes land in the stacked tensors.
+different depths share one batched cache. A block is the scan unit:
+one sublayer for homogeneous stacks, a super-block (Jamba's one
+attention and seven SSM sublayers, MoE on the even ones) for a hybrid.
+The layer loop takes the per-block views ``leaf[i]``; cache writes land
+in the stacked tensors.
 
 Every norm of the stack goes through the fused add + RMSNorm op, with
 the add of the residual stream folded in: a block receives the stream
 as ``x + res`` (``res`` is the previous sublayer's output, still to be
 added; None before the first block), ``ln1`` adds and normalises in one
-call, the attention output is added in the same call that computes
-``ln2``, and the MLP output is left pending for the next block's ``ln1``
-or for ``ln_f``. That is 2 * n_layers + 1 norm calls per forward. An
-SSM sublayer has no FFN: ``ln1`` adds and normalises, and the mixer's
-output is the pending ``res`` (its gated norm is the second norm call of
-the layer, so an SSM stack also makes 2 * n_layers + 1). In fp32 this is
-the JAX stack's arithmetic; in bf16 each norm reads the f32 sum where
-the JAX stack rounds ``x + y`` to bf16 first (see
-``kernels/rmsnorm/ref.py``).
+call, the mixer's output is added in the same call that computes
+``ln2``, and the FFN's output (MLP or MoE) is left pending for the next
+sublayer's ``ln1`` or for ``ln_f``. A pure SSM sublayer has no FFN:
+``ln1`` adds and normalises, and the mixer's output is the pending
+``res``. Each SSM mixer adds one gated norm. So a dense or MoE stack
+makes 2 * n_layers + 1 norm calls a forward, a pure SSM stack 2 *
+n_layers + 1 (``ln1`` and the gated norm), and a hybrid 2 * n_layers +
+n_ssm + 1: 23 a Jamba super-block (8 ``ln1``, 8 ``ln2``, 7 gated) and
+``ln_f``. In fp32 this is the JAX stack's arithmetic; in bf16 each norm
+reads the f32 sum where the JAX stack rounds ``x + y`` to bf16 first
+(see ``kernels/rmsnorm/ref.py``).
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
 
@@ -40,11 +47,20 @@ def block_spec(cfg: ModelConfig) -> List[Tuple[str, Optional[str]]]:
     """[(mixer, ffn)] per sublayer of the scan unit."""
     if cfg.family in ("dense", "vlm"):
         return [("attn", "mlp")]
+    if cfg.family == "moe":
+        return [("attn", "moe")]
     if cfg.family == "ssm":
         return [("ssm", None)]
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet: ROADMAP section 1, "
-        f"item 10")
+    if cfg.family == "hybrid":
+        every = max(1, cfg.moe.moe_every) if cfg.moe else 0
+        return [("attn" if i == 0 else "ssm",
+                 "moe" if (cfg.moe and i % every == 0) else "mlp")
+                for i in range(cfg.attn_every)]
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            "family 'encdec' is not ported yet: ROADMAP section 1, item "
+            "10b (frontend families)")
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def n_blocks(cfg: ModelConfig) -> int:
@@ -78,11 +94,23 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
                            "wo": lin(cfg.n_heads * hd, d)}
         else:
             out["ssm"] = S.ssm_param_shapes(cfg, nb)
-        if ffn == "mlp":
+        if ffn is not None:
             out["ln2"] = {"scale": (nb, d)}
-            out["mlp"] = {"wi": lin(d, cfg.d_ff), "wg": lin(d, cfg.d_ff),
-                          "wo": lin(cfg.d_ff, d)}
+        if ffn == "mlp":
+            out["mlp"] = mlp(cfg.d_ff)
+        elif ffn == "moe":
+            m = cfg.moe
+            E, f = m.n_experts, m.d_expert
+            out["moe"] = {"router": {"w": (nb, d, E)},
+                          "wi": (nb, E, d, f), "wg": (nb, E, d, f),
+                          "wo": (nb, E, f, d)}
+            if m.n_shared:
+                out["moe"]["shared"] = mlp(m.d_shared
+                                           or m.n_shared * m.d_expert)
         return out
+
+    def mlp(d_ff):
+        return {"wi": lin(d, d_ff), "wg": lin(d, d_ff), "wo": lin(d_ff, d)}
 
     p = {"embed": {"table": (cfg.vocab, d)},
          "blocks": {f"sub{i}": sub(*ms)
@@ -97,9 +125,10 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
 
 def init_transformer(cfg: ModelConfig, seed: int, device) -> Dict[str, Any]:
     """Weights from a seed, made on ``device`` with a ``torch.Generator``:
-    N(0, 0.02) projections and embeddings, unit norm scales, zero biases,
-    and the SSM mixer's own leaves (``ssm.init_ssm_leaf``; the JAX
-    package's scheme; the random numbers are not JAX's)."""
+    N(0, 0.02) projections, experts and embeddings (the MoE router in
+    f32), unit norm scales, zero biases, and the SSM mixer's own leaves
+    (``ssm.init_ssm_leaf``; the JAX package's scheme; the random numbers
+    are not JAX's)."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -115,7 +144,8 @@ def init_transformer(cfg: ModelConfig, seed: int, device) -> Dict[str, Any]:
             return torch.zeros(shape, dtype=cfg.p_dtype, device=device)
         w = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=device)
-        return w.mul_(0.02).to(cfg.p_dtype)   # in place: one f32 copy
+        w.mul_(0.02)                          # in place: one f32 copy
+        return w if is_f32_leaf(path) else w.to(cfg.p_dtype)
 
     def walk(node, path):
         if isinstance(node, dict):
@@ -123,6 +153,15 @@ def init_transformer(cfg: ModelConfig, seed: int, device) -> Dict[str, Any]:
         return make(path, node)
 
     return walk(param_shapes(cfg), ())
+
+
+def is_f32_leaf(path) -> bool:
+    """Leaves kept in float32 in every parameter dtype: an SSM mixer's
+    ``A_log``/``D``/``dt_bias`` and a MoE router's weight, by their path
+    in the tree (the router's leaf is named ``w`` like every projection
+    weight, so the name alone does not say)."""
+    return path[-1] in S.F32_LEAVES and "ssm" in path \
+        or tuple(path[-2:]) == ("router", "w")
 
 
 # --------------------------------------------------------------------- #
@@ -229,12 +268,17 @@ def _at(tree, i):
 def apply_block(bp, x, res, cfg: ModelConfig, *, mode: str, cache=None,
                 length=None):
     """One block. The residual stream arrives as ``x + res`` (``res`` None
-    before the first block) and leaves the same way: returns (x, res)
-    with the MLP output (an SSM sublayer: the mixer output) as the
-    pending ``res``. mode: 'train' | 'prefill'
-    | 'decode' | 'extend'; ``length`` is the valid count (prefill) or the
-    per-row advance (extend). Cache writes go into ``cache`` in place."""
+    before the first block) and leaves the same way: returns (x, res,
+    aux) with the FFN output (a pure SSM sublayer: the mixer output) as
+    the pending ``res`` and the block's MoE load-balance loss (0.0 for a
+    block without MoE, so a dense stack launches nothing for it). mode:
+    'train' | 'prefill' | 'decode' | 'extend'; ``length`` is the valid
+    count (prefill) or the per-row advance (extend). MoE FFNs route
+    densely (per token, capacity-free) in the cached modes, decode and
+    extend, as in JAX (``moe.moe_block``). Cache writes go into
+    ``cache`` in place."""
     eps = cfg.norm_eps
+    aux = 0.0            # a tensor once an MoE FFN adds its loss
     for i, (mixer, ffn) in enumerate(block_spec(cfg)):
         sp = bp[f"sub{i}"]
         h, x = L.rms_norm(sp["ln1"], x, eps, residual=res)
@@ -257,8 +301,13 @@ def apply_block(bp, x, res, cfg: ModelConfig, *, mode: str, cache=None,
             res = y          # no FFN: the mixer output is the pending add
             continue
         h, x = L.rms_norm(sp["ln2"], y, eps, residual=x)
-        res = L.mlp(sp["mlp"], h)
-    return x, res
+        if ffn == "mlp":
+            res = L.mlp(sp["mlp"], h)
+        else:
+            res, a = M.moe_block(sp["moe"], h, cfg,
+                                 dense=mode in ("decode", "extend"))
+            aux = aux + a
+    return x, res, aux
 
 
 def _ssm_mixer(p, h, cfg: ModelConfig, mode: str, cache, length):
@@ -281,12 +330,15 @@ def _ssm_mixer(p, h, cfg: ModelConfig, mode: str, cache, length):
 
 def _run_blocks(params, x, cfg: ModelConfig, *, mode: str, cache=None,
                 length=None):
-    res = None
+    """The stack: returns (x, res, aux), the stream, its pending add and
+    the summed MoE load-balance loss (0.0 without MoE)."""
+    res, aux = None, 0.0
     for i in range(n_blocks(cfg)):
         c = None if cache is None else _at(cache, i)
-        x, res = apply_block(_at(params["blocks"], i), x, res, cfg,
-                             mode=mode, cache=c, length=length)
-    return x, res
+        x, res, a = apply_block(_at(params["blocks"], i), x, res, cfg,
+                                mode=mode, cache=c, length=length)
+        aux = aux + a
+    return x, res, aux
 
 
 # --------------------------------------------------------------------- #
@@ -318,9 +370,10 @@ def logits_from(params, cfg: ModelConfig, x, res=None):
 def forward_train(params, cfg: ModelConfig, tokens, embeddings=None):
     """Returns (logits, aux_loss)."""
     x = embed_inputs(params, cfg, tokens, embeddings)
-    x, res = _run_blocks(params, x, cfg, mode="train")
-    return logits_from(params, cfg, x, res), torch.zeros(
-        (), dtype=torch.float32, device=x.device)
+    x, res, aux = _run_blocks(params, x, cfg, mode="train")
+    if not torch.is_tensor(aux):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits_from(params, cfg, x, res), aux
 
 
 def last_valid(x, length):
@@ -336,8 +389,8 @@ def prefill(params, cfg: ModelConfig, tokens, cache, embeddings=None,
             length=None):
     """Populates ``cache`` in place; returns (last-valid logits, cache)."""
     x = embed_inputs(params, cfg, tokens, embeddings)
-    x, res = _run_blocks(params, x, cfg, mode="prefill", cache=cache,
-                         length=length)
+    x, res, _ = _run_blocks(params, x, cfg, mode="prefill", cache=cache,
+                            length=length)
     return logits_from(params, cfg, last_valid(x, length),
                        last_valid(res, length)), cache
 
@@ -345,7 +398,7 @@ def prefill(params, cfg: ModelConfig, tokens, cache, embeddings=None,
 def decode_step(params, cfg: ModelConfig, token, cache):
     """token: (B, 1) ids. Returns (logits (B, 1, V), cache)."""
     x = embed_inputs(params, cfg, token)
-    x, res = _run_blocks(params, x, cfg, mode="decode", cache=cache)
+    x, res, _ = _run_blocks(params, x, cfg, mode="decode", cache=cache)
     return logits_from(params, cfg, x, res), cache
 
 
@@ -356,8 +409,8 @@ def extend_step(params, cfg: ModelConfig, tokens, cache, lengths=None,
     (logits, cache): (B, T, V), or (B, 1, V) at each row's last valid
     position when ``last_only``."""
     x = embed_inputs(params, cfg, tokens, embeddings)
-    x, res = _run_blocks(params, x, cfg, mode="extend", cache=cache,
-                         length=lengths)
+    x, res, _ = _run_blocks(params, x, cfg, mode="extend", cache=cache,
+                            length=lengths)
     if last_only:
         x, res = last_valid(x, lengths), last_valid(res, lengths)
     return logits_from(params, cfg, x, res), cache

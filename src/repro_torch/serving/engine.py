@@ -955,7 +955,7 @@ class Engine:
                 f"request {req.uid}: deadline_s must be positive, got "
                 f"{req.deadline_s}")
         if req.embeddings is not None:
-            raise _not_ported("frontend embeddings", "10 (other families)")
+            raise _not_ported("frontend embeddings", "10b (frontend families)")
         old = self.responses.get(req.uid)
         if old is not None and not old.finished:
             raise ValueError(f"request uid {req.uid} is already in flight")

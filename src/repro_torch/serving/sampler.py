@@ -18,6 +18,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models.layers import top_k
+
 NEG_INF = -1e30
 
 
@@ -48,8 +50,7 @@ class Sampler:
         (a descending stable sort cut at k). ``__call__`` and
         ``filtered_logits`` both select through it, so the speculative
         accept/resample distributions are the ones the engine samples."""
-        vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
-        return vals[..., :self.top_k], idx[..., :self.top_k]
+        return top_k(logits, self.top_k)
 
     def filtered_logits(self, logits):
         """The post-knob logits over the full vocab: temperature, then

@@ -244,6 +244,16 @@ DECODE_CASES = [
     (3, 4, 1, 2, 100, 64, 0, False),
     (2, 1, 4, 2, 304, 128, 0, False),
     (2, 16, 2, 2, 304, 32, 64, True),
+    # head_dim 256 (gemma2-class: G 2, a 4096-token window cut to 100
+    # here), decode and a chunk, a masked row; G 3 / 5 / 6 / 12 at hd 128
+    # (granite, qwen2.5, internlm2, starcoder2)
+    (3, 1, 2, 2, 1000, 256, 0, True),
+    (1, 128, 2, 2, 512, 256, 100, False),
+    (2, 16, 2, 1, 320, 256, 0, True),
+    (2, 1, 3, 2, 512, 128, 0, False),
+    (1, 37, 5, 2, 512, 128, 0, False),
+    (2, 2, 6, 2, 320, 128, 0, False),
+    (2, 3, 12, 1, 320, 128, 0, False),
 ]
 
 
@@ -296,6 +306,14 @@ FLASH_CASES = [
     (2, 100, 8, 2, 160, False, 0),
     (1, 96, 8, 8, 40, False, 24),
     (1, 150, 4, 1, 256, True, 0),
+    # the new families' groups: G 3 (granite), 5 (qwen2.5), 6
+    # (internlm2), 12 (starcoder2) at hd 128, bq 21, 12, 10 and 5 query
+    # positions a block; gemma2-class's hd 256 at G 2 under a window
+    (1, 130, 6, 2, 128, True, 0),
+    (2, 77, 10, 2, 128, True, 0),
+    (1, 100, 12, 2, 128, True, 24),
+    (1, 61, 12, 1, 128, True, 0),
+    (1, 300, 4, 2, 256, True, 64),
 ]
 
 
@@ -450,6 +468,9 @@ SSD_EXTEND_CASES = [
     ("reduced_g2_T37", 2, 37, 16, 32, 2, 32, "offset"),
     ("p32_n32", 3, 37, 8, 32, 1, 32, "packed"),
     ("p32_n64", 1, 37, 8, 32, 2, 64, "packed"),
+    # Jamba's SSM heads: p 128, n 128, decode and a ragged chunk
+    ("p128_decode", 8, 1, 16, 128, 1, 128, "packed"),
+    ("p128_T37", 1, 37, 16, 128, 1, 128, "offset"),
 ]
 
 
@@ -550,6 +571,10 @@ SSD_CHUNK_CASES = [
     ("chunk64_p32_n64", 2, 128, 8, 32, 1, 64, 64, "packed"),
     ("chunk128_n32_g2", 1, 256, 8, 64, 2, 32, 128, "offset"),
     ("chunk8_simt", 1, 64, 4, 32, 1, 32, 8, "dense"),
+    # Jamba's SSM heads: p 128, n 128 at its chunk 256 (mma: 8 warps in
+    # the chunk states, 2 blocks an SM in the outputs) and a short chunk
+    ("p128_n128_l512", 1, 512, 8, 128, 1, 128, 256, "packed"),
+    ("p128_n128_chunk32", 2, 64, 4, 128, 1, 128, 32, "dense"),
 ]
 
 
@@ -592,7 +617,7 @@ def test_ssd_routes_match_plain_on_card(case, dtype):
 # (N, d): mamba2-780m's d 1536 (ln1, ln_f) and d_in 3072 (the gated
 # norm), llama3.2-1b's 2048, pixtral-12b's 5120; one row, a decode batch,
 # a chunk and the Zoo's forward (B 2 x L 1024)
-NORM_D = (1536, 2048, 3072, 5120)
+NORM_D = (1536, 2048, 3072, 5120, 8192, 16384)
 NORM_N = (1, 8, 128, 2048)
 
 
@@ -730,6 +755,32 @@ def test_kernel_op_refuses_a_backward_on_card(op):
         got[0].float().sum().backward()
 
 
+@pytest.mark.cuda
+def test_moe_router_stays_f32_under_tf32_on_card():
+    """The MoE router's product runs in full f32 even when the process
+    allows TF32 matmuls: its error against an f64 product is a tenth of
+    TF32's at least (a TF32 router can flip a top-k), and the caller's
+    precision setting comes back unchanged."""
+    from repro_torch.models.moe import _router_logits
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((64, 2048), generator=g, device=dev)
+    w = torch.randn((2048, 60), generator=g, device=dev)
+    want = x.double() @ w.double()
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        got = _router_logits(x, w)
+        tf32 = x @ w
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    err = (got.double() - want).abs().max().item()
+    err_tf32 = (tf32.double() - want).abs().max().item()
+    assert err * 10 < err_tf32, (err, err_tf32)
+
+
 # --------------------------------------------------------------------- #
 # the engine's step programs as CUDA graphs
 # --------------------------------------------------------------------- #
@@ -746,7 +797,19 @@ GRAPH_CASES = {
                                          "param_dtype": "bfloat16"},
                         {"paged": True, "page_size": 8}),
     "mamba2": ("reduced", {}, {}),
+    # the MoE family (dense routing inside the captured steps) and the
+    # hybrid's super-block (one KV ring and seven SSM states a block)
+    "qwen2_moe": ("reduced", {}, {}),
+    "qwen2_moe_paged_bf16": ("reduced", {"dtype": "bfloat16",
+                                         "param_dtype": "bfloat16"},
+                             {"paged": True, "page_size": 8}),
+    "jamba": ("reduced", {}, {}),
 }
+
+#: the architecture of each graph case (llama3.2-1b by default)
+GRAPH_ARCH = {"mamba2": "mamba2-780m", "qwen2_moe": "qwen2-moe-a2.7b",
+              "qwen2_moe_paged_bf16": "qwen2-moe-a2.7b",
+              "jamba": "jamba-1.5-large-398b"}
 
 
 def _graph_model(case):
@@ -755,7 +818,7 @@ def _graph_model(case):
     from repro_torch.quant import quantize_for_cfg
 
     variant, changes, kw = GRAPH_CASES[case]
-    arch = "mamba2-780m" if case == "mamba2" else "llama3.2-1b"
+    arch = GRAPH_ARCH.get(case, "llama3.2-1b")
     cfg = get_arch(arch, variant=variant).replace(**changes)
     model = build(cfg, device="cuda")
     return model, quantize_for_cfg(model.init(0), cfg), kw

@@ -212,8 +212,7 @@ CHUNK_PLAN_DIMS = [(1, 1536, 48, 1), (2, 768, 16, 2)]
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("chunk", [16, 24, 32, 48, 64, 128, 256])
-@pytest.mark.parametrize("p,n", [(p, n) for p in tkernel.HEAD_DIMS
-                                 for n in tkernel.STATE_DIMS])
+@pytest.mark.parametrize("p,n", tkernel.CHUNK_DIMS)
 @pytest.mark.parametrize("b,l,h,g", CHUNK_PLAN_DIMS)
 def test_chunk_plan_is_a_legal_launch_covering_every_row(b, l, h, g, p, n,
                                                          chunk, dtype):
@@ -227,7 +226,8 @@ def test_chunk_plan_is_a_legal_launch_covering_every_row(b, l, h, g, p, n,
     (batch row, head) exactly once, and the state pass's threads every 4
     state elements; the workspace is b h chunks (2 p n + 1) f32
     words (the chunk states, the incoming states as bf16 pairs, the
-    decays)."""
+    decays). Every (p, n) pair the kernels are instantiated for
+    (``CHUNK_DIMS``: Jamba's p 128 at n 128 beside p 32 and 64)."""
     pl = tkernel.chunk_plan(b, l, h, p, n, chunk, dtype)
     mma = dtype == torch.bfloat16 and chunk % 16 == 0
     assert pl.route == ("mma" if mma else "simt")
@@ -239,7 +239,8 @@ def test_chunk_plan_is_a_legal_launch_covering_every_row(b, l, h, g, p, n,
         assert pl.sub == next(s for s in tkernel.MMA_SUBS if chunk % s == 0)
         assert pl.rows == min(pl.sub, tkernel.OUT_ROWS)
         assert pl.sub % pl.rows == 0 and pl.threads == pl.rows // 16 * 32
-        assert pl.states_threads == tkernel.STATES_THREADS
+        # 4 warps, or a warp a 16-row m-tile of the state above p 64
+        assert pl.states_threads == max(tkernel.STATES_THREADS, p // 16 * 32)
         assert pl.states_blocks == pl.chunks * h * b
         parts = pl.sub // pl.rows
         assert pl.blocks == pl.chunks * parts * h * b
@@ -698,12 +699,24 @@ def test_bridge_checks_ssm_dtypes():
 
 
 def test_unported_ssm_options_raise():
-    """The edge profile and weight quantization on an SSM stack raise,
-    naming their ROADMAP item."""
+    """The edge profile and weight quantization on an SSM stack build and
+    serve on the CPU: the mixer's projections are QTensors and every
+    request finishes (their tokens against the JAX engine's:
+    tests/test_torch_families_quant.py)."""
+    from repro_torch.quant import quantize_for_cfg
+    from repro_torch.quant.qtensor import is_qtensor
     for cfg in (get_arch(ARCH, variant="reduced+edge"),
                 get_arch(ARCH, variant="reduced").replace(quant="int8")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build(cfg, "cpu")
+        model = build(cfg, "cpu")
+        params = quantize_for_cfg(model.init(0), cfg)
+        assert is_qtensor(params["blocks"]["sub0"]["ssm"]["out_proj"]["w"])
+        engine = Engine(model, params, max_batch=2, cache_len=32,
+                        prefill_chunk=8)
+        for uid in range(3):
+            engine.submit(Request(uid=uid, prompt=np.arange(5 + uid),
+                                  max_new_tokens=4))
+        out = engine.run()
+        assert all(r.finished and len(r.tokens) == 4 for r in out.values())
 
 
 # --------------------------------------------------------------------- #
