@@ -59,7 +59,8 @@ the ``kernels`` phase (pixtral-12b's hd 160 and llama3.2-1b's hd 64 at
 G 4, G 1 and G 8, hd 40, a window, non-causal, a ragged length, fp32);
 the repository's card tests (``card_tests``: ``tests/test_torch_card.py``
 run without ``tests/conftest.py``, which imports JAX, in a subprocess
-that must pass with no test skipped); the Zoo's model services at full
+that must pass with no test skipped, while this process runs the model
+checks); the Zoo's model services at full
 width cut to 2 layers, fp32, card against CPU
 (``model_vlm``: the pixtral-12b classifier and ``model.lm``); and the
 paper's deployment example at full width (``zoo``: the 40-layer bf16
@@ -108,7 +109,17 @@ full width and depth (24 layers, 60 experts top-4 and 4 shared, bf16)
 with the serve phase's engine and requests on rings (profiled), eagerly
 and on a pool (tokens bitwise equal); ``serve_hybrid`` serves jamba at
 its published widths cut to one super-block of 8 of its 16 experts on
-rings (profiled) and eagerly, the pool refused. The decode-attention cases cover both tensor-core routes of its
+rings (profiled) and eagerly, the pool refused. The frontend
+families: ``model_encdec`` (seamless-m4t-medium at full width, 2
+encoder and 2 decoder layers) and ``model_vlm_cached`` (pixtral-12b at
+full width, 2 layers) card against CPU in fp32 through ``prefill`` with
+1024 frames and through the engine's admission path (the encoded
+memory, or the 1024-row embedding chunk at hd 160) with 8 decodes;
+``serve_encdec`` and ``serve_vlm`` at full depth, bf16, 16 requests with
+frames on graphs (counters = the trace with each admission's program, a
+steady profiled batch: no capture, two syncs a poll; eager tokens
+bitwise equal; pixtral's pool refuses frames), with the admission
+program's ms against its bound. The decode-attention cases cover both tensor-core routes of its
 plan (R <= 16 rows and above, S split over blocks, a fully masked row
 at T 1 and T 16); every timed attention case records its plan and the
 rates it reached, and the ``build`` line every template's ptxas
@@ -123,8 +134,8 @@ microseconds per call (enqueue only).
 Every engine runs its steps as CUDA graphs (``Engine``'s default on
 the card): each serve phase checks it, ``serve_eager`` and
 ``serve_ssm_eager`` serve the same requests on eager steps
-(``graphs=False``) in turns with graphs (tokens identical; decode ms,
-ITL, TTFT and tok/s of both), and every profile phase marks its engine
+(``graphs=False``) in turns with graphs, graphs / eager / graphs (tokens
+identical; decode ms, ITL, TTFT and tok/s of both), and every profile phase marks its engine
 steady and fails on a capture in its window, on a host stream sync
 other than the poll's two reads, and on a launch counter that differs
 from the profiler's count of its kernel templates (a count may fall
@@ -195,6 +206,10 @@ SSD_SWEEP_T = (1, 16, 64, 128, 256)
 #: the first one's decode row heads the kernel summary
 QMM_SHAPES = ((2048, 8192), (2048, 512), (2048, 2048), (8192, 2048))
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: the decode-attention kernel's cases (contiguous, paged and the cached
+#: cross-attention): bf16 within 4e-3, twice the largest error any of
+#: them has shown (1.95e-3, chunk and cross_chunk_seamless)
+ATTN_TOL = {"float32": 1e-4, "bfloat16": 4e-3}
 #: spin kernels that open a profile window (``_profiled``)
 PROFILE_LEAD = 256
 #: the kernel templates that a wrapper call launches exactly once, by
@@ -293,11 +308,14 @@ def ptxas_table(logs):
 #: the attention cases timed (bf16): the plain steps' decode and chunk,
 #: the spec steps' verify window and the draft's two-token window
 TIMED_ATTN = ("decode", "chunk", "verify_T5", "window_T2", "decode_hd256",
-              "chunk_hd256")
+              "chunk_hd256", "decode_hd160", "chunk_hd160",
+              "embed_chunk_hd160")
 #: query heads, KV heads and head_dim of the attention cases: llama3.2-1b's
-#: by default, gemma2-9b-class's for the hd 256 cases
+#: by default, gemma2-9b-class's for the hd 256 cases, pixtral-12b's for
+#: the hd 160 cases (on a 2048-slot ring)
 ATTN_DIMS = (32, 8, 64)
 GEMMA2_DIMS = (16, 8, 256)
+PIXTRAL_DIMS = (32, 8, 160)
 
 
 def decode_attention_cases(torch, flush):
@@ -336,6 +354,15 @@ def decode_attention_cases(torch, flush):
         ("decode_hd256_window512", 8, 1, 1024, 512, None, GEMMA2_DIMS),
         ("chunk_hd256_all_masked_row", 2, 16, 1024, 0, "masked",
          GEMMA2_DIMS),
+        # pixtral-12b: head_dim 160 at G 4 on a 2048-slot ring: decode
+        # (mma_keys, 2 head-dim slices of 2 warps), a chunk and the
+        # embedding chunk's 1024 rows (mma_rows, 32-row blocks), and a
+        # fully masked row
+        ("decode_hd160", 8, 1, 2048, 0, None, PIXTRAL_DIMS),
+        ("chunk_hd160", 1, 128, 2048, 0, None, PIXTRAL_DIMS),
+        ("embed_chunk_hd160", 1, 1024, 2048, 0, None, PIXTRAL_DIMS),
+        ("decode_hd160_all_masked_row", 8, 1, 2048, 0, "masked",
+         PIXTRAL_DIMS),
     ]
     out, errs = [], []
     for name, B, T, S, window, special, *dims in cases:
@@ -365,28 +392,30 @@ def decode_attention_cases(torch, flush):
                                               window=window)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
-            ok = bool(torch.isfinite(got).all().item()) and err <= TOL[dname]
+            ok = bool(torch.isfinite(got).all().item()) \
+                and err <= ATTN_TOL[dname]
             pl = plan(B, T, Hq, Hkv, S, hd, dtype)
             rec = {"phase": "kernels", "kernel": "decode_attention",
                    "case": name, "dtype": dname, "B": B, "T": T, "S": S,
                    "Hq": Hq, "Hkv": Hkv, "hd": hd, "window": window,
                    "plan": pl._asdict(),
-                   "max_abs_err": err, "tol": TOL[dname], "ok": ok}
+                   "max_abs_err": err, "tol": ATTN_TOL[dname], "ok": ok}
             if special == "masked":
                 mean_v = v[0].float().mean(0).repeat_interleave(
                     Hq // Hkv, dim=0)
                 merr = (got[0].float() - mean_v[None]).abs().max().item()
                 rec["masked_row_vs_mean_v"] = merr
-                ok = ok and merr <= TOL[dname]
+                ok = ok and merr <= ATTN_TOL[dname]
                 rec["ok"] = ok
             if name in TIMED_ATTN and dtype == torch.bfloat16:
+                # the operations of the (query, slot) pairs the masks keep
                 elt = q.element_size()
                 nbytes = elt * (2 * B * S * Hkv * hd + 2 * B * T * Hq * hd) \
                     + 4 * (B * S + B * T)
-                flops = 4 * B * T * Hq * S * hd
-                bms, by = bound_ms(nbytes, flops, dname)
                 mask = ((pos[:, None, :] >= 0)
                         & (pos[:, None, :] <= q_pos[:, :, None]))[:, None]
+                flops = 4 * Hq * hd * int(mask.sum().item())
+                bms, by = bound_ms(nbytes, flops, dname)
                 qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), \
                     v.transpose(1, 2)
                 rec.update(
@@ -426,8 +455,8 @@ def paged_decode_attention_cases(torch, flush):
         paged_decode_attention_reference, paged_kv_gather)
 
     dev = torch.device("cuda")
-    S = 1024
-    # (name, B, T, page size, window, special rows[, (Hq, Hkv, hd)])
+    # (name, B, T, page size, window, special rows[, (Hq, Hkv, hd[,
+    # S])]): S 1024 unless the dims give it
     cases = [
         ("decode", 8, 1, 16, 0, None),
         ("chunk", 1, 128, 16, 0, None),
@@ -440,10 +469,13 @@ def paged_decode_attention_cases(torch, flush):
         ("window_T2", 8, 2, 16, 0, None),
         ("decode_hd256", 8, 1, 16, 0, None, GEMMA2_DIMS),
         ("chunk_hd256", 1, 128, 16, 0, None, GEMMA2_DIMS),
+        ("decode_hd160", 8, 1, 16, 0, None, PIXTRAL_DIMS + (2048,)),
+        ("chunk_hd160", 1, 128, 16, 0, None, PIXTRAL_DIMS + (2048,)),
     ]
     out, errs = [], []
     for name, B, T, ps, window, special, *dims in cases:
-        Hq, Hkv, hd = dims[0] if dims else ATTN_DIMS
+        Hq, Hkv, hd, *rest = dims[0] if dims else ATTN_DIMS
+        S = rest[0] if rest else 1024
         NB = S // ps
         P = B * NB + 8                   # 8 pages no row maps
         g = torch.Generator(device=dev).manual_seed(SEED)
@@ -482,21 +514,21 @@ def paged_decode_attention_cases(torch, flush):
             err = (got.float() - want.float()).abs().max().item()
             cerr = (got.float() - contig.float()).abs().max().item()
             ok = bool(torch.isfinite(got).all().item()) \
-                and err <= TOL[dname] and cerr == 0.0
+                and err <= ATTN_TOL[dname] and cerr == 0.0
             rec = {"phase": "kernels", "kernel": "paged_decode_attention",
                    "case": name, "dtype": dname, "B": B, "T": T, "S": S,
                    "page_size": ps, "NB": NB, "pool_pages": P + 1,
                    "trash_entries": int((bt == P).sum().item()),
                    "Hq": Hq, "Hkv": Hkv, "hd": hd, "window": window,
                    "plan": plan(B, T, Hq, Hkv, S, hd, dtype)._asdict(),
-                   "max_abs_err": err, "tol": TOL[dname],
+                   "max_abs_err": err, "tol": ATTN_TOL[dname],
                    "vs_contiguous_kernel_max_abs_diff": cerr, "ok": ok}
             if special == "masked":
                 mean_v = vg[0].float().mean(0).repeat_interleave(
                     Hq // Hkv, dim=0)
                 merr = (got[0].float() - mean_v[None]).abs().max().item()
                 rec["masked_row_vs_mean_v"] = merr
-                ok = ok and merr <= TOL[dname]
+                ok = ok and merr <= ATTN_TOL[dname]
                 rec["ok"] = ok
             if name in TIMED_ATTN and dtype == torch.bfloat16:
                 # what this run's data needs: every page the tables map
@@ -546,6 +578,74 @@ def paged_decode_attention_cases(torch, flush):
                                      f"{dname}: kernel disagrees with the "
                                      f"plain version or the contiguous "
                                      f"kernel: {rec}")
+    return out, max(errs)
+
+
+def memory_attention_cases(torch, flush):
+    """The encoder-decoder's cached cross-attention
+    (``layers.memory_attention``: T query rows against an S-slot frozen
+    memory, every slot valid) on the card, through the decode-attention
+    kernel over the persistent all-valid position row, against its plain
+    version (``gqa_attention(causal=False)``, what the CPU runs) at
+    seamless-m4t-medium's shapes (H 16 = Hkv, hd 64, S 1024 frames):
+    the decode step (B 8, T 1: ``mma_keys``) and a chunk (B 1, T 128:
+    ``mma_rows``), fp32 and bf16; the bf16 cases timed beside SDPA (no
+    mask) and their bound (K/V and q read once, out written once; 4 B T
+    H S hd operations)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.kernel import plan
+    from repro_torch.models import layers as L
+
+    dev = torch.device("cuda")
+    H, hd, S = 16, 64, 1024
+    out, errs = [], []
+    for name, B, T in (("cross_decode_seamless", 8, 1),
+                       ("cross_chunk_seamless", 1, 128)):
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            q = torch.randn((B, T, H, hd), generator=g, device=dev).to(dtype)
+            k = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
+            v = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
+            got = L.memory_attention(q, k, v)
+            want = L.gqa_attention(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ok = bool(torch.isfinite(got).all().item()) \
+                and err <= ATTN_TOL[dname]
+            rec = {"phase": "kernels", "kernel": "decode_attention",
+                   "case": name, "route": "memory_attention", "dtype": dname,
+                   "B": B, "T": T, "S": S, "Hq": H, "Hkv": H, "hd": hd,
+                   "plan": plan(B, T, H, H, S, hd, dtype)._asdict(),
+                   "max_abs_err": err, "tol": ATTN_TOL[dname], "ok": ok}
+            if dtype == torch.bfloat16:
+                elt = q.element_size()
+                nbytes = elt * (2 * B * S * H * hd + 2 * B * T * H * hd) \
+                    + 4 * (S + B * T)
+                flops = 4 * B * T * H * S * hd
+                bms, by = bound_ms(nbytes, flops, dname)
+                qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), \
+                    v.transpose(1, 2)
+                rec.update(
+                    kernel_ms=median_ms(
+                        torch, lambda: L.memory_attention(q, k, v), flush),
+                    plain_ms=median_ms(
+                        torch, lambda: L.gqa_attention(q, k, v,
+                                                       causal=False), flush),
+                    library_ms=median_ms(
+                        torch, lambda: F.scaled_dot_product_attention(
+                            qh, kh, vh), flush),
+                    bound_ms=bms, bound_us=bms * 1e3, bound_by=by,
+                    bytes=nbytes, flops=flops)
+                rec.update(achieved(rec))
+            emit(rec)
+            out.append(rec)
+            errs.append(err)
+            if not ok:
+                raise AssertionError(f"memory attention {name} {dname}: the "
+                                     f"kernel disagrees with the plain "
+                                     f"version: {rec}")
     return out, max(errs)
 
 
@@ -1176,7 +1276,8 @@ def flash_attention_cases(torch, flush):
     from repro_torch.kernels.flash_attention.ref import attention_reference
 
     dev = torch.device("cuda")
-    # (name, B, L, Hq, Hkv, hd, dtype, causal, window)
+    # (name, B, L, Hq, Hkv, hd, dtype, causal, window[, Lk]): Lk = L
+    # unless given
     cases = [
         ("pixtral12b", 2, 1024, 32, 8, 160, "bfloat16", True, 0),
         ("llama1b", 2, 1024, 32, 8, 64, "bfloat16", True, 0),
@@ -1192,14 +1293,21 @@ def flash_attention_cases(torch, flush):
         ("g12_hd128", 2, 1024, 48, 4, 128, "bfloat16", True, 0),
         ("gemma2_hd256_window4096", 1, 6144, 16, 8, 256, "bfloat16", True,
          4096),
+        # seamless-m4t-medium, non-causal at G 1: the encoder's
+        # self-attention over 1024 frames and the cache-free
+        # cross-attention of 128 text rows against them (Lq != Lk)
+        ("seamless_encoder", 1, 1024, 16, 16, 64, "bfloat16", False, 0),
+        ("seamless_cross_Lq128", 1, 128, 16, 16, 64, "bfloat16", False, 0,
+         1024),
     ]
     out, errs = [], []
-    for name, B, L, Hq, Hkv, hd, dname, causal, window in cases:
+    for name, B, L, Hq, Hkv, hd, dname, causal, window, *lk in cases:
+        Lk = lk[0] if lk else L
         g = torch.Generator(device=dev).manual_seed(SEED)
         dtype = getattr(torch, dname)
         q = torch.randn((B, L, Hq, hd), generator=g, device=dev).to(dtype)
-        k = torch.randn((B, L, Hkv, hd), generator=g, device=dev).to(dtype)
-        v = torch.randn((B, L, Hkv, hd), generator=g, device=dev).to(dtype)
+        k = torch.randn((B, Lk, Hkv, hd), generator=g, device=dev).to(dtype)
+        v = torch.randn((B, Lk, Hkv, hd), generator=g, device=dev).to(dtype)
         qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
         def plain():     # what ops.mha_attention runs for CPU tensors
@@ -1215,7 +1323,7 @@ def flash_attention_cases(torch, flush):
         err = (got.float() - want.float()).abs().max().item()
         ok = bool(torch.isfinite(got).all().item()) and err <= TOL[dname]
         pos = torch.arange(L, device=dev)
-        mask = torch.ones((L, L), dtype=torch.bool, device=dev)
+        mask = torch.ones((L, Lk), dtype=torch.bool, device=dev)
         if causal:
             mask &= pos[None] <= pos[:, None]
         if window:
@@ -1231,7 +1339,8 @@ def flash_attention_cases(torch, flush):
             sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qh, kh, vh, is_causal=causal, enable_gqa=True)
         rec = {"phase": "kernels", "kernel": "flash_attention",
-               "case": name, "dtype": dname, "B": B, "L": L, "Hq": Hq,
+               "case": name, "dtype": dname, "B": B, "L": L, "Lk": Lk,
+               "Hq": Hq,
                "Hkv": Hkv, "hd": hd, "causal": causal, "window": window,
                "plan": plan(B, L, Hq, Hkv, hd, dtype)._asdict(),
                "live_pairs": pairs, "max_abs_err": err, "tol": TOL[dname],
@@ -1260,19 +1369,39 @@ def flash_attention_cases(torch, flush):
     return out, max(errs)
 
 
-def card_tests():
+def card_tests(during=None):
     """The repository's card tests (``tests/test_torch_card.py``), run
     as the README names them: without ``tests/conftest.py``, which
     imports JAX, absent here. Fails unless pytest exits 0 with at least
-    one test passed and none skipped."""
+    one test passed and none skipped. The tests run in a process of
+    their own while this one runs ``during`` (work that times nothing
+    on the card); the process is killed if it outlives 600 s or
+    ``during`` raises."""
     import re
     root = Path(__file__).resolve().parent
     cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
            "-q", "-p", "no:cacheprovider", "tests/test_torch_card.py"]
+    import tempfile
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
-                       env=dict(os.environ, PYTHONPATH=str(root / "src")),
-                       timeout=600)
+    # files, not pipes: nothing reads a pipe while ``during`` runs
+    with tempfile.TemporaryFile("w+") as out, \
+            tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen(cmd, cwd=root, stdout=out, stderr=err,
+                                text=True, env=dict(
+                                    os.environ,
+                                    PYTHONPATH=str(root / "src")))
+        try:
+            if during is not None:
+                during()
+            proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        out.seek(0)
+        err.seek(0)
+        r = subprocess.CompletedProcess(cmd, proc.returncode, out.read(),
+                                        err.read())
     tail = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
     count = {k: int(n) for n, k in re.findall(
         r"(\d+) (passed|skipped|failed|errors?|deselected)", tail)}
@@ -3805,6 +3934,448 @@ def serve_hybrid(torch):
     return _family_serve(torch, cfg, "serve_hybrid", paged=False)
 
 
+# --------------------------------------------------------------------- #
+# the frontend families: seamless-m4t-medium's encoder-decoder and
+# pixtral-12b's embedding prefix
+# --------------------------------------------------------------------- #
+#: the serve phases of the frontend families: (text tokens low, high),
+#: the cache length (the VLM's holds its 1024-token prefix too)
+FRONTEND_SERVE = {"seamless-m4t-medium": ((32, 128), 256),
+                  "pixtral-12b": ((64, 256), 1536)}
+
+
+def _frames(rng, cfg, n):
+    """``n`` frontend inputs (n_tokens, d_embed) f32, drawn from ``rng``."""
+    fe = cfg.frontend
+    return [rng.normal(0, 1, (fe.n_tokens, fe.d_embed)).astype("float32")
+            for _ in range(n)]
+
+
+def _frontend_card_vs_cpu(torch, cfg, phase):
+    """``cfg`` cut to 2 layers (an encoder-decoder: 2 encoder and 2
+    decoder layers), fp32, on the CPU and on the card with one set of
+    weights (made on the card from the seed), on one input of 1024
+    frames (or patches) and 128 text tokens from the seed. Two paths,
+    each followed by 8 greedy decodes: ``prefill`` with the frames (the
+    encoder and the cache-free cross-attention: flash, non-causal; a
+    VLM's prefix before the text) and the engine's admission (an
+    encoder-decoder: ``encode_memory`` copied into the cache, then a
+    128-token extend; a VLM: the 1024-row embedding chunk through
+    ``extend_into_cache``, then the 128-token extend: decode attention,
+    at hd 160). Gates: logits within ``FAMILY_TOL``, greedy tokens
+    identical, the card's flash and decode-attention launches (counted
+    from 0 just before) nonzero. Returns the card run's launch counts."""
+    import numpy as np
+
+    from repro_torch import kernels
+
+    rng = np.random.default_rng(SEED)
+    tokens = rng.integers(0, cfg.vocab, 128)
+    frames = _frames(rng, cfg, 1)[0]
+    encdec = cfg.family == "encdec"
+    cache_len = 256 if encdec else 2048
+    t0 = time.perf_counter()
+    runs = {}
+    for name, model, params in _card_pair(cfg):
+        if name == "gpu":
+            kernels.reset_launch_counts()
+        dev = model.device
+        toks = torch.from_numpy(tokens).to(dev)[None]
+        emb = torch.from_numpy(frames).to(dev)[None]
+        out = {}
+        for path in ("prefill", "admission"):
+            cache = model.make_cache(1, cache_len)
+            if path == "prefill":
+                logits, _ = model.prefill(params, {"tokens": toks,
+                                                   "embeddings": emb}, cache)
+            else:
+                if encdec:
+                    xk, xv = model.encode_memory(params, emb)
+                    cache["xk"].copy_(xk)
+                    cache["xv"].copy_(xv)
+                else:
+                    model.extend_into_cache(params, None, cache,
+                                            embeddings=emb, last_only=True)
+                logits, _ = model.extend_into_cache(params, toks, cache)
+            seq, steps = [int(logits[0, -1].argmax())], [logits[0].cpu()]
+            for _ in range(8):
+                tok = torch.tensor([[seq[-1]]], device=dev)
+                logits, _ = model.decode_step(params, tok, cache)
+                steps.append(logits[0].cpu())
+                seq.append(int(logits[0, -1].argmax()))
+            out[path] = (seq, steps)
+        if name == "gpu":
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+        runs[name] = out
+        del model, params
+        gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"phase": phase, "arch": cfg.name, "family": cfg.family,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+           "head_dim": cfg.hd, "vocab": cfg.vocab, "dtype": cfg.dtype,
+           "frontend_tokens": cfg.frontend.n_tokens,
+           "d_embed": cfg.frontend.d_embed, "prompt": 128,
+           "decode_steps": 8, "tol": FAMILY_TOL, "launches_gpu": counts}
+    if encdec:
+        rec["encoder_layers"] = cfg.encoder.n_layers
+    ok = counts["decode_attention"] > 0 and counts["flash_attention"] > 0
+    for path in ("prefill", "admission"):
+        (ts_c, lg_c), (ts_g, lg_g) = runs["cpu"][path], runs["gpu"][path]
+        err = max((a - b).abs().max().item() for a, b in zip(lg_c, lg_g))
+        rec[f"{path}_logits_max_abs_err"] = err
+        rec[f"{path}_tokens_gpu"] = ts_g
+        rec[f"{path}_tokens_equal"] = ts_g == ts_c
+        ok = ok and err <= FAMILY_TOL and ts_g == ts_c
+    rec["seconds"] = time.perf_counter() - t0
+    rec["ok"] = ok
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"{phase}: card and CPU disagree: {rec}")
+    return counts
+
+
+def model_encdec(torch):
+    """seamless-m4t-medium at full width (d_model 1024, 16 heads, vocab
+    256206, 1024 frames of 1024 dims) cut to 2 encoder and 2 decoder
+    layers, fp32, card against CPU (``_frontend_card_vs_cpu``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("seamless-m4t-medium")
+    cfg = cfg.replace(n_layers=2, dtype="float32", param_dtype="float32",
+                      encoder=dataclasses.replace(cfg.encoder, n_layers=2))
+    return _frontend_card_vs_cpu(torch, cfg, "model_encdec")
+
+
+def model_vlm_cached(torch):
+    """pixtral-12b at full width (d_model 5120, head_dim 160, G 4, the
+    1024-token embedding prefix) cut to 2 layers, fp32, through its
+    cached path, card against CPU (``_frontend_card_vs_cpu``)."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("pixtral-12b").replace(n_layers=2, dtype="float32",
+                                          param_dtype="float32")
+    return _frontend_card_vs_cpu(torch, cfg, "model_vlm_cached")
+
+
+def _frontend_launches(cfg, forwards, admissions):
+    """Kernel launches of ``forwards`` cached decoder forwards and
+    ``admissions`` frontend admissions: a VLM's decoder takes one decode
+    attention and 2 norms a layer and ``ln_f``, and its embedding chunk
+    is one more such forward; an encoder-decoder's decoder layer takes
+    two decode attentions (self and cross) and 3 norms (``ln1``,
+    ``ln_x``, ``ln2``), and an encode one flash a layer and ``2
+    n_enc + 1`` norms."""
+    nl = cfg.n_layers
+    out = {"decode_attention": 0, "paged_decode_attention": 0,
+           "quant_matmul_int8": 0, "quant_matmul_int4": 0, "rmsnorm": 0,
+           "ssd": 0, "ssd_extend": 0, "flash_attention": 0}
+    if cfg.family == "encdec":
+        ne = cfg.encoder.n_layers
+        out["decode_attention"] = 2 * nl * forwards
+        out["rmsnorm"] = (3 * nl + 1) * forwards + (2 * ne + 1) * admissions
+        out["flash_attention"] = ne * admissions
+    else:
+        out["decode_attention"] = nl * (forwards + admissions)
+        out["rmsnorm"] = (2 * nl + 1) * (forwards + admissions)
+    return out
+
+
+def _frontend_engine_run(torch, model, params, reqs, graphs, uid0=0,
+                         engine=None):
+    """``reqs`` ((prompt, frames) pairs, 32 new tokens each) through a
+    fresh engine (8 slots, chunks of 128; ``graphs`` as ``Engine``
+    takes it) or through ``engine``; the launch counters set to 0 just
+    before and read just after. Returns (engine, record, tokens)."""
+    from repro_torch import kernels
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.sampler import Sampler
+
+    cfg = model.cfg
+    if engine is None:
+        engine = Engine(model, params, max_batch=8,
+                        cache_len=FRONTEND_SERVE[cfg.name][1],
+                        prefill_chunk=128, sampler=Sampler(), seed=SEED,
+                        graphs=graphs)
+    n0 = len(engine.step_kinds)
+    adm0 = engine.metrics.counters["chunked_admissions"].value
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i, (prompt, emb) in enumerate(reqs):
+        engine.submit(Request(uid=uid0 + i, prompt=prompt, embeddings=emb,
+                              max_new_tokens=32))
+    responses = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    kinds = engine.step_kinds[n0:]
+    forwards = kinds.count("plain") + 2 * kinds.count("mixed")
+    admissions = engine.metrics.counters["chunked_admissions"].value - adm0
+    stats = engine.latency_stats()
+    mine = {u: r for u, r in responses.items()
+            if uid0 <= u < uid0 + len(reqs)}
+    toks = sum(len(r.tokens) for r in mine.values())
+    rec = {"graphs": engine.graphs, "requests": len(mine),
+           "plain_steps": kinds.count("plain"),
+           "mixed_steps": kinds.count("mixed"), "admissions": admissions,
+           "launches": counts,
+           "launches_expected": _frontend_launches(cfg, forwards,
+                                                   admissions),
+           "tokens": toks, "wall_s": wall, "tok_per_s": toks / wall,
+           "ttft_ms_p50": stats.get("ttft_ms_p50"),
+           "itl_ms_p50": stats.get("itl_ms_p50"),
+           "decode_ms_p50": stats.get("decode_ms_p50"),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "programs": engine.program_cache_sizes(),
+           "bad_requests": [u for u, r in mine.items()
+                            if r.finish_reason != "length"
+                            or len(r.tokens) != 32]}
+    return engine, rec, {u: list(r.tokens) for u, r in mine.items()}
+
+
+def _frontend_serve(torch, arch, phase):
+    """``arch`` at full width and depth, bf16, weights from the seed,
+    through ``Engine`` on graphs: 16 requests (1024 frames or patches of
+    1024 dims each and ``FRONTEND_SERVE``'s text lengths, 32 new tokens)
+    at 8 slots, chunks of 128. Gates: every request finishes with 32
+    tokens, the launch counters equal the step trace's count with each
+    admission's frontend work (``_frontend_launches``); a second batch of
+    8 requests after ``mark_steady`` under the profiler: no capture, 2
+    host stream syncs a poll, the counters equal the trace and the
+    profiler's kernel counts (within the records it lost); the same 16
+    requests on eager steps give bitwise the graphs run's tokens. The
+    VLM's pool refuses an embeddings request, as JAX's does. Prints
+    decode ms p50, TTFT p50, tok/s and peak memory of both runs, the
+    encode's (or the embedding chunk's) device ms at B 1, and a decode
+    forward's bound: every decoder weight byte and the slots' memory
+    (an encoder-decoder's cross K/V at 8 slots) read once. Returns the
+    graphs run's launch counts by phase."""
+    import numpy as np
+    from torch.autograd import DeviceType
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(arch)
+    model = build(cfg)
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t_phase
+    (lo, hi), cache_len = FRONTEND_SERVE[arch]
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(lo, hi + 1, 16)
+    frames = _frames(rng, cfg, 16)
+    reqs = [(rng.integers(0, cfg.vocab, L), f) for L, f in zip(lens, frames)]
+    engine, rec, tokens = _frontend_engine_run(torch, model, params, reqs,
+                                               None)
+    line = dict(rec, phase=phase, arch=cfg.name, cache_len=cache_len,
+                prompt_lens=[int(x) for x in lens])
+    line["ok"] = rec["graphs"] and not rec["bad_requests"] \
+        and rec["launches"] == rec["launches_expected"]
+    emit(line)
+    if not line["ok"]:
+        raise AssertionError(f"{phase}: {line}")
+
+    # a second batch on the warm engine, steady, under the profiler
+    rng2 = np.random.default_rng(SEED + 1)
+    lens2 = rng2.integers(lo, hi + 1, 8)
+    frames2 = _frames(rng2, cfg, 8)
+    reqs2 = [(rng2.integers(0, cfg.vocab, L), f)
+             for L, f in zip(lens2, frames2)]
+    engine.mark_steady()
+    programs = engine.program_cache_sizes()
+    counters = engine.metrics.counters
+    polls0 = counters["trace_polls"].value
+    box = {}
+    prof, wall_ms = _profiled(torch, lambda: box.update(rec=(
+        _frontend_engine_run(torch, model, params, reqs2, None, uid0=100,
+                             engine=engine)[1])))
+    prec = box["rec"]
+    rows, lost = _device_rows(prof)
+    calls = {evt.key: evt.count for evt in prof.key_averages()
+             if evt.device_type == DeviceType.CPU}
+    polls = counters["trace_polls"].value - polls0
+    seen = _counted_vs_profiled(prec["launches"], rows)
+    busy = sum(ms for ms, _, _ in rows)
+    prof_line = {
+        "phase": phase.replace("serve", "profile"), "requests": 8,
+        "wall_ms_profiled": wall_ms, "device_kernel_ms": busy,
+        "device_busy_share": busy / wall_ms if busy else None,
+        "plain_steps": prec["plain_steps"], "mixed_steps": prec["mixed_steps"],
+        "admissions": prec["admissions"], "launches": prec["launches"],
+        "launches_expected": prec["launches_expected"],
+        "decode_attention": _ms_matching(rows, "decode_"),
+        "flash_attention": _ms_matching(rows, "flash_"),
+        "top": [{"kernel": k[:90], "ms": ms, "calls": c}
+                for ms, c, k in rows[:12]],
+        "steady_compiles": counters["steady_compiles"].value,
+        "programs": programs, "polls": polls,
+        "host_calls": {k: calls.get(k, 0) for k in (
+            "cudaGraphLaunch", "cudaLaunchKernel", "cudaStreamSynchronize",
+            "cudaMemcpyAsync", "cudaHostAlloc")},
+        "launches_counted_vs_profiled": seen, "profiler_lost_spins": lost}
+    prof_line["ok"] = (
+        not prec["bad_requests"]
+        and prec["launches"] == prec["launches_expected"]
+        and counters["steady_compiles"].value == 0
+        and engine.program_cache_sizes() == programs
+        and polls > 0 and calls.get("cudaStreamSynchronize", 0) == 2 * polls
+        and _counters_confirmed(seen, lost))
+    emit(prof_line)
+    if not prof_line["ok"]:
+        raise AssertionError(f"{phase}: the profiled batch failed its "
+                             f"gates: {prof_line}")
+    cache_bytes = sum(t.nbytes for t in _leaves(engine.cache))
+    # what a decode forward's attention reads: every slot's K/V, the
+    # whole ring (the kernel masks by position, it skips no tile), and an
+    # encoder-decoder's memory
+    kv_read = sum(t.nbytes for k, t in _items(engine.cache)
+                  if k in ("k", "v", "xk", "xv"))
+    # the admission program's time at B 1 (CUDA events around a replay,
+    # median of 5; slot 0's rows take the writes), and its body run
+    # eagerly (the same kernels, launched from the host)
+    key = ("encode",) if model.is_encdec else ("embed_chunk", 0)
+    frontend_programs = sorted(k[0] for k in engine._programs
+                               if k[0] in ("encode", "embed_chunk"))
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    frontend_ms = median_ms(torch, engine._programs[key], flush, iters=5,
+                            warmup=1)
+    frontend_eager_ms = median_ms(torch, engine._programs[key].body, flush,
+                                  iters=5, warmup=1)
+    del flush
+    del engine
+    gc.collect()
+
+    # the same 16 requests on eager steps: bitwise the graphs run's
+    _, erec, etokens = _frontend_engine_run(torch, model, params, reqs,
+                                            False)
+    gc.collect()
+
+    if model.is_encdec:
+        pool = "n/a (no paged cache)"
+    else:
+        try:
+            Engine(model, params, max_batch=1, cache_len=cache_len,
+                   paged=True, page_size=16,
+                   num_pages=cache_len // 16).submit(
+                Request(uid=0, prompt=reqs[0][0], embeddings=frames[0],
+                        max_new_tokens=2))
+        except ValueError as err:
+            pool = f"ValueError: {err}"
+        else:
+            pool = "accepted"
+    # a decode forward reads every decoder weight byte once: all but the
+    # encoder, the frontend projection and the embedding table (one row)
+    dec = ("dec_layers" if model.is_encdec else "blocks", "lm_head",
+           "ln_f")
+    weights = _nbytes(params)
+    read = sum(_nbytes(params[k]) for k in dec)
+    f_bytes, f_flops = _frontend_work(cfg, params, cache_len)
+    f_bound, f_by = bound_ms(f_bytes, f_flops, cfg.dtype)
+    out = {"phase": f"{phase}_summary", "arch": cfg.name,
+           "family": cfg.family, "n_layers": cfg.n_layers,
+           "encoder_layers": cfg.encoder.n_layers if cfg.encoder else 0,
+           "d_model": cfg.d_model, "head_dim": cfg.hd, "dtype": cfg.dtype,
+           "frontend_tokens": cfg.frontend.n_tokens,
+           "weight_bytes": weights, "init_s": t_init,
+           "cache_bytes": cache_bytes,
+           "decode_forward_weight_bytes": read,
+           "decode_forward_kv_bytes": kv_read,
+           "decode_forward_bound_ms_weights": read / HBM_BYTES_PER_S * 1e3,
+           "decode_forward_bound_ms": (read + kv_read) / HBM_BYTES_PER_S
+           * 1e3,
+           "frontend_programs": frontend_programs,
+           ("encode_ms" if model.is_encdec else "embed_chunk_ms"):
+               frontend_ms,
+           "frontend_eager_ms": frontend_eager_ms,
+           "frontend_bound_ms": f_bound, "frontend_bound_by": f_by,
+           "frontend_bytes": f_bytes, "frontend_flops": f_flops,
+           "graphs_equal_eager": etokens == tokens, "pool": pool,
+           "profile_busy_share": prof_line["device_busy_share"],
+           "seconds": time.perf_counter() - t_phase,
+           **{f"{k}_{m}": r[k] for m, r in (("graphs", rec), ("eager", erec))
+              for k in ("tok_per_s", "ttft_ms_p50", "decode_ms_p50",
+                        "peak_mem_gib")}}
+    out["ok"] = out["graphs_equal_eager"] and not erec["bad_requests"] and (
+        model.is_encdec or pool.startswith("ValueError"))
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"{phase}: {out}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {phase: rec["launches"]}
+
+
+def _leaves(tree):
+    for _, t in _items(tree):
+        yield t
+
+
+def _frontend_work(cfg, params, cache_len):
+    """(bytes, operations) of one admission's frontend work at B 1: an
+    encode (the frontend projection, every encoder layer, every decoder
+    layer's cross K/V: their weights read once, the frames read and the
+    slot's memory rows written; 2 operations a weight a frame, and 4 L^2
+    d a layer for the bidirectional attention) or an embedding chunk
+    (every decoder block's weights read once and the slot's K/V rows
+    written; 2 operations a weight a position, and 4 Hq hd a causal
+    (query, key) pair a layer)."""
+    fe = cfg.frontend
+    L, d = fe.n_tokens, cfg.d_model
+    elt = 2 if cfg.dtype == "bfloat16" else 4
+
+    def count(tree):
+        return sum(t.numel() for t in _leaves(tree))
+
+    if cfg.family == "encdec":
+        dec = params["dec_layers"]["cross_attn"]
+        w = count(params["frontend_proj"]) + count(params["enc_layers"]) \
+            + count(dec["wk"]) + count(dec["wv"])
+        out = 2 * cfg.n_layers * L * cfg.n_kv_heads * cfg.hd * elt
+        nbytes = w * elt + 4 * L * fe.d_embed + out
+        flops = 2 * L * w + cfg.encoder.n_layers * 4 * L * L * d
+    else:
+        w = count(params["frontend_proj"]) + count(params["blocks"])
+        out = 2 * cfg.n_layers * L * cfg.n_kv_heads * cfg.hd * elt
+        nbytes = w * elt + 4 * L * fe.d_embed + out
+        pairs = L * (L + 1) // 2
+        flops = 2 * L * w + cfg.n_layers * 4 * pairs * cfg.n_heads * cfg.hd
+    return nbytes, flops
+
+
+def _items(tree, key=None):
+    """(leaf key, leaf) of every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _items(v, k)
+    else:
+        yield key, tree
+
+
+def serve_encdec(torch):
+    """seamless-m4t-medium at full width and depth (12 + 12 layers, bf16)
+    through ``_frontend_serve``: 1024 frames a request, encoded once at
+    admission."""
+    return _frontend_serve(torch, "seamless-m4t-medium", "serve_encdec")
+
+
+def serve_vlm(torch):
+    """pixtral-12b at full width and depth (40 layers, head_dim 160,
+    bf16) through ``_frontend_serve`` on the rings: a 1024-token
+    embedding prefix a request, one embedding chunk before the text."""
+    return _frontend_serve(torch, "pixtral-12b", "serve_vlm")
+
+
 def spec_exact(torch):
     """The exact identity gates, in fp32: a 2-layer full-width
     llama3.2-1b (the ``spec`` variant's ``int8@1`` self-draft, and the
@@ -4063,16 +4634,18 @@ def serve_eager(torch, model, params, graphs_turn, phase):
     (``graphs=False``) and its CUDA graphs, in turns: the serve phase's
     own run on graphs and its profiled second batch (``graphs_turn``:
     the serve record, its tokens and the profile record), then eager,
-    eager, graphs, each a fresh engine that serves (its own serve line)
-    and profiles a second batch (its own profile line, gated as every
-    profile phase). This phase's line sets the four turns side by side
+    graphs (three turns: one eager turn, whose profiled batch is the
+    costliest of the phase), each a fresh engine that serves (its own
+    serve line) and profiles a second batch (its own profile line, gated
+    as every profile phase). This phase's line sets the three turns side
+    by side
     (decode ms p50, ITL and TTFT p50, tok/s; the profiled batch's wall,
     device time and busy share; a graphs turn's serve wall includes its
     captures) and passes when every turn's greedy tokens equal the first
     graphs run's."""
     rec0, tokens0, prof0 = graphs_turn
     turns, same = [("graphs", rec0, prof0)], []
-    for i, graphs in enumerate((False, False, None)):
+    for i, graphs in enumerate((False, None)):
         _, engine, rec, tokens = serve(torch, model, params, graphs=graphs,
                                        phase=f"{phase}_turn{i + 2}")
         prof = profile(torch, engine, f"{phase}_profile{i + 2}")
@@ -4364,6 +4937,8 @@ def main() -> int:
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     attn, attn_err = decode_attention_cases(torch, flush)
+    mem, mem_err = memory_attention_cases(torch, flush)
+    attn, attn_err = attn + mem, max(attn_err, mem_err)
     paged, paged_err = paged_decode_attention_cases(torch, flush)
     norm, norm_err = rmsnorm_cases(torch, flush)
     qmm, qmm_err = quant_matmul_cases(torch, flush)
@@ -4372,17 +4947,22 @@ def main() -> int:
     flash, flash_err = flash_attention_cases(torch, flush)
     del flush
     marks.append(("build_and_kernels", time.perf_counter()))
-    card_tests()
-    marks.append(("card_tests", time.perf_counter()))
-    model_check(torch)
-    model_check(torch, variant="edge", phase="model_quant")
-    model_check(torch, quant="int8", phase="model_quant")
-    # quantized SSM stacks: the edge profile and int8 weights on mamba2
-    model_check(torch, variant="reduced+edge", phase="model_quant",
-                arch="mamba2-780m")
-    model_check(torch, variant="reduced", quant="int8", phase="model_quant",
-                arch="mamba2-780m")
-    spec_exact(torch)
+
+    def model_checks():
+        model_check(torch)
+        model_check(torch, variant="edge", phase="model_quant")
+        model_check(torch, quant="int8", phase="model_quant")
+        # quantized SSM stacks: the edge profile and int8 weights on mamba2
+        model_check(torch, variant="reduced+edge", phase="model_quant",
+                    arch="mamba2-780m")
+        model_check(torch, variant="reduced", quant="int8",
+                    phase="model_quant", arch="mamba2-780m")
+        spec_exact(torch)
+
+    # the card tests in their own process while the model checks, which
+    # time nothing on the card, run in this one
+    card_tests(during=model_checks)
+    marks.append(("card_tests_and_model_checks", time.perf_counter()))
     model, params = served_model()
     counts, engine, rec, tokens = serve(torch, model, params)
     prof = profile(torch, engine)
@@ -4458,6 +5038,13 @@ def main() -> int:
     family_counts.update(serve_moe(torch))
     family_counts.update(serve_hybrid(torch))
     marks.append(("families", time.perf_counter()))
+    # the frontend families: card against CPU at full width, then
+    # seamless-m4t-medium and pixtral-12b at full depth on graphs
+    frontend_counts = {"seamless-m4t-medium-2x2": model_encdec(torch),
+                       "pixtral-12b-2-cached": model_vlm_cached(torch)}
+    frontend_counts.update(serve_encdec(torch))
+    frontend_counts.update(serve_vlm(torch))
+    marks.append(("frontends", time.perf_counter()))
     # speculative decoding last: its profile windows come after every
     # earlier phase's, whose gates count the records a window loses
     # (more in the later windows of a process)
@@ -4528,6 +5115,9 @@ def main() -> int:
         line["spec_launches"] = spec_launches(line["name"])
         line["family_launches"] = {
             k: c[line["name"]] for k, c in family_counts.items()
+            if c[line["name"]]}
+        line["frontend_launches"] = {
+            k: c[line["name"]] for k, c in frontend_counts.items()
             if c[line["name"]]}
     emit({"kernels": kernel_lines})
     print(smi, flush=True)

@@ -7,8 +7,11 @@ batch, ...]`` on caches. A tree crosses as numpy arrays (``jax.tree.map
 bf16 included, and cache positions and block tables stay int32. The
 mapping is generic over the tree, so contiguous and paged caches cross
 the same way, int8 KV caches (``k_scale``/``v_scale``,
-``kp_scale``/``vp_scale`` leaves) included. A quantized parameter tree
-(``quant.quantize_for_cfg``) crosses as its QTensor leaves.
+``kp_scale``/``vp_scale`` leaves) included, and so does the
+encoder-decoder's tree (``frontend_proj``, ``enc_layers``, ``enc_ln``,
+``dec_layers``) and cache (its bare ``xk``/``xv`` memory beside the
+``self`` ring). A quantized parameter tree (``quant.quantize_for_cfg``)
+crosses as its QTensor leaves.
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dispatch import resolve_device
-from repro_torch.models.transformer import is_f32_leaf, param_shapes
+from repro_torch.models.model import param_shapes
+from repro_torch.models.transformer import is_f32_leaf
 from repro_torch.quant.params import quantized_shapes
 
 _NP_DTYPES = {torch.int8: np.int8, torch.float32: np.float32}

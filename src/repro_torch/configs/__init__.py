@@ -1,9 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolves through ``ARCHS``,
 and the two stretch ids of ``extra.py`` through ``get_arch`` alone, as
-in the JAX package. The encoder-decoder id raises
-``NotImplementedError`` naming the ROADMAP item that ports its family."""
-from repro_torch.configs.base import (SHAPES, ModelConfig, MoEConfig,
-                                      ShapeConfig, SSMConfig)
+in the JAX package."""
+from repro_torch.configs.base import (SHAPES, EncoderConfig,
+                                      FrontendConfig, ModelConfig,
+                                      MoEConfig, ShapeConfig, SSMConfig)
 from repro_torch.configs.extra import EXTRA_ARCHS
 from repro_torch.configs.granite_moe_3b_a800m import CONFIG as _granite
 from repro_torch.configs.internlm2_20b import CONFIG as _internlm2
@@ -13,19 +13,13 @@ from repro_torch.configs.mamba2_780m import CONFIG as _mamba2
 from repro_torch.configs.pixtral_12b import CONFIG as _pixtral
 from repro_torch.configs.qwen2_5_14b import CONFIG as _qwen25
 from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as _qwen2moe
+from repro_torch.configs.seamless_m4t_medium import CONFIG as _seamless
 from repro_torch.configs.starcoder2_15b import CONFIG as _starcoder2
 
 ARCHS = {c.name: c for c in [
-    _internlm2, _starcoder2, _qwen25, _qwen2moe, _pixtral, _llama32,
-    _granite, _mamba2, _jamba,
+    _internlm2, _seamless, _starcoder2, _qwen25, _qwen2moe, _pixtral,
+    _llama32, _granite, _mamba2, _jamba,
 ]}
-
-#: architecture ids of the JAX package the port cannot build yet, with
-#: the ROADMAP item (section 1) that brings their family over
-NOT_PORTED = {
-    "seamless-m4t-medium": "item 10b of section 1 (frontend families: "
-                           "the encoder-decoder)",
-}
 
 #: variants of the JAX registry the port does not build yet
 _VARIANT_ITEMS = {
@@ -43,9 +37,6 @@ def get_arch(name: str, *, variant: str = "") -> ModelConfig:
     it sets one) and "spec" (speculative decoding: an int8 self-draft of
     half the target's blocks at gamma 4), e.g. "reduced+edge",
     "reduced+continuous" or "reduced+spec"."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name!r} is not ported yet: ROADMAP {NOT_PORTED[name]}")
     cfg = ARCHS.get(name) or EXTRA_ARCHS.get(name)
     if cfg is None:
         raise KeyError(f"unknown architecture {name!r}; known: "
@@ -65,7 +56,14 @@ def get_arch(name: str, *, variant: str = "") -> ModelConfig:
                               or 8192)
         elif v == "spec":
             # half-depth int8 self-draft: weight-sharing, no second
-            # checkpoint (the edge deployment's speculative profile)
+            # checkpoint (the edge deployment's speculative profile). An
+            # encoder-decoder has no self-draft (the draft would need its
+            # own cross-attention memory): it raises, as in JAX
+            if cfg.family == "encdec":
+                raise ValueError(
+                    f"variant 'spec' takes a decoder-only stack; "
+                    f"{cfg.name!r} is an encoder-decoder (serve it with "
+                    f"draft='ngram')")
             from repro_torch.models.transformer import n_blocks
             nb = max(1, n_blocks(cfg) // 2)
             cfg = cfg.replace(name=cfg.name + "-spec",
@@ -79,5 +77,6 @@ def get_arch(name: str, *, variant: str = "") -> ModelConfig:
     return cfg
 
 
-__all__ = ["ARCHS", "EXTRA_ARCHS", "SHAPES", "ModelConfig", "MoEConfig",
-           "SSMConfig", "ShapeConfig", "get_arch"]
+__all__ = ["ARCHS", "EXTRA_ARCHS", "SHAPES", "EncoderConfig",
+           "FrontendConfig", "ModelConfig", "MoEConfig", "SSMConfig",
+           "ShapeConfig", "get_arch"]

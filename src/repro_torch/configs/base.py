@@ -7,9 +7,9 @@ reads the same in both packages; ``act_dtype`` / ``p_dtype`` resolve
 them to ``torch`` dtypes. Only the fields the ported families read
 are carried: the dense decoder's, the mixture-of-experts FFN's
 (``MoEConfig``), the Mamba-2 mixer's (``SSMConfig``), the hybrid's
-interleave (``attn_every``) and the frontend stub's (``FrontendConfig``,
-the VLM's patch embeddings); the encoder sub-config arrives with the
-encoder-decoder family (ROADMAP section 1, item 10b).
+interleave (``attn_every``), the frontend stub's (``FrontendConfig``:
+the VLM's patch embeddings, the encoder-decoder's audio frames) and the
+encoder-decoder's encoder stack (``EncoderConfig``).
 """
 from __future__ import annotations
 
@@ -55,6 +55,18 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder stack of an encoder-decoder model (the decoder's d_model);
+    it reads the frontend's frame embeddings, with no embedding table of
+    its own."""
+
+    n_layers: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+
+
+@dataclass(frozen=True)
 class FrontendConfig:
     """Modality frontend stub: precomputed frame/patch embeddings of shape
     ``(batch, n_tokens, d_embed)`` that a learned linear projector maps to
@@ -68,7 +80,8 @@ class FrontendConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | moe | ssm | hybrid | vlm
+    family: str                     # dense | moe | ssm | hybrid | vlm |
+                                    # encdec
     n_layers: int
     d_model: int
     n_heads: int
@@ -100,6 +113,7 @@ class ModelConfig:
     ssm: Optional[SSMConfig] = None
     attn_every: int = 0             # hybrid: one attention sublayer per
                                     # this many (the super-block's size)
+    encoder: Optional[EncoderConfig] = None
     frontend: Optional[FrontendConfig] = None
     dtype: str = "bfloat16"         # activation dtype
     param_dtype: str = "bfloat16"
@@ -127,8 +141,9 @@ class ModelConfig:
         heads (head_dim 1, no FFN) and a smaller SSM (d_state 32,
         head_dim 32, chunk 32); a mixture of experts keeps at most 4
         experts, top-2, of 128 hidden units, and one shared expert of
-        128; a frontend keeps 16 tokens of 64 dims; a hybrid keeps one
-        full super-block (``n_layers = attn_every``)."""
+        128; an encoder keeps 2 layers of the decoder's heads and an FFN
+        of at most 512; a frontend keeps 16 tokens of 64 dims; a hybrid
+        keeps one full super-block (``n_layers = attn_every``)."""
         d_model = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
         if n_heads:
@@ -161,6 +176,10 @@ class ModelConfig:
         if self.ssm is not None:
             kw["ssm"] = dataclasses.replace(self.ssm, d_state=32,
                                             head_dim=32, chunk=32)
+        if self.encoder is not None:
+            kw["encoder"] = EncoderConfig(
+                n_layers=2, n_heads=n_heads, n_kv_heads=n_kv,
+                d_ff=min(self.encoder.d_ff, 512))
         if self.frontend is not None:
             kw["frontend"] = dataclasses.replace(self.frontend, n_tokens=16,
                                                  d_embed=64)

@@ -53,7 +53,10 @@
 //   128 registers, so the warps of a row group split the head dim
 //   instead: every warp scores the whole tile (the same S, bit for bit)
 //   and accumulates its slice of O; "mma_rows" then holds 32 rows a
-//   block (2 row groups x 2 slices), "mma_keys" 16 (4 slices).
+//   block (2 row groups x 2 slices), "mma_keys" 16 (4 slices). At hd 160
+//   (pixtral-12b: 10 k-steps, 20 sixteen-byte chunks a row) "mma_rows"
+//   takes the same 2 x 2 (slices of 80 dims, 10 n-tiles), "mma_keys" 2
+//   slices of 80, and each slice's 2 warps split the tile's slots.
 //   f32 ("simt"): products on the CUDA cores, p in f32, no split (the
 //     port's first design, kept for the fp32 gates: TF32 would not hold
 //     1e-4 against the plain version).
@@ -125,16 +128,17 @@ constexpr int mma_smem_bytes() {
 }
 
 // WR: row groups of 16 in a block (4: "mma_rows", 1: "mma_keys"); WD:
-// slices of the head dim, each a warp's share of O (1 up to hd 128; at
-// hd 256, where O alone would take 128 registers a lane, 2 on the 32
-// rows of "mma_rows" and 4 on "mma_keys": every warp of a row group
-// scores the whole tile, a bitwise equal S, and accumulates its slice);
-// the 4 / (WR * WD) warps left of a row group split each tile's slots
+// slices of the head dim, each a warp's share of O (1 up to hd 128;
+// above, where O alone would take 80 or 128 registers a lane, 2 on the
+// 32 rows of "mma_rows", and on "mma_keys" 4 at hd 256 and 2 at hd 160,
+// whose 4 slices would be 5 n-tiles, an odd count the P V step's n-tile
+// pairs cannot take: every warp of a row group scores the whole tile, a
+// bitwise equal S, and accumulates its slice); the 4 / (WR * WD) warps
+// left of a (row group, slice) split each tile's slots (2 at hd 160)
 template <int HD, int WR, int WD, bool PAGED>
 __global__ void __launch_bounds__(MMA_THREADS)
     decode_mma_kernel(Args a) {
   static_assert(WR * WD <= 4 && 4 % (WR * WD) == 0, "4 warps a block");
-  static_assert(WD == 1 || 4 == WR * WD, "a slot split keeps whole O");
   constexpr int WK = 4 / (WR * WD);   // warps splitting a tile's slots
   constexpr int DW = HD / WD;         // head dims a warp accumulates
   constexpr int KW = BK / WK;         // slots a warp takes of each tile
@@ -304,14 +308,17 @@ __global__ void __launch_bounds__(MMA_THREADS)
     l[h] += __shfl_xor_sync(FULL, l[h], 2);
   }
   if constexpr (WK > 1) {
-    // the warps of a row group hand (m, l, o) to its first warp, through
-    // the consumed K/V ring, lane-major so the copies are conflict-free
+    // the warps of a (row group, head-dim slice) hand (m, l, o) to its
+    // first warp, through the consumed K/V ring, lane-major so the
+    // copies are conflict-free
     constexpr int NV = 4 + 4 * NO;     // values a lane hands over
-    static_assert((WK - 1) * WR * NV * 32 * 4 <= 4 * BK * STR * 2,
+    constexpr int WG = WR * WD;        // (row group, slice) pairs
+    static_assert((WK - 1) * WG * NV * 32 * 4 <= 4 * BK * STR * 2,
                   "the hand-over fits in the ring");
     float* red = reinterpret_cast<float*>(sK);
+    const int grp = wd * WR + wr;
     if (wk > 0 && live) {
-      float* dst = red + ((wk - 1) * WR + wr) * NV * 32 + lane;
+      float* dst = red + ((wk - 1) * WG + grp) * NV * 32 + lane;
       dst[0] = m[0];
       dst[32] = m[1];
       dst[64] = l[0];
@@ -326,7 +333,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int w = 1; w < WK; ++w) {
-      const float* src = red + ((w - 1) * WR + wr) * NV * 32 + lane;
+      const float* src = red + ((w - 1) * WG + grp) * NV * 32 + lane;
       mx[0] = fmaxf(mx[0], src[0]);
       mx[1] = fmaxf(mx[1], src[32]);
     }
@@ -339,7 +346,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
       for (int e = 0; e < 4; ++e) o[n][e] *= f[e >> 1];
 #pragma unroll
     for (int w = 1; w < WK; ++w) {
-      const float* src = red + ((w - 1) * WR + wr) * NV * 32 + lane;
+      const float* src = red + ((w - 1) * WG + grp) * NV * 32 + lane;
       f[0] = exp2f(src[0] - mx[0]);
       f[1] = exp2f(src[32] - mx[1]);
       l[0] += src[64] * f[0];
@@ -660,14 +667,17 @@ int launch_route(const Args& a, int hd, int route, cudaStream_t st) {
     case 32: return launch_f32<32, PAGED>(a, st);
     case 64: return launch_f32<64, PAGED>(a, st);
     case 128: return launch_f32<128, PAGED>(a, st);
+    case 160: return launch_f32<160, PAGED>(a, st);
     case 256: return launch_f32<256, PAGED>(a, st);
     case 1032: return launch_mma<32, 4, 1, PAGED>(a, st);
     case 1064: return launch_mma<64, 4, 1, PAGED>(a, st);
     case 1128: return launch_mma<128, 4, 1, PAGED>(a, st);
+    case 1160: return launch_mma<160, 2, 2, PAGED>(a, st);   // 32 rows
     case 1256: return launch_mma<256, 2, 2, PAGED>(a, st);   // 32 rows
     case 2032: return launch_mma<32, 1, 1, PAGED>(a, st);
     case 2064: return launch_mma<64, 1, 1, PAGED>(a, st);
     case 2128: return launch_mma<128, 1, 1, PAGED>(a, st);
+    case 2160: return launch_mma<160, 1, 2, PAGED>(a, st);
     case 2256: return launch_mma<256, 1, 4, PAGED>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

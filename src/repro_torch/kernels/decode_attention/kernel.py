@@ -28,12 +28,12 @@ import torch
 from repro_torch.kernels import _autograd, _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128, 256)
+_HEAD_DIMS = (32, 64, 128, 160, 256)
 _ROUTES = {"simt": 0, "mma_rows": 1, "mma_keys": 2}
 BK = 64                  # slots a staged K/V tile holds (csrc BK)
 SIMT_ROWS = 16           # rows a block of the f32 route
 MMA_ROWS = 64            # rows a block of the mma_rows route (4 warps)
-MMA_ROWS_HD256 = 32      # at hd 256 (2 row groups, each 2 head-dim slices)
+MMA_ROWS_HD256 = 32      # above hd 128 (160, 256): 2 row groups x 2 slices
 KEYS_MAX_ROWS = 16       # R at most this: one 16-row tile, mma_keys
 TARGET_BLOCKS = 264      # two blocks on each of the H100's 132 SMs
 MAX_SPLITS = 16
@@ -61,8 +61,8 @@ def plan(B: int, T: int, Hq: int, Hkv: int, S: int, hd: int,
     about ``TARGET_BLOCKS`` blocks run (at most ``MAX_SPLITS`` splits of
     whole ``BK``-slot tiles, every split non-empty, the last one ragged
     where S is not a multiple of its share). ``hd`` sets only the rows a
-    block of ``mma_rows``: 32 at hd 256, where the warps of a row group
-    split the head dim, else 64."""
+    block of ``mma_rows``: 32 above hd 128 (160, 256), where the warps of
+    a row group split the head dim, else 64."""
     R = T * (Hq // Hkv)
     if dtype == torch.float32:
         rb = -(-R // SIMT_ROWS)

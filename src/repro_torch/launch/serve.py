@@ -20,9 +20,16 @@ the ``spec`` variant) and ``--spec-gamma`` sets the tokens proposed a
 step; the run then prints a ``speculative:`` line. ``--arch`` takes every
 architecture the port builds: the dense ids, the MoE family
 (qwen2-moe-a2.7b, granite-moe-3b-a800m, mixtral-8x7b), the SSM family
-(mamba2-780m) and the hybrid jamba-1.5-large-398b. A stack with SSM
-sublayers keeps contiguous state only (no ``--paged``, no prefix cache,
-no model draft: ``--draft ngram`` serves it); quantization and the edge
+(mamba2-780m), the hybrid jamba-1.5-large-398b and the frontend
+families: the VLM pixtral-12b and the encoder-decoder
+seamless-m4t-medium, whose every request carries (n_tokens, d_embed)
+frames drawn from the seed (a VLM's prefix enters its slot as one
+embedding chunk before the text; an encoder-decoder encodes them once
+at admission). A stack with SSM sublayers keeps contiguous state only
+(no ``--paged``, no prefix cache, no model draft: ``--draft ngram``
+serves it); the frontend families serve from rings only (the pool is
+token-only, as in JAX), and the encoder-decoder takes no model draft
+(``--draft ngram`` serves it); quantization and the edge
 profile apply to every stack (the MoE experts and router stay in full
 precision, as in the JAX package). The device is CUDA unless
 ``--device cpu`` is given; without a CUDA device the CLI exits with an
@@ -164,12 +171,19 @@ def main(argv=None):
                             if args.faults else None))
 
     rng = np.random.default_rng(args.seed)
+    fe = cfg.frontend
     t0 = time.perf_counter()
     for uid in range(args.requests):
+        # the draws of the JAX CLI, in its order: the length, a frontend
+        # model's frames (n_tokens, d_embed), then the prompt
         L = int(rng.integers(max(2, args.prompt_len // 2),
                              args.prompt_len + 1))
+        emb = None
+        if fe is not None:
+            emb = rng.normal(0, 1, (fe.n_tokens, fe.d_embed)).astype(
+                np.float32)
         engine.submit(Request(uid=uid, prompt=rng.integers(0, cfg.vocab, L),
-                              max_new_tokens=args.max_new,
+                              max_new_tokens=args.max_new, embeddings=emb,
                               deadline_s=args.deadline or None))
     logger = None
     if args.metrics_jsonl:

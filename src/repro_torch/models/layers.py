@@ -36,6 +36,12 @@ replaces the JAX package's flash Pallas kernels) and keeps plain
 ``gqa_attention`` / ``chunked_causal_attention`` on the CPU, where it is
 held against the JAX model's route bit for bit.
 
+Attention without a causal mask (the encoder-decoder's encoder and its
+cross-attention) has two routes: ``full_attention`` (cache-free: the
+flash kernel non-causal on the card) and ``memory_attention`` (T rows
+against a frozen memory: the decode-attention kernel on the card); the
+CPU runs plain ``gqa_attention(causal=False)`` for both, as JAX does.
+
 Quantized projections are structural, as in JAX: a QTensor dict
 (``{"q"|"q4", "scale"}``, ``repro_torch.quant``) where ``p["w"]`` was a
 tensor routes ``linear`` through the dequantize-matmul op.
@@ -73,6 +79,18 @@ def linear(p, x):
     return y
 
 
+def project(p, x):
+    """``linear`` of an input whose dtype may differ from the weight's
+    (frontend frames in f32 against bf16 weights): both go to the
+    promoted dtype first, as JAX promotes ``x @ w``. A quantized weight
+    takes x as it is."""
+    w = p["w"]
+    if isinstance(w, dict) or x.dtype == w.dtype:
+        return linear(p, x)
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return linear({k: v.to(dt) for k, v in p.items()}, x.to(dt))
+
+
 def rms_norm(p, x, eps=1e-5, residual=None):
     """RMSNorm of ``x + residual`` through the fused op: returns (normed,
     x + residual), the sum being ``x`` itself when ``residual`` is None."""
@@ -94,6 +112,15 @@ def embed(p, ids):
 
 def unembed(p, x):
     return x @ p["table"].T
+
+
+def last_valid(x, length):
+    """x: (B, L, ...); length: (B,) valid counts -> (B, 1, ...) at each
+    row's last valid position (the last position if None)."""
+    if length is None:
+        return x[:, -1:]
+    idx = torch.clamp(length.long() - 1, 0, x.shape[1] - 1)
+    return x[torch.arange(x.shape[0], device=x.device), idx][:, None]
 
 
 # --------------------------------------------------------------------- #
@@ -209,6 +236,51 @@ def _self_attention(q, k, v, cfg, positions, window):
                                         positions=positions, window=window)
     return gqa_attention(q, k, v, q_positions=positions,
                          k_positions=positions, causal=True, window=window)
+
+
+def full_attention(q, k, v):
+    """Bidirectional attention, every query over every key: the
+    encoder's self-attention and the cache-free cross-attention (Lq may
+    differ from Lk). On CUDA tensors the flash kernel, non-causal; on CPU
+    tensors plain ``gqa_attention(causal=False)``, the JAX model's
+    route."""
+    if use_kernel(q, k, v):
+        return gqa_flash(q, k, v, causal=False)
+    return gqa_attention(q, k, v, causal=False)
+
+
+#: (device, S) -> the all-valid position row ``arange(S)`` that the
+#: cached cross-attention hands the decode-attention kernel: one
+#: persistent tensor, so a captured graph reads a fixed address
+_MEMORY_POS = {}
+
+
+def memory_positions(S, device):
+    key = (torch.device(device), int(S))
+    row = _MEMORY_POS.get(key)
+    if row is None:
+        row = _MEMORY_POS[key] = torch.arange(S, dtype=torch.int32,
+                                              device=device)
+    return row
+
+
+def memory_attention(q, xk, xv):
+    """Cached cross-attention: q (B, T, Hq, hd) against the frozen memory
+    xk, xv (B, S, Hkv, hd), every slot valid, no mask. On CUDA tensors
+    the decode-attention kernel over the persistent position row
+    (``memory_positions``, broadcast over the batch) with every query at
+    position S - 1, so every slot passes its causal test: the kernel's
+    ``mma_keys`` route at decode, ``mma_rows`` for a chunk. On CPU
+    tensors plain ``gqa_attention(causal=False)``, the JAX model's
+    route."""
+    if use_kernel(q, xk, xv):
+        B, T = q.shape[:2]
+        S = xk.shape[1]
+        pos = memory_positions(S, q.device)[None].expand(B, S)
+        q_pos = torch.full((B, T), S - 1, dtype=torch.int32,
+                           device=q.device)
+        return cached_decode_attention(q, xk, xv, pos, q_pos)
+    return gqa_attention(q, xk, xv, causal=False)
 
 
 def _assert_from_zero(positions, L):
@@ -444,7 +516,7 @@ def extend_into_cache(p, x, cfg: ModelConfig, cache, *, lengths=None,
     the trash page), so the masked tail of every row is left as it was.
     Attention runs with query positions ``step + t``
     against the updated cache; outputs past a row's length are garbage
-    that callers discard (``transformer.last_valid``). Returns (y, cache)
+    that callers discard (``last_valid``). Returns (y, cache)
     with ``step`` advanced by ``lengths``."""
     B, T, _ = x.shape
     hd = cfg.hd

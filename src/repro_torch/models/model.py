@@ -1,17 +1,19 @@
 """Model facade: ``build(cfg, device)`` returns a ``Model`` with the
-methods the serving engine and the tests call, for the decoder families
-the port builds: dense (and the VLM's decoder), MoE, SSM and the
-attention + SSM + MoE hybrid, each in full precision or with int8 / int4
-weights (``cfg.quant``)."""
+methods the serving engine and the tests call, for every family the
+port builds: the decoder stacks (dense, the VLM, MoE, SSM and the
+attention + SSM + MoE hybrid; ``models/transformer.py``), or an
+``EncDecModel`` for the encoder-decoder (``models/encdec.py``), each in
+full precision or with int8 / int4 weights (``cfg.quant``)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, ClassVar, Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
 
 
@@ -23,6 +25,13 @@ def lm_loss(logits, targets, mask=None):
         return -ll.mean()
     mask = mask.float()
     return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _loss(logits, tokens, aux):
+    """(loss, metrics) of next-token logits over ``tokens`` plus the
+    auxiliary loss."""
+    loss = lm_loss(logits[:, :-1], tokens[:, 1:]) + aux
+    return loss, {"lm_loss": loss - aux, "aux_loss": aux}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,34 +56,63 @@ class Model:
       sub-caches restore the checkpoint taken before the most recent
       advance, so when ``rollback_needs_replay`` holds the caller rolls
       back to the pre-verify depth and re-extends the accepted tokens.
+    * Frontend embeddings: a VLM's ``prefill`` and ``train_loss`` take
+      ``batch["embeddings"]`` (B, n_tokens, d_embed), projected and
+      placed before the text (``prefill``'s ``length`` counts text
+      tokens; the loss drops the prefix's positions), and
+      ``extend_into_cache(..., embeddings=)`` runs the prefix as one
+      chunk (tokens None). The encoder-decoder's (``EncDecModel``)
+      take the frames its encoder reads instead.
     """
 
     cfg: ModelConfig
     device: torch.device
+
+    #: the encoder-decoder's facade (``EncDecModel``) sets it
+    is_encdec: ClassVar[bool] = False
+
+    @property
+    def frontend_prefix(self) -> int:
+        """Positions a VLM's frontend prefix takes before the text (0
+        for every other family)."""
+        fe = self.cfg.frontend
+        return fe.n_tokens if fe is not None and self.cfg.family == "vlm" \
+            else 0
 
     def init(self, seed: int = 0) -> Dict[str, Any]:
         return T.init_transformer(self.cfg, seed, self.device)
 
     def train_loss(self, params, batch):
         tokens = batch["tokens"]
-        logits, aux = T.forward_train(params, self.cfg, tokens)
-        loss = lm_loss(logits[:, :-1], tokens[:, 1:]) + aux
-        return loss, {"lm_loss": loss - aux, "aux_loss": aux}
+        emb = batch.get("embeddings") \
+            if self.cfg.frontend is not None else None
+        logits, aux = T.forward_train(params, self.cfg, tokens, emb)
+        return _loss(logits[:, self.frontend_prefix:], tokens, aux)
 
     def prefill(self, params, batch, cache):
-        return T.prefill(params, self.cfg, batch["tokens"], cache,
-                         length=batch.get("length"))
+        length = batch.get("length")
+        emb = batch.get("embeddings") \
+            if self.cfg.frontend is not None else None
+        if length is not None and emb is not None:
+            # length counts text tokens; the cache also holds the prefix
+            length = length + self.frontend_prefix
+        return T.prefill(params, self.cfg, batch["tokens"], cache, emb,
+                         length=length)
 
     def decode_step(self, params, token, cache):
         return T.decode_step(params, self.cfg, token, cache)
 
     def extend_into_cache(self, params, tokens, cache, lengths=None,
-                          last_only=False):
+                          last_only=False, embeddings=None):
         return T.extend_step(params, self.cfg, tokens, cache,
-                             lengths=lengths, last_only=last_only)
+                             lengths=lengths, last_only=last_only,
+                             embeddings=embeddings)
 
     def verify_step(self, params, tokens, cache):
-        return T.extend_step(params, self.cfg, tokens, cache)
+        return self.extend_into_cache(params, tokens, cache)
+
+    def encode_memory(self, params, frames):
+        raise ValueError(f"family {self.cfg.family!r} has no encoder")
 
     def rollback(self, cache, steps):
         return T.set_cache_steps(cache, steps)
@@ -111,8 +149,85 @@ class Model:
         return any(mixer == "ssm" for mixer, _ in T.block_spec(self.cfg))
 
 
+@dataclasses.dataclass(frozen=True)
+class EncDecModel(Model):
+    """The encoder-decoder's facade (``models/encdec.py``), the JAX
+    package's ``_build_encdec``: ``prefill`` and ``train_loss`` take the
+    frames the encoder reads, ``encode_memory(params, frames)`` returns
+    the per-layer cross-attention K/V the engine writes into a slot at
+    admission, and the cache has no paged layout (JAX leaves its
+    ``make_paged_cache`` None)."""
+
+    is_encdec: ClassVar[bool] = True
+
+    def init(self, seed: int = 0) -> Dict[str, Any]:
+        return T.init_transformer(self.cfg, seed, self.device,
+                                  shapes=ED.param_shapes(self.cfg))
+
+    def train_loss(self, params, batch):
+        tokens = batch["tokens"]
+        logits, aux = ED.forward_train(params, self.cfg, tokens,
+                                       batch["embeddings"])
+        return _loss(logits, tokens, aux)
+
+    def prefill(self, params, batch, cache):
+        return ED.prefill(params, self.cfg, batch["tokens"], cache,
+                          batch["embeddings"], length=batch.get("length"))
+
+    def decode_step(self, params, token, cache):
+        return ED.decode_step(params, self.cfg, token, cache)
+
+    def extend_into_cache(self, params, tokens, cache, lengths=None,
+                          last_only=False, embeddings=None):
+        if embeddings is not None:
+            raise ValueError("an encoder-decoder's frames enter through "
+                             "encode_memory, not extend_into_cache")
+        return ED.extend_step(params, self.cfg, tokens, cache,
+                              lengths=lengths, last_only=last_only)
+
+    def encode_memory(self, params, frames):
+        """The frames (B, T_src, d_embed) encoded once, as ``(xk, xv)``,
+        each (n_layers, B, T_src, Hkv, hd)."""
+        memory = ED.encode(params, self.cfg, frames)
+        return ED.cross_kv_all(params, self.cfg, memory)
+
+    def make_cache(self, batch: int, cache_len: int, dtype=None):
+        return ED.make_encdec_cache(self.cfg, batch, cache_len,
+                                    self.cfg.frontend.n_tokens, dtype,
+                                    self.device)
+
+    def make_paged_cache(self, batch: int, cache_len: int, *,
+                         page_size: int, num_pages: int, dtype=None):
+        raise NotImplementedError(
+            "an encoder-decoder has no paged cache (as in JAX)")
+
+    @property
+    def supports_paged(self) -> bool:
+        return False
+
+    @property
+    def rollback_needs_replay(self) -> bool:
+        return False
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameter tree of ``cfg`` as shapes: the decoder stacks'
+    (``transformer.param_shapes``) or the encoder-decoder's
+    (``encdec.param_shapes``)."""
+    if cfg.family == "encdec":
+        return ED.param_shapes(cfg)
+    return T.param_shapes(cfg)
+
+
 def build(cfg: ModelConfig, device: Optional[Any] = None) -> Model:
     """The model on ``device`` (CUDA unless the caller names another;
     raises when CUDA is asked for and absent)."""
-    T.block_spec(cfg)              # raises for families not ported yet
+    if cfg.family == "encdec":
+        if cfg.encoder is None or cfg.frontend is None:
+            raise NotImplementedError(
+                f"{cfg.name!r}: family 'encdec' needs an encoder and a "
+                f"frontend config; the port builds the encoder-decoders of "
+                f"the JAX registry (ROADMAP section 1)")
+        return EncDecModel(cfg=cfg, device=resolve_device(device))
+    T.block_spec(cfg)              # raises for an unknown family
     return Model(cfg=cfg, device=resolve_device(device))

@@ -1,7 +1,8 @@
 """The decoder stacks of every family the port builds (dense GQA, MoE,
 the Mamba-2 SSM stack, the attention + SSM + MoE hybrid and the VLM's
-decoder): parameters, the stacked cache and the layer loop behind every
-forward mode.
+decoder; the encoder-decoder's stack is ``models/encdec.py``):
+parameters, the stacked cache and the layer loop behind every forward
+mode.
 
 Parameters and caches keep the JAX package's tree layout: block leaves
 carry the stacked block axis first (``[n_blocks, ...]``), cache leaves
@@ -56,10 +57,6 @@ def block_spec(cfg: ModelConfig) -> List[Tuple[str, Optional[str]]]:
         return [("attn" if i == 0 else "ssm",
                  "moe" if (cfg.moe and i % every == 0) else "mlp")
                 for i in range(cfg.attn_every)]
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            "family 'encdec' is not ported yet: ROADMAP section 1, item "
-            "10b (frontend families)")
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
@@ -123,12 +120,14 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     return p
 
 
-def init_transformer(cfg: ModelConfig, seed: int, device) -> Dict[str, Any]:
+def init_transformer(cfg: ModelConfig, seed: int, device,
+                     shapes=None) -> Dict[str, Any]:
     """Weights from a seed, made on ``device`` with a ``torch.Generator``:
     N(0, 0.02) projections, experts and embeddings (the MoE router in
     f32), unit norm scales, zero biases, and the SSM mixer's own leaves
     (``ssm.init_ssm_leaf``; the JAX package's scheme; the random numbers
-    are not JAX's)."""
+    are not JAX's). ``shapes`` is the tree to fill (``param_shapes(cfg)``
+    by default; the encoder-decoder passes ``encdec.param_shapes``)."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -152,7 +151,7 @@ def init_transformer(cfg: ModelConfig, seed: int, device) -> Dict[str, Any]:
             return {k: walk(v, path + (k,)) for k, v in node.items()}
         return make(path, node)
 
-    return walk(param_shapes(cfg), ())
+    return walk(param_shapes(cfg) if shapes is None else shapes, ())
 
 
 def is_f32_leaf(path) -> bool:
@@ -221,7 +220,8 @@ def make_paged_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
 
 def cache_steps(cache):
     """Per-slot sequence depth (B,) from the first sub-cache that tracks
-    one (attention rings and SSM state both carry a per-row ``step``)."""
+    one (attention rings and SSM state both carry a per-row ``step``;
+    the encoder-decoder's ``self`` ring)."""
     for sub in cache.values():
         if isinstance(sub, dict) and "step" in sub:
             return sub["step"][0]
@@ -239,9 +239,14 @@ def set_cache_steps(cache, steps):
       before the most recent advance (the caller targets that snapshot's
       depth); the checkpoints themselves stay.
 
+    * The encoder-decoder's cross-attention memory (bare ``xk``/``xv``
+      tensors beside its ``self`` ring) has no depth: it passes through.
+
     Rows whose ``steps`` equals their depth are untouched bit for bit."""
     steps = steps.to(torch.int32)
     for sub in cache.values():
+        if not isinstance(sub, dict):
+            continue
         tgt = steps[None].expand_as(sub["step"])
         if "ssm" in sub:
             back = tgt < sub["step"]                      # (n_blocks, B)
@@ -350,7 +355,7 @@ def embed_inputs(params, cfg: ModelConfig, tokens=None, embeddings=None):
     the tokens. Returns (B, L, d) in the activation dtype."""
     parts = []
     if embeddings is not None:
-        parts.append(L.linear(params["frontend_proj"], embeddings))
+        parts.append(L.project(params["frontend_proj"], embeddings))
     if tokens is not None:
         parts.append(L.embed(params["embed"], tokens))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
@@ -376,23 +381,14 @@ def forward_train(params, cfg: ModelConfig, tokens, embeddings=None):
     return logits_from(params, cfg, x, res), aux
 
 
-def last_valid(x, length):
-    """x: (B, L, ...); length: (B,) valid counts -> (B, 1, ...) at each
-    row's last valid position (the last position if None)."""
-    if length is None:
-        return x[:, -1:]
-    idx = torch.clamp(length.long() - 1, 0, x.shape[1] - 1)
-    return x[torch.arange(x.shape[0], device=x.device), idx][:, None]
-
-
 def prefill(params, cfg: ModelConfig, tokens, cache, embeddings=None,
             length=None):
     """Populates ``cache`` in place; returns (last-valid logits, cache)."""
     x = embed_inputs(params, cfg, tokens, embeddings)
     x, res, _ = _run_blocks(params, x, cfg, mode="prefill", cache=cache,
                             length=length)
-    return logits_from(params, cfg, last_valid(x, length),
-                       last_valid(res, length)), cache
+    return logits_from(params, cfg, L.last_valid(x, length),
+                       L.last_valid(res, length)), cache
 
 
 def decode_step(params, cfg: ModelConfig, token, cache):
@@ -412,5 +408,5 @@ def extend_step(params, cfg: ModelConfig, tokens, cache, lengths=None,
     x, res, _ = _run_blocks(params, x, cfg, mode="extend", cache=cache,
                             length=lengths)
     if last_only:
-        x, res = last_valid(x, lengths), last_valid(res, lengths)
+        x, res = L.last_valid(x, lengths), L.last_valid(res, lengths)
     return logits_from(params, cfg, x, res), cache

@@ -119,6 +119,24 @@ emits up to ``gamma + 1`` tokens a row, so every trace record is that
 wide, and the poll comes ``gamma + 1`` times less often. In spec mode
 the prefix cache is off, as in the JAX engine.
 
+Frontend requests (``Request.embeddings``, (n_tokens, d_embed) frames
+or patches), as in the JAX engine: after the slot's reset an
+encoder-decoder encodes the frames once and writes every layer's
+cross-attention K/V into the slot's rows of the cache's ``xk``/``xv``,
+which every later chunk and decode reads untouched; a VLM runs its
+prefix through the masked extend as one embedding chunk, so its text
+starts at position ``n_tokens`` (and a prompt may take ``kv_len -
+n_tokens`` tokens). Both are admission programs (``encode``, one for
+every slot; ``embed_chunk``, one a slot), CUDA graphs on the card
+captured at their first call, that read a static frames buffer and
+write the cache in place (``_admit_frontend``);
+``program_cache_sizes()`` leaves them out, as JAX's leaves its slot
+programs out. An encoder-decoder
+request must carry frames; frames need a frontend of that shape, and
+the paged pool (token-only, as in JAX) refuses them; embeddings
+requests skip the prefix cache; model-draft speculation refuses an
+encoder-decoder (n-gram speculation serves it).
+
 Not ported yet, and raising ``NotImplementedError`` with its ROADMAP
 item when asked for: tensor-parallel meshes.
 """
@@ -175,12 +193,26 @@ def _finite_rows(logits):
 
 def _slot_view(cache, slot: int):
     """Slot ``slot``'s batch-1 view of the stacked cache: every per-slot
-    leaf sliced ``[:, slot:slot+1]``; page pools (``paged_kv.POOL_KEYS``)
-    pass through whole, since slicing them would cut the page axis. The
-    view's writes land in the batched cache."""
+    leaf sliced ``[:, slot:slot+1]`` (the encoder-decoder's bare
+    ``xk``/``xv`` memory tensors too); page pools
+    (``paged_kv.POOL_KEYS``) pass through whole, since slicing them would
+    cut the page axis. The view's writes land in the batched cache."""
     return {name: {k: v if k in paged_kv.POOL_KEYS
                    else v[:, slot:slot + 1] for k, v in sub.items()}
+            if isinstance(sub, dict) else sub[:, slot:slot + 1]
             for name, sub in cache.items()}
+
+
+#: the step programs ``program_cache_sizes`` counts (the JAX engine's keys)
+_STEP_PROGRAMS = ("step", "mixed", "admit_chunk")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 class StepProgram:
@@ -310,6 +342,8 @@ class Engine:
         self.sync_every = max(1, sync_every)
         self.kv_len = min(cache_len, cfg.sliding_window) \
             if cfg.sliding_window else cache_len
+        # a VLM's prompt carries its frontend prefix in the same rows
+        self._prefix = model.frontend_prefix
         chunk = cfg.prefill_chunk if prefill_chunk is None \
             else prefill_chunk
         # 0 / unset = one chunk of the whole ring: the prompt enters
@@ -478,6 +512,12 @@ class Engine:
                         f"backed); families {cfg.family!r} / "
                         f"{dmodel.cfg.family!r} carry recurrent state — "
                         "use draft='ngram' instead")
+                if model.is_encdec:
+                    raise ValueError(
+                        "model-draft speculation is not wired for "
+                        "encoder-decoder stacks (the draft would need "
+                        "its own cross-attention memory per request) — "
+                        "use draft='ngram' instead")
                 self._draft_model = dmodel
                 self._draft_params = dparams
                 # contiguous even when the target is paged
@@ -508,7 +548,7 @@ class Engine:
 
         # 0, 1, ..., S - 1: the position row a prefix hit stamps
         S = max((sub["pos"].shape[-1] for sub in self.cache.values()
-                 if "pos" in sub), default=0)
+                 if isinstance(sub, dict) and "pos" in sub), default=0)
         self._positions = torch.arange(S, dtype=torch.int32, device=dev)
 
         # per-step token trace on device: (block (B, W), emit count (B,),
@@ -534,6 +574,14 @@ class Engine:
         # slot's ``prev``)
         self._stage = torch.zeros((self.prefill_chunk + 6,),
                                   dtype=torch.int64, device=dev)
+        # a frontend request's frames (copied in from pinned memory) and
+        # the slot the encode program writes: static buffers the
+        # admission programs read
+        fe = cfg.frontend
+        self._frames = None if fe is None else torch.zeros(
+            (1, fe.n_tokens, fe.d_embed), dtype=torch.float32, device=dev)
+        self._frontend_slot = torch.zeros((1,), dtype=torch.int64,
+                                          device=dev)
         self._programs: Dict[Tuple[Any, ...], StepProgram] = {}
         self._graph_pool = torch.cuda.graph_pool_handle() \
             if self.graphs else None
@@ -595,10 +643,14 @@ class Engine:
         the spec step in spec mode), ``mixed`` (one per admitting slot)
         once the first mixed step ran, ``admit_chunk`` (one per admitting
         slot) in spec mode: the keys of the JAX engine's dict. Steady
-        serving keeps every count flat."""
+        serving keeps every count flat. The frontend admission programs
+        (``encode``, ``embed_chunk``) are left out, as the JAX engine
+        leaves its slot programs out; the watchdog records their builds
+        as it records every program's."""
         out = {"step": 0}
         for name, *_ in self._programs:
-            out[name] = out.get(name, 0) + 1
+            if name in _STEP_PROGRAMS:
+                out[name] = out.get(name, 0) + 1
         return out
 
     def mark_steady(self) -> None:
@@ -882,13 +934,17 @@ class Engine:
         valid instead, depth ``upto`` (JAX's ``pos_row``): their K/V was
         just copied in, or the block table aliases written pages. An SSM
         sub-cache has no positions to mask a previous occupant behind:
-        its state, conv tail, depth and checkpoints are zeroed. Every
-        write is in place, ``upto`` a host int (no sync): a copy of the
-        static ``_positions`` row, a fill of the rest and of the depth.
+        its state, conv tail, depth and checkpoints are zeroed, and so are
+        the slot's rows of an encoder-decoder's memory (``xk``/``xv``), as
+        the JAX engine's reset zeroes them. Every write is in place,
+        ``upto`` a host int (no sync): a copy of the static
+        ``_positions`` row, a fill of the rest and of the depth.
         ``cache``: the cache to reset (default the target's; the draft
         cache in spec mode)."""
         for sub in (self.cache if cache is None else cache).values():
-            if "pos" in sub:
+            if not isinstance(sub, dict):
+                sub[:, b] = 0
+            elif "pos" in sub:
                 pos = sub["pos"][:, b]
                 if upto:
                     pos[:, :upto] = self._positions[:upto]
@@ -917,7 +973,8 @@ class Engine:
         a view would see the next decode step's writes."""
         return {name: {k: sub[k][:, b:b + 1, :P].clone()
                        for k in ("k", "v", "k_scale", "v_scale") if k in sub}
-                for name, sub in self.cache.items() if "pos" in sub}
+                for name, sub in self.cache.items()
+                if isinstance(sub, dict) and "pos" in sub}
 
     # ------------------------------------------------------------ #
     # scheduling
@@ -954,20 +1011,43 @@ class Engine:
             raise ValueError(
                 f"request {req.uid}: deadline_s must be positive, got "
                 f"{req.deadline_s}")
-        if req.embeddings is not None:
-            raise _not_ported("frontend embeddings", "10b (frontend families)")
         old = self.responses.get(req.uid)
         if old is not None and not old.finished:
             raise ValueError(f"request uid {req.uid} is already in flight")
-        if prompt.size > self.kv_len and (
+        cap = self.kv_len - self._prefix
+        if prompt.size > cap and (
                 self.paged or not self.model.cfg.sliding_window):
             # a sliding-window ring serves longer prompts (the window
             # mask hides overwritten context); full attention and paged
             # caches cannot: the overwrite would drop attended positions
             raise ValueError(
                 f"request {req.uid}: prompt of {prompt.size} tokens "
-                f"exceeds the KV capacity of {self.kv_len} (cache_len="
-                f"{self.cache_len}); raise cache_len or shorten the prompt")
+                f"exceeds the KV capacity of {cap} (cache_len="
+                f"{self.cache_len}"
+                + (f" minus a {self._prefix}-token frontend prefix"
+                   if self._prefix else "")
+                + "); raise cache_len or shorten the prompt")
+        if self.model.is_encdec and req.embeddings is None:
+            raise ValueError(
+                f"request {req.uid}: encoder-decoder serving requires "
+                "frontend frame embeddings on every request (the "
+                "cross-attention memory is encoded at admission)")
+        if req.embeddings is not None:
+            fe = self.model.cfg.frontend
+            if fe is None:
+                raise ValueError(
+                    f"request {req.uid}: embeddings were supplied but "
+                    "the model has no frontend to consume them")
+            if self.paged:
+                raise ValueError(
+                    "paged KV serving is token-only: frontend "
+                    "embeddings have no paged admission program")
+            emb = np.asarray(req.embeddings)
+            if emb.shape != (fe.n_tokens, fe.d_embed):
+                raise ValueError(
+                    f"request {req.uid}: embeddings must have shape "
+                    f"({fe.n_tokens}, {fe.d_embed}) to match the "
+                    f"frontend, got {emb.shape}")
 
     def _free_slot(self) -> Optional[int]:
         admitting = self._admit.slot if self._admit is not None else -1
@@ -1042,7 +1122,10 @@ class Engine:
         if done:
             toks = np.concatenate([toks, np.asarray(done, np.int64)])
         kv, base = None, 0
-        if self.prefix_cache is not None:
+        if self.prefix_cache is not None and req.embeddings is None:
+            # an embeddings request never touches the prefix cache: its
+            # tokens alone do not key the slot's content (two requests
+            # with one prompt and other frames would alias)
             kv, _, base = self.prefix_cache.lookup(toks)
         if self._ngram:
             # seed the drafter's history with the effective stream (its
@@ -1066,11 +1149,67 @@ class Engine:
             self._materialize(b, kv, base)
         else:
             self._reset_slot(b)
+        if req.embeddings is not None:
+            self._admit_frontend(req, b)
         self._admit = _Admission(req=req, slot=b, base=base,
                                  length=len(toks), tokens=toks,
                                  n_done=len(done), resumed=bool(done))
         if self.recorder.enabled:
             self.recorder.on_admission(req, b, base, "chunked")
+
+    def _admit_frontend(self, req: Request, b: int) -> None:
+        """A frontend request's admission work, after the slot's reset
+        and before its text chunks (a preempted request runs it again
+        when it is admitted again): the frames go into the static
+        ``_frames`` buffer through a fresh pinned block without
+        blocking, then an admission program runs (the JAX engine's
+        ``_get_encode_fn`` and ``_get_embed_chunk``), a CUDA graph on the
+        card like the step programs, captured at its first call. An
+        encoder-decoder's ``encode`` program (one for every slot: the
+        slot index is a device scalar it reads) encodes the frames once
+        (``EncDecModel.encode_memory``) and copies the per-layer
+        cross-attention K/V into the slot's rows of the cache's
+        ``xk``/``xv``, in place: the step graphs read those tensors, so
+        nothing is rebound. A VLM's ``embed_chunk`` program (one a
+        slot, as the mixed step) runs the frames as one embedding chunk
+        (``frontend.n_tokens`` positions) through the masked extend on
+        the slot's view, into the target's cache and, with a model
+        draft, the draft's."""
+        emb = np.asarray(req.embeddings, dtype=np.float32)
+        on_card = self.device.type == "cuda"
+        host = torch.empty((1,) + emb.shape, dtype=torch.float32,
+                           pin_memory=on_card)
+        host.numpy()[0] = emb
+        self._frames.copy_(host, non_blocking=on_card)
+        if self.model.is_encdec:
+            self._frontend_slot.fill_(b)
+            self._run_program(("encode",), self._encode)
+        else:
+            self._run_program(("embed_chunk", b),
+                              lambda: self._embed_chunk(b))
+
+    def _encode(self) -> torch.Tensor:
+        """Encode program body: the staged frames encoded, each layer's
+        cross-attention K/V written into the ``_frontend_slot`` row of
+        the cache's memory."""
+        xk, xv = self.model.encode_memory(self.params, self._frames)
+        self.cache["xk"].index_copy_(1, self._frontend_slot, xk)
+        self.cache["xv"].index_copy_(1, self._frontend_slot, xv)
+        return self._frontend_slot
+
+    def _embed_chunk(self, b: int) -> torch.Tensor:
+        """Embedding-chunk program body for slot ``b``: the staged frames
+        through the masked extend on the slot's view (every position of
+        the prefix; only the last row's logits are formed, and none is
+        used), in the target's cache and the model draft's."""
+        logits, _ = self.model.extend_into_cache(
+            self.params, None, _slot_view(self.cache, b),
+            embeddings=self._frames, last_only=True)
+        if self._draft_model is not None:
+            self._draft_model.extend_into_cache(
+                self._draft_params, None, _slot_view(self.draft_cache, b),
+                embeddings=self._frames, last_only=True)
+        return logits
 
     # ------------------------------------------------------------ #
     # lifecycle control: cancel / deadlines / preempt-and-requeue
@@ -1176,7 +1315,7 @@ class Engine:
                 continue
             if below is not None and r.priority >= below:
                 continue
-            if self._eff_len(r) + 1 > self.kv_len:
+            if self._eff_len(r) + 1 > self.kv_len - self._prefix:
                 continue           # too long to replay: not resumable
             key = (r.priority, -r.deadline_abs(), b)
             if best is None or key < best[0]:
@@ -1465,7 +1604,8 @@ class Engine:
         self._await_first.append(adm.req)
         self._c_admissions.inc()
         self._admit = None
-        if self.prefix_cache is not None and not adm.resumed:
+        if self.prefix_cache is not None and not adm.resumed \
+                and adm.req.embeddings is None:
             P = self.prefix_cache.wants(adm.req.prompt)
             if P and P <= self.kv_len:
                 kv = self._paged.snapshot_prefix(b, P) if self.paged \
@@ -1576,8 +1716,8 @@ class Engine:
                 for r in self.slots if r is not None)
         if live_tok:
             if self._kv_nbytes is None:
-                self._kv_nbytes = sum(t.nbytes for sub in self.cache.values()
-                                      for t in sub.values())
+                self._kv_nbytes = sum(t.nbytes
+                                      for t in _leaves(self.cache))
             m.gauge("kv_bytes_per_live_token").set(
                 self._kv_nbytes / live_tok)
         if self.recorder.enabled:

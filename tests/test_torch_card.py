@@ -17,11 +17,17 @@ max|plain|. The paged decode kernel must equal the contiguous one
 exactly on the same logical data, on every route. Every kernel op
 refuses a backward pass: an input that requires grad gives outputs whose
 backward raises, and none gives the same outputs with no autograd node.
+The encoder-decoder's attention routes: the flash kernel non-causal at
+Lq != Lk (``layers.full_attention``) and the decode-attention kernel
+over a frozen memory's all-valid position row
+(``layers.memory_attention``), each against plain
+``gqa_attention(causal=False)``.
 The serving engine's step programs run as CUDA graphs: greedy tokens,
 temperature samples and launch counters equal the eager engine's at
 reduced sizes (rings, bf16, paged, int8 KV, int8 weights, the edge
-profile paged, mamba2), nothing is captured after warm-up, and a capture
-that fails raises; on graphs a poisoned row is contained to that row and
+profile paged, mamba2, the MoE and hybrid stacks, pixtral's embedding
+prefix and seamless's encoded memory), nothing is captured after
+warm-up, and a capture that fails raises; on graphs a poisoned row is contained to that row and
 a cancel frees its slot, neither building a program; speculative
 engines (an int8 self-draft and the n-gram drafter, on rings, a bf16
 pool and mamba2) give the eager engine's tokens and launch counters on
@@ -254,6 +260,13 @@ DECODE_CASES = [
     (1, 37, 5, 2, 512, 128, 0, False),
     (2, 2, 6, 2, 320, 128, 0, False),
     (2, 3, 12, 1, 320, 128, 0, False),
+    # head_dim 160 (pixtral-12b: G 4): decode (mma_keys, 2 head-dim
+    # slices of 2 warps), chunks (mma_rows, 32-row blocks), a masked row
+    # and a window
+    (3, 1, 4, 2, 1000, 160, 0, True),
+    (1, 128, 4, 2, 512, 160, 0, False),
+    (2, 16, 4, 2, 320, 160, 64, True),
+    (1, 37, 4, 1, 304, 160, 0, False),
 ]
 
 
@@ -345,6 +358,85 @@ def test_flash_routes_match_plain_on_card(case):
         again = flash_kernel.flash_attention_cuda(q, k, v, causal=causal,
                                                   window=window)
         assert torch.equal(again, got)
+
+
+# (B, Lq, Lk, H, hd): the encoder-decoder's non-causal shapes, Lq != Lk
+# (the cache-free cross-attention: text rows against the frames) and
+# Lq = Lk (the encoder's self-attention), G 1 as in seamless-m4t-medium
+FLASH_CROSS_CASES = [
+    (1, 37, 300, 4, 64),
+    (2, 5, 128, 4, 64),
+    (1, 256, 256, 4, 64),
+    (2, 100, 64, 2, 160),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CROSS_CASES,
+                         ids=lambda c: "B{}_Lq{}_Lk{}_H{}_hd{}".format(*c))
+def test_flash_non_causal_cross_shapes_match_plain_on_card(case):
+    """``layers.full_attention`` on the card is the flash kernel
+    non-causal at Lq != Lk, against plain ``gqa_attention(causal=False)``
+    (what it runs on the CPU)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import layers as L
+
+    dev = _card()
+    B, Lq, Lk, H, hd = case
+    g = torch.Generator(device=dev).manual_seed(Lq + Lk)
+    for dt in DTYPES:
+        q = torch.randn((B, Lq, H, hd), generator=g, device=dev).to(dt)
+        k = torch.randn((B, Lk, H, hd), generator=g, device=dev).to(dt)
+        v = torch.randn((B, Lk, H, hd), generator=g, device=dev).to(dt)
+        reset_launch_counts()
+        got = L.full_attention(q, k, v)
+        assert launch_counts()["flash_attention"] == 1
+        want = L.gqa_attention(q.cpu(), k.cpu(), v.cpu(), causal=False)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert _err(got.cpu(), want) <= TOL[dt], _err(got.cpu(), want)
+
+
+# (B, T, S, H, Hkv, hd): the cached cross-attention (T rows against an
+# S-slot frozen memory): seamless's decode (mma_keys at G 1) and chunk
+# (mma_rows), S split over blocks, and pixtral's hd 160 at G 4
+MEMORY_CASES = [
+    (3, 1, 48, 4, 4, 64),
+    (1, 20, 300, 4, 4, 64),
+    (4, 1, 1024, 4, 4, 64),
+    (2, 3, 100, 8, 2, 160),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MEMORY_CASES,
+                         ids=lambda c: "B{}_T{}_S{}_H{}_Hkv{}_hd{}"
+                         .format(*c))
+def test_memory_attention_matches_plain_on_card(case):
+    """``layers.memory_attention`` on the card is the decode-attention
+    kernel over the persistent all-valid position row (one tensor per
+    device and S, broadcast over the batch), against plain
+    ``gqa_attention(causal=False)``."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import layers as L
+
+    dev = _card()
+    B, T, S_, H, Hkv, hd = case
+    g = torch.Generator(device=dev).manual_seed(S_ + T)
+    for dt in DTYPES:
+        q = torch.randn((B, T, H, hd), generator=g, device=dev).to(dt)
+        k = torch.randn((B, S_, Hkv, hd), generator=g, device=dev).to(dt)
+        v = torch.randn((B, S_, Hkv, hd), generator=g, device=dev).to(dt)
+        reset_launch_counts()
+        got = L.memory_attention(q, k, v)
+        assert launch_counts()["decode_attention"] == 1
+        want = L.gqa_attention(q.cpu(), k.cpu(), v.cpu(), causal=False)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert _err(got.cpu(), want) <= TOL[dt], _err(got.cpu(), want)
+    row = L.memory_positions(S_, dev)
+    assert row is L.memory_positions(S_, dev)
+    assert row.data_ptr() == L.memory_positions(S_, "cuda").data_ptr()
 
 
 # (M, K, N, gs, strided x, split): the int4 mma route at decode (M 1, 8
@@ -804,12 +896,18 @@ GRAPH_CASES = {
                                          "param_dtype": "bfloat16"},
                              {"paged": True, "page_size": 8}),
     "jamba": ("reduced", {}, {}),
+    # the frontend families: pixtral's embedding chunk and seamless's
+    # encode, eager between the captured steps
+    "pixtral": ("reduced", {}, {}),
+    "seamless_bf16": ("reduced", {"dtype": "bfloat16",
+                                  "param_dtype": "bfloat16"}, {}),
 }
 
 #: the architecture of each graph case (llama3.2-1b by default)
 GRAPH_ARCH = {"mamba2": "mamba2-780m", "qwen2_moe": "qwen2-moe-a2.7b",
               "qwen2_moe_paged_bf16": "qwen2-moe-a2.7b",
-              "jamba": "jamba-1.5-large-398b"}
+              "jamba": "jamba-1.5-large-398b", "pixtral": "pixtral-12b",
+              "seamless_bf16": "seamless-m4t-medium"}
 
 
 def _graph_model(case):
@@ -825,9 +923,10 @@ def _graph_model(case):
 
 
 def _graph_serve(model, params, kw, graphs, sampler=None, batches=1):
-    """Five requests on three slots (chunks of 8), ``batches`` times;
-    returns the engine, the tokens by uid and the launch counters of the
-    run, set to 0 just before it."""
+    """Five requests on three slots (chunks of 8), ``batches`` times
+    (with frames drawn after each prompt for a frontend model); returns
+    the engine, the tokens by uid and the launch counters of the run,
+    set to 0 just before it."""
     from repro_torch import kernels
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import Request
@@ -837,11 +936,15 @@ def _graph_serve(model, params, kw, graphs, sampler=None, batches=1):
                     graphs=graphs, **kw)
     rng = np.random.default_rng(0)
     kernels.reset_launch_counts()
+    fe = model.cfg.frontend
     for batch in range(batches):
         for uid in range(5 * batch, 5 * batch + 5):
+            prompt = rng.integers(0, model.cfg.vocab,
+                                  int(rng.integers(3, 30)))
+            emb = None if fe is None else rng.normal(
+                size=(fe.n_tokens, fe.d_embed)).astype(np.float32)
             engine.submit(Request(
-                uid=uid, prompt=rng.integers(0, model.cfg.vocab,
-                                             int(rng.integers(3, 30))),
+                uid=uid, prompt=prompt, embeddings=emb,
                 max_new_tokens=int(rng.integers(2, 9))))
         engine.run()
         if batch == 0:
@@ -873,7 +976,12 @@ def test_graph_steps_match_eager_steps_on_card(case):
         == {"step": 1, "mixed": 3}
     c = graphed.metrics.counters
     assert c["steady_compiles"].value == 0
-    assert c["compiles_total"].value == 4
+    # one build a program: the 4 step programs, and a frontend model's
+    # admission programs (seamless's encode, pixtral's embedding chunk a
+    # slot), which program_cache_sizes leaves out as JAX's does
+    frontend = {"pixtral": 3, "seamless_bf16": 1}.get(case, 0)
+    assert len(graphed._programs) == 4 + frontend
+    assert c["compiles_total"].value == 4 + frontend
 
 
 @pytest.mark.cuda

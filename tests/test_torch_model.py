@@ -274,8 +274,6 @@ def test_set_cache_steps_rewinds_steps_only():
 
 def test_unported_configs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch("seamless-m4t-medium")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_arch("llama3.2-1b", variant="reduced+sharded")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build(get_arch("llama3.2-1b").replace(family="encdec"), device="cpu")
