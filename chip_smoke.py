@@ -95,7 +95,20 @@ bitwise equal), the n-gram drafter and the plain engine, each warmed
 and steady (no capture, counters = the trace, two syncs a poll, every
 divergence from the plain engine's bf16 tokens at a near tie), and
 ``spec_ssm`` mamba2-780m's n-gram verify and replay (exact against
-plain in fp32 at full depth, measured in bf16). The other families,
+plain in fp32 at full depth, measured in bf16). The serving fleet, after
+``prefix``: three replicas of the paged engine (a 1024-token prefix
+cache) over one copy of the bf16 weights serve 24 requests, every other
+one behind a shared 256-token head (``fleet``: streams bitwise equal to
+one engine's, affinity hits, no capture, counters equal to the
+replicas' summed traces, two syncs a poll on a profiled batch, tok/s
+beside one engine's at 8 and 24 slots); ``fleet_chaos`` kills replica 0
+and loses the failover's first redispatch (nothing lost, replayed
+streams equal or leaving one engine's at a near tie, survivors
+drained); ``fleet_hang_hedge`` (the hang watchdog, then zero-delay
+hedges on single-step ticks, bitwise); ``fleet_trace`` (the merged
+trace); ``fleet_rejoin`` (drain and rejoin twice: memory flat, captures
+before ``mark_steady`` only); and ``fleet_exact`` beside ``spec_exact``
+(fp32, 2 layers: fleet = one engine = the CPU's fleet). The other families,
 after the Zoo: ``model_families`` holds qwen2-moe-a2.7b,
 granite-moe-3b-a800m, internlm2-20b, qwen2.5-14b, starcoder2-15b and
 gemma2-9b-class at full width cut to 2 layers (and mixtral-8x7b at its
@@ -2511,6 +2524,7 @@ def serve(torch, model, params, *, paged=False, base=None, phase=None,
            "quant": cfg.quant, "kv_quant": cfg.kv_quant,
            "weight_bytes": quantized_stats(params)["weight_bytes"],
            "table_bytes": params["embed"]["table"].nbytes,
+           "table_bytes": params["embed"]["table"].nbytes,
            "kv_bytes": _kv_bytes(engine),
            "state_bytes": _state_bytes(engine), "bad_requests": bad,
            "graphs": engine.graphs,
@@ -2651,23 +2665,23 @@ def _lifecycle_engine(model, params, **extra):
 
 
 def _warm(engine, phase):
-    """Admit into every slot once (8 one-chunk admissions of 16-token
-    prompts, then plain steps): each slot's mixed program and the plain
-    step built and, on graphs, captured."""
+    """Admit into every slot once (one one-chunk admission of a 16-token
+    prompt a slot, then plain steps): each slot's mixed program and the
+    plain step built and, on graphs, captured."""
     import numpy as np
 
     from repro_torch.serving.request import Request
 
     rng = np.random.default_rng(SEED + 4)
-    for uid in range(8):
+    for uid in range(engine.max_batch):
         engine.submit(Request(uid=1000 + uid,
                               prompt=rng.integers(0, engine.model.cfg.vocab,
                                                   16),
                               max_new_tokens=16))
-    engine.tick(16)              # every build falls in this first burst
+    engine.tick(engine.max_batch + 8)   # every build falls in this burst
     engine.run()
     progs = engine.program_cache_sizes()
-    if progs != {"step": 1, "mixed": 8}:
+    if progs != {"step": 1, "mixed": engine.max_batch}:
         raise AssertionError(f"{phase} warm-up built {progs}")
 
 
@@ -3456,6 +3470,633 @@ def prefix(torch, model, params):
     torch.cuda.empty_cache()
     _gate(rec)
     return rec
+
+
+# --------------------------------------------------------------------- #
+# the serving fleet: engine replicas on one card
+# --------------------------------------------------------------------- #
+#: every replica's engine, and the one engine the fleet is held against:
+#: the serve phase's slots, ring and chunks, a pool of pages of 16 and a
+#: 1024-token prefix cache
+FLEET_ENGINE = dict(max_batch=8, cache_len=1024, prefill_chunk=128,
+                    paged=True, page_size=16, prefix_cache_tokens=1024)
+#: replicas; requests (prompts of 64-512 tokens, every other one behind
+#: a shared head of ``FLEET_HEAD`` tokens), new tokens each
+FLEET_REPLICAS, FLEET_REQUESTS, FLEET_NEW, FLEET_HEAD = 3, 24, 32, 256
+#: ``benchmarks/check_fleet.py``'s chaos schedule: replica 0 killed at
+#: fleet tick 2, and the first dispatch from tick 2 on (a failover's
+#: redispatch) lost in flight
+FLEET_KILL_RID, FLEET_KILL_TICK = 0, 2
+#: how far ``memory_allocated()`` may move between two rejoins
+FLEET_REJOIN_MIB = 16
+
+
+def _fleet_prompts(vocab):
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 8)
+    head = rng.integers(0, vocab, FLEET_HEAD)
+    out = []
+    for i in range(FLEET_REQUESTS):
+        if i % 2:
+            tail = rng.integers(0, vocab, int(rng.integers(32, 257)))
+            out.append(np.concatenate([head, tail]))
+        else:
+            out.append(rng.integers(0, vocab, int(rng.integers(64, 513))))
+    return out
+
+
+def _chaos_faults():
+    from repro_torch.serving.faults import Faults
+
+    return (Faults(seed=SEED)
+            .on("replica_crash", step=FLEET_KILL_TICK, slot=FLEET_KILL_RID)
+            .on("router_drop", step=FLEET_KILL_TICK))
+
+
+def _fleet_kwargs(**extra):
+    from repro_torch.serving.sampler import Sampler
+
+    return dict(FLEET_ENGINE, sampler=Sampler(), seed=SEED, **extra)
+
+
+def _new_fleet(model, params, *, warm, engine_kwargs=None, **kw):
+    """A fleet of ``FLEET_REPLICAS`` engines over the one ``params``
+    tree; ``warm``: each replica admits into every slot once (``_warm``),
+    then the fleet is marked steady."""
+    from repro_torch.serving.fleet import Fleet
+
+    kw.setdefault("faults", False)
+    fl = Fleet(model, params, replicas=FLEET_REPLICAS,
+               engine_kwargs=engine_kwargs or _fleet_kwargs(), **kw)
+    if warm:
+        for r in fl.replicas:
+            _warm(r.engine, f"fleet replica {r.rid}")
+        fl.mark_steady()
+    return fl
+
+
+def _fleet_submit(target, prompts, uids, uid0=0, new=FLEET_NEW):
+    """Submit ``prompts[uid - uid0]`` for each of ``uids``."""
+    from repro_torch.serving.request import Request
+
+    for uid in uids:
+        target.submit(Request(uid=uid, prompt=prompts[uid - uid0],
+                              max_new_tokens=new))
+
+
+def _fleet_drive(fl, steps=None, limit=20000):
+    """Tick ``fl`` until it has no work: each tick's wall s and the
+    tokens each request had delivered after it."""
+    ticks = []
+    for _ in range(limit):
+        if not fl.has_work:
+            return ticks
+        t0 = time.perf_counter()
+        fl.tick(steps)
+        ticks.append((time.perf_counter() - t0,
+                      {u: len(r.tokens) for u, r in fl.responses.items()}))
+    raise AssertionError(f"the fleet still had work after {limit} ticks")
+
+
+def _fleet_expected(cfg, fl, n0):
+    """The launches the replicas' step traces since ``n0`` (steps a
+    replica) imply, summed over the replicas."""
+    out = {}
+    for r in fl.replicas:
+        e = _expected_launches(cfg, r.engine, True,
+                               r.engine.step_kinds[n0[r.rid]:])
+        out = {k: out.get(k, 0) + v for k, v in e.items()}
+    return out
+
+
+def _graph_pool_bytes(torch, engines):
+    """Device bytes of the segments of each engine's graph pool."""
+    segs = torch.cuda.memory_snapshot()
+    return {k: sum(seg["total_size"] for seg in segs
+                   if tuple(seg.get("segment_pool_id", ()))
+                   == tuple(e._graph_pool or ()))
+            for k, e in engines.items()}
+
+
+def _replayed(fl):
+    """Requests resubmitted with delivered tokens (a replay)."""
+    return sorted(u for u, e in fl._entries.items()
+                  if any(a.base > 0 for a in e.assigns))
+
+
+def _fleet_streams(torch, model, params, fl, prompts, want):
+    """Each stream against the one engine's tokens ``want``: a stream
+    never replayed must be bitwise equal; a replayed one (its chunked
+    extends have other bf16 GEMM shapes) equal, or first leaving the
+    engine's stream at a near tie (``_near_ties``: the top-2 margin
+    within ``SPEC_MARGIN_TOL`` of max|logit|)."""
+    got = {u: list(r.tokens) for u, r in fl.responses.items()}
+    replayed = _replayed(fl)
+    ties = _near_ties(torch, model, params, prompts,
+                      {u: want[u] for u in replayed},
+                      {u: got[u] for u in replayed})
+    rec = {"replayed": replayed,
+           "replayed_equal": sum(got[u] == want[u] for u in replayed),
+           "fresh_unequal": [u for u in got
+                             if u not in replayed and got[u] != want[u]],
+           "divergences": ties,
+           "beyond_tie": [u for u, t in ties.items()
+                          if t.get("margin_over_max") is None
+                          or t["margin_over_max"] > SPEC_MARGIN_TOL]}
+    rec["ok"] = not rec["fresh_unequal"] and not rec["beyond_tie"]
+    return rec
+
+
+def _drained(fl):
+    """Survivors hold no work and, their prefix caches cleared, no live
+    page; their allocator invariants hold."""
+    out = {}
+    for r in fl.replicas:
+        if not r.alive:
+            continue
+        eng = r.engine
+        while eng.prefix_cache.drop_lru():
+            pass
+        eng._paged.check_invariants()
+        out[r.rid] = {"has_work": eng.has_work,
+                      "kv_pages_live": eng._paged.live_pages}
+    return out, all(not v["has_work"] and v["kv_pages_live"] == 0
+                    for v in out.values())
+
+
+def _one_engine(torch, model, params, prompts, max_batch):
+    """The one engine: warmed, stats reset (steady), then the fleet's
+    requests; its tokens and run record."""
+    from repro_torch.serving.engine import Engine
+
+    engine = Engine(model, params, faults=False,
+                    **_fleet_kwargs(max_batch=max_batch))
+    _warm(engine, f"fleet single engine ({max_batch} slots)")
+    engine.reset_stats()
+    uids = range(FLEET_REQUESTS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _fleet_submit(engine, prompts, uids)
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = engine.latency_stats()
+    tokens = {u: list(engine.responses[u].tokens) for u in uids}
+    n_tok = sum(map(len, tokens.values()))
+    rec = {"max_batch": max_batch, "wall_s": wall, "tok_per_s": n_tok / wall,
+           "steady_compiles": engine.metrics.counters[
+               "steady_compiles"].value,
+           **{k: st.get(k) for k in ("ttft_ms_p50", "ttft_ms_p99",
+                                     "decode_ms_p50", "prefix_hits")}}
+    del engine
+    gc.collect()
+    return tokens, rec
+
+
+def fleet(torch, model, params):
+    """The fleet, clean, at full width on the card's graphs (llama3.2-1b,
+    16 layers, bf16): ``FLEET_REPLICAS`` replicas of ``FLEET_ENGINE``
+    over one params tree, each warmed (every slot admitted once) and the
+    fleet marked steady, serve ``FLEET_REQUESTS`` requests. Gates: every
+    stream bitwise equal to one engine's on the same requests (same
+    arguments, this call), at least one affinity hit, one dispatch a
+    request, no death, no capture after warm-up on any replica, the
+    launch counters equal to the replicas' summed step traces; a
+    profiled second batch: no capture, the launch counters confirmed by
+    the profiler's count of their kernel templates, and
+    ``cudaStreamSynchronize`` = 2 x the polls summed over replicas.
+    Printed: weight bytes (once), each replica's KV and graph-pool
+    bytes, fleet tok/s, fleet TTFT p50 / p99, ms a fleet tick, degraded
+    transitions, and the one engine's tok/s at 8 slots and at 24 (one
+    card ticks the replicas one after another: no gain is claimed).
+    Returns the fleet, the prompts and the one engine's tokens."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.quant import quantized_stats
+
+    t_phase = time.perf_counter()
+    parts = {}
+    cfg = model.cfg
+    prompts = _fleet_prompts(cfg.vocab)
+    want, one8 = _one_engine(torch, model, params, prompts, 8)
+    tokens24, one24 = _one_engine(torch, model, params, prompts,
+                                  FLEET_REPLICAS * 8)
+    one24["tokens_equal_8_slots"] = sum(tokens24[u] == want[u]
+                                        for u in want)
+    torch.cuda.synchronize()
+    parts["one_engines"] = time.perf_counter() - t_phase
+    mem0 = torch.cuda.memory_allocated()
+    fl = _new_fleet(model, params, warm=True)
+    torch.cuda.synchronize()
+    mem_warm = torch.cuda.memory_allocated()
+    parts["fleet_build_and_warm"] = time.perf_counter() - t_phase \
+        - sum(parts.values())
+    n0 = {r.rid: len(r.engine.step_kinds) for r in fl.replicas}
+    builds0 = {r.rid: r.engine.metrics.counters["compiles_total"].value
+               for r in fl.replicas}
+    kernels.reset_launch_counts()
+    _fleet_submit(fl, prompts, range(FLEET_REQUESTS))
+    ticks = _fleet_drive(fl)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    wall = sum(w for w, _ in ticks)
+    want_counts = _fleet_expected(cfg, fl, n0)
+    st = fl.latency_stats()
+    got = {u: list(r.tokens) for u, r in fl.responses.items()}
+    n_tok = sum(map(len, got.values()))
+    walls_ms = sorted(w * 1e3 for w, _ in ticks)
+    rec = {"phase": "fleet", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "dtype": cfg.dtype, "replicas": FLEET_REPLICAS,
+           "engine": {k: v for k, v in FLEET_ENGINE.items()},
+           "requests": FLEET_REQUESTS, "max_new_tokens": FLEET_NEW,
+           "prompt_lens": [len(p) for p in prompts],
+           "streams_equal_one_engine": sum(got[u] == want[u] for u in want),
+           "dispatches": st["dispatches"], "replica_deaths":
+           st["replica_deaths"], "affinity_hits": fl.router.affinity_hits,
+           "steady_compiles": fl.steady_compiles(),
+           "builds_in_run": {r.rid: r.engine.metrics.counters[
+               "compiles_total"].value - builds0[r.rid]
+               for r in fl.replicas},
+           "launches": counts, "launches_expected": want_counts,
+           "fleet_ticks": len(ticks), "wall_s": wall,
+           "tok_per_s": n_tok / wall,
+           "fleet_ttft_ms_p50": st.get("fleet_ttft_ms_p50"),
+           "fleet_ttft_ms_p99": st.get("fleet_ttft_ms_p99"),
+           "tick_ms_mean": wall * 1e3 / len(ticks),
+           "tick_ms_p50": walls_ms[len(walls_ms) // 2],
+           "tick_ms_max": walls_ms[-1],
+           "degraded_transitions": {
+               r.rid: sum(ev["name"] == "degraded" and ev["args"]["rid"]
+                          == r.rid for ev in fl._events)
+               for r in fl.replicas},
+           "replica_states": {r.rid: r.state for r in fl.replicas},
+           "replica_ticks": {r.rid: r.ticks for r in fl.replicas},
+           "replica_prefix_hits": {
+               r.rid: st[f"replica_{r.rid}"].get("prefix_hits")
+               for r in fl.replicas},
+           "one_engine_8_slots": one8, "one_engine_24_slots": one24,
+           "weight_bytes": quantized_stats(params)["weight_bytes"],
+           "table_bytes": params["embed"]["table"].nbytes,
+           "replica_kv_bytes": {r.rid: _kv_bytes(r.engine)
+                                for r in fl.replicas},
+           "replica_graph_pool_bytes": _graph_pool_bytes(
+               torch, {r.rid: r.engine for r in fl.replicas}),
+           "fleet_memory_allocated_bytes": mem_warm - mem0}
+    rec["ok"] = rec["streams_equal_one_engine"] == FLEET_REQUESTS \
+        and len(got) == FLEET_REQUESTS \
+        and rec["affinity_hits"] >= 1 \
+        and rec["dispatches"] == FLEET_REQUESTS \
+        and rec["replica_deaths"] == 0 \
+        and not any(rec["steady_compiles"].values()) \
+        and counts == want_counts
+
+    parts["run"] = time.perf_counter() - t_phase - sum(parts.values())
+
+    # a profiled second batch on the steady fleet
+    rng = np.random.default_rng(SEED + 1)
+    batch = [rng.integers(0, cfg.vocab, 256) for _ in range(6)]
+    counters = {r.rid: r.engine.metrics.counters for r in fl.replicas}
+    polls0 = {k: c["trace_polls"].value for k, c in counters.items()}
+    n0 = {r.rid: len(r.engine.step_kinds) for r in fl.replicas}
+    _fleet_submit(fl, batch, range(100, 106), uid0=100, new=16)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    prof, wall_ms = _profiled(torch, fl.run)
+    counts = kernels.launch_counts()
+    rows, lost = _device_rows(prof)
+    polls = sum(c["trace_polls"].value - polls0[k]
+                for k, c in counters.items())
+    syncs = _host_calls(prof).get("cudaStreamSynchronize", 0)
+    seen = _counted_vs_profiled(counts, rows)
+    want_counts = _fleet_expected(cfg, fl, n0)
+    busy = sum(ms for ms, _, _ in rows)
+    prof_rec = {"polls": polls, "cudaStreamSynchronize": syncs,
+                "steady_compiles": fl.steady_compiles(),
+                "wall_ms_profiled": wall_ms, "device_kernel_ms": busy,
+                "device_busy_share": busy / wall_ms if wall_ms else None,
+                "launches_counted_vs_profiled": seen,
+                "launches_equal_trace": counts == want_counts,
+                "profiler_lost_spins": lost,
+                "finished_length": sum(fl.responses[u].finish_reason
+                                       == "length"
+                                       for u in range(100, 106)),
+                "top": [{"kernel": k[:90], "ms": ms, "calls": c}
+                        for ms, c, k in rows[:8]]}
+    prof_rec["ok"] = polls > 0 and syncs == 2 * polls \
+        and not any(prof_rec["steady_compiles"].values()) \
+        and counts == want_counts and _counters_confirmed(seen, lost) \
+        and prof_rec["finished_length"] == 6
+    rec["profiled_batch"] = prof_rec
+    rec["ok"] = rec["ok"] and prof_rec["ok"]
+    parts["profiled_batch"] = time.perf_counter() - t_phase \
+        - sum(parts.values())
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["seconds_parts"] = parts
+    _gate(rec)
+    return fl, prompts, want, rec["launches"]
+
+
+def fleet_chaos(torch, model, params, prompts, want):
+    """``benchmarks/check_fleet.py``'s scenario at full width on the
+    card: a warmed, steady fleet serves the requests while replica 0 is
+    killed at fleet tick 2 and the failover's first redispatch is lost in
+    flight. Gates: no request lost (every one finishes "length"), replica
+    0 dead of "crash" with at least one request migrated, the drop
+    detected once, every stream never replayed bitwise equal to the one
+    engine's and every replayed one equal or leaving it at a near tie;
+    on the survivors no capture and, their prefix caches cleared, no
+    live page. Printed: the failover's cost, the ticks and ms from the
+    kill to each migrated stream's next token."""
+    t_phase = time.perf_counter()
+    fl = _new_fleet(model, params, warm=True, faults=_chaos_faults())
+    _fleet_submit(fl, prompts, range(FLEET_REQUESTS))
+    ticks = _fleet_drive(fl)
+    st = fl.latency_stats()
+    migrated = sorted(u for u, e in fl._entries.items()
+                      if e.req.preemptions)
+    base = ticks[FLEET_KILL_TICK - 2][1]    # delivered when the kill came
+    cost = {}
+    for u in migrated:
+        for t in range(FLEET_KILL_TICK - 1, len(ticks)):
+            if ticks[t][1][u] > base[u]:
+                cost[u] = {"ticks": t - FLEET_KILL_TICK + 2,
+                           "ms": 1e3 * sum(w for w, _ in
+                                           ticks[FLEET_KILL_TICK - 1:t + 1]),
+                           "delivered_at_kill": base[u]}
+                break
+    streams = _fleet_streams(torch, model, params, fl, prompts, want)
+    drained, empty = _drained(fl)
+    dead = fl.replicas[FLEET_KILL_RID]
+    rec = {"phase": "fleet_chaos", "schedule": [
+        ("replica_crash", FLEET_KILL_TICK, FLEET_KILL_RID),
+        ("router_drop", FLEET_KILL_TICK)],
+        "finished": sum(r.finished for r in fl.responses.values()),
+        "finished_length": sum(r.finish_reason == "length"
+                               for r in fl.responses.values()),
+        "replica_states": {r.rid: (r.state, r.death_reason)
+                           for r in fl.replicas},
+        **{k: st[k] for k in ("replica_deaths", "failovers",
+                              "requests_migrated", "router_drops",
+                              "redispatches", "dispatches")},
+        "migrated": migrated, "failover_cost": cost,
+        "streams": streams, "steady_compiles": fl.steady_compiles(),
+        "survivors": drained, "fleet_ticks": len(ticks),
+        "wall_s": sum(w for w, _ in ticks)}
+    rec["ok"] = rec["finished_length"] == FLEET_REQUESTS \
+        and len(fl.responses) == FLEET_REQUESTS \
+        and dead.state == "dead" and dead.death_reason == "crash" \
+        and st["requests_migrated"] >= 1 and st["router_drops"] == 1 \
+        and len(cost) == len(migrated) and streams["ok"] and empty \
+        and not any(n for rid, n in rec["steady_compiles"].items()
+                    if rid != FLEET_KILL_RID)
+    rec["seconds"] = time.perf_counter() - t_phase
+    del fl
+    gc.collect()
+    _gate(rec)
+
+
+def fleet_hang_hedge(torch, model, params, prompts, want):
+    """The watchdog and hedging at full width on the card: replica 1
+    hangs at fleet tick 2 (``hang_ticks`` 3) and is killed as "hang",
+    its streams migrated (every request finishes "length"; streams
+    gated as ``fleet_chaos`` gates them); then a fleet with
+    ``hedge=True, hedge_delay_s=0`` on single-step ticks serves the
+    first 8 requests: every hedge won or wasted, at least one issued,
+    every token delivered once and each stream bitwise equal to the one
+    engine's (a hedge starts from scratch)."""
+    t_phase = time.perf_counter()
+    fl = _new_fleet(model, params, warm=False, hang_ticks=3,
+                    faults="replica_hang@2/1")
+    _fleet_submit(fl, prompts, range(FLEET_REQUESTS))
+    ticks = _fleet_drive(fl)
+    st = fl.latency_stats()
+    hung = fl.replicas[1]
+    hang = {"replica_states": {r.rid: (r.state, r.death_reason)
+                               for r in fl.replicas},
+            "requests_migrated": st["requests_migrated"],
+            "finished_length": sum(r.finish_reason == "length"
+                                   for r in fl.responses.values()),
+            "streams": _fleet_streams(torch, model, params, fl, prompts,
+                                      want),
+            "fleet_ticks": len(ticks)}
+    hang["ok"] = hung.state == "dead" and hung.death_reason == "hang" \
+        and st["requests_migrated"] >= 1 \
+        and hang["finished_length"] == FLEET_REQUESTS \
+        and hang["streams"]["ok"]
+    del fl
+    gc.collect()
+    n = 8
+    fl = _new_fleet(model, params, warm=False, hedge=True,
+                    hedge_delay_s=0.0)
+    _fleet_submit(fl, prompts, range(n))
+    ticks = _fleet_drive(fl, steps=1)
+    st = fl.latency_stats()
+    got = {u: list(r.tokens) for u, r in fl.responses.items()}
+    hedge = {k: st[k] for k in ("hedges_issued", "hedges_won",
+                                "hedges_wasted", "dispatches")}
+    hedge.update({"requests": n, "fleet_ticks": len(ticks),
+                  "streams_equal_one_engine": sum(got[u] == want[u]
+                                                  for u in range(n)),
+                  "finished_length": sum(r.finish_reason == "length"
+                                         for r in fl.responses.values())})
+    hedge["ok"] = hedge["hedges_issued"] >= 1 \
+        and hedge["hedges_won"] + hedge["hedges_wasted"] \
+        == hedge["hedges_issued"] \
+        and hedge["streams_equal_one_engine"] == n \
+        and hedge["finished_length"] == n and len(got) == n
+    del fl
+    gc.collect()
+    _gate({"phase": "fleet_hang_hedge", "hang": hang, "hedge": hedge,
+           "seconds": time.perf_counter() - t_phase,
+           "ok": hang["ok"] and hedge["ok"]})
+
+
+def fleet_rejoin(torch, model, params, fl, prompts, want):
+    """A rolling restart on the clean phase's fleet: replica 1 drained
+    mid-run (every stream finishes "length" and equals the one
+    engine's; the replica reaches ``drained``), rejoined (a fresh
+    engine, warmed, then marked steady), a batch served, then drained
+    and rejoined again. Gates: ``memory_allocated()`` after the second
+    rejoin's warm-up within ``FLEET_REJOIN_MIB`` MiB of its value after
+    the first; the rejoined engines capture in their warm-up and never
+    after ``mark_steady`` (a batch after each rejoin); every batch's
+    streams equal the one engine's."""
+    t_phase = time.perf_counter()
+    uids = range(FLEET_REQUESTS)
+    batches, mem, builds = [], [], []
+
+    def batch(uid0, drain_at=None):
+        _fleet_submit(fl, prompts, [uid0 + u for u in uids], uid0=uid0)
+        outstanding = None
+        if drain_at is not None:
+            for _ in range(drain_at):
+                fl.tick()
+            outstanding = fl._outstanding(1)
+            fl.drain(1)
+        _fleet_drive(fl)
+        got = {u - uid0: list(fl.responses[u].tokens)
+               for u in range(uid0, uid0 + FLEET_REQUESTS)}
+        batches.append({
+            "uid0": uid0, "outstanding_on_1_at_drain": outstanding,
+            "equal_one_engine": sum(got[u] == want[u] for u in uids),
+            "finished_length": sum(fl.responses[uid0 + u].finish_reason
+                                   == "length" for u in uids),
+            "steady_compiles": fl.steady_compiles()})
+
+    def rejoin():
+        old_kv = _kv_bytes(fl.replicas[1].engine)
+        fl.rejoin(1)
+        eng = fl.replicas[1].engine
+        _warm(eng, "fleet_rejoin")
+        warm_builds = eng.metrics.counters["compiles_total"].value
+        eng.mark_steady()
+        gc.collect()
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated())
+        builds.append({"warm_up": warm_builds, "replaced_kv_bytes": old_kv,
+                       "reserved_bytes": torch.cuda.memory_reserved()})
+
+    batch(200, drain_at=2)
+    drained = fl.replicas[1].state
+    rejoin()
+    batch(300)
+    fl.drain(1)
+    fl.tick()
+    drained2 = fl.replicas[1].state
+    rejoin()
+    batch(400)
+    rec = {"phase": "fleet_rejoin", "batches": batches,
+           "states_after_drain": [drained, drained2],
+           "rejoins": fl.latency_stats()["rejoins"],
+           "memory_allocated_after_rejoins": mem,
+           "memory_moved_mib": (mem[1] - mem[0]) / 2**20,
+           "rejoined_builds": builds}
+    rec["ok"] = drained == "drained" and drained2 == "drained" \
+        and batches[0]["outstanding_on_1_at_drain"] \
+        and all(b["equal_one_engine"] == FLEET_REQUESTS
+                and b["finished_length"] == FLEET_REQUESTS
+                and not any(b["steady_compiles"].values())
+                for b in batches) \
+        and abs(mem[1] - mem[0]) <= FLEET_REJOIN_MIB * 2**20 \
+        and all(b["warm_up"] > 0 for b in builds)
+    rec["seconds"] = time.perf_counter() - t_phase
+    _gate(rec)
+
+
+def fleet_trace(torch, model, params, prompts):
+    """``trace=True`` through a crash (replica 0 at fleet tick 2): the
+    merged Chrome trace validates, has the fleet's lane (99) and one a
+    replica (100, 101, 102), and the fleet lane holds ``replica_dead``
+    and ``failover``; every request finishes "length"."""
+    from repro_torch.serving.tracing import validate_chrome_trace
+
+    t_phase = time.perf_counter()
+    n = 6
+    fl = _new_fleet(model, params, warm=False, trace=True,
+                    faults=f"replica_crash@{FLEET_KILL_TICK}/"
+                           f"{FLEET_KILL_RID}")
+    _fleet_submit(fl, prompts, range(n))
+    _fleet_drive(fl)
+    trace = fl.export_trace()
+    ev = trace["traceEvents"]
+    lanes = sorted({e["pid"] for e in ev if e.get("ph") == "M"
+                    and e["name"] == "process_name"})
+    fleet_lane = [e["name"] for e in ev
+                  if e.get("pid") == 99 and e.get("ph") == "i"]
+    rec = {"phase": "fleet_trace", "events": len(ev), "lanes": lanes,
+           "problems": validate_chrome_trace(trace)[:5],
+           "fleet_lane": sorted(set(fleet_lane)),
+           "finished_length": sum(r.finish_reason == "length"
+                                  for r in fl.responses.values())}
+    rec["ok"] = not rec["problems"] and lanes == [99, 100, 101, 102] \
+        and "replica_dead" in fleet_lane and "failover" in fleet_lane \
+        and rec["finished_length"] == n
+    rec["seconds"] = time.perf_counter() - t_phase
+    del fl
+    gc.collect()
+    _gate(rec)
+
+
+def fleet_phases(torch, model, params):
+    """The fleet phases in order; the clean phase's fleet serves the
+    rolling restart last. Returns the clean run's launch counts."""
+    t0 = time.perf_counter()
+    fl, prompts, want, counts = fleet(torch, model, params)
+    fleet_chaos(torch, model, params, prompts, want)
+    fleet_hang_hedge(torch, model, params, prompts, want)
+    fleet_trace(torch, model, params, prompts)
+    fleet_rejoin(torch, model, params, fl, prompts, want)
+    del fl
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "fleet_timing", "seconds": time.perf_counter() - t0})
+    return counts
+
+
+def fleet_exact(torch):
+    """The chaos schedule's exact identity, in fp32: a 2-layer
+    full-width llama3.2-1b on 3 replicas of 2 slots (chunks of 32, a
+    pool of pages of 16, a prefix cache) serves 6 requests of 16-96
+    tokens (16 new) while replica 0 is killed at fleet tick 2 and the
+    first redispatch is lost. Every stream, the replayed ones included,
+    must equal one engine's tokens on the card and the same fleet's
+    tokens on the CPU; at least one stream is replayed."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.fleet import Fleet
+    from repro_torch.serving.sampler import Sampler
+
+    t0 = time.perf_counter()
+    cfg = get_arch("llama3.2-1b").replace(n_layers=2, dtype="float32",
+                                          param_dtype="float32")
+    cpu, gpu = build(cfg, "cpu"), build(cfg, "cuda")
+    p_cpu = cpu.init(SEED)
+    p_gpu = _tree_to(p_cpu, "cuda")
+    rng = np.random.default_rng(SEED + 9)
+    prompts = [rng.integers(0, cfg.vocab, int(L))
+               for L in rng.integers(16, 97, 6)]
+    ek = dict(max_batch=2, cache_len=128, prefill_chunk=32, paged=True,
+              page_size=16, prefix_cache_tokens=256, seed=SEED)
+    uids = range(len(prompts))
+
+    one = Engine(gpu, p_gpu, sampler=Sampler(), faults=False, **ek)
+    _fleet_submit(one, prompts, uids, new=16)
+    want = {u: list(r.tokens) for u, r in one.run().items()}
+    del one
+    out = {}
+    for name, model, params in (("gpu", gpu, p_gpu), ("cpu", cpu, p_cpu)):
+        fl = Fleet(model, params, replicas=3, degrade_factor=1e9,
+                   faults=_chaos_faults(),
+                   engine_kwargs=dict(ek, sampler=Sampler()))
+        _fleet_submit(fl, prompts, uids, new=16)
+        fl.run()
+        st = fl.latency_stats()
+        out[name] = {"tokens": {u: list(r.tokens)
+                                for u, r in fl.responses.items()},
+                     "replayed": _replayed(fl),
+                     **{k: st[k] for k in ("requests_migrated",
+                                           "router_drops",
+                                           "replica_deaths")}}
+        del fl
+    gc.collect()
+    rec = {"phase": "fleet_exact", "arch": cfg.name, "n_layers": 2,
+           "dtype": "float32", "prompt_lens": [len(p) for p in prompts],
+           "max_new_tokens": 16,
+           "gpu_equals_one_engine": out["gpu"]["tokens"] == want,
+           "gpu_equals_cpu": out["gpu"]["tokens"] == out["cpu"]["tokens"],
+           **{f"{name}_{k}": v for name, o in out.items()
+              for k, v in o.items() if k != "tokens"}}
+    rec["ok"] = rec["gpu_equals_one_engine"] and rec["gpu_equals_cpu"] \
+        and len(rec["gpu_replayed"]) >= 1 \
+        and rec["gpu_requests_migrated"] >= 1 \
+        and rec["gpu_router_drops"] == 1
+    rec["seconds"] = time.perf_counter() - t0
+    _gate(rec)
 
 
 # --------------------------------------------------------------------- #
@@ -4958,6 +5599,7 @@ def main() -> int:
         model_check(torch, variant="reduced", quant="int8",
                     phase="model_quant", arch="mamba2-780m")
         spec_exact(torch)
+        fleet_exact(torch)
 
     # the card tests in their own process while the model checks, which
     # time nothing on the card, run in this one
@@ -4981,6 +5623,7 @@ def main() -> int:
     pool_pressure(torch, model, params)
     lifecycle(torch, model, params, rec)
     prefix_rec = prefix(torch, model, params)
+    fleet_counts = fleet_phases(torch, model, params)
     # the bf16 tree leaves the card, so the quantized phases' peak memory
     # counts only their own weights
     params = _tree_to(params, "cpu")
@@ -5119,6 +5762,7 @@ def main() -> int:
         line["frontend_launches"] = {
             k: c[line["name"]] for k, c in frontend_counts.items()
             if c[line["name"]]}
+        line["fleet_launches"] = fleet_counts[line["name"]]
     emit({"kernels": kernel_lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

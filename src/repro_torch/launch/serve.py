@@ -1,5 +1,5 @@
 """End-to-end serving CLI of the PyTorch port: seeded requests through
-one engine on one device.
+one engine, or a fleet of engine replicas, on one device.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --variant reduced --device cpu --requests 8 --max-new 12 \\
@@ -7,7 +7,8 @@ one engine on one device.
       [--prefix-cache-tokens 256] [--draft int8@1|ngram --spec-gamma 4] \\
       [--faults nan_logits@12/1,page_alloc@30x2] [--deadline 2.0] \\
       [--trace-out trace.json] [--trace-dir prof/] \\
-      [--metrics-jsonl run.jsonl] [--log-every 1.0]
+      [--metrics-jsonl run.jsonl] [--log-every 1.0] \\
+      [--replicas 3 [--hedge] [--drain 1@0.5]]
 
 ``--variant reduced+edge`` (or ``edge`` at full width) serves the edge
 profile: int4 weights and an int8 KV cache. ``--variant
@@ -42,6 +43,17 @@ gives every request a deadline, ``--trace-out`` writes the request
 lifecycle as a Chrome trace, ``--trace-dir`` a ``torch.profiler`` trace
 of the first steps, and ``--metrics-jsonl`` / ``--log-every`` write and
 print registry summaries while serving.
+
+``--replicas N`` (N > 1) serves the same seeded requests through a
+fault-tolerant ``Fleet`` of N engines on the one device, sharing one
+copy of the weights (``serving/fleet.py``): routed by prefix affinity,
+health and load, failed over by replay, with ``--hedge`` (a second copy
+of a slow-starting request, the first token wins) and ``--drain
+rid@seconds[,...]`` (a rolling restart: drain each replica at that wall
+time, rejoin it once drained). ``--faults`` may then also name the fleet
+sites (``replica_crash``, ``replica_hang``, ``router_drop``), and
+``--trace-out`` writes the merged trace (a lane a replica and a fleet
+lane). Frontend-embedding architectures take the single-engine path.
 """
 from __future__ import annotations
 
@@ -59,6 +71,149 @@ from repro_torch.serving.engine import Engine
 from repro_torch.serving.faults import Faults
 from repro_torch.serving.request import Request
 from repro_torch.serving.sampler import Sampler
+
+
+def _engine_kwargs(args):
+    """Engine knobs shared by the single-engine and fleet paths (the
+    fleet owns ``recorder``/``faults``/``trace_dir`` itself)."""
+    return dict(max_batch=args.max_batch, cache_len=args.cache_len,
+                sampler=Sampler(temperature=args.temperature, top_k=32),
+                seed=args.seed, sync_every=args.sync_every,
+                kv_cache_dtype=args.kv_cache_dtype,
+                prefill_chunk=None if args.prefill_chunk < 0
+                else args.prefill_chunk,
+                prefix_cache_tokens=None if args.prefix_cache_tokens < 0
+                else args.prefix_cache_tokens,
+                paged=args.paged, page_size=args.page_size,
+                num_pages=args.num_pages or None)
+
+
+def _parse_drains(spec):
+    """'rid@seconds[,rid@seconds...]' -> [(seconds, rid)] sorted."""
+    plan = []
+    for part in filter(None, (p.strip() for p in spec.split(","))):
+        rid, sep, at = part.partition("@")
+        try:
+            if not sep:
+                raise ValueError(part)
+            plan.append((float(at), int(rid)))
+        except ValueError:
+            raise SystemExit(f"--drain: bad entry {part!r}, want "
+                             f"'rid@seconds' (e.g. '0@2.5')")
+    return sorted(plan)
+
+
+def _serve_fleet(args, cfg, model, params, device):
+    """--replicas > 1: serve through the fault-tolerant Fleet. The
+    single-engine loop's requests, plus the --drain rolling-restart
+    schedule and the fleet's report."""
+    from repro_torch.serving.fleet import DRAINED, Fleet
+
+    if cfg.frontend is not None:
+        raise SystemExit("--replicas > 1 serves token-only prompts; "
+                         "frontend-embedding archs need the "
+                         "single-engine path")
+    fl = Fleet(model, params, replicas=args.replicas,
+               engine_kwargs=_engine_kwargs(args),
+               hedge=args.hedge, trace=bool(args.trace_out),
+               faults=(Faults.parse(args.faults, seed=args.faults_seed)
+                       if args.faults else None))
+    rng = np.random.default_rng(args.seed)
+    t0 = time.perf_counter()
+    for uid in range(args.requests):
+        L = int(rng.integers(max(2, args.prompt_len // 2),
+                             args.prompt_len + 1))
+        fl.submit(Request(uid=uid,
+                          prompt=rng.integers(0, cfg.vocab, L),
+                          max_new_tokens=args.max_new,
+                          deadline_s=args.deadline or None))
+    logger = None
+    if args.metrics_jsonl:
+        from repro_torch.training.metrics import MetricsLogger
+        logger = MetricsLogger(args.metrics_jsonl,
+                               run_name=f"serve-fleet-{cfg.name}")
+    drains = _parse_drains(args.drain)
+    draining = set()
+    next_log = t0 + (args.log_every or 1.0)
+    while fl.has_work:
+        fl.tick(args.sync_every)
+        elapsed = time.perf_counter() - t0
+        while drains and elapsed >= drains[0][0]:
+            _, rid = drains.pop(0)
+            try:
+                fl.drain(rid)
+                draining.add(rid)
+            except ValueError as err:   # already dead or drained: skip
+                print(f"--drain: {err}")
+        for rid in sorted(draining):
+            if fl.replicas[rid].state == DRAINED:
+                fl.rejoin(rid)          # rolling restart: a fresh engine
+                draining.discard(rid)
+        if (args.log_every or logger is not None) \
+                and time.perf_counter() >= next_log:
+            snap = fl.metrics.snapshot()
+            c, gz = snap["counters"], snap["gauges"]
+            fields = dict(inflight=gz.get("fleet_inflight", 0),
+                          queued=gz.get("fleet_queue_depth", 0),
+                          dispatches=c.get("dispatches", 0),
+                          failovers=c.get("failovers", 0),
+                          hedges=c.get("hedges_issued", 0))
+            if logger is not None:
+                logger.log("fleet", **fields)
+            if args.log_every:
+                states = "".join(r.state[0] for r in fl.replicas)
+                print(f"[{elapsed:6.1f}s] replicas={states} " +
+                      " ".join(f"{k}={v}" for k, v in fields.items()))
+            next_log = time.perf_counter() + (args.log_every or 1.0)
+    responses = fl.responses
+    wall = time.perf_counter() - t0
+    stats = fl.latency_stats()
+    if logger is not None:
+        logger.log("final", wall_s=wall, **{
+            k: v for k, v in stats.items()
+            if isinstance(v, (int, float))})
+        logger.close()
+    if args.trace_out:
+        fl.export_trace(args.trace_out)
+        print(f"merged chrome trace written to {args.trace_out} "
+              f"(one lane per replica + a fleet lane; open in "
+              f"https://ui.perfetto.dev)")
+    tokens = sum(len(r.tokens) for r in responses.values())
+    n_ok = sum(1 for r in responses.values() if r.ok)
+    print(f"arch={cfg.name} device={device} requests={args.requests} "
+          f"replicas={args.replicas} batch={args.max_batch}"
+          + (" hedge" if args.hedge else ""))
+    print(f"finished={stats['n_finished']} ok={n_ok} tokens={tokens} "
+          f"wall={wall:.2f}s ({tokens / wall:,.1f} tok/s)")
+    g = lambda k: stats.get(k, float("nan"))  # noqa: E731
+    print(f"fleet ttft ms: p50={g('fleet_ttft_ms_p50'):.1f} "
+          f"p95={g('fleet_ttft_ms_p95'):.1f} "
+          f"p99={g('fleet_ttft_ms_p99'):.1f}")
+    print(f"routing: dispatches={stats.get('dispatches', 0)} "
+          f"affinity_hits={stats.get('affinity_hits', 0)} "
+          f"breaker_opens={stats.get('breaker_opens', 0)}")
+    print(f"resilience: deaths={stats.get('replica_deaths', 0)} "
+          f"failovers={stats.get('failovers', 0)} "
+          f"migrated={stats.get('requests_migrated', 0)} "
+          f"router_drops={stats.get('router_drops', 0)} "
+          f"hedges won/wasted={stats.get('hedges_won', 0)}"
+          f"/{stats.get('hedges_wasted', 0)} "
+          f"drains={stats.get('drains', 0)} "
+          f"rejoins={stats.get('rejoins', 0)} "
+          f"timeouts={stats.get('fleet_timeouts', 0)}")
+    for r in fl.replicas:
+        ewma = f"{r.ewma_s * 1e3:.1f}ms" if r.ewma_s else "-"
+        print(f"  replica {r.rid}: {r.state} ticks={r.ticks} "
+              f"step_ewma={ewma}"
+              + (f" ({r.death_reason})" if r.death_reason else ""))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump({"arch": cfg.name, "device": str(device),
+                       "wall_s": wall,
+                       **{k: v for k, v in stats.items()
+                          if isinstance(v, (int, float, str))}},
+                      f, indent=2)
+    return responses, stats
 
 
 def main(argv=None):
@@ -138,6 +293,23 @@ def main(argv=None):
     ap.add_argument("--deadline", type=float, default=0.0,
                     help="per-request deadline in seconds (0 = none); "
                          "expired requests finish with reason 'timeout'")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serve through a fault-tolerant Fleet of this "
+                         "many engine replicas on the device (health-"
+                         "checked routing, failover by replay, drain/"
+                         "rejoin; serving/fleet.py); 1 = one engine. "
+                         "--faults may then also name the fleet sites "
+                         "(replica_crash/replica_hang/router_drop)")
+    ap.add_argument("--hedge", action="store_true",
+                    help="with --replicas > 1: copy slow-starting "
+                         "requests to a second replica after the fleet's "
+                         "p99 TTFT; the first token wins, the loser is "
+                         "cancelled")
+    ap.add_argument("--drain", default="",
+                    help="with --replicas > 1: rolling-restart schedule "
+                         "'rid@seconds[,rid@seconds...]': drain each "
+                         "replica at that wall time, rejoin it once "
+                         "drained")
     args = ap.parse_args(argv)
 
     try:
@@ -155,17 +327,9 @@ def main(argv=None):
         cfg = cfg.replace(spec_gamma=args.spec_gamma)
     model = build(cfg, device)
     params = quantize_for_cfg(model.init(args.seed), cfg)
-    engine = Engine(model, params, max_batch=args.max_batch,
-                    cache_len=args.cache_len,
-                    sampler=Sampler(temperature=args.temperature, top_k=32),
-                    seed=args.seed, sync_every=args.sync_every,
-                    prefill_chunk=None if args.prefill_chunk < 0
-                    else args.prefill_chunk,
-                    prefix_cache_tokens=None if args.prefix_cache_tokens < 0
-                    else args.prefix_cache_tokens,
-                    paged=args.paged, page_size=args.page_size,
-                    num_pages=args.num_pages or None,
-                    kv_cache_dtype=args.kv_cache_dtype,
+    if args.replicas > 1:
+        return _serve_fleet(args, cfg, model, params, device)
+    engine = Engine(model, params, **_engine_kwargs(args),
                     recorder=bool(args.trace_out), trace_dir=args.trace_dir,
                     faults=(Faults.parse(args.faults, seed=args.faults_seed)
                             if args.faults else None))

@@ -206,6 +206,20 @@ def _slot_view(cache, slot: int):
 #: the step programs ``program_cache_sizes`` counts (the JAX engine's keys)
 _STEP_PROGRAMS = ("step", "mixed", "admit_chunk")
 
+#: the capture stream of each device, shared by every engine on it: no
+#: two captures overlap, and every stream that runs a GEMM keeps a cuBLAS
+#: workspace (32 MiB on Hopper) for the life of the process, so a stream
+#: an engine would leave one more workspace behind each engine a fleet's
+#: rejoin replaces
+_CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(dev: torch.device) -> "torch.cuda.Stream":
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return _CAPTURE_STREAMS[index]
+
 
 def _leaves(tree):
     if isinstance(tree, dict):
@@ -585,7 +599,7 @@ class Engine:
         self._programs: Dict[Tuple[Any, ...], StepProgram] = {}
         self._graph_pool = torch.cuda.graph_pool_handle() \
             if self.graphs else None
-        self._capture_stream = torch.cuda.Stream(dev) if self.graphs \
+        self._capture_stream = _capture_stream(dev) if self.graphs \
             else None
 
     # ------------------------------------------------------------ #
@@ -1872,6 +1886,19 @@ class Engine:
         if self.paged:
             pk = self._paged
             pk.alias_pages = pk.cow_splits = pk.pages_released = 0
+
+    def _release(self) -> None:
+        """Break the engine's reference cycles, so that its last outside
+        reference going frees its device memory at once rather than at
+        the garbage collector's next pass: the step programs' bodies
+        close over the engine (dropping them drops their CUDA graphs,
+        and the graph pool goes with its last graph), and so does the
+        prefix cache's eviction hook. The engine serves nothing after
+        this. ``Fleet.rejoin`` calls it on the engine it replaces."""
+        self._stop_profile()
+        self._programs.clear()
+        if self.prefix_cache is not None:
+            self.prefix_cache.on_evict = None
 
     # ------------------------------------------------------------ #
     # trace / profiler export

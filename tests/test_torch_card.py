@@ -39,6 +39,10 @@ the deployed call) replay the eager call bitwise (the reduced
 classifier in fp32 and bf16, mamba2's ``model.lm`` on the SSD ``mma``
 route), a route runs as segments, another params tree is another
 capture, grad mode raises, and replays count their capture's launches.
+The serving fleet on graphs: a replica crash fails over by replay with
+every stream equal to one engine's and no capture on the warmed
+survivor, and a drain / rejoin cycle frees the replaced engine's device
+memory.
 """
 import numpy as np
 import pytest
@@ -1435,6 +1439,112 @@ def test_replays_count_their_capture_launches_on_card(replays):
     counts = {k: v for k, v in kernels.launch_counts().items() if v}
     assert counts == {"flash_attention": 2 * (replays + 1),
                       "rmsnorm": 5 * (replays + 1)}
+
+
+#: the fleet's replicas on the card: two slots, chunks of 8, a pool of
+#: 8-token pages and a prefix cache (``tests/test_fleet.py``'s arguments)
+FLEET_EK = dict(max_batch=2, cache_len=64, prefill_chunk=8,
+                prefix_cache_tokens=256, paged=True, page_size=8)
+
+
+def _fleet_requests(model, n, uid0=0):
+    from repro_torch.serving.request import Request
+
+    rng = np.random.default_rng(23)
+    head = rng.integers(0, model.cfg.vocab, 16)
+    out = []
+    for i in range(n):
+        body = rng.integers(0, model.cfg.vocab, int(rng.integers(4, 12)))
+        out.append(Request(uid=uid0 + i, max_new_tokens=16,
+                           prompt=np.concatenate([head, body]) if i % 2
+                           else body))
+    return out
+
+
+def _warm_replica(engine, uid0=-100):
+    """Admit into both slots once: every program captured."""
+    from repro_torch.serving.request import Request
+
+    for i in range(2):
+        engine.submit(Request(uid=uid0 - i, prompt=np.arange(5) + i,
+                              max_new_tokens=4))
+    engine.run()
+    assert engine.program_cache_sizes() == {"step": 1, "mixed": 2}
+
+
+@pytest.mark.cuda
+def test_fleet_crash_failover_matches_one_engine_on_card():
+    """A 2-replica fleet on graphs (fp32, reduced) through a
+    ``replica_crash``: every stream, the migrated ones included, equals
+    one graphed engine's tokens, and the warmed survivor captures
+    nothing after ``reset_stats``."""
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.fleet import DEAD, Fleet
+    from repro_torch.serving.sampler import Sampler
+
+    _card()
+    model, params, _ = _graph_model("rings")
+    one = Engine(model, params, sampler=Sampler(), **FLEET_EK)
+    for r in _fleet_requests(model, 6):
+        one.submit(r)
+    want = {u: list(r.tokens) for u, r in one.run().items()}
+    fl = Fleet(model, params, replicas=2, faults="replica_crash@2/0",
+               degrade_factor=1e9,
+               engine_kwargs=dict(FLEET_EK, sampler=Sampler()))
+    for rep in fl.replicas:
+        _warm_replica(rep.engine)
+    fl.reset_stats()
+    for r in _fleet_requests(model, 6):
+        fl.submit(r)
+    got = fl.run()
+    st = fl.latency_stats()
+    assert fl.replicas[0].state == DEAD and st["requests_migrated"] >= 1
+    assert all(r.finish_reason == "length" for r in got.values())
+    assert {u: list(r.tokens) for u, r in got.items()} == want
+    assert fl.steady_compiles()[1] == 0
+    assert fl.replicas[1].engine.program_cache_sizes() == \
+        {"step": 1, "mixed": 2}
+    assert all(p.graph is not None
+               for p in fl.replicas[1].engine._programs.values())
+
+
+@pytest.mark.cuda
+def test_fleet_rejoin_frees_the_replaced_engine_on_card():
+    """Two drain / rejoin cycles of replica 0: ``memory_allocated()``
+    after the second rejoin's warm-up equals its value after the first
+    to within less than the replaced engine's cache: its cache, graphs
+    and graph pool are freed. (That no reference or cycle is left is
+    held on the CPU, ``tests/test_torch_fleet.py``.)"""
+    from repro_torch.serving.fleet import DRAINED, Fleet
+    from repro_torch.serving.sampler import Sampler
+
+    _card()
+    model, params, _ = _graph_model("rings")
+    fl = Fleet(model, params, replicas=2, degrade_factor=1e9,
+               engine_kwargs=dict(FLEET_EK, sampler=Sampler()))
+    for r in _fleet_requests(model, 4):
+        fl.submit(r)
+    fl.run()
+    mem, leak = [], 0
+    for cycle in range(2):
+        fl.drain(0)
+        fl.tick()                        # an idle replica parks at a tick
+        assert fl.replicas[0].state == DRAINED
+        leak = sum(t.nbytes for t in
+                   _cache_leaves(fl.replicas[0].engine.cache))
+        fl.rejoin(0)
+        _warm_replica(fl.replicas[0].engine, uid0=-100 - 10 * cycle)
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated())
+    assert leak > 0 and abs(mem[1] - mem[0]) < leak
+
+
+def _cache_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _cache_leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
 
 
 @pytest.mark.cuda
