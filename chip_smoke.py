@@ -154,6 +154,22 @@ other than the poll's two reads, and on a launch counter that differs
 from the profiler's count of its kernel templates (a count may fall
 short by no more than the records the profiler lost, which the spins
 that open and close the window measure).
+Training (the dense decoder): ``kernels_bwd`` holds the two backward
+kernels, which replace no TPU kernel (the JAX package differentiates its
+plain attention and norm), against their plain backwards and autograd of
+the plain forwards: the flash backward (D, dK/dV, dQ from the forward's
+LSE) at llama3.2-1b's train shape (B 4, L 1024, Hq 32, Hkv 8, hd 64),
+hd 128 at G 1, hd 160, a window of 256, non-causal Lq 128 / Lk 1024 and
+fp32, and the RMSNorm backward (add and norm routes) at d 2048, N 4096
+in bf16 and fp32 and at d 5120, each timed beside its bound, its plain
+backward and a library yardstick (SDPA or add + ``F.rms_norm``, forward
++ backward less forward); ``train_exact`` (with the model checks) trains
+llama3.2-1b cut to 2 layers in fp32 for 3 steps on the card and on the
+CPU from the same weights and batches (losses, first gradients,
+parameters); ``train``, last, trains the full 16-layer bf16 model with
+remat, B 4 x L 1024, 20 steps (step ms, tokens/s, peak memory, launches
+a step by op, a profiled step), after one step with remat off (the same
+bits) and one at microbatch 2 (the loss within the bf16 gate).
 Every phase prints one JSON line; any failure raises and the
 script exits non-zero without the final line. The second-to-last lines are the
 kernel summary (JSON) and the card's name and power limit as
@@ -174,6 +190,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -237,7 +254,9 @@ PROFILE_TEMPLATES = (
     (("rmsnorm",), ("rmsnorm_kernel",)),
     (("ssd_extend",), ("ssd_extend_kernel",)),
     (("ssd",), ("ssd_chunk_out_kernel", "ssd_chunk_kernel")),
-    (("flash_attention",), ("flash_mma_kernel", "flash_f32_kernel")))
+    (("flash_attention",), ("flash_mma_kernel", "flash_f32_kernel")),
+    (("flash_attention_bwd",), ("flash_bwd_dq_kernel",)),
+    (("rmsnorm_bwd",), ("rmsnorm_bwd_kernel",)))
 
 
 def emit(obj) -> None:
@@ -1281,7 +1300,8 @@ def flash_attention_cases(torch, flush):
     explicit mask for the window, a yardstick only); the bound counts q,
     k, v and o once and 4 B Hq hd operations per live query-key pair.
     Each case records its plan (route, head-dim tile) and the rates it
-    reached. The backward raises."""
+    reached. Its backward is the ``kernels_bwd`` phase's
+    (``flash_bwd_cases``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import (
@@ -1371,14 +1391,6 @@ def flash_attention_cases(torch, flush):
         if not ok:
             raise AssertionError(f"flash_attention {name}: kernel "
                                  f"disagrees with the plain version: {rec}")
-    # the launch sits in an autograd Function whose backward raises
-    qg = q.detach().requires_grad_()
-    try:
-        flash_attention_cuda(qg, k, v).float().sum().backward()
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("flash_attention: backward did not raise")
     return out, max(errs)
 
 
@@ -2428,7 +2440,8 @@ def _forward_launches(cfg, forwards, paged, quant):
             "rmsnorm": _norms_per_forward(cfg) * forwards,
             "ssd": 0,
             "ssd_extend": n_ssm * forwards,
-            "flash_attention": 0}
+            "flash_attention": 0, "flash_attention_bwd": 0,
+            "rmsnorm_bwd": 0}
 
 
 def _expected_launches(cfg, engine, paged, kinds=None):
@@ -4713,7 +4726,8 @@ def _frontend_launches(cfg, forwards, admissions):
     nl = cfg.n_layers
     out = {"decode_attention": 0, "paged_decode_attention": 0,
            "quant_matmul_int8": 0, "quant_matmul_int4": 0, "rmsnorm": 0,
-           "ssd": 0, "ssd_extend": 0, "flash_attention": 0}
+           "ssd": 0, "ssd_extend": 0, "flash_attention": 0,
+           "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
     if cfg.family == "encdec":
         ne = cfg.encoder.n_layers
         out["decode_attention"] = 2 * nl * forwards
@@ -5527,6 +5541,400 @@ def ssd_compare(torch, src):
     return 0
 
 
+# --------------------------------------------------------------------- #
+# training: the backward kernels, llama3.2-1b's train step at full width
+# --------------------------------------------------------------------- #
+FLASH_BWD_SRC = "src/repro_torch/csrc/flash_attention_bwd.cu"
+#: (name, B, Lq, Hq, Hkv, hd, dtype, causal, window[, Lk]): llama's train
+#: shape first (the kernel line's head case)
+FLASH_BWD_CASES = (
+    ("llama1b_train", 4, 1024, 32, 8, 64, "bfloat16", True, 0),
+    ("g1_hd128", 2, 1024, 8, 8, 128, "bfloat16", True, 0),
+    ("pixtral12b_hd160", 2, 1024, 32, 8, 160, "bfloat16", True, 0),
+    ("window256", 2, 1024, 32, 8, 64, "bfloat16", True, 256),
+    ("non_causal_Lq128_Lk1024", 1, 128, 16, 16, 64, "bfloat16", False, 0,
+     1024),
+    ("fp32_hd64", 2, 1024, 32, 8, 64, "float32", True, 0))
+#: (name, N, d, route, dtype): llama's train rows first
+NORM_BWD_CASES = (
+    ("N4096_d2048_add", 4096, 2048, "add", "bfloat16"),
+    ("N4096_d2048_norm", 4096, 2048, "norm", "bfloat16"),
+    ("N4096_d2048_add_fp32", 4096, 2048, "add", "float32"),
+    ("N4096_d2048_norm_fp32", 4096, 2048, "norm", "float32"),
+    ("N2048_d5120_add", 2048, 5120, "add", "bfloat16"))
+
+
+def _rel_to_max(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1e-30)).item()
+
+
+def _fwd_bwd_minus_fwd(torch, flush, fwd, leaves, grads):
+    """ms of a library call's forward and backward less its forward
+    alone (a yardstick of the backward)."""
+    def both():
+        torch.autograd.grad(fwd(), leaves, grads)
+    with torch.no_grad():
+        t_fwd = median_ms(torch, fwd, flush)
+    return median_ms(torch, both, flush) - t_fwd
+
+
+def flash_bwd_cases(torch, flush):
+    """The flash backward kernels (``flash_attention_bwd_cuda``: D, dK/dV,
+    dQ) against the plain backward (``ref.attention_backward_reference``)
+    and against autograd of the plain forward on the card, at
+    ``FLASH_BWD_CASES``: max|err| within TOL of max|plain|, bitwise
+    repeatable. Each case timed beside the plain backward and SDPA's
+    forward + backward less its forward (a yardstick); the bound counts
+    q, k, v, o, dO, the LSE, dq, dk and dv once and 10 hd operations a
+    live pair and query head."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda, flash_attention_lse_cuda, plan)
+    from repro_torch.kernels.flash_attention.ref import (
+        _mask, attention_backward_reference, attention_reference)
+
+    dev = torch.device("cuda")
+    out, errs = [], []
+    for name, B, L, Hq, Hkv, hd, dname, causal, window, *lk in \
+            FLASH_BWD_CASES:
+        Lk = lk[0] if lk else L
+        G = Hq // Hkv
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        dtype = getattr(torch, dname)
+        q = torch.randn((B, L, Hq, hd), generator=g, device=dev).to(dtype)
+        k = torch.randn((B, Lk, Hkv, hd), generator=g, device=dev).to(dtype)
+        v = torch.randn((B, Lk, Hkv, hd), generator=g, device=dev).to(dtype)
+        do = torch.randn((B, L, Hq, hd), generator=g, device=dev).to(dtype)
+        o, lse = flash_attention_lse_cuda(q, k, v, causal=causal,
+                                          window=window)
+        tr = lambda t: t.transpose(1, 2)  # noqa: E731
+
+        def kernel():
+            return flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                            causal=causal, window=window)
+
+        def plain():
+            return attention_backward_reference(
+                tr(q), tr(k), tr(v), tr(do), causal=causal, window=window)
+
+        got, again = kernel(), kernel()
+        want = [tr(w) for w in plain()]
+        auto = [t.float().requires_grad_() for t in (q, k, v)]
+        attention_reference(tr(auto[0]),
+                            tr(auto[1]).repeat_interleave(G, 1),
+                            tr(auto[2]).repeat_interleave(G, 1),
+                            causal=causal, window=window).backward(
+            tr(do.float()))
+        torch.cuda.synchronize()
+        err = max(_rel_to_max(a, w) for a, w in zip(got, want))
+        err_auto = max(_rel_to_max(a, w.grad) for a, w in zip(got, auto))
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok = all(bool(torch.isfinite(a).all().item()) for a in got) \
+            and max(err, err_auto) <= TOL[dname] and repeat
+        del auto
+        pairs = int(_mask(L, Lk, causal, window, dev).sum().item())
+        es = q.element_size()
+        nbytes = es * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+        flops = 10 * B * Hq * hd * pairs
+        bms, by = bound_ms(nbytes, flops, dname)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        mask = _mask(L, Lk, causal, window, dev) if window else None
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                tr(leaves[0]), tr(leaves[1]), tr(leaves[2]), attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
+        rec = {"phase": "kernels_bwd", "kernel": "flash_attention_bwd",
+               "case": name, "dtype": dname, "B": B, "L": L, "Lk": Lk,
+               "Hq": Hq, "Hkv": Hkv, "hd": hd, "causal": causal,
+               "window": window,
+               "plan": plan(B, L, Hq, Hkv, hd, dtype)._asdict(),
+               "live_pairs": pairs, "max_abs_err": err,
+               "rel_err_vs_autograd": err_auto, "tol_rel": TOL[dname],
+               "bitwise_repeat": repeat, "ok": ok,
+               "kernel_ms": median_ms(torch, kernel, flush),
+               "plain_ms": median_ms(torch, plain, flush, iters=5),
+               "library_ms": _fwd_bwd_minus_fwd(torch, flush, sdpa, leaves,
+                                                tr(do)),
+               "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+               "flops": flops}
+        rec.update(achieved(rec))
+        emit(rec)
+        out.append(rec)
+        errs.append(err)
+        if not ok:
+            raise AssertionError(f"flash_attention_bwd {name}: kernel "
+                                 f"disagrees with the plain backward: {rec}")
+    return out, max(errs)
+
+
+def norm_bwd_cases(torch, flush):
+    """The RMSNorm backward kernel (``fused_rmsnorm_bwd_cuda``: rows, then
+    the dscale reduction) against ``ref.fused_rmsnorm_backward_reference``
+    and autograd of the plain forward, at ``NORM_BWD_CASES`` (the scale in
+    the rows' dtype, as the train step's parameters; dt given on the add
+    route): max|err| within TOL of max|plain| for dx and dscale, bitwise
+    repeatable; timed beside the plain backward and add + ``F.rms_norm``'s
+    forward + backward less its forward (a yardstick); the bound counts
+    x, the residual, dy, dt, the scale, dx and dscale once (bytes)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm.kernel import fused_rmsnorm_bwd_cuda
+    from repro_torch.kernels.rmsnorm.ref import (
+        fused_rmsnorm_backward_reference, fused_rmsnorm_reference)
+
+    dev = torch.device("cuda")
+    eps = 1e-5
+    out, errs = [], []
+    for name, N, d, route, dname in NORM_BWD_CASES:
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        dtype = getattr(torch, dname)
+        x = torch.randn((N, d), generator=g, device=dev).to(dtype)
+        r = torch.randn((N, d), generator=g, device=dev).to(dtype) \
+            if route == "add" else None
+        s = (1 + 0.1 * torch.randn((d,), generator=g, device=dev)).to(dtype)
+        dy = torch.randn((N, d), generator=g, device=dev).to(dtype)
+        dt = torch.randn((N, d), generator=g, device=dev).to(dtype) \
+            if route == "add" else None
+
+        def kernel():
+            return fused_rmsnorm_bwd_cuda(x, r, s, dy, dt, eps)
+
+        def plain():
+            return fused_rmsnorm_backward_reference(x, r, s, dy, dt, eps)
+
+        got, again, want = kernel(), kernel(), plain()
+        leaves = [t.float().requires_grad_() for t in (x, s)]
+        y, t = fused_rmsnorm_reference(leaves[0], None if r is None
+                                       else r.float(), leaves[1], eps)
+        torch.autograd.backward([y] + ([t] if dt is not None else []),
+                                [dy.float()] + ([dt.float()]
+                                                if dt is not None else []))
+        torch.cuda.synchronize()
+        err = max(_rel_to_max(got[0], want[0]), _rel_to_max(got[1], want[1]))
+        err_auto = max(_rel_to_max(got[0], leaves[0].grad),
+                       _rel_to_max(got[1], leaves[1].grad))
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok = bool(torch.isfinite(got[0]).all().item()) \
+            and max(err, err_auto) <= TOL[dname] and repeat
+        es = x.element_size()
+        rows = 5 if route == "add" else 3      # x, r, dy, dt in; dx out
+        nbytes = es * (rows * N * d + 2 * d)
+        bms, by = bound_ms(nbytes, 12 * N * d, "float32")
+        lib = [t.clone().requires_grad_() for t in
+               ((x, r, s) if route == "add" else (x, s))]
+
+        def library():
+            if route == "add":
+                t_ = torch.add(lib[0], lib[1])
+                return F.rms_norm(t_, (d,), lib[2], eps), t_
+            return (F.rms_norm(lib[0], (d,), lib[1], eps),)
+        rec = {"phase": "kernels_bwd", "kernel": "rmsnorm_bwd", "case": name,
+               "route": route, "dtype": dname, "N": N, "d": d,
+               "max_abs_err": err, "rel_err_vs_autograd": err_auto,
+               "tol_rel": TOL[dname], "bitwise_repeat": repeat, "ok": ok,
+               "kernel_ms": median_ms(torch, kernel, flush),
+               "plain_ms": median_ms(torch, plain, flush),
+               "library_ms": _fwd_bwd_minus_fwd(
+                   torch, flush, library, lib,
+                   (dy, dt) if route == "add" else (dy,)),
+               "bound_ms": bms, "bound_by": by, "bytes": nbytes}
+        emit(rec)
+        out.append(rec)
+        errs.append(err)
+        if not ok:
+            raise AssertionError(f"rmsnorm_bwd {name}: kernel disagrees "
+                                 f"with the plain backward: {rec}")
+    return out, max(errs)
+
+
+def _grads(torch, model, params, batch):
+    """(loss, gradient leaves) of one train loss, as the train step
+    takes them."""
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.training.train_loop import _unflatten_like, batch_to
+
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    loss, _ = model.train_loss(
+        _unflatten_like(params, leaves),
+        batch_to(batch, leaves[0].device))
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+TRAIN_STEPS = 20
+TRAIN_B, TRAIN_L = 4, 1024
+
+
+def train_phase(torch):
+    """llama3.2-1b at full width (16 layers, bf16) trains on the card:
+    ``resolve_config(..., "train_4k")`` (remat on), B 4 x L 1024 from
+    ``batches_for(cfg, 4, 1024, seed=0)``, AdamW with
+    ``cosine_schedule(3e-4, 100, 10_000)`` (JAX's ``build_step``). First,
+    from the initial state: one step with remat on, one with remat off
+    (loss, gradient norm and parameters the same bits) and one at
+    microbatch 2 (loss within the bf16 gate). Then ``TRAIN_STEPS`` steps
+    from the remat step's state with the counters set to 0 just before
+    (the kernels line's launches): step ms p50 and max (host clock
+    around each step, synchronized), tokens/s, peak memory, launches a
+    step by op (flash forward 32 with remat, backward 16; RMSNorm 33 +
+    32 recomputed, backward 33), losses and gradient norms finite; and
+    one more step profiled (busy share, device time by kernel)."""
+    from repro_torch import kernels
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.data.pipeline import batches_for
+    from repro_torch.launch.steps import resolve_config
+    from repro_torch.models.model import build
+    from repro_torch.training.optimizer import AdamW, cosine_schedule
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+
+    allocated_before = torch.cuda.memory_allocated()
+    cfg = resolve_config("llama3.2-1b", "train_4k")
+    assert cfg.remat and cfg.dtype == "bfloat16"
+    data = batches_for(cfg, TRAIN_B, TRAIN_L, seed=0)
+    t0 = time.perf_counter()
+    batches = [next(data) for _ in range(TRAIN_STEPS + 2)]
+    data_s = time.perf_counter() - t0
+    model = build(cfg)
+    opt = AdamW(lr=cosine_schedule(3e-4, 100, 10_000))
+    state0 = init_train_state(model, opt, SEED)
+    step = make_train_step(model, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, m_on = step(state0, batches[0])
+    off = build(cfg.replace(remat=False))
+    s_off, m_off = make_train_step(off, opt)(state0, batches[0])
+    torch.cuda.synchronize()
+    peak_off = torch.cuda.max_memory_allocated()
+    same = {"loss": torch.equal(m_on["loss"], m_off["loss"]),
+            "grad_norm": torch.equal(m_on["grad_norm"], m_off["grad_norm"])}
+    diff = [i for i, (a, b) in enumerate(zip(tree_leaves(state["params"]),
+                                             tree_leaves(s_off["params"])))
+            if not torch.equal(a, b)]
+    same["params"] = not diff
+    del s_off
+    _, m_micro = make_train_step(model, opt, microbatch=2)(state0,
+                                                           batches[0])
+    micro_err = abs(float(m_micro["loss"]) - float(m_on["loss"])) \
+        / float(m_on["loss"])
+    del state0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    first = kernels.launch_counts()
+    walls, losses, norms, per_step = [], [m_on["loss"]], \
+        [m_on["grad_norm"]], None
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batches[1 + i])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+        if i == 0:
+            per_step = _launch_delta(first, kernels.launch_counts())
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    holder = {}
+
+    def one():
+        holder["out"] = step(state, batches[-1])
+    prof_rec = _profile_call(torch, one)
+    losses = [float(x) for x in losses + [holder["out"][1]["loss"]]]
+    norms = [float(x) for x in norms]
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers,
+            "rmsnorm": 2 * cfg.n_layers + 1 + 2 * cfg.n_layers,
+            "rmsnorm_bwd": 2 * cfg.n_layers + 1}
+    p50 = statistics.median(walls)
+    rec = {"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "dtype": cfg.dtype, "remat": cfg.remat, "B": TRAIN_B,
+           "L": TRAIN_L, "steps": TRAIN_STEPS, "data_s": data_s,
+           "allocated_before_gib": allocated_before / 2**30,
+           "step_ms": walls, "step_ms_p50": p50, "step_ms_max": max(walls),
+           "step_ms_first": walls[0], "tokens_per_s": TRAIN_B * TRAIN_L
+           / p50 * 1e3, "peak_memory_gib": peak / 2**30,
+           "peak_memory_gib_with_remat_off_step": peak_off / 2**30,
+           "launches_a_step": per_step, "launches_want": want,
+           "launches": counts, "losses": losses, "grad_norms": norms,
+           "remat_off_same_bits": same, "remat_off_leaves_differing": diff,
+           "microbatch2_loss_rel_err": micro_err,
+           "microbatch2_tol_rel": TOL["bfloat16"],
+           "profiled_step": prof_rec}
+    rec["ok"] = (all(math.isfinite(x) for x in losses + norms)
+                 and all(per_step.get(k) == n for k, n in want.items())
+                 and all(same.values())
+                 and micro_err <= TOL["bfloat16"]
+                 and all(counts[k] == n * TRAIN_STEPS
+                         for k, n in want.items())
+                 and prof_rec["launch_counters_confirmed"])
+    emit(rec)
+    if not rec["ok"]:
+        brief = {k: v for k, v in rec.items() if k != "profiled_step"}
+        raise AssertionError(f"train: a gate failed: {brief}")
+    return counts
+
+
+TRAIN_EXACT_LAYERS = 2
+
+
+def train_exact(torch):
+    """llama3.2-1b at full width cut to 2 layers, fp32 (TF32 off), B 2 x
+    L 128, 3 train steps on the card and on the CPU from the same weights
+    and batches: losses within 1e-5 relative, the first step's gradients
+    within 1e-4 of each leaf's max|CPU|, the parameters after 3 steps
+    within rtol 1e-4, atol 5e-5 (Adam's m / sqrt(v) turns the last bits
+    of a near-zero gradient into up to lr in the update)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.data.pipeline import batches_for
+    from repro_torch.models.model import build
+    from repro_torch.training.optimizer import AdamW, cosine_schedule
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+
+    t0 = time.perf_counter()
+    cfg = get_arch("llama3.2-1b").replace(
+        n_layers=TRAIN_EXACT_LAYERS, dtype="float32", param_dtype="float32")
+    opt = AdamW(lr=cosine_schedule(3e-4, 100, 10_000))
+    card, cpu = build(cfg), build(cfg, device="cpu")
+    state = init_train_state(card, opt, SEED)
+    cpu_state = _tree_to(state, "cpu")
+    data = batches_for(cfg, 2, 128, seed=0)
+    batches = [next(data) for _ in range(3)]
+    _, g_card = _grads(torch, card, state["params"], batches[0])
+    _, g_cpu = _grads(torch, cpu, cpu_state["params"], batches[0])
+    grad_err = max(_rel_to_max(a.cpu(), b) for a, b in zip(g_card, g_cpu))
+    del g_card, g_cpu
+    step_card, step_cpu = make_train_step(card, opt), \
+        make_train_step(cpu, opt)
+    loss_err = 0.0
+    for b in batches:
+        state, mc = step_card(state, b)
+        cpu_state, mh = step_cpu(cpu_state, b)
+        loss_err = max(loss_err, abs(float(mc["loss"]) - float(mh["loss"]))
+                       / float(mh["loss"]))
+    param_ok = all(torch.allclose(a.cpu(), b, rtol=1e-4, atol=5e-5)
+                   for a, b in zip(tree_leaves(state["params"]),
+                                   tree_leaves(cpu_state["params"])))
+    param_err = max((a.cpu() - b).abs().max().item() for a, b in
+                    zip(tree_leaves(state["params"]),
+                        tree_leaves(cpu_state["params"])))
+    rec = {"phase": "train_exact", "arch": cfg.name, "n_layers":
+           cfg.n_layers, "dtype": cfg.dtype, "B": 2, "L": 128, "steps": 3,
+           "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+           "param_max_abs_err": param_err, "param_rtol": 1e-4,
+           "param_atol": 5e-5, "seconds": time.perf_counter() - t0}
+    rec["ok"] = loss_err <= 1e-5 and grad_err <= 1e-4 and param_ok
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"train_exact: card and CPU disagree: {rec}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5559,7 +5967,8 @@ def main() -> int:
     t_nvcc = time.perf_counter() - t0
     ptxas = ptxas_table(_build.BUILD_LOG.values())
     gated = ("_mma_kernel", "ssd_extend", "rmsnorm_kernel",
-             "ssd_chunk_states", "ssd_state_pass", "ssd_chunk_out")
+             "ssd_chunk_states", "ssd_state_pass", "ssd_chunk_out",
+             "flash_bwd_", "rmsnorm_bwd_kernel")
     spills = {k: v for k, v in ptxas.items() if any(s in k for s in gated)
               and (v.get("spill_stores") or v.get("spill_loads"))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -5570,11 +5979,14 @@ def main() -> int:
           "rmsnorm_templates": {k: v for k, v in ptxas.items()
                                 if "rmsnorm_kernel" in k},
           "ssd_mma_templates": {k: v for k, v in ptxas.items()
-                                if any(s in k for s in gated[3:])},
+                                if any(s in k for s in gated[3:6])},
+          "backward_templates": {k: v for k, v in ptxas.items()
+                                 if any(s in k for s in gated[6:])},
           "gated_spills": spills})
     if spills or not all(any(s in k for k in ptxas) for s in gated):
-        raise AssertionError(f"tensor-core, ssd_extend, ssd mma or rmsnorm "
-                             f"templates missing or spilling: {spills}")
+        raise AssertionError(f"tensor-core, ssd_extend, ssd mma, rmsnorm "
+                             f"or backward templates missing or spilling: "
+                             f"{spills}")
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     attn, attn_err = decode_attention_cases(torch, flush)
@@ -5586,8 +5998,13 @@ def main() -> int:
     ext, ext_err = ssd_extend_cases(torch, flush)
     ssd, ssd_err = ssd_cases(torch, flush)
     flash, flash_err = flash_attention_cases(torch, flush)
-    del flush
     marks.append(("build_and_kernels", time.perf_counter()))
+    flash_bwd, flash_bwd_err = flash_bwd_cases(torch, flush)
+    norm_bwd, norm_bwd_err = norm_bwd_cases(torch, flush)
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(("kernels_bwd", time.perf_counter()))
 
     def model_checks():
         model_check(torch)
@@ -5600,6 +6017,7 @@ def main() -> int:
                     phase="model_quant", arch="mamba2-780m")
         spec_exact(torch)
         fleet_exact(torch)
+        train_exact(torch)
 
     # the card tests in their own process while the model checks, which
     # time nothing on the card, run in this one
@@ -5702,6 +6120,13 @@ def main() -> int:
     del ssm_model
     gc.collect()
     marks.append(("spec", time.perf_counter()))
+    # training last: llama3.2-1b at full width, its backward kernels on
+    # the step's path
+    torch.cuda.empty_cache()
+    train_counts = train_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(("train", time.perf_counter()))
     emit({"phase": "timing", "seconds": {
         name: t - prev for (name, t), (_, prev) in zip(marks[1:], marks)},
         "total_s": marks[-1][1] - marks[0][1]})
@@ -5763,6 +6188,16 @@ def main() -> int:
             k: c[line["name"]] for k, c in frontend_counts.items()
             if c[line["name"]]}
         line["fleet_launches"] = fleet_counts[line["name"]]
+        line["train_launches"] = train_counts[line["name"]]
+    # the backward kernels (no TPU counterpart): launches of the train
+    # phase's 20 steps
+    kernel_lines += [
+        entry("flash_attention_bwd", "cuda", FLASH_BWD_SRC, None,
+              flash_bwd_err, flash_bwd, train_counts,
+              extra=("dtype", "bound_by", "plan", "rel_err_vs_autograd")),
+        entry("rmsnorm_bwd", "cuda", RMSNORM_SRC, None, norm_bwd_err,
+              norm_bwd, train_counts,
+              extra=("dtype", "route", "bound_by", "rel_err_vs_autograd"))]
     emit({"kernels": kernel_lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

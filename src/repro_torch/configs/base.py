@@ -117,6 +117,8 @@ class ModelConfig:
     frontend: Optional[FrontendConfig] = None
     dtype: str = "bfloat16"         # activation dtype
     param_dtype: str = "bfloat16"
+    remat: bool = False             # activation checkpointing per block
+                                    # in the train forward
     source: str = ""                # citation for the architecture
 
     @property

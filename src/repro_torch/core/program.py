@@ -33,8 +33,10 @@ is captured with the rest, and like any function that reads the host
 its capture raises, naming the service.
 
 Nothing falls back to eager: a failed capture raises, and so does a call
-on the card under grad mode with an input or param that requires grad
-(a graph carries no autograd, and the port's kernels give no backward).
+on the card under grad mode with an input or param that requires grad:
+a graph carries no autograd. Gradients on the card run eagerly (the
+service's own function, ``training/train_loop.py``); capturing them is
+``TRAINING_ITEM``.
 """
 from __future__ import annotations
 
@@ -47,8 +49,9 @@ from repro_torch import kernels
 from repro_torch.core.pytree import tree_flatten_with_path, tree_leaves, \
     tree_map
 
-#: what a gradient through a captured call waits for
-TRAINING_ITEM = "ROADMAP section 1, item 12 (training)"
+#: what a gradient through a captured call waits for: train steps,
+#: backward included, captured as CUDA graphs
+TRAINING_ITEM = "ROADMAP section 1, item 12c (a train step on CUDA graphs)"
 
 
 def capture(body: Callable[[], Any], recording) -> Tuple[Any, Dict[str, int]]:
@@ -207,9 +210,9 @@ class ServiceProgram:
             return self.service.fn(params, inputs)
         if torch.is_grad_enabled() and any(a.requires_grad for a in leaves):
             raise RuntimeError(
-                f"{self.service.name}: a captured call carries no autograd "
-                f"and the port's kernels give no backward; gradients on "
-                f"the card wait for {TRAINING_ITEM}")
+                f"{self.service.name}: a captured call carries no autograd; "
+                f"take gradients through the eager call (service.fn), or "
+                f"wait for {TRAINING_ITEM}")
         if self._plan is None:
             self._device = next((a.device for a in leaves if a.is_cuda),
                                 None)

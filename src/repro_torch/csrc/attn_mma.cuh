@@ -35,6 +35,11 @@ __device__ __forceinline__ float minus_inf() {
   return __int_as_float(0xff800000);
 }
 
+// +inf: the log-sum-exp of a row with no live key (its p are all 0)
+__device__ __forceinline__ float plus_inf() {
+  return __int_as_float(0x7f800000);
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

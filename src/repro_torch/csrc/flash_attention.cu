@@ -75,6 +75,12 @@
 // is bound by its CUDA-core FMAs (67 TFLOP/s) and, below that, by
 // shared-memory bandwidth (8 shared loads per 16 FMAs).
 //
+// Where a gradient is asked for, both templates also write each stored
+// row's base-2 log-sum-exp of its scaled scores (the quad's m and l
+// after the final reduction on the mma route, once a row; nothing for a
+// padded row), which flash_attention_bwd.cu recomputes P from. Serving
+// and the Zoo pass a null pointer and write nothing more.
+//
 // No atomics and a fixed order of every sum: the output is a pure
 // function of the inputs, bitwise, launch after launch.
 #include <cuda_bf16.h>
@@ -93,6 +99,7 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
+  float* lse;  // (B, Hq, Lq) log2-sum-exp2 of the scaled scores, or null
   int B, Lq, Lk, Hq, Hkv, G, bq, hd, causal, window;
   long long q_sb, q_sl, q_sh;
   long long k_sb, k_sl, k_sh;
@@ -276,6 +283,9 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
     const int t = r % a.bq, g = r / a.bq;
     if (r >= R || q_lo + t >= a.Lq) continue;
     const float inv = 1.f / (l[h] == 0.f ? 1.f : l[h]);  // fully masked
+    if (a.lse && (lane & 3) == 0)      // m and l are the quad's, reduced
+      a.lse[(static_cast<long long>(b) * a.Hq + kvh * a.G + g) * a.Lq +
+            q_lo + t] = l[h] == 0.f ? attn::plus_inf() : m[h] + log2f(l[h]);
     bf16* orow = out + ((static_cast<long long>(b) * a.Lq + q_lo + t) *
                             a.Hq + kvh * a.G + g) * hd;
 #pragma unroll
@@ -489,7 +499,14 @@ __global__ void __launch_bounds__(THREADS) flash_f32_kernel(Args a) {
   }
 
   __syncthreads();
-  if (pp == 0) sRow[pr] = l == 0.f ? 1.f : l;  // fully masked rows
+  if (pp == 0) {
+    sRow[pr] = l == 0.f ? 1.f : l;  // fully masked rows
+    const int t = pr % a.bq, g = pr / a.bq;
+    if (a.lse && pr < R && q_lo + t < a.Lq)  // natural units to log2
+      a.lse[(static_cast<long long>(b) * a.Hq + kvh * a.G + g) * a.Lq +
+            q_lo + t] =
+          l == 0.f ? attn::plus_inf() : (m + logf(l)) * attn::LOG2E;
+  }
   __syncthreads();
   float* out = static_cast<float*>(a.out);
 #pragma unroll
@@ -531,10 +548,16 @@ int launch_f32(const Args& a, cudaStream_t stream) {
 // Hkv, hd): strides in elements, the last dimension contiguous; q, K and
 // V rows must start on 16-byte boundaries (the wrapper checks). hd a multiple of
 // 8 in [8, 256]; hd_tile one of 32, 64, 128, 160, 256 and >= hd (the
-// wrapper's plan); G = Hq / Hkv in [1, 64]. Returns cudaGetLastError()
-// after the launch (0 = launched).
+// wrapper's plan); G = Hq / Hkv in [1, 64]. lse: null (serving, the Zoo)
+// or an f32 (B, Hq, Lq) buffer that receives, for every stored row, the
+// base-2 log-sum-exp of its scaled scores, log2 sum_j 2^(s_j log2(e) /
+// sqrt(hd)) (+inf for a row with no live key): the row's softmax is
+// then p_j = 2^(s_j log2(e) / sqrt(hd) - lse), what the backward kernels
+// (flash_attention_bwd.cu) recompute. Returns cudaGetLastError() after
+// the launch (0 = launched).
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int B, int Lq,
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    int B, int Lq,
     int Lk, int Hq, int Hkv, int hd, int hd_tile, long long q_sb,
     long long q_sl, long long q_sh, long long k_sb, long long k_sl,
     long long k_sh, long long v_sb, long long v_sl, long long v_sh,
@@ -548,6 +571,7 @@ extern "C" int flash_attention_launch(
   a.k = k;
   a.v = v;
   a.out = out;
+  a.lse = static_cast<float*>(lse);
   a.B = B;
   a.Lq = Lq;
   a.Lk = Lk;

@@ -61,6 +61,9 @@
 // the xor butterfly, whose lanes all end on the same bits, then the
 // row's warps in order): a pure function of the inputs, bitwise, launch
 // after launch.
+//
+// The backward of the add and norm routes (rmsnorm_bwd_launch, below)
+// lives in this file too: the train step's 33 norms a llama3.2-1b step.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,6 +74,7 @@ constexpr int MODE_NORM = 0;
 constexpr int MODE_ADD = 1;
 constexpr int MODE_GATED = 2;
 constexpr int MAX_THREADS = 1024;
+constexpr int MAX_BWD_D = 16384;      // the wrapper's MAX_D
 // flags: the vector path of each operand (the outputs: out and t), and
 // the types of y and of the scale where they differ from T
 constexpr int V_A = 1, V_B = 2, V_S = 4, V_OUT = 8, A_F32 = 16, S_F32 = 32;
@@ -356,7 +360,180 @@ int by_mode(int mode, int nv, const Args& g, cudaStream_t st) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ------------------------------------------------------------------- //
+// The backward of the add and norm routes (no TPU counterpart: the JAX
+// package differentiates its plain rms_norm). With t = x (+ residual) in
+// f32, rstd = rsqrt(mean(t^2) + eps), t^ = t rstd, g = dy * scale:
+//   dx = d(residual) = rstd (g - t^ mean(t^ g)) + dt
+//      = rstd g - t rstd^3 sum(t g) / d + dt,
+//   dscale = sum over rows of dy t^.
+// rstd is recomputed from x (and the residual), not saved by the forward:
+// one more read of the row, which the backward reads anyway, and no
+// buffer for the serve path's launches to carry. dt, the gradient of the
+// add route's sum output, may be absent.
+//
+// Two launches. rmsnorm_bwd_kernel: BWD_BLOCKS blocks (fewer when N is
+// smaller) of BWD_THREADS threads walk the rows, block j rows j, j +
+// blocks, ...; for each row one pass reduces sum(t^2) and sum(t g)
+// (warp butterflies, then the warps in order), a second pass writes dx
+// and adds dy t^ into the block's f32 dscale partial sums in shared
+// memory (a thread its own columns). Each block stores its partial row
+// of d sums. rmsnorm_dscale_kernel then sums the blocks' rows for each
+// column in block order and stores dscale in the scale's type. No
+// atomics: the gradients are the same bits every run.
+//
+// What bounds it: bytes (x, the residual, dy, dt read once, dx written
+// once; the partials are a few MB); the second pass re-reads a row that
+// its block has just read, from L1 or L2.
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_BLOCKS = 264;       // 2 x the H100's 132 SMs
+// flags of the backward: the residual and dt present, the scale in f32
+constexpr int B_RES = 1, B_DT = 2, B_SF32 = 4;
+
+__device__ __forceinline__ float ldf(const float* p) { return *p; }
+__device__ __forceinline__ float ldf(const bf16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void stf(float* p, float v) { *p = v; }
+__device__ __forceinline__ void stf(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_THREADS)
+    rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                       const void* __restrict__ scale,
+                       const T* __restrict__ dy, const T* __restrict__ dt,
+                       T* __restrict__ dx, float* __restrict__ partial,
+                       int N, int d, long long sx, long long sr, float eps,
+                       int flags) {
+  extern __shared__ float acc[];      // d: this block's dscale sums
+  __shared__ float red[2][BWD_THREADS / 32];
+  const bool has_res = (flags & B_RES) != 0, has_dt = (flags & B_DT) != 0;
+  const bool s_f32 = (flags & B_SF32) != 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* sf = static_cast<const float*>(scale);
+  const bf16* sb = static_cast<const bf16*>(scale);
+  for (int c = tid; c < d; c += BWD_THREADS) acc[c] = 0.f;
+  for (long long row = blockIdx.x; row < N; row += gridDim.x) {
+    const T* xr = x + row * sx;
+    const T* rr = res + row * sr;
+    const T* dyr = dy + row * d;
+    float ss = 0.f, dot = 0.f;
+    for (int c = tid; c < d; c += BWD_THREADS) {
+      const float t = has_res ? ldf(xr + c) + ldf(rr + c) : ldf(xr + c);
+      const float g = ldf(dyr + c) * (s_f32 ? sf[c] : ldf(sb + c));
+      ss += t * t;
+      dot += t * g;
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    }
+    __syncthreads();                  // red of the previous row is read
+    if (lane == 0) {
+      red[0][warp] = ss;
+      red[1][warp] = dot;
+    }
+    __syncthreads();
+    ss = red[0][0];
+    dot = red[1][0];
+    for (int w = 1; w < BWD_THREADS / 32; ++w) {
+      ss += red[0][w];
+      dot += red[1][w];
+    }
+    const float rstd = rsqrtf(ss / static_cast<float>(d) + eps);
+    const float k = rstd * rstd * rstd * dot / static_cast<float>(d);
+    T* dxr = dx + row * d;
+    const T* dtr = dt + row * d;
+    for (int c = tid; c < d; c += BWD_THREADS) {
+      const float t = has_res ? ldf(xr + c) + ldf(rr + c) : ldf(xr + c);
+      const float gy = ldf(dyr + c);
+      const float g = gy * (s_f32 ? sf[c] : ldf(sb + c));
+      float v = rstd * g - t * k;
+      if (has_dt) v += ldf(dtr + c);
+      stf(dxr + c, v);
+      acc[c] += gy * (t * rstd);
+    }
+  }
+  for (int c = tid; c < d; c += BWD_THREADS)
+    partial[static_cast<long long>(blockIdx.x) * d + c] = acc[c];
+}
+
+// dscale[c] = the blocks' partial sums of column c, in block order
+__global__ void __launch_bounds__(BWD_THREADS)
+    rmsnorm_dscale_kernel(const float* __restrict__ partial, void* dscale,
+                          int blocks, int d, int s_f32) {
+  const int c = blockIdx.x * BWD_THREADS + threadIdx.x;
+  if (c >= d) return;
+  float s = 0.f;
+  for (int j = 0; j < blocks; ++j) s += partial[static_cast<long long>(j) * d + c];
+  if (s_f32)
+    static_cast<float*>(dscale)[c] = s;
+  else
+    static_cast<bf16*>(dscale)[c] = __float2bfloat16_rn(s);
+}
+
+template <typename T>
+int launch_bwd(const T* x, const T* res, const void* scale, const T* dy,
+               const T* dt, T* dx, float* partial, void* dscale, int N,
+               int d, long long sx, long long sr, float eps, int flags,
+               int blocks, cudaStream_t st) {
+  const int bytes = d * static_cast<int>(sizeof(float));
+  static bool opted = false;          // once per type, per process
+  if (!opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rmsnorm_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        MAX_BWD_D * static_cast<int>(sizeof(float)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted = true;
+  }
+  rmsnorm_bwd_kernel<T><<<blocks, BWD_THREADS, bytes, st>>>(
+      x, res, scale, dy, dt, dx, partial, N, d, sx, sr, eps, flags);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rmsnorm_dscale_kernel<<<(d + BWD_THREADS - 1) / BWD_THREADS, BWD_THREADS,
+                          0, st>>>(partial, dscale, blocks, d,
+                                   (flags & B_SF32) != 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// The backward of the add (residual given) and norm routes. x, residual:
+// (N, d) rows of dtype (0 float, 1 bf16) with row strides sx, sr (the
+// last dimension contiguous; residual null on the norm route); scale
+// (d,) f32 (flags & 4) or bf16; dy and dt (dt may be null) (N, d)
+// contiguous; dx (N, d) contiguous output in the rows' type; partial an
+// f32 (blocks, d) scratch buffer, blocks in [1, min(N, 264)]; dscale (d,)
+// output in the scale's type. Returns the first cudaGetLastError() that
+// is not 0 after the two launches.
+extern "C" int rmsnorm_bwd_launch(const void* x, const void* res,
+                                  const void* scale, const void* dy,
+                                  const void* dt, void* dx, void* partial,
+                                  void* dscale, int N, int d, int dtype,
+                                  long long sx, long long sr, int flags,
+                                  int blocks, float eps, void* stream) {
+  if (N <= 0 || d <= 0 || d > MAX_BWD_D || blocks <= 0 || blocks > N ||
+      blocks > BWD_BLOCKS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* pp = static_cast<float*>(partial);
+  if (dtype == 1)
+    return launch_bwd<bf16>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(res), scale,
+        static_cast<const bf16*>(dy), static_cast<const bf16*>(dt),
+        static_cast<bf16*>(dx), pp, dscale, N, d, sx, sr, eps, flags, blocks,
+        st);
+  if (dtype == 0)
+    return launch_bwd<float>(
+        static_cast<const float*>(x), static_cast<const float*>(res), scale,
+        static_cast<const float*>(dy), static_cast<const float*>(dt),
+        static_cast<float*>(dx), pp, dscale, N, d, sx, sr, eps, flags, blocks,
+        st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // mode: 0 the norm alone, 1 add + norm, 2 the gated norm; dtype of the
 // rows (out, t_out, x, the residual, z): 0 float, 1 bf16; nv, tpr and

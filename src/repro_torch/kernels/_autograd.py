@@ -2,16 +2,36 @@
 
 A tensor filled by a ctypes launch has no ``grad_fn`` of its own: a
 ``backward()`` through it would give the kernel's inputs no gradient and
-raise nothing. ``launch`` runs a kernel's launch inside a node whose
-backward raises, when a gradient could be asked for (grad mode on and an
-input that requires grad), and calls it straight otherwise, so the
-engine, whose tensors never require grad, pays no ``Function.apply``.
-The backward kernels are ROADMAP section 1, item 12 (training). On the
-CPU the ops run their plain versions, which autograd differentiates.
+raise nothing. Two ways in, both calling the launch straight when no
+gradient can be asked for (grad mode off, or no input that requires
+grad), so the engine, whose tensors never require grad, pays no
+``Function.apply`` and launches exactly what it launched before:
+
+* ``differentiable``: the forward launch runs inside a node whose
+  backward is a kernel too (the flash-attention and RMSNorm backward
+  kernels, ROADMAP section 1, item 12a). The forward saves what the
+  backward reads through ``save_for_backward``, so activation
+  checkpointing (``torch.utils.checkpoint``, non-reentrant) drops and
+  recomputes it like any other saved tensor.
+* ``launch``: the forward inside a node whose backward raises, naming
+  the item that brings the op's backward (``ITEM_12B``), or saying that
+  the op is for inference only (``INFERENCE_ONLY``).
+
+On the CPU the ops run their plain versions, which autograd
+differentiates.
 """
 from __future__ import annotations
 
+from typing import Any, Callable, Sequence, Tuple
+
 import torch
+
+#: the item that brings the backward kernels still missing (the gated
+#: norm, ``ssd`` and ``ssd_extend``)
+ITEM_12B = "ROADMAP section 1, item 12b (training of the SSM and MoE stacks)"
+#: ops with no backward by design, by the name their launch passes
+INFERENCE_ONLY = ("decode attention", "paged decode attention",
+                  "int8 quant_matmul", "int4 quant_matmul")
 
 
 class _NoBackward(torch.autograd.Function):
@@ -22,17 +42,56 @@ class _NoBackward(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
+        if ctx.name in INFERENCE_ONLY:
+            raise NotImplementedError(
+                f"{ctx.name} has no backward kernel: the op is for "
+                f"inference only")
         raise NotImplementedError(
-            f"{ctx.name} has no backward kernel yet: ROADMAP section 1, "
-            f"item 12 (training)")
+            f"{ctx.name} has no backward kernel yet: {ITEM_12B}")
+
+
+def _wants_grad(args) -> bool:
+    """Grad mode on and a tensor among ``args`` requiring grad. (A loop,
+    not ``any`` over a generator: this runs on every launch.)"""
+    if torch.is_grad_enabled():
+        for a in args:
+            if isinstance(a, torch.Tensor) and a.requires_grad:
+                return True
+    return False
 
 
 def launch(name, fn, *args):
     """``fn(*args)``; inside a node whose backward raises when grad mode
-    is on and a tensor among ``args`` requires grad. (A loop, not
-    ``any`` over a generator: this runs on every launch.)"""
-    if torch.is_grad_enabled():
-        for a in args:
-            if isinstance(a, torch.Tensor) and a.requires_grad:
-                return _NoBackward.apply(name, fn, *args)
+    is on and a tensor among ``args`` requires grad."""
+    if _wants_grad(args):
+        return _NoBackward.apply(name, fn, *args)
     return fn(*args)
+
+
+class _WithBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fwd, bwd, *args):
+        outs, saved, meta = fwd(*args)
+        ctx.set_materialize_grads(False)    # an unused output gives None
+        ctx.bwd, ctx.meta = bwd, meta
+        ctx.save_for_backward(*saved)
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None) + tuple(ctx.bwd(ctx.meta, ctx.saved_tensors,
+                                            *grads))
+
+
+def differentiable(fast: Callable, fwd: Callable[..., Tuple[Any, Sequence,
+                                                            Any]],
+                   bwd: Callable, *args):
+    """The op's outputs for ``args``. With no gradient to ask for:
+    ``fast(*args)``, the plain launch. Otherwise ``fwd(*args)`` inside a
+    node: it returns ``(outputs, tensors to save, meta)``; the node's
+    backward calls ``bwd(meta, saved tensors, *output grads)`` (a grad
+    None for an output that took no part) and takes its return, one
+    gradient (or None) a member of ``args``."""
+    if _wants_grad(args):
+        return _WithBackward.apply(fwd, bwd, *args)
+    return fast(*args)

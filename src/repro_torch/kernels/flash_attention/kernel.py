@@ -13,11 +13,18 @@ block of 64 rows, so a K/V tile is read once for the group, and run on
 the smallest head-dim tile that holds hd. What bounds them at the
 model's shapes: the operations, 4 B Hq hd per live query-key pair.
 
-The launch runs through ``_autograd.launch``: where a gradient could be
-asked for, inside an autograd node whose backward raises (a tensor made
-by a ctypes launch has no ``grad_fn`` of its own, so a ``backward()``
-through the kernel would silently give q, k and v no gradient). The
-flash backward kernel is ROADMAP section 1, item 12 (training).
+The launch runs through ``_autograd.differentiable``: with no gradient
+to ask for, the plain launch (the serve path and the Zoo pass a null LSE
+pointer, so their launches are those of before); where a gradient could
+be asked for, the forward also writes each row's base-2 log-sum-exp of
+its scaled scores (f32, (B, Hq, Lq)) and runs inside an autograd node
+whose backward is ``flash_attention_bwd_cuda``: the three launches of
+``csrc/flash_attention_bwd.cu`` (D = rowsum(dO O), then dK/dV by key
+tile, then dQ by query tile, each recomputing P from the LSE; no
+atomics). That backward replaces no TPU kernel: the JAX package
+differentiates its plain attention. Its plain version is
+``ref.attention_backward_reference``. ``flash_attention_bwd_cuda``
+counts one launch a call, in ``flash_attention_bwd_cuda.launches``.
 """
 from __future__ import annotations
 
@@ -56,18 +63,21 @@ def plan(B: int, Lq: int, Hq: int, Hkv: int, hd: int,
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-#: the C signature of csrc/flash_attention.cu's entry point
+#: the C signatures of csrc/flash_attention.cu's and
+#: csrc/flash_attention_bwd.cu's entry points
 ARGTYPES = {"flash_attention_launch":
-            [_P] * 4 + [_I] * 7 + [_LL] * 9 + [_I] * 3 + [_P]}
+            [_P] * 5 + [_I] * 7 + [_LL] * 9 + [_I] * 3 + [_P],
+            "flash_attention_bwd_launch":
+            [_P] * 10 + [_I] * 7 + [_LL] * 9 + [_I] * 3 + [_P]}
 
 
-def _launcher():
-    fn = _FNS.get("flash")
+def _launcher(stem="flash_attention"):
+    fn = _FNS.get(stem)
     if fn is None:
-        fn = _build.load("flash_attention").flash_attention_launch
-        fn.argtypes = ARGTYPES["flash_attention_launch"]
+        fn = getattr(_build.load(stem), f"{stem}_launch")
+        fn.argtypes = ARGTYPES[f"{stem}_launch"]
         fn.restype = ctypes.c_int
-        _FNS["flash"] = fn
+        _FNS[stem] = fn
     return fn
 
 
@@ -106,35 +116,103 @@ def _check(q, k, v, window):
         raise ValueError(f"window must be >= 0, got {window}")
 
 
-def _launch(q, k, v, causal, window):
+def _strides(*ts):
+    return [st for t in ts for st in t.stride()[:3]]
+
+
+def _launch(q, k, v, causal, window, with_lse=False):
+    """The forward launch: the output, or (output, LSE) with
+    ``with_lse``."""
     B, Lq, Hq, hd = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
     pl = plan(B, Lq, Hq, Hkv, hd, q.dtype)
     out = torch.empty((B, Lq, Hq, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Hq, Lq), dtype=torch.float32,
+                      device=q.device) if with_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, Lq, Lk, Hq, Hkv, hd, pl.hd_tile,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
+        None if lse is None else lse.data_ptr(),
+        B, Lq, Lk, Hq, Hkv, hd, pl.hd_tile, *_strides(q, k, v),
         int(bool(causal)), int(window), _DTYPES[q.dtype], stream)
     flash_attention_cuda.launches += 1
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    return out
+    return out if lse is None else (out, lse)
+
+
+def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal=True,
+                             window=0):
+    """The backward kernels on the current stream: q, k, v as the forward
+    took them, ``out`` and ``lse`` from ``flash_attention_lse_cuda`` (or
+    the autograd node's forward), ``dout`` the output's gradient (B, Lq,
+    Hq, hd), any strides (made contiguous once here). Returns (dq, dk,
+    dv), new contiguous tensors of q's, k's and v's shapes and dtype."""
+    _check(q, k, v, window)
+    B, Lq, Hq, hd = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    if out.shape != q.shape or dout.shape != q.shape \
+            or out.dtype != q.dtype or dout.dtype != q.dtype \
+            or not out.is_contiguous() or dout.device != q.device:
+        raise ValueError(f"out and dout must be ({B}, {Lq}, {Hq}, {hd}) "
+                         f"{q.dtype} on {q.device}, out contiguous")
+    if lse.shape != (B, Hq, Lq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"lse must be a contiguous float32 ({B}, {Hq}, "
+                         f"{Lq}) tensor on {q.device}")
+    dout = dout.contiguous()
+    pl = plan(B, Lq, Hq, Hkv, hd, q.dtype)
+    dq = torch.empty((B, Lq, Hq, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Lk, Hkv, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    dsum = torch.empty((B, Hq, Lq), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _launcher("flash_attention_bwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Lq, Lk, Hq, Hkv, hd, pl.hd_tile,
+        *_strides(q, k, v), int(bool(causal)), int(window),
+        _DTYPES[q.dtype], stream)
+    flash_attention_bwd_cuda.launches += 1
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA "
+                           f"error {err}")
+    return dq, dk, dv
+
+
+def flash_attention_lse_cuda(q, k, v, *, causal=True, window=0):
+    """The forward with its LSE, no autograd node: (out, lse (B, Hq, Lq)
+    f32). For callers that run the backward kernels themselves."""
+    _check(q, k, v, window)
+    return _launch(q, k, v, causal, int(window), True)
+
+
+def _fwd(q, k, v, causal, window):
+    out, lse = _launch(q, k, v, causal, window, True)
+    return out, (q, k, v, out, lse), (causal, window)
+
+
+def _bwd(meta, saved, dout):
+    if dout is None:
+        return None, None, None, None, None
+    q, k, v, out, lse = saved
+    dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                          causal=meta[0], window=meta[1])
+    return dq, dk, dv, None, None
 
 
 def flash_attention_cuda(q, k, v, *, causal=True, window=0):
     """Launch the kernel on the current stream. q: (B, Lq, Hq, hd); k, v:
     (B, Lk, Hkv, hd), the model's layout, any strides with the last
     dimension contiguous. Returns a new contiguous (B, Lq, Hq, hd) tensor
-    in q's dtype. Raises on any input the kernel does not take, when the
-    launch is refused, and in a backward pass."""
+    in q's dtype; where a gradient can be asked for, through a node whose
+    backward runs the backward kernels. Raises on any input the kernel
+    does not take, and when a launch is refused."""
     _check(q, k, v, window)
-    return _autograd.launch("flash attention", _launch, q, k, v, causal,
-                            int(window))
+    return _autograd.differentiable(_launch, _fwd, _bwd, q, k, v, causal,
+                                    int(window))
 
 
 flash_attention_cuda.launches = 0
+flash_attention_bwd_cuda.launches = 0

@@ -18,8 +18,15 @@ low host cost a call (97 calls a mamba2 forward): each operand checked
 once, the raw stream handle in place of a Python stream object.
 
 ``fused_rmsnorm_cuda`` (add, norm) and ``gated_rmsnorm_cuda`` (gated)
-count in one counter, ``fused_rmsnorm_cuda.launches``: one kernel. Each
-runs its launch through ``_autograd.launch``, whose backward raises.
+count in one counter, ``fused_rmsnorm_cuda.launches``: one kernel. The
+add and norm routes run through ``_autograd.differentiable``: where a
+gradient can be asked for, inside a node whose backward is
+``fused_rmsnorm_bwd_cuda`` (``rmsnorm_bwd_launch`` of the same ``.cu``:
+rows, then the dscale reduction over the blocks' partial sums, no
+atomics; rstd recomputed from x; it replaces no TPU kernel, the JAX
+package differentiates its plain norm), counted in
+``fused_rmsnorm_bwd_cuda.launches``, one a call. The gated route runs
+through ``_autograd.launch``, whose backward raises (ROADMAP item 12b).
 """
 from __future__ import annotations
 
@@ -48,9 +55,15 @@ WIDE_UNITS = 256
 V_A, V_B, V_S, V_OUT, A_F32, S_F32 = 1, 2, 4, 8, 16, 32
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
-#: the C signature of csrc/rmsnorm.cu's entry point
+#: the C signatures of csrc/rmsnorm.cu's entry points
 ARGTYPES = {"rmsnorm_launch": [_P] * 5 + [_I] * 7 + [_LL] * 2
-            + [_I, _F, _P]}
+            + [_I, _F, _P],
+            "rmsnorm_bwd_launch": [_P] * 8 + [_I] * 3 + [_LL] * 2
+            + [_I, _I, _F, _P]}
+#: blocks of the backward's row pass at most (csrc BWD_BLOCKS: two an SM)
+BWD_BLOCKS = 264
+# csrc flags of the backward: the residual and dt present, the scale f32
+B_RES, B_DT, B_SF32 = 1, 2, 4
 _FNS = {}
 
 
@@ -86,13 +99,13 @@ def plan(N: int, d: int, dtype: torch.dtype, route: str = "add") -> Plan:
     return Plan(route, nv, tpr, rows, tpr * rows, -(-N // rows))
 
 
-def _launcher():
-    fn = _FNS.get("rmsnorm")
+def _launcher(entry="rmsnorm_launch"):
+    fn = _FNS.get(entry)
     if fn is None:
-        fn = _build.load("rmsnorm").rmsnorm_launch
-        fn.argtypes = ARGTYPES["rmsnorm_launch"]
+        fn = getattr(_build.load("rmsnorm"), entry)
+        fn.argtypes = ARGTYPES[entry]
         fn.restype = ctypes.c_int
-        _FNS["rmsnorm"] = fn
+        _FNS[entry] = fn
     return fn
 
 
@@ -162,18 +175,89 @@ def _launch(route, a, b, scale, eps):
     return out if t is None else (out, t)
 
 
+def fused_rmsnorm_bwd_cuda(x, residual, scale, dy, dt=None, eps=1e-5):
+    """The backward of the add route (``residual`` given) or the norm
+    route (None) on the current stream: x, residual as the forward took
+    them; dy the gradient of y, dt that of the sum t (None where t took
+    no part; always None on the norm route), each (N, d) in x's dtype,
+    any strides (made contiguous once here). Returns (dx, dscale): dx a
+    new contiguous (N, d) tensor in x's dtype, also the residual's
+    gradient; dscale (d,) in the scale's dtype, summed in f32."""
+    dtype, shape, dev = x.dtype, x.shape, x.device
+    if dev.type != "cuda" or len(shape) != 2 or dtype not in _DTYPES:
+        raise ValueError(f"rmsnorm backward takes (N, d) float32 or "
+                         f"bfloat16 CUDA tensors, got {tuple(shape)} "
+                         f"{dtype} on {dev}")
+    N, d = shape
+    if d > MAX_D:
+        raise ValueError(f"d={d} exceeds the kernel's limit {MAX_D}")
+    sx = _rows("x", x, shape, (dtype,), dev)
+    sr = 0 if residual is None else _rows("residual", residual, shape,
+                                          (dtype,), dev)
+    if scale.shape != (d,) or scale.stride(0) != 1 \
+            or scale.dtype not in _DTYPES or scale.device != dev:
+        raise ValueError(f"scale must be a contiguous ({d},) float32 or "
+                         f"bfloat16 tensor on {dev}, got "
+                         f"{tuple(scale.shape)} {scale.dtype}")
+    for name, g in (("dy", dy), ("dt", dt)):
+        if g is not None and (g.shape != shape or g.dtype != dtype
+                              or g.device != dev):
+            raise ValueError(f"{name} must be a {tuple(shape)} {dtype} "
+                             f"tensor on {dev}")
+    dy = dy.contiguous()
+    dt = None if dt is None else dt.contiguous()
+    dx = torch.empty((N, d), dtype=dtype, device=dev)
+    dscale = torch.empty((d,), dtype=scale.dtype, device=dev)
+    if N == 0:
+        return dx, dscale.zero_()
+    blocks = min(N, BWD_BLOCKS)
+    partial = torch.empty((blocks, d), dtype=torch.float32, device=dev)
+    flags = (B_RES * (residual is not None) | B_DT * (dt is not None)
+             | B_SF32 * (scale.dtype == torch.float32))
+    err = _launcher("rmsnorm_bwd_launch")(
+        x.data_ptr(), None if residual is None else residual.data_ptr(),
+        scale.data_ptr(), dy.data_ptr(),
+        None if dt is None else dt.data_ptr(), dx.data_ptr(),
+        partial.data_ptr(), dscale.data_ptr(), N, d, _DTYPES[dtype], sx,
+        sr, flags, blocks, float(eps),
+        torch._C._cuda_getCurrentRawStream(dev.index))
+    fused_rmsnorm_bwd_cuda.launches += 1
+    if err != 0:
+        raise RuntimeError(f"rmsnorm backward launch failed: CUDA error "
+                           f"{err}")
+    return dx, dscale
+
+
+def _fast(x, residual, scale, eps):
+    return _launch("norm" if residual is None else "add", x, residual,
+                   scale, eps)
+
+
+def _fwd(x, residual, scale, eps):
+    return _fast(x, residual, scale, eps), (x, residual, scale), eps
+
+
+def _bwd(eps, saved, dy, dt=None):
+    """The node's backward: y's gradient dy and, on the add route, the
+    sum's dt (None where an output took no part)."""
+    x, residual, scale = saved
+    if dy is None:          # y took no part: the sum's gradient passes
+        return dt, dt, None, None
+    dx, dscale = fused_rmsnorm_bwd_cuda(x, residual, scale, dy, dt, eps)
+    return dx, None if residual is None else dx, dscale, None
+
+
 def fused_rmsnorm_cuda(x, residual, scale, eps=1e-5):
     """x, residual: (N, d) CUDA tensors of one dtype, float32 or
     bfloat16, any row stride with the last dimension contiguous
     (residual may be None); scale: (d,), float32 or bfloat16. Returns
     (y, t), new contiguous tensors in x's dtype, t = x itself when there
-    is no residual. Raises on any input the kernel does not take, when
-    the launch is refused, and in a backward pass."""
-    if residual is None:
-        return _autograd.launch("rmsnorm", _launch, "norm", x, None, scale,
-                                eps), x
-    return _autograd.launch("rmsnorm", _launch, "add", x, residual, scale,
-                            eps)
+    is no residual; where a gradient can be asked for, through a node
+    whose backward runs ``fused_rmsnorm_bwd_cuda``. Raises on any input
+    the kernel does not take and when a launch is refused."""
+    out = _autograd.differentiable(_fast, _fwd, _bwd, x, residual, scale,
+                                   eps)
+    return (out, x) if residual is None else out
 
 
 def gated_rmsnorm_cuda(y, z, scale, eps=1e-5):
@@ -189,3 +273,4 @@ def gated_rmsnorm_cuda(y, z, scale, eps=1e-5):
 
 
 fused_rmsnorm_cuda.launches = 0
+fused_rmsnorm_bwd_cuda.launches = 0

@@ -11,6 +11,13 @@ would read.
 ``rms_norm(p, y * silu(z.astype(f32)).astype(dtype))`` with y already
 cast to the activation dtype (``src/repro/models/ssm.py``), here with
 that dtype taken from z and the cast of y done inside.
+
+``fused_rmsnorm_backward_reference``: the backward of the add and norm
+routes by the formulas the backward kernel computes, in f32 (t, rstd and
+t^ = t rstd from x and the residual): dx = rstd (s dy - t^ mean(t^ s
+dy)) + dt, the residual's gradient the same, dscale = the sum over rows
+of dy t^. The plain version the kernel (``csrc/rmsnorm.cu``'s
+``rmsnorm_bwd_launch``) is held against.
 """
 from __future__ import annotations
 
@@ -28,3 +35,20 @@ def fused_rmsnorm_reference(x, residual, scale, eps=1e-5):
 def gated_rmsnorm_reference(y, z, scale, eps=1e-5):
     v = y.to(z.dtype) * F.silu(z.float()).to(z.dtype)
     return fused_rmsnorm_reference(v, None, scale, eps=eps)[0]
+
+
+def fused_rmsnorm_backward_reference(x, residual, scale, dy, dt=None,
+                                     eps=1e-5):
+    """(dx, dscale) of ``fused_rmsnorm_reference`` over the last axis:
+    dx in x's dtype (also the residual's gradient), dscale in the scale's
+    dtype; dt the sum output's gradient, or None."""
+    d = x.shape[-1]
+    t = x.float() if residual is None else x.float() + residual.float()
+    rstd = torch.rsqrt(torch.mean(t * t, dim=-1, keepdim=True) + eps)
+    th = t * rstd
+    g = dy.float() * scale.float()
+    dx = rstd * (g - th * torch.mean(th * g, dim=-1, keepdim=True))
+    if dt is not None:
+        dx = dx + dt.float()
+    dscale = (dy.float() * th).reshape(-1, d).sum(0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)

@@ -11,7 +11,7 @@ from typing import Any, ClassVar, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
@@ -81,6 +81,40 @@ class Model:
 
     def init(self, seed: int = 0) -> Dict[str, Any]:
         return T.init_transformer(self.cfg, seed, self.device)
+
+    def cache_len(self, shape: ShapeConfig) -> int:
+        """The cache a step at ``shape`` needs: the sequence, or the
+        sliding window when the config has one."""
+        if self.cfg.sliding_window:
+            return min(shape.seq_len, self.cfg.sliding_window)
+        return shape.seq_len
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """Stand-ins for one step's inputs at ``shape``, as tensors on the
+        ``meta`` device (the shapes and dtypes of the JAX package's
+        ``ShapeDtypeStruct``s, no memory): train ``{"batch"}``, prefill
+        ``{"batch", "cache"}``, decode ``{"token", "cache"}``. A
+        frontend's embeddings join the batch; a VLM's prefix takes its
+        positions out of the sequence."""
+        cfg, B = self.cfg, shape.global_batch
+        meta = dataclasses.replace(self, device=torch.device("meta"))
+
+        def sds(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        fe = cfg.frontend
+        if shape.mode in ("train", "prefill"):
+            batch = {"tokens": sds((B, shape.seq_len - self.frontend_prefix),
+                                   torch.int32)}
+            if fe is not None:
+                batch["embeddings"] = sds((B, fe.n_tokens, fe.d_embed),
+                                          cfg.act_dtype)
+            if shape.mode == "train":
+                return {"batch": batch}
+            return {"batch": batch,
+                    "cache": meta.make_cache(B, self.cache_len(shape))}
+        return {"token": sds((B, 1), torch.int32),
+                "cache": meta.make_cache(B, self.cache_len(shape))}
 
     def train_loss(self, params, batch):
         tokens = batch["tokens"]

@@ -34,6 +34,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -333,11 +334,43 @@ def _ssm_mixer(p, h, cfg: ModelConfig, mode: str, cache, length):
     return y
 
 
+def _unbind(tree):
+    """The per-block views of a stacked tree, one ``unbind`` a leaf: in a
+    backward pass the blocks' gradients of a leaf come back as one
+    stack, where ``leaf[i]`` views would each give a full-size zero
+    gradient to sum."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
+def _train_block(bp, x, res, cfg):
+    return apply_block(bp, x, res, cfg, mode="train")
+
+
 def _run_blocks(params, x, cfg: ModelConfig, *, mode: str, cache=None,
                 length=None):
     """The stack: returns (x, res, aux), the stream, its pending add and
-    the summed MoE load-balance loss (0.0 without MoE)."""
+    the summed MoE load-balance loss (0.0 without MoE). In the train
+    forward, with ``cfg.remat`` and a gradient to ask for, each block
+    runs under ``torch.utils.checkpoint`` (non-reentrant; the JAX
+    package's ``jax.checkpoint`` of the block): its activations are
+    dropped after the forward and recomputed, through the same kernels,
+    in the backward."""
     res, aux = None, 0.0
+    if mode == "train":
+        remat = cfg.remat and torch.is_grad_enabled()
+        for bp in _unbind(params["blocks"]):
+            if remat:
+                x, res, a = checkpoint(_train_block, bp, x, res, cfg,
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
+            else:
+                x, res, a = _train_block(bp, x, res, cfg)
+            aux = aux + a
+        return x, res, aux
     for i in range(n_blocks(cfg)):
         c = None if cache is None else _at(cache, i)
         x, res, a = apply_block(_at(params["blocks"], i), x, res, cfg,

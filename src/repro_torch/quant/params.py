@@ -12,12 +12,14 @@ dims as ``(d_in, d_out)`` and broadcasts over the rest.
 The deploy layer's ``Endpoint(quantize=)`` stores a stage's tree through
 ``quantize_params`` and runs it through ``dequantize_params``; the
 speculative self-draft (``quant/self_draft.py``) quantizes its views of
-the target's blocks through it. Saving and loading quantized trees are
-not part of the port yet (ROADMAP section 1, item 12).
+the target's blocks through it. ``save_quantized`` / ``load_quantized``
+write and read a quantized tree in the pytree file format
+(``training/checkpoints.py``), tagged ``{"format": "qtensor"}`` in its
+manifest as JAX tags it, so either package reads the other's.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -111,6 +113,26 @@ def quantized_shapes(shapes, cfg):
         return out
 
     return walk(shapes)
+
+
+# --------------------------------------------------------------------- #
+# save / load (the pytree files of training/checkpoints.py)
+# --------------------------------------------------------------------- #
+def save_quantized(path, qparams, extra: Optional[dict] = None) -> str:
+    """QTensor trees are plain nested dicts, so the content-addressed
+    pytree file holds them as they are; the manifest is tagged for
+    tooling. Returns the content hash."""
+    from repro_torch.training.checkpoints import save_pytree
+    meta = {"format": "qtensor"}
+    meta.update(extra or {})
+    return save_pytree(path, qparams, extra=meta)
+
+
+def load_quantized(path, verify: bool = True, device=None):
+    """The quantized tree at ``path`` as tensors on ``device`` (CUDA
+    unless the caller names another)."""
+    from repro_torch.training.checkpoints import load_pytree
+    return load_pytree(path, verify=verify, device=device)
 
 
 # --------------------------------------------------------------------- #

@@ -1,3 +1,5 @@
-"""Training-side modules of the port; so far the pytree file format
-(``checkpoints``) that the Zoo's registry stores weights in, and the
-JSONL metrics logger (``metrics``) that the serve CLI writes."""
+"""Training-side modules of the port: AdamW and the schedules
+(``optimizer``), the train step and driver (``train_loop``), the pytree
+file format and train states (``checkpoints``, also the Zoo registry's
+weight files), and the JSONL metrics logger (``metrics``) that the train
+and serve CLIs write."""

@@ -20,8 +20,13 @@ package is read by the other:
 
 One difference: a ``|V2`` leaf that the manifest calls ``"bfloat16"`` is
 accepted here, where the JAX loader compares ``"|V2"`` with
-``"bfloat16"`` and raises (ROADMAP section 3). Saving and loading
-training state arrive with training (ROADMAP section 1, item 12).
+``"bfloat16"`` and raises (ROADMAP section 3): the port reads a JAX-written
+bf16 state, JAX reads a port-written one only in float32.
+
+A train state (``save_train_state`` / ``load_train_state``) is JAX's
+layout: ``<dir>/params`` and ``<dir>/opt_state`` pytrees (the optimizer
+state's ``m``, ``v`` and 0-d int32 ``step``), each manifest carrying the
+step as ``"step"``.
 """
 from __future__ import annotations
 
@@ -195,3 +200,23 @@ def load_pytree(path: os.PathLike, verify: bool = True, device=None):
                 f"checkpoint {path}: content hash mismatch")
     return _unflatten({k: _to_torch(a, name, device)
                        for k, (a, name) in flat.items()})
+
+
+def save_train_state(path, step: int, params, opt_state, extra=None):
+    """Writes ``<path>/params`` and ``<path>/opt_state`` (with ``step``
+    and ``extra`` in both manifests)."""
+    meta = {"step": int(step)}
+    meta.update(extra or {})
+    save_pytree(Path(path) / "params", params, extra=meta)
+    save_pytree(Path(path) / "opt_state", opt_state, extra=meta)
+
+
+def load_train_state(path, device=None):
+    """(step, params, opt_state) of a train state written by either
+    package, the trees as tensors on ``device`` (CUDA unless the caller
+    names another)."""
+    params = load_pytree(Path(path) / "params", device=device)
+    opt_state = load_pytree(Path(path) / "opt_state", device=device)
+    with open(Path(path) / "params.json") as f:
+        step = json.load(f).get("step", 0)
+    return step, params, opt_state

@@ -1,6 +1,6 @@
-"""JSONL metrics logging for the serve CLI (the port's own copy of the
-JAX package's ``training/metrics.py``): machine-readable run logs next
-to the console output."""
+"""JSONL metrics logging for the train and serve CLIs (the port's own
+copy of the JAX package's ``training/metrics.py``): machine-readable run
+logs next to the console output."""
 from __future__ import annotations
 
 import json

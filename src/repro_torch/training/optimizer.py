@@ -1,0 +1,96 @@
+"""AdamW with gradient clipping and the cosine learning-rate schedule: the
+port's copy of the JAX package's ``training/optimizer.py``.
+
+The optimizer state mirrors the parameter tree (nested dicts,
+``core/pytree.py``): f32 first and second moments ``m`` and ``v`` and a
+0-d int32 ``step``, so a state crosses between the packages leaf for
+leaf. ``update`` is functional, as in JAX: it returns new parameters and
+a new state, computed under ``torch.no_grad()`` in f32 and cast back to
+each parameter's dtype. A schedule takes the step as a tensor and
+returns a 0-d f32 tensor on its device: nothing here reads a value back
+to the host.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, Tuple
+
+import torch
+
+from repro_torch.core.pytree import tree_leaves, tree_map
+
+
+def cosine_schedule(base_lr: float, warmup: int, total: int,
+                    min_frac: float = 0.1) -> Callable[[Any], Any]:
+    """Linear warm-up over ``warmup`` steps, then a cosine decay to
+    ``min_frac * base_lr`` at ``total``."""
+    def lr(step):
+        step = torch.as_tensor(step).float()
+        warm = base_lr * step / max(warmup, 1)
+        t = torch.clamp((step - warmup) / max(total - warmup, 1), 0, 1)
+        cos = base_lr * (min_frac + (1 - min_frac)
+                         * 0.5 * (1 + torch.cos(math.pi * t)))
+        return torch.where(step < warmup, warm, cos)
+    return lr
+
+
+def constant_schedule(base_lr: float):
+    return lambda step: torch.tensor(
+        base_lr, dtype=torch.float32,
+        device=step.device if isinstance(step, torch.Tensor) else None)
+
+
+@dataclass(frozen=True)
+class AdamW:
+    lr: Callable[[Any], Any]
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.01
+    clip_norm: float = 1.0
+
+    def init(self, params):
+        def zeros(p):
+            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        dev = tree_leaves(params)[0].device
+        return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+                "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    @torch.no_grad()
+    def update(self, grads, state, params) -> Tuple[Any, Any]:
+        """(new params, new state): the gradients clipped to a global
+        norm of ``clip_norm``, then one AdamW step with bias-corrected
+        moments and decoupled weight decay, all in f32."""
+        step = state["step"] + 1
+        gnorm = global_norm(grads)
+        scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
+        grads = tree_map(lambda g: g.float() * scale, grads)
+        m = tree_map(lambda m, g: self.b1 * m + (1 - self.b1) * g,
+                     state["m"], grads)
+        v = tree_map(lambda v, g: self.b2 * v + (1 - self.b2) * g * g,
+                     state["v"], grads)
+        sf = step.float()
+        bc1 = 1 - self.b1 ** sf
+        bc2 = 1 - self.b2 ** sf
+        lr = self.lr(step)
+
+        def upd(p, m, v):
+            mh = m / bc1
+            vh = v / bc2
+            delta = mh / (torch.sqrt(vh) + self.eps) \
+                + self.weight_decay * p.float()
+            return (p.float() - lr * delta).to(p.dtype)
+
+        new_params = tree_map(upd, params, m, v)
+        return new_params, {"m": m, "v": v, "step": step}
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum over leaves (in the JAX package's leaf order) of
+    each leaf's f32 sum of squares: a 0-d f32 tensor."""
+    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    total = leaves[0]
+    for s in leaves[1:]:
+        total = total + s
+    return torch.sqrt(total)

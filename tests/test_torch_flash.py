@@ -147,20 +147,39 @@ def test_self_attention_kernel_route_checks_positions(monkeypatch):
 
 def test_backward_through_the_kernel_raises(monkeypatch):
     """Where a gradient could be asked for, the launch sits in an
-    autograd node: its output has a grad_fn, and a backward pass raises
-    instead of giving q, k, v no gradient. (The device check is lifted
-    and the launch replaced by the plain version on CPU tensors here.)"""
-    def plain(q, k, v, causal, window):
-        return ops.gqa_flash(q, k, v, causal=causal, window=window)
+    autograd node: its output has a grad_fn, and a backward pass runs
+    the backward launch (``flash_attention_bwd_cuda``) on the saved q, k,
+    v, output and LSE instead of giving q, k, v no gradient (before the
+    backward kernels the node raised: hence the name). Its gradients
+    reach q, k and v as autograd's of the plain forward do. (The device
+    check is lifted and both launches replaced by the plain versions on
+    CPU tensors here.)"""
+    def plain(q, k, v, causal, window, with_lse=False):
+        out = ops.gqa_flash(q, k, v, causal=causal, window=window)
+        return (out, torch.zeros(q.shape[0], q.shape[2], q.shape[1])) \
+            if with_lse else out
+
+    calls = []
+
+    def plain_bwd(q, k, v, out, lse, dout, *, causal=True, window=0):
+        calls.append((out.shape, lse.shape, causal, window))
+        tr = lambda t: t.transpose(1, 2)  # noqa: E731
+        return tuple(tr(g) for g in ref.attention_backward_reference(
+            tr(q), tr(k), tr(v), tr(dout), causal=causal, window=window))
 
     monkeypatch.setattr(flash_kernel, "_check", lambda *a: None)
     monkeypatch.setattr(flash_kernel, "_launch", plain)
-    q, k, v = (_t(a, "float32") for a in _inputs(1, 8, 2, 1, 8, seed=2))
-    q.requires_grad_()
-    out = flash_kernel.flash_attention_cuda(q, k, v)
+    monkeypatch.setattr(flash_kernel, "flash_attention_bwd_cuda", plain_bwd)
+    q, k, v = (_t(a, "float32") for a in _inputs(1, 8, 4, 2, 8, seed=2))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_kernel.flash_attention_cuda(*leaves, window=3)
     assert out.grad_fn is not None
-    with pytest.raises(NotImplementedError, match="item 12"):
-        out.sum().backward()
+    out.sum().backward()
+    assert calls == [((1, 8, 4, 8), (1, 4, 8), True, 3)]
+    want = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.gqa_flash(*want, window=3).sum().backward()
+    for a, b in zip(leaves, want):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-6)
 
 
 def test_wrapper_refuses_cpu_tensors():

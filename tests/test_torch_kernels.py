@@ -305,34 +305,52 @@ def test_autograd_launch_enters_a_node_only_for_a_gradient():
 
 @pytest.mark.parametrize("route", ["add", "norm", "gated"])
 def test_rmsnorm_wrappers_refuse_a_backward(route, monkeypatch):
-    """Both norm wrappers run their launch through ``_autograd.launch``:
-    an input that requires grad gives outputs whose backward raises; none
-    gives plain outputs. (The launch, checks included, is replaced by
-    the plain version on CPU tensors here.)"""
+    """Both norm wrappers put their launch in an autograd node only when
+    an input requires grad. The gated route's node refuses a backward
+    (ROADMAP item 12b); the add and norm routes' nodes run the backward
+    launch (``fused_rmsnorm_bwd_cuda``), whose gradients equal autograd's
+    of the plain forward. (The launches, checks included, are replaced
+    by the plain versions on CPU tensors here.)"""
     def plain(route_, a, b, scale, eps):
         if route_ == "gated":
             return norm_ref.gated_rmsnorm_reference(a, b, scale, eps)
         y, t = norm_ref.fused_rmsnorm_reference(a, b, scale, eps)
         return (y, t) if route_ == "add" else y
 
+    bwd_calls = []
+
+    def plain_bwd(x_, residual, scale_, dy, dt=None, eps=1e-5):
+        bwd_calls.append(residual is not None)
+        return norm_ref.fused_rmsnorm_backward_reference(
+            x_, residual, scale_, dy, dt, eps)
+
     monkeypatch.setattr(norm_kernel, "_launch", plain)
+    monkeypatch.setattr(norm_kernel, "fused_rmsnorm_bwd_cuda", plain_bwd)
     g = torch.Generator().manual_seed(1)
     x, r = torch.randn(3, 64, generator=g), torch.randn(3, 64, generator=g)
     scale = torch.ones(64)
 
-    def call():
+    def call(x_, r_):
         if route == "gated":
-            return norm_kernel.gated_rmsnorm_cuda(x, r, scale)
+            return norm_kernel.gated_rmsnorm_cuda(x_, r_, scale)
         return norm_kernel.fused_rmsnorm_cuda(
-            x, r if route == "add" else None, scale)[0]
+            x_, r_ if route == "add" else None, scale)[0]
 
-    want = call()
+    want = call(x, r)
     assert want.grad_fn is None
-    x.requires_grad_()
-    got = call()
+    xg = x.clone().requires_grad_()
+    got = call(xg, r)
     assert got.grad_fn is not None and torch.equal(got.detach(), want)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        got.sum().backward()
+    if route == "gated":
+        with pytest.raises(NotImplementedError, match="item 12b"):
+            got.sum().backward()
+        return
+    got.sum().backward()
+    assert bwd_calls == [route == "add"]
+    xp = x.clone().requires_grad_()
+    norm_ref.fused_rmsnorm_reference(
+        xp, r if route == "add" else None, scale)[0].sum().backward()
+    torch.testing.assert_close(xg.grad, xp.grad, rtol=1e-5, atol=1e-6)
 
 
 # --------------------------------------------------------------------- #
