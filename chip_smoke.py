@@ -148,28 +148,42 @@ Every engine runs its steps as CUDA graphs (``Engine``'s default on
 the card): each serve phase checks it, ``serve_eager`` and
 ``serve_ssm_eager`` serve the same requests on eager steps
 (``graphs=False``) in turns with graphs, graphs / eager / graphs (tokens
-identical; decode ms, ITL, TTFT and tok/s of both), and every profile phase marks its engine
+identical; decode ms, ITL, TTFT and tok/s of both; ``serve_eager``'s
+eager turn also profiles a batch, busy share against the graphs
+turn's), and every profile phase marks its engine
 steady and fails on a capture in its window, on a host stream sync
 other than the poll's two reads, and on a launch counter that differs
 from the profiler's count of its kernel templates (a count may fall
 short by no more than the records the profiler lost, which the spins
 that open and close the window measure).
-Training (the dense decoder): ``kernels_bwd`` holds the two backward
-kernels, which replace no TPU kernel (the JAX package differentiates its
-plain attention and norm), against their plain backwards and autograd of
-the plain forwards: the flash backward (D, dK/dV, dQ from the forward's
-LSE) at llama3.2-1b's train shape (B 4, L 1024, Hq 32, Hkv 8, hd 64),
-hd 128 at G 1, hd 160, a window of 256, non-causal Lq 128 / Lk 1024 and
-fp32, and the RMSNorm backward (add and norm routes) at d 2048, N 4096
-in bf16 and fp32 and at d 5120, each timed beside its bound, its plain
-backward and a library yardstick (SDPA or add + ``F.rms_norm``, forward
-+ backward less forward); ``train_exact`` (with the model checks) trains
-llama3.2-1b cut to 2 layers in fp32 for 3 steps on the card and on the
-CPU from the same weights and batches (losses, first gradients,
-parameters); ``train``, last, trains the full 16-layer bf16 model with
-remat, B 4 x L 1024, 20 steps (step ms, tokens/s, peak memory, launches
-a step by op, a profiled step), after one step with remat off (the same
-bits) and one at microbatch 2 (the loss within the bf16 gate).
+Training: ``kernels_bwd`` holds the four backward kernels, which
+replace no TPU kernel (the JAX package differentiates its plain
+attention, norms and SSD scan), against their plain backwards and
+autograd of the plain forwards: the flash backward (D, dK/dV, dQ from
+the forward's LSE) at llama3.2-1b's train shape (B 4, L 1024, Hq 32, Hkv
+8, hd 64), hd 128 at G 1, hd 160, a window of 256, non-causal Lq 128 /
+Lk 1024 and fp32; the RMSNorm backward (add and norm routes) at d 2048,
+N 4096 in bf16 and fp32 and at d 5120; the SSD dual form's backward at
+mamba2-780m's train shape (b 4, l 1024, h 48, p 64, n 128, chunk 256),
+jamba's heads (h 128, p 128), fp32, a carried state and groups; the
+gated norm's backward at N 4096, d 3072 (z of a 6448-wide row), d
+16384 and fp32; each timed beside its bound, its plain backward and a
+library yardstick where one call computes it (SDPA or add +
+``F.rms_norm``, forward + backward less forward). ``train_exact`` (with
+the model checks) trains llama3.2-1b and mamba2-780m cut to 2 layers,
+jamba's reduced super-block at the SSM's published head and state dims
+(3 steps each) and qwen2-moe-a2.7b cut to 1 layer (1 step), fp32, on the
+card and on the CPU from the same weights and batches (losses, first gradients
+within 1e-4 of each leaf's max or 4 times the leaf's own move under a
+rounding-level perturbation, parameters). ``train`` trains the full
+16-layer bf16 llama with remat, B 4 x L 1024, 20 steps (step ms,
+tokens/s, peak memory, launches a step by op, a profiled step), after
+one step with remat off (the same bits) and one at microbatch 2 (the
+loss within the bf16 gate); ``train_ssm`` the same for mamba2-780m at
+full width and depth (48 layers); ``train_moe``, last, trains
+qwen2-moe-a2.7b at full width on 4 of its 24 layers for 10 steps, its
+loss and gradients computed twice the same bits and its auxiliary loss
+positive.
 Every phase prints one JSON line; any failure raises and the
 script exits non-zero without the final line. The second-to-last lines are the
 kernel summary (JSON) and the card's name and power limit as
@@ -256,7 +270,9 @@ PROFILE_TEMPLATES = (
     (("ssd",), ("ssd_chunk_out_kernel", "ssd_chunk_kernel")),
     (("flash_attention",), ("flash_mma_kernel", "flash_f32_kernel")),
     (("flash_attention_bwd",), ("flash_bwd_dq_kernel",)),
-    (("rmsnorm_bwd",), ("rmsnorm_bwd_kernel",)))
+    (("rmsnorm_bwd",), ("rmsnorm_bwd_kernel",)),
+    (("rmsnorm_gated_bwd",), ("rmsnorm_gated_bwd_kernel",)),
+    (("ssd_bwd",), ("ssd_bwd_key_kernel",)))
 
 
 def emit(obj) -> None:
@@ -2441,7 +2457,7 @@ def _forward_launches(cfg, forwards, paged, quant):
             "ssd": 0,
             "ssd_extend": n_ssm * forwards,
             "flash_attention": 0, "flash_attention_bwd": 0,
-            "rmsnorm_bwd": 0}
+            "rmsnorm_bwd": 0, "rmsnorm_gated_bwd": 0, "ssd_bwd": 0}
 
 
 def _expected_launches(cfg, engine, paged, kinds=None):
@@ -4727,7 +4743,8 @@ def _frontend_launches(cfg, forwards, admissions):
     out = {"decode_attention": 0, "paged_decode_attention": 0,
            "quant_matmul_int8": 0, "quant_matmul_int4": 0, "rmsnorm": 0,
            "ssd": 0, "ssd_extend": 0, "flash_attention": 0,
-           "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+           "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+           "rmsnorm_gated_bwd": 0, "ssd_bwd": 0}
     if cfg.family == "encdec":
         ne = cfg.encoder.n_layers
         out["decode_attention"] = 2 * nl * forwards
@@ -5284,26 +5301,29 @@ def spec_ssm(torch, model, params, plain_tokens):
     return lines
 
 
-def serve_eager(torch, model, params, graphs_turn, phase):
+def serve_eager(torch, model, params, graphs_turn, phase,
+                profile_eager=True):
     """The serve phase's requests through the engine's eager steps
     (``graphs=False``) and its CUDA graphs, in turns: the serve phase's
     own run on graphs and its profiled second batch (``graphs_turn``:
     the serve record, its tokens and the profile record), then eager,
-    graphs (three turns: one eager turn, whose profiled batch is the
-    costliest of the phase), each a fresh engine that serves (its own
-    serve line) and profiles a second batch (its own profile line, gated
-    as every profile phase). This phase's line sets the three turns side
-    by side
-    (decode ms p50, ITL and TTFT p50, tok/s; the profiled batch's wall,
-    device time and busy share; a graphs turn's serve wall includes its
-    captures) and passes when every turn's greedy tokens equal the first
-    graphs run's."""
+    graphs (three turns), each a fresh engine that serves (its own serve
+    line); the eager turn, where ``profile_eager``, also profiles a
+    second batch (its own profile line, gated as every profile phase; the
+    costliest part of the phase, whose profiler bookkeeping of some
+    50,000 eager launches takes a minute of host time, so the later
+    graphs turn profiles none). This phase's line sets the three turns
+    side by side (decode ms p50, ITL and TTFT p50, tok/s; a profiled
+    batch's wall, device time and busy share; a graphs turn's serve wall
+    includes its captures) and passes when every turn's greedy tokens
+    equal the first graphs run's."""
     rec0, tokens0, prof0 = graphs_turn
     turns, same = [("graphs", rec0, prof0)], []
     for i, graphs in enumerate((False, None)):
         _, engine, rec, tokens = serve(torch, model, params, graphs=graphs,
                                        phase=f"{phase}_turn{i + 2}")
-        prof = profile(torch, engine, f"{phase}_profile{i + 2}")
+        prof = profile(torch, engine, f"{phase}_profile{i + 2}") \
+            if graphs is False and profile_eager else {}
         del engine
         gc.collect()
         turns.append(("eager" if graphs is False else "graphs", rec, prof))
@@ -5312,13 +5332,15 @@ def serve_eager(torch, model, params, graphs_turn, phase):
     pkeys = ("wall_ms_profiled", "device_kernel_ms", "device_busy_share")
     out = {"phase": phase, "arch": model.cfg.name,
            "turns": [dict({k: r[k] for k in keys + ("wall_s",)},
-                          **{k: p[k] for k in pkeys}, mode=mode)
+                          **{k: p[k] for k in pkeys if k in p}, mode=mode)
                      for mode, r, p in turns],
            "tokens_equal_first_graphs_run": same}
     for mode in ("graphs", "eager"):
         for k in keys + pkeys:
-            vals = [{**r, **p}[k] for m, r, p in turns if m == mode]
-            out[f"{mode}_{k}"] = statistics.median(vals)
+            vals = [{**r, **p}[k] for m, r, p in turns
+                    if m == mode and k in {**r, **p}]
+            if vals:
+                out[f"{mode}_{k}"] = statistics.median(vals)
     out["ok"] = all(same)
     emit(out)
     if not out["ok"]:
@@ -5750,6 +5772,197 @@ def norm_bwd_cases(torch, flush):
     return out, max(errs)
 
 
+SSD_BWD_SRC = "src/repro_torch/csrc/ssd_scan_bwd.cu"
+#: (name, b, l, h, p, g, n, chunk, dtype, initial state, final-state
+#: gradient): mamba2-780m's train shape first (the kernel line's head
+#: case), jamba's heads, fp32, a carried state, groups
+SSD_BWD_CASES = (
+    ("mamba2_train", 4, 1024, 48, 64, 1, 128, 256, "bfloat16", False,
+     False),
+    ("jamba_heads", 1, 1024, 128, 128, 1, 128, 256, "bfloat16", False,
+     False),
+    ("fp32", 2, 512, 48, 64, 1, 128, 256, "float32", False, False),
+    ("state", 2, 512, 16, 64, 1, 128, 128, "bfloat16", True, True),
+    ("groups", 2, 512, 16, 32, 4, 64, 64, "bfloat16", False, True))
+#: (name, N, d, z's row stride, dtype): mamba2's train rows first (z of a
+#: 6448-wide in-projection row), jamba's d_inner (a 33152-wide row)
+GATED_BWD_CASES = (
+    ("N4096_d3072", 4096, 3072, 6448, "bfloat16"),
+    ("N1024_d16384", 1024, 16384, JAMBA_PROJ, "bfloat16"),
+    ("N4096_d3072_fp32", 4096, 3072, 6448, "float32"))
+
+
+def _ssd_bwd_flops(b, l, h, p, n, chunk):
+    """The operations of the dual form's backward that the inputs need:
+    per unmasked (i, j <= i) pair of a chunk, C_i.B_j and dy_i.x^_j
+    recomputed (2n, 2p), the products into dx^, dB and dC (2p, 2n, 2n)
+    and its weights (6); per token, the six p x n state products (the
+    chunk's own state, dy_i C_i^T, S_in C_i, S_in^T dy_i, G B_j, G^T
+    x^_j: 12 p n) and its small terms (6 p)."""
+    Q = chunk
+    per_chunk = Q * (Q + 1) // 2 * (6 * n + 4 * p + 6) \
+        + Q * (12 * p * n + 6 * p)
+    return b * h * (l // Q) * per_chunk
+
+
+def ssd_bwd_cases(torch, flush):
+    """The SSD backward kernels (``ssd_bwd_cuda``: seven launches, no
+    atomics) against ``ref.ssd_backward_reference`` and autograd of the
+    plain forward (f32) at ``SSD_BWD_CASES``, the inputs as the mixer
+    makes them (x, B, C strided slices of one conv-output row, dt a
+    softplus, A over -1..-16): every gradient within TOL of max|plain|,
+    bitwise repeatable. Each timed beside its bound and the plain
+    backward (no single library call computes it); the bound counts x,
+    B, C, dt, A, D, dy and the states read once, dx, ddt, dB, dC, dA, dD
+    and the initial state's gradient written once, and
+    ``_ssd_bwd_flops`` at the inputs' peak (bf16 tensor cores; f32's
+    for fp32, and ``bound_ms_cuda_cores`` at f32's for every case)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan import kernel as K
+    from repro_torch.kernels.ssd_scan.ref import (ssd_backward_reference,
+                                                  ssd_reference)
+
+    dev = torch.device("cuda")
+    out, errs = [], []
+    for name, b, l, h, p, groups, n, chunk, dname, init, dfin in \
+            SSD_BWD_CASES:
+        dtype = getattr(torch, dname)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        xbc = torch.randn((b, l, h * p + 2 * groups * n), generator=g,
+                          device=dev).to(dtype)
+        x = xbc[..., :h * p].unflatten(-1, (h, p))
+        B = xbc[..., h * p:h * p + groups * n].unflatten(-1, (groups, n))
+        C = xbc[..., h * p + groups * n:].unflatten(-1, (groups, n))
+        dt = F.softplus(torch.randn((b, l, h), generator=g, device=dev)
+                        - 3.0)
+        A = -torch.linspace(1.0, 16.0, h, device=dev)
+        D = torch.randn((h,), generator=g, device=dev)
+        s0 = torch.randn((b, h, p, n), generator=g, device=dev) \
+            if init else None
+        dy = torch.randn((b, l, h, p), generator=g, device=dev)
+        dfinal = torch.randn((b, h, p, n), generator=g, device=dev) \
+            if dfin else None
+
+        def kernel():
+            return K.ssd_bwd_cuda(x, dt, A, B, C, D, dy, dfinal, chunk=chunk,
+                                  initial_state=s0)
+
+        def plain():
+            return ssd_backward_reference(x, dt, A, B, C, D, dy, dfinal,
+                                          chunk=chunk, initial_state=s0)
+
+        got, again, want = kernel(), kernel(), plain()
+        got, again, want = ([t for t in r if t is not None]
+                            for r in (got, again, want))
+        leaves = [t.float().requires_grad_() for t in
+                  (x, dt, A, B, C, D) + ((s0,) if init else ())]
+        y, fin = ssd_reference(*leaves[:6], chunk=chunk,
+                               initial_state=leaves[6] if init else None)
+        auto = torch.autograd.grad([y] + ([fin] if dfin else []), leaves,
+                                   [dy] + ([dfinal] if dfin else []))
+        torch.cuda.synchronize()
+        err = max(_rel_to_max(a, w) for a, w in zip(got, want))
+        err_auto = max(_rel_to_max(a, w) for a, w in zip(got, auto))
+        repeat = all(torch.equal(a, c) for a, c in zip(got, again))
+        ok = all(bool(torch.isfinite(a).all().item()) for a in got) \
+            and max(err, err_auto) <= TOL[dname] and repeat
+        del leaves, y, fin, auto, want, again
+        es = x.element_size()
+        states = b * h * p * n * (2 * init + dfin)
+        nbytes = 2 * es * (x.numel() + B.numel() + C.numel()) \
+            + 4 * (2 * dt.numel() + 4 * h + dy.numel() + states)
+        flops = _ssd_bwd_flops(b, l, h, p, n, chunk)
+        bms, by = bound_ms(nbytes, flops, dname)
+        rec = {"phase": "kernels_bwd", "kernel": "ssd_bwd", "case": name,
+               "dtype": dname, "b": b, "l": l, "h": h, "p": p, "g": groups,
+               "n": n, "chunk": chunk, "initial_state": init,
+               "final_state_grad": dfin, "max_abs_err": err,
+               "rel_err_vs_autograd": err_auto, "tol_rel": TOL[dname],
+               "bitwise_repeat": repeat, "ok": ok,
+               "kernel_ms": median_ms(torch, kernel, flush, iters=10),
+               "plain_ms": median_ms(torch, plain, flush, iters=3,
+                                     warmup=1),
+               "library_ms": None, "bound_ms": bms, "bound_by": by,
+               "bound_ms_cuda_cores": bound_ms(nbytes, flops,
+                                               "float32")[0],
+               "bytes": nbytes, "flops": flops}
+        rec.update(achieved(rec))
+        emit(rec)
+        out.append(rec)
+        errs.append(err)
+        del got
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"ssd_bwd {name}: kernel disagrees with "
+                                 f"the plain backward: {rec}")
+    return out, max(errs)
+
+
+def gated_bwd_cases(torch, flush):
+    """The gated norm's backward kernel (``gated_rmsnorm_bwd_cuda``: rows,
+    then the dscale reduction) against
+    ``ref.gated_rmsnorm_backward_reference`` and autograd of the plain
+    forward (f32) at ``GATED_BWD_CASES`` (y f32, the SSD output; z read
+    in place from its strided row; the scale in z's dtype, as the train
+    step's parameters): dy, dz and dscale within TOL of max|plain|,
+    bitwise repeatable; timed beside its bound (y, z, dout, the scale
+    read once, dy, dz, dscale written once: bytes) and the plain backward
+    (no single library call computes it)."""
+    from repro_torch.kernels.rmsnorm.kernel import gated_rmsnorm_bwd_cuda
+    from repro_torch.kernels.rmsnorm.ref import (
+        gated_rmsnorm_backward_reference, gated_rmsnorm_reference)
+
+    dev = torch.device("cuda")
+    out, errs = [], []
+    for name, N, d, stride, dname in GATED_BWD_CASES:
+        dtype = getattr(torch, dname)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        y = torch.randn((N, d), generator=g, device=dev)
+        z = torch.randn((N, stride), generator=g, device=dev).to(dtype)[
+            :, :d]
+        s = (1 + 0.1 * torch.randn((d,), generator=g, device=dev)).to(dtype)
+        dout = torch.randn((N, d), generator=g, device=dev).to(dtype)
+
+        def kernel():
+            return gated_rmsnorm_bwd_cuda(y, z, s, dout)
+
+        def plain():
+            return gated_rmsnorm_backward_reference(y, z, s, dout)
+
+        got, again, want = kernel(), kernel(), plain()
+        leaves = [t.float().requires_grad_() for t in (y, z, s)]
+        auto = torch.autograd.grad(gated_rmsnorm_reference(*leaves), leaves,
+                                   dout.float())
+        torch.cuda.synchronize()
+        err = max(_rel_to_max(a, w) for a, w in zip(got, want))
+        err_auto = max(_rel_to_max(a, w) for a, w in zip(got, auto))
+        repeat = all(torch.equal(a, c) for a, c in zip(got, again))
+        ok = all(bool(torch.isfinite(a).all().item()) for a in got) \
+            and max(err, err_auto) <= TOL[dname] and repeat
+        es = z.element_size()
+        nbytes = N * d * (2 * 4 + 3 * es) + 2 * d * es
+        bms, by = bound_ms(nbytes, 20 * N * d, "float32")
+        rec = {"phase": "kernels_bwd", "kernel": "rmsnorm_gated_bwd",
+               "case": name, "dtype": dname, "N": N, "d": d,
+               "z_row_stride": stride, "max_abs_err": err,
+               "rel_err_vs_autograd": err_auto, "tol_rel": TOL[dname],
+               "bitwise_repeat": repeat, "ok": ok,
+               "kernel_ms": median_ms(torch, kernel, flush),
+               "plain_ms": median_ms(torch, plain, flush, iters=10),
+               "library_ms": None, "bound_ms": bms, "bound_by": by,
+               "bytes": nbytes}
+        emit(rec)
+        out.append(rec)
+        errs.append(err)
+        if not ok:
+            raise AssertionError(f"rmsnorm_gated_bwd {name}: kernel "
+                                 f"disagrees with the plain backward: "
+                                 f"{rec}")
+    return out, max(errs)
+
+
 def _grads(torch, model, params, batch):
     """(loss, gradient leaves) of one train loss, as the train step
     takes them."""
@@ -5765,76 +5978,103 @@ def _grads(torch, model, params, batch):
 
 TRAIN_STEPS = 20
 TRAIN_B, TRAIN_L = 4, 1024
+#: steps of the MoE cell, and its depth: 4 of qwen2-moe-a2.7b's 24 layers
+#: (2.90 B parameters, 34.9 GB with AdamW's f32 moments)
+TRAIN_MOE_STEPS = 10
+TRAIN_MOE_BLOCKS = 4
 
 
-def train_phase(torch):
-    """llama3.2-1b at full width (16 layers, bf16) trains on the card:
-    ``resolve_config(..., "train_4k")`` (remat on), B 4 x L 1024 from
+def _train_cell(torch, phase, cfg, steps, want, checks):
+    """``cfg`` (bf16, remat on) trains on the card: B 4 x L 1024 from
     ``batches_for(cfg, 4, 1024, seed=0)``, AdamW with
     ``cosine_schedule(3e-4, 100, 10_000)`` (JAX's ``build_step``). First,
-    from the initial state: one step with remat on, one with remat off
-    (loss, gradient norm and parameters the same bits) and one at
-    microbatch 2 (loss within the bf16 gate). Then ``TRAIN_STEPS`` steps
-    from the remat step's state with the counters set to 0 just before
-    (the kernels line's launches): step ms p50 and max (host clock
-    around each step, synchronized), tokens/s, peak memory, launches a
-    step by op (flash forward 32 with remat, backward 16; RMSNorm 33 +
-    32 recomputed, backward 33), losses and gradient norms finite; and
-    one more step profiled (busy share, device time by kernel)."""
+    from the initial state, one step with remat on and the ``checks``:
+    ``remat_off`` (one step with remat off: loss, gradient norm and
+    parameters the same bits), ``microbatch2`` (one step at microbatch
+    2: the loss within the bf16 gate), ``repeat`` (before the step, the
+    loss and its gradients twice: the same bits, so no sum of the forward
+    or the backward runs in an order that changes from run to run; a
+    second step would hold a third copy of the optimizer state). Then ``steps`` steps from the remat step's state
+    with the counters set to 0 just before (the kernels line's
+    launches): step ms p50 and max (host clock around each step,
+    synchronized), tokens/s, peak memory, launches a step by op
+    (``want``: the first step's, and ``steps`` times that over the run),
+    losses, auxiliary losses and gradient norms finite; and one more step
+    profiled (busy share, device time by kernel, the counters confirmed
+    by the profiler). Returns the run's launch counts."""
     from repro_torch import kernels
     from repro_torch.core.pytree import tree_leaves
     from repro_torch.data.pipeline import batches_for
-    from repro_torch.launch.steps import resolve_config
     from repro_torch.models.model import build
     from repro_torch.training.optimizer import AdamW, cosine_schedule
     from repro_torch.training.train_loop import (init_train_state,
                                                  make_train_step)
 
     allocated_before = torch.cuda.memory_allocated()
-    cfg = resolve_config("llama3.2-1b", "train_4k")
     assert cfg.remat and cfg.dtype == "bfloat16"
     data = batches_for(cfg, TRAIN_B, TRAIN_L, seed=0)
     t0 = time.perf_counter()
-    batches = [next(data) for _ in range(TRAIN_STEPS + 2)]
+    batches = [next(data) for _ in range(steps + 2)]
     data_s = time.perf_counter() - t0
     model = build(cfg)
     opt = AdamW(lr=cosine_schedule(3e-4, 100, 10_000))
     state0 = init_train_state(model, opt, SEED)
     step = make_train_step(model, opt)
+    rec, gates = {}, {}
+    if "repeat" in checks:
+        l1, g1 = _grads(torch, model, state0["params"], batches[0])
+        l2, g2 = _grads(torch, model, state0["params"], batches[0])
+        diff = [i for i, (a, b) in enumerate(zip(g1, g2))
+                if not torch.equal(a, b)]
+        same = {"loss": torch.equal(l1, l2), "grads": not diff}
+        rec.update(repeat_same_bits=same, repeat_leaves_differing=diff)
+        gates["repeat"] = all(same.values())
+        del g1, g2
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state, m_on = step(state0, batches[0])
-    off = build(cfg.replace(remat=False))
-    s_off, m_off = make_train_step(off, opt)(state0, batches[0])
-    torch.cuda.synchronize()
-    peak_off = torch.cuda.max_memory_allocated()
-    same = {"loss": torch.equal(m_on["loss"], m_off["loss"]),
-            "grad_norm": torch.equal(m_on["grad_norm"], m_off["grad_norm"])}
-    diff = [i for i, (a, b) in enumerate(zip(tree_leaves(state["params"]),
-                                             tree_leaves(s_off["params"])))
-            if not torch.equal(a, b)]
-    same["params"] = not diff
-    del s_off
-    _, m_micro = make_train_step(model, opt, microbatch=2)(state0,
-                                                           batches[0])
-    micro_err = abs(float(m_micro["loss"]) - float(m_on["loss"])) \
-        / float(m_on["loss"])
+
+    def same_bits(other_state, other_m):
+        same = {k: torch.equal(m_on[k], other_m[k])
+                for k in ("loss", "grad_norm", "aux_loss")}
+        diff = [i for i, (a, b) in enumerate(zip(
+            tree_leaves(state["params"]),
+            tree_leaves(other_state["params"]))) if not torch.equal(a, b)]
+        same["params"] = not diff
+        return same, diff
+
+    if "remat_off" in checks:
+        off = build(cfg.replace(remat=False))
+        s_off, m_off = make_train_step(off, opt)(state0, batches[0])
+        torch.cuda.synchronize()
+        rec["peak_memory_gib_with_remat_off_step"] = \
+            torch.cuda.max_memory_allocated() / 2**30
+        same, diff = same_bits(s_off, m_off)
+        rec.update(remat_off_same_bits=same, remat_off_leaves_differing=diff)
+        gates["remat_off"] = all(same.values())
+        del s_off
+    if "microbatch2" in checks:
+        _, m_micro = make_train_step(model, opt, microbatch=2)(state0,
+                                                               batches[0])
+        err = abs(float(m_micro["loss"]) - float(m_on["loss"])) \
+            / float(m_on["loss"])
+        rec.update(microbatch2_loss_rel_err=err,
+                   microbatch2_tol_rel=TOL["bfloat16"])
+        gates["microbatch2"] = err <= TOL["bfloat16"]
     del state0
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     first = kernels.launch_counts()
-    walls, losses, norms, per_step = [], [m_on["loss"]], \
-        [m_on["grad_norm"]], None
-    for i in range(TRAIN_STEPS):
+    walls, ms, per_step = [], [m_on], None
+    for i in range(steps):
         torch.cuda.synchronize()
         t = time.perf_counter()
         state, m = step(state, batches[1 + i])
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t) * 1e3)
-        losses.append(m["loss"])
-        norms.append(m["grad_norm"])
+        ms.append(m)
         if i == 0:
             per_step = _launch_delta(first, kernels.launch_counts())
     counts = kernels.launch_counts()
@@ -5844,95 +6084,239 @@ def train_phase(torch):
     def one():
         holder["out"] = step(state, batches[-1])
     prof_rec = _profile_call(torch, one)
-    losses = [float(x) for x in losses + [holder["out"][1]["loss"]]]
-    norms = [float(x) for x in norms]
-    want = {"flash_attention": 2 * cfg.n_layers,
-            "flash_attention_bwd": cfg.n_layers,
-            "rmsnorm": 2 * cfg.n_layers + 1 + 2 * cfg.n_layers,
-            "rmsnorm_bwd": 2 * cfg.n_layers + 1}
+    ms.append(holder["out"][1])
+    losses = [float(m["loss"]) for m in ms]
+    aux = [float(m["aux_loss"]) for m in ms]
+    norms = [float(m["grad_norm"]) for m in ms[:-1]]
     p50 = statistics.median(walls)
-    rec = {"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers,
+    rec = {"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
            "dtype": cfg.dtype, "remat": cfg.remat, "B": TRAIN_B,
-           "L": TRAIN_L, "steps": TRAIN_STEPS, "data_s": data_s,
+           "L": TRAIN_L, "steps": steps, "data_s": data_s,
            "allocated_before_gib": allocated_before / 2**30,
            "step_ms": walls, "step_ms_p50": p50, "step_ms_max": max(walls),
            "step_ms_first": walls[0], "tokens_per_s": TRAIN_B * TRAIN_L
            / p50 * 1e3, "peak_memory_gib": peak / 2**30,
-           "peak_memory_gib_with_remat_off_step": peak_off / 2**30,
            "launches_a_step": per_step, "launches_want": want,
-           "launches": counts, "losses": losses, "grad_norms": norms,
-           "remat_off_same_bits": same, "remat_off_leaves_differing": diff,
-           "microbatch2_loss_rel_err": micro_err,
-           "microbatch2_tol_rel": TOL["bfloat16"],
+           "launches": counts, "losses": losses, "aux_losses": aux,
+           "grad_norms": norms, **rec, "gates": gates,
            "profiled_step": prof_rec}
-    rec["ok"] = (all(math.isfinite(x) for x in losses + norms)
-                 and all(per_step.get(k) == n for k, n in want.items())
-                 and all(same.values())
-                 and micro_err <= TOL["bfloat16"]
-                 and all(counts[k] == n * TRAIN_STEPS
-                         for k, n in want.items())
+    rec["ok"] = (all(math.isfinite(x) for x in losses + aux + norms)
+                 and all(per_step.get(k, 0) == n for k, n in want.items())
+                 and all(gates.values())
+                 and all(counts[k] == n * steps for k, n in want.items())
                  and prof_rec["launch_counters_confirmed"])
+    if cfg.moe is not None:
+        rec["ok"] = rec["ok"] and all(a > 0 for a in aux)
     emit(rec)
     if not rec["ok"]:
         brief = {k: v for k, v in rec.items() if k != "profiled_step"}
-        raise AssertionError(f"train: a gate failed: {brief}")
+        raise AssertionError(f"{phase}: a gate failed: {brief}")
     return counts
+
+
+def train_phase(torch):
+    """llama3.2-1b at full width (16 layers, bf16) trains on the card
+    (``_train_cell``): ``resolve_config(..., "train_4k")`` (remat on),
+    with the remat-off and microbatch-2 checks; launches a step: flash
+    forward 32 with remat, backward 16; RMSNorm 33 + 32 recomputed,
+    backward 33."""
+    from repro_torch.launch.steps import resolve_config
+
+    cfg = resolve_config("llama3.2-1b", "train_4k")
+    nl = cfg.n_layers
+    want = {"flash_attention": 2 * nl, "flash_attention_bwd": nl,
+            "rmsnorm": 2 * nl + 1 + 2 * nl, "rmsnorm_bwd": 2 * nl + 1}
+    return _train_cell(torch, "train", cfg, TRAIN_STEPS, want,
+                       ("remat_off", "microbatch2"))
+
+
+def train_ssm(torch):
+    """mamba2-780m at full width and depth (48 layers, d 1536, bf16)
+    trains on the card (``_train_cell``): ``resolve_config(...,
+    "train_4k")`` (remat on), cut from B 256 x L 4096 to B 4 x L 1024 as
+    llama's cell is, with the remat-off and microbatch-2 checks; launches
+    a step: the SSD dual form 48 + 48 recomputed, its backward 48; the
+    norms 97 + 96 recomputed (``ln1`` and the gated norm a layer,
+    ``ln_f``), the add / norm backward 49 and the gated backward 48."""
+    from repro_torch.launch.steps import resolve_config
+
+    cfg = resolve_config("mamba2-780m", "train_4k")
+    nl = cfg.n_layers
+    want = {"ssd": 2 * nl, "ssd_bwd": nl, "rmsnorm": 2 * nl + 1 + 2 * nl,
+            "rmsnorm_bwd": nl + 1, "rmsnorm_gated_bwd": nl,
+            "ssd_extend": 0, "flash_attention": 0}
+    return _train_cell(torch, "train_ssm", cfg, TRAIN_STEPS, want,
+                       ("remat_off", "microbatch2"))
+
+
+def train_moe(torch):
+    """qwen2-moe-a2.7b at full width (d 2048, 60 experts top-4 and the
+    shared expert, 16 heads: flash at G 1) on 4 of its 24 layers
+    (``with_depth``), bf16, remat on, trains ``TRAIN_MOE_STEPS`` steps
+    on the card (``_train_cell``), with the ``repeat`` check (the
+    token dispatch combines by gather, no atomics: the same bits run
+    after run); the auxiliary loss finite and positive; launches a step:
+    flash 4 + 4 recomputed, backward 4; RMSNorm 9 + 8, backward 9."""
+    from repro_torch.launch.steps import resolve_config, with_depth
+
+    cfg = with_depth(resolve_config("qwen2-moe-a2.7b", "train_4k"),
+                     {"blocks": TRAIN_MOE_BLOCKS})
+    nl = cfg.n_layers
+    want = {"flash_attention": 2 * nl, "flash_attention_bwd": nl,
+            "rmsnorm": 2 * nl + 1 + 2 * nl, "rmsnorm_bwd": 2 * nl + 1,
+            "ssd": 0, "ssd_bwd": 0}
+    return _train_cell(torch, "train_moe", cfg, TRAIN_MOE_STEPS, want,
+                       ("repeat",))
 
 
 TRAIN_EXACT_LAYERS = 2
 
 
-def train_exact(torch):
-    """llama3.2-1b at full width cut to 2 layers, fp32 (TF32 off), B 2 x
-    L 128, 3 train steps on the card and on the CPU from the same weights
-    and batches: losses within 1e-5 relative, the first step's gradients
-    within 1e-4 of each leaf's max|CPU|, the parameters after 3 steps
-    within rtol 1e-4, atol 5e-5 (Adam's m / sqrt(v) turns the last bits
-    of a near-zero gradient into up to lr in the update)."""
+def _exact_configs():
+    """The ``train_exact`` models, fp32, with their B, L and steps:
+    llama3.2-1b and
+    mamba2-780m at full width cut to 2 layers (B 2 x L 128, L 256: a
+    whole chunk), jamba-1.5-large-398b's
+    reduced super-block (attention, seven SSM mixers, MoE on the even
+    sublayers) widened as ``model_hybrid`` widens it (d_model 512, the
+    SSM's published head_dim 128 and d_state 128; B 2 x L 128), 3 steps
+    each; qwen2-moe-a2.7b at full width cut to 1 layer, B 1 x L 128, 1
+    step (its 1.2 B f32 parameters, most of them the 151,936-row
+    embedding and head, make each CPU step the slowest of the phase)."""
+    import dataclasses
+
     from repro_torch.configs import get_arch
-    from repro_torch.core.pytree import tree_leaves
+
+    f32 = dict(dtype="float32", param_dtype="float32")
+    jamba = get_arch("jamba-1.5-large-398b", variant="reduced")
+    jamba = jamba.replace(d_model=512, head_dim=512 // jamba.n_heads,
+                          ssm=dataclasses.replace(jamba.ssm, head_dim=128,
+                                                  d_state=128))
+    return ((get_arch("llama3.2-1b").replace(n_layers=TRAIN_EXACT_LAYERS,
+                                             **f32), 2, 128, 3),
+            (get_arch("mamba2-780m").replace(n_layers=TRAIN_EXACT_LAYERS,
+                                             **f32), 2, 256, 3),
+            (jamba, 2, 128, 3),
+            (get_arch("qwen2-moe-a2.7b").replace(n_layers=1, **f32), 1,
+             128, 1))
+
+
+#: the relative size of the perturbation ``train_exact`` measures each
+#: leaf's conditioning with: one f32 rounding
+ROUNDING_PERTURBATION = 2.0 ** -23
+#: a leaf's gradient gate in rounding-level moves of its own gradient:
+#: mamba2's A_log moved 1.06e-4 of its max on the CPU under that
+#: perturbation and 1.78e-4 between the card and the CPU
+GRAD_SENSITIVITY_FACTOR = 4
+
+
+def _perturbed_grads(torch, model, params, batch):
+    """The gradient leaves of one train loss with every projection's
+    output (``layers.linear``) scaled by 1 + 2^-23 N(0, 1) from a fixed
+    seed: the forward moved by about one f32 rounding, as another
+    summation order of a GEMM (the card's against the CPU's) moves it."""
+    from repro_torch.models import layers, ssm
+
+    real = layers.linear
+    gen = torch.Generator().manual_seed(SEED)
+
+    def noisy(p, x):
+        y = real(p, x)
+        return y * (1 + ROUNDING_PERTURBATION * torch.randn(
+            y.shape, generator=gen, dtype=y.dtype))
+    layers.linear = ssm.linear = noisy
+    try:
+        return _grads(torch, model, params, batch)[1]
+    finally:
+        layers.linear = ssm.linear = real
+
+
+def train_exact(torch):
+    """Each of ``_exact_configs`` trains its steps on the card and on the
+    CPU from the same weights and batches, fp32 (TF32 off): losses within
+    1e-5 relative, the first step's gradients within 1e-4 of each leaf's
+    max|CPU|, the parameters after the last step within rtol 1e-4, atol
+    5e-5
+    (Adam's m / sqrt(v) turns the last bits of a near-zero gradient into
+    up to lr in the update). A leaf whose gradient is a small residual of
+    large per-token terms (an SSM's A_log and dt_bias) moves by more than
+    that under any rounding-level change of the forward: each leaf's
+    ``cpu_sensitivity`` is how far the CPU's own gradient moves when
+    every projection's output is perturbed by one f32 rounding
+    (``_perturbed_grads``), and a leaf is held to 1e-4 or
+    ``GRAD_SENSITIVITY_FACTOR`` times its sensitivity, whichever is
+    larger (``grad_widened`` lists the leaves held wider, with their
+    errors); measured on the stacks with an SSM, every leaf of the others
+    held to 1e-4. One line a model; raises after the
+    last if any failed."""
+    from repro_torch.core.pytree import tree_flatten_with_path, tree_leaves
     from repro_torch.data.pipeline import batches_for
     from repro_torch.models.model import build
     from repro_torch.training.optimizer import AdamW, cosine_schedule
     from repro_torch.training.train_loop import (init_train_state,
                                                  make_train_step)
 
-    t0 = time.perf_counter()
-    cfg = get_arch("llama3.2-1b").replace(
-        n_layers=TRAIN_EXACT_LAYERS, dtype="float32", param_dtype="float32")
-    opt = AdamW(lr=cosine_schedule(3e-4, 100, 10_000))
-    card, cpu = build(cfg), build(cfg, device="cpu")
-    state = init_train_state(card, opt, SEED)
-    cpu_state = _tree_to(state, "cpu")
-    data = batches_for(cfg, 2, 128, seed=0)
-    batches = [next(data) for _ in range(3)]
-    _, g_card = _grads(torch, card, state["params"], batches[0])
-    _, g_cpu = _grads(torch, cpu, cpu_state["params"], batches[0])
-    grad_err = max(_rel_to_max(a.cpu(), b) for a, b in zip(g_card, g_cpu))
-    del g_card, g_cpu
-    step_card, step_cpu = make_train_step(card, opt), \
-        make_train_step(cpu, opt)
-    loss_err = 0.0
-    for b in batches:
-        state, mc = step_card(state, b)
-        cpu_state, mh = step_cpu(cpu_state, b)
-        loss_err = max(loss_err, abs(float(mc["loss"]) - float(mh["loss"]))
-                       / float(mh["loss"]))
-    param_ok = all(torch.allclose(a.cpu(), b, rtol=1e-4, atol=5e-5)
-                   for a, b in zip(tree_leaves(state["params"]),
-                                   tree_leaves(cpu_state["params"])))
-    param_err = max((a.cpu() - b).abs().max().item() for a, b in
-                    zip(tree_leaves(state["params"]),
-                        tree_leaves(cpu_state["params"])))
-    rec = {"phase": "train_exact", "arch": cfg.name, "n_layers":
-           cfg.n_layers, "dtype": cfg.dtype, "B": 2, "L": 128, "steps": 3,
-           "loss_rel_err": loss_err, "grad_rel_err": grad_err,
-           "param_max_abs_err": param_err, "param_rtol": 1e-4,
-           "param_atol": 5e-5, "seconds": time.perf_counter() - t0}
-    rec["ok"] = loss_err <= 1e-5 and grad_err <= 1e-4 and param_ok
-    emit(rec)
-    if not rec["ok"]:
-        raise AssertionError(f"train_exact: card and CPU disagree: {rec}")
+    failed = []
+    for cfg, B, L, steps in _exact_configs():
+        t0 = time.perf_counter()
+        opt = AdamW(lr=cosine_schedule(3e-4, 100, 10_000))
+        card, cpu = build(cfg), build(cfg, device="cpu")
+        state = init_train_state(card, opt, SEED)
+        cpu_state = _tree_to(state, "cpu")
+        names = ["/".join(map(str, path)) for path, _ in
+                 tree_flatten_with_path(cpu_state["params"])]
+        data = batches_for(cfg, B, L, seed=0)
+        batches = [next(data) for _ in range(steps)]
+        _, g_card = _grads(torch, card, state["params"], batches[0])
+        _, g_cpu = _grads(torch, cpu, cpu_state["params"], batches[0])
+        errs = [_rel_to_max(a.cpu(), b) for a, b in zip(g_card, g_cpu)]
+        sens = [0.0] * len(errs)
+        if cfg.ssm is not None:
+            g_pert = _perturbed_grads(torch, cpu, cpu_state["params"],
+                                      batches[0])
+            sens = [_rel_to_max(a, b) for a, b in zip(g_pert, g_cpu)]
+            del g_pert
+        tols = [max(1e-4, GRAD_SENSITIVITY_FACTOR * x) for x in sens]
+        widened = {n: {"err": e, "cpu_sensitivity": x, "tol": t}
+                   for n, e, x, t in zip(names, errs, sens, tols)
+                   if t > 1e-4}
+        grad_ok = all(e <= t for e, t in zip(errs, tols))
+        del g_card, g_cpu
+        step_card, step_cpu = make_train_step(card, opt), \
+            make_train_step(cpu, opt)
+        loss_err = 0.0
+        for b in batches:
+            state, mc = step_card(state, b)
+            cpu_state, mh = step_cpu(cpu_state, b)
+            loss_err = max(loss_err,
+                           abs(float(mc["loss"]) - float(mh["loss"]))
+                           / float(mh["loss"]))
+        pairs = list(zip(tree_leaves(state["params"]),
+                         tree_leaves(cpu_state["params"])))
+        param_ok = all(torch.allclose(a.cpu(), b, rtol=1e-4, atol=5e-5)
+                       for a, b in pairs)
+        param_err = max((a.cpu() - b).abs().max().item() for a, b in pairs)
+        rec = {"phase": "train_exact", "arch": cfg.name, "n_layers":
+               cfg.n_layers, "d_model": cfg.d_model, "dtype": cfg.dtype,
+               "B": B, "L": L, "steps": steps, "loss_rel_err": loss_err,
+               "grad_rel_err": max(errs),
+               "grad_rel_err_held_to_1e-4": max(
+                   (e for e, t in zip(errs, tols) if t == 1e-4),
+                   default=0.0),
+               "grad_tol": 1e-4, "grad_widened": widened,
+               "param_max_abs_err": param_err, "param_rtol": 1e-4,
+               "param_atol": 5e-5, "aux_loss_card": float(mc["aux_loss"]),
+               "seconds": time.perf_counter() - t0}
+        rec["ok"] = loss_err <= 1e-5 and grad_ok and param_ok
+        emit(rec)
+        if not rec["ok"]:
+            failed.append(rec)
+        del card, cpu, state, cpu_state, pairs
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"train_exact: card and CPU disagree: "
+                             f"{failed}")
 
 
 def main() -> int:
@@ -5968,7 +6352,8 @@ def main() -> int:
     ptxas = ptxas_table(_build.BUILD_LOG.values())
     gated = ("_mma_kernel", "ssd_extend", "rmsnorm_kernel",
              "ssd_chunk_states", "ssd_state_pass", "ssd_chunk_out",
-             "flash_bwd_", "rmsnorm_bwd_kernel")
+             "flash_bwd_", "rmsnorm_bwd_kernel", "rmsnorm_gated_bwd",
+             "ssd_bwd_")
     spills = {k: v for k, v in ptxas.items() if any(s in k for s in gated)
               and (v.get("spill_stores") or v.get("spill_loads"))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -6001,6 +6386,8 @@ def main() -> int:
     marks.append(("build_and_kernels", time.perf_counter()))
     flash_bwd, flash_bwd_err = flash_bwd_cases(torch, flush)
     norm_bwd, norm_bwd_err = norm_bwd_cases(torch, flush)
+    ssd_bwd, ssd_bwd_err = ssd_bwd_cases(torch, flush)
+    gated_bwd, gated_bwd_err = gated_bwd_cases(torch, flush)
     del flush
     gc.collect()
     torch.cuda.empty_cache()
@@ -6063,7 +6450,7 @@ def main() -> int:
     prof = profile(torch, engine, "profile_ssm")
     del engine
     serve_eager(torch, ssm_model, ssm_params, (ssm_rec, ssm_tokens, prof),
-                "serve_ssm_eager")
+                "serve_ssm_eager", profile_eager=False)
     prefill_ssm(torch, ssm_model, ssm_params)
     # fig. 2's turn for the cache-free forward: the same dual form
     # through model.lm, on graphs and eagerly
@@ -6127,6 +6514,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     marks.append(("train", time.perf_counter()))
+    # the SSM and MoE stacks: mamba2-780m at full width and depth, then
+    # qwen2-moe-a2.7b at full width on 4 layers
+    ssm_train_counts = train_ssm(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_train_counts = train_moe(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(("train_ssm_moe", time.perf_counter()))
     emit({"phase": "timing", "seconds": {
         name: t - prev for (name, t), (_, prev) in zip(marks[1:], marks)},
         "total_s": marks[-1][1] - marks[0][1]})
@@ -6190,14 +6586,25 @@ def main() -> int:
         line["fleet_launches"] = fleet_counts[line["name"]]
         line["train_launches"] = train_counts[line["name"]]
     # the backward kernels (no TPU counterpart): launches of the train
-    # phase's 20 steps
+    # phase's 20 steps (the flash and add / norm backward, llama), of
+    # train_ssm's 20 (the SSD and gated-norm backward, mamba2)
     kernel_lines += [
         entry("flash_attention_bwd", "cuda", FLASH_BWD_SRC, None,
               flash_bwd_err, flash_bwd, train_counts,
               extra=("dtype", "bound_by", "plan", "rel_err_vs_autograd")),
         entry("rmsnorm_bwd", "cuda", RMSNORM_SRC, None, norm_bwd_err,
               norm_bwd, train_counts,
-              extra=("dtype", "route", "bound_by", "rel_err_vs_autograd"))]
+              extra=("dtype", "route", "bound_by", "rel_err_vs_autograd")),
+        entry("ssd_bwd", "cuda", SSD_BWD_SRC, None, ssd_bwd_err, ssd_bwd,
+              ssm_train_counts,
+              extra=("dtype", "bound_by", "bound_ms_cuda_cores",
+                     "rel_err_vs_autograd")),
+        entry("rmsnorm_gated_bwd", "cuda", RMSNORM_SRC, None,
+              gated_bwd_err, gated_bwd, ssm_train_counts,
+              extra=("dtype", "bound_by", "rel_err_vs_autograd"))]
+    for line in kernel_lines:
+        line["train_ssm_launches"] = ssm_train_counts[line["name"]]
+        line["train_moe_launches"] = moe_train_counts[line["name"]]
     emit({"kernels": kernel_lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

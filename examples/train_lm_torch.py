@@ -1,14 +1,14 @@
 """End-to-end training example on the PyTorch port: train a reduced
-llama3.2 on the synthetic Markov language until its loss approaches the
-entropy floor, then publish the trained backbone to the port's zoo as a
-service.
+model (llama3.2 unless ``--arch`` names another) on the synthetic Markov
+language until its loss approaches the entropy floor, then publish the
+trained backbone to the port's zoo as a service.
 
   PYTHONPATH=src python examples/train_lm_torch.py [--steps 300] \
-      [--device cpu]
+      [--arch mamba2-780m] [--device cpu]
 
 The device is CUDA unless ``--device cpu`` is given (on the card the
-step runs the flash-attention and RMSNorm kernels forward and
-backward).
+step runs the flash-attention and RMSNorm kernels forward and backward,
+and on an SSM stack the SSD and gated-norm ones).
 """
 import argparse
 import tempfile
@@ -23,13 +23,15 @@ from repro_torch.training.optimizer import AdamW, cosine_schedule
 from repro_torch.training.train_loop import train
 
 ap = argparse.ArgumentParser()
+ap.add_argument("--arch", default="llama3.2-1b")
+ap.add_argument("--variant", default="reduced")
 ap.add_argument("--steps", type=int, default=300)
 ap.add_argument("--batch", type=int, default=16)
 ap.add_argument("--seq", type=int, default=128)
 ap.add_argument("--device", default="cuda")
 args = ap.parse_args()
 
-cfg = get_arch("llama3.2-1b", variant="reduced")
+cfg = get_arch(args.arch, variant=args.variant)
 model = build(cfg, resolve_device(args.device))
 opt = AdamW(lr=cosine_schedule(3e-3, 20, args.steps))
 data = batches_for(cfg, args.batch, args.seq)
@@ -45,12 +47,12 @@ print(f"final loss {final:.3f} (floor {floor:.3f}, "
       f"gap {final - floor:.3f})")
 
 # publish the trained model as a zoo service
-svc = lm_service("llama3.2-1b", variant="reduced").with_params(
+svc = lm_service(args.arch, variant=args.variant).with_params(
     state["params"])
 with tempfile.TemporaryDirectory() as zoo:
     reg = Registry(zoo)
     manifest = reg.publish(svc, builder="model.lm",
-                           config={"arch": "llama3.2-1b",
-                                   "variant": "reduced"})
+                           config={"arch": args.arch,
+                                   "variant": args.variant})
     print(f"published {manifest['name']}@{manifest['version']} "
           f"params_hash={manifest['params_hash'][:12]}…")

@@ -63,7 +63,9 @@
 // after launch.
 //
 // The backward of the add and norm routes (rmsnorm_bwd_launch, below)
-// lives in this file too: the train step's 33 norms a llama3.2-1b step.
+// lives in this file too: the train step's 33 norms a llama3.2-1b step;
+// so does the gated route's (rmsnorm_gated_bwd_launch): Mamba-2's 48 a
+// mamba2-780m step.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -387,8 +389,9 @@ int by_mode(int mode, int nv, const Args& g, cudaStream_t st) {
 // its block has just read, from L1 or L2.
 constexpr int BWD_THREADS = 256;
 constexpr int BWD_BLOCKS = 264;       // 2 x the H100's 132 SMs
-// flags of the backward: the residual and dt present, the scale in f32
-constexpr int B_RES = 1, B_DT = 2, B_SF32 = 4;
+// flags of the backward: the residual and dt present, the scale in f32;
+// the gated route's y in f32
+constexpr int B_RES = 1, B_DT = 2, B_SF32 = 4, B_YF32 = 8;
 
 __device__ __forceinline__ float ldf(const float* p) { return *p; }
 __device__ __forceinline__ float ldf(const bf16* p) {
@@ -475,6 +478,84 @@ __global__ void __launch_bounds__(BWD_THREADS)
     static_cast<bf16*>(dscale)[c] = __float2bfloat16_rn(s);
 }
 
+// The backward of the gated route (no TPU counterpart either: the JAX
+// package differentiates rms_norm(y * silu(z))). With the forward's
+// rounded values y^ = T(y), gate = T(silu(z)), v = T(y^ gate) and rstd,
+// v^ = v rstd, g = dout * scale, in f32:
+//   dv = rstd g - v rstd^3 sum(v g) / d,
+//   dy = dv gate                                 (stored in y's type A),
+//   dz = dv y^ sig(z) (1 + z (1 - sig(z)))       (stored in T),
+//   dscale = sum over rows of dout v^            (the partial rows above).
+// The same two passes a row as rmsnorm_bwd_kernel, v and the gate
+// recomputed from y and z (read through their row strides: z is the
+// in-projection's slice, never copied), and the same dscale reduction.
+// What bounds it: bytes (y, z, dout read, dy and dz written once).
+template <typename T, typename A>
+__global__ void __launch_bounds__(BWD_THREADS)
+    rmsnorm_gated_bwd_kernel(const A* __restrict__ y, const T* __restrict__ z,
+                             const void* __restrict__ scale,
+                             const T* __restrict__ dout, A* __restrict__ dy,
+                             T* __restrict__ dz, float* __restrict__ partial,
+                             int N, int d, long long sy, long long sz,
+                             float eps, int flags) {
+  extern __shared__ float acc[];      // d: this block's dscale sums
+  __shared__ float red[2][BWD_THREADS / 32];
+  const bool s_f32 = (flags & B_SF32) != 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* sf = static_cast<const float*>(scale);
+  const bf16* sb = static_cast<const bf16*>(scale);
+  for (int c = tid; c < d; c += BWD_THREADS) acc[c] = 0.f;
+  for (long long row = blockIdx.x; row < N; row += gridDim.x) {
+    const A* yr = y + row * sy;
+    const T* zr = z + row * sz;
+    const T* dor = dout + row * d;
+    float ss = 0.f, dot = 0.f;
+    for (int c = tid; c < d; c += BWD_THREADS) {
+      const float zv = ldf(zr + c);
+      const float gate = round_to(zv / (1.0f + expf(-zv)), T());
+      const float v = round_to(round_to(ldf(yr + c), T()) * gate, T());
+      const float g = ldf(dor + c) * (s_f32 ? sf[c] : ldf(sb + c));
+      ss += v * v;
+      dot += v * g;
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    }
+    __syncthreads();                  // red of the previous row is read
+    if (lane == 0) {
+      red[0][warp] = ss;
+      red[1][warp] = dot;
+    }
+    __syncthreads();
+    ss = red[0][0];
+    dot = red[1][0];
+    for (int w = 1; w < BWD_THREADS / 32; ++w) {
+      ss += red[0][w];
+      dot += red[1][w];
+    }
+    const float rstd = rsqrtf(ss / static_cast<float>(d) + eps);
+    const float k = rstd * rstd * rstd * dot / static_cast<float>(d);
+    A* dyr = dy + row * d;
+    T* dzr = dz + row * d;
+    for (int c = tid; c < d; c += BWD_THREADS) {
+      const float zv = ldf(zr + c);
+      const float sig = 1.0f / (1.0f + expf(-zv));
+      const float gate = round_to(zv / (1.0f + expf(-zv)), T());
+      const float yh = round_to(ldf(yr + c), T());
+      const float v = round_to(yh * gate, T());
+      const float go = ldf(dor + c);
+      const float dv = rstd * (go * (s_f32 ? sf[c] : ldf(sb + c))) - v * k;
+      stf(dyr + c, dv * gate);
+      stf(dzr + c, dv * yh * sig * (1.0f + zv * (1.0f - sig)));
+      acc[c] += go * (v * rstd);
+    }
+  }
+  for (int c = tid; c < d; c += BWD_THREADS)
+    partial[static_cast<long long>(blockIdx.x) * d + c] = acc[c];
+}
+
 template <typename T>
 int launch_bwd(const T* x, const T* res, const void* scale, const T* dy,
                const T* dt, T* dx, float* partial, void* dscale, int N,
@@ -491,6 +572,33 @@ int launch_bwd(const T* x, const T* res, const void* scale, const T* dy,
   }
   rmsnorm_bwd_kernel<T><<<blocks, BWD_THREADS, bytes, st>>>(
       x, res, scale, dy, dt, dx, partial, N, d, sx, sr, eps, flags);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rmsnorm_dscale_kernel<<<(d + BWD_THREADS - 1) / BWD_THREADS, BWD_THREADS,
+                          0, st>>>(partial, dscale, blocks, d,
+                                   (flags & B_SF32) != 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename A>
+int launch_gated_bwd(const void* y, const void* z, const void* scale,
+                     const void* dout, void* dy, void* dz, float* partial,
+                     void* dscale, int N, int d, long long sy, long long sz,
+                     float eps, int flags, int blocks, cudaStream_t st) {
+  static bool opted = false;          // once per template, per process
+  if (!opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rmsnorm_gated_bwd_kernel<T, A>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        MAX_BWD_D * static_cast<int>(sizeof(float)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted = true;
+  }
+  rmsnorm_gated_bwd_kernel<T, A>
+      <<<blocks, BWD_THREADS, d * static_cast<int>(sizeof(float)), st>>>(
+          static_cast<const A*>(y), static_cast<const T*>(z), scale,
+          static_cast<const T*>(dout), static_cast<A*>(dy),
+          static_cast<T*>(dz), partial, N, d, sy, sz, eps, flags);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   rmsnorm_dscale_kernel<<<(d + BWD_THREADS - 1) / BWD_THREADS, BWD_THREADS,
@@ -532,6 +640,40 @@ extern "C" int rmsnorm_bwd_launch(const void* x, const void* res,
         static_cast<const float*>(dy), static_cast<const float*>(dt),
         static_cast<float*>(dx), pp, dscale, N, d, sx, sr, eps, flags, blocks,
         st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward of the gated route. y: (N, d) rows in f32 (flags & 8) or
+// in z's type, row stride sy; z: (N, d) rows of dtype (0 float, 1 bf16),
+// row stride sz (the last dimensions contiguous); scale (d,) f32 (flags &
+// 4) or bf16; dout (N, d) contiguous in z's type; dy (N, d) contiguous
+// output in y's type, dz (N, d) contiguous output in z's; partial an f32
+// (blocks, d) scratch buffer, blocks in [1, min(N, 264)]; dscale (d,)
+// output in the scale's type. Returns the first cudaGetLastError() that
+// is not 0 after the two launches.
+extern "C" int rmsnorm_gated_bwd_launch(const void* y, const void* z,
+                                        const void* scale, const void* dout,
+                                        void* dy, void* dz, void* partial,
+                                        void* dscale, int N, int d, int dtype,
+                                        long long sy, long long sz, int flags,
+                                        int blocks, float eps, void* stream) {
+  if (N <= 0 || d <= 0 || d > MAX_BWD_D || blocks <= 0 || blocks > N ||
+      blocks > BWD_BLOCKS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* pp = static_cast<float*>(partial);
+  if (dtype == 1 && (flags & B_YF32))
+    return launch_gated_bwd<bf16, float>(y, z, scale, dout, dy, dz, pp,
+                                         dscale, N, d, sy, sz, eps, flags,
+                                         blocks, st);
+  if (dtype == 1)
+    return launch_gated_bwd<bf16, bf16>(y, z, scale, dout, dy, dz, pp,
+                                        dscale, N, d, sy, sz, eps, flags,
+                                        blocks, st);
+  if (dtype == 0)
+    return launch_gated_bwd<float, float>(y, z, scale, dout, dy, dz, pp,
+                                          dscale, N, d, sy, sz, eps, flags,
+                                          blocks, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -78,15 +78,11 @@
 #include <stdint.h>
 
 #include "attn_mma.cuh"
+#include "ssd_common.cuh"
 
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+using ssd::FULL;
 
 // --------------------------------------------------------------------- //
 // ssd_extend
@@ -451,10 +447,7 @@ constexpr size_t chunk_smem_floats() {
 template <typename Tin, int W>
 __device__ __forceinline__ void stage(float* dst, const Tin* src,
                                       long long st, int r0, int nr) {
-  for (int idx = threadIdx.x; idx < TILE * W; idx += SSD_THREADS) {
-    const int r = idx / W, c = idx % W;
-    dst[r * (W + 1) + c] = r < nr ? to_f(src[(r0 + r) * st + c]) : 0.f;
-  }
+  ssd::stage_tile<Tin, W, TILE, SSD_THREADS>(dst, src, st, r0, nr);
 }
 
 template <typename Tin, int P, int N>

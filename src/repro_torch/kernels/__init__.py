@@ -5,9 +5,11 @@ version: ``decode_attention`` and ``paged_decode_attention`` (CUDA C++,
 ``ssd_extend`` (CUDA C++, ``csrc/ssd_scan.cu``), ``flash_attention``
 (CUDA C++, ``csrc/flash_attention.cu``) and ``rmsnorm`` (CUDA C++,
 ``csrc/rmsnorm.cu``: the add + norm, the norm alone and Mamba-2's gated
-norm, one counter), and two backward kernels with no TPU counterpart,
-``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``) and
-``rmsnorm_bwd`` (``csrc/rmsnorm.cu``), one count a backward call each.
+norm, one counter), and four backward kernels with no TPU counterpart,
+``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``),
+``rmsnorm_bwd`` and ``rmsnorm_gated_bwd`` (``csrc/rmsnorm.cu``: the add /
+norm routes and the gated one) and ``ssd_bwd`` (``csrc/ssd_scan_bwd.cu``),
+one count a backward call each.
 ``launch_counts`` reads the launch counter each
 kernel wrapper keeps. A replayed CUDA graph runs its kernels with no
 Python, so no wrapper counts them: the program that captured them takes
@@ -26,8 +28,10 @@ from repro_torch.kernels.flash_attention.kernel import (
 from repro_torch.kernels.quant_matmul.kernel import (
     quant_matmul_int4_cuda, quant_matmul_int8_cuda)
 from repro_torch.kernels.rmsnorm.kernel import (fused_rmsnorm_bwd_cuda,
-                                               fused_rmsnorm_cuda)
-from repro_torch.kernels.ssd_scan.kernel import ssd_cuda, ssd_extend_cuda
+                                               fused_rmsnorm_cuda,
+                                               gated_rmsnorm_bwd_cuda)
+from repro_torch.kernels.ssd_scan.kernel import (ssd_bwd_cuda, ssd_cuda,
+                                                ssd_extend_cuda)
 
 _WRAPPERS = {"decode_attention": decode_attention_cuda,
              "paged_decode_attention": paged_decode_attention_cuda,
@@ -38,7 +42,9 @@ _WRAPPERS = {"decode_attention": decode_attention_cuda,
              "ssd_extend": ssd_extend_cuda,
              "flash_attention": flash_attention_cuda,
              "flash_attention_bwd": flash_attention_bwd_cuda,
-             "rmsnorm_bwd": fused_rmsnorm_bwd_cuda}
+             "rmsnorm_bwd": fused_rmsnorm_bwd_cuda,
+             "rmsnorm_gated_bwd": gated_rmsnorm_bwd_cuda,
+             "ssd_bwd": ssd_bwd_cuda}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -8,14 +8,17 @@ grad), so the engine, whose tensors never require grad, pays no
 ``Function.apply`` and launches exactly what it launched before:
 
 * ``differentiable``: the forward launch runs inside a node whose
-  backward is a kernel too (the flash-attention and RMSNorm backward
-  kernels, ROADMAP section 1, item 12a). The forward saves what the
-  backward reads through ``save_for_backward``, so activation
-  checkpointing (``torch.utils.checkpoint``, non-reentrant) drops and
-  recomputes it like any other saved tensor.
-* ``launch``: the forward inside a node whose backward raises, naming
-  the item that brings the op's backward (``ITEM_12B``), or saying that
-  the op is for inference only (``INFERENCE_ONLY``).
+  backward is a kernel too (the flash-attention, RMSNorm add / norm /
+  gated and SSD dual-form backward kernels, ROADMAP section 1, items 12a
+  and 12b). The forward saves what the backward reads through
+  ``save_for_backward``, so activation checkpointing
+  (``torch.utils.checkpoint``, non-reentrant) drops and recomputes it
+  like any other saved tensor.
+* ``launch``: the forward inside a node whose backward raises, saying
+  that the op is for inference only (``INFERENCE_ONLY``: the decode
+  attention kernels, the quantized matmuls, and the SSD recurrence,
+  which no training path differentiates: the train forward runs the
+  dual form).
 
 On the CPU the ops run their plain versions, which autograd
 differentiates.
@@ -26,12 +29,10 @@ from typing import Any, Callable, Sequence, Tuple
 
 import torch
 
-#: the item that brings the backward kernels still missing (the gated
-#: norm, ``ssd`` and ``ssd_extend``)
-ITEM_12B = "ROADMAP section 1, item 12b (training of the SSM and MoE stacks)"
-#: ops with no backward by design, by the name their launch passes
+#: the ops that run through ``launch``, by the name their launch passes:
+#: none has a backward, by design
 INFERENCE_ONLY = ("decode attention", "paged decode attention",
-                  "int8 quant_matmul", "int4 quant_matmul")
+                  "int8 quant_matmul", "int4 quant_matmul", "ssd_extend")
 
 
 class _NoBackward(torch.autograd.Function):
@@ -42,12 +43,8 @@ class _NoBackward(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        if ctx.name in INFERENCE_ONLY:
-            raise NotImplementedError(
-                f"{ctx.name} has no backward kernel: the op is for "
-                f"inference only")
-        raise NotImplementedError(
-            f"{ctx.name} has no backward kernel yet: {ITEM_12B}")
+        raise NotImplementedError(f"{ctx.name} has no backward kernel: the "
+                                  f"op is for inference only")
 
 
 def _wants_grad(args) -> bool:

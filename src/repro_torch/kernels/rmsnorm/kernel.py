@@ -26,7 +26,11 @@ rows, then the dscale reduction over the blocks' partial sums, no
 atomics; rstd recomputed from x; it replaces no TPU kernel, the JAX
 package differentiates its plain norm), counted in
 ``fused_rmsnorm_bwd_cuda.launches``, one a call. The gated route runs
-through ``_autograd.launch``, whose backward raises (ROADMAP item 12b).
+through ``_autograd.differentiable`` too: its node's backward is
+``gated_rmsnorm_bwd_cuda`` (``rmsnorm_gated_bwd_launch``: the same two
+passes a row and dscale reduction, v and the gate recomputed from y and
+z, z read in place; it replaces no TPU kernel either), counted in
+``gated_rmsnorm_bwd_cuda.launches``.
 """
 from __future__ import annotations
 
@@ -59,11 +63,14 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 ARGTYPES = {"rmsnorm_launch": [_P] * 5 + [_I] * 7 + [_LL] * 2
             + [_I, _F, _P],
             "rmsnorm_bwd_launch": [_P] * 8 + [_I] * 3 + [_LL] * 2
+            + [_I, _I, _F, _P],
+            "rmsnorm_gated_bwd_launch": [_P] * 8 + [_I] * 3 + [_LL] * 2
             + [_I, _I, _F, _P]}
 #: blocks of the backward's row pass at most (csrc BWD_BLOCKS: two an SM)
 BWD_BLOCKS = 264
-# csrc flags of the backward: the residual and dt present, the scale f32
-B_RES, B_DT, B_SF32 = 1, 2, 4
+# csrc flags of the backward: the residual and dt present, the scale f32,
+# the gated route's y f32
+B_RES, B_DT, B_SF32, B_YF32 = 1, 2, 4, 8
 _FNS = {}
 
 
@@ -228,6 +235,54 @@ def fused_rmsnorm_bwd_cuda(x, residual, scale, dy, dt=None, eps=1e-5):
     return dx, dscale
 
 
+def gated_rmsnorm_bwd_cuda(y, z, scale, dout, eps=1e-5):
+    """The backward of the gated route on the current stream: y and z as
+    the forward took them ((N, d), any row stride with the last dimension
+    contiguous; y f32 or z's dtype), ``dout`` the output's gradient (N,
+    d) in z's dtype, any strides (made contiguous once here). Returns
+    (dy, dz, dscale): new contiguous (N, d) tensors in y's and z's
+    dtypes and dscale (d,) in the scale's dtype, summed in f32 over the
+    blocks' partial rows in order (no atomics)."""
+    dtype, shape, dev = z.dtype, z.shape, z.device
+    if dev.type != "cuda" or len(shape) != 2 or dtype not in _DTYPES:
+        raise ValueError(f"gated rmsnorm backward takes (N, d) float32 or "
+                         f"bfloat16 CUDA tensors, got {tuple(shape)} "
+                         f"{dtype} on {dev}")
+    N, d = shape
+    if d > MAX_D:
+        raise ValueError(f"d={d} exceeds the kernel's limit {MAX_D}")
+    sy = _rows("y", y, shape, (torch.float32, dtype), dev)
+    sz = _rows("z", z, shape, (dtype,), dev)
+    if scale.shape != (d,) or scale.stride(0) != 1 \
+            or scale.dtype not in _DTYPES or scale.device != dev:
+        raise ValueError(f"scale must be a contiguous ({d},) float32 or "
+                         f"bfloat16 tensor on {dev}, got "
+                         f"{tuple(scale.shape)} {scale.dtype}")
+    if dout.shape != shape or dout.dtype != dtype or dout.device != dev:
+        raise ValueError(f"dout must be a {tuple(shape)} {dtype} tensor on "
+                         f"{dev}")
+    dout = dout.contiguous()
+    dy = torch.empty((N, d), dtype=y.dtype, device=dev)
+    dz = torch.empty((N, d), dtype=dtype, device=dev)
+    dscale = torch.empty((d,), dtype=scale.dtype, device=dev)
+    if N == 0:
+        return dy, dz, dscale.zero_()
+    blocks = min(N, BWD_BLOCKS)
+    partial = torch.empty((blocks, d), dtype=torch.float32, device=dev)
+    flags = (B_SF32 * (scale.dtype == torch.float32)
+             | B_YF32 * (y.dtype == torch.float32))
+    err = _launcher("rmsnorm_gated_bwd_launch")(
+        y.data_ptr(), z.data_ptr(), scale.data_ptr(), dout.data_ptr(),
+        dy.data_ptr(), dz.data_ptr(), partial.data_ptr(), dscale.data_ptr(),
+        N, d, _DTYPES[dtype], sy, sz, flags, blocks, float(eps),
+        torch._C._cuda_getCurrentRawStream(dev.index))
+    gated_rmsnorm_bwd_cuda.launches += 1
+    if err != 0:
+        raise RuntimeError(f"gated rmsnorm backward launch failed: CUDA "
+                           f"error {err}")
+    return dy, dz, dscale
+
+
 def _fast(x, residual, scale, eps):
     return _launch("norm" if residual is None else "add", x, residual,
                    scale, eps)
@@ -260,17 +315,33 @@ def fused_rmsnorm_cuda(x, residual, scale, eps=1e-5):
     return (out, x) if residual is None else out
 
 
+def _gated_fast(y, z, scale, eps):
+    return _launch("gated", y, z, scale, eps)
+
+
+def _gated_fwd(y, z, scale, eps):
+    return _gated_fast(y, z, scale, eps), (y, z, scale), eps
+
+
+def _gated_bwd(eps, saved, dout):
+    if dout is None:
+        return None, None, None, None
+    return gated_rmsnorm_bwd_cuda(*saved, dout, eps) + (None,)
+
+
 def gated_rmsnorm_cuda(y, z, scale, eps=1e-5):
     """Mamba-2's gated norm: rmsnorm(T(T(y) * T(silu(f32 z)))) * scale in
     z's dtype T (float32 or bfloat16). y: (N, d) float32 or T; z: (N, d);
     both any row stride with the last dimension contiguous (z is read in
     place out of the in-projection's output); scale: (d,). Returns a new
-    contiguous (N, d) tensor in T. Counts in
-    ``fused_rmsnorm_cuda.launches``. Raises on any input the kernel does
-    not take, when the launch is refused, and in a backward pass."""
-    return _autograd.launch("gated rmsnorm", _launch, "gated", y, z, scale,
-                            eps)
+    contiguous (N, d) tensor in T; where a gradient can be asked for,
+    through a node whose backward runs ``gated_rmsnorm_bwd_cuda``. Counts
+    in ``fused_rmsnorm_cuda.launches``. Raises on any input the kernel
+    does not take and when a launch is refused."""
+    return _autograd.differentiable(_gated_fast, _gated_fwd, _gated_bwd, y,
+                                    z, scale, eps)
 
 
 fused_rmsnorm_cuda.launches = 0
 fused_rmsnorm_bwd_cuda.launches = 0
+gated_rmsnorm_bwd_cuda.launches = 0

@@ -18,6 +18,12 @@ t^ = t rstd from x and the residual): dx = rstd (s dy - t^ mean(t^ s
 dy)) + dt, the residual's gradient the same, dscale = the sum over rows
 of dy t^. The plain version the kernel (``csrc/rmsnorm.cu``'s
 ``rmsnorm_bwd_launch``) is held against.
+
+``gated_rmsnorm_backward_reference``: the backward of the gated norm by
+the formulas its kernel (``rmsnorm_gated_bwd_launch``) computes, in f32
+from the forward's rounded values (y^ = T(y), the gate T(silu(z)) and v
+= T(y^ gate)): dv by the norm's formula, dy = dv gate, dz = dv y^
+sig(z) (1 + z (1 - sig(z))), dscale = the sum over rows of dout v^.
 """
 from __future__ import annotations
 
@@ -52,3 +58,23 @@ def fused_rmsnorm_backward_reference(x, residual, scale, dy, dt=None,
         dx = dx + dt.float()
     dscale = (dy.float() * th).reshape(-1, d).sum(0)
     return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+def gated_rmsnorm_backward_reference(y, z, scale, dout, eps=1e-5):
+    """(dy, dz, dscale) of ``gated_rmsnorm_reference`` over the last axis
+    for the output gradient ``dout``: dy in y's dtype, dz in z's, dscale
+    in the scale's, each computed in f32 (v, rstd and v^ = v rstd from y
+    and z as the forward rounds them)."""
+    d = z.shape[-1]
+    zf = z.float()
+    yh = y.to(z.dtype).float()
+    gate = F.silu(zf).to(z.dtype).float()
+    v = (yh * gate).to(z.dtype).float()
+    rstd = torch.rsqrt(torch.mean(v * v, dim=-1, keepdim=True) + eps)
+    vh = v * rstd
+    g = dout.float() * scale.float()
+    dv = rstd * (g - vh * torch.mean(vh * g, dim=-1, keepdim=True))
+    sig = torch.sigmoid(zf)
+    dz = dv * yh * sig * (1 + zf * (1 - sig))
+    dscale = (dout.float() * vh).reshape(-1, d).sum(0)
+    return (dv * gate).to(y.dtype), dz.to(z.dtype), dscale.to(scale.dtype)

@@ -1,8 +1,10 @@
 """ctypes bindings of the CUDA SSD kernels (``csrc/ssd_scan.cu``):
 ``ssd_extend_cuda``, the sequential recurrence from an explicit state (it
 replaces the JAX package's ``ssd_extend_pallas``), and ``ssd_cuda``, the
-chunked dual form (``ssd_pallas``). Every entry point lives in one
-library, built with ``nvcc`` on first use (``kernels/_build.py``).
+chunked dual form (``ssd_pallas``), in one library; and
+``ssd_bwd_cuda``, the dual form's backward (``csrc/ssd_scan_bwd.cu``,
+which shares ``csrc/ssd_common.cuh`` with the forward), in another. Both
+are built with ``nvcc`` on first use (``kernels/_build.py``).
 
 The wrappers check devices, dtypes, shapes and strides and raise on what
 the kernels do not take; they pass strides, so the x/B/C slices of the
@@ -27,8 +29,18 @@ pass, the outputs; tensor-core products), everything else the ``simt``
 route (one block per (head, batch row) walking the chunks). The ``mma``
 route's workspace of chunk states is allocated here with the outputs.
 
-Every launch runs through ``_autograd.launch``: a backward pass through
-any of them raises.
+The dual form runs through ``_autograd.differentiable``: with no
+gradient to ask for, the plain launch; where a gradient could be asked
+for, inside a node whose backward is ``ssd_bwd_cuda``, the seven
+launches of ``csrc/ssd_scan_bwd.cu`` (it replaces no TPU kernel: the
+JAX package differentiates its plain scan). The forward keeps nothing
+for it: the backward recomputes each chunk's incoming state, so serving
+launches are those of before. Its plain version is
+``ref.ssd_backward_reference``; it counts one launch a call in
+``ssd_bwd_cuda.launches``. The extend kernel (and ``ssd_step``, that
+kernel at T = 1) runs through ``_autograd.launch``: it is for inference
+only (no training path differentiates the recurrence: the train forward
+runs the dual form), and a backward pass through it raises.
 """
 from __future__ import annotations
 
@@ -77,13 +89,16 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 ARGTYPES = {"ssd_extend_launch": [_P] * 10 + [_I] * 8 + [_LL] * 14 + [_P],
             "ssd_chunk_launch": [_P] * 9 + [_I] * 8 + [_LL] * 11 + [_P],
             "ssd_chunk_mma_launch": [_P] * 12 + [_I] * 8 + [_LL] * 11
-            + [_P]}
+            + [_P],
+            "ssd_bwd_launch": [_P] * 23 + [_I] * 8 + [_LL] * 11 + [_P]}
+#: the library of each entry point (the backward has its own source)
+_STEMS = {"ssd_bwd_launch": "ssd_scan_bwd"}
 
 
 def _launcher(name):
     fn = _FNS.get(name)
     if fn is None:
-        fn = getattr(_build.load("ssd_scan"), name)
+        fn = getattr(_build.load(_STEMS.get(name, "ssd_scan")), name)
         fn.argtypes = ARGTYPES[name]
         fn.restype = ctypes.c_int
         _FNS[name] = fn
@@ -297,13 +312,111 @@ def ssd_cuda(x, dt, A, B, C, D=None, *, chunk=64, initial_state=None):
     float32 or bfloat16, dt (b, l, h), A and D (h,) f32; l % chunk == 0,
     chunk <= 256. ``initial_state`` (b, h, p, n) f32 seeds the carried
     state (zero when None). Returns (y (b, l, h, p) f32, final state (b,
-    h, p, n) f32), on the route ``chunk_plan`` picks. Raises on any input
-    the kernels do not take, when a launch is refused, and in a backward
-    pass."""
+    h, p, n) f32), on the route ``chunk_plan`` picks; where a gradient
+    can be asked for, through a node whose backward runs
+    ``ssd_bwd_cuda``. Raises on any input the kernels do not take and
+    when a launch is refused."""
     if D is None:
         D = torch.zeros_like(A)
-    return _autograd.launch("ssd", _launch_chunk, x, dt, A, B, C, D, chunk,
-                            initial_state)
+    return _autograd.differentiable(_launch_chunk, _ssd_fwd, _ssd_bwd, x, dt,
+                                    A, B, C, D, chunk, initial_state)
+
+
+def _ssd_fwd(x, dt, A, B, C, D, chunk, initial_state):
+    return (_launch_chunk(x, dt, A, B, C, D, chunk, initial_state),
+            (x, dt, A, B, C, D, initial_state), chunk)
+
+
+def _ssd_bwd(chunk, saved, dy, dfinal):
+    x, dt, A, B, C, D, s0 = saved
+    if dy is None and dfinal is None:
+        return (None,) * 8
+    if dy is None:           # only the final state took part
+        dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    dx, ddt, dA, dB, dC, dD, dinit = ssd_bwd_cuda(
+        x, dt, A, B, C, D, dy, dfinal, chunk=chunk, initial_state=s0)
+    return dx, ddt, dA, dB, dC, dD, None, dinit
+
+
+def bwd_workspace(b: int, l: int, h: int, p: int, g: int, n: int,
+                  chunk: int, device):
+    """The backward's f32 workspace, one allocation cut into (s_in, g_out,
+    decay, pos, wdB, wdC, part): the chunks' incoming states and outgoing
+    state gradients (b, h, l / chunk, p, n) each, their decays (b, h, l /
+    chunk), five per-token planes (5, b, h, l), dB and dC a head (b, l,
+    h, n) each, and the partial sums of dA and dD (2, b, l / chunk, h);
+    54 MB + 2 x 101 MB at mamba2-780m's train shape (b 4, l 1024)."""
+    nc = l // chunk
+    sizes = (b * h * nc * p * n, b * h * nc * p * n, b * h * nc,
+             5 * b * h * l, b * l * h * n, b * l * h * n, 2 * b * nc * h)
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+    return torch.split(flat, sizes)
+
+
+def ssd_bwd_cuda(x, dt, A, B, C, D, dy, dfinal=None, *, chunk=64,
+                 initial_state=None):
+    """The backward kernels on the current stream: x, dt, A, B, C, D and
+    ``initial_state`` as the forward took them (the dual form's function
+    does not depend on its route or on the forward's chunk; ``chunk``
+    here sets the backward's own), ``dy`` the gradient of y (b, l, h, p)
+    f32 and ``dfinal`` that of the final state (b, h, p, n) f32 or None,
+    any strides (made contiguous once here). Returns (dx, ddt, dA, dB,
+    dC, dD, dinit): new contiguous tensors, dx, dB and dC in the dtypes
+    of x, B and C, ddt (b, l, h), dA, dD (h,) and dinit (b, h, p, n; None
+    without an initial state) f32. Raises on any input the kernels do not
+    take and when a launch is refused."""
+    ts = [t for t in (x, dt, A, B, C, D, dy, dfinal, initial_state)
+          if t is not None]
+    if not all(t.is_cuda and t.device == x.device for t in ts):
+        raise ValueError("ssd_bwd_cuda takes CUDA tensors on one device")
+    if x.dim() != 4 or x.dtype not in _DTYPES or B.dtype != x.dtype \
+            or C.dtype != x.dtype:
+        raise TypeError(f"ssd_bwd_cuda: want 4-D x, B, C of one dtype of "
+                        f"{list(_DTYPES)}; got {tuple(x.shape)} {x.dtype}, "
+                        f"{B.dtype}, {C.dtype}")
+    x, dt, B, C = _rows(x, dt, B, C)
+    b, l, h, p, g, n = _check_dims("ssd_bwd_cuda", x, dt, A, B, C, D)
+    if (p, n) not in CHUNK_DIMS:
+        raise ValueError(f"ssd_bwd_cuda: head dim {p} with state dim {n} "
+                         f"is not instantiated (want one of {CHUNK_DIMS})")
+    if not 1 <= chunk <= MAX_CHUNK or l % chunk:
+        raise ValueError(f"ssd_bwd_cuda: want 1 <= chunk <= {MAX_CHUNK} "
+                         f"dividing l = {l}; got chunk {chunk}")
+    if dy.shape != x.shape or dy.dtype != torch.float32:
+        raise ValueError(f"ssd_bwd_cuda: want a float32 dy of x's shape "
+                         f"{tuple(x.shape)}; got {tuple(dy.shape)} "
+                         f"{dy.dtype}")
+    dy = dy.contiguous()
+    states = []
+    for t in (initial_state, dfinal):
+        if t is not None:
+            t = t.contiguous()
+            _check_state("ssd_bwd_cuda", t, b, h, p, n)
+        states.append(t)
+    s0, dfinal = states
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((b, l, h, p), dtype=x.dtype, device=dev)
+    dB = torch.empty((b, l, g, n), dtype=B.dtype, device=dev)
+    dC = torch.empty_like(dB)
+    ddt = torch.empty((b, l, h), **f32)
+    dA, dD = torch.empty((h,), **f32), torch.empty((h,), **f32)
+    dinit = None if s0 is None else torch.empty((b, h, p, n), **f32)
+    ws = bwd_workspace(b, l, h, p, g, n, chunk, dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    err = _launcher("ssd_bwd_launch")(
+        *(ptr(t) for t in (x, dt, A, B, C, D, s0, dy, dfinal, dx, ddt, dB,
+                           dC, dA, dD, dinit) + ws),
+        b, l, chunk, h, g, p, n, _DTYPES[x.dtype], x.stride(0),
+        x.stride(1), x.stride(2), dt.stride(0), dt.stride(1), B.stride(0),
+        B.stride(1), B.stride(2), C.stride(0), C.stride(1), C.stride(2),
+        torch.cuda.current_stream(dev).cuda_stream)
+    ssd_bwd_cuda.launches += 1
+    if err != 0:
+        raise RuntimeError(f"ssd backward launch failed: CUDA error {err}")
+    return dx, ddt, dA, dB, dC, dD, dinit
 
 
 def chunk_buffers(pl: ChunkPlan, b: int, l: int, h: int, p: int, n: int,
@@ -377,3 +490,4 @@ def _launch_chunk(x, dt, A, B, C, D, chunk, initial_state, *, sub=0,
 
 
 ssd_cuda.launches = 0
+ssd_bwd_cuda.launches = 0

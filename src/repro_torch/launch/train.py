@@ -8,7 +8,9 @@ of ``data/pipeline.py``, AdamW with a cosine schedule, on one device.
 The device is CUDA unless ``--device cpu`` is given; without a CUDA
 device the CLI exits with an error instead of running on the CPU. On
 the card the step runs the flash-attention and RMSNorm kernels forward
-and backward. It prints the JAX CLI's lines, writes its JSONL records
+and backward, and on an SSM or hybrid stack the SSD dual form and the
+gated norm too (``--arch mamba2-780m --variant ""`` trains it at full
+width; ``--arch qwen2-moe-a2.7b --variant reduced`` a MoE stack). It prints the JAX CLI's lines, writes its JSONL records
 (``--metrics``) and, with ``--save``, a train state that
 ``training.checkpoints.load_train_state`` reads (and ``history.json``).
 """

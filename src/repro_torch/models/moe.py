@@ -9,7 +9,7 @@ arrays, and an optional ``shared`` gated MLP) and its three routes:
   no host sync, so it runs inside the engine's captured step graphs.
 * ``_route_tokens`` (the cache-free forward and prefill): sort-based
   top-k dispatch into (E, C) capacity slots, C from ``_capacity``,
-  overflowing assignments dropped, outputs scattered back with their
+  overflowing assignments dropped, outputs gathered back with their
   gates, and the Switch-style load-balance loss.
 * ``_route_grouped`` (``moe.group_routing``): the same dispatch within
   each batch row, combined by gather.
@@ -20,7 +20,13 @@ matmul precision is (a TF32 router can flip a top-k, which changes
 which expert runs); top-k ties go to the lowest index, as ``lax.top_k``
 (``layers.top_k``, the sampler's rule); the dispatch sort is stable, as
 ``jnp.argsort``; the experts' products run in the activation dtype and
-the gate-weighted combine in f32, then one cast. The expert products
+the gate-weighted combine in f32, then one cast. ``_route_tokens`` adds
+no two non-zero values through an index (JAX scatter-adds the slots'
+outputs into their tokens, which CUDA runs with atomics in no fixed
+order): a slot reads its token's own copy of the row (the tokens
+repeated k times) and each assignment reads its slot back by the inverse
+of the sort, so the forward and the backward are the same bits run
+after run on the card. The expert products
 are plain batched matmuls (``torch.bmm`` over the expert axis, so the
 stacked weights are read in place), as the JAX package leaves them to
 XLA: MoE has no Pallas kernel.
@@ -111,8 +117,11 @@ def _route_tokens(p, xf, cfg: ModelConfig):
     """Top-k dispatch over a flat token group xf: (T, d) -> (T, d) and the
     load-balance loss. Assignments are sorted by expert (stable), each
     expert takes the first C of its own in (E, C) slots, and the rest are
-    dropped; outputs are weighted by their gates and added back into
-    their tokens in f32 (``index_add_``), then cast once."""
+    dropped. A slot reads its assignment's copy of the token (xf's rows
+    repeated k times, so each copy's gradient has one slot to come from
+    and the k copies sum in order); each assignment gathers its slot's
+    output through the inverse of the sort, weighted by its gate in f32,
+    and a token sums its k in order, then one cast."""
     m = cfg.moe
     T, d = xf.shape
     E, k = m.n_experts, m.top_k
@@ -129,7 +138,6 @@ def _route_tokens(p, xf, cfg: ModelConfig):
     # sort assignments by expert
     A = T * k
     expert_of = gate_idx.reshape(A)
-    token_of = torch.arange(A, device=dev) // k
     gate_of = gate_vals.reshape(A)
     order = torch.argsort(expert_of, stable=True)
     expert_sorted = expert_of[order]
@@ -143,13 +151,18 @@ def _route_tokens(p, xf, cfg: ModelConfig):
     # a slot is valid only if its assignment really belongs here
     slot_valid = (slot[None] < counts[:, None]) \
         & (expert_sorted[slot_idx] == torch.arange(E, device=dev)[:, None])
-    tok_idx = token_of[a_idx]                                     # (E, C)
-    gates = torch.where(slot_valid, gate_of[a_idx], 0.0)
+    xa = xf[:, None].expand(T, k, d).reshape(A, d)                # (A, d)
+    xe = torch.where(slot_valid[..., None], xa[a_idx], 0)         # (E, C, d)
+    ye = _experts(p, xe, cfg.act_dtype).reshape(E * C, d)
 
-    xe = torch.where(slot_valid[..., None], xf[tok_idx], 0)       # (E, C, d)
-    ye = _experts(p, xe, cfg.act_dtype).float() * gates[..., None]
-    y = torch.zeros((T, d), dtype=torch.float32, device=dev).index_add_(
-        0, tok_idx.reshape(-1), ye.reshape(-1, d))
+    # combine by gather: assignment a sits at slot inv[a] - offsets[e]
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(A, device=dev))
+    c_of = inv - offsets[expert_of]
+    flat = (expert_of * C + c_of).clamp(max=E * C - 1)
+    contrib = torch.where((c_of < C)[:, None], ye[flat], 0).float() \
+        * gate_of[:, None]
+    y = contrib.reshape(T, k, d).sum(1)
     return y.to(xf.dtype), aux
 
 

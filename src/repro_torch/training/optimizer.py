@@ -6,7 +6,9 @@ The optimizer state mirrors the parameter tree (nested dicts,
 0-d int32 ``step``, so a state crosses between the packages leaf for
 leaf. ``update`` is functional, as in JAX: it returns new parameters and
 a new state, computed under ``torch.no_grad()`` in f32 and cast back to
-each parameter's dtype. A schedule takes the step as a tensor and
+each parameter's dtype, one leaf at a time, so the f32 gradient and the
+update's temporaries of one leaf are alive at once, not of the whole
+tree (qwen2-moe-a2.7b on 4 layers, 2.9 B parameters, fits one card). A schedule takes the step as a tensor and
 returns a 0-d f32 tensor on its device: nothing here reads a value back
 to the host.
 """
@@ -65,25 +67,34 @@ class AdamW:
         step = state["step"] + 1
         gnorm = global_norm(grads)
         scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
-        grads = tree_map(lambda g: g.float() * scale, grads)
-        m = tree_map(lambda m, g: self.b1 * m + (1 - self.b1) * g,
-                     state["m"], grads)
-        v = tree_map(lambda v, g: self.b2 * v + (1 - self.b2) * g * g,
-                     state["v"], grads)
         sf = step.float()
         bc1 = 1 - self.b1 ** sf
         bc2 = 1 - self.b2 ** sf
         lr = self.lr(step)
+        moments = []
 
-        def upd(p, m, v):
-            mh = m / bc1
-            vh = v / bc2
-            delta = mh / (torch.sqrt(vh) + self.eps) \
-                + self.weight_decay * p.float()
-            return (p.float() - lr * delta).to(p.dtype)
+        def upd(p, g, m, v):
+            # JAX's expressions, op for op (b1 m + (1 - b1) g; b2 v + ((1
+            # - b2) g) g; m^ / (sqrt(v^) + eps) + wd p; p - lr delta),
+            # with the temporaries this function made reused in place (an
+            # input is never written: an f32 leaf's .float() is itself):
+            # at most three f32 copies of the leaf besides its new moments
+            g = g.float() * scale
+            m = (self.b1 * m).add_((1 - self.b1) * g)
+            v = (self.b2 * v).add_(((1 - self.b2) * g).mul_(g))
+            del g
+            moments.append((m, v))
+            delta = m / bc1
+            delta.div_((v / bc2).sqrt_().add_(self.eps))
+            pf = p.to(torch.float32, copy=True)
+            delta.add_(self.weight_decay * pf)
+            return pf.sub_(delta.mul_(lr)).to(p.dtype)
 
-        new_params = tree_map(upd, params, m, v)
-        return new_params, {"m": m, "v": v, "step": step}
+        new_params = tree_map(upd, params, grads, state["m"], state["v"])
+        it_m, it_v = (iter(t) for t in zip(*moments))
+        return new_params, {"m": tree_map(lambda _: next(it_m), params),
+                            "v": tree_map(lambda _: next(it_v), params),
+                            "step": step}
 
 
 def global_norm(tree) -> torch.Tensor:

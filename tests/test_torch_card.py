@@ -15,14 +15,16 @@ Tolerances: fp32 1e-4 (f32 arithmetic, sums in another order), bf16
 routes); the dequantize-matmuls and the SSD kernels relative to
 max|plain|. The paged decode kernel must equal the contiguous one
 exactly on the same logical data, on every route. Every kernel op
-but the flash and the add / norm RMSNorm ops refuses a backward pass: an
+for inference only (decode attention, the quantized matmuls, the SSD
+recurrence) refuses a backward pass: an
 input that requires grad gives outputs whose backward raises, and none
-gives the same outputs with no autograd node. The two backward kernels
-(flash attention: three launches; RMSNorm add / norm: rows, then the
-dscale reduction) match their plain versions and autograd of the plain
-forwards, bitwise repeatable; reduced llama3.2-1b trains 80 steps on the
-card (loss falling by more than 0.5, the first five losses equal to the
-CPU's) and ``cfg.remat`` on equals off bit for bit in bf16.
+gives the same outputs with no autograd node. The backward kernels
+(flash attention: three launches; RMSNorm add / norm and gated: rows,
+then the dscale reduction; the SSD dual form: seven launches) match
+their plain versions and autograd of the plain forwards, bitwise
+repeatable; reduced llama3.2-1b, mamba2-780m and jamba train on the
+card (loss falling, the first five losses equal to the CPU's) and
+``cfg.remat`` on equals off bit for bit in bf16 (llama, mamba2).
 The encoder-decoder's attention routes: the flash kernel non-causal at
 Lq != Lk (``layers.full_attention``) and the decode-attention kernel
 over a frozen memory's all-valid position row
@@ -827,13 +829,9 @@ def _grad_cases(dev):
     }
 
 
-#: the ops whose backward still raises: ROADMAP item 12b brings the
-#: gated norm's and the SSD kernels'; the rest are for inference only
-GRAD_OPS = ("rmsnorm_gated", "quant_matmul_int8", "quant_matmul_int4",
-            "ssd", "ssd_extend", "ssd_step", "decode_attention",
-            "paged_decode_attention")
-INFERENCE_ONLY = ("quant_matmul_int8", "quant_matmul_int4",
-                  "decode_attention", "paged_decode_attention")
+#: the ops whose backward raises: each is for inference only
+GRAD_OPS = ("quant_matmul_int8", "quant_matmul_int4", "ssd_extend",
+            "ssd_step", "decode_attention", "paged_decode_attention")
 
 
 @pytest.mark.cuda
@@ -842,9 +840,9 @@ def test_kernel_op_refuses_a_backward_on_card(op):
     """With no gradient asked for, the op launches straight: no autograd
     node on its outputs. With its first input requiring grad it returns
     the same outputs, bit for bit, through a node whose backward raises
-    (naming ROADMAP item 12b, or saying the op is for inference only)
-    instead of giving the inputs no gradient. The flash and the add /
-    norm RMSNorm ops have backward kernels (the tests below)."""
+    (saying the op is for inference only) instead of giving the inputs
+    no gradient. The flash, the RMSNorm (add, norm, gated) and the SSD
+    dual-form ops have backward kernels (the tests below)."""
     dev = _card()
     call, inputs = _grad_cases(dev)[op]
 
@@ -858,8 +856,7 @@ def test_kernel_op_refuses_a_backward_on_card(op):
     torch.cuda.synchronize()
     assert all(torch.equal(o.detach(), w) for o, w in zip(got, want))
     assert got[0].grad_fn is not None
-    why = "inference only" if op in INFERENCE_ONLY else "item 12b"
-    with pytest.raises(NotImplementedError, match=why):
+    with pytest.raises(NotImplementedError, match="inference only"):
         got[0].float().sum().backward()
 
 
@@ -978,13 +975,227 @@ def test_rmsnorm_backward_matches_plain_on_card(route, d):
                     assert _err(a, w) <= TOL[dt] * scale, _err(a, w)
 
 
-def _train_pair(dev, **kw):
-    """Reduced llama3.2-1b (``kw`` replaced) built on the card and on the
+#: (name, b, l, h, p, g, n, chunk, dtype, initial state, final-state
+#: gradient): chip_smoke.py's kernels_bwd shapes: mamba2-780m's train
+#: shape, jamba's heads, fp32, a carried state, groups
+SSD_BWD_CASES = [
+    ("mamba2_train", 4, 1024, 48, 64, 1, 128, 256, torch.bfloat16, False,
+     False),
+    ("jamba_heads", 1, 1024, 128, 128, 1, 128, 256, torch.bfloat16, False,
+     False),
+    ("fp32", 2, 512, 48, 64, 1, 128, 256, torch.float32, False, False),
+    ("state", 2, 512, 16, 64, 1, 128, 128, torch.bfloat16, True, True),
+    ("groups", 2, 512, 16, 32, 4, 64, 64, torch.bfloat16, False, True)]
+
+
+def _ssd_bwd_inputs(dev, b, l, h, p, g, n, dtype, init, seed=0):
+    """x, dt, A, B, C, D, s0 as the mixer makes them: x, B, C slices of
+    one conv-output row (strided), dt = softplus, A = -exp(A_log) over
+    1..16."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xbc = torch.randn((b, l, h * p + 2 * g * n), generator=gen,
+                      device=dev).to(dtype)
+    x = xbc[..., :h * p].unflatten(-1, (h, p))
+    B = xbc[..., h * p:h * p + g * n].unflatten(-1, (g, n))
+    C = xbc[..., h * p + g * n:].unflatten(-1, (g, n))
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, l, h), generator=gen, device=dev) - 3.0)
+    A = -torch.linspace(1.0, 16.0, h, device=dev)
+    D = torch.randn((h,), generator=gen, device=dev)
+    s0 = torch.randn((b, h, p, n), generator=gen, device=dev) \
+        if init else None
+    return x, dt, A, B, C, D, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_BWD_CASES, ids=lambda c: c[0])
+def test_ssd_backward_matches_plain_on_card(case):
+    """A backward through ``ssd_cuda`` runs ``ssd_bwd_cuda`` (one count a
+    call, seven launches): dx, ddt, dA, dB, dC, dD and the initial
+    state's gradient within the gates of max|plain| of
+    ``ref.ssd_backward_reference`` and of autograd of the plain forward
+    (f32) on the card, in x's, B's and C's dtypes; bitwise repeatable (no
+    atomics)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+
+    dev = _card()
+    _, b, l, h, p, g, n, chunk, dtype, init, dfin = case
+    x, dt, A, B, C, D, s0 = _ssd_bwd_inputs(dev, b, l, h, p, g, n, dtype,
+                                           init)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    dy = torch.randn((b, l, h, p), generator=gen, device=dev)
+    dfinal = torch.randn((b, h, p, n), generator=gen, device=dev) \
+        if dfin else None
+    ins = [x, dt, A, B, C, D] + ([s0] if init else [])
+    leaves = [t.detach().clone().requires_grad_() for t in ins]
+    reset_launch_counts()
+    y, fin = ssd_kernel.ssd_cuda(*leaves[:6], chunk=chunk,
+                                 initial_state=leaves[6] if init else None)
+    outs = [(y, dy)] + ([(fin, dfinal)] if dfin else [])
+    got = torch.autograd.grad([o for o, _ in outs], leaves,
+                              [t for _, t in outs])
+    assert launch_counts()["ssd_bwd"] == 1 and launch_counts()["ssd"] == 1
+    rep = ssd_kernel.ssd_bwd_cuda(x, dt, A, B, C, D, dy, dfinal,
+                                  chunk=chunk, initial_state=s0)
+    want = ssd_ref.ssd_backward_reference(x, dt, A, B, C, D, dy, dfinal,
+                                          chunk=chunk, initial_state=s0)
+    auto = [t.detach().float().requires_grad_() for t in ins]
+    ya, fa = ssd_ref.ssd_reference(*auto[:6], chunk=chunk,
+                                   initial_state=auto[6] if init else None)
+    autos = torch.autograd.grad([ya] + ([fa] if dfin else []), auto,
+                                [dy] + ([dfinal] if dfin else []))
+    torch.cuda.synchronize()
+    rep = [t for t in rep if t is not None]
+    want = [t for t in want if t is not None]
+    assert all(torch.equal(a, r) for a, r in zip(got, rep))
+    tol = TOL[dtype]
+    for a, w, u in zip(got, want, autos):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert torch.isfinite(a).all()
+        scale = w.float().abs().max().item()
+        assert _err(a, w) <= tol * scale, (_err(a, w), scale)
+        assert _err(a, u) <= tol * scale, (_err(a, u), scale)
+
+
+#: (N, d, z's row stride, dtype): mamba2's train rows (z of a 6448-wide
+#: in-projection row), jamba's d_inner (z of a 33152-wide row), fp32
+GATED_BWD_CASES = [(4096, 3072, 6448, torch.bfloat16),
+                   (1024, 16384, 33152, torch.bfloat16),
+                   (4096, 3072, 6448, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GATED_BWD_CASES,
+                         ids=lambda c: "N{}_d{}_{}".format(
+                             c[0], c[1], str(c[3])[6:]))
+def test_gated_rmsnorm_backward_matches_plain_on_card(case):
+    """A backward through ``gated_rmsnorm_cuda`` runs
+    ``gated_rmsnorm_bwd_cuda`` (one count a call): dy (f32, the SSD
+    output's), dz (read in place from its strided row, given back
+    contiguous) and dscale within the gates of max|plain| of
+    ``ref.gated_rmsnorm_backward_reference`` and of autograd of the plain
+    forward (f32); bitwise repeatable (no atomics)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    dev = _card()
+    N, d, stride, dtype = case
+    gen = torch.Generator(device=dev).manual_seed(d)
+    y = torch.randn((N, d), generator=gen, device=dev)
+    z = torch.randn((N, stride), generator=gen, device=dev).to(dtype)[:, :d]
+    s = (1 + 0.1 * torch.randn((d,), generator=gen, device=dev)).to(dtype)
+    dout = torch.randn((N, d), generator=gen, device=dev).to(dtype)
+    leaves = [t.clone().requires_grad_() for t in (y, z, s)]
+    reset_launch_counts()
+    got = torch.autograd.grad(norm_kernel.gated_rmsnorm_cuda(*leaves),
+                              leaves, dout)
+    assert launch_counts()["rmsnorm_gated_bwd"] == 1
+    rep = norm_kernel.gated_rmsnorm_bwd_cuda(y, z, s, dout)
+    want = norm_ref.gated_rmsnorm_backward_reference(y, z, s, dout)
+    auto = [t.float().requires_grad_() for t in (y, z, s)]
+    autos = torch.autograd.grad(norm_ref.gated_rmsnorm_reference(*auto),
+                                auto, dout.float())
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, r) for a, r in zip(got, rep))
+    for a, w, u in zip(got, want, autos):
+        assert a.dtype == w.dtype and torch.isfinite(a).all()
+        scale = w.float().abs().max().item()
+        assert _err(a, w) <= TOL[dtype] * scale, (_err(a, w), scale)
+        assert _err(a, u) <= TOL[dtype] * scale, (_err(a, u), scale)
+
+
+def _train_pair(dev, arch="llama3.2-1b", **kw):
+    """Reduced ``arch`` (``kw`` replaced) built on the card and on the
     CPU."""
     from repro_torch.configs import get_arch
     from repro_torch.models.model import build
-    cfg = get_arch("llama3.2-1b", variant="reduced").replace(**kw)
+    cfg = get_arch(arch, variant="reduced").replace(**kw)
     return build(cfg, device=dev), build(cfg, device="cpu")
+
+
+#: (arch, steps, the fall of the loss asked, first five to last five)
+SSM_TRAIN_CASES = [("mamba2-780m", 60, 1.0),
+                   ("jamba-1.5-large-398b", 60, 0.05)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSM_TRAIN_CASES, ids=lambda c: c[0])
+def test_reduced_ssm_stack_trains_on_card(case):
+    """Reduced mamba2-780m and jamba-1.5-large-398b (fp32: the dual
+    form's ``simt`` route, the f32 norms) train on the card through the
+    SSD, gated-norm, RMSNorm and (jamba) flash backward kernels: the
+    mean of the last five losses below the first five's by the case's
+    margin (the CPU's own run falls by 3.4 and 0.27 over 80 steps), the
+    first five losses equal to the CPU's on the same weights and batches
+    within 1e-4 relative, launches a step as the stack asks."""
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.data.pipeline import batches_for
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import block_spec, n_blocks
+    from repro_torch.training.optimizer import AdamW, cosine_schedule
+    from repro_torch.training.train_loop import init_train_state, train
+
+    dev = _card()
+    arch, steps, fall = case
+    card, cpu = _train_pair(dev, arch)
+    opt = AdamW(lr=cosine_schedule(3e-3, 5, 80))
+    state = init_train_state(card, opt, seed=0)
+    cpu_state = tree_map(lambda t: t.cpu(), state)
+    reset_launch_counts()
+    _, hist = train(card, opt, batches_for(card.cfg, 8, 64, seed=1),
+                    steps=steps, log_every=1, state=state)
+    counts = launch_counts()
+    n_ssm = sum(mixer == "ssm" for mixer, _ in block_spec(card.cfg)) \
+        * n_blocks(card.cfg)
+    assert counts["ssd_bwd"] == counts["ssd"] == steps * n_ssm
+    assert counts["rmsnorm_gated_bwd"] == steps * n_ssm
+    losses = [h["loss"] for h in hist]
+    assert all(np.isfinite(losses))
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]) - fall, losses
+    _, cpu_hist = train(cpu, opt, batches_for(cpu.cfg, 8, 64, seed=1),
+                        steps=5, log_every=1, state=cpu_state)
+    for a, b in zip(cpu_hist, hist[:5]):
+        assert abs(a["loss"] - b["loss"]) <= 1e-4 * a["loss"], (a, b)
+
+
+@pytest.mark.cuda
+def test_ssm_remat_on_equals_off_on_card():
+    """Reduced mamba2-780m in bf16 (the dual form's ``mma`` route): with
+    ``cfg.remat`` the SSD and gated-norm forwards run twice a layer, and
+    the loss, the gradient norm and the parameters after a step are the
+    same bits with it on and off."""
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.data.pipeline import batches_for
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.training.optimizer import AdamW, constant_schedule
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+
+    dev = _card()
+    opt = AdamW(lr=constant_schedule(1e-3))
+    out = []
+    for remat in (False, True):
+        model, _ = _train_pair(dev, "mamba2-780m", dtype="bfloat16",
+                               param_dtype="bfloat16", remat=remat)
+        batch = next(batches_for(model.cfg, 4, 128, seed=0))
+        reset_launch_counts()
+        state, m = make_train_step(model, opt)(
+            init_train_state(model, opt, seed=0), batch)
+        torch.cuda.synchronize()
+        out.append((state, m, launch_counts()))
+    (s0, m0, c0), (s1, m1, c1) = out
+    nl = model.cfg.n_layers
+    assert c0["ssd"] == nl and c1["ssd"] == 2 * nl
+    assert c0["ssd_bwd"] == c1["ssd_bwd"] == nl
+    assert c0["rmsnorm_gated_bwd"] == c1["rmsnorm_gated_bwd"] == nl
+    # the forward's norms (ln1 and the gated norm a layer, ln_f), then the
+    # recomputed block's two a layer
+    assert c0["rmsnorm"] == 2 * nl + 1 and c1["rmsnorm"] == 4 * nl + 1
+    assert torch.equal(m0["loss"], m1["loss"])
+    assert torch.equal(m0["grad_norm"], m1["grad_norm"])
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(s0["params"]), tree_leaves(s1["params"])))
 
 
 @pytest.mark.cuda

@@ -284,7 +284,8 @@ def test_rmsnorm_plan_covers_a_row_without_a_spare_warp(N, d, dtype):
 def test_autograd_launch_enters_a_node_only_for_a_gradient():
     """``_autograd.launch`` calls the launch straight unless grad mode is
     on and an input requires grad; then the outputs carry a node whose
-    backward raises, with the values unchanged."""
+    backward raises, saying the op is for inference only (every op that
+    still runs through ``launch`` is), with the values unchanged."""
     def fn(a, b, k):
         return a * b + k, a - b
 
@@ -299,18 +300,20 @@ def test_autograd_launch_enters_a_node_only_for_a_gradient():
     assert all(o.grad_fn is not None for o in got)
     assert all(torch.equal(o.detach(), w) for o, w in zip(got, out))
     with pytest.raises(NotImplementedError,
-                       match="op has no backward kernel yet.*item 12"):
+                       match="op has no backward kernel: the op is for "
+                             "inference only"):
         got[1].sum().backward()
 
 
 @pytest.mark.parametrize("route", ["add", "norm", "gated"])
 def test_rmsnorm_wrappers_refuse_a_backward(route, monkeypatch):
     """Both norm wrappers put their launch in an autograd node only when
-    an input requires grad. The gated route's node refuses a backward
-    (ROADMAP item 12b); the add and norm routes' nodes run the backward
-    launch (``fused_rmsnorm_bwd_cuda``), whose gradients equal autograd's
-    of the plain forward. (The launches, checks included, are replaced
-    by the plain versions on CPU tensors here.)"""
+    an input requires grad. The add and norm routes' nodes run their
+    backward launch (``fused_rmsnorm_bwd_cuda``), the gated route's its
+    own (``gated_rmsnorm_bwd_cuda``), once each, and the gradients equal
+    autograd's of the plain forward (the gated route's of y, z and the
+    scale). (The launches, checks included, are replaced by the plain
+    versions on CPU tensors here.)"""
     def plain(route_, a, b, scale, eps):
         if route_ == "gated":
             return norm_ref.gated_rmsnorm_reference(a, b, scale, eps)
@@ -324,8 +327,15 @@ def test_rmsnorm_wrappers_refuse_a_backward(route, monkeypatch):
         return norm_ref.fused_rmsnorm_backward_reference(
             x_, residual, scale_, dy, dt, eps)
 
+    def plain_gated_bwd(y_, z_, scale_, dout, eps=1e-5):
+        bwd_calls.append("gated")
+        return norm_ref.gated_rmsnorm_backward_reference(y_, z_, scale_,
+                                                         dout, eps)
+
     monkeypatch.setattr(norm_kernel, "_launch", plain)
     monkeypatch.setattr(norm_kernel, "fused_rmsnorm_bwd_cuda", plain_bwd)
+    monkeypatch.setattr(norm_kernel, "gated_rmsnorm_bwd_cuda",
+                        plain_gated_bwd)
     g = torch.Generator().manual_seed(1)
     x, r = torch.randn(3, 64, generator=g), torch.randn(3, 64, generator=g)
     scale = torch.ones(64)
@@ -342,8 +352,14 @@ def test_rmsnorm_wrappers_refuse_a_backward(route, monkeypatch):
     got = call(xg, r)
     assert got.grad_fn is not None and torch.equal(got.detach(), want)
     if route == "gated":
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            got.sum().backward()
+        rg, sg = r.clone().requires_grad_(), scale.clone().requires_grad_()
+        got = norm_kernel.gated_rmsnorm_cuda(xg, rg, sg)
+        got.sum().backward()
+        assert bwd_calls == ["gated"]
+        leaves = [t.clone().requires_grad_() for t in (x, r, scale)]
+        norm_ref.gated_rmsnorm_reference(*leaves).sum().backward()
+        for a, w in zip((xg, rg, sg), leaves):
+            torch.testing.assert_close(a.grad, w.grad, rtol=1e-5, atol=1e-6)
         return
     got.sum().backward()
     assert bwd_calls == [route == "add"]
@@ -351,6 +367,78 @@ def test_rmsnorm_wrappers_refuse_a_backward(route, monkeypatch):
     norm_ref.fused_rmsnorm_reference(
         xp, r if route == "add" else None, scale)[0].sum().backward()
     torch.testing.assert_close(xg.grad, xp.grad, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("final_grad", [False, True])
+def test_ssd_wrapper_runs_its_backward_launch(final_grad, monkeypatch):
+    """``ssd_cuda`` puts its launch in an autograd node only when an input
+    requires grad; the node's backward runs the backward launch
+    (``ssd_bwd_cuda``) once, with the forward's inputs, chunk and initial
+    state, and its gradients of x, dt, A, B, C, D and the initial state
+    equal autograd's of ``ssd_reference`` (with and without a gradient
+    of the final state). (The launches are replaced by the plain
+    versions on CPU tensors here.)"""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+
+    calls = []
+
+    def plain_fwd(x, dt, A, B, C, D, chunk, initial_state):
+        return ssd_ref.ssd_reference(x, dt, A, B, C, D, chunk=chunk,
+                                     initial_state=initial_state)
+
+    def plain_bwd(x, dt, A, B, C, D, dy, dfinal=None, *, chunk=64,
+                  initial_state=None):
+        calls.append((chunk, dfinal is not None))
+        return ssd_ref.ssd_backward_reference(
+            x, dt, A, B, C, D, dy, dfinal, chunk=chunk,
+            initial_state=initial_state)
+
+    monkeypatch.setattr(ssd_kernel, "_launch_chunk", plain_fwd)
+    monkeypatch.setattr(ssd_kernel, "ssd_bwd_cuda", plain_bwd)
+    g = torch.Generator().manual_seed(3)
+    b, l, h, p, gr, n = 2, 32, 4, 8, 2, 16
+    ins = [torch.randn(b, l, h, p, generator=g),
+           0.05 + 0.1 * torch.rand(b, l, h, generator=g),
+           -0.5 - torch.rand(h, generator=g),
+           torch.randn(b, l, gr, n, generator=g),
+           torch.randn(b, l, gr, n, generator=g), torch.randn(h, generator=g),
+           torch.randn(b, h, p, n, generator=g)]
+    want = ssd_kernel.ssd_cuda(*ins[:6], chunk=8, initial_state=ins[6])
+    assert all(o.grad_fn is None for o in want)
+    leaves = [t.clone().requires_grad_() for t in ins]
+    got = ssd_kernel.ssd_cuda(*leaves[:6], chunk=8, initial_state=leaves[6])
+    assert all(o.grad_fn is not None for o in got)
+    assert all(torch.equal(o.detach(), w) for o, w in zip(got, want))
+    loss = got[0].square().sum() + (got[1].sum() if final_grad else 0.0)
+    loss.backward()
+    assert calls == [(8, final_grad)]
+    auto = [t.clone().requires_grad_() for t in ins]
+    y, fin = ssd_ref.ssd_reference(*auto[:6], chunk=8, initial_state=auto[6])
+    (y.square().sum() + (fin.sum() if final_grad else 0.0)).backward()
+    for a, w in zip(leaves, auto):
+        torch.testing.assert_close(a.grad, w.grad, rtol=1e-5, atol=1e-5)
+
+
+def test_ssd_extend_wrapper_refuses_a_backward(monkeypatch):
+    """The recurrence is for inference only: its node (and so
+    ``ssd_step``'s, the same launch at T = 1) refuses a backward."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+
+    def plain(state, x, dt, A, B, C, D, out, ckpt):
+        return ssd_ref.ssd_extend_reference(state, x, dt, A, B, C, D)
+
+    monkeypatch.setattr(ssd_kernel, "_launch_extend", plain)
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(1, 3, 2, 8, generator=g).requires_grad_()
+    y, _ = ssd_kernel.ssd_extend_cuda(
+        torch.zeros(1, 2, 8, 16), x, torch.full((1, 3, 2), 0.1),
+        -torch.ones(2), torch.randn(1, 3, 1, 16, generator=g),
+        torch.randn(1, 3, 1, 16, generator=g))
+    assert "ssd_extend" in _autograd.INFERENCE_ONLY
+    with pytest.raises(NotImplementedError, match="inference only"):
+        y.sum().backward()
 
 
 # --------------------------------------------------------------------- #
