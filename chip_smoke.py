@@ -160,10 +160,13 @@ Training: ``kernels_bwd`` holds the four backward kernels, which
 replace no TPU kernel (the JAX package differentiates its plain
 attention, norms and SSD scan), against their plain backwards and
 autograd of the plain forwards: the flash backward (D, dK/dV, dQ from
-the forward's LSE) at llama3.2-1b's train shape (B 4, L 1024, Hq 32, Hkv
-8, hd 64), hd 128 at G 1, hd 160, a window of 256, non-causal Lq 128 /
-Lk 1024 and fp32; the RMSNorm backward (add and norm routes) at d 2048,
-N 4096 in bf16 and fp32 and at d 5120; the SSD dual form's backward at
+the forward's LSE; bf16 on its tensor-core ``mma`` route, fp32 on
+``simt``) at llama3.2-1b's train shape (B 4, L 1024, Hq 32, Hkv 8, hd
+64), hd 128 at G 1, hd 160, a window of 256, non-causal Lq 128 / Lk
+1024, L 1000 at hd 40 (a ragged key tile, zero-padded dimensions), G 8
+with a window of 96 and fp32; the RMSNorm backward (add and norm routes)
+at d 2048, N 4096 in bf16 and fp32, N 4095 and d 5120; each record
+names its route and plan (``plan_bwd``); the SSD dual form's backward at
 mamba2-780m's train shape (b 4, l 1024, h 48, p 64, n 128, chunk 256),
 jamba's heads (h 128, p 128), fp32, a carried state and groups; the
 gated norm's backward at N 4096, d 3072 (z of a 6448-wide row), d
@@ -198,7 +201,13 @@ times another checkout's norm wrapper alone (``norm_host_cost``);
     python3 chip_smoke.py --ssd-compare SRC
 
 times another checkout's dual form at the kernels phase's two bf16
-shapes and its ``prefill_ssm`` (``ssd_compare``).
+shapes and its ``prefill_ssm`` (``ssd_compare``);
+
+    python3 chip_smoke.py --bwd-compare SRC
+
+times another checkout's flash-attention and RMSNorm add / norm
+backward kernels at the kernels_bwd phase's cases, each held against
+its plain backward (``bwd_compare``).
 """
 from __future__ import annotations
 
@@ -269,7 +278,8 @@ PROFILE_TEMPLATES = (
     (("ssd_extend",), ("ssd_extend_kernel",)),
     (("ssd",), ("ssd_chunk_out_kernel", "ssd_chunk_kernel")),
     (("flash_attention",), ("flash_mma_kernel", "flash_f32_kernel")),
-    (("flash_attention_bwd",), ("flash_bwd_dq_kernel",)),
+    (("flash_attention_bwd",), ("flash_bwd_dq_mma_kernel",
+                                "flash_bwd_dq_kernel")),
     (("rmsnorm_bwd",), ("rmsnorm_bwd_kernel",)),
     (("rmsnorm_gated_bwd",), ("rmsnorm_gated_bwd_kernel",)),
     (("ssd_bwd",), ("ssd_bwd_key_kernel",)))
@@ -5529,6 +5539,94 @@ def norm_host_cost(torch, src):
     return 0
 
 
+def _launch_ms(torch, fn, calls=5):
+    """Device ms a call of each kernel template that ``fn`` launches, from
+    the profiler over ``calls`` calls (L2 warm)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+        if t and "Memset" not in e.key:
+            name = e.key.replace("(anonymous namespace)::", "")
+            out[name.replace("void ", "").split("(")[0]] = t / 1e3 / calls
+    return out
+
+
+def bwd_compare(torch, src):
+    """``python3 chip_smoke.py --bwd-compare SRC``: the flash-attention
+    and RMSNorm add / norm backward kernels of the ``repro_torch`` under
+    SRC at ``FLASH_BWD_CASES`` and ``NORM_BWD_CASES`` (the kernels_bwd
+    phase's inputs): kernel ms, the largest error relative to max|plain|
+    of the plain backward, a bitwise repeat; one JSON line a case, after
+    a line of the backward templates' ptxas registers and spills, then
+    the card's name and power limit. Run on two checkouts in one chip
+    call (a parent unpacked with ``git archive`` and this one), it
+    compares their kernels on one card. Exits 1 where a case fails its
+    gate."""
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda, flash_attention_lse_cuda)
+    from repro_torch.kernels.flash_attention.ref import \
+        attention_backward_reference
+    from repro_torch.kernels.rmsnorm.kernel import fused_rmsnorm_bwd_cuda
+    from repro_torch.kernels.rmsnorm.ref import \
+        fused_rmsnorm_backward_reference
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    emit({"phase": "bwd_compare_build", "src": str(src),
+          "ptxas": {k: v for k, v in
+                    ptxas_table(_build.BUILD_LOG.values()).items()
+                    if "flash_bwd_" in k or "rmsnorm_bwd_kernel" in k}})
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    tr = lambda t: t.transpose(1, 2)  # noqa: E731
+    ok = True
+
+    def report(kernel, case, dname, fn, want):
+        nonlocal ok
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        err = max(_rel_to_max(a, w) for a, w in zip(got, want))
+        rep = all(torch.equal(a, b) for a, b in zip(got, again))
+        fin = all(bool(torch.isfinite(a).all().item()) for a in got)
+        passed = err <= TOL[dname] and rep and fin
+        ok = ok and passed
+        emit({"phase": "bwd_compare", "src": str(src), "kernel": kernel,
+              "case": case, "dtype": dname, "rel_err": err,
+              "bitwise_repeat": rep, "finite": fin, "ok": passed,
+              "kernel_ms": median_ms(torch, fn, flush),
+              "launch_ms": _launch_ms(torch, fn)})
+
+    for case in FLASH_BWD_CASES:
+        name, dname, causal, window = case[0], case[6], case[7], case[8]
+        q, k, v, do, _ = _flash_bwd_inputs(torch, case)
+        o, lse = flash_attention_lse_cuda(q, k, v, causal=causal,
+                                          window=window)
+        want = [tr(w) for w in attention_backward_reference(
+            tr(q), tr(k), tr(v), tr(do), causal=causal, window=window)]
+        report("flash_attention_bwd", name, dname,
+               lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                causal=causal,
+                                                window=window), want)
+        del q, k, v, do, o, lse, want
+    for name, N, d, route, dname in NORM_BWD_CASES:
+        x, r, s, dy, dt = _norm_bwd_inputs(torch, N, d, route, dname)
+        report("rmsnorm_bwd", name, dname,
+               lambda: fused_rmsnorm_bwd_cuda(x, r, s, dy, dt, 1e-5),
+               fused_rmsnorm_backward_reference(x, r, s, dy, dt, 1e-5))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    return 0 if ok else 1
+
+
 def ssd_compare(torch, src):
     """``python3 chip_smoke.py --ssd-compare SRC``: the dual form of the
     ``repro_torch`` under SRC, bf16 at the kernels phase's two timed
@@ -5576,6 +5674,8 @@ FLASH_BWD_CASES = (
     ("window256", 2, 1024, 32, 8, 64, "bfloat16", True, 256),
     ("non_causal_Lq128_Lk1024", 1, 128, 16, 16, 64, "bfloat16", False, 0,
      1024),
+    ("L1000_hd40", 2, 1000, 32, 8, 40, "bfloat16", True, 0),
+    ("G8_window96", 2, 1024, 64, 8, 64, "bfloat16", True, 96),
     ("fp32_hd64", 2, 1024, 32, 8, 64, "float32", True, 0))
 #: (name, N, d, route, dtype): llama's train rows first
 NORM_BWD_CASES = (
@@ -5583,6 +5683,7 @@ NORM_BWD_CASES = (
     ("N4096_d2048_norm", 4096, 2048, "norm", "bfloat16"),
     ("N4096_d2048_add_fp32", 4096, 2048, "add", "float32"),
     ("N4096_d2048_norm_fp32", 4096, 2048, "norm", "float32"),
+    ("N4095_d2048_add", 4095, 2048, "add", "bfloat16"),
     ("N2048_d5120_add", 2048, 5120, "add", "bfloat16"))
 
 
@@ -5601,6 +5702,38 @@ def _fwd_bwd_minus_fwd(torch, flush, fwd, leaves, grads):
     return median_ms(torch, both, flush) - t_fwd
 
 
+def _flash_bwd_inputs(torch, case):
+    """q, k, v, dO of a ``FLASH_BWD_CASES`` entry on the card, from the
+    seed, and the case's Lk."""
+    name, B, L, Hq, Hkv, hd, dname, causal, window, *lk = case
+    Lk = lk[0] if lk else L
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    dtype = getattr(torch, dname)
+    q = torch.randn((B, L, Hq, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Lk, Hkv, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Lk, Hkv, hd), generator=g, device=dev).to(dtype)
+    do = torch.randn((B, L, Hq, hd), generator=g, device=dev).to(dtype)
+    return q, k, v, do, Lk
+
+
+def _norm_bwd_inputs(torch, N, d, route, dname):
+    """x, the residual, the scale, dy and dt of a ``NORM_BWD_CASES``
+    entry on the card, from the seed (no residual or dt on the norm
+    route)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    dtype = getattr(torch, dname)
+    x = torch.randn((N, d), generator=g, device=dev).to(dtype)
+    r = torch.randn((N, d), generator=g, device=dev).to(dtype) \
+        if route == "add" else None
+    s = (1 + 0.1 * torch.randn((d,), generator=g, device=dev)).to(dtype)
+    dy = torch.randn((N, d), generator=g, device=dev).to(dtype)
+    dt = torch.randn((N, d), generator=g, device=dev).to(dtype) \
+        if route == "add" else None
+    return x, r, s, dy, dt
+
+
 def flash_bwd_cases(torch, flush):
     """The flash backward kernels (``flash_attention_bwd_cuda``: D, dK/dV,
     dQ) against the plain backward (``ref.attention_backward_reference``)
@@ -5613,22 +5746,17 @@ def flash_bwd_cases(torch, flush):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_bwd_cuda, flash_attention_lse_cuda, plan)
+        flash_attention_bwd_cuda, flash_attention_lse_cuda, plan_bwd)
     from repro_torch.kernels.flash_attention.ref import (
         _mask, attention_backward_reference, attention_reference)
 
     dev = torch.device("cuda")
     out, errs = [], []
-    for name, B, L, Hq, Hkv, hd, dname, causal, window, *lk in \
-            FLASH_BWD_CASES:
-        Lk = lk[0] if lk else L
+    for case in FLASH_BWD_CASES:
+        name, B, L, Hq, Hkv, hd, dname, causal, window = case[:9]
+        q, k, v, do, Lk = _flash_bwd_inputs(torch, case)
         G = Hq // Hkv
-        g = torch.Generator(device=dev).manual_seed(SEED)
-        dtype = getattr(torch, dname)
-        q = torch.randn((B, L, Hq, hd), generator=g, device=dev).to(dtype)
-        k = torch.randn((B, Lk, Hkv, hd), generator=g, device=dev).to(dtype)
-        v = torch.randn((B, Lk, Hkv, hd), generator=g, device=dev).to(dtype)
-        do = torch.randn((B, L, Hq, hd), generator=g, device=dev).to(dtype)
+        dtype = q.dtype
         o, lse = flash_attention_lse_cuda(q, k, v, causal=causal,
                                           window=window)
         tr = lambda t: t.transpose(1, 2)  # noqa: E731
@@ -5672,7 +5800,7 @@ def flash_bwd_cases(torch, flush):
                "case": name, "dtype": dname, "B": B, "L": L, "Lk": Lk,
                "Hq": Hq, "Hkv": Hkv, "hd": hd, "causal": causal,
                "window": window,
-               "plan": plan(B, L, Hq, Hkv, hd, dtype)._asdict(),
+               "plan": plan_bwd(B, L, Lk, Hq, Hkv, hd, dtype)._asdict(),
                "live_pairs": pairs, "max_abs_err": err,
                "rel_err_vs_autograd": err_auto, "tol_rel": TOL[dname],
                "bitwise_repeat": repeat, "ok": ok,
@@ -5703,23 +5831,16 @@ def norm_bwd_cases(torch, flush):
     x, the residual, dy, dt, the scale, dx and dscale once (bytes)."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.rmsnorm.kernel import fused_rmsnorm_bwd_cuda
+    from repro_torch.kernels.rmsnorm.kernel import (fused_rmsnorm_bwd_cuda,
+                                                    plan_bwd)
     from repro_torch.kernels.rmsnorm.ref import (
         fused_rmsnorm_backward_reference, fused_rmsnorm_reference)
 
-    dev = torch.device("cuda")
     eps = 1e-5
     out, errs = [], []
     for name, N, d, route, dname in NORM_BWD_CASES:
-        g = torch.Generator(device=dev).manual_seed(SEED)
-        dtype = getattr(torch, dname)
-        x = torch.randn((N, d), generator=g, device=dev).to(dtype)
-        r = torch.randn((N, d), generator=g, device=dev).to(dtype) \
-            if route == "add" else None
-        s = (1 + 0.1 * torch.randn((d,), generator=g, device=dev)).to(dtype)
-        dy = torch.randn((N, d), generator=g, device=dev).to(dtype)
-        dt = torch.randn((N, d), generator=g, device=dev).to(dtype) \
-            if route == "add" else None
+        x, r, s, dy, dt = _norm_bwd_inputs(torch, N, d, route, dname)
+        dtype = x.dtype
 
         def kernel():
             return fused_rmsnorm_bwd_cuda(x, r, s, dy, dt, eps)
@@ -5755,6 +5876,7 @@ def norm_bwd_cases(torch, flush):
             return (F.rms_norm(lib[0], (d,), lib[1], eps),)
         rec = {"phase": "kernels_bwd", "kernel": "rmsnorm_bwd", "case": name,
                "route": route, "dtype": dname, "N": N, "d": d,
+               "plan": plan_bwd(N, d, dtype, route)._asdict(),
                "max_abs_err": err, "rel_err_vs_autograd": err_auto,
                "tol_rel": TOL[dname], "bitwise_repeat": repeat, "ok": ok,
                "kernel_ms": median_ms(torch, kernel, flush),
@@ -6328,6 +6450,8 @@ def main() -> int:
         return norm_host_cost(torch, Path(sys.argv[2]).resolve())
     if sys.argv[1:2] == ["--ssd-compare"] and len(sys.argv) == 3:
         return ssd_compare(torch, Path(sys.argv[2]).resolve())
+    if sys.argv[1:2] == ["--bwd-compare"] and len(sys.argv) == 3:
+        return bwd_compare(torch, Path(sys.argv[2]).resolve())
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build

@@ -115,8 +115,9 @@ __device__ __forceinline__ void set_elem(Raw<T, E>& u, int i, float v) {
 
 // E elements of type S at p into u, zeros past `valid`: 16-byte loads
 // (8 bytes for four bf16) when `vec` and the unit is whole, else
-// element by element.
-template <typename S, int E>
+// element by element. STREAM: a read the kernel makes once (the
+// backward's rows), marked evict-first.
+template <typename S, int E, bool STREAM = false>
 __device__ __forceinline__ void load(Raw<S, E>& u, const S* __restrict__ p,
                                      bool vec, int valid) {
   constexpr int W = Raw<S, E>::W;
@@ -124,7 +125,8 @@ __device__ __forceinline__ void load(Raw<S, E>& u, const S* __restrict__ p,
     if constexpr (W % 4 == 0) {
 #pragma unroll
       for (int i = 0; i < W / 4; ++i) {
-        const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + i);
+        const uint4* q = reinterpret_cast<const uint4*>(p) + i;
+        const uint4 v = STREAM ? __ldcs(q) : __ldg(q);
         u.w[4 * i] = v.x;
         u.w[4 * i + 1] = v.y;
         u.w[4 * i + 2] = v.z;
@@ -192,8 +194,9 @@ __device__ __forceinline__ uint32_t pack(const float* f, bf16) {
 }
 
 // E = 16 / sizeof(T) values to p in T: one 16-byte store when `vec` and
-// the unit is whole, else element by element up to `valid`.
-template <typename T, int E>
+// the unit is whole, else element by element up to `valid`. STREAM: a
+// store marked evict-first (the backward's dx).
+template <typename T, int E, bool STREAM = false>
 __device__ __forceinline__ void store(T* __restrict__ p, bool vec,
                                       int valid, const float* f) {
   constexpr int PER_WORD = 4 / static_cast<int>(sizeof(T));
@@ -203,7 +206,10 @@ __device__ __forceinline__ void store(T* __restrict__ p, bool vec,
     w.y = pack(f + PER_WORD, T());
     w.z = pack(f + 2 * PER_WORD, T());
     w.w = pack(f + 3 * PER_WORD, T());
-    *reinterpret_cast<uint4*>(p) = w;
+    if constexpr (STREAM)
+      __stcs(reinterpret_cast<uint4*>(p), w);
+    else
+      *reinterpret_cast<uint4*>(p) = w;
   } else {
 #pragma unroll
     for (int i = 0; i < E; ++i) {
@@ -374,24 +380,54 @@ int by_mode(int mode, int nv, const Args& g, cudaStream_t st) {
 // buffer for the serve path's launches to carry. dt, the gradient of the
 // add route's sum output, may be absent.
 //
-// Two launches. rmsnorm_bwd_kernel: BWD_BLOCKS blocks (fewer when N is
-// smaller) of BWD_THREADS threads walk the rows, block j rows j, j +
-// blocks, ...; for each row one pass reduces sum(t^2) and sum(t g)
-// (warp butterflies, then the warps in order), a second pass writes dx
-// and adds dy t^ into the block's f32 dscale partial sums in shared
-// memory (a thread its own columns). Each block stores its partial row
-// of d sums. rmsnorm_dscale_kernel then sums the blocks' rows for each
-// column in block order and stores dscale in the scale's type. No
-// atomics: the gradients are the same bits every run.
+// Two launches. rmsnorm_bwd_kernel maps rows to threads as the forward
+// does (the wrapper's plan_bwd): a thread owns NV 16-byte units of its
+// row (unit k * tpr + j), a row tpr threads, a block `rows` rows; block i
+// walks rows i * rows + slot, then a grid's worth of rows further, and so
+// on, one block an SM. Each row is read once, in 16-byte units where the
+// wrapper found the operand aligned.
+// HOLD, rows of up to BWD_HOLD_UNITS units a lane of BWD_HOLD_THREADS
+// threads (d 8192 bf16, 4096 f32; d 2048 bf16 is 2 units a lane of four
+// warps): the scale's units are loaded once (a thread's columns are the
+// same for every row); every unit of x, the residual, dy and dt is
+// loaded before any arithmetic (16-byte loads, all in flight together,
+// marked evict-first: they are read once), as the forward loads, and the
+// raw words stay in registers (t = x (+ residual) in f32 recomputed
+// where it is used) while sum(t^2) and sum(t g) are reduced: the warp's
+// butterfly, then the row's warps in order through shared memory behind
+// a named barrier of the row's own warps, so the rows of a block do not
+// wait for each other. Then dx is written. A slot keeps two rows in
+// flight: the next row's loads are issued before this row's sums are
+// exchanged. Each thread keeps its columns' dscale partial sums in
+// registers over the rows it visits; at the end a block sums its row
+// slots in slot order into its partial row of d sums.
+// Wider rows (not HOLD: 8 units a lane, one row a block of up to 512
+// threads): the same two passes a unit at a time, the second re-reading
+// the row's units from L1 or L2, and the dscale sums in shared memory,
+// each thread its own columns.
+// rmsnorm_dscale_kernel then sums the blocks' rows for each column in
+// block order and stores dscale in the scale's type. No atomics: the
+// gradients are the same bits every run.
 //
 // What bounds it: bytes (x, the residual, dy, dt read once, dx written
-// once; the partials are a few MB); the second pass re-reads a row that
-// its block has just read, from L1 or L2.
+// once); the partial rows (132 x d f32, 1 MB at d 2048) are summed by a
+// second launch of d threads.
 constexpr int BWD_THREADS = 256;
 constexpr int BWD_BLOCKS = 264;       // 2 x the H100's 132 SMs
+constexpr int BWD_HOLD_THREADS = 256; // a block of the register route
+constexpr int BWD_HOLD_UNITS = 4;     // units a lane on the register route
+constexpr int BWD_WIDE_THREADS = 512; // a block (one row) of the wide route
+constexpr int BWD_WIDE_UNITS = 8;     // units a lane on the wide route
 // flags of the backward: the residual and dt present, the scale in f32;
-// the gated route's y in f32
+// the gated route's y in f32; the add / norm route's 16-byte paths
 constexpr int B_RES = 1, B_DT = 2, B_SF32 = 4, B_YF32 = 8;
+constexpr int BV_X = 16, BV_R = 32, BV_DY = 64, BV_DT = 128, BV_S = 256,
+              BV_DX = 512;
+
+// the threads of row slot `slot` (tpr of them, whole warps) meet
+__device__ __forceinline__ void row_barrier(int slot, int tpr) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(slot + 1), "r"(tpr) : "memory");
+}
 
 __device__ __forceinline__ float ldf(const float* p) { return *p; }
 __device__ __forceinline__ float ldf(const bf16* p) {
@@ -402,66 +438,213 @@ __device__ __forceinline__ void stf(bf16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(BWD_THREADS)
+// The raw units of a row that a thread holds: x, the residual, dy and dt
+// (16-byte units as loaded, converted where they are used)
+template <typename T, int E, int NV>
+struct RowUnits {
+  Raw<T, E> x[NV], r[NV], g[NV], t[NV];
+};
+
+template <typename T, int NV, bool HOLD>
+__global__ void __launch_bounds__(HOLD ? BWD_HOLD_THREADS : BWD_WIDE_THREADS,
+                                  1)
     rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
                        const void* __restrict__ scale,
                        const T* __restrict__ dy, const T* __restrict__ dt,
                        T* __restrict__ dx, float* __restrict__ partial,
-                       int N, int d, long long sx, long long sr, float eps,
-                       int flags) {
-  extern __shared__ float acc[];      // d: this block's dscale sums
-  __shared__ float red[2][BWD_THREADS / 32];
+                       int N, int d, int tpr, long long sx, long long sr,
+                       float eps, int flags) {
+  constexpr int E = 16 / static_cast<int>(sizeof(T));
+  constexpr int NH = HOLD ? NV : 1;   // units held in registers
+  using Units = RowUnits<T, E, NH>;
+  // HOLD: rows x d, the slots' dscale sums at the end (rows > 1); else d,
+  // the row's dscale sums throughout
+  extern __shared__ float sums[];
+  __shared__ float2 red[2][BWD_WIDE_THREADS / 32];
+  const int rows = blockDim.x / tpr;
+  const int slot = threadIdx.x / tpr, j = threadIdx.x - slot * tpr;
+  const int wpr = tpr >> 5, w = j >> 5;
   const bool has_res = (flags & B_RES) != 0, has_dt = (flags & B_DT) != 0;
   const bool s_f32 = (flags & B_SF32) != 0;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* sf = static_cast<const float*>(scale);
-  const bf16* sb = static_cast<const bf16*>(scale);
-  for (int c = tid; c < d; c += BWD_THREADS) acc[c] = 0.f;
-  for (long long row = blockIdx.x; row < N; row += gridDim.x) {
-    const T* xr = x + row * sx;
-    const T* rr = res + row * sr;
-    const T* dyr = dy + row * d;
-    float ss = 0.f, dot = 0.f;
-    for (int c = tid; c < d; c += BWD_THREADS) {
-      const float t = has_res ? ldf(xr + c) + ldf(rr + c) : ldf(xr + c);
-      const float g = ldf(dyr + c) * (s_f32 ? sf[c] : ldf(sb + c));
+  const long long step = static_cast<long long>(gridDim.x) * rows;
+  float acc[NH][E];
+#pragma unroll
+  for (int k = 0; k < NH; ++k)
+#pragma unroll
+    for (int i = 0; i < E; ++i) acc[k][i] = 0.f;
+  if constexpr (!HOLD) {
+    for (int k = 0; k < NV; ++k)
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        const int c = (k * tpr + j) * E + i;
+        if (c < d) sums[c] = 0.f;
+      }
+  }
+
+  // the scale's units (the same columns for every row a thread visits:
+  // loaded once on the register route, with each unit on the wide one)
+  Raw<float, E> sc[NH];
+  auto load_scale_unit = [&](int k, int u) {
+    const int e0 = (u * tpr + j) * E;
+    load_scale(sc[k], scale, e0, s_f32, (flags & BV_S) != 0, d - e0);
+  };
+  // unit u of row `row` into register slot k of `o` (nothing read past N;
+  // read once on the register route, so marked evict-first there)
+  auto load_unit = [&](Units& o, int k, int u, long long row) {
+    const int e0 = (u * tpr + j) * E;
+    const int valid = row < N ? d - e0 : 0;
+    load<T, E, HOLD>(o.x[k], x + row * sx + e0, (flags & BV_X) != 0, valid);
+    if (has_res)
+      load<T, E, HOLD>(o.r[k], res + row * sr + e0, (flags & BV_R) != 0,
+                       valid);
+    load<T, E, HOLD>(o.g[k], dy + row * d + e0, (flags & BV_DY) != 0, valid);
+    if (has_dt)
+      load<T, E, HOLD>(o.t[k], dt + row * d + e0, (flags & BV_DT) != 0,
+                       valid);
+  };
+  auto t_of = [&](const Units& o, int k, int i) {  // x (+ residual), f32
+    return has_res ? elem(o.x[k], i) + elem(o.r[k], i) : elem(o.x[k], i);
+  };
+  auto reduce_unit = [&](const Units& o, int k, float& ss, float& dot) {
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const float t = t_of(o, k, i);
       ss += t * t;
-      dot += t * g;
+      dot += t * (elem(o.g[k], i) * scale_elem(sc[k], i, s_f32));
     }
+  };
+  // the row's sums: the warp's butterfly, then the row's warps in order
+  // (a named barrier of the row's own warps; the halves of red alternate)
+  int par = 0;
+  auto row_sums = [&](float& ss, float& dot) {
 #pragma unroll
     for (int o = 16; o; o >>= 1) {
       ss += __shfl_xor_sync(0xffffffffu, ss, o);
       dot += __shfl_xor_sync(0xffffffffu, dot, o);
     }
-    __syncthreads();                  // red of the previous row is read
-    if (lane == 0) {
-      red[0][warp] = ss;
-      red[1][warp] = dot;
+    if (wpr > 1) {  // uniform over the launch
+      if ((threadIdx.x & 31) == 0)
+        red[par][slot * wpr + w] = make_float2(ss, dot);
+      row_barrier(slot, tpr);
+      const float2* r = red[par] + slot * wpr;
+      ss = r[0].x;
+      dot = r[0].y;
+      for (int q = 1; q < wpr; ++q) {
+        ss += r[q].x;
+        dot += r[q].y;
+      }
+      par ^= 1;
     }
-    __syncthreads();
-    ss = red[0][0];
-    dot = red[1][0];
-    for (int w = 1; w < BWD_THREADS / 32; ++w) {
-      ss += red[0][w];
-      dot += red[1][w];
+  };
+  // dx of unit u (register slot k of o) and its dscale terms
+  auto write_unit = [&](const Units& o, int k, int u, long long row,
+                        float rstd, float kk) {
+    const int e0 = (u * tpr + j) * E;
+    const int valid = d - e0;
+    if (valid <= 0) return;
+    float v[E];
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const float t = t_of(o, k, i), gy = elem(o.g[k], i);
+      v[i] = rstd * (gy * scale_elem(sc[k], i, s_f32)) - t * kk;
+      if (has_dt) v[i] += elem(o.t[k], i);
+      const float a = gy * (t * rstd);
+      if constexpr (HOLD)
+        acc[k][i] += a;
+      else if (i < valid)
+        sums[e0 + i] += a;
     }
-    const float rstd = rsqrtf(ss / static_cast<float>(d) + eps);
-    const float k = rstd * rstd * rstd * dot / static_cast<float>(d);
-    T* dxr = dx + row * d;
-    const T* dtr = dt + row * d;
-    for (int c = tid; c < d; c += BWD_THREADS) {
-      const float t = has_res ? ldf(xr + c) + ldf(rr + c) : ldf(xr + c);
-      const float gy = ldf(dyr + c);
-      const float g = gy * (s_f32 ? sf[c] : ldf(sb + c));
-      float v = rstd * g - t * k;
-      if (has_dt) v += ldf(dtr + c);
-      stf(dxr + c, v);
-      acc[c] += gy * (t * rstd);
+    store<T, E, true>(dx + row * d + e0, (flags & BV_DX) != 0, valid, v);
+  };
+
+  const long long first = static_cast<long long>(blockIdx.x) * rows;
+  if constexpr (HOLD) {
+    // Two rows in flight a slot: a row's loads are issued before the
+    // previous row's reduction is exchanged and its dx written.
+    Units A, B;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) load_scale_unit(k, k);
+    auto load_row = [&](Units& o, long long row) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k) load_unit(o, k, k, row);
+    };
+    auto finish_row = [&](const Units& o, long long row, Units& next) {
+      float ss = 0.f, dot = 0.f;
+#pragma unroll
+      for (int k = 0; k < NV; ++k) reduce_unit(o, k, ss, dot);
+      load_row(next, row + step);
+      row_sums(ss, dot);
+      if (row >= N) return;
+      const float rstd = rsqrtf(ss / static_cast<float>(d) + eps);
+      const float kk = rstd * rstd * rstd * dot / static_cast<float>(d);
+#pragma unroll
+      for (int k = 0; k < NV; ++k) write_unit(o, k, k, row, rstd, kk);
+    };
+    load_row(A, first + slot);
+    for (long long base = first; base < N; base += 2 * step) {
+      finish_row(A, base + slot, B);
+      if (base + step >= N) break;    // uniform over the block
+      finish_row(B, base + step + slot, A);
+    }
+  } else {
+    // one unit at a time: the reduction, then the row's units again (from
+    // L1 or L2) for dx
+    Units o;
+    for (long long row = first + slot; row - slot < N; row += step) {
+      float ss = 0.f, dot = 0.f;
+#pragma unroll 1
+      for (int u = 0; u < NV; ++u) {
+        load_unit(o, 0, u, row);
+        load_scale_unit(0, u);
+        reduce_unit(o, 0, ss, dot);
+      }
+      row_sums(ss, dot);
+      if (row >= N) continue;
+      const float rstd = rsqrtf(ss / static_cast<float>(d) + eps);
+      const float kk = rstd * rstd * rstd * dot / static_cast<float>(d);
+#pragma unroll 1
+      for (int u = 0; u < NV; ++u) {
+        load_unit(o, 0, u, row);
+        load_scale_unit(0, u);
+        write_unit(o, 0, u, row, rstd, kk);
+      }
     }
   }
-  for (int c = tid; c < d; c += BWD_THREADS)
-    partial[static_cast<long long>(blockIdx.x) * d + c] = acc[c];
+
+  // the block's partial row: each slot's sums, slots in order
+  float* out = partial + static_cast<long long>(blockIdx.x) * d;
+  if constexpr (HOLD) {
+    if (rows > 1) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k)
+#pragma unroll
+        for (int i = 0; i < E; ++i) {
+          const int c = (k * tpr + j) * E + i;
+          if (c < d) sums[slot * d + c] = acc[k][i];
+        }
+      __syncthreads();
+      for (int c = threadIdx.x; c < d; c += blockDim.x) {
+        float s = sums[c];
+        for (int q = 1; q < rows; ++q) s += sums[q * d + c];
+        out[c] = s;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < NV; ++k)
+#pragma unroll
+        for (int i = 0; i < E; ++i) {
+          const int c = (k * tpr + j) * E + i;
+          if (c < d) out[c] = acc[k][i];
+        }
+    }
+  } else {  // one row a block: this thread's own columns
+    for (int k = 0; k < NV; ++k)
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        const int c = (k * tpr + j) * E + i;
+        if (c < d) out[c] = sums[c];
+      }
+  }
 }
 
 // dscale[c] = the blocks' partial sums of column c, in block order
@@ -556,28 +739,65 @@ __global__ void __launch_bounds__(BWD_THREADS)
     partial[static_cast<long long>(blockIdx.x) * d + c] = acc[c];
 }
 
-template <typename T>
+template <typename T, int NV, bool HOLD>
 int launch_bwd(const T* x, const T* res, const void* scale, const T* dy,
                const T* dt, T* dx, float* partial, void* dscale, int N,
-               int d, long long sx, long long sr, float eps, int flags,
-               int blocks, cudaStream_t st) {
-  const int bytes = d * static_cast<int>(sizeof(float));
-  static bool opted = false;          // once per type, per process
-  if (!opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rmsnorm_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        MAX_BWD_D * static_cast<int>(sizeof(float)));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted = true;
+               int d, int tpr, int rows, long long sx, long long sr,
+               float eps, int flags, int blocks, cudaStream_t st) {
+  if constexpr (!HOLD) {
+    static bool opted = false;        // once per template, per process
+    if (!opted) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          rmsnorm_bwd_kernel<T, NV, HOLD>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          MAX_BWD_D * static_cast<int>(sizeof(float)));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      opted = true;
+    }
   }
-  rmsnorm_bwd_kernel<T><<<blocks, BWD_THREADS, bytes, st>>>(
-      x, res, scale, dy, dt, dx, partial, N, d, sx, sr, eps, flags);
+  const int bytes =
+      (!HOLD || rows > 1) ? rows * d * static_cast<int>(sizeof(float)) : 0;
+  rmsnorm_bwd_kernel<T, NV, HOLD><<<blocks, tpr * rows, bytes, st>>>(
+      x, res, scale, dy, dt, dx, partial, N, d, tpr, sx, sr, eps, flags);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   rmsnorm_dscale_kernel<<<(d + BWD_THREADS - 1) / BWD_THREADS, BWD_THREADS,
                           0, st>>>(partial, dscale, blocks, d,
                                    (flags & B_SF32) != 0);
   return static_cast<int>(cudaGetLastError());
+}
+
+// nv 1, 2 and 4 units a lane on the register route; 8 on the wide route
+template <typename T>
+int bwd_by_nv(int nv, int tpr, int rows, const T* x, const T* res,
+              const void* scale, const T* dy, const T* dt, T* dx,
+              float* partial, void* dscale, int N, int d, long long sx,
+              long long sr, float eps, int flags, int blocks,
+              cudaStream_t st) {
+  if (nv == BWD_WIDE_UNITS) {
+    if (rows != 1 || tpr > BWD_WIDE_THREADS)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_bwd<T, BWD_WIDE_UNITS, false>(
+        x, res, scale, dy, dt, dx, partial, dscale, N, d, tpr, rows, sx, sr,
+        eps, flags, blocks, st);
+  }
+  if (tpr * rows > BWD_HOLD_THREADS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (nv) {
+    case 1:
+      return launch_bwd<T, 1, true>(x, res, scale, dy, dt, dx, partial,
+                                    dscale, N, d, tpr, rows, sx, sr, eps,
+                                    flags, blocks, st);
+    case 2:
+      return launch_bwd<T, 2, true>(x, res, scale, dy, dt, dx, partial,
+                                    dscale, N, d, tpr, rows, sx, sr, eps,
+                                    flags, blocks, st);
+    case 4:
+      return launch_bwd<T, 4, true>(x, res, scale, dy, dt, dx, partial,
+                                    dscale, N, d, tpr, rows, sx, sr, eps,
+                                    flags, blocks, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T, typename A>
@@ -613,33 +833,43 @@ int launch_gated_bwd(const void* y, const void* z, const void* scale,
 // (N, d) rows of dtype (0 float, 1 bf16) with row strides sx, sr (the
 // last dimension contiguous; residual null on the norm route); scale
 // (d,) f32 (flags & 4) or bf16; dy and dt (dt may be null) (N, d)
-// contiguous; dx (N, d) contiguous output in the rows' type; partial an
-// f32 (blocks, d) scratch buffer, blocks in [1, min(N, 264)]; dscale (d,)
-// output in the scale's type. Returns the first cudaGetLastError() that
-// is not 0 after the two launches.
+// contiguous; dx (N, d) contiguous output in the rows' type; nv 16-byte
+// units a thread (1, 2 or 4 on the register route, at most 256 threads a
+// block; 8 on the wide route, one row a block of at most 512), tpr
+// threads a row (a multiple of 32), rows a block, from the wrapper's
+// plan_bwd; the 16-byte paths in flags
+// (16 x, 32 the residual, 64 dy, 128 dt, 256 the scale, 512 dx); partial
+// an f32 (blocks, d) scratch buffer, blocks in [1, min(N / rows rounded
+// up, 264)]; dscale (d,) output in the scale's type. Returns the first
+// cudaGetLastError() that is not 0 after the two launches.
 extern "C" int rmsnorm_bwd_launch(const void* x, const void* res,
                                   const void* scale, const void* dy,
                                   const void* dt, void* dx, void* partial,
                                   void* dscale, int N, int d, int dtype,
-                                  long long sx, long long sr, int flags,
-                                  int blocks, float eps, void* stream) {
-  if (N <= 0 || d <= 0 || d > MAX_BWD_D || blocks <= 0 || blocks > N ||
-      blocks > BWD_BLOCKS)
+                                  int nv, int tpr, int rows, long long sx,
+                                  long long sr, int flags, int blocks,
+                                  float eps, void* stream) {
+  if (N <= 0 || d <= 0 || d > MAX_BWD_D || tpr <= 0 || tpr % 32 != 0 ||
+      rows <= 0 || tpr * rows > MAX_THREADS ||
+      static_cast<long long>(tpr) * nv * (4 << dtype) < d ||
+      (rows > 1 && rows * d > 8192) || blocks <= 0 ||
+      blocks > (N + rows - 1) / rows || blocks > BWD_BLOCKS)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* pp = static_cast<float*>(partial);
   if (dtype == 1)
-    return launch_bwd<bf16>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(res), scale,
-        static_cast<const bf16*>(dy), static_cast<const bf16*>(dt),
-        static_cast<bf16*>(dx), pp, dscale, N, d, sx, sr, eps, flags, blocks,
-        st);
+    return bwd_by_nv<bf16>(
+        nv, tpr, rows, static_cast<const bf16*>(x),
+        static_cast<const bf16*>(res), scale, static_cast<const bf16*>(dy),
+        static_cast<const bf16*>(dt), static_cast<bf16*>(dx), pp, dscale, N,
+        d, sx, sr, eps, flags, blocks, st);
   if (dtype == 0)
-    return launch_bwd<float>(
-        static_cast<const float*>(x), static_cast<const float*>(res), scale,
+    return bwd_by_nv<float>(
+        nv, tpr, rows, static_cast<const float*>(x),
+        static_cast<const float*>(res), scale,
         static_cast<const float*>(dy), static_cast<const float*>(dt),
-        static_cast<float*>(dx), pp, dscale, N, d, sx, sr, eps, flags, blocks,
-        st);
+        static_cast<float*>(dx), pp, dscale, N, d, sx, sr, eps, flags,
+        blocks, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -21,7 +21,10 @@ its scaled scores (f32, (B, Hq, Lq)) and runs inside an autograd node
 whose backward is ``flash_attention_bwd_cuda``: the three launches of
 ``csrc/flash_attention_bwd.cu`` (D = rowsum(dO O), then dK/dV by key
 tile, then dQ by query tile, each recomputing P from the LSE; no
-atomics). That backward replaces no TPU kernel: the JAX package
+atomics). ``plan_bwd`` names its route by the dtype alone, as ``plan``
+does: bf16 on the tensor cores (``mma``: mma.sync products, p and dS
+rounded to bf16 as the products' operands), fp32 on the CUDA cores
+(``simt``). That backward replaces no TPU kernel: the JAX package
 differentiates its plain attention. Its plain version is
 ``ref.attention_backward_reference``. ``flash_attention_bwd_cuda``
 counts one launch a call, in ``flash_attention_bwd_cuda.launches``.
@@ -62,13 +65,58 @@ def plan(B: int, Lq: int, Hq: int, Hkv: int, hd: int,
     return Plan(path, hd_tile, bq, B * Hkv * -(-Lq // bq))
 
 
+class BwdPlan(NamedTuple):
+    """How one backward call runs: its ``route`` ("mma" or "simt"), the
+    head-dim tile, query positions a tile of 64 grouped rows (``bq``),
+    the keys of a dK/dV block (``key_tile``) and of a dQ step
+    (``dq_key_tile``), the threads of a dK/dV block, and the grid of
+    each launch: D (``dot_blocks``, ``dot_lanes`` lanes a row), dK/dV,
+    dQ."""
+    route: str
+    hd_tile: int
+    bq: int
+    key_tile: int
+    dq_key_tile: int
+    dkdv_threads: int
+    dot_lanes: int
+    dot_blocks: int
+    dkdv_blocks: int
+    dq_blocks: int
+
+
+def plan_bwd(B: int, Lq: int, Lk: int, Hq: int, Hkv: int, hd: int,
+             dtype: torch.dtype) -> BwdPlan:
+    """The backward's launches (csrc/flash_attention_bwd.cu's templates):
+    bf16 -> ``mma``, 64 keys a dK/dV block (8 warps at head-dim tiles 160
+    and 256, two a 16-key slice, else 4), dQ key tiles of 64 (32 at tiles
+    64 and 256); fp32 -> ``simt``, 256 threads and 64 keys a tile up to a
+    head-dim tile of 128, 32 above. D takes a row's 16-byte units on the
+    fewest lanes, a power of two, that hold them (at most a warp), 8
+    warps a block."""
+    fwd = plan(B, Lq, Hq, Hkv, hd, dtype)
+    if fwd.path == "mma":
+        key_tile, threads = 64, 256 if fwd.hd_tile >= 160 else 128
+        dq_tile = 32 if fwd.hd_tile in (64, 256) else 64
+    else:
+        key_tile = dq_tile = 64 if fwd.hd_tile <= 128 else 32
+        threads = 256
+    units = hd * dtype.itemsize // 16
+    lanes = 1
+    while lanes < min(units, 32):
+        lanes *= 2
+    rows = B * Lq * Hq
+    return BwdPlan(fwd.path, fwd.hd_tile, fwd.bq, key_tile, dq_tile,
+                   threads, lanes, -(-rows // (8 * (32 // lanes))),
+                   B * Hkv * -(-Lk // key_tile), fwd.blocks)
+
+
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: the C signatures of csrc/flash_attention.cu's and
 #: csrc/flash_attention_bwd.cu's entry points
 ARGTYPES = {"flash_attention_launch":
             [_P] * 5 + [_I] * 7 + [_LL] * 9 + [_I] * 3 + [_P],
             "flash_attention_bwd_launch":
-            [_P] * 10 + [_I] * 7 + [_LL] * 9 + [_I] * 3 + [_P]}
+            [_P] * 10 + [_I] * 8 + [_LL] * 9 + [_I] * 3 + [_P]}
 
 
 def _launcher(stem="flash_attention"):
@@ -161,8 +209,13 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal=True,
             or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError(f"lse must be a contiguous float32 ({B}, {Hq}, "
                          f"{Lq}) tensor on {q.device}")
+    # the D launch reads o and dout in 16-byte units
     dout = dout.contiguous()
-    pl = plan(B, Lq, Hq, Hkv, hd, q.dtype)
+    if dout.data_ptr() % 16:
+        dout = dout.clone()
+    if out.data_ptr() % 16:
+        out = out.clone()
+    pl = plan_bwd(B, Lq, Lk, Hq, Hkv, hd, q.dtype)
     dq = torch.empty((B, Lq, Hq, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Lk, Hkv, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
@@ -172,7 +225,7 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal=True,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, Lq, Lk, Hq, Hkv, hd, pl.hd_tile,
-        *_strides(q, k, v), int(bool(causal)), int(window),
+        pl.key_tile, *_strides(q, k, v), int(bool(causal)), int(window),
         _DTYPES[q.dtype], stream)
     flash_attention_bwd_cuda.launches += 1
     if err != 0:

@@ -22,8 +22,11 @@ count in one counter, ``fused_rmsnorm_cuda.launches``: one kernel. The
 add and norm routes run through ``_autograd.differentiable``: where a
 gradient can be asked for, inside a node whose backward is
 ``fused_rmsnorm_bwd_cuda`` (``rmsnorm_bwd_launch`` of the same ``.cu``:
-rows, then the dscale reduction over the blocks' partial sums, no
-atomics; rstd recomputed from x; it replaces no TPU kernel, the JAX
+rows mapped to threads by ``plan_bwd``, up to 4 units a lane, each row
+read once in 16-byte units and held in registers through its reduction
+(two rows in flight a row slot), each thread's dscale sums in registers
+over its rows; then the dscale reduction over the blocks' partial sums,
+no atomics; rstd recomputed from x; it replaces no TPU kernel, the JAX
 package differentiates its plain norm), counted in
 ``fused_rmsnorm_bwd_cuda.launches``, one a call. The gated route runs
 through ``_autograd.differentiable`` too: its node's backward is
@@ -62,15 +65,30 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 #: the C signatures of csrc/rmsnorm.cu's entry points
 ARGTYPES = {"rmsnorm_launch": [_P] * 5 + [_I] * 7 + [_LL] * 2
             + [_I, _F, _P],
-            "rmsnorm_bwd_launch": [_P] * 8 + [_I] * 3 + [_LL] * 2
+            "rmsnorm_bwd_launch": [_P] * 8 + [_I] * 6 + [_LL] * 2
             + [_I, _I, _F, _P],
             "rmsnorm_gated_bwd_launch": [_P] * 8 + [_I] * 3 + [_LL] * 2
             + [_I, _I, _F, _P]}
 #: blocks of the backward's row pass at most (csrc BWD_BLOCKS: two an SM)
 BWD_BLOCKS = 264
+#: 16-byte units a thread of the add / norm backward's register route
+#: (csrc templates), at most BWD_HOLD_THREADS threads a block; a row on
+#: at most BWD_ROW_THREADS threads where the units allow (more rows in
+#: flight an SM than one warp a row at 4 units a lane: measured on the
+#: card at d 2048, N 4096)
+NVS_BWD = (1, 2, 4)
+BWD_HOLD_THREADS = 256
+BWD_ROW_THREADS = 128
+#: units a thread of its wide-row route (a row past 1024 units, d 8192
+#: bf16, 4096 f32: one a block, re-reading its units)
+BWD_WIDE_UNITS = 8
+#: blocks of the add / norm backward's row pass at most: one an SM, so
+#: the second launch sums as few partial rows as fill the card
+BWD_GRID = 132
 # csrc flags of the backward: the residual and dt present, the scale f32,
-# the gated route's y f32
+# the gated route's y f32; the add / norm route's 16-byte paths
 B_RES, B_DT, B_SF32, B_YF32 = 1, 2, 4, 8
+BV_X, BV_R, BV_DY, BV_DT, BV_S, BV_DX = 16, 32, 64, 128, 256, 512
 _FNS = {}
 
 
@@ -104,6 +122,32 @@ def plan(N: int, d: int, dtype: torch.dtype, route: str = "add") -> Plan:
     tpr = (-(-units // nv) + 31) // 32 * 32
     rows = max(1, ROW_THREADS // tpr)
     return Plan(route, nv, tpr, rows, tpr * rows, -(-N // rows))
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_bwd(N: int, d: int, dtype: torch.dtype,
+             route: str = "add") -> Plan:
+    """The add / norm backward's launch: the fewest units a thread in
+    ``NVS_BWD`` that fit a row on ``BWD_ROW_THREADS`` threads (4 where
+    none does), the row's threads rounded up to a warp,
+    ``BWD_HOLD_THREADS // tpr`` rows a block; a row of more than
+    ``BWD_HOLD_THREADS`` x 4 units (past d 8192 bf16 or 4096 f32) runs
+    alone in its block on the wide-row route, 8 units a thread; at most
+    ``BWD_GRID`` blocks that walk the rows (each block's partial dscale
+    row is summed in the second launch)."""
+    if d > MAX_D:
+        raise ValueError(f"d={d} exceeds the backward's row limit")
+    units = -(-d // (16 // dtype.itemsize))
+    if units > BWD_HOLD_THREADS * NVS_BWD[-1]:
+        nv, rows = BWD_WIDE_UNITS, 1
+        tpr = (-(-units // nv) + 31) // 32 * 32
+    else:
+        nv = next((v for v in NVS_BWD if units <= BWD_ROW_THREADS * v),
+                  NVS_BWD[-1])
+        tpr = (-(-units // nv) + 31) // 32 * 32
+        rows = max(1, BWD_HOLD_THREADS // tpr)
+    return Plan(route, nv, tpr, rows, tpr * rows,
+                min(-(-N // rows), BWD_GRID))
 
 
 def _launcher(entry="rmsnorm_launch"):
@@ -217,16 +261,29 @@ def fused_rmsnorm_bwd_cuda(x, residual, scale, dy, dt=None, eps=1e-5):
     dscale = torch.empty((d,), dtype=scale.dtype, device=dev)
     if N == 0:
         return dx, dscale.zero_()
-    blocks = min(N, BWD_BLOCKS)
-    partial = torch.empty((blocks, d), dtype=torch.float32, device=dev)
+    pl = plan_bwd(N, d, dtype, "norm" if residual is None else "add")
+    partial = torch.empty((pl.blocks, d), dtype=torch.float32, device=dev)
+    # the 16-byte path of an operand: its pointer and row stride on the
+    # alignment of a unit (8 bytes for four bf16 of an f32 row's scale)
+    es = dtype.itemsize
+    unit = 16 // es
+    px = x.data_ptr()
+    pr = 0 if residual is None else residual.data_ptr()
+    pdy = dy.data_ptr()
+    pdt = 0 if dt is None else dt.data_ptr()
+    ps = scale.data_ptr()
     flags = (B_RES * (residual is not None) | B_DT * (dt is not None)
-             | B_SF32 * (scale.dtype == torch.float32))
+             | B_SF32 * (scale.dtype == torch.float32)
+             | BV_X * ((px | sx * es) % 16 == 0)
+             | BV_R * ((pr | sr * es) % 16 == 0)
+             | BV_DY * ((pdy | d * es) % 16 == 0)
+             | BV_DT * ((pdt | d * es) % 16 == 0)
+             | BV_S * (ps % min(16, unit * scale.dtype.itemsize) == 0)
+             | BV_DX * (d % unit == 0))
     err = _launcher("rmsnorm_bwd_launch")(
-        x.data_ptr(), None if residual is None else residual.data_ptr(),
-        scale.data_ptr(), dy.data_ptr(),
-        None if dt is None else dt.data_ptr(), dx.data_ptr(),
-        partial.data_ptr(), dscale.data_ptr(), N, d, _DTYPES[dtype], sx,
-        sr, flags, blocks, float(eps),
+        px, pr or None, ps, pdy, pdt or None, dx.data_ptr(),
+        partial.data_ptr(), dscale.data_ptr(), N, d, _DTYPES[dtype], pl.nv,
+        pl.tpr, pl.rows, sx, sr, flags, pl.blocks, float(eps),
         torch._C._cuda_getCurrentRawStream(dev.index))
     fused_rmsnorm_bwd_cuda.launches += 1
     if err != 0:

@@ -862,14 +862,21 @@ def test_kernel_op_refuses_a_backward_on_card(op):
 
 # (B, Lq, Lk, Hq, Hkv, hd, causal, window): llama's G 4 at hd 64, G 1 at
 # hd 128, pixtral's hd 160, a window, non-causal Lq != Lk, a ragged
-# length, hd 256 at G 3 (bq 21)
+# length at hd 40 (zero-padded to the 64 tile), hd 256 at G 3 (bq 21);
+# the mma route's edges: Lk 1000 (not a multiple of the 64-key tile),
+# G 8 (bq 8), a window that crosses key tiles, hd 128 and 160 ragged
 FLASH_BWD_CASES = [(2, 128, 128, 8, 2, 64, True, 0),
                    (1, 96, 96, 4, 4, 128, True, 0),
                    (1, 70, 70, 8, 2, 160, True, 0),
                    (1, 200, 200, 4, 1, 64, True, 48),
                    (1, 64, 300, 4, 4, 64, False, 0),
                    (2, 37, 37, 4, 2, 40, True, 0),
-                   (1, 50, 50, 6, 2, 256, True, 0)]
+                   (1, 50, 50, 6, 2, 256, True, 0),
+                   (1, 1000, 1000, 8, 2, 64, True, 0),
+                   (1, 100, 100, 16, 2, 64, True, 0),
+                   (1, 300, 300, 8, 2, 64, True, 100),
+                   (1, 130, 130, 4, 2, 128, True, 0),
+                   (1, 129, 129, 8, 2, 160, False, 0)]
 
 
 @pytest.mark.cuda
@@ -878,10 +885,11 @@ FLASH_BWD_CASES = [(2, 128, 128, 8, 2, 64, True, 0),
                          .format(*c))
 def test_flash_backward_matches_plain_on_card(case):
     """A backward through ``flash_attention_cuda`` runs the backward
-    kernels (one count a call, three launches): dq, dk, dv within the
-    gates of max|plain| of ``ref.attention_backward_reference`` and of
-    autograd of the plain forward on the card; bitwise repeatable (no
-    atomics); the forward with its LSE equal to the plain launch's."""
+    kernels (one count a call, three launches) on the route ``plan_bwd``
+    names (bf16: ``mma``, dS rounded to bf16; fp32: ``simt``): dq, dk, dv
+    within the gates of max|plain| of ``ref.attention_backward_reference``
+    and of autograd of the plain forward on the card; bitwise repeatable
+    (no atomics); the forward with its LSE equal to the plain launch's."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     dev = _card()
@@ -906,6 +914,8 @@ def test_flash_backward_matches_plain_on_card(case):
         counts = launch_counts()
         assert counts["flash_attention"] == 2
         assert counts["flash_attention_bwd"] == 2
+        assert flash_kernel.plan_bwd(B, Lq, Lk, Hq, Hkv, hd, dt).route == \
+            ("mma" if dt == torch.bfloat16 else "simt")
         want = flash_ref.attention_backward_reference(
             tr(q), tr(k), tr(v), tr(do), causal=causal, window=window)
         auto = [t.clone().float().requires_grad_() for t in (q, k, v)]
@@ -925,20 +935,22 @@ def test_flash_backward_matches_plain_on_card(case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("route", ["add", "norm"])
-@pytest.mark.parametrize("d", [2048, 5120, 100])
-def test_rmsnorm_backward_matches_plain_on_card(route, d):
+@pytest.mark.parametrize("d", [2048, 5120, 100, 9000])
+@pytest.mark.parametrize("N", [300, 301])
+def test_rmsnorm_backward_matches_plain_on_card(route, d, N):
     """A backward through ``fused_rmsnorm_cuda`` on the add and norm
     routes runs ``fused_rmsnorm_bwd_cuda`` (rows, then the dscale
     reduction): dx, the residual's gradient and dscale within the gates
     of max|plain| of ``ref.fused_rmsnorm_backward_reference`` and of
     autograd of the plain forward, for f32 and bf16 rows with an f32 or
-    a bf16 scale; bitwise repeatable (no atomics); the add route's sum
-    output taking a gradient of its own (dt) or none."""
+    a bf16 scale, N a multiple of the plan's rows a block (300) or not
+    (301), rows held in registers or (f32 d 5120, d 9000) on the
+    wide-row route; bitwise repeatable (no atomics); the add route's sum output
+    taking a gradient of its own (dt) or none."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(d)
-    N = 300
     for dt in DTYPES:
         x = torch.randn((N, d), generator=g, device=dev).to(dt)
         r = torch.randn((N, d), generator=g, device=dev).to(dt) \

@@ -206,3 +206,44 @@ def test_plan_routes_by_dtype_and_head_dim_tile(hd, tile):
 def test_plan_groups_heads_into_64_rows(G, bq):
     p = flash_kernel.plan(1, 100, G * 2, 2, 64, torch.bfloat16)
     assert p.bq == bq and p.blocks == 2 * -(-100 // bq)
+
+
+@pytest.mark.parametrize("hd,tile", [(8, 32), (40, 64), (64, 64),
+                                     (96, 128), (128, 128), (160, 160),
+                                     (168, 256), (256, 256)])
+def test_plan_bwd_routes_by_dtype_and_head_dim_tile(hd, tile):
+    """The backward's route by the dtype alone, as the forward's: bf16 on
+    the tensor cores (64 keys a dK/dV block, 8 warps at tiles 160 and
+    256, dQ key tiles of 64, 32 at 64 and 256), fp32 on the CUDA cores
+    (256 threads, 64 keys a tile up to 128, 32 above); the forward's
+    head-dim tile and query grouping; D's lanes the fewest power of two
+    that hold a row's 16-byte units (at most a warp), 8 warps a block."""
+    B, L, Lk, Hq, Hkv = 2, 1024, 1000, 32, 8
+    bf = flash_kernel.plan_bwd(B, L, Lk, Hq, Hkv, hd, torch.bfloat16)
+    f32 = flash_kernel.plan_bwd(B, L, Lk, Hq, Hkv, hd, torch.float32)
+    fwd = flash_kernel.plan(B, L, Hq, Hkv, hd, torch.bfloat16)
+    assert (bf.route, f32.route) == ("mma", "simt")
+    assert bf.hd_tile == f32.hd_tile == tile
+    assert bf.bq == f32.bq == 16 and bf.dq_blocks == fwd.blocks
+    assert bf.key_tile == 64
+    assert bf.dkdv_threads == (256 if tile >= 160 else 128)
+    assert bf.dq_key_tile == (32 if tile in (64, 256) else 64)
+    assert f32.key_tile == f32.dq_key_tile == (64 if tile <= 128 else 32)
+    assert f32.dkdv_threads == 256
+    for p, es in ((bf, 2), (f32, 4)):
+        units = hd * es // 16
+        assert p.dot_lanes in (1, 2, 4, 8, 16, 32)
+        assert p.dot_lanes >= min(units, 32) > p.dot_lanes // 2
+        assert p.dot_blocks == -(-B * L * Hq // (8 * 32 // p.dot_lanes))
+        assert p.dkdv_blocks == B * Hkv * -(-Lk // p.key_tile)
+
+
+@pytest.mark.parametrize("G,bq", [(1, 64), (3, 21), (4, 16), (8, 8),
+                                  (64, 1)])
+def test_plan_bwd_groups_heads_into_64_rows(G, bq):
+    """dQ takes the forward's blocks of 64 grouped rows (G heads x 64 / G
+    positions); dK/dV one block a (batch, KV head, 64 keys), the whole
+    group's rows walked inside it."""
+    p = flash_kernel.plan_bwd(1, 100, 130, G * 2, 2, 64, torch.bfloat16)
+    assert p.bq == bq and p.dq_blocks == 2 * -(-100 // bq)
+    assert p.dkdv_blocks == 2 * 3

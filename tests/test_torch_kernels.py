@@ -281,6 +281,38 @@ def test_rmsnorm_plan_covers_a_row_without_a_spare_warp(N, d, dtype):
                          dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 100, 512, 1536, 2048, 3072, 5120, 8192,
+                               16384])
+@pytest.mark.parametrize("N", [13, 301, 4096])
+def test_rmsnorm_bwd_plan_holds_a_row_in_registers(N, d, dtype):
+    """The add / norm backward's plan: the fewest units a thread (1, 2 or
+    4) that put a row on at most four warps, 4 for wider rows, which take
+    the warps they need (d 2048 bf16: 2 units a lane of four warps; d
+    5120 five warps of 4); rows share a block of up to 256 threads; a
+    row of more than 1024 units (past d 8192 bf16, 4096 f32: the
+    wide-row route) takes 8 units a thread and a block of its own,
+    within 512 threads; at most one block an SM (132), none idle,
+    covering every row, also where N is not a multiple of the rows a
+    block; a row past the limit raises."""
+    unit = 16 // dtype.itemsize
+    units = -(-d // unit)
+    p = norm_kernel.plan_bwd(N, d, dtype, "norm")
+    wide = units > 4 * 256
+    assert p.route == "norm"
+    assert p.nv == (8 if wide else next(v for v in (1, 2, 4)
+                                        if units <= 128 * v or v == 4))
+    assert p.tpr % 32 == 0 and (p.tpr - 32) * p.nv < units <= p.tpr * p.nv
+    assert p.threads == p.tpr * p.rows <= (512 if wide else 256)
+    assert p.rows == (1 if wide else max(1, 256 // p.tpr))
+    assert p.rows == 1 or p.rows * d * 4 <= 32 * 1024
+    assert p.blocks == min(-(-N // p.rows), norm_kernel.BWD_GRID)
+    if dtype == torch.bfloat16 and d == 2048:
+        assert (p.nv, p.tpr, p.rows) == (2, 128, 2)
+    with pytest.raises(ValueError, match="row limit"):
+        norm_kernel.plan_bwd(N, norm_kernel.MAX_D + 1, dtype)
+
+
 def test_autograd_launch_enters_a_node_only_for_a_gradient():
     """``_autograd.launch`` calls the launch straight unless grad mode is
     on and an input requires grad; then the outputs carry a node whose
@@ -623,7 +655,10 @@ def _c_signature(src, name):
     ("decode_attention.cu", "decode_attention_launch"),
     ("decode_attention.cu", "paged_decode_attention_launch"),
     ("flash_attention.cu", "flash_attention_launch"),
+    ("flash_attention_bwd.cu", "flash_attention_bwd_launch"),
     ("rmsnorm.cu", "rmsnorm_launch"),
+    ("rmsnorm.cu", "rmsnorm_bwd_launch"),
+    ("rmsnorm.cu", "rmsnorm_gated_bwd_launch"),
     ("quant_matmul.cu", "quant_matmul_launch"),
     ("quant_matmul.cu", "quant_matmul_mma_launch"),
     ("ssd_scan.cu", "ssd_extend_launch"),
@@ -637,6 +672,7 @@ def test_argtypes_match_the_c_signature(src, name):
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     wrapper = {"decode_attention.cu": dec_kernel,
                "flash_attention.cu": flash_kernel,
+               "flash_attention_bwd.cu": flash_kernel,
                "rmsnorm.cu": norm_kernel,
                "quant_matmul.cu": qmm_kernel,
                "ssd_scan.cu": ssd_kernel}[src]
