@@ -174,9 +174,10 @@ gated norm's backward at N 4096, d 3072 (z of a 6448-wide row), d
 library yardstick where one call computes it (SDPA or add +
 ``F.rms_norm``, forward + backward less forward). ``train_exact`` (with
 the model checks) trains llama3.2-1b and mamba2-780m cut to 2 layers,
-jamba's reduced super-block at the SSM's published head and state dims
-(3 steps each) and qwen2-moe-a2.7b cut to 1 layer (1 step), fp32, on the
-card and on the CPU from the same weights and batches (losses, first gradients
+jamba's reduced super-block at the SSM's published head and state dims,
+with MoE on its even sublayers (3 steps each), and qwen2-moe-a2.7b cut
+to 1 layer (B 1 x L 64, 1 step), fp32, on the card and on the CPU from
+the same weights and batches (losses, first gradients
 within 1e-4 of each leaf's max or 4 times the leaf's own move under a
 rounding-level perturbation, parameters). ``train`` trains the full
 16-layer bf16 llama with remat, B 4 x L 1024, 20 steps (step ms,
@@ -205,9 +206,9 @@ shapes and its ``prefill_ssm`` (``ssd_compare``);
 
     python3 chip_smoke.py --bwd-compare SRC
 
-times another checkout's flash-attention and RMSNorm add / norm
-backward kernels at the kernels_bwd phase's cases, each held against
-its plain backward (``bwd_compare``).
+times another checkout's backward kernels (flash attention, the RMSNorm
+add / norm and gated routes, the SSD dual form) at the kernels_bwd
+phase's cases, each held against its plain backward (``bwd_compare``).
 """
 from __future__ import annotations
 
@@ -282,25 +283,38 @@ PROFILE_TEMPLATES = (
                                 "flash_bwd_dq_kernel")),
     (("rmsnorm_bwd",), ("rmsnorm_bwd_kernel",)),
     (("rmsnorm_gated_bwd",), ("rmsnorm_gated_bwd_kernel",)),
-    (("ssd_bwd",), ("ssd_bwd_key_kernel",)))
+    (("ssd_bwd",), ("ssd_bwd_mma_kernel", "ssd_bwd_key_kernel")))
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+#: the timing spin's cycles: at least ~0.1 ms, and at least twice the
+#: host's enqueue of the call at 2 GHz, at most ~10 ms
+SPIN_CYCLES = (200_000, 20_000_000)
+
+
 def median_ms(torch, fn, flush, iters=25, warmup=3):
     """Median CUDA-event time of one call, L2 flushed before each. A spin
-    of ~0.1 ms on the card before the start event keeps the stream busy
-    while the host enqueues the call, so the host's launch latency is
-    not counted as device time."""
+    on the card before the start event keeps the stream busy while the
+    host enqueues the call, so the host's launch latency is not counted
+    as device time: ~0.1 ms, or twice the host time of the last warm-up
+    call where that is longer (a wrapper that checks and allocates for
+    ~0.2 ms before its launches, as the SSD backward's does, would
+    otherwise leave the card idle inside the timed window)."""
+    host = 0.0
     for _ in range(warmup):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
         fn()
+        host = time.perf_counter() - t
     torch.cuda.synchronize()
+    spin = int(min(max(SPIN_CYCLES[0], 4e9 * host), SPIN_CYCLES[1]))
     evs = []
     for _ in range(iters):
         flush.zero_()
-        torch.cuda._sleep(200_000)
+        torch.cuda._sleep(spin)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -1669,6 +1683,22 @@ def _ms_by_template(rows, part):
     return dict(out, templates=per)
 
 
+def _ms_by_kernel(rows, inc, out=None):
+    """``_ms_matching`` of the kernels whose name holds ``inc`` (and not
+    ``out``), and the same for each kernel template apart (its name
+    without ``void``, the namespace and the argument list)."""
+    hit = [(ms, c, k) for ms, c, k in rows
+           if inc in k and (out is None or out not in k)]
+    per = {}
+    for ms, c, k in hit:
+        name = k.replace("void ", "").replace("(anonymous namespace)::", "")
+        t = per.setdefault(name.split("(")[0], {"ms": 0.0, "calls": 0})
+        t["ms"] += ms
+        t["calls"] += c
+    return {"ms": sum(ms for ms, _, _ in hit),
+            "calls": sum(c for _, c, _ in hit), "templates": per}
+
+
 def _profiled(torch, fn):
     """Run ``fn`` in a profile window and return the profiler and the
     wall ms of ``fn`` (synchronized). The window opens and closes with
@@ -1780,7 +1810,7 @@ HOST_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC",
               "cudaMemcpyAsync", "cudaStreamSynchronize")
 
 
-def _profile_call(torch, fn, parts=(), chain=None):
+def _profile_call(torch, fn, parts=(), chain=None, templates=()):
     """One warm call of ``fn`` under the profiler: device kernel time by
     kernel and its share of the call's wall time, the flash kernel's
     time and launches, the host's CUDA runtime calls (``HOST_CALLS``),
@@ -1790,7 +1820,9 @@ def _profile_call(torch, fn, parts=(), chain=None):
     ``launch_counters_confirmed`` is false where they differ by more
     than the records the profiler lost, so a replay that added counts
     its graph did not launch, or launched kernels it did not count,
-    shows. ``chain``: ``_chain_timing`` of those kernels."""
+    shows. ``chain``: ``_chain_timing`` of those kernels. ``templates``:
+    {name: (substring, excluded substring or None)}, each summed by kernel
+    template (``_ms_by_kernel``)."""
     from torch.autograd import DeviceType
 
     from repro_torch import kernels
@@ -1815,6 +1847,8 @@ def _profile_call(torch, fn, parts=(), chain=None):
             "flash_attention": _ms_matching(rows, "flash_"),
             **{name: _ms_matching([r for r in rows if out not in r[2]], inc)
                for name, (inc, out) in dict(parts).items()},
+            **{name: _ms_by_kernel(rows, inc, out)
+               for name, (inc, out) in dict(templates).items()},
             "top": [{"kernel": k[:90], "ms": ms, "calls": c}
                     for ms, c, k in rows[:8]]}
 
@@ -5559,32 +5593,38 @@ def _launch_ms(torch, fn, calls=5):
 
 
 def bwd_compare(torch, src):
-    """``python3 chip_smoke.py --bwd-compare SRC``: the flash-attention
-    and RMSNorm add / norm backward kernels of the ``repro_torch`` under
-    SRC at ``FLASH_BWD_CASES`` and ``NORM_BWD_CASES`` (the kernels_bwd
-    phase's inputs): kernel ms, the largest error relative to max|plain|
-    of the plain backward, a bitwise repeat; one JSON line a case, after
-    a line of the backward templates' ptxas registers and spills, then
-    the card's name and power limit. Run on two checkouts in one chip
-    call (a parent unpacked with ``git archive`` and this one), it
-    compares their kernels on one card. Exits 1 where a case fails its
-    gate."""
+    """``python3 chip_smoke.py --bwd-compare SRC``: the backward kernels
+    of the ``repro_torch`` under SRC at the kernels_bwd phase's inputs:
+    flash attention (``FLASH_BWD_CASES``), the RMSNorm add / norm
+    (``NORM_BWD_CASES``) and gated routes (``GATED_BWD_CASES``) and the
+    SSD dual form (``SSD_BWD_CASES``; a case's sub-chunk override only
+    where SRC's kernel module has ``_bwd_at_sub``): kernel ms, the device ms of each
+    kernel template, the largest error relative to max|plain| of the
+    plain backward, a bitwise repeat; one JSON line a case, after a line
+    of the backward templates' ptxas registers and spills, then the
+    card's name and power limit. Run on two checkouts in one chip call (a
+    parent unpacked with ``git archive`` and this one), it compares their
+    kernels on one card. Exits 1 where a case fails its gate."""
     sys.path.insert(0, str(src))
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_cuda, flash_attention_lse_cuda)
     from repro_torch.kernels.flash_attention.ref import \
         attention_backward_reference
-    from repro_torch.kernels.rmsnorm.kernel import fused_rmsnorm_bwd_cuda
-    from repro_torch.kernels.rmsnorm.ref import \
-        fused_rmsnorm_backward_reference
+    from repro_torch.kernels.rmsnorm.kernel import (fused_rmsnorm_bwd_cuda,
+                                                    gated_rmsnorm_bwd_cuda)
+    from repro_torch.kernels.rmsnorm.ref import (
+        fused_rmsnorm_backward_reference, gated_rmsnorm_backward_reference)
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan.ref import ssd_backward_reference
 
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all()
     emit({"phase": "bwd_compare_build", "src": str(src),
           "ptxas": {k: v for k, v in
                     ptxas_table(_build.BUILD_LOG.values()).items()
-                    if "flash_bwd_" in k or "rmsnorm_bwd_kernel" in k}})
+                    if any(t in k for t in ("flash_bwd_", "rmsnorm_bwd_kernel",
+                                            "rmsnorm_gated_bwd", "ssd_bwd_"))}})
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     tr = lambda t: t.transpose(1, 2)  # noqa: E731
     ok = True
@@ -5601,7 +5641,7 @@ def bwd_compare(torch, src):
         emit({"phase": "bwd_compare", "src": str(src), "kernel": kernel,
               "case": case, "dtype": dname, "rel_err": err,
               "bitwise_repeat": rep, "finite": fin, "ok": passed,
-              "kernel_ms": median_ms(torch, fn, flush),
+              "kernel_ms": median_ms(torch, fn, flush, iters=10),
               "launch_ms": _launch_ms(torch, fn)})
 
     for case in FLASH_BWD_CASES:
@@ -5621,6 +5661,30 @@ def bwd_compare(torch, src):
         report("rmsnorm_bwd", name, dname,
                lambda: fused_rmsnorm_bwd_cuda(x, r, s, dy, dt, 1e-5),
                fused_rmsnorm_backward_reference(x, r, s, dy, dt, 1e-5))
+    for name, N, d, stride, dname in GATED_BWD_CASES:
+        y, z, s, dout = _gated_bwd_inputs(torch, N, d, stride, dname)
+        report("rmsnorm_gated_bwd", name, dname,
+               lambda: gated_rmsnorm_bwd_cuda(y, z, s, dout),
+               gated_rmsnorm_backward_reference(y, z, s, dout))
+        del y, z, s, dout
+    at_sub = getattr(ssd_kernel, "_bwd_at_sub", None)
+    for case in SSD_BWD_CASES:
+        name, chunk, dname, sub = case[0], case[7], case[8], _case_sub(case)
+        x, dt, A, B, C, D, s0, dy, dfinal = _ssd_bwd_inputs(torch, case)
+        want = [t for t in ssd_backward_reference(
+            x, dt, A, B, C, D, dy, dfinal, chunk=chunk, initial_state=s0)
+                if t is not None]
+
+        def run():
+            if sub and at_sub:
+                return at_sub(x, dt, A, B, C, D, dy, dfinal, chunk, s0, sub)
+            return ssd_kernel.ssd_bwd_cuda(x, dt, A, B, C, D, dy, dfinal,
+                                           chunk=chunk, initial_state=s0)
+        report("ssd_bwd", name, dname,
+               lambda: [t for t in run() if t is not None], want)
+        del x, dt, A, B, C, D, s0, dy, dfinal, want
+        gc.collect()
+        torch.cuda.empty_cache()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
@@ -5896,8 +5960,11 @@ def norm_bwd_cases(torch, flush):
 
 SSD_BWD_SRC = "src/repro_torch/csrc/ssd_scan_bwd.cu"
 #: (name, b, l, h, p, g, n, chunk, dtype, initial state, final-state
-#: gradient): mamba2-780m's train shape first (the kernel line's head
-#: case), jamba's heads, fp32, a carried state, groups
+#: gradient[, sub-chunk]): mamba2-780m's train shape first (the kernel
+#: line's head case), jamba's heads, fp32 (the simt route), a carried
+#: state, groups, a bf16 chunk that is no multiple of 16 (simt), jamba's
+#: heads with a carried state and a final-state gradient, and the mma
+#: route at a sub-chunk given by the caller
 SSD_BWD_CASES = (
     ("mamba2_train", 4, 1024, 48, 64, 1, 128, 256, "bfloat16", False,
      False),
@@ -5905,13 +5972,65 @@ SSD_BWD_CASES = (
      False),
     ("fp32", 2, 512, 48, 64, 1, 128, 256, "float32", False, False),
     ("state", 2, 512, 16, 64, 1, 128, 128, "bfloat16", True, True),
-    ("groups", 2, 512, 16, 32, 4, 64, 64, "bfloat16", False, True))
+    ("groups", 2, 512, 16, 32, 4, 64, 64, "bfloat16", False, True),
+    ("bf16_chunk40_simt", 2, 320, 16, 64, 1, 128, 40, "bfloat16", False,
+     True),
+    ("jamba_state", 1, 512, 128, 128, 1, 128, 256, "bfloat16", True, True),
+    ("sub64", 2, 512, 16, 64, 1, 128, 256, "bfloat16", True, True, 64))
 #: (name, N, d, z's row stride, dtype): mamba2's train rows first (z of a
-#: 6448-wide in-projection row), jamba's d_inner (a 33152-wide row)
+#: 6448-wide in-projection row), jamba's d_inner (a 33152-wide row), fp32,
+#: an N that is no multiple of the rows a block (two rows of d 1536 a
+#: block), fp32 at jamba's d_inner
 GATED_BWD_CASES = (
     ("N4096_d3072", 4096, 3072, 6448, "bfloat16"),
     ("N1024_d16384", 1024, 16384, JAMBA_PROJ, "bfloat16"),
-    ("N4096_d3072_fp32", 4096, 3072, 6448, "float32"))
+    ("N4096_d3072_fp32", 4096, 3072, 6448, "float32"),
+    ("N4095_d1536", 4095, 1536, 3328, "bfloat16"),
+    ("N1024_d16384_fp32", 1024, 16384, JAMBA_PROJ, "float32"))
+
+
+def _case_sub(case):
+    """A ``SSD_BWD_CASES`` entry's sub-chunk override (0: the plan's)."""
+    return case[11] if len(case) > 11 else 0
+
+
+def _ssd_bwd_inputs(torch, case):
+    """x, dt, A, B, C, D, s0, dy and dfinal of a ``SSD_BWD_CASES`` entry on
+    the card, from the seed, as the mixer makes them (x, B, C strided
+    slices of one conv-output row, dt a softplus, A over -1..-16)."""
+    import torch.nn.functional as F
+
+    name, b, l, h, p, groups, n, chunk, dname, init, dfin = case[:11]
+    dev = torch.device("cuda")
+    dtype = getattr(torch, dname)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    xbc = torch.randn((b, l, h * p + 2 * groups * n), generator=g,
+                      device=dev).to(dtype)
+    x = xbc[..., :h * p].unflatten(-1, (h, p))
+    B = xbc[..., h * p:h * p + groups * n].unflatten(-1, (groups, n))
+    C = xbc[..., h * p + groups * n:].unflatten(-1, (groups, n))
+    dt = F.softplus(torch.randn((b, l, h), generator=g, device=dev) - 3.0)
+    A = -torch.linspace(1.0, 16.0, h, device=dev)
+    D = torch.randn((h,), generator=g, device=dev)
+    s0 = torch.randn((b, h, p, n), generator=g, device=dev) \
+        if init else None
+    dy = torch.randn((b, l, h, p), generator=g, device=dev)
+    dfinal = torch.randn((b, h, p, n), generator=g, device=dev) \
+        if dfin else None
+    return x, dt, A, B, C, D, s0, dy, dfinal
+
+
+def _gated_bwd_inputs(torch, N, d, stride, dname):
+    """y (f32), z (a strided slice of a ``stride``-wide row), the scale
+    and dout of a ``GATED_BWD_CASES`` entry on the card, from the seed."""
+    dev = torch.device("cuda")
+    dtype = getattr(torch, dname)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    y = torch.randn((N, d), generator=g, device=dev)
+    z = torch.randn((N, stride), generator=g, device=dev).to(dtype)[:, :d]
+    s = (1 + 0.1 * torch.randn((d,), generator=g, device=dev)).to(dtype)
+    dout = torch.randn((N, d), generator=g, device=dev).to(dtype)
+    return y, z, s, dout
 
 
 def _ssd_bwd_flops(b, l, h, p, n, chunk):
@@ -5928,47 +6047,38 @@ def _ssd_bwd_flops(b, l, h, p, n, chunk):
 
 
 def ssd_bwd_cases(torch, flush):
-    """The SSD backward kernels (``ssd_bwd_cuda``: seven launches, no
-    atomics) against ``ref.ssd_backward_reference`` and autograd of the
-    plain forward (f32) at ``SSD_BWD_CASES``, the inputs as the mixer
-    makes them (x, B, C strided slices of one conv-output row, dt a
-    softplus, A over -1..-16): every gradient within TOL of max|plain|,
-    bitwise repeatable. Each timed beside its bound and the plain
-    backward (no single library call computes it); the bound counts x,
-    B, C, dt, A, D, dy and the states read once, dx, ddt, dB, dC, dA, dD
-    and the initial state's gradient written once, and
-    ``_ssd_bwd_flops`` at the inputs' peak (bf16 tensor cores; f32's
-    for fp32, and ``bound_ms_cuda_cores`` at f32's for every case)."""
-    import torch.nn.functional as F
-
+    """The SSD backward kernels (``ssd_bwd_cuda`` on the route
+    ``bwd_plan`` picks: bf16 ``mma``, five launches in sub-chunks; f32
+    and odd chunks ``simt``, seven; no atomics) against
+    ``ref.ssd_backward_reference`` and autograd of the plain forward (f32)
+    at ``SSD_BWD_CASES`` (``_ssd_bwd_inputs``): every gradient within TOL
+    of max|plain|, bitwise repeatable. Each timed beside its bound and
+    the plain backward (no single library call computes it); the bound
+    counts x, B, C, dt, A, D, dy and the states read once, dx, ddt, dB,
+    dC, dA, dD and the initial state's gradient written once, and
+    ``_ssd_bwd_flops`` at the inputs' peak (bf16 tensor cores; f32's for
+    fp32, and ``bound_ms_cuda_cores`` at f32's for every case). The
+    gradient does not depend on the chunking, so ``bound_ms`` counts the
+    fewest operations over the chunkings the backward can run (the
+    caller's chunk and each of ``BWD_SUBS`` that divides it);
+    ``bound_ms_sub`` counts those at the sub-chunk the route ran and
+    ``bound_ms_chunk`` at the caller's chunk. The head case also gives
+    each kernel template's device ms (``launch_ms``) and its time at each
+    sub-chunk of ``BWD_SUBS`` that fits (``by_sub``)."""
     from repro_torch.kernels.ssd_scan import kernel as K
     from repro_torch.kernels.ssd_scan.ref import (ssd_backward_reference,
                                                   ssd_reference)
 
-    dev = torch.device("cuda")
     out, errs = [], []
-    for name, b, l, h, p, groups, n, chunk, dname, init, dfin in \
-            SSD_BWD_CASES:
-        dtype = getattr(torch, dname)
-        g = torch.Generator(device=dev).manual_seed(SEED)
-        xbc = torch.randn((b, l, h * p + 2 * groups * n), generator=g,
-                          device=dev).to(dtype)
-        x = xbc[..., :h * p].unflatten(-1, (h, p))
-        B = xbc[..., h * p:h * p + groups * n].unflatten(-1, (groups, n))
-        C = xbc[..., h * p + groups * n:].unflatten(-1, (groups, n))
-        dt = F.softplus(torch.randn((b, l, h), generator=g, device=dev)
-                        - 3.0)
-        A = -torch.linspace(1.0, 16.0, h, device=dev)
-        D = torch.randn((h,), generator=g, device=dev)
-        s0 = torch.randn((b, h, p, n), generator=g, device=dev) \
-            if init else None
-        dy = torch.randn((b, l, h, p), generator=g, device=dev)
-        dfinal = torch.randn((b, h, p, n), generator=g, device=dev) \
-            if dfin else None
+    for case in SSD_BWD_CASES:
+        name, b, l, h, p, groups, n, chunk, dname, init, dfin = case[:11]
+        sub = _case_sub(case)
+        x, dt, A, B, C, D, s0, dy, dfinal = _ssd_bwd_inputs(torch, case)
+        pl = K.bwd_plan(b, l, h, p, n, chunk, x.dtype, sub)
 
-        def kernel():
-            return K.ssd_bwd_cuda(x, dt, A, B, C, D, dy, dfinal, chunk=chunk,
-                                  initial_state=s0)
+        def kernel(sub=sub):
+            return K._bwd_at_sub(x, dt, A, B, C, D, dy, dfinal, chunk, s0,
+                                 sub)
 
         def plain():
             return ssd_backward_reference(x, dt, A, B, C, D, dy, dfinal,
@@ -5994,12 +6104,14 @@ def ssd_bwd_cases(torch, flush):
         states = b * h * p * n * (2 * init + dfin)
         nbytes = 2 * es * (x.numel() + B.numel() + C.numel()) \
             + 4 * (2 * dt.numel() + 4 * h + dy.numel() + states)
-        flops = _ssd_bwd_flops(b, l, h, p, n, chunk)
+        flops = min(_ssd_bwd_flops(b, l, h, p, n, q)
+                    for q in (chunk,) + K.BWD_SUBS if chunk % q == 0)
         bms, by = bound_ms(nbytes, flops, dname)
         rec = {"phase": "kernels_bwd", "kernel": "ssd_bwd", "case": name,
                "dtype": dname, "b": b, "l": l, "h": h, "p": p, "g": groups,
                "n": n, "chunk": chunk, "initial_state": init,
-               "final_state_grad": dfin, "max_abs_err": err,
+               "final_state_grad": dfin, "route": pl.route, "sub": pl.sub,
+               "plan": pl._asdict(), "max_abs_err": err,
                "rel_err_vs_autograd": err_auto, "tol_rel": TOL[dname],
                "bitwise_repeat": repeat, "ok": ok,
                "kernel_ms": median_ms(torch, kernel, flush, iters=10),
@@ -6008,8 +6120,20 @@ def ssd_bwd_cases(torch, flush):
                "library_ms": None, "bound_ms": bms, "bound_by": by,
                "bound_ms_cuda_cores": bound_ms(nbytes, flops,
                                                "float32")[0],
+               "bound_ms_sub": bound_ms(nbytes, _ssd_bwd_flops(
+                   b, l, h, p, n, pl.sub), dname)[0],
+               "bound_ms_chunk": bound_ms(nbytes, _ssd_bwd_flops(
+                   b, l, h, p, n, chunk), dname)[0],
                "bytes": nbytes, "flops": flops}
         rec.update(achieved(rec))
+        if not out:             # the head case: by template, by sub-chunk
+            rec["launch_ms"] = _launch_ms(torch, kernel)
+            if pl.route == "mma":
+                rec["by_sub"] = {
+                    q: median_ms(torch, lambda q=q: kernel(q), flush,
+                                 iters=10)
+                    for q in K.BWD_SUBS if chunk % q == 0 and
+                    K.bwd_main_smem(q, p, n) <= K.SMEM_LIMIT and q >= 64}
         emit(rec)
         out.append(rec)
         errs.append(err)
@@ -6032,20 +6156,15 @@ def gated_bwd_cases(torch, flush):
     bitwise repeatable; timed beside its bound (y, z, dout, the scale
     read once, dy, dz, dscale written once: bytes) and the plain backward
     (no single library call computes it)."""
-    from repro_torch.kernels.rmsnorm.kernel import gated_rmsnorm_bwd_cuda
+    from repro_torch.kernels.rmsnorm.kernel import (gated_rmsnorm_bwd_cuda,
+                                                    plan_bwd)
     from repro_torch.kernels.rmsnorm.ref import (
         gated_rmsnorm_backward_reference, gated_rmsnorm_reference)
 
-    dev = torch.device("cuda")
     out, errs = [], []
     for name, N, d, stride, dname in GATED_BWD_CASES:
-        dtype = getattr(torch, dname)
-        g = torch.Generator(device=dev).manual_seed(SEED)
-        y = torch.randn((N, d), generator=g, device=dev)
-        z = torch.randn((N, stride), generator=g, device=dev).to(dtype)[
-            :, :d]
-        s = (1 + 0.1 * torch.randn((d,), generator=g, device=dev)).to(dtype)
-        dout = torch.randn((N, d), generator=g, device=dev).to(dtype)
+        y, z, s, dout = _gated_bwd_inputs(torch, N, d, stride, dname)
+        pl = plan_bwd(N, d, z.dtype, "gated")
 
         def kernel():
             return gated_rmsnorm_bwd_cuda(y, z, s, dout)
@@ -6068,13 +6187,17 @@ def gated_bwd_cases(torch, flush):
         bms, by = bound_ms(nbytes, 20 * N * d, "float32")
         rec = {"phase": "kernels_bwd", "kernel": "rmsnorm_gated_bwd",
                "case": name, "dtype": dname, "N": N, "d": d,
-               "z_row_stride": stride, "max_abs_err": err,
+               "z_row_stride": stride,
+               "route": "wide" if pl.nv == 8 else "registers",
+               "plan": pl._asdict(), "max_abs_err": err,
                "rel_err_vs_autograd": err_auto, "tol_rel": TOL[dname],
                "bitwise_repeat": repeat, "ok": ok,
                "kernel_ms": median_ms(torch, kernel, flush),
                "plain_ms": median_ms(torch, plain, flush, iters=10),
                "library_ms": None, "bound_ms": bms, "bound_by": by,
                "bytes": nbytes}
+        if not out:             # the head case: by template
+            rec["launch_ms"] = _launch_ms(torch, kernel)
         emit(rec)
         out.append(rec)
         errs.append(err)
@@ -6106,7 +6229,7 @@ TRAIN_MOE_STEPS = 10
 TRAIN_MOE_BLOCKS = 4
 
 
-def _train_cell(torch, phase, cfg, steps, want, checks):
+def _train_cell(torch, phase, cfg, steps, want, checks, templates=()):
     """``cfg`` (bf16, remat on) trains on the card: B 4 x L 1024 from
     ``batches_for(cfg, 4, 1024, seed=0)``, AdamW with
     ``cosine_schedule(3e-4, 100, 10_000)`` (JAX's ``build_step``). First,
@@ -6123,7 +6246,8 @@ def _train_cell(torch, phase, cfg, steps, want, checks):
     (``want``: the first step's, and ``steps`` times that over the run),
     losses, auxiliary losses and gradient norms finite; and one more step
     profiled (busy share, device time by kernel, the counters confirmed
-    by the profiler). Returns the run's launch counts."""
+    by the profiler; ``templates`` as ``_profile_call`` takes them).
+    Returns the run's launch counts."""
     from repro_torch import kernels
     from repro_torch.core.pytree import tree_leaves
     from repro_torch.data.pipeline import batches_for
@@ -6205,7 +6329,7 @@ def _train_cell(torch, phase, cfg, steps, want, checks):
 
     def one():
         holder["out"] = step(state, batches[-1])
-    prof_rec = _profile_call(torch, one)
+    prof_rec = _profile_call(torch, one, templates=templates)
     ms.append(holder["out"][1])
     losses = [float(m["loss"]) for m in ms]
     aux = [float(m["aux_loss"]) for m in ms]
@@ -6259,7 +6383,9 @@ def train_ssm(torch):
     llama's cell is, with the remat-off and microbatch-2 checks; launches
     a step: the SSD dual form 48 + 48 recomputed, its backward 48; the
     norms 97 + 96 recomputed (``ln1`` and the gated norm a layer,
-    ``ln_f``), the add / norm backward 49 and the gated backward 48."""
+    ``ln_f``), the add / norm backward 49 and the gated backward 48. The
+    profiled step names the SSD forward's and backward's device ms by
+    kernel template, and the gated backward's."""
     from repro_torch.launch.steps import resolve_config
 
     cfg = resolve_config("mamba2-780m", "train_4k")
@@ -6268,7 +6394,11 @@ def train_ssm(torch):
             "rmsnorm_bwd": nl + 1, "rmsnorm_gated_bwd": nl,
             "ssd_extend": 0, "flash_attention": 0}
     return _train_cell(torch, "train_ssm", cfg, TRAIN_STEPS, want,
-                       ("remat_off", "microbatch2"))
+                       ("remat_off", "microbatch2"),
+                       templates={"ssd_forward": ("ssd_", "ssd_bwd"),
+                                  "ssd_backward": ("ssd_bwd", None),
+                                  "gated_backward": ("rmsnorm_gated_bwd",
+                                                     None)})
 
 
 def train_moe(torch):
@@ -6302,9 +6432,10 @@ def _exact_configs():
     reduced super-block (attention, seven SSM mixers, MoE on the even
     sublayers) widened as ``model_hybrid`` widens it (d_model 512, the
     SSM's published head_dim 128 and d_state 128; B 2 x L 128), 3 steps
-    each; qwen2-moe-a2.7b at full width cut to 1 layer, B 1 x L 128, 1
-    step (its 1.2 B f32 parameters, most of them the 151,936-row
-    embedding and head, make each CPU step the slowest of the phase)."""
+    each; qwen2-moe-a2.7b at full width cut to 1 layer, B 1 x L 64, 1
+    step (its shared expert and its head_dim-128 fp32 flash backward; its
+    1.2 B f32 parameters, most of them the 151,936-row embedding and
+    head, make each CPU step the slowest of the phase)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -6320,7 +6451,7 @@ def _exact_configs():
                                              **f32), 2, 256, 3),
             (jamba, 2, 128, 3),
             (get_arch("qwen2-moe-a2.7b").replace(n_layers=1, **f32), 1,
-             128, 1))
+             64, 1))
 
 
 #: the relative size of the perturbation ``train_exact`` measures each
@@ -6719,13 +6850,22 @@ def main() -> int:
         entry("rmsnorm_bwd", "cuda", RMSNORM_SRC, None, norm_bwd_err,
               norm_bwd, train_counts,
               extra=("dtype", "route", "bound_by", "rel_err_vs_autograd")),
-        entry("ssd_bwd", "cuda", SSD_BWD_SRC, None, ssd_bwd_err, ssd_bwd,
-              ssm_train_counts,
-              extra=("dtype", "bound_by", "bound_ms_cuda_cores",
-                     "rel_err_vs_autograd")),
-        entry("rmsnorm_gated_bwd", "cuda", RMSNORM_SRC, None,
-              gated_bwd_err, gated_bwd, ssm_train_counts,
-              extra=("dtype", "bound_by", "rel_err_vs_autograd"))]
+        dict(entry("ssd_bwd", "cuda", SSD_BWD_SRC, None, ssd_bwd_err,
+                   ssd_bwd, ssm_train_counts,
+                   extra=("dtype", "bound_by", "bound_ms_cuda_cores",
+                          "rel_err_vs_autograd", "route", "sub", "plan",
+                          "bound_ms_sub", "bound_ms_chunk")),
+             plan=ssd_bwd[0]["plan"], route=ssd_bwd[0]["route"],
+             bound_ms_sub=ssd_bwd[0]["bound_ms_sub"],
+             bound_ms_chunk=ssd_bwd[0]["bound_ms_chunk"],
+             launch_ms=ssd_bwd[0]["launch_ms"],
+             by_sub=ssd_bwd[0].get("by_sub")),
+        dict(entry("rmsnorm_gated_bwd", "cuda", RMSNORM_SRC, None,
+                   gated_bwd_err, gated_bwd, ssm_train_counts,
+                   extra=("dtype", "bound_by", "rel_err_vs_autograd",
+                          "route", "plan")),
+             plan=gated_bwd[0]["plan"], route=gated_bwd[0]["route"],
+             launch_ms=gated_bwd[0]["launch_ms"])]
     for line in kernel_lines:
         line["train_ssm_launches"] = ssm_train_counts[line["name"]]
         line["train_moe_launches"] = moe_train_counts[line["name"]]

@@ -193,23 +193,28 @@ __device__ __forceinline__ uint32_t pack(const float* f, bf16) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// E = 16 / sizeof(T) values to p in T: one 16-byte store when `vec` and
-// the unit is whole, else element by element up to `valid`. STREAM: a
-// store marked evict-first (the backward's dx).
+// E values to p in T (E * sizeof(T) a multiple of 16 bytes): 16-byte
+// stores when `vec` and the unit is whole, else element by element up to
+// `valid`. STREAM: stores marked evict-first (the backward's outputs).
 template <typename T, int E, bool STREAM = false>
 __device__ __forceinline__ void store(T* __restrict__ p, bool vec,
                                       int valid, const float* f) {
   constexpr int PER_WORD = 4 / static_cast<int>(sizeof(T));
+  constexpr int Q4 = E / PER_WORD / 4;  // 16-byte stores
   if (vec && valid >= E) {
-    uint4 w;
-    w.x = pack(f, T());
-    w.y = pack(f + PER_WORD, T());
-    w.z = pack(f + 2 * PER_WORD, T());
-    w.w = pack(f + 3 * PER_WORD, T());
-    if constexpr (STREAM)
-      __stcs(reinterpret_cast<uint4*>(p), w);
-    else
-      *reinterpret_cast<uint4*>(p) = w;
+#pragma unroll
+    for (int q = 0; q < Q4; ++q) {
+      const float* fq = f + 4 * q * PER_WORD;
+      uint4 w;
+      w.x = pack(fq, T());
+      w.y = pack(fq + PER_WORD, T());
+      w.z = pack(fq + 2 * PER_WORD, T());
+      w.w = pack(fq + 3 * PER_WORD, T());
+      if constexpr (STREAM)
+        __stcs(reinterpret_cast<uint4*>(p) + q, w);
+      else
+        reinterpret_cast<uint4*>(p)[q] = w;
+    }
   } else {
 #pragma unroll
     for (int i = 0; i < E; ++i) {
@@ -380,38 +385,60 @@ int by_mode(int mode, int nv, const Args& g, cudaStream_t st) {
 // buffer for the serve path's launches to carry. dt, the gradient of the
 // add route's sum output, may be absent.
 //
-// Two launches. rmsnorm_bwd_kernel maps rows to threads as the forward
-// does (the wrapper's plan_bwd): a thread owns NV 16-byte units of its
-// row (unit k * tpr + j), a row tpr threads, a block `rows` rows; block i
-// walks rows i * rows + slot, then a grid's worth of rows further, and so
-// on, one block an SM. Each row is read once, in 16-byte units where the
-// wrapper found the operand aligned.
+// The backward of the gated route (no TPU counterpart either: the JAX
+// package differentiates rms_norm(y * silu(z))). With the forward's
+// rounded values y^ = T(y), gate = T(silu(z)), v = T(y^ gate) and rstd,
+// v^ = v rstd, g = dout * scale, in f32:
+//   dv = rstd g - v rstd^3 sum(v g) / d,
+//   dy = dv gate                                 (stored in y's type A),
+//   dz = dv q, q = y^ sig(z) (1 + z (1 - sig(z))) (stored in T),
+//   dscale = sum over rows of dout v^.
+// v and the gate are recomputed from y and z (read through their row
+// strides: z is the in-projection's slice, never copied): sig(z) = 1 /
+// (1 + e^-z) and the gate from one expf an element, the gate rounded as
+// the forward rounds it.
+//
+// Two launches. The rows' kernel (rmsnorm_bwd_kernel for add / norm,
+// rmsnorm_gated_bwd_kernel, both over one body, bwd_rows: GATED puts y in
+// the x slot and z in the residual's, and the dt slot holds v) maps rows
+// to threads as the forward does (the wrapper's
+// plan_bwd): a thread owns NV 16-byte units of its row (unit k * tpr +
+// j; a unit is 16 bytes of the rows' type T, so an f32 y takes two), a
+// row tpr threads, a block `rows` rows; block i walks rows i * rows +
+// slot, then a grid's worth of rows further, and so on, one block an SM.
+// Each row is read once, in 16-byte units where the wrapper found the
+// operand aligned.
 // HOLD, rows of up to BWD_HOLD_UNITS units a lane of BWD_HOLD_THREADS
 // threads (d 8192 bf16, 4096 f32; d 2048 bf16 is 2 units a lane of four
-// warps): the scale's units are loaded once (a thread's columns are the
-// same for every row); every unit of x, the residual, dy and dt is
-// loaded before any arithmetic (16-byte loads, all in flight together,
-// marked evict-first: they are read once), as the forward loads, and the
-// raw words stay in registers (t = x (+ residual) in f32 recomputed
-// where it is used) while sum(t^2) and sum(t g) are reduced: the warp's
-// butterfly, then the row's warps in order through shared memory behind
-// a named barrier of the row's own warps, so the rows of a block do not
-// wait for each other. Then dx is written. A slot keeps two rows in
-// flight: the next row's loads are issued before this row's sums are
+// warps; a gated bf16 row up to 2 units a lane, d 4096, as 4 units of an
+// f32 y spill): the scale's units are loaded once (a thread's columns are the
+// same for every row); every unit of the row's operands is loaded before
+// any arithmetic (16-byte loads, all in flight together, marked
+// evict-first: they are read once), as the forward loads, and the raw
+// words stay in registers (t = x (+ residual) in f32 recomputed where it
+// is used; on the gated route with an f32 y, q, the gate and v replace y,
+// z and the spare slot in the first pass, so the second computes no
+// expf) while sum(t^2) and sum(t g) are reduced: the warp's butterfly,
+// then the row's warps in order through shared memory behind a named
+// barrier of the row's own warps, so the rows of a block do not wait for
+// each other. Then the row's outputs are written. A slot keeps two rows
+// in flight: the next row's loads are issued before this row's sums are
 // exchanged. Each thread keeps its columns' dscale partial sums in
 // registers over the rows it visits; at the end a block sums its row
 // slots in slot order into its partial row of d sums.
 // Wider rows (not HOLD: 8 units a lane, one row a block of up to 512
-// threads): the same two passes a unit at a time, the second re-reading
-// the row's units from L1 or L2, and the dscale sums in shared memory,
+// threads; jamba's gated d 16384): the same two passes a unit at a time,
+// the second re-reading the row's units from L1 or L2 (and, gated,
+// recomputing sig(z) and the gate), and the dscale sums in shared memory,
 // each thread its own columns.
 // rmsnorm_dscale_kernel then sums the blocks' rows for each column in
 // block order and stores dscale in the scale's type. No atomics: the
 // gradients are the same bits every run.
 //
-// What bounds it: bytes (x, the residual, dy, dt read once, dx written
-// once); the partial rows (132 x d f32, 1 MB at d 2048) are summed by a
-// second launch of d threads.
+// What bounds it: bytes (add / norm: x, the residual, dy, dt read, dx
+// written once; gated: y, z, dout read, dy, dz written once); the partial
+// rows (132 x d f32, 1 MB at d 2048) are summed by a second launch of d
+// threads.
 constexpr int BWD_THREADS = 256;
 constexpr int BWD_BLOCKS = 264;       // 2 x the H100's 132 SMs
 constexpr int BWD_HOLD_THREADS = 256; // a block of the register route
@@ -419,7 +446,8 @@ constexpr int BWD_HOLD_UNITS = 4;     // units a lane on the register route
 constexpr int BWD_WIDE_THREADS = 512; // a block (one row) of the wide route
 constexpr int BWD_WIDE_UNITS = 8;     // units a lane on the wide route
 // flags of the backward: the residual and dt present, the scale in f32;
-// the gated route's y in f32; the add / norm route's 16-byte paths
+// the gated route's y in f32; the 16-byte paths (x or y, the residual or
+// z, dy or dout, dt, the scale, the outputs)
 constexpr int B_RES = 1, B_DT = 2, B_SF32 = 4, B_YF32 = 8;
 constexpr int BV_X = 16, BV_R = 32, BV_DY = 64, BV_DT = 128, BV_S = 256,
               BV_DX = 512;
@@ -429,34 +457,50 @@ __device__ __forceinline__ void row_barrier(int slot, int tpr) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(slot + 1), "r"(tpr) : "memory");
 }
 
-__device__ __forceinline__ float ldf(const float* p) { return *p; }
-__device__ __forceinline__ float ldf(const bf16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void stf(float* p, float v) { *p = v; }
-__device__ __forceinline__ void stf(bf16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// The raw units of a row that a thread holds: x, the residual, dy and dt
-// (16-byte units as loaded, converted where they are used)
-template <typename T, int E, int NV>
+// The raw units of a row that a thread holds: x (or y, type A), the
+// residual (or z), dy (or dout) and dt (or, gated, v), 16-byte units of T
+// as loaded, converted where they are used
+template <typename T, typename A, int E, int NV>
 struct RowUnits {
-  Raw<T, E> x[NV], r[NV], g[NV], t[NV];
+  Raw<A, E> x[NV];
+  Raw<T, E> r[NV], g[NV], t[NV];
 };
 
-template <typename T, int NV, bool HOLD>
-__global__ void __launch_bounds__(HOLD ? BWD_HOLD_THREADS : BWD_WIDE_THREADS,
-                                  1)
-    rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
-                       const void* __restrict__ scale,
-                       const T* __restrict__ dy, const T* __restrict__ dt,
-                       T* __restrict__ dx, float* __restrict__ partial,
-                       int N, int d, int tpr, long long sx, long long sr,
-                       float eps, int flags) {
+// The gated route's values of one element from y and z (f32): the gate
+// and v rounded to T as the forward rounds them, and dz's factor q
+template <typename T>
+struct GateTerms {
+  float gate, v, q;
+  __device__ __forceinline__ GateTerms(float y, float z) {
+    const float den = 1.0f + expf(-z);
+    const float sig = 1.0f / den;
+    const float yh = round_to(y, T());
+    gate = round_to(z / den, T());
+    v = round_to(yh * gate, T());
+    q = yh * sig * (1.0f + z * (1.0f - sig));
+  }
+};
+
+// threads a block of the register route at NV units a lane: twice
+// BWD_HOLD_THREADS at one unit (at most 128 registers a thread)
+__host__ __device__ constexpr int bwd_hold_threads(int nv) {
+  return nv == 1 ? 2 * BWD_HOLD_THREADS : BWD_HOLD_THREADS;
+}
+
+// The rows of a backward launch (the two kernels below): T the rows'
+// type, A x's (or y's) type
+template <typename T, typename A, int NV, bool HOLD, bool GATED>
+__device__ __forceinline__ void bwd_rows(
+    const A* __restrict__ x, const T* __restrict__ res,
+    const void* __restrict__ scale, const T* __restrict__ dy,
+    const T* __restrict__ dt, A* __restrict__ dx, T* __restrict__ dz,
+    float* __restrict__ partial, int N, int d, int tpr, long long sx,
+    long long sr, float eps, int flags) {
   constexpr int E = 16 / static_cast<int>(sizeof(T));
   constexpr int NH = HOLD ? NV : 1;   // units held in registers
-  using Units = RowUnits<T, E, NH>;
+  // gated: q, the gate and v kept from the first pass (q needs f32 words)
+  constexpr bool KEEP = GATED && HOLD && sizeof(A) == 4;
+  using Units = RowUnits<T, A, E, NH>;
   // HOLD: rows x d, the slots' dscale sums at the end (rows > 1); else d,
   // the row's dscale sums throughout
   extern __shared__ float sums[];
@@ -464,7 +508,8 @@ __global__ void __launch_bounds__(HOLD ? BWD_HOLD_THREADS : BWD_WIDE_THREADS,
   const int rows = blockDim.x / tpr;
   const int slot = threadIdx.x / tpr, j = threadIdx.x - slot * tpr;
   const int wpr = tpr >> 5, w = j >> 5;
-  const bool has_res = (flags & B_RES) != 0, has_dt = (flags & B_DT) != 0;
+  const bool has_res = GATED || (flags & B_RES) != 0;
+  const bool has_dt = !GATED && (flags & B_DT) != 0;
   const bool s_f32 = (flags & B_SF32) != 0;
   const long long step = static_cast<long long>(gridDim.x) * rows;
   float acc[NH][E];
@@ -493,7 +538,7 @@ __global__ void __launch_bounds__(HOLD ? BWD_HOLD_THREADS : BWD_WIDE_THREADS,
   auto load_unit = [&](Units& o, int k, int u, long long row) {
     const int e0 = (u * tpr + j) * E;
     const int valid = row < N ? d - e0 : 0;
-    load<T, E, HOLD>(o.x[k], x + row * sx + e0, (flags & BV_X) != 0, valid);
+    load<A, E, HOLD>(o.x[k], x + row * sx + e0, (flags & BV_X) != 0, valid);
     if (has_res)
       load<T, E, HOLD>(o.r[k], res + row * sr + e0, (flags & BV_R) != 0,
                        valid);
@@ -505,12 +550,33 @@ __global__ void __launch_bounds__(HOLD ? BWD_HOLD_THREADS : BWD_WIDE_THREADS,
   auto t_of = [&](const Units& o, int k, int i) {  // x (+ residual), f32
     return has_res ? elem(o.x[k], i) + elem(o.r[k], i) : elem(o.x[k], i);
   };
-  auto reduce_unit = [&](const Units& o, int k, float& ss, float& dot) {
+  auto reduce_unit = [&](Units& o, int k, float& ss, float& dot) {
+    if constexpr (GATED) {
+      Raw<A, E> q;
+      Raw<T, E> gate, v;
 #pragma unroll
-    for (int i = 0; i < E; ++i) {
-      const float t = t_of(o, k, i);
-      ss += t * t;
-      dot += t * (elem(o.g[k], i) * scale_elem(sc[k], i, s_f32));
+      for (int i = 0; i < E; ++i) {
+        const GateTerms<T> gt(elem(o.x[k], i), elem(o.r[k], i));
+        ss += gt.v * gt.v;
+        dot += gt.v * (elem(o.g[k], i) * scale_elem(sc[k], i, s_f32));
+        if constexpr (KEEP) {
+          set_elem(q, i, gt.q);
+          set_elem(gate, i, gt.gate);
+          set_elem(v, i, gt.v);
+        }
+      }
+      if constexpr (KEEP) {
+        o.x[k] = q;
+        o.r[k] = gate;
+        o.t[k] = v;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        const float t = t_of(o, k, i);
+        ss += t * t;
+        dot += t * (elem(o.g[k], i) * scale_elem(sc[k], i, s_f32));
+      }
     }
   };
   // the row's sums: the warp's butterfly, then the row's warps in order
@@ -536,39 +602,61 @@ __global__ void __launch_bounds__(HOLD ? BWD_HOLD_THREADS : BWD_WIDE_THREADS,
       par ^= 1;
     }
   };
-  // dx of unit u (register slot k of o) and its dscale terms
+  // the outputs of unit u (register slot k of o) and its dscale terms
   auto write_unit = [&](const Units& o, int k, int u, long long row,
                         float rstd, float kk) {
     const int e0 = (u * tpr + j) * E;
     const int valid = d - e0;
     if (valid <= 0) return;
-    float v[E];
+    float v[E], vz[E];
 #pragma unroll
     for (int i = 0; i < E; ++i) {
-      const float t = t_of(o, k, i), gy = elem(o.g[k], i);
-      v[i] = rstd * (gy * scale_elem(sc[k], i, s_f32)) - t * kk;
-      if (has_dt) v[i] += elem(o.t[k], i);
-      const float a = gy * (t * rstd);
+      const float gy = elem(o.g[k], i);
+      float a;
+      if constexpr (GATED) {
+        float gate, vv, q;
+        if constexpr (KEEP) {
+          q = elem(o.x[k], i);
+          gate = elem(o.r[k], i);
+          vv = elem(o.t[k], i);
+        } else {
+          const GateTerms<T> gt(elem(o.x[k], i), elem(o.r[k], i));
+          q = gt.q;
+          gate = gt.gate;
+          vv = gt.v;
+        }
+        const float dv = rstd * (gy * scale_elem(sc[k], i, s_f32)) - vv * kk;
+        v[i] = dv * gate;
+        vz[i] = dv * q;
+        a = gy * (vv * rstd);
+      } else {
+        const float t = t_of(o, k, i);
+        v[i] = rstd * (gy * scale_elem(sc[k], i, s_f32)) - t * kk;
+        if (has_dt) v[i] += elem(o.t[k], i);
+        a = gy * (t * rstd);
+      }
       if constexpr (HOLD)
         acc[k][i] += a;
       else if (i < valid)
         sums[e0 + i] += a;
     }
-    store<T, E, true>(dx + row * d + e0, (flags & BV_DX) != 0, valid, v);
+    store<A, E, true>(dx + row * d + e0, (flags & BV_DX) != 0, valid, v);
+    if constexpr (GATED)
+      store<T, E, true>(dz + row * d + e0, (flags & BV_DX) != 0, valid, vz);
   };
 
   const long long first = static_cast<long long>(blockIdx.x) * rows;
   if constexpr (HOLD) {
     // Two rows in flight a slot: a row's loads are issued before the
-    // previous row's reduction is exchanged and its dx written.
-    Units A, B;
+    // previous row's reduction is exchanged and its outputs written.
+    Units A0, B0;
 #pragma unroll
     for (int k = 0; k < NV; ++k) load_scale_unit(k, k);
     auto load_row = [&](Units& o, long long row) {
 #pragma unroll
       for (int k = 0; k < NV; ++k) load_unit(o, k, k, row);
     };
-    auto finish_row = [&](const Units& o, long long row, Units& next) {
+    auto finish_row = [&](Units& o, long long row, Units& next) {
       float ss = 0.f, dot = 0.f;
 #pragma unroll
       for (int k = 0; k < NV; ++k) reduce_unit(o, k, ss, dot);
@@ -580,15 +668,15 @@ __global__ void __launch_bounds__(HOLD ? BWD_HOLD_THREADS : BWD_WIDE_THREADS,
 #pragma unroll
       for (int k = 0; k < NV; ++k) write_unit(o, k, k, row, rstd, kk);
     };
-    load_row(A, first + slot);
+    load_row(A0, first + slot);
     for (long long base = first; base < N; base += 2 * step) {
-      finish_row(A, base + slot, B);
+      finish_row(A0, base + slot, B0);
       if (base + step >= N) break;    // uniform over the block
-      finish_row(B, base + step + slot, A);
+      finish_row(B0, base + step + slot, A0);
     }
   } else {
     // one unit at a time: the reduction, then the row's units again (from
-    // L1 or L2) for dx
+    // L1 or L2) for the outputs
     Units o;
     for (long long row = first + slot; row - slot < N; row += step) {
       float ss = 0.f, dot = 0.f;
@@ -647,6 +735,38 @@ __global__ void __launch_bounds__(HOLD ? BWD_HOLD_THREADS : BWD_WIDE_THREADS,
   }
 }
 
+// the add / norm routes' rows
+template <typename T, int NV, bool HOLD>
+__global__ void __launch_bounds__(HOLD ? bwd_hold_threads(NV)
+                                       : BWD_WIDE_THREADS,
+                                  1)
+    rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                       const void* __restrict__ scale,
+                       const T* __restrict__ dy, const T* __restrict__ dt,
+                       T* __restrict__ dx, float* __restrict__ partial,
+                       int N, int d, int tpr, long long sx, long long sr,
+                       float eps, int flags) {
+  bwd_rows<T, T, NV, HOLD, false>(x, res, scale, dy, dt, dx, nullptr,
+                                  partial, N, d, tpr, sx, sr, eps, flags);
+}
+
+// the gated route's rows: y (type A) in x's place, z in the residual's,
+// dout in dy's; dy and dz out
+template <typename T, typename A, int NV, bool HOLD>
+__global__ void __launch_bounds__(HOLD ? bwd_hold_threads(NV)
+                                       : BWD_WIDE_THREADS,
+                                  1)
+    rmsnorm_gated_bwd_kernel(const A* __restrict__ y,
+                             const T* __restrict__ z,
+                             const void* __restrict__ scale,
+                             const T* __restrict__ dout, A* __restrict__ dy,
+                             T* __restrict__ dz, float* __restrict__ partial,
+                             int N, int d, int tpr, long long sy,
+                             long long sz, float eps, int flags) {
+  bwd_rows<T, A, NV, HOLD, true>(y, z, scale, dout, nullptr, dy, dz,
+                                 partial, N, d, tpr, sy, sz, eps, flags);
+}
+
 // dscale[c] = the blocks' partial sums of column c, in block order
 __global__ void __launch_bounds__(BWD_THREADS)
     rmsnorm_dscale_kernel(const float* __restrict__ partial, void* dscale,
@@ -661,170 +781,89 @@ __global__ void __launch_bounds__(BWD_THREADS)
     static_cast<bf16*>(dscale)[c] = __float2bfloat16_rn(s);
 }
 
-// The backward of the gated route (no TPU counterpart either: the JAX
-// package differentiates rms_norm(y * silu(z))). With the forward's
-// rounded values y^ = T(y), gate = T(silu(z)), v = T(y^ gate) and rstd,
-// v^ = v rstd, g = dout * scale, in f32:
-//   dv = rstd g - v rstd^3 sum(v g) / d,
-//   dy = dv gate                                 (stored in y's type A),
-//   dz = dv y^ sig(z) (1 + z (1 - sig(z)))       (stored in T),
-//   dscale = sum over rows of dout v^            (the partial rows above).
-// The same two passes a row as rmsnorm_bwd_kernel, v and the gate
-// recomputed from y and z (read through their row strides: z is the
-// in-projection's slice, never copied), and the same dscale reduction.
-// What bounds it: bytes (y, z, dout read, dy and dz written once).
-template <typename T, typename A>
-__global__ void __launch_bounds__(BWD_THREADS)
-    rmsnorm_gated_bwd_kernel(const A* __restrict__ y, const T* __restrict__ z,
-                             const void* __restrict__ scale,
-                             const T* __restrict__ dout, A* __restrict__ dy,
-                             T* __restrict__ dz, float* __restrict__ partial,
-                             int N, int d, long long sy, long long sz,
-                             float eps, int flags) {
-  extern __shared__ float acc[];      // d: this block's dscale sums
-  __shared__ float red[2][BWD_THREADS / 32];
-  const bool s_f32 = (flags & B_SF32) != 0;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* sf = static_cast<const float*>(scale);
-  const bf16* sb = static_cast<const bf16*>(scale);
-  for (int c = tid; c < d; c += BWD_THREADS) acc[c] = 0.f;
-  for (long long row = blockIdx.x; row < N; row += gridDim.x) {
-    const A* yr = y + row * sy;
-    const T* zr = z + row * sz;
-    const T* dor = dout + row * d;
-    float ss = 0.f, dot = 0.f;
-    for (int c = tid; c < d; c += BWD_THREADS) {
-      const float zv = ldf(zr + c);
-      const float gate = round_to(zv / (1.0f + expf(-zv)), T());
-      const float v = round_to(round_to(ldf(yr + c), T()) * gate, T());
-      const float g = ldf(dor + c) * (s_f32 ? sf[c] : ldf(sb + c));
-      ss += v * v;
-      dot += v * g;
-    }
-#pragma unroll
-    for (int o = 16; o; o >>= 1) {
-      ss += __shfl_xor_sync(0xffffffffu, ss, o);
-      dot += __shfl_xor_sync(0xffffffffu, dot, o);
-    }
-    __syncthreads();                  // red of the previous row is read
-    if (lane == 0) {
-      red[0][warp] = ss;
-      red[1][warp] = dot;
-    }
-    __syncthreads();
-    ss = red[0][0];
-    dot = red[1][0];
-    for (int w = 1; w < BWD_THREADS / 32; ++w) {
-      ss += red[0][w];
-      dot += red[1][w];
-    }
-    const float rstd = rsqrtf(ss / static_cast<float>(d) + eps);
-    const float k = rstd * rstd * rstd * dot / static_cast<float>(d);
-    A* dyr = dy + row * d;
-    T* dzr = dz + row * d;
-    for (int c = tid; c < d; c += BWD_THREADS) {
-      const float zv = ldf(zr + c);
-      const float sig = 1.0f / (1.0f + expf(-zv));
-      const float gate = round_to(zv / (1.0f + expf(-zv)), T());
-      const float yh = round_to(ldf(yr + c), T());
-      const float v = round_to(yh * gate, T());
-      const float go = ldf(dor + c);
-      const float dv = rstd * (go * (s_f32 ? sf[c] : ldf(sb + c))) - v * k;
-      stf(dyr + c, dv * gate);
-      stf(dzr + c, dv * yh * sig * (1.0f + zv * (1.0f - sig)));
-      acc[c] += go * (v * rstd);
-    }
-  }
-  for (int c = tid; c < d; c += BWD_THREADS)
-    partial[static_cast<long long>(blockIdx.x) * d + c] = acc[c];
-}
+// The arguments of one backward call (x: y on the gated route, res: z,
+// dy: dout, dx: dy, dz only on the gated route)
+struct BwdArgs {
+  const void *x, *res, *scale, *dy, *dt;
+  void *dx, *dz;
+  float* partial;
+  void* dscale;
+  int N, d, tpr, rows;
+  long long sx, sr;
+  float eps;
+  int flags, blocks;
+};
 
-template <typename T, int NV, bool HOLD>
-int launch_bwd(const T* x, const T* res, const void* scale, const T* dy,
-               const T* dt, T* dx, float* partial, void* dscale, int N,
-               int d, int tpr, int rows, long long sx, long long sr,
-               float eps, int flags, int blocks, cudaStream_t st) {
+template <typename T, typename A, int NV, bool HOLD, bool GATED>
+int launch_bwd(const BwdArgs& g, cudaStream_t st) {
+  auto kern = [] {
+    if constexpr (GATED)
+      return rmsnorm_gated_bwd_kernel<T, A, NV, HOLD>;
+    else
+      return rmsnorm_bwd_kernel<T, NV, HOLD>;
+  }();
   if constexpr (!HOLD) {
     static bool opted = false;        // once per template, per process
     if (!opted) {
       const cudaError_t err = cudaFuncSetAttribute(
-          rmsnorm_bwd_kernel<T, NV, HOLD>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
           MAX_BWD_D * static_cast<int>(sizeof(float)));
       if (err != cudaSuccess) return static_cast<int>(err);
       opted = true;
     }
   }
-  const int bytes =
-      (!HOLD || rows > 1) ? rows * d * static_cast<int>(sizeof(float)) : 0;
-  rmsnorm_bwd_kernel<T, NV, HOLD><<<blocks, tpr * rows, bytes, st>>>(
-      x, res, scale, dy, dt, dx, partial, N, d, tpr, sx, sr, eps, flags);
+  const int bytes = (!HOLD || g.rows > 1)
+                        ? g.rows * g.d * static_cast<int>(sizeof(float))
+                        : 0;
+  if constexpr (GATED)
+    kern<<<g.blocks, g.tpr * g.rows, bytes, st>>>(
+        static_cast<const A*>(g.x), static_cast<const T*>(g.res), g.scale,
+        static_cast<const T*>(g.dy), static_cast<A*>(g.dx),
+        static_cast<T*>(g.dz), g.partial, g.N, g.d, g.tpr, g.sx, g.sr,
+        g.eps, g.flags);
+  else
+    kern<<<g.blocks, g.tpr * g.rows, bytes, st>>>(
+        static_cast<const T*>(g.x), static_cast<const T*>(g.res), g.scale,
+        static_cast<const T*>(g.dy), static_cast<const T*>(g.dt),
+        static_cast<T*>(g.dx), g.partial, g.N, g.d, g.tpr, g.sx, g.sr,
+        g.eps, g.flags);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  rmsnorm_dscale_kernel<<<(d + BWD_THREADS - 1) / BWD_THREADS, BWD_THREADS,
-                          0, st>>>(partial, dscale, blocks, d,
-                                   (flags & B_SF32) != 0);
+  rmsnorm_dscale_kernel<<<(g.d + BWD_THREADS - 1) / BWD_THREADS, BWD_THREADS,
+                          0, st>>>(g.partial, g.dscale, g.blocks, g.d,
+                                   (g.flags & B_SF32) != 0);
   return static_cast<int>(cudaGetLastError());
 }
 
 // nv 1, 2 and 4 units a lane on the register route; 8 on the wide route
-template <typename T>
-int bwd_by_nv(int nv, int tpr, int rows, const T* x, const T* res,
-              const void* scale, const T* dy, const T* dt, T* dx,
-              float* partial, void* dscale, int N, int d, long long sx,
-              long long sr, float eps, int flags, int blocks,
-              cudaStream_t st) {
+template <typename T, typename A, bool GATED>
+int bwd_by_nv(int nv, const BwdArgs& g, cudaStream_t st) {
   if (nv == BWD_WIDE_UNITS) {
-    if (rows != 1 || tpr > BWD_WIDE_THREADS)
+    if (g.rows != 1 || g.tpr > BWD_WIDE_THREADS)
       return static_cast<int>(cudaErrorInvalidValue);
-    return launch_bwd<T, BWD_WIDE_UNITS, false>(
-        x, res, scale, dy, dt, dx, partial, dscale, N, d, tpr, rows, sx, sr,
-        eps, flags, blocks, st);
+    return launch_bwd<T, A, BWD_WIDE_UNITS, false, GATED>(g, st);
   }
-  if (tpr * rows > BWD_HOLD_THREADS)
+  if (g.tpr * g.rows > bwd_hold_threads(nv))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (nv) {
     case 1:
-      return launch_bwd<T, 1, true>(x, res, scale, dy, dt, dx, partial,
-                                    dscale, N, d, tpr, rows, sx, sr, eps,
-                                    flags, blocks, st);
+      return launch_bwd<T, A, 1, true, GATED>(g, st);
     case 2:
-      return launch_bwd<T, 2, true>(x, res, scale, dy, dt, dx, partial,
-                                    dscale, N, d, tpr, rows, sx, sr, eps,
-                                    flags, blocks, st);
-    case 4:
-      return launch_bwd<T, 4, true>(x, res, scale, dy, dt, dx, partial,
-                                    dscale, N, d, tpr, rows, sx, sr, eps,
-                                    flags, blocks, st);
+      return launch_bwd<T, A, 2, true, GATED>(g, st);
+    case 4:  // not for a gated bf16 row: its f32 y would spill
+      if constexpr (!GATED || sizeof(T) == 4)
+        return launch_bwd<T, A, 4, true, GATED>(g, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T, typename A>
-int launch_gated_bwd(const void* y, const void* z, const void* scale,
-                     const void* dout, void* dy, void* dz, float* partial,
-                     void* dscale, int N, int d, long long sy, long long sz,
-                     float eps, int flags, int blocks, cudaStream_t st) {
-  static bool opted = false;          // once per template, per process
-  if (!opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rmsnorm_gated_bwd_kernel<T, A>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        MAX_BWD_D * static_cast<int>(sizeof(float)));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted = true;
-  }
-  rmsnorm_gated_bwd_kernel<T, A>
-      <<<blocks, BWD_THREADS, d * static_cast<int>(sizeof(float)), st>>>(
-          static_cast<const A*>(y), static_cast<const T*>(z), scale,
-          static_cast<const T*>(dout), static_cast<A*>(dy),
-          static_cast<T*>(dz), partial, N, d, sy, sz, eps, flags);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  rmsnorm_dscale_kernel<<<(d + BWD_THREADS - 1) / BWD_THREADS, BWD_THREADS,
-                          0, st>>>(partial, dscale, blocks, d,
-                                   (flags & B_SF32) != 0);
-  return static_cast<int>(cudaGetLastError());
+// the checks both backward entries share
+bool bad_bwd(const BwdArgs& g, int dtype, int nv) {
+  return g.N <= 0 || g.d <= 0 || g.d > MAX_BWD_D || g.tpr <= 0 ||
+         g.tpr % 32 != 0 || g.rows <= 0 || g.tpr * g.rows > MAX_THREADS ||
+         static_cast<long long>(g.tpr) * nv * (4 << dtype) < g.d ||
+         (g.rows > 1 && g.rows * g.d > 8192) || g.blocks <= 0 ||
+         g.blocks > (g.N + g.rows - 1) / g.rows || g.blocks > BWD_BLOCKS;
 }
 
 }  // namespace
@@ -834,8 +873,9 @@ int launch_gated_bwd(const void* y, const void* z, const void* scale,
 // last dimension contiguous; residual null on the norm route); scale
 // (d,) f32 (flags & 4) or bf16; dy and dt (dt may be null) (N, d)
 // contiguous; dx (N, d) contiguous output in the rows' type; nv 16-byte
-// units a thread (1, 2 or 4 on the register route, at most 256 threads a
-// block; 8 on the wide route, one row a block of at most 512), tpr
+// units a thread (1, 2 or 4 on the register route, at most 512 threads a
+// block at 1, 256 else; 8 on the wide route, one row a block of at most
+// 512), tpr
 // threads a row (a multiple of 32), rows a block, from the wrapper's
 // plan_bwd; the 16-byte paths in flags
 // (16 x, 32 the residual, 64 dy, 128 dt, 256 the scale, 512 dx); partial
@@ -849,61 +889,42 @@ extern "C" int rmsnorm_bwd_launch(const void* x, const void* res,
                                   int nv, int tpr, int rows, long long sx,
                                   long long sr, int flags, int blocks,
                                   float eps, void* stream) {
-  if (N <= 0 || d <= 0 || d > MAX_BWD_D || tpr <= 0 || tpr % 32 != 0 ||
-      rows <= 0 || tpr * rows > MAX_THREADS ||
-      static_cast<long long>(tpr) * nv * (4 << dtype) < d ||
-      (rows > 1 && rows * d > 8192) || blocks <= 0 ||
-      blocks > (N + rows - 1) / rows || blocks > BWD_BLOCKS)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdArgs g{x, res, scale, dy, dt, dx, nullptr,
+                  static_cast<float*>(partial), dscale, N, d, tpr, rows, sx,
+                  sr, eps, flags, blocks};
+  if (bad_bwd(g, dtype, nv)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* pp = static_cast<float*>(partial);
-  if (dtype == 1)
-    return bwd_by_nv<bf16>(
-        nv, tpr, rows, static_cast<const bf16*>(x),
-        static_cast<const bf16*>(res), scale, static_cast<const bf16*>(dy),
-        static_cast<const bf16*>(dt), static_cast<bf16*>(dx), pp, dscale, N,
-        d, sx, sr, eps, flags, blocks, st);
-  if (dtype == 0)
-    return bwd_by_nv<float>(
-        nv, tpr, rows, static_cast<const float*>(x),
-        static_cast<const float*>(res), scale,
-        static_cast<const float*>(dy), static_cast<const float*>(dt),
-        static_cast<float*>(dx), pp, dscale, N, d, sx, sr, eps, flags,
-        blocks, st);
+  if (dtype == 1) return bwd_by_nv<bf16, bf16, false>(nv, g, st);
+  if (dtype == 0) return bwd_by_nv<float, float, false>(nv, g, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The backward of the gated route. y: (N, d) rows in f32 (flags & 8) or
-// in z's type, row stride sy; z: (N, d) rows of dtype (0 float, 1 bf16),
-// row stride sz (the last dimensions contiguous); scale (d,) f32 (flags &
-// 4) or bf16; dout (N, d) contiguous in z's type; dy (N, d) contiguous
-// output in y's type, dz (N, d) contiguous output in z's; partial an f32
-// (blocks, d) scratch buffer, blocks in [1, min(N, 264)]; dscale (d,)
-// output in the scale's type. Returns the first cudaGetLastError() that
-// is not 0 after the two launches.
+// The backward of the gated route: the same launch as rmsnorm_bwd_launch
+// with y in x's place (rows in f32, flags & 8, or in z's type; row stride
+// sy), z in the residual's (dtype 0 float, 1 bf16; row stride sz; the
+// last dimensions contiguous), dout in dy's ((N, d) contiguous, z's
+// type), and two outputs, dy (N, d) contiguous in y's type and dz in
+// z's; the 16-byte paths in flags (16 y, 32 z, 64 dout, 256 the scale,
+// 512 the outputs); nv, tpr, rows and blocks from the wrapper's
+// plan_bwd(..., "gated"). Returns the first cudaGetLastError() that is
+// not 0 after the two launches.
 extern "C" int rmsnorm_gated_bwd_launch(const void* y, const void* z,
                                         const void* scale, const void* dout,
                                         void* dy, void* dz, void* partial,
                                         void* dscale, int N, int d, int dtype,
-                                        long long sy, long long sz, int flags,
-                                        int blocks, float eps, void* stream) {
-  if (N <= 0 || d <= 0 || d > MAX_BWD_D || blocks <= 0 || blocks > N ||
-      blocks > BWD_BLOCKS)
-    return static_cast<int>(cudaErrorInvalidValue);
+                                        int nv, int tpr, int rows,
+                                        long long sy, long long sz,
+                                        int flags, int blocks, float eps,
+                                        void* stream) {
+  const BwdArgs g{y, z, scale, dout, nullptr, dy, dz,
+                  static_cast<float*>(partial), dscale, N, d, tpr, rows, sy,
+                  sz, eps, flags, blocks};
+  if (bad_bwd(g, dtype, nv)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* pp = static_cast<float*>(partial);
   if (dtype == 1 && (flags & B_YF32))
-    return launch_gated_bwd<bf16, float>(y, z, scale, dout, dy, dz, pp,
-                                         dscale, N, d, sy, sz, eps, flags,
-                                         blocks, st);
-  if (dtype == 1)
-    return launch_gated_bwd<bf16, bf16>(y, z, scale, dout, dy, dz, pp,
-                                        dscale, N, d, sy, sz, eps, flags,
-                                        blocks, st);
-  if (dtype == 0)
-    return launch_gated_bwd<float, float>(y, z, scale, dout, dy, dz, pp,
-                                          dscale, N, d, sy, sz, eps, flags,
-                                          blocks, st);
+    return bwd_by_nv<bf16, float, true>(nv, g, st);
+  if (dtype == 1) return bwd_by_nv<bf16, bf16, true>(nv, g, st);
+  if (dtype == 0) return bwd_by_nv<float, float, true>(nv, g, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -666,8 +666,14 @@ int dispatch_chunk(const ChunkArgs& a, int batch, int P, int N,
 
 
 // ------------------------------ mma route ------------------------------ //
-constexpr int MMA_MAX_SUB = 128;     // the largest sub-chunk (4 a lane in
+using ssd::MMA_MAX_SUB;              // the largest sub-chunk (4 a lane in
                                      // sub_cumsum, 8 warps in (c))
+using ssd::launch_pdl;
+using ssd::pdl_trigger;
+using ssd::pdl_wait;
+using ssd::split2;
+using ssd::stage_rows;
+using ssd::sub_cumsum;
 constexpr int STATES_THREADS = 128;  // (a): 4 warps over the p x n state
                                      // (8 at p 128: a warp a 16-row
                                      // m-tile, states_threads)
@@ -716,81 +722,6 @@ template <int P, int N>
 __host__ __device__ constexpr int out_smem_bytes(int Q) {
   return 2 * ((Q < OUT_ROWS ? Q : OUT_ROWS) * (N + 8) + out_region<P, N>(Q)) +
          8 * MMA_MAX_SUB;
-}
-
-// rows [0, nr) of W bf16 values (row stride st) into shared rows of
-// stride STR: cp.async 16 bytes a copy when vec, else one element a load
-template <int W, int STR>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long long st, int nr, bool vec) {
-  if (vec) {
-    for (int i = threadIdx.x; i < nr * (W / 8); i += blockDim.x) {
-      const int r = i / (W / 8), c = 8 * (i % (W / 8));
-      attn::cp_async16(dst + r * STR + c, src + r * st + c, true);
-    }
-  } else {
-    for (int i = threadIdx.x; i < nr * W; i += blockDim.x) {
-      const int r = i / W, c = i % W;
-      dst[r * STR + c] = src[r * st + c];
-    }
-  }
-}
-
-// cum[k] = dt[0] A + ... + dt[k] A for k < Q <= MMA_MAX_SUB, by one warp:
-// a lane sums its (Q + 31) / 32 consecutive terms in order, a warp scan
-// adds the lanes before it. (a) and (c) call it alike, so the decay that
-// (a) hands to (b) and the exp(cum_i) of (c) come from the same bits.
-__device__ __forceinline__ void sub_cumsum(float* cum, const float* dtv,
-                                           float Ah, int Q, int lane) {
-  constexpr int MAXPER = MMA_MAX_SUB / 32;
-  const int per = (Q + 31) >> 5;
-  float v[MAXPER];
-  float run = 0.f;
-#pragma unroll
-  for (int i = 0; i < MAXPER; ++i) {
-    const int k = lane * per + i;
-    if (i < per && k < Q) run = __fadd_rn(run, __fmul_rn(dtv[k], Ah));
-    v[i] = run;
-  }
-  float incl = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float u = __shfl_up_sync(FULL, incl, off);
-    if (lane >= off) incl = __fadd_rn(incl, u);
-  }
-  float base = __shfl_up_sync(FULL, incl, 1);
-  if (lane == 0) base = 0.f;
-#pragma unroll
-  for (int i = 0; i < MAXPER; ++i) {
-    const int k = lane * per + i;
-    if (i < per && k < Q) cum[k] = __fadd_rn(base, v[i]);
-  }
-}
-
-// two f32 values as split bf16 pairs, packed as one A-operand register
-// each: hi = bf16(v), lo = bf16(v - hi)
-__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l =
-      __floats2bfloat162_rn(__fsub_rn(v0, hf.x), __fsub_rn(v1, hf.y));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// Programmatic dependent launch: a kernel launched with the programmatic
-// stream serialization attribute may start before the kernel ahead of it
-// in the stream ends, once every block of that kernel has called
-// pdl_trigger; pdl_wait then blocks until that kernel has completed and
-// its writes are visible (a no-op in a kernel launched without the
-// attribute).
-__device__ __forceinline__ void pdl_trigger() {
-  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
-}
-__device__ __forceinline__ void pdl_wait() {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
 // (a)'s threads: 4 warps, or one a 16-row m-tile of the state where p
@@ -1034,10 +965,7 @@ __global__ void __launch_bounds__(OUT_ROWS / 16 * 32, P > 64 ? 2 : 3)
                          : 0.f;
       }
     uint32_t wh[4], wl[4];
-    split2(s[0][0], s[0][1], wh[0], wl[0]);
-    split2(s[0][2], s[0][3], wh[1], wl[1]);
-    split2(s[1][0], s[1][1], wh[2], wl[2]);
-    split2(s[1][2], s[1][3], wh[3], wl[3]);
+    ssd::split_frag(s, wh, wl);
 #pragma unroll
     for (int dp = 0; dp < NO / 2; ++dp) {
       uint32_t vb[4];
@@ -1091,24 +1019,6 @@ __global__ void __launch_bounds__(OUT_ROWS / 16 * 32, P > 64 ? 2 : 3)
     *reinterpret_cast<float2*>(ya + col) = make_float2(o[n][0], o[n][1]);
     *reinterpret_cast<float2*>(yb + col) = make_float2(o[n][2], o[n][3]);
   }
-}
-
-// a launch that may begin before the kernel ahead of it in the stream
-// ends (see pdl_trigger / pdl_wait)
-template <typename... Params, typename... Args>
-cudaError_t launch_pdl(void (*kern)(Params...), dim3 grid, int threads,
-                       int smem, cudaStream_t stream, Args... args) {
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kern, args...);
 }
 
 // the sub-steps in `steps` (1: (a), 2: (b), 4: (c)) in that order

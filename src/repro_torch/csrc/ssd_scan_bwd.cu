@@ -1,5 +1,5 @@
-// The backward of the Mamba-2 SSD dual form, hand-written for Hopper:
-// seven launches, no atomics.
+// The backward of the Mamba-2 SSD dual form, hand-written for Hopper: a
+// tensor-core route for bf16 and PR 32's CUDA-core route, no atomics.
 //
 // Replaces: no TPU kernel. The JAX package trains by autodiff of its
 //   plain chunked scan (src/repro/kernels/ssd_scan/ref.py,
@@ -25,7 +25,66 @@
 //   dx = dt dx^ + D dy, ddt = x.dx^ + A d(dt A), dA = sum dt d(dt A),
 //   dD = sum dy.x; dB and dC summed over the heads of a group.
 //
-// Launches (a simple design, a right kernel first: f32 on the CUDA
+// Two routes, picked by kernels/ssd_scan/kernel.py::bwd_plan from the
+// dtype and the chunk, as the forward's chunk_plan picks its own:
+//
+// mma (bf16 x, B, C; a chunk that is a multiple of 16). The backward's
+// function does not depend on the chunk, so it works in sub-chunks of Q
+// tokens, the first of BWD_SUBS (128, 64, ...) that divides the chunk
+// and whose main kernel fits a block (64 at p 128). Five launches:
+//  (1) ssd_bwd_states_mma_kernel, a block per (sub-chunk, head, batch
+//      row, side): the sub-chunk's own state and its decay (side 0), and
+//      sum_i e^{c_i} dy_i C_i^T (side 1), p x n each;
+//  (2) ssd_bwd_pass_mma_kernel, a thread per 4 state elements: the
+//      forward pass into each sub-chunk's S_in, the reverse pass into its
+//      G = dS_out, both written as split bf16 pairs, with <G, S_in> by
+//      warp; what is left is the initial state's gradient;
+//  (3) ssd_bwd_mma_kernel, a block per (sub-chunk, head, batch row), Q /
+//      16 warps, warp w owning query and key rows 16 w ..: dC, dB, dx,
+//      the row and column sums of M, the state terms, then the
+//      sub-chunk's dc, its reverse cumulative sum, ddt and the block's
+//      partial sums of dA and dD, all in one block (no sum crosses
+//      blocks);
+//  then ssd_bwd_group_kernel (dB, dC over a group's heads) and
+//  ssd_bwd_param_kernel (dA, dD), shared with the simt route. (2) and
+//  (3) are programmatic dependents: (3) runs its query side's own-token
+//  products, which need no state, while (2) runs.
+// Every product runs on the tensor cores (mma.sync m16n8k16, bf16 in,
+// f32 accumulate; attn_mma.cuh's ldmatrix loads). The scores C_i.B_j take
+// the bf16 inputs as they are (exact products); an f32 operand (dy, the
+// weights W and P, x w and e^c dy in (1), S_in, G) enters as a split pair
+// hi = bf16(v), lo = bf16(v - hi) (ssd_common.cuh's split2, as the
+// forward's mma route): two products against an exactly-bf16 partner,
+// three (hi hi + hi lo + lo hi) where both sides are f32 (P^T dy and
+// dy S_in). Tiles are staged by 16-byte cp.async copies.
+// What bounds it: the bytes (x, B, C, dt, dy read, dx, ddt, dB, dC
+// written once: 106 MB at mamba2-780m's train shape, b 4, l 1024, h 48,
+// p 64, n 128, 0.032 ms at 3.35 TB/s). The operations (the live (i, j <=
+// i) pairs' 6n + 4p + 6 and the state products' 12 p n + 6 p a token)
+// fall with the sub-chunk: 21.1 GFLOP at 16, 0.021 ms at 989 TFLOP/s;
+// 32.5 GFLOP at the 128 this route runs, 0.033 ms. On top the route
+// moves its workspace: the states (4 b h (l / Q) p n bytes each of own,
+// into, the f32 S_in and the two split planes, 25 MB at Q 128), and dB
+// and dC a head, wdB / wdC (b l h n f32 each, 101 MB at mamba2), written
+// by (3) and read by the group sum: 403 MB, 0.12 ms at 3.35 TB/s. The
+// round trip is kept without a measured alternative: with no atomics, a
+// group's heads meet in one block or in a chain of blocks in head order,
+// and mamba2 has one group of 48 heads, so one block would own 48 heads
+// (32 blocks for 132 SMs, and dB and dC held across heads in registers
+// the key side already fills) and a chain would serialise them.
+// What the design does about the simt route's costs: (i) the products run
+// on the tensor cores; (ii) one block owns a sub-chunk's queries and keys,
+// so dC, dB, dx and both sums of M come from one block, and each tile of
+// scores is computed once for each side (see (3)); (iii) it works in the
+// sub-chunk that measured fastest, not the caller's 256, which cut the
+// live pairs; (iv) bf16 tiles come in by 16-byte cp.async copies, 163 KB
+// at Q 128 (one block of 8 warps an SM), 101 KB at 64 (two); (v) only a
+// diagonal tile masks, and no tile above it is visited; (vi) dB and dC a
+// head stay a workspace round trip (above).
+//
+// simt (f32 inputs, or a chunk that is no multiple of 16): PR 32's seven
+// launches, unchanged (so the f32 train step on the card keeps its bits;
+// a simple design, a right kernel first: f32 on the CUDA
 // cores, every tile staged in shared memory as f32 with rows padded by
 // one word, 256 threads as 16 x 16, each a 4 x 4 block of a 64 x 64
 // score tile, as ssd_scan.cu's simt route):
@@ -53,21 +112,15 @@
 //      head order (the query and key kernels write them per head).
 //   7. ssd_bwd_param_kernel: dA and dD summed over the partials in
 //      (batch row, chunk) order.
-// Each block owns what it writes and every sum runs in a fixed order, so
-// the gradients are the same bits launch after launch.
-//
-// What bounds it on this card: the operations. At mamba2-780m's train
-// shape (b 4, l 1024, h 48, p 64, n 128, chunk 256) the intra-chunk
-// products are 2 (2 n + p) flops a live (i, j) pair and head in each of
-// kernels 3 and 4 (one product fewer of n in 3, one more of p in 4) and
-// the state products 2 p n a token and head in each of 1 (two sides), 3
-// and 4. This design runs them on the CUDA cores (67 TFLOP/s f32) with
-// two shared-memory reads a pair of FMAs, over tiles that also compute
-// the masked half of the diagonal tiles; the tensor-core redesign on the
-// forward's split-bf16 mma.sync products is ROADMAP section 2's later
-// work.
+// It is bound by its operations on the CUDA cores (67 TFLOP/s f32), with
+// two shared-memory reads a pair of FMAs.
+// Each block owns what it writes and every sum runs in a fixed order, on
+// both routes (no atomics), so the gradients are the same bits launch
+// after launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
 #include "ssd_common.cuh"
 
 namespace {
@@ -792,6 +845,791 @@ int dispatch_bwd(const BwdArgs& a, int P, int N, cudaStream_t st) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ------------------------------ mma route ------------------------------ //
+using ssd::MMA_MAX_SUB;
+using ssd::split2;
+using ssd::split_frag;
+using ssd::stage_rows;
+using ssd::sub_cumsum;
+
+constexpr int MMA_STATES_THREADS = 128;  // 4 warps; a warp a 16-row m-tile
+                                         // of the state above p 64
+constexpr int MMA_PASS_THREADS = 256;    // a thread 4 state elements
+constexpr int MMA_PASS_DEPTH = 8;        // chunk states in flight a thread
+constexpr int MMA_MAIN_THREADS = MMA_MAX_SUB / 16 * 32;  // a warp 16 rows
+
+struct MmaBwdArgs {
+  const bf16* x;
+  const float* dt;
+  const float* A;
+  const bf16* B;
+  const bf16* C;
+  const float* D;
+  const float* s0;      // (b, h, p, n), 16-byte aligned, may be null
+  const float* dy;      // (b, l, h, p) contiguous, 16-byte aligned
+  const float* dfinal;  // (b, h, p, n), 16-byte aligned, may be null
+  bf16* dx;             // (b, l, h, p) contiguous
+  float* ddt;           // (b, l, h) contiguous
+  float* dinit;         // (b, h, p, n), may be null
+  // workspace
+  float* own;           // (b, h, chunks, p, n): own states -> S_in (f32)
+  float* into;          // (b, h, chunks, p, n): sum_i e^{c_i} dy_i C_i^T
+  float* decay;         // (b, h, chunks): e^{c_Q}
+  float* gdot;          // (b, h, chunks, p n / 128): <G, S_in> by warp
+  float* wdB;           // (b, l, h, n): dB a head
+  float* wdC;
+  float* part;          // (2, b, chunks, h): dA, dD partial sums
+  bf16* s_in2;          // (b, h, chunks, 2, p, n): S_in as hi, lo planes
+  bf16* g2;             // (b, h, chunks, 2, p, n): G = dS_out as hi, lo
+  int batch, L, Q, H, G, nc;
+  bool vec;             // x, B and C staged 16 bytes a copy
+  long long x_sb, x_st, x_sh;
+  long long dt_sb, dt_st;
+  long long b_sb, b_st, b_sg;
+  long long c_sb, c_st, c_sg;
+};
+
+// (1)'s threads: 4 warps, or one a 16-row m-tile of the state where p has
+// more than 4 (p 128: 8 warps)
+__host__ __device__ constexpr int bwd_states_threads(int P) {
+  return P / 16 > 4 ? P / 16 * 32 : MMA_STATES_THREADS;
+}
+
+// Shared memory of (1): the column operand [Q][N + 8] (B or C), the row
+// operand's hi and lo [Q][P + 8] (bf16), then dt, cum and the weights
+template <int P, int N>
+__host__ __device__ constexpr int bwd_states_smem(int Q) {
+  return 2 * Q * (N + 8) + 4 * Q * (P + 8) + 12 * MMA_MAX_SUB;
+}
+
+// Shared memory of (3): C, B [Q][N + 8], x and dy's hi and lo [Q][P + 8]
+// (bf16), the state region (S_in's hi and lo, then G's: 2 [P][N + 8]),
+// then seven f32 rows of MMA_MAX_SUB (dt, cum, the query and the key
+// halves of dc, x.dx^, dy.x, m)
+template <int P, int N>
+__host__ __device__ constexpr int bwd_main_smem(int Q) {
+  return 2 * (2 * Q * (N + 8) + 3 * Q * (P + 8) + 2 * P * (N + 8)) +
+         28 * MMA_MAX_SUB;
+}
+
+// the most shared memory a block may take, and (3)'s at the largest
+// sub-chunk that fits it (64 at p 128)
+constexpr int SMEM_LIMIT = 232448;
+template <int P, int N>
+__host__ __device__ constexpr int bwd_main_max_smem() {
+  return bwd_main_smem<P, N>(MMA_MAX_SUB) <= SMEM_LIMIT
+             ? bwd_main_smem<P, N>(MMA_MAX_SUB)
+             : bwd_main_smem<P, N>(MMA_MAX_SUB / 2);
+}
+
+// s (16 x 8 NT) += (hi + lo) K^T for one 16-deep k-step: the split A
+// operand against one K fragment (rows at kl, from attn::k_lane)
+template <int NT, int STR>
+__device__ __forceinline__ void qk_step2(float (&s)[NT][4],
+                                         const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         const bf16* kl, int ks) {
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np) {
+    uint32_t kb[4];
+    attn::ldsm_x4(kb, kl + np * 16 * STR + ks * 16);
+    attn::mma_bf16(s[2 * np], ah, kb[0], kb[1]);
+    attn::mma_bf16(s[2 * np + 1], ah, kb[2], kb[3]);
+    attn::mma_bf16(s[2 * np], al, kb[0], kb[1]);
+    attn::mma_bf16(s[2 * np + 1], al, kb[2], kb[3]);
+  }
+}
+
+// o (16 x 8 NO) += a V over one 16-deep k-step of V's rows: vl is the
+// lane's address in the step's first row, (lane % 16) rows down and
+// (lane / 16) * 8 columns in (V is read transposed by ldmatrix)
+template <int NO, int STR>
+__device__ __forceinline__ void pv_step(float (&o)[NO][4],
+                                        const uint32_t (&a)[4],
+                                        const bf16* vl) {
+#pragma unroll
+  for (int dp = 0; dp < NO / 2; ++dp) {
+    uint32_t vb[4];
+    attn::ldsm_x4_t(vb, vl + dp * 16);
+    attn::mma_bf16(o[2 * dp], a, vb[0], vb[1]);
+    attn::mma_bf16(o[2 * dp + 1], a, vb[2], vb[3]);
+  }
+}
+
+// the same for a split A operand: o += (hi + lo) V, V's fragments loaded
+// once
+template <int NO, int STR>
+__device__ __forceinline__ void pv_step2(float (&o)[NO][4],
+                                         const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         const bf16* vl) {
+#pragma unroll
+  for (int dp = 0; dp < NO / 2; ++dp) {
+    uint32_t vb[4];
+    attn::ldsm_x4_t(vb, vl + dp * 16);
+    attn::mma_bf16(o[2 * dp], ah, vb[0], vb[1]);
+    attn::mma_bf16(o[2 * dp + 1], ah, vb[2], vb[3]);
+    attn::mma_bf16(o[2 * dp], al, vb[0], vb[1]);
+    attn::mma_bf16(o[2 * dp + 1], al, vb[2], vb[3]);
+  }
+}
+
+// the sum over the 4 lanes of a quad (the lanes of one accumulator row)
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 1);
+  return v + __shfl_xor_sync(FULL, v, 2);
+}
+
+// the sum over a warp of v, every lane getting it (a fixed tree)
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+// (1) one block per (sub-chunk, head, batch row, side): side 0 the
+// sub-chunk's own state sum_j (e^{c_Q - c_j} dt_j x_j)^T B_j and its
+// decay e^{c_Q}, side 1 sum_i (e^{c_i} dy_i)^T C_i, each p x n (f32) into
+// the workspace. The row operand (x w, or e^c dy) is f32: it enters as a
+// split bf16 pair against B or C, which are exactly bf16 (two products).
+// Warp (mt, nw) owns state rows 16 mt .. and columns nw N / WN ...
+template <int P, int N>
+__global__ void __launch_bounds__(bwd_states_threads(P))
+    ssd_bwd_states_mma_kernel(const MmaBwdArgs a) {
+  constexpr int SN = N + 8, SP = P + 8;
+  constexpr int THREADS = bwd_states_threads(P);
+  constexpr int WM = P / 16;
+  constexpr int WN = THREADS / 32 / WM;
+  constexpr int NT = N / 8 / WN;
+  static_assert(WM * WN * 32 == THREADS && NT % 2 == 0,
+                "the warps tile the state");
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  const int Q = a.Q;
+  bf16* cs = reinterpret_cast<bf16*>(bwd_smem);
+  bf16* rh = cs + Q * SN;
+  bf16* rl = rh + Q * SP;
+  float* dtv = reinterpret_cast<float*>(rl + Q * SP);
+  float* cum = dtv + MMA_MAX_SUB;
+  float* wv = cum + MMA_MAX_SUB;
+
+  const int c = blockIdx.x, h = blockIdx.y, nc = gridDim.x;
+  const long long b = blockIdx.z >> 1;
+  const bool side1 = (blockIdx.z & 1) != 0;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = h / (a.H / a.G);
+  const long long t0 = (long long)c * Q;
+
+  ssd::pdl_trigger();  // (2) may be scheduled now; it waits for this grid
+  if (side1) {
+    stage_rows<N, SN>(cs, a.C + b * a.c_sb + t0 * a.c_st + g * a.c_sg,
+                      a.c_st, Q, a.vec);
+  } else {
+    stage_rows<N, SN>(cs, a.B + b * a.b_sb + t0 * a.b_st + g * a.b_sg,
+                      a.b_st, Q, a.vec);
+    stage_rows<P, SP>(rh, a.x + b * a.x_sb + t0 * a.x_st + h * a.x_sh,
+                      a.x_st, Q, a.vec);
+  }
+  attn::cp_async_commit();
+  const float* dtb = a.dt + b * a.dt_sb + t0 * a.dt_st + h;
+  for (int k = tid; k < Q; k += THREADS) dtv[k] = dtb[k * a.dt_st];
+  __syncthreads();
+  if (warp == 0) sub_cumsum(cum, dtv, a.A[h], Q, lane);
+  __syncthreads();
+  const float cend = cum[Q - 1];
+  for (int k = tid; k < Q; k += THREADS)
+    wv[k] = side1 ? expf(cum[k])
+                  : __fmul_rn(expf(__fsub_rn(cend, cum[k])), dtv[k]);
+  if (!side1 && tid == 0) a.decay[(b * a.H + h) * nc + c] = expf(cend);
+  attn::cp_async_wait<0>();
+  __syncthreads();
+  if (side1) {  // e^{c_k} dy_k, split, from dy's f32 rows
+    ssd::stage_split_f32<P, SP>(rh, rl,
+                                a.dy + ((b * a.L + t0) * a.H + h) * P,
+                                (long long)a.H * P, Q, wv);
+  } else {  // x w, split in place: x's tile becomes hi
+    for (int i = tid; i < Q * P; i += THREADS) {
+      const int k = i / P, r = i % P;
+      const float v = __fmul_rn(__bfloat162float(rh[k * SP + r]), wv[k]);
+      const bf16 hi = __float2bfloat16_rn(v);
+      rh[k * SP + r] = hi;
+      rl[k * SP + r] =
+          __float2bfloat16_rn(__fsub_rn(v, __bfloat162float(hi)));
+    }
+  }
+  __syncthreads();
+
+  const int mt = warp % WM, nw = warp / WM;
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // the row operand's fragment of rows 16 mt.., tokens 16 ks..: read
+  // transposed from its [token][row] tile
+  const int a_off = ((lane >> 4) * 8 + (lane & 7)) * SP +
+                    ((lane >> 3) & 1) * 8 + mt * 16;
+  const bf16* cl = cs + (lane & 15) * SN + (lane >> 4) * 8 + nw * (N / WN);
+  for (int ks = 0; ks < Q / 16; ++ks) {
+    uint32_t ah[4], al[4];
+    attn::ldsm_x4_t(ah, rh + a_off + ks * 16 * SP);
+    attn::ldsm_x4_t(al, rl + a_off + ks * 16 * SP);
+    pv_step2<NT, SN>(acc, ah, al, cl + ks * 16 * SN);
+  }
+  float* out = (side1 ? a.into : a.own) +
+               ((b * a.H + h) * nc + c) * (long long)(P * N);
+  const int r0 = mt * 16 + (lane >> 2);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int col = nw * (N / WN) + n * 8 + 2 * (lane & 3);
+    *reinterpret_cast<float2*>(out + r0 * N + col) =
+        make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(out + (r0 + 8) * N + col) =
+        make_float2(acc[n][2], acc[n][3]);
+  }
+}
+
+// (2) the state passes: thread i owns 4 consecutive elements of one (batch
+// row, head) state. The forward pass turns the own states into incoming
+// states S_in (from the initial state or 0), written as split pairs for
+// (3) and, in f32, over the own states; the reverse pass turns the sums
+// of side 1 into each sub-chunk's G = dS_out (from the final state's
+// gradient or 0), written as split pairs, and takes each sub-chunk's
+// <G, S_in> over its warp (a fixed tree), one partial a warp; what is
+// left is the initial state's gradient. MMA_PASS_DEPTH states are loaded
+// ahead of each chain.
+__global__ void __launch_bounds__(MMA_PASS_THREADS)
+    ssd_bwd_pass_mma_kernel(const MmaBwdArgs a, int pn4) {
+  ssd::pdl_trigger();  // (3) may be scheduled: its first half needs no state
+  ssd::pdl_wait();     // every state of (1) is written
+  const long long i = (long long)blockIdx.x * MMA_PASS_THREADS + threadIdx.x;
+  if (i >= (long long)a.batch * a.H * pn4) return;  // whole warps
+  const int nc = a.nc, lane = threadIdx.x & 31;
+  const long long bh = i / pn4, e = i - bh * pn4;
+  float4* own = reinterpret_cast<float4*>(a.own) + bh * nc * pn4 + e;
+  const float4* into =
+      reinterpret_cast<const float4*>(a.into) + bh * nc * pn4 + e;
+  uint2* si = reinterpret_cast<uint2*>(a.s_in2) + bh * nc * 2 * pn4 + e;
+  uint2* gi = reinterpret_cast<uint2*>(a.g2) + bh * nc * 2 * pn4 + e;
+  const float* dc = a.decay + bh * nc;
+  auto put = [&](uint2* dst, const float4& v) {
+    uint2 hi, lo;
+    split2(v.x, v.y, hi.x, lo.x);
+    split2(v.z, v.w, hi.y, lo.y);
+    dst[0] = hi;
+    dst[pn4] = lo;
+  };
+  auto fma4 = [](float d, const float4& s, const float4& o) {
+    return make_float4(__fmaf_rn(d, s.x, o.x), __fmaf_rn(d, s.y, o.y),
+                       __fmaf_rn(d, s.z, o.z), __fmaf_rn(d, s.w, o.w));
+  };
+  float4 s = a.s0 != nullptr ? reinterpret_cast<const float4*>(a.s0)[i]
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c0 = 0; c0 < nc; c0 += MMA_PASS_DEPTH) {
+    float4 sc[MMA_PASS_DEPTH];
+#pragma unroll
+    for (int j = 0; j < MMA_PASS_DEPTH; ++j)
+      if (c0 + j < nc) sc[j] = own[(long long)(c0 + j) * pn4];
+#pragma unroll
+    for (int j = 0; j < MMA_PASS_DEPTH; ++j)
+      if (c0 + j < nc) {
+        put(si + (long long)(c0 + j) * 2 * pn4, s);
+        own[(long long)(c0 + j) * pn4] = s;
+        s = fma4(dc[c0 + j], s, sc[j]);
+      }
+  }
+  const int wp = pn4 / 32;
+  const long long wq = e >> 5;
+  float4 gs = a.dfinal != nullptr
+                  ? reinterpret_cast<const float4*>(a.dfinal)[i]
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c1 = nc - 1; c1 >= 0; c1 -= MMA_PASS_DEPTH) {
+    float4 in[MMA_PASS_DEPTH], sv[MMA_PASS_DEPTH];
+#pragma unroll
+    for (int j = 0; j < MMA_PASS_DEPTH; ++j)
+      if (c1 - j >= 0) {
+        in[j] = into[(long long)(c1 - j) * pn4];
+        sv[j] = own[(long long)(c1 - j) * pn4];
+      }
+#pragma unroll
+    for (int j = 0; j < MMA_PASS_DEPTH; ++j) {
+      const int c = c1 - j;
+      if (c >= 0) {  // uniform over the warp
+        put(gi + (long long)c * 2 * pn4, gs);
+        float dot = __fmul_rn(gs.x, sv[j].x);
+        dot = __fmaf_rn(gs.y, sv[j].y, dot);
+        dot = __fmaf_rn(gs.z, sv[j].z, dot);
+        dot = __fmaf_rn(gs.w, sv[j].w, dot);
+        dot = warp_sum(dot);
+        if (lane == 0) a.gdot[(bh * nc + c) * wp + wq] = dot;
+        gs = fma4(dc[c], gs, in[j]);
+      }
+    }
+  }
+  if (a.dinit != nullptr) reinterpret_cast<float4*>(a.dinit)[i] = gs;
+}
+
+// (3) one block per (sub-chunk, head, batch row), Q / 16 warps: warp w
+// owns the sub-chunk's query rows i and key rows j in 16 w .. 16 w + 15.
+//  Query side, over the key tiles kk <= w: s = C_i.B_j, yx = dy_i.x_j,
+//  W_ij = e^{c_i - c_j} dt_j yx (j <= i), M = s W: dC_i = sum W_ij B_j,
+//  the row sums of M; then, once (2) is done, e^{c_i} S_in^T dy_i into
+//  dC_i and e^{c_i} C_i.(S_in^T dy_i) into dc_i.
+//  Key side: e^{c_Q - c_j} G B_j into dx^_j (and m_j from it),
+//  e^{c_Q - c_j} dt_j G^T x_j into dB_j; then over the query tiles qq >=
+//  w: s^T, yx^T as above, dB_j += sum W_ij C_i, dx^_j += sum P_ij dy_i
+//  with P = s e^{c_i - c_j}, and the column sums of M.
+//  Then the sub-chunk's dc, its reverse cumulative sum, ddt, dx and the
+//  block's partial sums of dA and dD.
+// A tile's scores are computed once for each side: the key side needs
+// them transposed across warps, which would cost 2 Q^2 f32 of shared
+// memory or a barrier a tile with the triangle's later steps half idle;
+// computing them again costs 32 of a tile pair's 152 products and gives
+// every warp Q / 16 + 1 tiles.
+template <int P, int N>
+__global__ void __launch_bounds__(MMA_MAIN_THREADS, 1)
+    ssd_bwd_mma_kernel(const MmaBwdArgs a) {
+  constexpr int SN = N + 8, SP = P + 8;
+  constexpr int NN = N / 8, NP = P / 8;  // n-tiles over n and over p
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  const int Q = a.Q, NW = Q >> 4;
+  bf16* cs = reinterpret_cast<bf16*>(bwd_smem);  // C [Q][SN]
+  bf16* bs = cs + Q * SN;                         // B [Q][SN]
+  bf16* xs = bs + Q * SN;                         // x [Q][SP]
+  bf16* yh = xs + Q * SP;                         // dy hi [Q][SP]
+  bf16* yl = yh + Q * SP;                         // dy lo [Q][SP]
+  bf16* sh = yl + Q * SP;                         // S_in, then G: hi
+  bf16* sl = sh + P * SN;                         //                lo
+  float* dtv = reinterpret_cast<float*>(sl + P * SN);
+  float* cum = dtv + MMA_MAX_SUB;
+  float* dq = cum + MMA_MAX_SUB;   // dc's query terms
+  float* dk = dq + MMA_MAX_SUB;    // dc's key terms
+  float* sx = dk + MMA_MAX_SUB;    // x_j.dx^_j
+  float* sd = sx + MMA_MAX_SUB;    // dy_j.x_j
+  float* mm = sd + MMA_MAX_SUB;    // m_j
+
+  const int c = blockIdx.x, h = blockIdx.y, nc = gridDim.x;
+  const long long b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = h / (a.H / a.G), tq = lane & 3;
+  const long long t0 = (long long)c * Q, bhc = (b * a.H + h) * nc + c;
+  const float* dyb = a.dy + ((b * a.L + t0) * a.H + h) * P;
+  const long long dy_st = (long long)a.H * P;
+
+  stage_rows<N, SN>(cs, a.C + b * a.c_sb + t0 * a.c_st + g * a.c_sg, a.c_st,
+                    Q, a.vec);
+  stage_rows<N, SN>(bs, a.B + b * a.b_sb + t0 * a.b_st + g * a.b_sg, a.b_st,
+                    Q, a.vec);
+  stage_rows<P, SP>(xs, a.x + b * a.x_sb + t0 * a.x_st + h * a.x_sh, a.x_st,
+                    Q, a.vec);
+  attn::cp_async_commit();
+  const float* dtb = a.dt + b * a.dt_sb + t0 * a.dt_st + h;
+  for (int k = tid; k < Q; k += blockDim.x) dtv[k] = dtb[k * a.dt_st];
+  ssd::stage_split_f32<P, SP>(yh, yl, dyb, dy_st, Q, nullptr);
+  __syncthreads();
+  if (warp == 0) sub_cumsum(cum, dtv, a.A[h], Q, lane);
+  attn::cp_async_wait<0>();
+  __syncthreads();
+
+  const int r0 = 16 * warp;               // the warp's rows (queries, keys)
+  const int ra = r0 + (lane >> 2), rb = ra + 8;
+  const float ca = cum[ra], cb = cum[rb];
+  const bf16* cq = attn::q_lane<SN>(cs + r0 * SN, lane);   // C_i
+  const bf16* yq = attn::q_lane<SP>(yh + r0 * SP, lane);   // dy_i hi
+  const bf16* yq2 = attn::q_lane<SP>(yl + r0 * SP, lane);  // dy_i lo
+  const int v_off = (lane & 15) * SN + (lane >> 4) * 8;    // V-like rows
+  const int v_offp = (lane & 15) * SP + (lane >> 4) * 8;
+
+  // ---- query side: the sub-chunk's own tokens (no state needed) ----
+  float acc[NN][4];
+  float rsa = 0.f, rsb = 0.f;  // row sums of M
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int kk = 0; kk <= warp; ++kk) {
+    float s[2][4], yx[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = yx[n][e] = 0.f;
+    const bf16* kb = attn::k_lane<SN>(bs + kk * 16 * SN, lane);
+#pragma unroll
+    for (int ks = 0; ks < N / 16; ++ks) {
+      uint32_t qa[4];
+      attn::ldsm_x4(qa, cq + ks * 16);
+      attn::qk_step<2, SN>(s, qa, kb, ks);
+    }
+    const bf16* xb = attn::k_lane<SP>(xs + kk * 16 * SP, lane);
+#pragma unroll
+    for (int ks = 0; ks < P / 16; ++ks) {
+      uint32_t ah[4], al[4];
+      attn::ldsm_x4(ah, yq + ks * 16);
+      attn::ldsm_x4(al, yq2 + ks * 16);
+      qk_step2<2, SP>(yx, ah, al, xb, ks);
+    }
+    // W_ij = e^{c_i - c_j} dt_j yx_ij for j <= i (only the diagonal tile
+    // masks); M_ij = s_ij W_ij
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e < 2 ? ra : rb;
+        const int j = kk * 16 + n * 8 + 2 * tq + (e & 1);
+        float w = 0.f;
+        if (j <= i) {
+          w = __fmul_rn(__fmul_rn(expf(__fsub_rn(e < 2 ? ca : cb, cum[j])),
+                                  dtv[j]),
+                        yx[n][e]);
+          const float m = __fmul_rn(s[n][e], w);
+          if (e < 2)
+            rsa = __fadd_rn(rsa, m);
+          else
+            rsb = __fadd_rn(rsb, m);
+        }
+        s[n][e] = w;
+      }
+    uint32_t wh[4], wl[4];
+    split_frag(s, wh, wl);
+    pv_step2<NN, SN>(acc, wh, wl, bs + kk * 16 * SN + v_off);
+  }
+  rsa = quad_sum(rsa);
+  rsb = quad_sum(rsb);
+
+  // ---- query side: the incoming state, once (2) is done ----
+  ssd::pdl_wait();
+  const bf16* sp = a.s_in2 + bhc * (long long)(2 * P * N);
+  stage_rows<N, SN>(sh, sp, N, P, true);
+  stage_rows<N, SN>(sl, sp + P * N, N, P, true);
+  attn::cp_async_commit();
+  attn::cp_async_wait<0>();
+  __syncthreads();
+  {
+    float v[NN][4];  // S_in^T dy_i = dy_i S_in: 3 products of split pairs
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < P / 16; ++ks) {
+      uint32_t ah[4], al[4];
+      attn::ldsm_x4(ah, yq + ks * 16);
+      attn::ldsm_x4(al, yq2 + ks * 16);
+      pv_step2<NN, SN>(v, ah, al, sh + ks * 16 * SN + v_off);
+      pv_step<NN, SN>(v, ah, sl + ks * 16 * SN + v_off);
+    }
+    const float ea = expf(ca), eb = expf(cb);
+    float da = 0.f, db = 0.f;  // e^{c_i} C_i.(S_in^T dy_i)
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      const int col = n * 8 + 2 * tq;
+      const float2 cA = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(cs + ra * SN + col));
+      const float2 cB = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(cs + rb * SN + col));
+      v[n][0] = __fmul_rn(ea, v[n][0]);
+      v[n][1] = __fmul_rn(ea, v[n][1]);
+      v[n][2] = __fmul_rn(eb, v[n][2]);
+      v[n][3] = __fmul_rn(eb, v[n][3]);
+      da = __fmaf_rn(cA.x, v[n][0], __fmaf_rn(cA.y, v[n][1], da));
+      db = __fmaf_rn(cB.x, v[n][2], __fmaf_rn(cB.y, v[n][3], db));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = __fadd_rn(acc[n][e], v[n][e]);
+    }
+    da = quad_sum(da);
+    db = quad_sum(db);
+    if (tq == 0) {
+      dq[ra] = __fadd_rn(rsa, da);
+      dq[rb] = __fadd_rn(rsb, db);
+    }
+  }
+  {
+    float* wa = a.wdC + ((b * a.L + t0 + ra) * a.H + h) * N;
+    float* wb = wa + 8LL * a.H * N;
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      const int col = n * 8 + 2 * tq;
+      *reinterpret_cast<float2*>(wa + col) =
+          make_float2(acc[n][0], acc[n][1]);
+      *reinterpret_cast<float2*>(wb + col) =
+          make_float2(acc[n][2], acc[n][3]);
+    }
+  }
+  __syncthreads();  // S_in is read: G takes its place
+  const bf16* gp = a.g2 + bhc * (long long)(2 * P * N);
+  stage_rows<N, SN>(sh, gp, N, P, true);
+  stage_rows<N, SN>(sl, gp + P * N, N, P, true);
+  attn::cp_async_commit();
+  attn::cp_async_wait<0>();
+  __syncthreads();
+
+  // ---- key side: the outgoing state's terms ----
+  const float cend = cum[Q - 1];
+  const float fa = expf(__fsub_rn(cend, ca)), fb = expf(__fsub_rn(cend, cb));
+  const float dta = dtv[ra], dtb2 = dtv[rb];
+  const bf16* bq = attn::q_lane<SN>(bs + r0 * SN, lane);  // B_j
+  const bf16* xq = attn::q_lane<SP>(xs + r0 * SP, lane);  // x_j
+  float dxa[NP][4];  // dx^_j
+  float ma, mb;      // m_j = e^{c_Q - c_j} dt_j x_j.(G B_j)
+#pragma unroll
+  for (int n = 0; n < NP; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dxa[n][e] = 0.f;
+  {
+    const bf16* gk = attn::k_lane<SN>(sh, lane);
+    const bf16* gk2 = attn::k_lane<SN>(sl, lane);
+#pragma unroll
+    for (int ks = 0; ks < N / 16; ++ks) {
+      uint32_t ba[4];
+      attn::ldsm_x4(ba, bq + ks * 16);
+      attn::qk_step<NP, SN>(dxa, ba, gk, ks);
+      attn::qk_step<NP, SN>(dxa, ba, gk2, ks);
+    }
+    float pa = 0.f, pb = 0.f;
+#pragma unroll
+    for (int n = 0; n < NP; ++n) {
+      const int col = n * 8 + 2 * tq;
+      const float2 xA = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(xs + ra * SP + col));
+      const float2 xB = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(xs + rb * SP + col));
+      dxa[n][0] = __fmul_rn(fa, dxa[n][0]);
+      dxa[n][1] = __fmul_rn(fa, dxa[n][1]);
+      dxa[n][2] = __fmul_rn(fb, dxa[n][2]);
+      dxa[n][3] = __fmul_rn(fb, dxa[n][3]);
+      pa = __fmaf_rn(xA.x, dxa[n][0], __fmaf_rn(xA.y, dxa[n][1], pa));
+      pb = __fmaf_rn(xB.x, dxa[n][2], __fmaf_rn(xB.y, dxa[n][3], pb));
+    }
+    ma = __fmul_rn(dta, quad_sum(pa));
+    mb = __fmul_rn(dtb2, quad_sum(pb));
+  }
+  float dba[NN][4];  // dB_j
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dba[n][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < P / 16; ++ks) {
+    uint32_t xa[4];
+    attn::ldsm_x4(xa, xq + ks * 16);
+    pv_step<NN, SN>(dba, xa, sh + ks * 16 * SN + v_off);
+    pv_step<NN, SN>(dba, xa, sl + ks * 16 * SN + v_off);
+  }
+  {
+    const float ua = __fmul_rn(fa, dta), ub = __fmul_rn(fb, dtb2);
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      dba[n][0] = __fmul_rn(ua, dba[n][0]);
+      dba[n][1] = __fmul_rn(ua, dba[n][1]);
+      dba[n][2] = __fmul_rn(ub, dba[n][2]);
+      dba[n][3] = __fmul_rn(ub, dba[n][3]);
+    }
+  }
+
+  // ---- key side: the sub-chunk's own tokens, query tiles qq >= w ----
+  float csa = 0.f, csb = 0.f;  // column sums of M
+  for (int qq = warp; qq < NW; ++qq) {
+    float s[2][4], yx[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = yx[n][e] = 0.f;
+    const bf16* ck = attn::k_lane<SN>(cs + qq * 16 * SN, lane);
+#pragma unroll
+    for (int ks = 0; ks < N / 16; ++ks) {
+      uint32_t ba[4];
+      attn::ldsm_x4(ba, bq + ks * 16);
+      attn::qk_step<2, SN>(s, ba, ck, ks);
+    }
+    const bf16* yk = attn::k_lane<SP>(yh + qq * 16 * SP, lane);
+    const bf16* yk2 = attn::k_lane<SP>(yl + qq * 16 * SP, lane);
+#pragma unroll
+    for (int ks = 0; ks < P / 16; ++ks) {
+      uint32_t xa[4];
+      attn::ldsm_x4(xa, xq + ks * 16);
+      attn::qk_step<2, SP>(yx, xa, yk, ks);
+      attn::qk_step<2, SP>(yx, xa, yk2, ks);
+    }
+    // rows j (keys), columns i (queries): W^T, and P^T = s^T e^{c_i - c_j}
+    float pt[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = e < 2 ? ra : rb;
+        const int i = qq * 16 + n * 8 + 2 * tq + (e & 1);
+        float w = 0.f, p = 0.f;
+        if (i >= j) {
+          const float E = expf(__fsub_rn(cum[i], e < 2 ? ca : cb));
+          w = __fmul_rn(__fmul_rn(E, e < 2 ? dta : dtb2), yx[n][e]);
+          p = __fmul_rn(s[n][e], E);
+          const float m = __fmul_rn(s[n][e], w);
+          if (e < 2)
+            csa = __fadd_rn(csa, m);
+          else
+            csb = __fadd_rn(csb, m);
+        }
+        s[n][e] = w;
+        pt[n][e] = p;
+      }
+    uint32_t wh[4], wl[4], ph[4], pl[4];
+    split_frag(s, wh, wl);
+    split_frag(pt, ph, pl);
+    pv_step2<NN, SN>(dba, wh, wl, cs + qq * 16 * SN + v_off);
+    pv_step2<NP, SP>(dxa, ph, pl, yh + qq * 16 * SP + v_offp);
+    pv_step<NP, SP>(dxa, ph, yl + qq * 16 * SP + v_offp);
+  }
+  csa = quad_sum(csa);
+  csb = quad_sum(csb);
+
+  // ---- key side: dx, dB a head, the keys' sums ----
+  {
+    const float Dh = a.D[h];
+    float* wa = a.wdB + ((b * a.L + t0 + ra) * a.H + h) * N;
+    float* wb = wa + 8LL * a.H * N;
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      const int col = n * 8 + 2 * tq;
+      *reinterpret_cast<float2*>(wa + col) =
+          make_float2(dba[n][0], dba[n][1]);
+      *reinterpret_cast<float2*>(wb + col) =
+          make_float2(dba[n][2], dba[n][3]);
+    }
+    const float* ya = dyb + ra * dy_st;
+    const float* yb = dyb + rb * dy_st;
+    bf16* oa = a.dx + ((b * a.L + t0 + ra) * a.H + h) * P;
+    bf16* ob = oa + 8LL * a.H * P;
+    float xda = 0.f, xdb = 0.f, yxa = 0.f, yxb = 0.f;
+#pragma unroll
+    for (int n = 0; n < NP; ++n) {
+      const int col = n * 8 + 2 * tq;
+      const float2 xA = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(xs + ra * SP + col));
+      const float2 xB = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(xs + rb * SP + col));
+      const float2 gA = *reinterpret_cast<const float2*>(ya + col);
+      const float2 gB = *reinterpret_cast<const float2*>(yb + col);
+      *reinterpret_cast<__nv_bfloat162*>(oa + col) = __floats2bfloat162_rn(
+          __fmaf_rn(dta, dxa[n][0], __fmul_rn(Dh, gA.x)),
+          __fmaf_rn(dta, dxa[n][1], __fmul_rn(Dh, gA.y)));
+      *reinterpret_cast<__nv_bfloat162*>(ob + col) = __floats2bfloat162_rn(
+          __fmaf_rn(dtb2, dxa[n][2], __fmul_rn(Dh, gB.x)),
+          __fmaf_rn(dtb2, dxa[n][3], __fmul_rn(Dh, gB.y)));
+      xda = __fmaf_rn(xA.x, dxa[n][0], __fmaf_rn(xA.y, dxa[n][1], xda));
+      xdb = __fmaf_rn(xB.x, dxa[n][2], __fmaf_rn(xB.y, dxa[n][3], xdb));
+      yxa = __fmaf_rn(gA.x, xA.x, __fmaf_rn(gA.y, xA.y, yxa));
+      yxb = __fmaf_rn(gB.x, xB.x, __fmaf_rn(gB.y, xB.y, yxb));
+    }
+    xda = quad_sum(xda);
+    xdb = quad_sum(xdb);
+    yxa = quad_sum(yxa);
+    yxb = quad_sum(yxb);
+    if (tq == 0) {
+      dk[ra] = -__fadd_rn(csa, ma);
+      dk[rb] = -__fadd_rn(csb, mb);
+      sx[ra] = xda;
+      sx[rb] = xdb;
+      sd[ra] = yxa;
+      sd[rb] = yxb;
+      mm[ra] = ma;
+      mm[rb] = mb;
+    }
+  }
+  __syncthreads();
+
+  // ---- the sub-chunk: dc, its reverse cumulative sum, ddt, dA, dD ----
+  if (warp == 0) {
+    constexpr int MAXPER = MMA_MAX_SUB / 32;
+    const int per = (Q + 31) >> 5;
+    // sum_j m_j and <G, S_in> (the pass's warp partials): fixed trees
+    float msum = 0.f, gsum = 0.f;
+#pragma unroll
+    for (int k = 0; k < MAXPER; ++k) {
+      const int r = lane * per + k;
+      if (k < per && r < Q) msum = __fadd_rn(msum, mm[r]);
+    }
+    const int wp = P * N / 128;
+    for (int k = lane; k < wp; k += 32)
+      gsum = __fadd_rn(gsum, a.gdot[bhc * wp + k]);
+    msum = warp_sum(msum);
+    gsum = warp_sum(gsum);
+    const float extra = __fmaf_rn(expf(cend), gsum, msum);
+    // lane l takes tokens Q - 1 - (l per + k): the reverse inclusive sum
+    float v[MAXPER], run = 0.f;
+#pragma unroll
+    for (int k = 0; k < MAXPER; ++k) {
+      const int r = lane * per + k, t = Q - 1 - r;
+      if (k < per && r < Q) {
+        float d = __fadd_rn(dq[t], dk[t]);
+        if (r == 0) d = __fadd_rn(d, extra);
+        run = __fadd_rn(run, d);
+      }
+      v[k] = run;
+    }
+    float incl = run;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u = __shfl_up_sync(FULL, incl, off);
+      if (lane >= off) incl = __fadd_rn(incl, u);
+    }
+    float base = __shfl_up_sync(FULL, incl, 1);
+    if (lane == 0) base = 0.f;
+    const float Ah = a.A[h];
+    float pa = 0.f, pd = 0.f;
+#pragma unroll
+    for (int k = 0; k < MAXPER; ++k) {
+      const int r = lane * per + k, t = Q - 1 - r;
+      if (k < per && r < Q) {
+        const float da = __fadd_rn(base, v[k]);
+        a.ddt[(b * a.L + t0 + t) * a.H + h] = __fmaf_rn(Ah, da, sx[t]);
+        pa = __fmaf_rn(dtv[t], da, pa);
+        pd = __fadd_rn(pd, sd[t]);
+      }
+    }
+    pa = warp_sum(pa);
+    pd = warp_sum(pd);
+    if (lane == 0) {
+      a.part[(b * nc + c) * a.H + h] = pa;
+      a.part[((long long)a.batch * nc + b * nc + c) * a.H + h] = pd;
+    }
+  }
+}
+
+template <int P, int N>
+int launch_bwd_mma(const MmaBwdArgs& a, const BwdArgs& ga, cudaStream_t st) {
+  auto k1 = ssd_bwd_states_mma_kernel<P, N>;
+  auto k3 = ssd_bwd_mma_kernel<P, N>;
+  static bool configured = false;     // once per template, per process
+  if (!configured) {
+    int e = allow_smem(k1, bwd_states_smem<P, N>(MMA_MAX_SUB));
+    if (!e) e = allow_smem(k3, bwd_main_max_smem<P, N>());
+    if (e) return e;
+    configured = true;
+  }
+  const int nc = a.nc;
+  k1<<<dim3(nc, a.H, 2 * a.batch), bwd_states_threads(P),
+       bwd_states_smem<P, N>(a.Q), st>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int pn4 = P * N / 4;
+  const long long total4 = (long long)a.batch * a.H * pn4;
+  e = ssd::launch_pdl(ssd_bwd_pass_mma_kernel,
+                      dim3(static_cast<unsigned>(
+                          (total4 + MMA_PASS_THREADS - 1) / MMA_PASS_THREADS)),
+                      MMA_PASS_THREADS, 0, st, a, pn4);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = ssd::launch_pdl(k3, dim3(nc, a.H, a.batch), a.Q / 16 * 32,
+                      bwd_main_smem<P, N>(a.Q), st, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long rows = (long long)a.batch * a.L * a.G * N;
+  ssd_bwd_group_kernel<bf16>
+      <<<dim3(static_cast<unsigned>((rows + THREADS - 1) / THREADS), 2),
+         THREADS, 0, st>>>(ga, N);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ssd_bwd_param_kernel<<<(a.H + THREADS - 1) / THREADS, THREADS, 0, st>>>(ga);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The backward of ssd_chunk_launch / ssd_chunk_mma_launch (the same
@@ -828,5 +1666,61 @@ extern "C" int ssd_bwd_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) return dispatch_bwd<bf16>(a, P, N, st);
   if (dtype == 0) return dispatch_bwd<float>(a, P, N, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward on the mma route (bf16 x, B, C; sub-chunks of Q tokens, a
+// multiple of 16 up to 128 dividing L whose main kernel's shared memory
+// fits, from the wrapper's bwd_plan): the same inputs and outputs as
+// ssd_bwd_launch, x, B, C, dx, dB and dC bf16, x, B and C 16-byte
+// aligned where `vec`; dy, s0 and dfinal 16-byte aligned. Workspace, f32
+// (from the wrapper's bwd_mma_workspace): own and into (b, h, L / Q, p,
+// n), wdB and wdC (b, L, h, n), decay (b, h, L / Q), gdot (b, h, L / Q,
+// p n / 128), part (2, b, L / Q, h); bf16: s_in2 and g2 (b, h, L / Q,
+// 2, p, n). Five launches: (1) the sub-chunks' states, (2) the state
+// passes and (3) the main kernel (both programmatic dependents), then
+// the group and parameter sums. Returns the first error after them.
+extern "C" int ssd_bwd_mma_launch(
+    const void* x, const float* dt, const float* A, const void* B,
+    const void* C, const float* D, const float* s0, const float* dy,
+    const float* dfinal, void* dx, float* ddt, void* dB, void* dC,
+    float* dA, float* dD, float* dinit, float* own, float* into,
+    float* wdB, float* wdC, float* decay, float* gdot, float* part,
+    void* s_in2, void* g2, int batch, int L, int Q, int H, int G, int P,
+    int N, long long x_sb, long long x_st, long long x_sh, long long dt_sb,
+    long long dt_st, long long b_sb, long long b_st, long long b_sg,
+    long long c_sb, long long c_st, long long c_sg, void* stream) {
+  if (batch <= 0 || L <= 0 || Q < 16 || Q > MMA_MAX_SUB || Q % 16 ||
+      L % Q || H <= 0 || G <= 0 || H % G ||
+      (((uintptr_t)dy | (uintptr_t)s0 | (uintptr_t)dfinal) % 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec =
+      ((uintptr_t)x | (uintptr_t)B | (uintptr_t)C) % 16 == 0 &&
+      (x_sb | x_st | x_sh | b_sb | b_st | b_sg | c_sb | c_st | c_sg) % 8 == 0;
+  const MmaBwdArgs a{static_cast<const bf16*>(x), dt, A,
+                     static_cast<const bf16*>(B),
+                     static_cast<const bf16*>(C), D, s0, dy, dfinal,
+                     static_cast<bf16*>(dx), ddt, dinit, own, into, decay,
+                     gdot, wdB, wdC, part, static_cast<bf16*>(s_in2),
+                     static_cast<bf16*>(g2), batch, L, Q, H, G, L / Q, vec,
+                     x_sb, x_st, x_sh, dt_sb, dt_st, b_sb, b_st, b_sg,
+                     c_sb, c_st, c_sg};
+  // the group and parameter sums read these fields of the simt route's
+  const BwdArgs ga{x, dt, A, B, C, D, s0, dy, dfinal, dx, ddt, dB, dC, dA,
+                   dD, dinit, nullptr, nullptr, decay, nullptr, wdB, wdC,
+                   part, batch, L, Q, H, G, L / Q,
+                   x_sb, x_st, x_sh, dt_sb, dt_st, b_sb, b_st, b_sg,
+                   c_sb, c_st, c_sg};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SSD_BWD_MMA_CASE(PP, NN)                           \
+  if (P == PP && N == NN) {                                \
+    if (bwd_main_smem<PP, NN>(Q) > SMEM_LIMIT)             \
+      return static_cast<int>(cudaErrorInvalidValue);      \
+    return launch_bwd_mma<PP, NN>(a, ga, st);              \
+  }
+  SSD_BWD_MMA_CASE(32, 32) SSD_BWD_MMA_CASE(32, 64) SSD_BWD_MMA_CASE(32, 128)
+  SSD_BWD_MMA_CASE(64, 32) SSD_BWD_MMA_CASE(64, 64) SSD_BWD_MMA_CASE(64, 128)
+  SSD_BWD_MMA_CASE(128, 128)
+#undef SSD_BWD_MMA_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -30,10 +30,11 @@ no atomics; rstd recomputed from x; it replaces no TPU kernel, the JAX
 package differentiates its plain norm), counted in
 ``fused_rmsnorm_bwd_cuda.launches``, one a call. The gated route runs
 through ``_autograd.differentiable`` too: its node's backward is
-``gated_rmsnorm_bwd_cuda`` (``rmsnorm_gated_bwd_launch``: the same two
-passes a row and dscale reduction, v and the gate recomputed from y and
-z, z read in place; it replaces no TPU kernel either), counted in
-``gated_rmsnorm_bwd_cuda.launches``.
+``gated_rmsnorm_bwd_cuda`` (``rmsnorm_gated_bwd_launch``: the same
+register route from ``plan_bwd(..., "gated")``, one pass over y, z and
+dout in 16-byte units, sig(z) and the gate once an element, z read in
+place; jamba's d 16384 on the wide-row route; it replaces no TPU kernel
+either), counted in ``gated_rmsnorm_bwd_cuda.launches``.
 """
 from __future__ import annotations
 
@@ -67,16 +68,18 @@ ARGTYPES = {"rmsnorm_launch": [_P] * 5 + [_I] * 7 + [_LL] * 2
             + [_I, _F, _P],
             "rmsnorm_bwd_launch": [_P] * 8 + [_I] * 6 + [_LL] * 2
             + [_I, _I, _F, _P],
-            "rmsnorm_gated_bwd_launch": [_P] * 8 + [_I] * 3 + [_LL] * 2
+            "rmsnorm_gated_bwd_launch": [_P] * 8 + [_I] * 6 + [_LL] * 2
             + [_I, _I, _F, _P]}
-#: blocks of the backward's row pass at most (csrc BWD_BLOCKS: two an SM)
-BWD_BLOCKS = 264
-#: 16-byte units a thread of the add / norm backward's register route
-#: (csrc templates), at most BWD_HOLD_THREADS threads a block; a row on
-#: at most BWD_ROW_THREADS threads where the units allow (more rows in
-#: flight an SM than one warp a row at 4 units a lane: measured on the
-#: card at d 2048, N 4096)
+#: 16-byte units a thread of the backward's register route (csrc
+#: templates), at most BWD_HOLD_THREADS threads a block; a row on at most
+#: BWD_ROW_THREADS threads where the units allow (more rows in flight an
+#: SM than one warp a row at 4 units a lane: measured on the card at d
+#: 2048, N 4096); a gated row on up to BWD_HOLD_THREADS (its unit holds
+#: an f32 y: the fewer units a lane, the fewer registers)
 NVS_BWD = (1, 2, 4)
+#: a gated bf16 row's units a lane on the register route (4 of an f32 y
+#: spill: wider rows, past d 4096, take the wide-row route)
+NVS_BWD_GATED_BF16 = (1, 2)
 BWD_HOLD_THREADS = 256
 BWD_ROW_THREADS = 128
 #: units a thread of its wide-row route (a row past 1024 units, d 8192
@@ -124,28 +127,49 @@ def plan(N: int, d: int, dtype: torch.dtype, route: str = "add") -> Plan:
     return Plan(route, nv, tpr, rows, tpr * rows, -(-N // rows))
 
 
+def bwd_hold_threads(nv: int) -> int:
+    """Threads a block of the backward's register route at ``nv`` units
+    a lane (csrc ``bwd_hold_threads``): twice ``BWD_HOLD_THREADS`` at one
+    unit, whose templates stay within 128 registers."""
+    return 2 * BWD_HOLD_THREADS if nv == 1 else BWD_HOLD_THREADS
+
+
 @functools.lru_cache(maxsize=1024)
 def plan_bwd(N: int, d: int, dtype: torch.dtype,
              route: str = "add") -> Plan:
-    """The add / norm backward's launch: the fewest units a thread in
+    """The backward's launch for rows of d elements of ``dtype`` (x, or
+    z on the gated route). Add / norm: the fewest units a thread in
     ``NVS_BWD`` that fit a row on ``BWD_ROW_THREADS`` threads (4 where
-    none does), the row's threads rounded up to a warp,
-    ``BWD_HOLD_THREADS // tpr`` rows a block; a row of more than
-    ``BWD_HOLD_THREADS`` x 4 units (past d 8192 bf16 or 4096 f32) runs
-    alone in its block on the wide-row route, 8 units a thread; at most
-    ``BWD_GRID`` blocks that walk the rows (each block's partial dscale
-    row is summed in the second launch)."""
+    none does), ``BWD_HOLD_THREADS // tpr`` rows a block. Gated: the
+    fewest units a thread (``NVS_BWD_GATED_BF16`` for bf16 rows) whose
+    row fits a block of ``bwd_hold_threads(nv)`` threads (one unit a lane
+    up to 512 threads: d 4096 bf16 in 12 warps at d 3072), as many rows a
+    block as fit it. A row's threads are rounded up to a warp. A row past
+    the register route (past d 8192 bf16 or 4096 f32; gated bf16 past d
+    4096) runs alone in its block on the wide-row route, 8 units a
+    thread. At most ``BWD_GRID`` blocks walk the rows (each block's
+    partial dscale row is summed in the second launch)."""
     if d > MAX_D:
         raise ValueError(f"d={d} exceeds the backward's row limit")
     units = -(-d // (16 // dtype.itemsize))
-    if units > BWD_HOLD_THREADS * NVS_BWD[-1]:
-        nv, rows = BWD_WIDE_UNITS, 1
-        tpr = (-(-units // nv) + 31) // 32 * 32
+
+    def warps(v):                         # a row's threads at v units
+        return (-(-units // v) + 31) // 32 * 32
+    if route == "gated":
+        nvs = NVS_BWD_GATED_BF16 if dtype == torch.bfloat16 else NVS_BWD
+        nv = next((v for v in nvs if warps(v) <= bwd_hold_threads(v)),
+                  None)
     else:
-        nv = next((v for v in NVS_BWD if units <= BWD_ROW_THREADS * v),
-                  NVS_BWD[-1])
-        tpr = (-(-units // nv) + 31) // 32 * 32
-        rows = max(1, BWD_HOLD_THREADS // tpr)
+        nv = None if units > BWD_HOLD_THREADS * NVS_BWD[-1] else next(
+            (v for v in NVS_BWD if units <= BWD_ROW_THREADS * v),
+            NVS_BWD[-1])
+    if nv is None:
+        nv, rows = BWD_WIDE_UNITS, 1
+        tpr = warps(nv)
+    else:
+        tpr = warps(nv)
+        rows = max(1, (bwd_hold_threads(nv) if route == "gated"
+                       else BWD_HOLD_THREADS) // tpr)
     return Plan(route, nv, tpr, rows, tpr * rows,
                 min(-(-N // rows), BWD_GRID))
 
@@ -324,14 +348,25 @@ def gated_rmsnorm_bwd_cuda(y, z, scale, dout, eps=1e-5):
     dscale = torch.empty((d,), dtype=scale.dtype, device=dev)
     if N == 0:
         return dy, dz, dscale.zero_()
-    blocks = min(N, BWD_BLOCKS)
-    partial = torch.empty((blocks, d), dtype=torch.float32, device=dev)
+    pl = plan_bwd(N, d, dtype, "gated")
+    partial = torch.empty((pl.blocks, d), dtype=torch.float32, device=dev)
+    # the 16-byte path of an operand: its pointer and row stride on 16
+    # bytes (8 for four bf16 of an f32 row's scale); the outputs' where d
+    # fills units
+    es, ey = dtype.itemsize, y.dtype.itemsize
+    py, pz, pd, ps = (y.data_ptr(), z.data_ptr(), dout.data_ptr(),
+                      scale.data_ptr())
     flags = (B_SF32 * (scale.dtype == torch.float32)
-             | B_YF32 * (y.dtype == torch.float32))
+             | B_YF32 * (y.dtype == torch.float32)
+             | BV_X * ((py | sy * ey) % 16 == 0)
+             | BV_R * ((pz | sz * es) % 16 == 0)
+             | BV_DY * ((pd | d * es) % 16 == 0)
+             | BV_S * (ps % min(16, 16 // es * scale.dtype.itemsize) == 0)
+             | BV_DX * (d % (16 // es) == 0))
     err = _launcher("rmsnorm_gated_bwd_launch")(
-        y.data_ptr(), z.data_ptr(), scale.data_ptr(), dout.data_ptr(),
-        dy.data_ptr(), dz.data_ptr(), partial.data_ptr(), dscale.data_ptr(),
-        N, d, _DTYPES[dtype], sy, sz, flags, blocks, float(eps),
+        py, pz, ps, pd, dy.data_ptr(), dz.data_ptr(), partial.data_ptr(),
+        dscale.data_ptr(), N, d, _DTYPES[dtype], pl.nv, pl.tpr, pl.rows, sy,
+        sz, flags, pl.blocks, float(eps),
         torch._C._cuda_getCurrentRawStream(dev.index))
     gated_rmsnorm_bwd_cuda.launches += 1
     if err != 0:

@@ -31,10 +31,14 @@ route's workspace of chunk states is allocated here with the outputs.
 
 The dual form runs through ``_autograd.differentiable``: with no
 gradient to ask for, the plain launch; where a gradient could be asked
-for, inside a node whose backward is ``ssd_bwd_cuda``, the seven
-launches of ``csrc/ssd_scan_bwd.cu`` (it replaces no TPU kernel: the
-JAX package differentiates its plain scan). The forward keeps nothing
-for it: the backward recomputes each chunk's incoming state, so serving
+for, inside a node whose backward is ``ssd_bwd_cuda``
+(``csrc/ssd_scan_bwd.cu``; it replaces no TPU kernel: the JAX package
+differentiates its plain scan) on the route ``bwd_plan`` picks: bf16
+with a chunk that is a multiple of 16 the ``mma`` route (five launches
+in the backward's own sub-chunks, tensor-core products, one block a
+sub-chunk of a head for all its gradients), else the ``simt`` route
+(seven launches at the caller's chunk). The forward keeps nothing for
+it: the backward recomputes each chunk's incoming state, so serving
 launches are those of before. Its plain version is
 ``ref.ssd_backward_reference``; it counts one launch a call in
 ``ssd_bwd_cuda.launches``. The extend kernel (and ``ssd_step``, that
@@ -73,6 +77,16 @@ OUT_ROWS = 64
 #: the simt route's tiles (``ssd_chunk_kernel``)
 SIMT_THREADS = 256
 SIMT_TILE = 64
+#: the backward's mma route: the sub-chunks it may work in, in order of
+#: preference (``bwd_plan`` takes the first that divides the chunk and
+#: whose main kernel fits a block's shared memory, ``SMEM_LIMIT``), and
+#: the threads of its kernels: chunk states as the forward's, the state
+#: pass a thread per 4 elements, the main kernel a warp per 16 rows
+BWD_SUBS = (128, 64, 32, 16)
+BWD_PASS_THREADS = 256
+SMEM_LIMIT = 232448
+#: the simt backward's tiles (PR 32's kernels, csrc ``TILE``)
+BWD_SIMT_TILE = 64
 #: the extend kernel: state rows a warp, the most rows a block (16
 #: warps), tokens a tile on the chunk route, the staging ring's depth, the
 #: SMs a grid aims to fill at most once
@@ -90,9 +104,12 @@ ARGTYPES = {"ssd_extend_launch": [_P] * 10 + [_I] * 8 + [_LL] * 14 + [_P],
             "ssd_chunk_launch": [_P] * 9 + [_I] * 8 + [_LL] * 11 + [_P],
             "ssd_chunk_mma_launch": [_P] * 12 + [_I] * 8 + [_LL] * 11
             + [_P],
-            "ssd_bwd_launch": [_P] * 23 + [_I] * 8 + [_LL] * 11 + [_P]}
+            "ssd_bwd_launch": [_P] * 23 + [_I] * 8 + [_LL] * 11 + [_P],
+            "ssd_bwd_mma_launch": [_P] * 25 + [_I] * 7 + [_LL] * 11
+            + [_P]}
 #: the library of each entry point (the backward has its own source)
-_STEMS = {"ssd_bwd_launch": "ssd_scan_bwd"}
+_STEMS = {"ssd_bwd_launch": "ssd_scan_bwd",
+          "ssd_bwd_mma_launch": "ssd_scan_bwd"}
 
 
 def _launcher(name):
@@ -338,6 +355,78 @@ def _ssd_bwd(chunk, saved, dy, dfinal):
     return dx, ddt, dA, dB, dC, dD, None, dinit
 
 
+class BwdPlan(NamedTuple):
+    """How one backward call runs: the ``route`` ("mma" or "simt"),
+    ``sub`` tokens a sub-chunk (on simt the caller's chunk) and the
+    ``chunks`` of them in l. On mma, the main kernel's grid of
+    ``blocks`` (``chunks`` x h x b, one a sub-chunk of a head and batch
+    row) of ``threads`` (a warp per 16 rows) and ``smem`` bytes, the
+    chunk-states kernel's ``states_blocks`` (both sides: ``chunks`` x h x
+    2 b) of ``states_threads`` and ``states_smem`` bytes, and the state
+    pass's ``pass_blocks``; on simt the query and key kernels' grid,
+    threads and shared memory (the key kernel's, the larger), and the
+    chunk-states kernel's. ``workspace``: the bytes the call allocates
+    beside its outputs."""
+    route: str
+    sub: int
+    chunks: int
+    blocks: int
+    threads: int
+    smem: int
+    states_blocks: int
+    states_threads: int
+    states_smem: int
+    pass_blocks: int
+    workspace: int
+
+
+def bwd_main_smem(q: int, p: int, n: int) -> int:
+    """The mma backward's main kernel (csrc ``bwd_main_smem``): C and B
+    [q][n + 8], x and dy's hi and lo [q][p + 8] bf16, the state region
+    (S_in's hi and lo, then G's: 2 [p][n + 8] bf16) and seven f32 rows of
+    ``MMA_MAX_SUB``."""
+    return 2 * (2 * q * (n + 8) + 3 * q * (p + 8) + 2 * p * (n + 8)) \
+        + 28 * MMA_MAX_SUB
+
+
+def bwd_plan(b: int, l: int, h: int, p: int, n: int, chunk: int, dtype,
+             sub: int = 0) -> BwdPlan:
+    """The backward's launch for x (b, l, h, p), B/C (b, l, g, n) in
+    ``dtype`` at ``chunk`` (the dual form's gradient does not depend on
+    the chunk, so the backward works in its own). bf16 with a chunk that
+    is a multiple of 16: the ``mma`` route, in sub-chunks of the first of
+    ``BWD_SUBS`` that divides the chunk and whose main kernel fits
+    ``SMEM_LIMIT`` (64 at p 128); ``sub`` overrides it (a multiple of 16
+    up to ``MMA_MAX_SUB`` dividing l that fits). f32, or a chunk that is
+    no multiple of 16: the ``simt`` route at the caller's chunk."""
+    if dtype == torch.bfloat16 and chunk % 16 == 0:
+        fits = [q for q in BWD_SUBS if bwd_main_smem(q, p, n) <= SMEM_LIMIT]
+        q = sub or next(q for q in fits if chunk % q == 0)
+        if q not in fits or l % q:
+            raise ValueError(f"ssd_bwd_cuda: sub-chunk {q} must be one of "
+                             f"{fits} dividing l = {l}")
+        nc = l // q
+        pn = p * n
+        workspace = 4 * (2 * b * h * nc * pn + 2 * b * l * h * n
+                         + b * h * nc * (1 + pn // 128) + 2 * b * nc * h) \
+            + 2 * 4 * b * h * nc * pn
+        total4 = b * h * pn // 4
+        return BwdPlan("mma", q, nc, nc * h * b, q // 16 * 32,
+                       bwd_main_smem(q, p, n), 2 * nc * h * b,
+                       max(STATES_THREADS, p // 16 * 32),
+                       2 * q * (n + 8) + 4 * q * (p + 8) + 12 * MMA_MAX_SUB,
+                       -(-total4 // BWD_PASS_THREADS), workspace)
+    t, nc = BWD_SIMT_TILE, l // chunk
+    key = 2 * t * (n + 1) + 2 * t * (p + 1) + 2 * t * (t + 1) \
+        + 2 * MAX_CHUNK + 32
+    states = t * (p + 1) + t * (n + 1) + t + 2 * MAX_CHUNK + 32
+    workspace = 4 * (2 * b * h * nc * p * n + b * h * nc + 5 * b * h * l
+                     + 2 * b * l * h * n + 2 * b * nc * h)
+    return BwdPlan("simt", chunk, nc, nc * -(-chunk // t) * h * b,
+                   SIMT_THREADS, 4 * key, 2 * nc * h * b, SIMT_THREADS,
+                   4 * states, -(-b * h * p * n // SIMT_THREADS), workspace)
+
+
 def bwd_workspace(b: int, l: int, h: int, p: int, g: int, n: int,
                   chunk: int, device):
     """The backward's f32 workspace, one allocation cut into (s_in, g_out,
@@ -353,18 +442,57 @@ def bwd_workspace(b: int, l: int, h: int, p: int, g: int, n: int,
     return torch.split(flat, sizes)
 
 
+def bwd_mma_workspace(b: int, l: int, h: int, p: int, n: int, sub: int,
+                      device):
+    """The mma backward's workspace: one f32 allocation cut into (own,
+    into, wdB, wdC, decay, gdot, part) -- the sub-chunks' own states
+    (then their incoming states) and the sums sum_i e^{c_i} dy_i C_i^T
+    (b, h, l / sub, p, n) each, dB and dC a head (b, l, h, n) each, the
+    decays (b, h, l / sub), the pass's warp partials of <G, S_in> (b, h,
+    l / sub, p n / 128) and the partial sums of dA and dD (2, b, l / sub,
+    h), every piece that the kernels read by 8 or 16 bytes first; and one
+    bf16 allocation cut into the incoming states and their gradients as
+    split pairs (b, h, l / sub, 2, p, n) each."""
+    nc = l // sub
+    sizes = (b * h * nc * p * n, b * h * nc * p * n, b * l * h * n,
+             b * l * h * n, b * h * nc, b * h * nc * (p * n // 128),
+             2 * b * nc * h)
+    f32 = torch.split(torch.empty(sum(sizes), dtype=torch.float32,
+                                  device=device), sizes)
+    pairs = torch.empty(2 * b * h * nc * 2 * p * n, dtype=torch.bfloat16,
+                        device=device).chunk(2)
+    return f32 + pairs
+
+
+def _aligned(t):
+    """``t`` contiguous on a 16-byte boundary (the kernels' float4s)."""
+    if t is None:
+        return None
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def ssd_bwd_cuda(x, dt, A, B, C, D, dy, dfinal=None, *, chunk=64,
                  initial_state=None):
-    """The backward kernels on the current stream: x, dt, A, B, C, D and
-    ``initial_state`` as the forward took them (the dual form's function
-    does not depend on its route or on the forward's chunk; ``chunk``
-    here sets the backward's own), ``dy`` the gradient of y (b, l, h, p)
-    f32 and ``dfinal`` that of the final state (b, h, p, n) f32 or None,
-    any strides (made contiguous once here). Returns (dx, ddt, dA, dB,
-    dC, dD, dinit): new contiguous tensors, dx, dB and dC in the dtypes
-    of x, B and C, ddt (b, l, h), dA, dD (h,) and dinit (b, h, p, n; None
-    without an initial state) f32. Raises on any input the kernels do not
-    take and when a launch is refused."""
+    """The backward kernels on the current stream, on the route
+    ``bwd_plan`` picks: x, dt, A, B, C, D and ``initial_state`` as the
+    forward took them (the dual form's function does not depend on its
+    route or on the forward's chunk; ``chunk`` here sets the backward's
+    own), ``dy`` the gradient of y (b, l, h, p) f32 and ``dfinal`` that
+    of the final state (b, h, p, n) f32 or None, any strides (made
+    contiguous once here). Returns (dx, ddt, dA, dB, dC, dD, dinit): new
+    contiguous tensors, dx, dB and dC in the dtypes of x, B and C, ddt
+    (b, l, h), dA, dD (h,) and dinit (b, h, p, n; None without an initial
+    state) f32. Raises on any input the kernels do not take and when a
+    launch is refused."""
+    return _bwd_at_sub(x, dt, A, B, C, D, dy, dfinal, chunk,
+                       initial_state, 0)
+
+
+def _bwd_at_sub(x, dt, A, B, C, D, dy, dfinal, chunk, initial_state, sub):
+    """``ssd_bwd_cuda`` on ``bwd_plan``'s route with its ``sub`` override
+    (0: the plan's sub-chunk), for a timing or test run at another
+    sub-chunk."""
     ts = [t for t in (x, dt, A, B, C, D, dy, dfinal, initial_state)
           if t is not None]
     if not all(t.is_cuda and t.device == x.device for t in ts):
@@ -386,14 +514,15 @@ def ssd_bwd_cuda(x, dt, A, B, C, D, dy, dfinal=None, *, chunk=64,
         raise ValueError(f"ssd_bwd_cuda: want a float32 dy of x's shape "
                          f"{tuple(x.shape)}; got {tuple(dy.shape)} "
                          f"{dy.dtype}")
-    dy = dy.contiguous()
+    dy = _aligned(dy)
     states = []
     for t in (initial_state, dfinal):
         if t is not None:
-            t = t.contiguous()
+            t = _aligned(t)
             _check_state("ssd_bwd_cuda", t, b, h, p, n)
         states.append(t)
     s0, dfinal = states
+    pl = bwd_plan(b, l, h, p, n, chunk, x.dtype, sub)
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty((b, l, h, p), dtype=x.dtype, device=dev)
@@ -402,20 +531,29 @@ def ssd_bwd_cuda(x, dt, A, B, C, D, dy, dfinal=None, *, chunk=64,
     ddt = torch.empty((b, l, h), **f32)
     dA, dD = torch.empty((h,), **f32), torch.empty((h,), **f32)
     dinit = None if s0 is None else torch.empty((b, h, p, n), **f32)
-    ws = bwd_workspace(b, l, h, p, g, n, chunk, dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
-    err = _launcher("ssd_bwd_launch")(
-        *(ptr(t) for t in (x, dt, A, B, C, D, s0, dy, dfinal, dx, ddt, dB,
-                           dC, dA, dD, dinit) + ws),
-        b, l, chunk, h, g, p, n, _DTYPES[x.dtype], x.stride(0),
-        x.stride(1), x.stride(2), dt.stride(0), dt.stride(1), B.stride(0),
-        B.stride(1), B.stride(2), C.stride(0), C.stride(1), C.stride(2),
-        torch.cuda.current_stream(dev).cuda_stream)
+    ptrs = [ptr(t) for t in (x, dt, A, B, C, D, s0, dy, dfinal, dx, ddt, dB,
+                             dC, dA, dD, dinit)]
+    strides = (x.stride(0), x.stride(1), x.stride(2), dt.stride(0),
+               dt.stride(1), B.stride(0), B.stride(1), B.stride(2),
+               C.stride(0), C.stride(1), C.stride(2),
+               torch.cuda.current_stream(dev).cuda_stream)
+    if pl.route == "mma":
+        ws = bwd_mma_workspace(b, l, h, p, n, pl.sub, dev)
+        err = _launcher("ssd_bwd_mma_launch")(
+            *ptrs, *(t.data_ptr() for t in ws), b, l, pl.sub, h, g, p, n,
+            *strides)
+    else:
+        ws = bwd_workspace(b, l, h, p, g, n, chunk, dev)
+        err = _launcher("ssd_bwd_launch")(
+            *ptrs, *(t.data_ptr() for t in ws), b, l, chunk, h, g, p, n,
+            _DTYPES[x.dtype], *strides)
     ssd_bwd_cuda.launches += 1
     if err != 0:
-        raise RuntimeError(f"ssd backward launch failed: CUDA error {err}")
+        raise RuntimeError(f"ssd backward launch failed ({pl.route} route):"
+                           f" CUDA error {err}")
     return dx, ddt, dA, dB, dC, dD, dinit
 
 

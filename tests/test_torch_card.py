@@ -988,8 +988,11 @@ def test_rmsnorm_backward_matches_plain_on_card(route, d, N):
 
 
 #: (name, b, l, h, p, g, n, chunk, dtype, initial state, final-state
-#: gradient): chip_smoke.py's kernels_bwd shapes: mamba2-780m's train
-#: shape, jamba's heads, fp32, a carried state, groups
+#: gradient[, sub-chunk]): chip_smoke.py's kernels_bwd shapes:
+#: mamba2-780m's train shape, jamba's heads, fp32, a carried state,
+#: groups, a bf16 chunk that is no multiple of 16 (the simt route),
+#: jamba's heads with a carried state and a final-state gradient, the mma
+#: route at a sub-chunk the caller gives
 SSD_BWD_CASES = [
     ("mamba2_train", 4, 1024, 48, 64, 1, 128, 256, torch.bfloat16, False,
      False),
@@ -997,7 +1000,13 @@ SSD_BWD_CASES = [
      False),
     ("fp32", 2, 512, 48, 64, 1, 128, 256, torch.float32, False, False),
     ("state", 2, 512, 16, 64, 1, 128, 128, torch.bfloat16, True, True),
-    ("groups", 2, 512, 16, 32, 4, 64, 64, torch.bfloat16, False, True)]
+    ("groups", 2, 512, 16, 32, 4, 64, 64, torch.bfloat16, False, True),
+    ("bf16_chunk40_simt", 2, 320, 16, 64, 1, 128, 40, torch.bfloat16,
+     False, True),
+    ("jamba_state", 1, 512, 128, 128, 1, 128, 256, torch.bfloat16, True,
+     True),
+    ("sub64", 2, 512, 16, 64, 1, 128, 256, torch.bfloat16, True, True,
+     64)]
 
 
 def _ssd_bwd_inputs(dev, b, l, h, p, g, n, dtype, init, seed=0):
@@ -1023,17 +1032,23 @@ def _ssd_bwd_inputs(dev, b, l, h, p, g, n, dtype, init, seed=0):
 @pytest.mark.parametrize("case", SSD_BWD_CASES, ids=lambda c: c[0])
 def test_ssd_backward_matches_plain_on_card(case):
     """A backward through ``ssd_cuda`` runs ``ssd_bwd_cuda`` (one count a
-    call, seven launches): dx, ddt, dA, dB, dC, dD and the initial
-    state's gradient within the gates of max|plain| of
+    call) on the route ``bwd_plan`` picks (bf16 with a chunk that is a
+    multiple of 16: ``mma``; else ``simt``): dx, ddt, dA, dB, dC, dD and
+    the initial state's gradient within the gates of max|plain| of
     ``ref.ssd_backward_reference`` and of autograd of the plain forward
     (f32) on the card, in x's, B's and C's dtypes; bitwise repeatable (no
-    atomics)."""
+    atomics). A case with a sub-chunk runs the backward at it too
+    (``_bwd_at_sub``), held to the same gates and repeated bitwise."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
     dev = _card()
-    _, b, l, h, p, g, n, chunk, dtype, init, dfin = case
+    _, b, l, h, p, g, n, chunk, dtype, init, dfin = case[:11]
+    sub = case[11] if len(case) > 11 else 0
+    route = "mma" if dtype == torch.bfloat16 and chunk % 16 == 0 else "simt"
+    assert ssd_kernel.bwd_plan(b, l, h, p, n, chunk, dtype, sub).route \
+        == route
     x, dt, A, B, C, D, s0 = _ssd_bwd_inputs(dev, b, l, h, p, g, n, dtype,
                                            init)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1051,6 +1066,10 @@ def test_ssd_backward_matches_plain_on_card(case):
     assert launch_counts()["ssd_bwd"] == 1 and launch_counts()["ssd"] == 1
     rep = ssd_kernel.ssd_bwd_cuda(x, dt, A, B, C, D, dy, dfinal,
                                   chunk=chunk, initial_state=s0)
+    at_sub = []
+    if sub:
+        at_sub = [ssd_kernel._bwd_at_sub(x, dt, A, B, C, D, dy, dfinal,
+                                         chunk, s0, sub) for _ in range(2)]
     want = ssd_ref.ssd_backward_reference(x, dt, A, B, C, D, dy, dfinal,
                                           chunk=chunk, initial_state=s0)
     auto = [t.detach().float().requires_grad_() for t in ins]
@@ -1062,20 +1081,28 @@ def test_ssd_backward_matches_plain_on_card(case):
     rep = [t for t in rep if t is not None]
     want = [t for t in want if t is not None]
     assert all(torch.equal(a, r) for a, r in zip(got, rep))
+    at_sub = [[t for t in r if t is not None] for r in at_sub]
+    if at_sub:
+        assert all(torch.equal(a, r) for a, r in zip(*at_sub))
     tol = TOL[dtype]
-    for a, w, u in zip(got, want, autos):
-        assert a.dtype == w.dtype and a.shape == w.shape
-        assert torch.isfinite(a).all()
-        scale = w.float().abs().max().item()
-        assert _err(a, w) <= tol * scale, (_err(a, w), scale)
-        assert _err(a, u) <= tol * scale, (_err(a, u), scale)
+    for outs in [got] + at_sub[:1]:
+        for a, w, u in zip(outs, want, autos):
+            assert a.dtype == w.dtype and a.shape == w.shape
+            assert torch.isfinite(a).all()
+            scale = w.float().abs().max().item()
+            assert _err(a, w) <= tol * scale, (_err(a, w), scale)
+            assert _err(a, u) <= tol * scale, (_err(a, u), scale)
 
 
 #: (N, d, z's row stride, dtype): mamba2's train rows (z of a 6448-wide
-#: in-projection row), jamba's d_inner (z of a 33152-wide row), fp32
+#: in-projection row), jamba's d_inner (z of a 33152-wide row), fp32, an
+#: N that is no multiple of the rows a block (two rows of d 1536), fp32
+#: at jamba's d_inner (the wide-row route)
 GATED_BWD_CASES = [(4096, 3072, 6448, torch.bfloat16),
                    (1024, 16384, 33152, torch.bfloat16),
-                   (4096, 3072, 6448, torch.float32)]
+                   (4096, 3072, 6448, torch.float32),
+                   (4095, 1536, 3328, torch.bfloat16),
+                   (1024, 16384, 33152, torch.float32)]
 
 
 @pytest.mark.cuda
@@ -1093,6 +1120,9 @@ def test_gated_rmsnorm_backward_matches_plain_on_card(case):
 
     dev = _card()
     N, d, stride, dtype = case
+    plan = norm_kernel.plan_bwd(N, d, dtype, "gated")
+    if N == 4095:               # the last block holds a partial row slot
+        assert N % plan.rows
     gen = torch.Generator(device=dev).manual_seed(d)
     y = torch.randn((N, d), generator=gen, device=dev)
     z = torch.randn((N, stride), generator=gen, device=dev).to(dtype)[:, :d]

@@ -313,6 +313,48 @@ def test_rmsnorm_bwd_plan_holds_a_row_in_registers(N, d, dtype):
         norm_kernel.plan_bwd(N, norm_kernel.MAX_D + 1, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [100, 1536, 3072, 4096, 4104, 5120, 16384])
+@pytest.mark.parametrize("N", [13, 4095, 4096])
+def test_gated_bwd_plan_holds_a_row_in_registers(N, d, dtype):
+    """The gated backward's plan: the fewest units a thread (bf16 1 or 2,
+    f32 1, 2 or 4) whose row fits the register route's block (512
+    threads at one unit a lane, 256 at more): mamba2's d 3072 in bf16 one
+    unit a lane of 12 warps; rows share a block where it holds them (d
+    1536 bf16: two rows of 192 threads, and N 4095 leaves the last block
+    a partial slot); a wider row (past d 4096 bf16, jamba's d 16384 in
+    either dtype) takes the wide-row route, 8 units a thread, one row a
+    block of at most 512; at most one block an SM, covering every
+    row."""
+    unit = 16 // dtype.itemsize
+    units = -(-d // unit)
+    p = norm_kernel.plan_bwd(N, d, dtype, "gated")
+    assert p.route == "gated"
+    assert p.tpr % 32 == 0 and (p.tpr - 32) * p.nv < units <= p.tpr * p.nv
+    if p.nv == norm_kernel.BWD_WIDE_UNITS:
+        assert units > (512 if dtype == torch.bfloat16 else 1024)
+        assert p.rows == 1 and p.threads <= 512
+    else:
+        assert p.nv in ((1, 2) if dtype == torch.bfloat16 else (1, 2, 4))
+        cap = norm_kernel.bwd_hold_threads(p.nv)
+        assert p.threads == p.tpr * p.rows <= cap
+        assert p.rows == max(1, cap // p.tpr)
+
+        def warps(v):
+            return (-(-units // v) + 31) // 32 * 32
+        assert all(warps(v) > norm_kernel.bwd_hold_threads(v)
+                   for v in (1, 2) if v < p.nv)
+    assert p.rows == 1 or p.rows * d * 4 <= 32 * 1024
+    assert p.blocks == min(-(-N // p.rows), norm_kernel.BWD_GRID)
+    if d == 3072 and dtype == torch.bfloat16:
+        assert (p.nv, p.tpr, p.rows) == (1, 384, 1)
+    if d == 1536 and dtype == torch.bfloat16:
+        assert (p.nv, p.tpr, p.rows) == (1, 192, 2)
+        assert N != 4095 or N % p.rows
+    if d == 16384:
+        assert p.nv == norm_kernel.BWD_WIDE_UNITS
+
+
 def test_autograd_launch_enters_a_node_only_for_a_gradient():
     """``_autograd.launch`` calls the launch straight unless grad mode is
     on and an input requires grad; then the outputs carry a node whose
@@ -663,7 +705,9 @@ def _c_signature(src, name):
     ("quant_matmul.cu", "quant_matmul_mma_launch"),
     ("ssd_scan.cu", "ssd_extend_launch"),
     ("ssd_scan.cu", "ssd_chunk_launch"),
-    ("ssd_scan.cu", "ssd_chunk_mma_launch")])
+    ("ssd_scan.cu", "ssd_chunk_mma_launch"),
+    ("ssd_scan_bwd.cu", "ssd_bwd_launch"),
+    ("ssd_scan_bwd.cu", "ssd_bwd_mma_launch")])
 def test_argtypes_match_the_c_signature(src, name):
     """A ctypes signature that drifts from the C one would pass shifted
     arguments: held here, where no compiler runs."""
@@ -675,5 +719,6 @@ def test_argtypes_match_the_c_signature(src, name):
                "flash_attention_bwd.cu": flash_kernel,
                "rmsnorm.cu": norm_kernel,
                "quant_matmul.cu": qmm_kernel,
-               "ssd_scan.cu": ssd_kernel}[src]
+               "ssd_scan.cu": ssd_kernel,
+               "ssd_scan_bwd.cu": ssd_kernel}[src]
     assert wrapper.ARGTYPES[name] == _c_signature(src, name)

@@ -281,6 +281,68 @@ def test_chunk_plan_at_mamba2_and_sub_override():
                                bad)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("chunk", [16, 40, 48, 64, 128, 256])
+@pytest.mark.parametrize("p,n", tkernel.CHUNK_DIMS)
+@pytest.mark.parametrize("b,l,h,g", [(4, 3840, 48, 1), (2, 3840, 16, 2)])
+def test_bwd_plan_is_a_legal_launch(b, l, h, g, p, n, chunk, dtype):
+    """The SSD backward's plan: bf16 with a chunk that is a multiple of 16
+    takes the mma route, in sub-chunks of the first of ``BWD_SUBS`` that
+    divides the chunk and whose main kernel fits a block's shared memory
+    (64 at p 128); f32, or a chunk that is no multiple of 16 (40), the
+    simt route at the caller's chunk. The sub-chunk divides the chunk and
+    l; every kernel's shared memory stays within the 232,448 bytes a
+    block may use; the grids cover every (sub-chunk, head, batch row)
+    once (the chunk states both sides), a warp per 16 rows, and the
+    state pass a thread per 4 state elements; at every (p, n) the
+    kernels are instantiated for (``CHUNK_DIMS``); l 3840 is a multiple
+    of every chunk."""
+    pl = tkernel.bwd_plan(b, l, h, p, n, chunk, dtype)
+    mma = dtype == torch.bfloat16 and chunk % 16 == 0
+    assert pl.route == ("mma" if mma else "simt")
+    assert chunk % pl.sub == 0 and l % pl.sub == 0
+    assert pl.chunks * pl.sub == l
+    assert max(pl.smem, pl.states_smem) <= tkernel.SMEM_LIMIT == 232448
+    assert min(pl.blocks, pl.threads, pl.states_blocks, pl.states_threads,
+               pl.pass_blocks, pl.workspace) > 0
+    if mma:
+        fits = [q for q in tkernel.BWD_SUBS
+                if tkernel.bwd_main_smem(q, p, n) <= tkernel.SMEM_LIMIT]
+        assert pl.sub == next(q for q in fits if chunk % q == 0)
+        assert pl.sub == (64 if p == 128 and chunk % 64 == 0 else pl.sub)
+        assert pl.threads == pl.sub // 16 * 32
+        assert pl.blocks == pl.chunks * h * b
+        assert pl.states_blocks == 2 * pl.chunks * h * b
+        assert pl.smem == tkernel.bwd_main_smem(pl.sub, p, n)
+        total4 = b * h * p * n // 4
+        assert (pl.pass_blocks - 1) * tkernel.BWD_PASS_THREADS < total4 \
+            <= pl.pass_blocks * tkernel.BWD_PASS_THREADS
+    else:
+        assert pl.sub == chunk and pl.threads == tkernel.SIMT_THREADS
+
+
+def test_bwd_plan_at_mamba2_and_sub_override():
+    """At mamba2-780m's train shape (b 4, l 1024, h 48, p 64, n 128,
+    chunk 256) in bf16: sub-chunks of 128 (measured faster than 64 on the
+    card), 1536 main blocks of 8 warps (163,328 bytes of shared memory);
+    at jamba's p 128, 64. ``sub`` picks another sub-chunk; one that does
+    not fit, is no multiple of 16 or does not divide l raises."""
+    pl = tkernel.bwd_plan(4, 1024, 48, 64, 128, 256, torch.bfloat16)
+    assert (pl.route, pl.sub, pl.blocks, pl.threads, pl.smem) == \
+        ("mma", 128, 1536, 256, 163328)
+    assert tkernel.bwd_plan(1, 1024, 128, 128, 128, 256,
+                            torch.bfloat16).sub == 64
+    pl = tkernel.bwd_plan(4, 1024, 48, 64, 128, 256, torch.bfloat16, 64)
+    assert (pl.sub, pl.blocks, pl.threads) == (64, 3072, 128)
+    for bad in (24, 256):
+        with pytest.raises(ValueError, match="sub-chunk"):
+            tkernel.bwd_plan(4, 1024, 48, 64, 128, 256, torch.bfloat16, bad)
+    with pytest.raises(ValueError, match="sub-chunk"):
+        tkernel.bwd_plan(1, 1024, 128, 128, 128, 256, torch.bfloat16, 128)
+    with pytest.raises(ValueError, match="sub-chunk"):
+        tkernel.bwd_plan(1, 96, 8, 64, 128, 32, torch.bfloat16, 64)
+
+
 def _bf16_exact(args):
     """x, B and C rounded to bf16 values (kept in f32): the inputs of
     the mma route."""

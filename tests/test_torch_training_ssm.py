@@ -330,6 +330,58 @@ def test_ssd_backward_reference_matches_autograd_and_jax(case):
         assert _rel(j, m) <= REF_TOL, (name, _rel(j, m))
 
 
+#: (b, l, h, p, g, n, initial state, final-state gradient): the
+#: backward's own sub-chunks 128 and 64 against the caller's chunk 256
+BWD_SUB_CASES = [(1, 512, 2, 16, 1, 16, False, False),
+                 (2, 256, 3, 8, 3, 8, True, True)]
+
+
+@pytest.mark.parametrize("sub", [128, 64])
+@pytest.mark.parametrize(
+    "case", BWD_SUB_CASES,
+    ids=lambda c: "b{}_l{}_h{}_p{}_g{}_n{}_init{:d}_dfinal{:d}".format(*c))
+def test_ssd_backward_reference_at_the_plans_sub_chunks(case, sub):
+    """What lets the backward choose its own chunk (``bwd_plan``'s
+    sub-chunks): the plain backward at sub-chunk 128 or 64 agrees with
+    itself at chunk 256 and with ``jax.grad`` of the JAX package's
+    ``ssd_reference`` at chunk 256, in f32, within ``REF_TOL`` of each
+    gradient's max (the same function; the chunk only regroups the
+    sums). The inputs decay as the mixer's do (dt a softplus around
+    0.05, A over -1..-8), over more than one chunk of 256."""
+    b, l, h, p, g, n, init, dfin = case
+    rng = np.random.default_rng(l + sub + h)
+    x = rng.normal(size=(b, l, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.normal(size=(b, l, h)) - 3.0)).astype(
+        np.float32)
+    A = -np.linspace(1.0, 8.0, h).astype(np.float32)
+    B, C = (rng.normal(size=(b, l, g, n)).astype(np.float32)
+            for _ in range(2))
+    D = rng.normal(size=h).astype(np.float32)
+    s0 = rng.normal(size=(b, h, p, n)).astype(np.float32) if init else None
+    dy = rng.normal(size=(b, l, h, p)).astype(np.float32)
+    dfinal = rng.normal(size=(b, h, p, n)).astype(np.float32) \
+        if dfin else None
+    t = (lambda a: None if a is None else torch.from_numpy(a))
+    args = [t(a) for a in (x, dt, A, B, C, D, dy, dfinal)]
+    at_sub = ssd_ref.ssd_backward_reference(*args, chunk=sub,
+                                            initial_state=t(s0))
+    at_256 = ssd_ref.ssd_backward_reference(*args, chunk=256,
+                                            initial_state=t(s0))
+    jargs = [a for a in (x, dt, A, B, C, D, s0) if a is not None]
+
+    def loss(*a):
+        y, fin = jax_ssd_ref(*a[:6], chunk=256,
+                             initial_state=a[6] if init else None)
+        out = jnp.sum(y * dy)
+        return out + jnp.sum(fin * dfinal) if dfin else out
+    jgrads = jax.grad(loss, argnums=tuple(range(len(jargs))))(*jargs)
+    mine = [a for a in at_sub if a is not None]
+    assert len(mine) == len(jgrads) == 6 + init
+    for m, c, j in zip(mine, [a for a in at_256 if a is not None], jgrads):
+        assert _rel(c, m) <= REF_TOL, _rel(c, m)
+        assert _rel(j, m) <= REF_TOL, _rel(j, m)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gated_rmsnorm_backward_reference_matches_autograd_and_jax(dtype):
     """The SSD output y in f32, z, the scale and dout in ``dtype`` (the
