@@ -180,14 +180,18 @@ to 1 layer (B 1 x L 64, 1 step), fp32, on the card and on the CPU from
 the same weights and batches (losses, first gradients
 within 1e-4 of each leaf's max or 4 times the leaf's own move under a
 rounding-level perturbation, parameters). ``train`` trains the full
-16-layer bf16 llama with remat, B 4 x L 1024, 20 steps (step ms,
-tokens/s, peak memory, launches a step by op, a profiled step), after
-one step with remat off (the same bits) and one at microbatch 2 (the
-loss within the bf16 gate); ``train_ssm`` the same for mamba2-780m at
-full width and depth (48 layers); ``train_moe``, last, trains
-qwen2-moe-a2.7b at full width on 4 of its 24 layers for 10 steps, its
-loss and gradients computed twice the same bits and its auxiliary loss
-positive.
+16-layer bf16 llama with remat, B 4 x L 1024, on the train step
+captured as one CUDA graph (``make_train_step``'s default on the card):
+3 steps eagerly and 3 on the graph from one state, the same bits
+(``graphs_vs_eager``), then 20 replays (step ms, tokens/s, peak memory
+and graph-pool bytes, launches a step by op, no capture after the first,
+a profiled replay: one ``cudaGraphLaunch`` and no
+``cudaStreamSynchronize`` a step), after one eager step with remat off
+(the same bits) and one at microbatch 2 (the loss within the bf16
+gate); ``train_ssm`` the same for mamba2-780m at full width and depth
+(48 layers); ``train_moe``, last, trains qwen2-moe-a2.7b at full width
+on 4 of its 24 layers for 10 replays, its loss and gradients computed
+twice the same bits and its auxiliary loss positive.
 Every phase prints one JSON line; any failure raises and the
 script exits non-zero without the final line. The second-to-last lines are the
 kernel summary (JSON) and the card's name and power limit as
@@ -208,7 +212,12 @@ shapes and its ``prefill_ssm`` (``ssd_compare``);
 
 times another checkout's backward kernels (flash attention, the RMSNorm
 add / norm and gated routes, the SSD dual form) at the kernels_bwd
-phase's cases, each held against its plain backward (``bwd_compare``).
+phase's cases, each held against its plain backward (``bwd_compare``);
+
+    python3 chip_smoke.py --train
+
+builds the kernels and runs the three train cells alone (``train``,
+``train_ssm``, ``train_moe``), without the final line.
 """
 from __future__ import annotations
 
@@ -5567,9 +5576,7 @@ def norm_host_cost(torch, src):
               "host_us": host_us(torch, call),
               "host_us_again": host_us(torch, call),
               "kernel_ms": median_ms(torch, call, flush)})
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+    print(_smi(), flush=True)
     return 0
 
 
@@ -5685,9 +5692,7 @@ def bwd_compare(torch, src):
         del x, dt, A, B, C, D, s0, dy, dfinal, want
         gc.collect()
         torch.cuda.empty_cache()
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+    print(_smi(), flush=True)
     return 0 if ok else 1
 
 
@@ -5719,9 +5724,7 @@ def ssd_compare(torch, src):
     del flush
     model = build(get_arch("mamba2-780m"))
     prefill_ssm(torch, model, model.init(SEED), phase="prefill_ssm_compare")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+    print(_smi(), flush=True)
     return 0
 
 
@@ -6229,25 +6232,42 @@ TRAIN_MOE_STEPS = 10
 TRAIN_MOE_BLOCKS = 4
 
 
+#: steps each way of a train cell's ``graphs_vs_eager`` check
+GRAPH_CHECK_STEPS = 3
+#: the same bits from both ways, and these from the profiled replay
+GRAPH_METRICS = ("loss", "lm_loss", "aux_loss", "grad_norm", "lr")
+
+
 def _train_cell(torch, phase, cfg, steps, want, checks, templates=()):
     """``cfg`` (bf16, remat on) trains on the card: B 4 x L 1024 from
     ``batches_for(cfg, 4, 1024, seed=0)``, AdamW with
-    ``cosine_schedule(3e-4, 100, 10_000)`` (JAX's ``build_step``). First,
-    from the initial state, one step with remat on and the ``checks``:
-    ``remat_off`` (one step with remat off: loss, gradient norm and
-    parameters the same bits), ``microbatch2`` (one step at microbatch
-    2: the loss within the bf16 gate), ``repeat`` (before the step, the
-    loss and its gradients twice: the same bits, so no sum of the forward
-    or the backward runs in an order that changes from run to run; a
-    second step would hold a third copy of the optimizer state). Then ``steps`` steps from the remat step's state
-    with the counters set to 0 just before (the kernels line's
-    launches): step ms p50 and max (host clock around each step,
-    synchronized), tokens/s, peak memory, launches a step by op
-    (``want``: the first step's, and ``steps`` times that over the run),
-    losses, auxiliary losses and gradient norms finite; and one more step
-    profiled (busy share, device time by kernel, the counters confirmed
-    by the profiler; ``templates`` as ``_profile_call`` takes them).
-    Returns the run's launch counts."""
+    ``cosine_schedule(3e-4, 100, 10_000)`` (JAX's ``build_step``).
+
+    First the eager functional step (``graphs=False``) from the initial
+    state: one step with remat on and the ``checks``: ``remat_off`` (one
+    step with remat off: loss, gradient norm and parameters the same
+    bits), ``microbatch2`` (one step at microbatch 2: the loss within the
+    bf16 gate), ``repeat`` (before the step, the loss and its gradients
+    twice: the same bits, so no sum of the forward or the backward runs
+    in an order that changes from run to run). The eager side goes on to
+    ``GRAPH_CHECK_STEPS`` steps; its metrics and parameters are copied to
+    the host and its states freed (two train states never share the
+    card beyond the functional update's own two: qwen2-moe's is 34.9 GB).
+    Then ``graphs_vs_eager``: the captured step (``make_train_step``'s
+    default on the card) from a host copy of the initial state, copied
+    into its buffers: the warm-up, the capture and a replay, the same
+    bits as the eager side's steps (every metric and parameter), the
+    warm-up's and the capture's wall ms, peak memory and the graph pool's
+    bytes. Then ``steps`` replays with the counters set to 0 just before
+    (the kernels line's launches): step ms p50 and max (host clock
+    around each step, synchronized), tokens/s, launches a step by op
+    (``want``: the first replay's, and ``steps`` times that over the
+    run), no capture after the first, losses, auxiliary losses and
+    gradient norms finite; and one more replay profiled (busy share,
+    device time by kernel, the counters confirmed by the profiler,
+    ``cudaGraphLaunch`` and ``cudaStreamSynchronize`` a step: 1 and 0;
+    ``templates`` as ``_profile_call`` takes them). Returns the run's
+    launch counts."""
     from repro_torch import kernels
     from repro_torch.core.pytree import tree_leaves
     from repro_torch.data.pipeline import batches_for
@@ -6260,12 +6280,17 @@ def _train_cell(torch, phase, cfg, steps, want, checks, templates=()):
     assert cfg.remat and cfg.dtype == "bfloat16"
     data = batches_for(cfg, TRAIN_B, TRAIN_L, seed=0)
     t0 = time.perf_counter()
-    batches = [next(data) for _ in range(steps + 2)]
+    batches = [next(data) for _ in range(GRAPH_CHECK_STEPS + steps + 1)]
     data_s = time.perf_counter() - t0
     model = build(cfg)
     opt = AdamW(lr=cosine_schedule(3e-4, 100, 10_000))
     state0 = init_train_state(model, opt, SEED)
-    step = make_train_step(model, opt)
+    # the captured side's start: the initial parameters on the host, and
+    # the optimizer's initial state (zero moments, step 0)
+    host_params = _tree_to(state0["params"], "cpu")
+    host0 = {"params": host_params, "opt": opt.init(host_params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    eager = make_train_step(model, opt, graphs=False)
     rec, gates = {}, {}
     if "repeat" in checks:
         l1, g1 = _grads(torch, model, state0["params"], batches[0])
@@ -6278,7 +6303,10 @@ def _train_cell(torch, phase, cfg, steps, want, checks, templates=()):
         del g1, g2
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    state, m_on = step(state0, batches[0])
+    state, m_on = eager(state0, batches[0])
+    torch.cuda.synchronize()
+    rec["peak_memory_gib_eager_step"] = \
+        torch.cuda.max_memory_allocated() / 2**30
 
     def same_bits(other_state, other_m):
         same = {k: torch.equal(m_on[k], other_m[k])
@@ -6291,7 +6319,8 @@ def _train_cell(torch, phase, cfg, steps, want, checks, templates=()):
 
     if "remat_off" in checks:
         off = build(cfg.replace(remat=False))
-        s_off, m_off = make_train_step(off, opt)(state0, batches[0])
+        s_off, m_off = make_train_step(off, opt, graphs=False)(state0,
+                                                               batches[0])
         torch.cuda.synchronize()
         rec["peak_memory_gib_with_remat_off_step"] = \
             torch.cuda.max_memory_allocated() / 2**30
@@ -6300,31 +6329,68 @@ def _train_cell(torch, phase, cfg, steps, want, checks, templates=()):
         gates["remat_off"] = all(same.values())
         del s_off
     if "microbatch2" in checks:
-        _, m_micro = make_train_step(model, opt, microbatch=2)(state0,
-                                                               batches[0])
+        _, m_micro = make_train_step(model, opt, microbatch=2,
+                                     graphs=False)(state0, batches[0])
         err = abs(float(m_micro["loss"]) - float(m_on["loss"])) \
             / float(m_on["loss"])
         rec.update(microbatch2_loss_rel_err=err,
                    microbatch2_tol_rel=TOL["bfloat16"])
         gates["microbatch2"] = err <= TOL["bfloat16"]
     del state0
+    eager_ms = [m_on]
+    for batch in batches[1:GRAPH_CHECK_STEPS]:
+        state, m = eager(state, batch)
+        eager_ms.append(m)
+    eager_ms = [{k: m[k].cpu() for k in GRAPH_METRICS} for m in eager_ms]
+    eager_params = [p.cpu() for p in tree_leaves(state["params"])]
+    del state, eager
     gc.collect()
     torch.cuda.empty_cache()
+
+    # the captured step from the same initial state
+    step = make_train_step(model, opt)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    state, graph_ms, graph_walls = host0, [], []
+    for batch in batches[:GRAPH_CHECK_STEPS]:
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        graph_walls.append((time.perf_counter() - t) * 1e3)
+        graph_ms.append({k: m[k].cpu() for k in GRAPH_METRICS})
+    del host0, host_params
+    peak = torch.cuda.max_memory_allocated()
+    same = {k: all(torch.equal(a[k], b[k])
+                   for a, b in zip(eager_ms, graph_ms))
+            for k in GRAPH_METRICS}
+    diff = [i for i, (a, b) in enumerate(zip(
+        eager_params, tree_leaves(state["params"]))) if not torch.equal(
+            a, b.cpu())]
+    same["params"] = not diff
+    del eager_params
+    rec.update(graphs_vs_eager_steps=GRAPH_CHECK_STEPS,
+               graphs_vs_eager_same_bits=same,
+               graphs_vs_eager_leaves_differing=diff,
+               graph_warmup_call_ms=graph_walls[0],
+               graph_capture_call_ms=graph_walls[1],
+               graph_replay_call_ms=graph_walls[2:],
+               graph_pool_gib=step.pool_bytes / 2**30,
+               captures_after_check=step.cache_size())
+    gates["graphs_vs_eager"] = all(same.values())
+
     kernels.reset_launch_counts()
     first = kernels.launch_counts()
     walls, ms, per_step = [], [m_on], None
     for i in range(steps):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        state, m = step(state, batches[1 + i])
+        state, m = step(state, batches[GRAPH_CHECK_STEPS + i])
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t) * 1e3)
         ms.append(m)
         if i == 0:
             per_step = _launch_delta(first, kernels.launch_counts())
     counts = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
     holder = {}
 
     def one():
@@ -6335,21 +6401,28 @@ def _train_cell(torch, phase, cfg, steps, want, checks, templates=()):
     aux = [float(m["aux_loss"]) for m in ms]
     norms = [float(m["grad_norm"]) for m in ms[:-1]]
     p50 = statistics.median(walls)
+    calls = prof_rec["host_calls"]
     rec = {"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
            "dtype": cfg.dtype, "remat": cfg.remat, "B": TRAIN_B,
            "L": TRAIN_L, "steps": steps, "data_s": data_s,
-           "allocated_before_gib": allocated_before / 2**30,
+           "graphs": True, "allocated_before_gib": allocated_before / 2**30,
            "step_ms": walls, "step_ms_p50": p50, "step_ms_max": max(walls),
            "step_ms_first": walls[0], "tokens_per_s": TRAIN_B * TRAIN_L
            / p50 * 1e3, "peak_memory_gib": peak / 2**30,
+           "reserved_gib": torch.cuda.memory_reserved() / 2**30,
            "launches_a_step": per_step, "launches_want": want,
-           "launches": counts, "losses": losses, "aux_losses": aux,
-           "grad_norms": norms, **rec, "gates": gates,
-           "profiled_step": prof_rec}
+           "launches": counts, "captures": step.cache_size(),
+           "graph_launches_a_step": calls.get("cudaGraphLaunch"),
+           "stream_syncs_a_step": calls.get("cudaStreamSynchronize"),
+           "losses": losses, "aux_losses": aux, "grad_norms": norms, **rec,
+           "gates": gates, "profiled_step": prof_rec}
     rec["ok"] = (all(math.isfinite(x) for x in losses + aux + norms)
                  and all(per_step.get(k, 0) == n for k, n in want.items())
                  and all(gates.values())
                  and all(counts[k] == n * steps for k, n in want.items())
+                 and step.cache_size() == 1
+                 and calls.get("cudaGraphLaunch") == 1
+                 and calls.get("cudaStreamSynchronize") == 0
                  and prof_rec["launch_counters_confirmed"])
     if cfg.moe is not None:
         rec["ok"] = rec["ok"] and all(a > 0 for a in aux)
@@ -6572,6 +6645,36 @@ def train_exact(torch):
                              f"{failed}")
 
 
+def train_cells(torch) -> int:
+    """``--train``: the kernels built, then the three train cells, each
+    on an empty card, and their seconds."""
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    marks = [("start", time.perf_counter())]
+    _build.build_all()
+    marks.append(("build", time.perf_counter()))
+    for name, cell in (("train", train_phase), ("train_ssm", train_ssm),
+                       ("train_moe", train_moe)):
+        cell(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        marks.append((name, time.perf_counter()))
+    emit({"phase": "timing", "seconds": {
+        name: t - prev for (name, t), (_, prev) in zip(marks[1:], marks)}})
+    print(_smi(), flush=True)
+    return 0
+
+
+def _smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6584,6 +6687,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--bwd-compare"] and len(sys.argv) == 3:
         return bwd_compare(torch, Path(sys.argv[2]).resolve())
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    if sys.argv[1:] == ["--train"]:
+        return train_cells(torch)
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
     from repro_torch.models.model import build
@@ -6591,10 +6696,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = _smi()
     emit({"phase": "env", "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),

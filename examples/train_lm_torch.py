@@ -7,8 +7,9 @@ trained backbone to the port's zoo as a service.
       [--arch mamba2-780m] [--device cpu]
 
 The device is CUDA unless ``--device cpu`` is given (on the card the
-step runs the flash-attention and RMSNorm kernels forward and backward,
-and on an SSM stack the SSD and gated-norm ones).
+step is captured as one CUDA graph and replayed, and runs the
+flash-attention and RMSNorm kernels forward and backward, and on an SSM
+stack the SSD and gated-norm ones; on the CPU it runs eagerly).
 """
 import argparse
 import tempfile

@@ -34,9 +34,10 @@ its capture raises, naming the service.
 
 Nothing falls back to eager: a failed capture raises, and so does a call
 on the card under grad mode with an input or param that requires grad:
-a graph carries no autograd. Gradients on the card run eagerly (the
-service's own function, ``training/train_loop.py``); capturing them is
-``TRAINING_ITEM``.
+a graph carries no autograd across its boundary. Gradients are taken
+inside a graph instead: the train step (``TRAIN_STEP``) captures the
+forward, ``torch.autograd.grad`` and the optimizer update as one CUDA
+graph over its own static buffers, with the same core.
 """
 from __future__ import annotations
 
@@ -49,9 +50,24 @@ from repro_torch import kernels
 from repro_torch.core.pytree import tree_flatten_with_path, tree_leaves, \
     tree_map
 
-#: what a gradient through a captured call waits for: train steps,
-#: backward included, captured as CUDA graphs
-TRAINING_ITEM = "ROADMAP section 1, item 12c (a train step on CUDA graphs)"
+#: where a gradient on the card is taken as a CUDA graph: the captured
+#: train step, backward and update inside the graph
+TRAIN_STEP = "repro_torch.training.train_loop.make_train_step"
+
+#: the capture stream of each device, shared by every engine and train
+#: step on it: no two captures overlap, and every stream that runs a GEMM
+#: keeps a cuBLAS workspace (32 MiB on Hopper) for the life of the
+#: process, so a stream an engine would leave one more workspace behind
+#: each engine a fleet's rejoin replaces
+_CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def capture_stream(dev: torch.device) -> "torch.cuda.Stream":
+    """The capture stream of ``dev`` (made at its first use)."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return _CAPTURE_STREAMS[index]
 
 
 def capture(body: Callable[[], Any], recording) -> Tuple[Any, Dict[str, int]]:
@@ -212,7 +228,7 @@ class ServiceProgram:
             raise RuntimeError(
                 f"{self.service.name}: a captured call carries no autograd; "
                 f"take gradients through the eager call (service.fn), or "
-                f"wait for {TRAINING_ITEM}")
+                f"capture the whole train step with {TRAIN_STEP}")
         if self._plan is None:
             self._device = next((a.device for a in leaves if a.is_cuda),
                                 None)

@@ -7,7 +7,9 @@ of ``data/pipeline.py``, AdamW with a cosine schedule, on one device.
 
 The device is CUDA unless ``--device cpu`` is given; without a CUDA
 device the CLI exits with an error instead of running on the CPU. On
-the card the step runs the flash-attention and RMSNorm kernels forward
+the card the step (``make_train_step``) is captured as one CUDA graph
+at its second call and replayed after, as JAX's CLI jits it; on the CPU
+it runs eagerly. It runs the flash-attention and RMSNorm kernels forward
 and backward, and on an SSM or hybrid stack the SSD dual form and the
 gated norm too (``--arch mamba2-780m --variant ""`` trains it at full
 width; ``--arch qwen2-moe-a2.7b --variant reduced`` a MoE stack). It prints the JAX CLI's lines, writes its JSONL records

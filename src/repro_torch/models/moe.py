@@ -10,7 +10,9 @@ arrays, and an optional ``shared`` gated MLP) and its three routes:
 * ``_route_tokens`` (the cache-free forward and prefill): sort-based
   top-k dispatch into (E, C) capacity slots, C from ``_capacity``,
   overflowing assignments dropped, outputs gathered back with their
-  gates, and the Switch-style load-balance loss.
+  gates, and the Switch-style load-balance loss. Its expert counts come
+  from the sorted ids by binary search, so it makes no host sync either
+  and runs inside the captured train step.
 * ``_route_grouped`` (``moe.group_routing``): the same dispatch within
   each batch row, combined by gather.
 
@@ -113,6 +115,16 @@ def _route_dense(p, xf, cfg: ModelConfig):
                                        device=xf.device)
 
 
+def _sorted_counts(expert_sorted, E: int):
+    """(counts, offsets) (E,) of the ascending expert ids
+    ``expert_sorted``: each expert's assignments and where its run
+    starts, by binary search (``torch.bincount`` reads the ids' range
+    back to the host, a device sync each call; this makes none)."""
+    bounds = torch.searchsorted(
+        expert_sorted, torch.arange(E + 1, device=expert_sorted.device))
+    return bounds[1:] - bounds[:-1], bounds[:-1]
+
+
 def _route_tokens(p, xf, cfg: ModelConfig):
     """Top-k dispatch over a flat token group xf: (T, d) -> (T, d) and the
     load-balance loss. Assignments are sorted by expert (stable), each
@@ -141,8 +153,7 @@ def _route_tokens(p, xf, cfg: ModelConfig):
     gate_of = gate_vals.reshape(A)
     order = torch.argsort(expert_of, stable=True)
     expert_sorted = expert_of[order]
-    counts = torch.bincount(expert_of, minlength=E)
-    offsets = torch.cumsum(counts, 0) - counts
+    counts, offsets = _sorted_counts(expert_sorted, E)
 
     C = _capacity(T, m)
     slot = torch.arange(C, device=dev)

@@ -152,7 +152,7 @@ import numpy as np
 import torch
 
 from repro_torch import kernels
-from repro_torch.core.program import capture
+from repro_torch.core.program import capture, capture_stream
 from repro_torch.models.model import Model, build
 from repro_torch.serving import faults as faults_mod
 from repro_torch.serving import paged_kv, telemetry
@@ -205,21 +205,6 @@ def _slot_view(cache, slot: int):
 
 #: the step programs ``program_cache_sizes`` counts (the JAX engine's keys)
 _STEP_PROGRAMS = ("step", "mixed", "admit_chunk")
-
-#: the capture stream of each device, shared by every engine on it: no
-#: two captures overlap, and every stream that runs a GEMM keeps a cuBLAS
-#: workspace (32 MiB on Hopper) for the life of the process, so a stream
-#: an engine would leave one more workspace behind each engine a fleet's
-#: rejoin replaces
-_CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
-
-
-def _capture_stream(dev: torch.device) -> "torch.cuda.Stream":
-    index = torch.cuda.current_device() if dev.index is None else dev.index
-    if index not in _CAPTURE_STREAMS:
-        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
-    return _CAPTURE_STREAMS[index]
-
 
 def _leaves(tree):
     if isinstance(tree, dict):
@@ -599,7 +584,7 @@ class Engine:
         self._programs: Dict[Tuple[Any, ...], StepProgram] = {}
         self._graph_pool = torch.cuda.graph_pool_handle() \
             if self.graphs else None
-        self._capture_stream = _capture_stream(dev) if self.graphs \
+        self._capture_stream = capture_stream(dev) if self.graphs \
             else None
 
     # ------------------------------------------------------------ #

@@ -204,7 +204,9 @@ def load_pytree(path: os.PathLike, verify: bool = True, device=None):
 
 def save_train_state(path, step: int, params, opt_state, extra=None):
     """Writes ``<path>/params`` and ``<path>/opt_state`` (with ``step``
-    and ``extra`` in both manifests)."""
+    and ``extra`` in both manifests). The trees may be a train step's
+    state, which on the card is its captured graph's buffers: each leaf
+    is read back after the work queued on it."""
     meta = {"step": int(step)}
     meta.update(extra or {})
     save_pytree(Path(path) / "params", params, extra=meta)
@@ -214,7 +216,8 @@ def save_train_state(path, step: int, params, opt_state, extra=None):
 def load_train_state(path, device=None):
     """(step, params, opt_state) of a train state written by either
     package, the trees as tensors on ``device`` (CUDA unless the caller
-    names another)."""
+    names another). A train step given such a state copies it into its
+    own buffers (``train_loop.TrainProgram``), from any device."""
     params = load_pytree(Path(path) / "params", device=device)
     opt_state = load_pytree(Path(path) / "opt_state", device=device)
     with open(Path(path) / "params.json") as f:

@@ -38,8 +38,8 @@ def cosine_schedule(base_lr: float, warmup: int, total: int,
 
 
 def constant_schedule(base_lr: float):
-    return lambda step: torch.tensor(
-        base_lr, dtype=torch.float32,
+    return lambda step: torch.full(
+        (), base_lr, dtype=torch.float32,
         device=step.device if isinstance(step, torch.Tensor) else None)
 
 
@@ -59,18 +59,21 @@ class AdamW:
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
+    def _clip_and_bias(self, grads, step):
+        """The clip factor, the bias corrections and the learning rate of
+        the step that ends at ``step``."""
+        gnorm = global_norm(grads)
+        scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
+        sf = step.float()
+        return scale, 1 - self.b1 ** sf, 1 - self.b2 ** sf, self.lr(step)
+
     @torch.no_grad()
     def update(self, grads, state, params) -> Tuple[Any, Any]:
         """(new params, new state): the gradients clipped to a global
         norm of ``clip_norm``, then one AdamW step with bias-corrected
         moments and decoupled weight decay, all in f32."""
         step = state["step"] + 1
-        gnorm = global_norm(grads)
-        scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
-        sf = step.float()
-        bc1 = 1 - self.b1 ** sf
-        bc2 = 1 - self.b2 ** sf
-        lr = self.lr(step)
+        scale, bc1, bc2, lr = self._clip_and_bias(grads, step)
         moments = []
 
         def upd(p, g, m, v):
@@ -84,17 +87,39 @@ class AdamW:
             v = (self.b2 * v).add_(((1 - self.b2) * g).mul_(g))
             del g
             moments.append((m, v))
-            delta = m / bc1
-            delta.div_((v / bc2).sqrt_().add_(self.eps))
-            pf = p.to(torch.float32, copy=True)
-            delta.add_(self.weight_decay * pf)
-            return pf.sub_(delta.mul_(lr)).to(p.dtype)
+            return self._apply(p, m, v, bc1, bc2, lr)
 
         new_params = tree_map(upd, params, grads, state["m"], state["v"])
         it_m, it_v = (iter(t) for t in zip(*moments))
         return new_params, {"m": tree_map(lambda _: next(it_m), params),
                             "v": tree_map(lambda _: next(it_v), params),
                             "step": step}
+
+    @torch.no_grad()
+    def update_(self, grads, state, params) -> None:
+        """``update`` written in place: each parameter, ``m`` and ``v``
+        and ``state["step"]`` take their new values in their own tensors,
+        from the same expressions in the same order (the same bits)."""
+        step = state["step"].add_(1)
+        scale, bc1, bc2, lr = self._clip_and_bias(grads, step)
+
+        def upd(p, g, m, v):
+            g = g.float() * scale
+            m.mul_(self.b1).add_((1 - self.b1) * g)
+            v.mul_(self.b2).add_(((1 - self.b2) * g).mul_(g))
+            del g
+            p.copy_(self._apply(p, m, v, bc1, bc2, lr))
+
+        tree_map(upd, params, grads, state["m"], state["v"])
+
+    def _apply(self, p, m, v, bc1, bc2, lr):
+        """p - lr (m^ / (sqrt(v^) + eps) + wd p) in f32, cast to p's
+        dtype."""
+        delta = m / bc1
+        delta.div_((v / bc2).sqrt_().add_(self.eps))
+        pf = p.to(torch.float32, copy=True)
+        delta.add_(self.weight_decay * pf)
+        return pf.sub_(delta.mul_(lr)).to(p.dtype)
 
 
 def global_norm(tree) -> torch.Tensor:

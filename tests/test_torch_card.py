@@ -24,7 +24,12 @@ then the dscale reduction; the SSD dual form: seven launches) match
 their plain versions and autograd of the plain forwards, bitwise
 repeatable; reduced llama3.2-1b, mamba2-780m and jamba train on the
 card (loss falling, the first five losses equal to the CPU's) and
-``cfg.remat`` on equals off bit for bit in bf16 (llama, mamba2).
+``cfg.remat`` on equals off bit for bit in bf16 (llama, mamba2). The
+train step captured as one CUDA graph (reduced llama, mamba2 and
+qwen2-moe, bf16, remat on) equals the eager functional step bit for
+bit over 3 steps with its launch counters, captures once, syncs the
+host in neither an eager step nor a replay, and a capture that reads
+the host raises on every later call.
 The encoder-decoder's attention routes: the flash kernel non-causal at
 Lq != Lk (``layers.full_attention``) and the decode-attention kernel
 over a frozen memory's all-valid position row
@@ -1307,6 +1312,101 @@ def test_remat_on_equals_off_on_card():
                zip(tree_leaves(s0["params"]), tree_leaves(s1["params"])))
 
 
+#: the captured train step's cases: reduced stacks in bf16 with remat
+#: (the tensor-core routes, the recompute inside the graph)
+GRAPH_TRAIN_ARCHS = ("llama3.2-1b", "mamba2-780m", "qwen2-moe-a2.7b")
+
+
+def _graph_train_setup(dev, arch):
+    from repro_torch.data.pipeline import batches_for
+    from repro_torch.training.optimizer import AdamW, cosine_schedule
+    from repro_torch.training.train_loop import init_train_state
+
+    model, _ = _train_pair(dev, arch, dtype="bfloat16",
+                           param_dtype="bfloat16", remat=True)
+    opt = AdamW(lr=cosine_schedule(1e-3, 2, 10))
+    data = batches_for(model.cfg, 4, 128, seed=0)
+    return model, opt, init_train_state(model, opt, seed=0), \
+        [next(data) for _ in range(5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", GRAPH_TRAIN_ARCHS)
+def test_captured_train_step_equals_eager_on_card(arch):
+    """``make_train_step`` on the card: the first call warms up, the
+    second captures the whole step once and replays, later calls replay;
+    over 3 steps from one state the metrics, every parameter and moment
+    and the step counters are the eager functional step's bits, the
+    launch counters the eager step's; the caller's state is left as it
+    was, and two more steps capture nothing."""
+    from repro_torch import kernels
+    from repro_torch.core.pytree import tree_leaves, tree_map
+    from repro_torch.training.train_loop import TrainProgram, make_train_step
+
+    dev = _card()
+    model, opt, state0, batches = _graph_train_setup(dev, arch)
+    keep = tree_map(lambda t: t.clone(), state0)
+    runs = []
+    for graphs in (False, None):
+        step = make_train_step(model, opt, graphs=graphs)
+        kernels.reset_launch_counts()
+        s, ms = state0, []
+        for batch in batches[:3]:
+            s, m = step(s, batch)
+            ms.append({k: v.clone() for k, v in m.items()})
+        torch.cuda.synchronize()
+        runs.append((tree_map(lambda t: t.clone(), s), ms,
+                     kernels.launch_counts(), step))
+    (es, em, ec, _), (gs, gm, gc_, prog) = runs
+    assert isinstance(prog, TrainProgram) and prog.graphs
+    assert prog.cache_size() == 1 and prog.pool_bytes > 0
+    assert all(set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+               for a, b in zip(em, gm))
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(es), tree_leaves(gs)))
+    assert ec == gc_ and any(ec.values())
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(state0), tree_leaves(keep)))
+    graph = prog.graph
+    s = gs
+    for batch in batches[3:]:
+        s, _ = prog(s, batch)
+    assert prog.graph is graph and prog.cache_size() == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", GRAPH_TRAIN_ARCHS)
+def test_train_steps_sync_nothing_on_card(arch):
+    """Under ``torch.cuda.set_sync_debug_mode("error")`` neither an eager
+    functional step (after one warm-up) nor a replay of the captured step
+    synchronizes the host with the card: the batch goes up from pinned
+    memory, the MoE route counts its experts on the device."""
+    from repro_torch.training.train_loop import make_train_step
+
+    dev = _card()
+    model, opt, state0, batches = _graph_train_setup(dev, arch)
+    eager = make_train_step(model, opt, graphs=False)
+    s, _ = eager(state0, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s, _ = eager(s, batches[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    del s
+    step = make_train_step(model, opt)
+    s, _ = step(state0, batches[0])
+    s, _ = step(s, batches[1])                   # capture and replay
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s, m = step(s, batches[2])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert step.cache_size() == 1
+    assert torch.isfinite(m["loss"]).item()
+
+
 @pytest.mark.cuda
 def test_moe_router_stays_f32_under_tf32_on_card():
     """The MoE router's product runs in full f32 even when the process
@@ -1874,7 +1974,7 @@ def test_a_captured_call_under_grad_mode_raises_on_card():
                                   .clone().requires_grad_()}},
               "stage1": None}
     prog = svc.jitted()
-    with pytest.raises(RuntimeError, match="item 12"):
+    with pytest.raises(RuntimeError, match="make_train_step"):
         prog(params, x)
     assert prog.cache_size() == 0
 
@@ -2001,6 +2101,36 @@ def _cache_leaves(tree):
             yield from _cache_leaves(v)
     elif isinstance(tree, torch.Tensor):
         yield tree
+
+
+@pytest.mark.cuda
+def test_a_failed_train_capture_raises_on_card():
+    """A loss that reads the host runs in the warm-up, then the step's
+    capture raises, naming the step, on every later call: no fall back
+    to eager, nothing captured, the state left at the warm-up's step."""
+    from repro_torch.training.train_loop import make_train_step
+
+    dev = _card()
+    model, opt, state0, batches = _graph_train_setup(dev, "llama3.2-1b")
+
+    class _Reads:
+        device, cfg = model.device, model.cfg
+
+        @staticmethod
+        def train_loss(params, batch):
+            loss, metrics = model.train_loss(params, batch)
+            float(loss.detach())                      # a host sync
+            return loss, metrics
+
+    step = make_train_step(_Reads(), opt)
+    s, _ = step(state0, batches[0])
+    for batch in batches[1:3]:
+        with pytest.raises(RuntimeError,
+                           match="the train step of llama3.2-1b.*capture"):
+            step(s, batch)
+        assert step.cache_size() == 0
+    assert int(step.state["step"]) == 1 and step.calls == 1
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -468,15 +468,15 @@ def test_a_failed_capture_sets_the_counters_back_and_raises():
 
 def test_a_call_on_the_card_under_grad_mode_raises():
     """A graph carries no autograd: with grad mode on and a param that
-    requires grad, the card path raises naming the training item; under
+    requires grad, the card path raises naming the captured train step; under
     ``no_grad``, or with nothing requiring grad, it captures."""
     _, ts = _linear_pair("a", 8, 4, 0)
     p = {"w": ts.params["w"].clone().requires_grad_()}
     x = torch.ones(4, 8)
     prog = _StandIn(ts)
-    with pytest.raises(RuntimeError, match="item 12"):
+    with pytest.raises(RuntimeError, match="make_train_step"):
         prog(p, x)
-    with pytest.raises(RuntimeError, match="item 12"):
+    with pytest.raises(RuntimeError, match="make_train_step"):
         prog(ts.params, x.clone().requires_grad_())
     assert prog.cache_size() == 0
     with torch.no_grad():
