@@ -16,7 +16,13 @@ llama3.2-1b (weights from a seed) through
 ``repro_torch.serving.engine.Engine`` on contiguous KV rings, checking
 that the kernels ran on that path as often as its step trace implies,
 and profiles a second batch through the same engine (device busy share,
-kernel time by kernel); serves the same requests on a paged KV pool
+kernel time by kernel); serves the same requests on a one-rank NCCL
+serving mesh (``serve_mesh``: ``Engine(mesh="auto")`` over
+``torch.distributed``, its step graphs capturing the layers' collectives;
+tokens bitwise equal to ``serve``'s, launch counters and collectives
+equal to what the step trace and the layer plan imply, and a profiled
+second batch with no capture and two syncs a poll, the NCCL kernels it
+saw recorded); serves the same requests on a paged KV pool
 (greedy tokens equal to the contiguous run's, the paged kernel counted,
 the pool drained) and profiles a second batch there too; serves four
 streams on a pool too small for their growth, which must preempt, resume
@@ -147,12 +153,11 @@ microseconds per call (enqueue only).
 Every engine runs its steps as CUDA graphs (``Engine``'s default on
 the card): each serve phase checks it, ``serve_eager`` and
 ``serve_ssm_eager`` serve the same requests on eager steps
-(``graphs=False``) in turns with graphs, graphs / eager / graphs (tokens
-identical; decode ms, ITL, TTFT and tok/s of both; ``serve_eager``'s
-eager turn also profiles a batch, busy share against the graphs
-turn's), and every profile phase marks its engine
-steady and fails on a capture in its window, on a host stream sync
-other than the poll's two reads, and on a launch counter that differs
+(``graphs=False``) after the graphs run (tokens identical; decode ms,
+ITL, TTFT and tok/s of both; the eager turn profiles no batch), and
+every profile phase marks its engine steady and fails on a capture in
+its window, on a host stream sync other than the poll's two reads,
+and on a launch counter that differs
 from the profiler's count of its kernel templates (a count may fall
 short by no more than the records the profiler lost, which the spins
 that open and close the window measure).
@@ -2543,7 +2548,7 @@ def _expected_launches(cfg, engine, paged, kinds=None):
 
 
 def serve(torch, model, params, *, paged=False, base=None, phase=None,
-          bf16=None, graphs=None):
+          bf16=None, graphs=None, mesh=None):
     """16 requests (prompts of 64-512 tokens from the seed in the model's
     vocab, 32 new each) through the engine; every kernel count set to 0
     just before and read just after, and equal to what the step trace
@@ -2554,10 +2559,13 @@ def serve(torch, model, params, *, paged=False, base=None, phase=None,
     phase's tokens, whose share a quantized run reproduces is printed
     (information, not a gate: quantization changes tokens). ``graphs``:
     the engine's argument (None: its steps run as CUDA graphs, which the
-    phase checks; False: eager)."""
+    phase checks; False: eager). ``mesh``: the engine's (a serving mesh
+    spec); its collectives, set to 0 with the counters, must equal what
+    the layer plan implies for the step trace."""
     import numpy as np
 
     from repro_torch import kernels
+    from repro_torch.launch import mesh as mesh_mod
     from repro_torch.quant import quantized_stats
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import Request
@@ -2567,12 +2575,13 @@ def serve(torch, model, params, *, paged=False, base=None, phase=None,
     kw = dict(paged=True, page_size=16, num_pages=288) if paged else {}
     engine = Engine(model, params, max_batch=8, cache_len=1024,
                     prefill_chunk=128, sampler=Sampler(), seed=SEED,
-                    graphs=graphs, **kw)
+                    graphs=graphs, mesh=mesh, **kw)
     rng = np.random.default_rng(SEED)
     lens = rng.integers(64, 513, 16)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    mesh_mod.reset_collective_counts()
     t0 = time.perf_counter()
     for uid, L in enumerate(lens):
         engine.submit(Request(uid=uid, prompt=rng.integers(0, cfg.vocab, L),
@@ -2581,6 +2590,7 @@ def serve(torch, model, params, *, paged=False, base=None, phase=None,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    collectives = mesh_mod.collective_counts()
     stats = engine.latency_stats()
     want = _expected_launches(cfg, engine, paged)
     toks = sum(len(r.tokens) for r in responses.values())
@@ -2615,6 +2625,11 @@ def serve(torch, model, params, *, paged=False, base=None, phase=None,
                                  engine.metrics.get_series("compiles").values]}
     rec["ok"] = not bad and counts == want \
         and engine.graphs == (graphs is not False)
+    if mesh is not None:
+        rec.update(mesh=dict(engine.mesh.sizes), collectives=collectives,
+                   collectives_expected=_mesh_collectives(
+                       cfg, engine.mesh.sizes, engine.step_kinds, 8))
+        rec["ok"] = rec["ok"] and collectives == rec["collectives_expected"]
     # a snapshot: the profile phase serves more requests on this engine
     tokens = {uid: list(r.tokens) for uid, r in responses.items()}
     if bf16 is not None:
@@ -2638,6 +2653,119 @@ def serve(torch, model, params, *, paged=False, base=None, phase=None,
     if not rec["ok"]:
         raise AssertionError(f"{rec['phase']} phase failed: {rec}")
     return counts, engine, rec, tokens
+
+
+def _mesh_collectives(cfg, sizes, kinds, max_batch):
+    """The collectives the layer plan implies for the steps ``kinds`` on a
+    mesh of ``sizes`` (a dense stack with a tied LM head): a forward
+    reduces the vocab-sharded embedding when the vocab divides the model
+    axis, and each layer its attention output and its MLP (the row-
+    parallel ``wo``s) where their inputs divide it; it gathers the
+    projections to whole heads where the KV heads do not divide it, and
+    the logits' vocab blocks; every step gathers its record over the
+    data axis when the batch divides it. Forwards: one a plain step,
+    two a mixed step."""
+    mp, dp = sizes["model"], sizes["data"]
+    hd = cfg.head_dim or cfg.d_model // cfg.n_heads
+    forwards = kinds.count("plain") + 2 * kinds.count("mixed")
+    reduces = int(cfg.vocab % mp == 0) + cfg.n_layers * (
+        int(cfg.n_heads * hd % mp == 0) + int(cfg.d_ff % mp == 0))
+    gathers = int(cfg.vocab % mp == 0)
+    if cfg.n_kv_heads % mp:
+        gathers += cfg.n_layers * sum(
+            int(n * hd % mp == 0)
+            for n in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    out = {"all_reduce": reduces * forwards,
+           "all_gather": gathers * forwards
+           + len(kinds) * int(max_batch % dp == 0)}
+    return {k: v for k, v in out.items() if v}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def serve_mesh(torch, model, params, base):
+    """The serve phase's engine and requests on a serving mesh: a
+    one-rank NCCL process group (``tcp://localhost``), ``Engine(mesh=
+    "auto")`` on contiguous rings, its step graphs captured with the
+    layers' collectives inside (the communicators warmed first on the
+    capture stream). Gates: greedy tokens bitwise equal to ``serve``'s
+    (``base``: its record and tokens; one rank changes no sum), launch
+    counters equal to the step trace, collectives equal to the layer
+    plan (``_mesh_collectives``), and on a profiled second batch
+    (``profile_mesh``) no capture, two syncs a poll and the plan's
+    collectives again (the NCCL kernels and device-to-device copies the
+    profiler saw are recorded beside them). Reports tok/s and decode
+    ms/step beside ``serve``'s. Destroys the group at the end."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+
+    t_phase = time.perf_counter()
+    rec0, tokens0 = base
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        _, engine, rec, tokens = serve(torch, model, params,
+                                       phase="serve_mesh_run", mesh="auto")
+        mesh_mod.reset_collective_counts()
+        prof = profile(torch, engine, "profile_mesh")
+        seen = mesh_mod.collective_counts()
+        want = _mesh_collectives(model.cfg, engine.mesh.sizes,
+                                 engine.step_kinds[-prof["steps"]:], 8)
+        out = {"phase": "serve_mesh", "mesh": dict(engine.mesh.sizes),
+               "backend": dist.get_backend(),
+               "tokens_equal_serve": tokens == tokens0,
+               "launches_equal_trace": rec["launches"]
+               == rec["launches_expected"],
+               "collectives": rec["collectives"],
+               "collectives_expected": rec["collectives_expected"],
+               "profiled_collectives": seen,
+               "profiled_collectives_expected": want,
+               "profiled_nccl_kernels": prof["nccl_kernels"],
+               "profiled_memcpy_dtod": prof["memcpy_dtod"],
+               "profiled_syncs": prof["host_calls"]["cudaStreamSynchronize"],
+               "profiled_polls": prof["polls"],
+               "steady_compiles": prof["steady_compiles"],
+               "device_busy_share": prof["device_busy_share"],
+               "tok_per_s": rec["tok_per_s"],
+               "serve_tok_per_s": rec0["tok_per_s"],
+               "decode_ms_p50": rec["decode_ms_p50"],
+               "serve_decode_ms_p50": rec0["decode_ms_p50"],
+               "programs": engine.program_cache_sizes(),
+               "nvidia_smi": _smi()}
+        del engine
+        gc.collect()
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["ok"] = out["tokens_equal_serve"] and out["launches_equal_trace"] \
+        and seen == want and rec["ok"]
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"serve_mesh phase failed: {out}")
+    return out
+
+
+def serve_mesh_only(torch):
+    """``python3 chip_smoke.py --serve-mesh``: the kernels built, the serve
+    phase and ``serve_mesh`` alone."""
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    model, params = served_model()
+    _, engine, rec, tokens = serve(torch, model, params)
+    del engine
+    gc.collect()
+    serve_mesh(torch, model, params, (rec, tokens))
+    print(_smi(), flush=True)
+    return 0
 
 
 def pool_pressure(torch, model, params):
@@ -5163,11 +5291,12 @@ def spec(torch, model, params, plain_tokens):
     variant (an ``int8@8`` self-draft at gamma 4) on rings
     (``spec_rings``), on a pool of pages of 16 (``spec_paged``: tokens
     equal to the rings' bitwise, the pool drained) and on eager steps
-    (``spec_eager``: tokens equal to the graphs' bitwise), the n-gram
-    drafter on rings (``spec_ngram``), and the plain engine warmed the
-    same way (``spec_plain``), each serving the serve phase's 16
-    requests (32 new). Every engine is warmed until each slot admitted
-    once and marked steady: no capture after, launch counters = the
+    (``spec_eager``: the first 4 of the requests, each request's tokens
+    equal to the rings' bitwise), the n-gram drafter on rings
+    (``spec_ngram``), and the plain engine warmed the same way
+    (``spec_plain``), each serving the serve phase's 16 requests (32
+    new) but ``spec_eager``. Every engine is warmed until each slot
+    admitted once and marked steady: no capture after, launch counters = the
     step trace; the spec engines on graphs then profile a second batch
     (``cudaStreamSynchronize`` = 2 x polls). Identity at bf16 is
     measured: the streams equal to the plain engine's, and each that
@@ -5199,7 +5328,9 @@ def spec(torch, model, params, plain_tokens):
         progs = _spec_warm(engine, name, {"step": 1, "admit_chunk": 8}
                            if engine.spec_gamma
                            else {"step": 1, "mixed": 8})
-        tokens, counts, want, rec = _spec_serve(torch, engine, prompts)
+        # an eager spec step takes ~25x a replay's wall: 4 requests
+        tokens, counts, want, rec = _spec_serve(
+            torch, engine, prompts[:4] if name == "spec_eager" else prompts)
         rec.update(phase=name, arch=m.cfg.name, draft=m.cfg.draft
                    or kw.get("draft", ""), graphs=engine.graphs,
                    programs=progs,
@@ -5209,7 +5340,7 @@ def spec(torch, model, params, plain_tokens):
                        tokens[u] == plain_tokens[u] for u in tokens))
         ok = counts == want and rec["steady_compiles"] == 0 \
             and engine.program_cache_sizes() == progs \
-            and rec["finished_length"] == 16 \
+            and rec["finished_length"] == len(tokens) \
             and engine.graphs == (graphs is not False)
         if name == "spec_paged":
             rec["tokens_equal_rings"] = tokens == runs["spec_rings"]
@@ -5218,7 +5349,8 @@ def spec(torch, model, params, plain_tokens):
             ok = ok and rec["tokens_equal_rings"] \
                 and rec["kv_pages_live"] == 0
         if name == "spec_eager":
-            rec["tokens_equal_graphs"] = tokens == runs["spec_rings"]
+            rec["tokens_equal_graphs"] = all(
+                tokens[u] == runs["spec_rings"][u] for u in tokens)
             ok = ok and rec["tokens_equal_graphs"]
         if name in ("spec_rings", "spec_ngram"):
             ties = _near_ties(torch, m, params, prompts, plain_tokens,
@@ -5354,46 +5486,32 @@ def spec_ssm(torch, model, params, plain_tokens):
     return lines
 
 
-def serve_eager(torch, model, params, graphs_turn, phase,
-                profile_eager=True):
+def serve_eager(torch, model, params, graphs_turn, phase):
     """The serve phase's requests through the engine's eager steps
-    (``graphs=False``) and its CUDA graphs, in turns: the serve phase's
-    own run on graphs and its profiled second batch (``graphs_turn``:
-    the serve record, its tokens and the profile record), then eager,
-    graphs (three turns), each a fresh engine that serves (its own serve
-    line); the eager turn, where ``profile_eager``, also profiles a
-    second batch (its own profile line, gated as every profile phase; the
-    costliest part of the phase, whose profiler bookkeeping of some
-    50,000 eager launches takes a minute of host time, so the later
-    graphs turn profiles none). This phase's line sets the three turns
-    side by side (decode ms p50, ITL and TTFT p50, tok/s; a profiled
-    batch's wall, device time and busy share; a graphs turn's serve wall
-    includes its captures) and passes when every turn's greedy tokens
-    equal the first graphs run's."""
-    rec0, tokens0, prof0 = graphs_turn
-    turns, same = [("graphs", rec0, prof0)], []
-    for i, graphs in enumerate((False, None)):
-        _, engine, rec, tokens = serve(torch, model, params, graphs=graphs,
-                                       phase=f"{phase}_turn{i + 2}")
-        prof = profile(torch, engine, f"{phase}_profile{i + 2}") \
-            if graphs is False and profile_eager else {}
-        del engine
-        gc.collect()
-        turns.append(("eager" if graphs is False else "graphs", rec, prof))
-        same.append(tokens == tokens0)
+    (``graphs=False``) beside its CUDA graphs: the serve phase's own run
+    on graphs (``graphs_turn``: its record and tokens), then a fresh
+    engine on eager steps that serves them (its own serve line,
+    ``{phase}_turn2``). The eager turn profiles no batch: the profiler's
+    bookkeeping of some 50,000 eager launches took a minute of host
+    time. This phase's line sets the two turns side by side (decode ms
+    p50, ITL and TTFT p50, tok/s; the graphs turn's serve wall includes
+    its captures) and passes when the eager turn's greedy tokens equal
+    the graphs run's."""
+    rec0, tokens0 = graphs_turn
+    _, engine, rec, tokens = serve(torch, model, params, graphs=False,
+                                   phase=f"{phase}_turn2")
+    del engine
+    gc.collect()
+    turns, same = [("graphs", rec0), ("eager", rec)], [tokens == tokens0]
     keys = ("decode_ms_p50", "itl_ms_p50", "ttft_ms_p50", "tok_per_s")
-    pkeys = ("wall_ms_profiled", "device_kernel_ms", "device_busy_share")
     out = {"phase": phase, "arch": model.cfg.name,
-           "turns": [dict({k: r[k] for k in keys + ("wall_s",)},
-                          **{k: p[k] for k in pkeys if k in p}, mode=mode)
-                     for mode, r, p in turns],
+           "turns": [dict({k: r[k] for k in keys + ("wall_s",)}, mode=mode)
+                     for mode, r in turns],
            "tokens_equal_first_graphs_run": same}
     for mode in ("graphs", "eager"):
-        for k in keys + pkeys:
-            vals = [{**r, **p}[k] for m, r, p in turns
-                    if m == mode and k in {**r, **p}]
-            if vals:
-                out[f"{mode}_{k}"] = statistics.median(vals)
+        for k in keys:
+            out[f"{mode}_{k}"] = statistics.median(
+                r[k] for m, r in turns if m == mode)
     out["ok"] = all(same)
     emit(out)
     if not out["ok"]:
@@ -5525,6 +5643,9 @@ def profile(torch, engine, phase="profile"):
                "cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC",
                "cudaStreamSynchronize", "cudaMemcpyAsync")},
            "launches_counted_vs_profiled": seen,
+           "nccl_kernels": {k[:90]: c for _, c, k in rows
+                            if "nccl" in k.lower()},
+           "memcpy_dtod": sum(c for _, c, k in rows if "DtoD" in k),
            "profiler_lost_spins": lost,
            "seconds": time.perf_counter() - t_phase}
     emit(rec)
@@ -6689,6 +6810,8 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     if sys.argv[1:] == ["--train"]:
         return train_cells(torch)
+    if sys.argv[1:] == ["--serve-mesh"]:
+        return serve_mesh_only(torch)
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
     from repro_torch.models.model import build
@@ -6769,9 +6892,11 @@ def main() -> int:
     marks.append(("card_tests_and_model_checks", time.perf_counter()))
     model, params = served_model()
     counts, engine, rec, tokens = serve(torch, model, params)
-    prof = profile(torch, engine)
+    profile(torch, engine)
     del engine
-    serve_eager(torch, model, params, (rec, tokens, prof), "serve_eager")
+    gc.collect()
+    serve_mesh(torch, model, params, (rec, tokens))
+    serve_eager(torch, model, params, (rec, tokens), "serve_eager")
     paged_counts, engine, _, _ = serve(torch, model, params, paged=True,
                                        base=(rec, tokens))
     profile(torch, engine, "profile_paged")
@@ -6804,10 +6929,10 @@ def main() -> int:
     ssm_params = ssm_model.init(SEED)
     ext_counts, engine, ssm_rec, ssm_tokens = serve(
         torch, ssm_model, ssm_params, phase="serve_ssm")
-    prof = profile(torch, engine, "profile_ssm")
+    profile(torch, engine, "profile_ssm")
     del engine
-    serve_eager(torch, ssm_model, ssm_params, (ssm_rec, ssm_tokens, prof),
-                "serve_ssm_eager", profile_eager=False)
+    serve_eager(torch, ssm_model, ssm_params, (ssm_rec, ssm_tokens),
+                "serve_ssm_eager")
     prefill_ssm(torch, ssm_model, ssm_params)
     # fig. 2's turn for the cache-free forward: the same dual form
     # through model.lm, on graphs and eagerly

@@ -21,20 +21,16 @@ ARCHS = {c.name: c for c in [
     _llama32, _granite, _mamba2, _jamba,
 ]}
 
-#: variants of the JAX registry the port does not build yet
-_VARIANT_ITEMS = {
-    "sharded": "item 13 of section 1 (distribution)",
-}
-
 
 def get_arch(name: str, *, variant: str = "") -> ModelConfig:
     """Resolve an architecture id with optional "+"-composed variants
     (applied left to right): "reduced" (smoke config), "swa"
     (sliding-window attention, window 4096), "edge" (the edge
     deployment profile: int4 weight-only quantization and an int8 KV
-    cache), "continuous" (chunked admission, 64 tokens a chunk unless
-    the config sets one, and an 8192-token shared-prefix KV budget unless
-    it sets one) and "spec" (speculative decoding: an int8 self-draft of
+    cache), "sharded" (serving on the mesh ``"auto"`` gives: every rank
+    of the process group on the model axis), "continuous" (chunked
+    admission, 64 tokens a chunk unless the config sets one, and an
+    8192-token shared-prefix KV budget unless it sets one) and "spec" (speculative decoding: an int8 self-draft of
     half the target's blocks at gamma 4), e.g. "reduced+edge",
     "reduced+continuous" or "reduced+spec"."""
     cfg = ARCHS.get(name) or EXTRA_ARCHS.get(name)
@@ -49,6 +45,8 @@ def get_arch(name: str, *, variant: str = "") -> ModelConfig:
         elif v == "edge":
             cfg = cfg.replace(name=cfg.name + "-edge", quant="int4",
                               kv_quant=True)
+        elif v == "sharded":
+            cfg = cfg.replace(name=cfg.name + "-sharded", mesh="auto")
         elif v == "continuous":
             cfg = cfg.replace(name=cfg.name + "-cont",
                               prefill_chunk=cfg.prefill_chunk or 64,
@@ -68,10 +66,6 @@ def get_arch(name: str, *, variant: str = "") -> ModelConfig:
             nb = max(1, n_blocks(cfg) // 2)
             cfg = cfg.replace(name=cfg.name + "-spec",
                               draft=f"int8@{nb}", spec_gamma=4)
-        elif v in _VARIANT_ITEMS:
-            raise NotImplementedError(
-                f"variant {v!r} is not ported yet: ROADMAP "
-                f"{_VARIANT_ITEMS[v]}")
         else:
             raise ValueError(f"unknown variant {v!r}")
     return cfg

@@ -104,7 +104,8 @@ class ModelConfig:
     quant_group: int = 32           # int4 group size along d_in
     prefill_chunk: int = 0          # engine chunked-admission default
     prefix_cache_tokens: int = 0    # shared-prefix KV reuse budget
-    mesh: str = ""                  # tensor-parallel serving (not ported)
+    mesh: str = ""                  # serving mesh spec ("auto", "dp,mp";
+                                    # launch.mesh.make_serving_mesh)
     draft: str = ""                 # speculative draft: a self-draft spec
                                     # "<prec>[@<blocks>]" (quant.self_draft,
                                     # e.g. "int8@1") or "ngram"

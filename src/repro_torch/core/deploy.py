@@ -9,8 +9,14 @@ Endpoints:
   * ``remote`` - an endpoint behind a modelled network; compute runs here
     (one machine) but latency is accounted through the
     :class:`NetworkModel`, matching how the paper measured cloud calls.
-  * ``mesh``   - a device mesh: not ported (ROADMAP section 1, item 13);
-    deploying onto one raises ``NotImplementedError``.
+  * ``mesh``   - a serving mesh (``launch.mesh.Mesh``): the group runs
+    with that mesh current (``distribution.sharding.use_mesh``), so the
+    model layers run rank-local and issue their collectives, every rank
+    calling the deployed service (one process a rank). Each rank holds
+    its block of the group's params, cut once by ``param_shardings``
+    (a quantized endpoint stores the whole quantized tree and cuts the
+    dequantized weights in its program). Without a mesh it runs as
+    ``local``, as JAX's does.
 
 Consecutive stages on the same endpoint are grouped and run as one
 ``seq`` through its program (``Service.jitted()``: one CUDA graph on the
@@ -33,6 +39,8 @@ from repro_torch.core.compose import seq
 from repro_torch.core.netmodel import NetworkModel, tree_nbytes
 from repro_torch.core.pytree import tree_leaves
 from repro_torch.core.service import Service
+from repro_torch.distribution.sharding import (
+    param_shardings, shard_tree, use_mesh)
 from repro_torch.quant import dequantize_params, quantize_params
 
 
@@ -40,7 +48,7 @@ from repro_torch.quant import dequantize_params, quantize_params
 class Endpoint:
     name: str
     kind: str = "local"                      # local | mesh | remote
-    mesh: Optional[Any] = None               # mesh: not ported (item 13)
+    mesh: Optional[Any] = None               # for mesh: a launch.mesh.Mesh
     network: Optional[NetworkModel] = None   # for remote
     quantize: str = ""                       # "" | "int8" | "int4": stages
                                              # placed here hold weight-
@@ -171,10 +179,6 @@ class DeployedService:
                     f"stage {s.name!r} has no endpoint assignment and the "
                     f"plan has no 'local' endpoint to default to "
                     f"(endpoints: {sorted(self.plan.endpoints)})")
-            if ep.kind == "mesh":
-                raise NotImplementedError(
-                    "mesh endpoints are not ported yet: ROADMAP section 1, "
-                    "item 13 (distribution)")
             if groups and groups[-1][0].name == ep.name:
                 groups[-1][1].append(s)
             else:
@@ -187,6 +191,14 @@ class DeployedService:
         if gi not in self._compiled:
             ep, stages = self._groups[gi]
             svc = stages[0] if len(stages) == 1 else seq(*stages)
+            mesh = ep.mesh if ep.kind == "mesh" else None
+            if mesh is not None and svc.params is not None \
+                    and not ep.quantize:
+                # the rank's block, once (the parts would see it whole)
+                svc = dataclasses.replace(
+                    svc, params=shard_tree(
+                        svc.params, param_shardings(svc.params, mesh), mesh),
+                    parts=())
             if ep.quantize and svc.params is not None:
                 # store the stage's params quantized (the endpoint's
                 # memory budget is what the profile models) and
@@ -197,7 +209,8 @@ class DeployedService:
                 raw_fn = svc.fn
                 svc = dataclasses.replace(
                     svc, params=quantize_params(svc.params, bits=bits),
-                    fn=lambda p, x, _f=raw_fn: _f(dequantize_params(p), x),
+                    fn=lambda p, x, _f=raw_fn, _m=mesh: _f(
+                        _blocks(dequantize_params(p), _m), x),
                     parts=())
             nbytes = tree_nbytes(svc.params) if svc.params is not None \
                 else 0
@@ -214,7 +227,9 @@ class DeployedService:
             payload = tree_nbytes(x)
 
             t0 = time.perf_counter()
-            y = block_until_ready(fn(svc.params, x))
+            mesh = ep.mesh if ep.kind == "mesh" else None
+            with use_mesh(mesh):
+                y = block_until_ready(fn(svc.params, x))
             compute_s = time.perf_counter() - t0
             transfer_s = 0.0
             if ep.kind == "remote":
@@ -232,6 +247,15 @@ class DeployedService:
                 param_bytes=param_bytes, pool_bytes=fn.pool_bytes))
             x = y
         return x, telemetry
+
+
+def _blocks(params, mesh):
+    """The rank's block of each leaf of ``params`` as views (the tree
+    itself without a mesh)."""
+    if mesh is None:
+        return params
+    return shard_tree(params, param_shardings(params, mesh), mesh,
+                      copy=False)
 
 
 def block_until_ready(tree):

@@ -54,14 +54,32 @@ time, rejoin it once drained). ``--faults`` may then also name the fleet
 sites (``replica_crash``, ``replica_hang``, ``router_drop``), and
 ``--trace-out`` writes the merged trace (a lane a replica and a fleet
 lane). Frontend-embedding architectures take the single-engine path.
+
+``--mesh dp,mp`` (or ``auto``, or the ``sharded`` variant) serves on a
+tensor- and data-parallel mesh, one process a rank under torchrun::
+
+  PYTHONPATH=src python -m torch.distributed.run --standalone \
+      --nproc-per-node 8 -m repro_torch.launch.serve --arch llama3.2-1b \
+      --variant reduced --device cpu --mesh 2,4 --temperature 0
+
+Each rank reads torchrun's environment and initialises the process
+group itself (gloo under ``--device cpu``, NCCL on the card, one card a
+rank), serves the same seeded requests, and rank 0 alone prints (with a
+``mesh: data=... model=... (N devices)`` line) and writes ``--json``.
+``--mesh none`` serves a sharded variant on one device.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import os
 import time
 
 import numpy as np
+import torch
+import torch.distributed
 
 from repro_torch.configs import ARCHS, EXTRA_ARCHS, get_arch
 from repro_torch.kernels.dispatch import resolve_device
@@ -265,8 +283,16 @@ def main(argv=None):
                          "spec-variant config)")
     ap.add_argument("--temperature", type=float, default=0.8)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", default="",
+                    help="serving mesh: 'dp,mp' (e.g. '2,4' = 2-way data "
+                         "x 4-way model), 'auto' = every rank on the model "
+                         "axis, 'none' forces one device even for a "
+                         "sharded variant, '' keeps cfg.mesh (see the "
+                         "'sharded' variant); one process a rank under "
+                         "torchrun")
     ap.add_argument("--json", default="",
-                    help="optional path to dump latency stats as JSON")
+                    help="optional path to dump latency stats (and, on "
+                         "one engine, each request's tokens) as JSON")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch versions "
                          "of the kernels)")
@@ -317,6 +343,40 @@ def main(argv=None):
     except RuntimeError as err:
         raise SystemExit(f"error: {err}")
     cfg = get_arch(args.arch, variant=args.variant)
+    mesh_spec = args.mesh or cfg.mesh
+    if mesh_spec not in ("", "none", "off"):
+        if args.replicas > 1:
+            raise SystemExit("--replicas > 1 serves on one device; a "
+                             "mesh serves one engine across its ranks")
+        device = _init_mesh_group(device)
+        rank = torch.distributed.get_rank()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) if rank \
+                    else contextlib.nullcontext():
+                return _serve(args, cfg, device, json_out=not rank)
+        finally:
+            torch.distributed.destroy_process_group()
+    return _serve(args, cfg, device)
+
+
+def _init_mesh_group(device):
+    """The process group of a mesh run, from torchrun's environment:
+    gloo for the CPU, NCCL on the card (this rank's card). Returns the
+    rank's device."""
+    if "WORLD_SIZE" not in os.environ:
+        raise SystemExit("--mesh serves one process a rank: start the CLI "
+                         "with torchrun (python -m torch.distributed.run "
+                         "--nproc-per-node N -m repro_torch.launch.serve "
+                         "...)")
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    torch.distributed.init_process_group(
+        "nccl" if device.type == "cuda" else "gloo")
+    return device
+
+
+def _serve(args, cfg, device, json_out=True):
     if args.quant:
         cfg = cfg.replace(quant="" if args.quant == "none" else args.quant)
     if args.draft == "none":
@@ -330,6 +390,7 @@ def main(argv=None):
     if args.replicas > 1:
         return _serve_fleet(args, cfg, model, params, device)
     engine = Engine(model, params, **_engine_kwargs(args),
+                    mesh=args.mesh or None,
                     recorder=bool(args.trace_out), trace_dir=args.trace_dir,
                     faults=(Faults.parse(args.faults, seed=args.faults_seed)
                             if args.faults else None))
@@ -400,6 +461,10 @@ def main(argv=None):
           f"batch={args.max_batch} weights={cfg.quant or cfg.param_dtype} "
           f"kv={'int8' if kv_quant else cfg.dtype} "
           f"weight_bytes={quantized_stats(params)['weight_bytes']}")
+    if engine.mesh is not None:
+        print(f"mesh: data={engine.mesh.axis_size('data')} "
+              f"model={engine.mesh.axis_size('model')} "
+              f"({engine.mesh.size} devices)")
     print(f"finished={stats['n_finished']} "
           f"tokens={stats['tokens_generated']} wall={wall:.2f}s "
           f"({stats['tokens_generated'] / wall:,.1f} tok/s)")
@@ -439,10 +504,13 @@ def main(argv=None):
               f"released={stats['kv_pages_released']} "
               f"cow splits={stats['kv_cow_splits']} "
               f"preemptions={stats['preemptions']}")
-    if args.json:
+    if args.json and json_out:
         with open(args.json, "w") as f:
             json.dump({"arch": cfg.name, "device": str(device),
-                       "wall_s": wall, **stats}, f, indent=2)
+                       "wall_s": wall, **stats,
+                       "tokens": {str(u): list(r.tokens)
+                                  for u, r in responses.items()}},
+                      f, indent=2)
     return responses, stats
 
 

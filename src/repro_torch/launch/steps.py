@@ -7,7 +7,7 @@ envelope); ``depth_counts`` / ``with_depth`` read and set a stack's
 depth in its scan units; ``apply_opts`` applies the optimization knobs.
 
 ``build_step`` and ``activation_rules_for`` shard a step over a device
-mesh and wait for ROADMAP section 1, item 13 (distribution).
+mesh and wait for ROADMAP section 1, item 13c (with the dry-run).
 """
 from __future__ import annotations
 

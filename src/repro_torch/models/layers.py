@@ -45,6 +45,24 @@ CPU runs plain ``gqa_attention(causal=False)`` for both, as JAX does.
 Quantized projections are structural, as in JAX: a QTensor dict
 (``{"q"|"q4", "scale"}``, ``repro_torch.quant``) where ``p["w"]`` was a
 tensor routes ``linear`` through the dequantize-matmul op.
+
+On a serving mesh (``distribution.sharding.use_mesh``; one process a
+rank) the layers run rank-local, the port's counterpart of JAX's GSPMD
+partitioning under ``param_shardings``: ``wq``/``wk``/``wv``, an MLP's
+``wi``/``wg`` and the LM head are column-parallel (the rank's output
+columns), ``wo`` of attention and of the MLP row-parallel (the rank's
+input rows, then one ``all_reduce`` over the model group), and a
+vocab-sharded embedding table is looked up with out-of-range ids masked
+and ``all_reduce``d, its unembedding ``all_gather``ed. Attention runs
+on the rank's whole heads when the KV heads divide the model axis;
+otherwise the projections are ``all_gather``ed to whole heads and
+attention and the cache are replicated (the layout ``cache_shardings``
+gives). Which collectives a layer issues is a function of the config
+and the mesh's sizes alone (the sharding rules), so a model axis of 1
+issues the same ones as N. The params are the rank's blocks, as
+``sharding.shard_tree`` cuts them by ``param_shardings`` (the engine
+and a mesh endpoint place them so). The CUDA kernels run on the local
+shards.
 """
 from __future__ import annotations
 
@@ -54,6 +72,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distribution.sharding import current_mesh
 from repro_torch.kernels.decode_attention.ops import (
     cached_decode_attention, paged_decode_attention)
 from repro_torch.kernels.decode_attention.ref import paged_kv_gather
@@ -106,12 +125,105 @@ def top_k(x, k):
     return vals[..., :k], idx[..., :k]
 
 
-def embed(p, ids):
-    return F.embedding(ids, p["table"])
+def embed(p, ids, vocab=None):
+    """Token embeddings. On a mesh (``vocab`` given, dividing the model
+    axis) the rank's vocab block is looked up with out-of-range ids
+    masked to zero, and the blocks are summed by an ``all_reduce``."""
+    tp = _tp(vocab)
+    if tp is None:
+        return F.embedding(ids, p["table"])
+    mesh, r, vl = tp
+    local = ids - r * vl
+    inside = (local >= 0) & (local < vl)
+    e = F.embedding(local.clamp(0, vl - 1), p["table"])
+    return mesh.all_reduce(torch.where(inside[..., None], e,
+                                       torch.zeros_like(e)))
 
 
-def unembed(p, x):
-    return x @ p["table"].T
+def unembed(p, x, vocab=None):
+    """Logits against the (tied) embedding table; on a mesh the rank's
+    vocab block, ``all_gather``ed."""
+    tp = _tp(vocab)
+    if tp is None:
+        return x @ p["table"].T
+    mesh, _, _ = tp
+    return mesh.all_gather(x @ p["table"].T, "model", dim=-1)
+
+
+# --------------------------------------------------------------------- #
+# rank-local projections (a serving mesh)
+# --------------------------------------------------------------------- #
+def _tp(n_full):
+    """(mesh, this rank's model index, n_full's block size) when a mesh
+    is current and ``n_full`` divides its model axis (the rule shards
+    that dim); None otherwise (no mesh, no size known, or a dim the rule
+    replicates)."""
+    mesh = current_mesh()
+    if mesh is None or not n_full:
+        return None
+    mp = mesh.axis_size("model")
+    if n_full % mp:
+        return None
+    return mesh, mesh.axis_index("model"), n_full // mp
+
+
+def _row_block(w, r, k_local, k_full):
+    """A row-parallel weight as ``linear`` takes it on rank ``r``. A
+    tensor, and an int8 QTensor's ``q`` with its per-channel scale, are
+    the rank's block already. An int4 QTensor's ``q4`` is too, but its
+    group scale is replicated (``_qtensor_spec``): the rank keeps the
+    group rows its K range covers, or, where a group straddles two
+    ranks, per-row scales (group size 1)."""
+    if not isinstance(w, dict) or "q4" not in w or k_local == k_full:
+        return w
+    q4, scale = w["q4"], w["scale"]
+    if 2 * q4.shape[-2] != k_local:
+        raise ValueError(f"an int4 block of {k_local} rows splits a "
+                         f"packed byte")
+    gs = k_full // scale.shape[-2]
+    if k_local % gs:
+        scale = scale.repeat_interleave(gs, dim=-2).narrow(
+            -2, r * k_local, k_local)
+    else:
+        scale = scale.narrow(-2, r * k_local // gs, k_local // gs)
+    return {"q4": q4, "scale": scale}
+
+
+def col_linear(p, x, n_full, gather=False):
+    """Column-parallel projection onto ``n_full`` outputs: on a mesh
+    ``p`` holds the rank's block of them (``all_gather``ed to all
+    ``n_full`` with ``gather``); ``linear`` off a mesh or where the rule
+    replicates."""
+    y = linear(p, x)
+    tp = _tp(n_full)
+    if tp is None or not gather:
+        return y
+    return tp[0].all_gather(y, "model", dim=-1)
+
+
+def row_partial(p, x, k_full, x_whole=False):
+    """Row-parallel projection from ``k_full`` inputs without its
+    reduction: (the rank's partial sum, True) on a mesh (``x`` holds the
+    rank's inputs, or all ``k_full`` of them with ``x_whole``, cut here;
+    the bias is left out), (``linear``, False) off a mesh or where the
+    rule replicates."""
+    tp = _tp(k_full)
+    if tp is None:
+        return linear(p, x), False
+    _, r, kl = tp
+    if x_whole:
+        x = x.narrow(-1, r * kl, kl)
+    return linear({"w": _row_block(p["w"], r, kl, k_full)}, x), True
+
+
+def row_linear(p, x, k_full, x_whole=False):
+    """Row-parallel projection: the partial sums ``all_reduce``d over the
+    model group, then the bias."""
+    y, partial = row_partial(p, x, k_full, x_whole)
+    if not partial:
+        return y
+    y = current_mesh().all_reduce(y)
+    return y + p["b"] if "b" in p else y
 
 
 def last_valid(x, length):
@@ -452,11 +564,34 @@ def _paged_attend(q, k, v, cache, pos, slots, valid, window):
                                   cache["pos"], pos, window=window)
 
 
-def _qkv(p, x, hd):
+def _qkv(p, x, hd, cfg=None):
+    """q, k, v (B, L, H, hd). On a mesh (``cfg`` given) the rank's heads
+    when the KV heads divide the model axis, else all heads, gathered
+    from the column blocks."""
     B, L, _ = x.shape
-    return (linear(p["wq"], x).reshape(B, L, -1, hd),
-            linear(p["wk"], x).reshape(B, L, -1, hd),
-            linear(p["wv"], x).reshape(B, L, -1, hd))
+    if cfg is None or current_mesh() is None:
+        return (linear(p["wq"], x).reshape(B, L, -1, hd),
+                linear(p["wk"], x).reshape(B, L, -1, hd),
+                linear(p["wv"], x).reshape(B, L, -1, hd))
+    gather = _heads_gathered(cfg)
+    return tuple(col_linear(p[k], x, n * hd, gather).reshape(B, L, -1, hd)
+                 for k, n in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
+                              ("wv", cfg.n_kv_heads)))
+
+
+def _heads_gathered(cfg: ModelConfig) -> bool:
+    """On a mesh whose model axis the KV heads do not divide, attention
+    runs on all heads, gathered from the column blocks."""
+    mesh = current_mesh()
+    return mesh is not None and \
+        cfg.n_kv_heads % mesh.axis_size("model") != 0
+
+
+def _out(p, y, cfg):
+    """The output projection of attention rows y (B, L, H * hd):
+    row-parallel on a mesh."""
+    return row_linear(p["wo"], y, cfg.n_heads * cfg.hd,
+                      x_whole=_heads_gathered(cfg))
 
 
 def attention_block(p, x, cfg: ModelConfig, *, cache=None, positions=None,
@@ -472,7 +607,7 @@ def attention_block(p, x, cfg: ModelConfig, *, cache=None, positions=None,
     B, L, _ = x.shape
     hd = cfg.hd
     window = cfg.sliding_window if window is None else window
-    q, k, v = _qkv(p, x, hd)
+    q, k, v = _qkv(p, x, hd, cfg)
     if cache is None:
         if cfg.rope:
             at = torch.arange(L, device=x.device) if positions is None \
@@ -480,7 +615,7 @@ def attention_block(p, x, cfg: ModelConfig, *, cache=None, positions=None,
             q = apply_rope(q, at, cfg.rope_theta)
             k = apply_rope(k, at, cfg.rope_theta)
         y = _self_attention(q, k, v, cfg, positions, window)
-        return linear(p["wo"], y.reshape(B, L, -1)), None
+        return _out(p, y.reshape(B, L, -1), cfg), None
 
     S = cache["pos"].shape[1]
     step = cache["step"]                                   # (B,) int32
@@ -492,7 +627,7 @@ def attention_block(p, x, cfg: ModelConfig, *, cache=None, positions=None,
     if "bt" in cache:                                      # paged layout
         y = _paged_attend(q, k, v, cache, pos, slot[:, None], None, window)
         cache["step"] += 1
-        return linear(p["wo"], y.reshape(B, L, -1)), cache
+        return _out(p, y.reshape(B, L, -1), cfg), cache
     bidx = torch.arange(B, device=x.device)
     _write_kv(cache, (bidx, slot), k[:, 0], v[:, 0])
     cache["pos"][bidx, slot] = step
@@ -502,7 +637,7 @@ def attention_block(p, x, cfg: ModelConfig, *, cache=None, positions=None,
         y = cached_decode_attention(q, cache["k"], cache["v"],
                                     cache["pos"], step, window=window)
     cache["step"] += 1
-    return linear(p["wo"], y.reshape(B, L, -1)), cache
+    return _out(p, y.reshape(B, L, -1), cfg), cache
 
 
 def extend_into_cache(p, x, cfg: ModelConfig, cache, *, lengths=None,
@@ -524,7 +659,7 @@ def extend_into_cache(p, x, cfg: ModelConfig, cache, *, lengths=None,
     step = cache["step"]                                   # (B,) int32
     pos = step[:, None] + torch.arange(T, dtype=step.dtype,
                                        device=x.device)[None]   # (B, T)
-    q, k, v = _qkv(p, x, hd)
+    q, k, v = _qkv(p, x, hd, cfg)
     if cfg.rope:
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
@@ -538,7 +673,7 @@ def extend_into_cache(p, x, cfg: ModelConfig, cache, *, lengths=None,
     if "bt" in cache:                                      # paged layout
         y = _paged_attend(q, k, v, cache, pos, slots, valid, window)
         cache["step"] += inc
-        return linear(p["wo"], y.reshape(B, T, -1)), cache
+        return _out(p, y.reshape(B, T, -1), cfg), cache
     bidx = torch.arange(B, device=x.device)[:, None]
     new_pos = pos if valid is None else \
         torch.where(valid, pos, cache["pos"][bidx, slots])
@@ -550,7 +685,7 @@ def extend_into_cache(p, x, cfg: ModelConfig, cache, *, lengths=None,
         y = cached_decode_attention(q, cache["k"], cache["v"],
                                     cache["pos"], pos, window=window)
     cache["step"] += inc
-    return linear(p["wo"], y.reshape(B, T, -1)), cache
+    return _out(p, y.reshape(B, T, -1), cfg), cache
 
 
 def prefill_into_cache(p, x, cfg: ModelConfig, cache, *, window=None,
@@ -563,7 +698,7 @@ def prefill_into_cache(p, x, cfg: ModelConfig, cache, *, window=None,
     hd = cfg.hd
     window = cfg.sliding_window if window is None else window
     positions = torch.arange(L, device=x.device)
-    q, k, v = _qkv(p, x, hd)
+    q, k, v = _qkv(p, x, hd, cfg)
     if cfg.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -591,11 +726,25 @@ def prefill_into_cache(p, x, cfg: ModelConfig, cache, *, window=None,
     cache["step"].copy_(length if length is not None else
                         torch.full((B,), L, dtype=torch.int32,
                                    device=x.device))
-    return linear(p["wo"], y.reshape(B, L, -1)), cache
+    return _out(p, y.reshape(B, L, -1), cfg), cache
 
 
 # --------------------------------------------------------------------- #
 # gated MLP (SwiGLU)
 # --------------------------------------------------------------------- #
-def mlp(p, x):
-    return linear(p["wo"], F.silu(linear(p["wg"], x)) * linear(p["wi"], x))
+def mlp_partial(p, x, d_ff=None):
+    """The gated MLP without its reduction: (y, partial) as
+    ``row_partial`` gives them; on a mesh (``d_ff`` given) ``wi``/``wg``
+    are column-parallel and ``wo`` row-parallel."""
+    h = F.silu(col_linear(p["wg"], x, d_ff)) * col_linear(p["wi"], x, d_ff)
+    return row_partial(p["wo"], h, d_ff)
+
+
+def mlp(p, x, d_ff=None):
+    """The gated MLP (SwiGLU); on a mesh (``d_ff`` given) tensor-parallel
+    with one ``all_reduce``."""
+    y, partial = mlp_partial(p, x, d_ff)
+    if not partial:
+        return y
+    y = current_mesh().all_reduce(y)
+    return y + p["wo"]["b"] if "b" in p["wo"] else y

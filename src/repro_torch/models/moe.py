@@ -32,6 +32,15 @@ after run on the card. The expert products
 are plain batched matmuls (``torch.bmm`` over the expert axis, so the
 stacked weights are read in place), as the JAX package leaves them to
 XLA: MoE has no Pallas kernel.
+
+On a serving mesh (``distribution.sharding.use_mesh``) a block routes
+over the rank's share of the experts, by the sharding rule: the rank's
+``E // mp`` experts when E divides the model axis (expert parallelism),
+else the rank's ``d_expert // mp`` hidden units of every expert. The
+dense route then computes only those and the gate-weighted partial
+sums, with the shared expert's row-parallel partial, are combined by
+one ``all_reduce``; the capacity route of expert parallelism is
+``models/moe_shard_map.py``.
 """
 from __future__ import annotations
 
@@ -39,7 +48,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
-from repro_torch.models.layers import mlp, top_k
+from repro_torch.distribution.sharding import current_mesh
+from repro_torch.models.layers import mlp, mlp_partial, top_k
 
 
 def _capacity(n_tokens: int, m: MoEConfig) -> int:
@@ -86,6 +96,9 @@ def moe_block(p, x, cfg: ModelConfig, *, dense=False):
     The shared expert, when there is one, is added to every token."""
     m = cfg.moe
     B, L, d = x.shape
+    mesh = current_mesh()
+    if mesh is not None:
+        return _moe_on_mesh(p, x, cfg, mesh, dense)
     if dense:
         y, aux = _route_dense(p, x.reshape(B * L, d), cfg)
         y = y.reshape(B, L, d)
@@ -103,16 +116,67 @@ def _route_dense(p, xf, cfg: ModelConfig):
     """Capacity-free top-k routing: every expert on every token, combined
     by a gate-masked sum. xf: (T, d) -> (T, d), and a zero aux loss
     (serving never trains)."""
+    return _dense_sum(p, xf, cfg).to(xf.dtype), torch.zeros(
+        (), dtype=torch.float32, device=xf.device)
+
+
+def _dense_sum(p, xf, cfg: ModelConfig, lo: int = 0):
+    """The dense route's gate-weighted sum in f32 over the experts ``p``
+    holds (``p["wi"].shape[0]`` of them, the first one expert ``lo``)."""
     m = cfg.moe
     T, d = xf.shape
+    n = p["wi"].shape[0]
     _, gate_vals, gate_idx = _gates(p, xf, m)
     gates = torch.zeros((T, m.n_experts), dtype=torch.float32,
                         device=xf.device).scatter(1, gate_idx, gate_vals)
-    ye = _experts(p, xf.unsqueeze(0).expand(m.n_experts, T, d),
-                  cfg.act_dtype)                                # (E, T, d)
-    y = (ye.float() * gates.t().unsqueeze(-1)).sum(0)
-    return y.to(xf.dtype), torch.zeros((), dtype=torch.float32,
-                                       device=xf.device)
+    ye = _experts(p, xf.unsqueeze(0).expand(n, T, d),
+                  cfg.act_dtype)                                # (n, T, d)
+    return (ye.float() * gates[:, lo:lo + n].t().unsqueeze(-1)).sum(0)
+
+
+def _local_experts(m: MoEConfig, mp: int, r: int):
+    """Where the rank's share of the routed experts lies, by the sharding
+    rule: (the first local expert's index, whether the outputs are
+    partial). Experts on the model axis when E divides it, else d_expert
+    on it, else every expert whole."""
+    if m.n_experts % mp == 0:
+        return r * (m.n_experts // mp), True
+    return 0, m.d_expert % mp == 0
+
+
+def _moe_on_mesh(p, x, cfg: ModelConfig, mesh, dense: bool):
+    """``moe_block`` on a mesh: the rank's experts (``_local_experts``);
+    the routed partial sums and the shared expert's partial combined by
+    one ``all_reduce`` over the model group. The capacity route with the
+    experts on the model axis is ``moe_block_shard_map``."""
+    m = cfg.moe
+    mp, r = mesh.axis_size("model"), mesh.axis_index("model")
+    B, L, d = x.shape
+    if not dense and m.n_experts % mp == 0:
+        from repro_torch.models.moe_shard_map import moe_block_shard_map
+        return moe_block_shard_map(p, x, cfg, mesh)
+    lo, partial = _local_experts(m, mp, r)
+    if dense:
+        y = _dense_sum(p, x.reshape(B * L, d), cfg, lo).reshape(B, L, d)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    elif m.group_routing and L > 1:
+        y, aux = _route_grouped(p, x, cfg)
+    else:
+        y, aux = _route_tokens(p, x.reshape(B * L, d), cfg)
+        y = y.reshape(B, L, d)
+    d_shared = m.d_shared or m.n_shared * m.d_expert
+    if m.n_shared and partial:
+        # one reduction for both: a row-parallel shared expert's partial
+        # joins the routed sum (its bias-free wo, as every MoE's)
+        sh, sh_partial = mlp_partial(p["shared"], x, d_shared)
+        y = y.float() + sh.float() if sh_partial else y
+        shared = None if sh_partial else sh
+    else:
+        shared = mlp(p["shared"], x, d_shared) if m.n_shared else None
+    if partial:
+        y = mesh.all_reduce(y.float())
+    y = y.to(x.dtype)
+    return (y if shared is None else y + shared.to(x.dtype)), aux
 
 
 def _sorted_counts(expert_sorted, E: int):

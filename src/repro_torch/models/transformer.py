@@ -28,6 +28,12 @@ n_ssm + 1: 23 a Jamba super-block (8 ``ln1``, 8 ``ln2``, 7 gated) and
 ``ln_f``. In fp32 this is the JAX stack's arithmetic; in bf16 each norm
 reads the f32 sum where the JAX stack rounds ``x + y`` to bf16 first
 (see ``kernels/rmsnorm/ref.py``).
+
+On a serving mesh (``distribution.sharding.use_mesh``) the same loop runs
+rank-local: the layers issue the collectives (``models/layers.py``), the
+logits are whole on every rank of a model group (the vocab blocks
+gathered), and a MoE FFN routes over the rank's experts
+(``models/moe.py``).
 """
 from __future__ import annotations
 
@@ -308,7 +314,7 @@ def apply_block(bp, x, res, cfg: ModelConfig, *, mode: str, cache=None,
             continue
         h, x = L.rms_norm(sp["ln2"], y, eps, residual=x)
         if ffn == "mlp":
-            res = L.mlp(sp["mlp"], h)
+            res = L.mlp(sp["mlp"], h, cfg.d_ff)
         else:
             res, a = M.moe_block(sp["moe"], h, cfg,
                                  dense=mode in ("decode", "extend"))
@@ -390,7 +396,7 @@ def embed_inputs(params, cfg: ModelConfig, tokens=None, embeddings=None):
     if embeddings is not None:
         parts.append(L.project(params["frontend_proj"], embeddings))
     if tokens is not None:
-        parts.append(L.embed(params["embed"], tokens))
+        parts.append(L.embed(params["embed"], tokens, cfg.vocab))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     return x.to(cfg.act_dtype)
 
@@ -399,9 +405,9 @@ def logits_from(params, cfg: ModelConfig, x, res=None):
     """Final norm (adding the pending ``res``) and the LM head; f32."""
     h, _ = L.rms_norm(params["ln_f"], x, cfg.norm_eps, residual=res)
     if cfg.tie_embeddings:
-        out = L.unembed(params["embed"], h)
+        out = L.unembed(params["embed"], h, cfg.vocab)
     else:
-        out = L.linear(params["lm_head"], h)
+        out = L.col_linear(params["lm_head"], h, cfg.vocab, gather=True)
     return out.float()
 
 

@@ -137,8 +137,29 @@ the paged pool (token-only, as in JAX) refuses them; embeddings
 requests skip the prefix cache; model-draft speculation refuses an
 encoder-decoder (n-gram speculation serves it).
 
-Not ported yet, and raising ``NotImplementedError`` with its ROADMAP
-item when asked for: tensor-parallel meshes.
+On a serving mesh (``mesh=``: a ``launch.mesh.Mesh``, a spec string
+for ``make_serving_mesh``, or None to follow ``cfg.mesh``; one process a
+rank, under ``torchrun``) every rank runs this same host scheduler on
+the same requests, so every rank makes the same decisions. Params are
+placed leaf by leaf by ``distribution.sharding.param_shardings`` and the
+cache by ``cache_shardings``: each rank holds its block (weights and KV
+heads split over the model axis). The decode state and the slots are
+split over the data axis as ``batch_shardings`` places them: data rank
+d holds slots ``[d * B_loc, (d + 1) * B_loc)``, and its step programs
+run on those rows alone, with the mesh current, so the model's layers
+issue their collectives over the model group (``models/layers.py``).
+Each step's record is ``all_gather``ed over the data group inside the
+program, so every host sees every slot's tokens and finish flags. A
+chunked admission runs only in the data group that owns the slot (the
+others take a plain step, or in spec mode an idle record); the model
+groups stay in lockstep, since a model group lies inside one data
+group. A prefix-cache entry is a slot's K/V on the rank's heads,
+``broadcast`` from the owning data rank over the data group, so every
+rank stores it (JAX replicates it over data) and a hit copies locally.
+On the card the steps are CUDA graphs with the NCCL collectives inside:
+the communicators are warmed eagerly first, on the capture stream. The
+SSM, hybrid, encoder-decoder and VLM families and the paged pool on a
+mesh wait for ROADMAP section 1, item 13b.
 """
 from __future__ import annotations
 
@@ -153,6 +174,8 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core.program import capture, capture_stream
+from repro_torch.distribution import sharding
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.model import Model, build
 from repro_torch.serving import faults as faults_mod
 from repro_torch.serving import paged_kv, telemetry
@@ -231,6 +254,7 @@ class StepProgram:
         self.graph = None
         self.out: Optional[torch.Tensor] = None
         self.launches: Dict[str, int] = {}
+        self.collectives: Dict[str, int] = {}
 
     def _new_graph(self, generator):
         graph = torch.cuda.CUDAGraph()
@@ -246,15 +270,18 @@ class StepProgram:
     def capture(self, pool=None, stream=None, generator=None) -> None:
         """Record the body (``core.program.capture``)."""
         graph = self._new_graph(generator)
-        out, launches = capture(self.body,
-                                self._recording(graph, pool, stream))
+        with mesh_mod.recorded_collectives() as collectives:
+            out, launches = capture(self.body,
+                                    self._recording(graph, pool, stream))
         self.graph, self.out, self.launches = graph, out, launches
+        self.collectives = collectives
 
     def __call__(self) -> torch.Tensor:
         if self.graph is None:
             return self.body()
         self.graph.replay()
         kernels.add_launches(self.launches)
+        mesh_mod.add_collectives(self.collectives)
         return self.out.clone()
 
 
@@ -313,8 +340,11 @@ class Engine:
         ``cfg.draft``; ``spec_gamma``: tokens proposed a step (0 follows
         ``cfg.spec_gamma``, 4 once a draft is set). A model draft needs
         caches that rewind without replay on both sides (attention-only
-        stacks); the n-gram drafter serves every family. ``mesh`` (not
-        ported yet) raises."""
+        stacks); the n-gram drafter serves every family. ``mesh``: a
+        ``launch.mesh.Mesh``, a spec string (``"auto"``, ``"2,4"``; ``""``,
+        ``"none"`` and ``"off"`` turn it off) or None to follow
+        ``cfg.mesh``; the model's params are whole on every rank and the
+        engine keeps each rank's block."""
         if kv_cache_dtype not in ("", "int8"):
             raise ValueError(f"unsupported kv_cache_dtype "
                              f"{kv_cache_dtype!r} (use '' or 'int8')")
@@ -324,11 +354,19 @@ class Engine:
         pct = cfg.prefix_cache_tokens if prefix_cache_tokens is None \
             else prefix_cache_tokens
         mesh_src = cfg.mesh if mesh is None else mesh
-        if mesh_src not in ("", "none", "off", None):
-            raise _not_ported("mesh (tensor-parallel serving)",
-                              "13 (distribution)")
+        if isinstance(mesh_src, str):
+            mesh_src = None if mesh_src in ("", "none", "off") \
+                else mesh_mod.make_serving_mesh(mesh_src)
+        self.mesh = mesh_src
+        if self.mesh is not None:
+            if cfg.family not in ("dense", "moe"):
+                raise _not_ported(f"the {cfg.family} family on a serving "
+                                  f"mesh", "13b")
+            if paged:
+                raise _not_ported("the paged KV pool on a serving mesh",
+                                  "13b")
         self.model = model
-        self.params = params
+        self.params = self._place(params)
         self.device = model.device
         on_card = self.device.type == "cuda"
         if graphs and not on_card:
@@ -403,6 +441,21 @@ class Engine:
         # --- host-side scheduling state ------------------------------- #
         self.queue: collections.deque[Request] = collections.deque()
         self.slots: List[Optional[Request]] = [None] * max_batch
+        # the slots this rank's device state holds: [_b0, _b0 + _bl)
+        # (all of them off a mesh, or when the batch does not divide the
+        # data axis and batch_shardings replicates it)
+        self._data_split = self.mesh is not None and sharding.batch_shardings(
+            (max_batch,), self.mesh)[0] is not None
+        self._bl = max_batch // self.mesh.axis_size("data") \
+            if self._data_split else max_batch
+        self._b0 = self.mesh.axis_index("data") * self._bl \
+            if self._data_split else 0
+        # the batch steps sample this rank's rows with the noise one
+        # device gives them (``Sampler.rows``); a batch-1 admission
+        # samples with ``self.sampler``
+        self._row_sampler = dataclasses.replace(
+            self.sampler, rows=(max_batch, self._b0)) \
+            if self._data_split else self.sampler
         self.requests: Dict[int, Request] = {}
         self.responses: Dict[int, Response] = {}
         self._admit: Optional[_Admission] = None
@@ -410,26 +463,21 @@ class Engine:
 
         # --- device-resident decode state ----------------------------- #
         dev = self.device
+        bl = self._bl
         self.generator = torch.Generator(device=dev).manual_seed(seed)
-        self.tokens = torch.zeros((max_batch, 1), dtype=torch.int64,
-                                  device=dev)
+        self.tokens = torch.zeros((bl, 1), dtype=torch.int64, device=dev)
         # spec: the token preceding the pending one (the draft cache
         # lags the committed depth by one position)
-        self.prev = torch.zeros((max_batch, 1), dtype=torch.int64,
-                                device=dev)
-        self.remaining = torch.zeros((max_batch,), dtype=torch.int32,
-                                     device=dev)
-        self.active = torch.zeros((max_batch,), dtype=torch.bool,
-                                  device=dev)
-        self.eos = torch.full((max_batch,), -1, dtype=torch.int64,
-                              device=dev)
-        self._rows = torch.arange(max_batch, device=dev)
+        self.prev = torch.zeros((bl, 1), dtype=torch.int64, device=dev)
+        self.remaining = torch.zeros((bl,), dtype=torch.int32, device=dev)
+        self.active = torch.zeros((bl,), dtype=torch.bool, device=dev)
+        self.eos = torch.full((bl,), -1, dtype=torch.int64, device=dev)
+        self._rows = torch.arange(bl, device=dev)
         # the poison lane: added to every step program's sampler logits
         # (0.0 is the identity on finite values). The nan_logits site
         # writes NaN into one row for one step, in place: the tensor is
         # never rebound, so the captured graphs read it on every replay
-        self._poison = torch.zeros((max_batch,), dtype=torch.float32,
-                                   device=dev)
+        self._poison = torch.zeros((bl,), dtype=torch.float32, device=dev)
 
         # --- paged KV cache ------------------------------------------- #
         self.paged = bool(paged)
@@ -464,7 +512,8 @@ class Engine:
                 num_pages=self.num_pages)
         else:
             self.num_pages = 0
-            self.cache = model.make_cache(max_batch, cache_len)
+            self.cache = self._place_cache(model.make_cache(max_batch,
+                                                            cache_len))
 
         # --- speculative decoding ------------------------------------- #
         draft_src = draft if draft is not None else (cfg.draft or None)
@@ -492,10 +541,10 @@ class Engine:
                 # step stays sync-free; a trash column past the H tokens
                 # takes the writes JAX drops (index H, mode="drop")
                 H = self._hist_cap = 2 * self.kv_len
-                self.hist = torch.full((max_batch, H + 1), -1,
+                self.hist = torch.full((bl, H + 1), -1,
                                        dtype=torch.int64, device=dev)
-                self.hist_len = torch.zeros((max_batch,),
-                                            dtype=torch.int64, device=dev)
+                self.hist_len = torch.zeros((bl,), dtype=torch.int64,
+                                            device=dev)
             else:
                 if isinstance(draft_src, str):
                     from repro_torch.quant.self_draft import make_self_draft
@@ -518,9 +567,12 @@ class Engine:
                         "its own cross-attention memory per request) — "
                         "use draft='ngram' instead")
                 self._draft_model = dmodel
-                self._draft_params = dparams
+                # the self-draft's params are (slices of) the target's:
+                # they shard by the same rules
+                self._draft_params = self._place(dparams)
                 # contiguous even when the target is paged
-                self.draft_cache = dmodel.make_cache(max_batch, cache_len)
+                self.draft_cache = self._place_cache(
+                    dmodel.make_cache(max_batch, cache_len))
             # a spec step emits up to gamma + 1 tokens a slot: poll that
             # much more often, so the overshoot past a finish stays the
             # same number of tokens as in plain decode
@@ -586,6 +638,52 @@ class Engine:
             if self.graphs else None
         self._capture_stream = capture_stream(dev) if self.graphs \
             else None
+        if self.mesh is not None and self.graphs:
+            # the communicators are made eagerly, before any capture
+            self.mesh.warm(dev, self._capture_stream)
+
+    # ------------------------------------------------------------ #
+    # the mesh: this rank's blocks and slots
+    # ------------------------------------------------------------ #
+    def _place(self, params):
+        """This rank's block of a whole params tree (the tree itself off
+        a mesh)."""
+        if self.mesh is None:
+            return params
+        return sharding.shard_tree(
+            params, sharding.param_shardings(params, self.mesh), self.mesh)
+
+    def _place_cache(self, cache):
+        if self.mesh is None:
+            return cache
+        return sharding.shard_tree(
+            cache, sharding.cache_shardings(cache, self.mesh), self.mesh)
+
+    def _local_slot(self, b: int) -> Optional[int]:
+        """Slot ``b``'s row in this rank's device state, or None when
+        another data rank holds it."""
+        lb = b - self._b0
+        return lb if 0 <= lb < self._bl else None
+
+    def _gather_record(self, rec: torch.Tensor) -> torch.Tensor:
+        """A step's record of this rank's rows, whole over the data axis
+        (``all_gather`` over the data group, inside the program)."""
+        if not self._data_split:
+            return rec
+        return self.mesh.all_gather(rec, "data", dim=0)
+
+    def _idle_record(self) -> torch.Tensor:
+        """The admit-chunk record of a data group that does not own the
+        admitting slot: every row's pending token, emitting nothing. It
+        draws the noise the owner's admission sample draws, so the
+        generators of all data groups stay in step."""
+        if self.sampler.temperature:
+            self.sampler(self.generator, torch.zeros(
+                (1, self.model.cfg.vocab), device=self.device))
+        g = self.spec_gamma
+        rec = torch.cat([self.tokens, self.tokens.new_zeros(
+            (self._bl, g + 1))], dim=1)
+        return self._gather_record(rec)
 
     # ------------------------------------------------------------ #
     # host-side step series
@@ -626,6 +724,8 @@ class Engine:
         prog = self._programs.get(key)
         if prog is not None:
             return prog()
+        if self.mesh is not None:
+            body = self._on_mesh(body, key[0] in _STEP_PROGRAMS)
         t0 = time.perf_counter()
         out = body()
         prog = StepProgram(body)
@@ -636,6 +736,17 @@ class Engine:
         self._programs[key] = prog
         self._watchdog.record(key[0], t1 - t0, self._steps, t1)
         return out
+
+    def _on_mesh(self, body, gather: bool):
+        """``body`` run with the mesh current (the layers' collectives),
+        its record gathered over the data axis when it is a step's."""
+        mesh = self.mesh
+
+        def run():
+            with sharding.use_mesh(mesh):
+                out = body()
+                return self._gather_record(out) if gather else out
+        return run
 
     def program_cache_sizes(self) -> Dict[str, int]:
         """Programs built per name: ``step`` always (the plain step, or
@@ -677,7 +788,7 @@ class Engine:
             logits, _ = self.model.decode_step(self.params, self.tokens,
                                                self.cache)
         nxt, bad = _guarded_sample(
-            self.sampler, self.generator,
+            self._row_sampler, self.generator,
             logits[:, -1].float() + self._poison[:, None])
         done = active & (bad | (remaining <= 1) | (nxt == self.eos))
         new_remaining = torch.where(active, remaining - 1, remaining)
@@ -712,7 +823,7 @@ class Engine:
             n.to(torch.int32), last_only=True)
         logits = torch.where(is_admit[:, None], ch_logits[0, 0][None],
                              dec_logits[:, 0])
-        nxt, bad = _guarded_sample(self.sampler, self.generator,
+        nxt, bad = _guarded_sample(self._row_sampler, self.generator,
                                    logits.float() + self._poison[:, None])
         arm = is_admit & (last != 0)
         emit = active | arm
@@ -744,7 +855,7 @@ class Engine:
             self.params, seq, self.cache, (g + 1) * act1)
         t32 = t_logits.float() + self._poison[:, None, None]
         bad = active & ~torch.isfinite(t32).all(dim=2).all(dim=1)
-        block, n_acc = self.sampler.speculative(
+        block, n_acc = self._row_sampler.speculative(
             self.generator, draft_tokens, draft_logits,
             torch.where(bad[:, None, None], torch.zeros_like(t32), t32))
         block = torch.where(bad[:, None], torch.full_like(block, ERR_TOKEN),
@@ -795,7 +906,7 @@ class Engine:
         cur = _finite_rows(dl[:, -1].float())
         d_toks, d_logits = [], []
         for i in range(g):
-            t = self.sampler(self.generator, cur)
+            t = self._row_sampler(self.generator, cur)
             d_toks.append(t)
             d_logits.append(cur)
             if i + 1 < g:
@@ -940,6 +1051,9 @@ class Engine:
         ``_positions`` row, a fill of the rest and of the depth.
         ``cache``: the cache to reset (default the target's; the draft
         cache in spec mode)."""
+        b = self._local_slot(b)
+        if b is None:
+            return
         for sub in (self.cache if cache is None else cache).values():
             if not isinstance(sub, dict):
                 sub[:, b] = 0
@@ -959,21 +1073,42 @@ class Engine:
         ``[n_blocks, 1, P, ...]``, P >= ``upto``) into slot ``b`` in place
         and stamp the slot's positions: the ring counterpart of the JAX
         engine's ``materialize`` program. A partial hit takes a prefix of
-        a longer entry, exact by causality."""
+        a longer entry, exact by causality. On a mesh only the data rank
+        that holds the slot copies."""
+        lb = self._local_slot(b)
+        if lb is None:
+            return
         for name, part in kv.items():
             sub = self.cache[name]
             for k, src in part.items():
-                sub[k][:, b, :upto].copy_(src[:, 0, :upto])
+                sub[k][:, lb, :upto].copy_(src[:, 0, :upto])
         self._reset_slot(b, upto)
 
     def _extract(self, b: int, P: int) -> Dict[str, Dict[str, torch.Tensor]]:
         """The ring entry of slot ``b``'s first ``P`` positions: a clone
         of each attention sub-cache's K/V leaves (and int8 scales), since
-        a view would see the next decode step's writes."""
-        return {name: {k: sub[k][:, b:b + 1, :P].clone()
-                       for k in ("k", "v", "k_scale", "v_scale") if k in sub}
-                for name, sub in self.cache.items()
-                if isinstance(sub, dict) and "pos" in sub}
+        a view would see the next decode step's writes. On a data-split
+        mesh the data rank that holds the slot ``broadcast``s it over the
+        data group, so every rank stores the entry (on its heads)."""
+        lb = self._local_slot(b)
+        out = {}
+        for name, sub in self.cache.items():
+            if not isinstance(sub, dict) or "pos" not in sub:
+                continue
+            out[name] = {}
+            for k in ("k", "v", "k_scale", "v_scale"):
+                if k not in sub:
+                    continue
+                if lb is not None:
+                    t = sub[k][:, lb:lb + 1, :P].clone()
+                else:
+                    shape = (sub[k].shape[0], 1, P) + sub[k].shape[3:]
+                    t = torch.empty(shape, dtype=sub[k].dtype,
+                                    device=sub[k].device)
+                if self._data_split:
+                    self.mesh.broadcast(t, "data", b // self._bl)
+                out[name][k] = t
+        return out
 
     # ------------------------------------------------------------ #
     # scheduling
@@ -1134,8 +1269,10 @@ class Engine:
             host = torch.full((H,), -1, dtype=torch.int64,
                               pin_memory=self.device.type == "cuda")
             host.numpy()[:n] = toks[len(toks) - n:]
-            self.hist[b, :H].copy_(host, non_blocking=True)
-            self.hist_len[b].fill_(n)
+            lb = self._local_slot(b)
+            if lb is not None:
+                self.hist[lb, :H].copy_(host, non_blocking=True)
+                self.hist_len[lb].fill_(n)
         if self._draft_model is not None:
             self._reset_slot(b, cache=self.draft_cache)
         if self.paged:
@@ -1261,7 +1398,9 @@ class Engine:
         deactivate the device row in place (masked steps then neither
         write KV nor advance it; no program is rebuilt), detach the
         request and, when paged, return its pages to the pool."""
-        self.active[b].fill_(False)
+        lb = self._local_slot(b)
+        if lb is not None:
+            self.active[lb].fill_(False)
         self.slots[b] = None
         self._slot_start[b] = self._steps
         if self.paged:
@@ -1364,7 +1503,9 @@ class Engine:
         """Arm the ``nan_logits`` fault: NaN into row ``b`` of the poison
         lane for the next dispatched step, written in place outside any
         program (no build, no host sync)."""
-        self._poison[b % self.max_batch].fill_(float("nan"))
+        lb = self._local_slot(b % self.max_batch)
+        if lb is not None:
+            self._poison[lb].fill_(float("nan"))
 
     def _clear_poison(self) -> None:
         self._poison.zero_()
@@ -1554,9 +1695,12 @@ class Engine:
             self._depth_ub[adm.slot] = adm.base + n
             self._push_block_tables()
         last = self._stage_chunk(adm, n)
-        slot = adm.slot
-        self._push_trace(self._run_program(("admit_chunk", slot),
-                                           lambda: self._admit_chunk(slot)))
+        slot, ls = adm.slot, self._local_slot(adm.slot)
+        if ls is None:       # another data group admits
+            self._push_trace(self._idle_record())
+        else:
+            self._push_trace(self._run_program(
+                ("admit_chunk", ls), lambda: self._admit_chunk(ls)))
         if self.recorder.enabled:
             self.recorder.on_chunk(adm.req, slot, adm.base, adm.base + n,
                                    last)
@@ -1576,9 +1720,12 @@ class Engine:
             self._depth_ub[adm.slot] = adm.base + n
             self._push_block_tables()
         last = self._stage_chunk(adm, n)
-        slot = adm.slot
-        self._push_trace(self._run_program(("mixed", slot),
-                                           lambda: self._mixed(slot)))
+        slot, ls = adm.slot, self._local_slot(adm.slot)
+        if ls is None:       # another data group admits: decode alone
+            self._push_trace(self._run_program(("step",), self._decode))
+        else:
+            self._push_trace(self._run_program(("mixed", ls),
+                                               lambda: self._mixed(ls)))
         if self.recorder.enabled:
             self.recorder.on_chunk(adm.req, slot, adm.base, adm.base + n,
                                    last)

@@ -9,12 +9,15 @@ rule from a caller-owned ``torch.Generator``: an exact sample of the
 ``jax.random``'s bits; it matches the JAX sampler's distribution. The
 speculative rule (``speculative``) runs on device too: acceptance, the
 first rejection's resample and the bonus token, drawn from the same
-generator.
+generator. On a serving mesh a data rank samples only its slots' rows:
+``rows`` names them in the whole batch, and every draw is made for the
+whole batch and cut to those rows, so each rank consumes its generator
+as one device would and its rows get the noise one device gives them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,6 +31,9 @@ class Sampler:
     temperature: float = 0.0   # 0 = greedy
     top_k: int = 0             # 0 = full distribution
     top_p: float = 1.0         # 1 = no nucleus truncation
+    # (whole batch, first row) when the logits are rows [b0, b0 + B) of a
+    # larger batch (a data rank's slots); None: the logits are the batch
+    rows: Optional[Tuple[int, int]] = None
 
     def __call__(self, generator: Optional[torch.Generator], logits):
         """logits: (B, V) f32 -> token ids (B,) int64. ``generator`` is
@@ -101,8 +107,7 @@ class Sampler:
         d = draft_tokens.long()[..., None]
         p_d = torch.gather(p[:, :G], -1, d)[..., 0]              # (B, G)
         q_d = torch.gather(q, -1, d)[..., 0]
-        u = torch.rand((B, G), generator=generator, device=p.device,
-                       dtype=torch.float32)
+        u = self._uniform(generator, (B, G), p.device)
         acc = u * q_d < p_d          # u < p/q without dividing by q = 0
         n_acc = torch.cumprod(acc.long(), dim=1).sum(dim=1)
         q_pad = torch.cat([q, torch.zeros_like(p[:, :1])], dim=1)
@@ -118,10 +123,19 @@ class Sampler:
         idx = torch.arange(G + 1, device=p.device)[None, :]
         return torch.where(idx < n_acc[:, None], d_pad, r), n_acc
 
-    @staticmethod
-    def _gumbel_argmax(generator, logits):
-        u = torch.rand(logits.shape, generator=generator,
-                       device=logits.device, dtype=torch.float32)
+    def _uniform(self, generator, shape, device):
+        """U[0, 1) noise of ``shape`` (batch first), drawn for the whole
+        batch and cut to this sampler's ``rows``."""
+        if self.rows is None:
+            return torch.rand(shape, generator=generator, device=device,
+                              dtype=torch.float32)
+        n, b0 = self.rows
+        return torch.rand((n,) + tuple(shape[1:]), generator=generator,
+                          device=device,
+                          dtype=torch.float32)[b0:b0 + shape[0]]
+
+    def _gumbel_argmax(self, generator, logits):
+        u = self._uniform(generator, logits.shape, logits.device)
         u = u.clamp_(min=torch.finfo(torch.float32).tiny)
         return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 

@@ -300,7 +300,15 @@ def make_train_step(model, opt: AdamW, *, microbatch: int = 0,
     ``graphs=False`` the functional eager step. ``graphs=True`` needs a
     CUDA model. microbatch: if > 0, split the global batch into chunks
     of this many examples and accumulate the gradients in f32 (an
-    activation memory saver; JAX's ``lax.scan`` over the chunks)."""
+    activation memory saver; JAX's ``lax.scan`` over the chunks).
+
+    A :class:`TrainProgram` updates its state in place (what the capture
+    needs, and what keeps one copy of the parameters and moments on the
+    card): the state a call returns is the step's own static buffers,
+    and the next call overwrites it. JAX's jitted step donates nothing,
+    so a state it returned keeps its values; here a caller that keeps a
+    state across steps (a best-so-far, a rollback) clones it. With
+    ``graphs=False`` every call returns fresh tensors, as JAX's."""
     if graphs is False:
         return _eager_step(model, opt, microbatch)
     on_card = torch.device(model.device).type == "cuda"

@@ -5,9 +5,8 @@ The same requests go through the JAX ``Engine`` and the port's
 greedy sampling): the token streams and finish reasons are identical,
 with chunked admission as the whole prompt (``prefill_chunk=0``) and in
 chunks of 8, more requests than slots, an EOS finish and a one-token
-request. Also: speculation's argument errors raise as JAX's, the mesh
-(not ported yet) raises, the
-NaN guard, the samplers' distributions, and the serve CLI. The engine
+request. Also: speculation's argument errors raise as JAX's, the paged
+pool on a mesh (item 13b) raises, the NaN guard, the samplers' distributions, and the serve CLI. The engine
 lifecycle (cancel, deadlines, priorities, faults, tracing) is held
 against the JAX engine in ``tests/test_torch_lifecycle.py``.
 """
@@ -115,12 +114,16 @@ def test_slot_reset_leaves_no_stale_keys():
     ("llama3.2-1b", {"spec_gamma": 2}, ValueError, "no draft"),
     ("mamba2-780m", {"draft": "fp@1", "spec_gamma": 2}, ValueError,
      "ngram"),
-    ("llama3.2-1b", {"mesh": "auto"}, NotImplementedError, "ROADMAP"),
+    ("llama3.2-1b", {"mesh": "paged"}, NotImplementedError, "13b"),
 ], ids=["gamma_without_draft", "model_draft_on_ssm", "mesh"])
 def test_out_of_slice_arguments_raise(arch, kw, exc, match):
     """Speculation's argument errors raise as the JAX engine's do (a
     gamma with no draft; a model draft on a stack that needs replay);
-    the mesh, not ported yet, raises naming its ROADMAP item."""
+    the paged pool on a mesh, whose port waits for item 13b, raises
+    naming it."""
+    if kw.get("mesh") == "paged":
+        from repro_torch.launch.mesh import Mesh
+        kw = {"mesh": Mesh((1, 1)), "paged": True, "page_size": 8}
     if arch == "llama3.2-1b":
         tm, tp = _TM, _TP
     else:

@@ -273,8 +273,20 @@ def test_set_cache_steps_rewinds_steps_only():
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch("llama3.2-1b", variant="reduced+sharded")
+    """The sharded variant builds as JAX's (``mesh="auto"``, the
+    ``-sharded`` name); a family whose mesh serving waits for item 13b
+    raises on a mesh, naming it; an encoder-decoder without its encoder
+    raises."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.serving.engine import Engine
+    cfg = get_arch("llama3.2-1b", variant="reduced+sharded")
+    jcfg = jax_get_arch("llama3.2-1b", variant="reduced+sharded")
+    assert (cfg.mesh, cfg.name) == (jcfg.mesh, jcfg.name) \
+        == ("auto", "llama3.2-1b-reduced-sharded")
+    ssm = build(get_arch("mamba2-780m", variant="reduced"), device="cpu")
+    with pytest.raises(NotImplementedError, match="13b"):
+        Engine(ssm, ssm.init(0), max_batch=2, cache_len=32,
+               mesh=Mesh((1, 1)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build(get_arch("llama3.2-1b").replace(family="encdec"), device="cpu")
     assert get_arch("llama3.2-1b", variant="reduced+swa").sliding_window \

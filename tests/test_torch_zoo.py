@@ -446,12 +446,42 @@ def test_deploy_plan_errors(fault):
             assignments={"a": "cloudd"})
         with pytest.raises(KeyError):
             deploy.deploy(ta, plan)
-    else:                               # mesh endpoints wait for item 13
-        plan = deploy.DeploymentPlan(
-            endpoints={"pod": deploy.Endpoint("pod", kind="mesh")},
-            assignments={"a": "pod"})
-        with pytest.raises(NotImplementedError, match="item 13"):
-            deploy.deploy(ta, plan)
+    else:       # a mesh endpoint: local without a mesh, as JAX's; the
+        # group under a one-rank gloo mesh gives the same result, and
+        # so does an int8 mesh endpoint as an int8 local one
+        import tempfile
+
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import make_serving_mesh
+        js, _ = _linear_pair("a", 8, 4, 0)
+        x = _x((4, 8))
+        jout, _ = jdeploy.deploy(js, jdeploy.DeploymentPlan(
+            endpoints={"pod": jdeploy.Endpoint("pod", kind="mesh")},
+            assignments={"a": "pod"})).call(jnp.asarray(x))
+        local, _ = deploy.deploy(ta).call(torch.from_numpy(x))
+        with tempfile.TemporaryDirectory() as tmp:
+            dist.init_process_group("gloo", init_method=f"file://{tmp}/s",
+                                    rank=0, world_size=1)
+            try:
+                for mesh in (None, make_serving_mesh("auto")):
+                    plan = deploy.DeploymentPlan(
+                        endpoints={"pod": deploy.Endpoint(
+                            "pod", kind="mesh", mesh=mesh)},
+                        assignments={"a": "pod"})
+                    out, tel = deploy.deploy(ta, plan).call(
+                        torch.from_numpy(x))
+                    assert tel.stages[0].endpoint == "pod"
+                    assert torch.equal(out, local)
+                    _close(out, jout)
+                q8 = [deploy.deploy(ta, deploy.DeploymentPlan(
+                    endpoints={"pod": deploy.Endpoint(
+                        "pod", kind=kind, mesh=mesh, quantize="int8")},
+                    assignments={"a": "pod"})).call(torch.from_numpy(x))[0]
+                    for kind, mesh in (("local", None),
+                                       ("mesh", make_serving_mesh("auto")))]
+                assert torch.equal(q8[1], q8[0])
+            finally:
+                dist.destroy_process_group()
 
 
 # --------------------------------------------------------------------- #
